@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of predictionio_tpu for one NVIDIA H100.
+
+The JAX package ``predictionio_tpu`` stays the reference; this package
+mirrors its layout file for file where a counterpart exists and never
+imports it (nor JAX).  Plain tensor code is PyTorch; every Pallas kernel
+of the ported path is a CUDA C++ kernel written for ``sm_90a``
+(``ops/csrc``), built with ``nvcc`` at first use.
+
+Entry points run on the card (``device="cuda"``) unless the caller asks
+for ``device="cpu"``; on a CPU tensor a kernel wrapper runs its plain
+PyTorch version, on a CUDA tensor it launches the kernel or raises.
+"""
+
+from .device import fence, resolve_device
+
+__all__ = ["fence", "resolve_device"]

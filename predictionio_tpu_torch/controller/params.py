@@ -1,0 +1,168 @@
+"""Typed controller parameters + JSON extraction.
+
+Copy of ``predictionio_tpu/controller/params.py`` for the port.
+
+Replaces the reference's `Params` marker trait
+(`PredictionIO core/src/main/scala/io/prediction/controller/Params.scala:23-31`)
+and the json4s/gson reflection extractor
+(`workflow/WorkflowUtils.scala:129-208`): components declare a ``@dataclass``
+params type, and :func:`extract_params` builds it from an ``engine.json``
+params dict — recursively for nested dataclasses, with unknown-key detection
+(stricter than the reference, which silently ignored typos).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import types
+import typing
+from dataclasses import dataclass
+from typing import Any, Mapping, Optional, Type, TypeVar, Union, get_args, get_origin
+
+__all__ = ["Params", "EmptyParams", "extract_params", "params_to_json", "ParamsError"]
+
+
+@dataclass(frozen=True)
+class Params:
+    """Marker base for controller parameter dataclasses."""
+
+
+@dataclass(frozen=True)
+class EmptyParams(Params):
+    pass
+
+
+class ParamsError(ValueError):
+    pass
+
+
+P = TypeVar("P")
+
+
+def _convert(value: Any, typ: Any, path: str) -> Any:
+    origin = get_origin(typ)
+    if typ is Any or typ is None or typ is type(None):
+        return value
+    if origin is Union or origin is types.UnionType:  # Optional[X] and X | None
+        args = [a for a in get_args(typ) if a is not type(None)]
+        if value is None:
+            return None
+        if len(args) == 1:
+            return _convert(value, args[0], path)
+        return value
+    if dataclasses.is_dataclass(typ):
+        if not isinstance(value, Mapping):
+            raise ParamsError(f"{path}: expected object for {typ.__name__}")
+        return extract_params(typ, value, _path=path)
+    if origin in (list, tuple):
+        args = get_args(typ)
+        if not isinstance(value, (list, tuple)):
+            raise ParamsError(f"{path}: expected array")
+        if origin is tuple and args and args[-1] is not Ellipsis:
+            return tuple(
+                _convert(v, t, f"{path}[{i}]")
+                for i, (v, t) in enumerate(zip(value, args))
+            )
+        elem = args[0] if args else Any
+        out = [_convert(v, elem, f"{path}[{i}]") for i, v in enumerate(value)]
+        return tuple(out) if origin is tuple else out
+    if origin is dict:
+        kt, vt = (get_args(typ) + (Any, Any))[:2]
+        return {
+            _convert(k, kt, path): _convert(v, vt, f"{path}.{k}")
+            for k, v in value.items()
+        }
+    if typ is float:
+        if isinstance(value, bool) or not isinstance(value, (int, float)):
+            raise ParamsError(f"{path}: expected number, got {value!r}")
+        return float(value)
+    if typ is int:
+        if isinstance(value, bool) or not isinstance(value, (int, float)):
+            raise ParamsError(f"{path}: expected int, got {value!r}")
+        if isinstance(value, float) and not value.is_integer():
+            raise ParamsError(f"{path}: expected int, got {value!r}")
+        return int(value)
+    if typ is bool and not isinstance(value, bool):
+        raise ParamsError(f"{path}: expected bool, got {value!r}")
+    if typ is str and not isinstance(value, str):
+        raise ParamsError(f"{path}: expected string, got {value!r}")
+    return value
+
+
+def _snake(s: str) -> str:
+    """camelCase -> snake_case, inserting '_' only at lower/digit->upper
+    boundaries so acronym runs survive ('appURL' -> 'app_url')."""
+    out = []
+    for i, ch in enumerate(s):
+        if ch.isupper():
+            prev_lower = i > 0 and (s[i - 1].islower() or s[i - 1].isdigit())
+            next_lower = i + 1 < len(s) and s[i + 1].islower()
+            if prev_lower or (i > 0 and s[i - 1].isupper() and next_lower):
+                out.append("_")
+            out.append(ch.lower())
+        else:
+            out.append(ch)
+    return "".join(out)
+
+
+def extract_params(
+    cls: Type[P], json_dict: Optional[Mapping[str, Any]], _path: str = "params"
+) -> P:
+    """Build a params dataclass from a JSON dict (engine.json ``params`` key).
+
+    Missing fields use dataclass defaults; missing required fields and unknown
+    keys raise :class:`ParamsError`.  Reference engine.json files use
+    camelCase keys (and reserved words like ``lambda``): camelCase is
+    auto-converted to snake_case, and classes may declare
+    ``__param_aliases__ = {"lambda": "lam"}`` for the rest.
+    """
+    if not dataclasses.is_dataclass(cls):
+        raise ParamsError(f"{cls!r} is not a params dataclass")
+    json_dict = dict(json_dict or {})
+    aliases = getattr(cls, "__param_aliases__", {})
+    field_names = {f.name for f in dataclasses.fields(cls) if f.init}
+    renamed = {}
+    for k, v in json_dict.items():
+        if k in aliases:
+            k = aliases[k]
+        elif k not in field_names and _snake(k) in field_names:
+            k = _snake(k)
+        if k in renamed:
+            raise ParamsError(f"{_path}: duplicate key '{k}' after aliasing")
+        renamed[k] = v
+    json_dict = renamed
+    hints = typing.get_type_hints(cls)
+    kwargs: dict[str, Any] = {}
+    fields = {f.name: f for f in dataclasses.fields(cls) if f.init}
+    unknown = set(json_dict) - set(fields)
+    if unknown:
+        raise ParamsError(
+            f"{_path}: unknown key(s) {sorted(unknown)} for {cls.__name__} "
+            f"(expected {sorted(fields)})"
+        )
+    for name, f in fields.items():
+        if name in json_dict:
+            kwargs[name] = _convert(json_dict[name], hints.get(name, Any),
+                                    f"{_path}.{name}")
+        elif (
+            f.default is dataclasses.MISSING
+            and f.default_factory is dataclasses.MISSING
+        ):
+            raise ParamsError(f"{_path}: missing required field '{name}' "
+                              f"for {cls.__name__}")
+    try:
+        return cls(**kwargs)
+    except (TypeError, ValueError) as e:
+        raise ParamsError(f"{_path}: cannot construct {cls.__name__}: {e}") from e
+
+
+def params_to_json(p: Any) -> dict[str, Any]:
+    """Params dataclass -> JSON-able dict (for instance records)."""
+    if dataclasses.is_dataclass(p) and not isinstance(p, type):
+        return dataclasses.asdict(p)
+    if isinstance(p, Mapping):
+        return dict(p)
+    fields = getattr(p, "fields", None)  # _DictParams fallback wrapper
+    if isinstance(fields, dict):
+        return dict(fields)
+    return {}

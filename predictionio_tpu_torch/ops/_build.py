@@ -1,0 +1,178 @@
+"""Builds the port's CUDA kernels and loads them through ctypes.
+
+Every ``ops/csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into
+an object of its own (all of them at once, one process each), and the
+objects are linked into ``build/kernels/libpio_kernels.so`` at the root
+of the checkout.  The sources expose a plain C interface: pointers and
+the CUDA stream travel as ``c_void_p``, sizes as ``c_int``, and every
+entry point returns the CUDA error code of its launch.
+
+The build happens at first use, never at import, and is reused while
+the sources are unchanged (a hash of them is kept beside the library).
+A missing ``nvcc``, a failed compile or a failed load raises: there is
+no fallback.
+
+Each kernel wrapper counts its launches in :data:`LAUNCHES`, so a run can
+show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+__all__ = [
+    "BUILD_DIR",
+    "LAUNCHES",
+    "build",
+    "check_launch",
+    "library",
+    "nvcc_path",
+    "reset_launches",
+]
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+LIB_NAME = "libpio_kernels.so"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CFLAGS = ARCH_FLAGS + [
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# launches per kernel wrapper since the last reset_launches()
+LAUNCHES: dict[str, int] = {"gj_solve": 0, "fused_als": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on the PATH, else the
+    toolkit's standard location; raises when none exists."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(Path(which))
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on the PATH): the "
+        "port's CUDA kernels are built from source at first use"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    h.update(" ".join(CFLAGS).encode())
+    return h.hexdigest()
+
+
+def build(force: bool = False) -> Path:
+    """Compile and link the kernels unless an up-to-date build exists;
+    returns the library's path.  The compilers' output (ptxas register
+    and shared-memory reports included) goes to ``build.log``.
+
+    Processes that build at once (test workers, a run beside a test
+    session) take turns on an ``fcntl`` lock in the build directory: the
+    first compiles, the others find its stamp and reuse the library."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_locked(force)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_locked(force: bool) -> Path:
+    lib_path = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / "sources.sha256"
+    digest = _source_hash()
+    if (
+        not force and lib_path.is_file() and stamp.is_file()
+        and stamp.read_text() == digest
+    ):
+        return lib_path
+    nvcc = nvcc_path()
+    procs = []
+    for src in _sources():
+        obj = BUILD_DIR / (src.stem + ".o")
+        cmd = [nvcc, *CFLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    log, failed = [], []
+    for src, _, p in procs:
+        out, _ = p.communicate()
+        log.append(f"== {src.name} (rc={p.returncode})\n{out}")
+        if p.returncode != 0:
+            failed.append(src.name)
+    if not failed:
+        tmp = BUILD_DIR / (LIB_NAME + ".tmp")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in procs)]
+        p = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"== link (rc={p.returncode})\n{p.stdout}{p.stderr}")
+        if p.returncode != 0:
+            failed.append("link")
+        else:
+            os.replace(tmp, lib_path)
+            stamp.write_text(digest)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(
+            f"CUDA kernel build failed ({', '.join(failed)}):\n"
+            + "\n".join(log)
+        )
+    return lib_path
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.pio_error_string.argtypes = [i]
+    lib.pio_error_string.restype = ctypes.c_char_p
+    lib.pio_gj_solve.argtypes = [vp, vp, vp, i, i, vp]
+    lib.pio_gj_solve.restype = i
+    for name in ("pio_fused_als_f32", "pio_fused_als_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * 7 + [i] * 7 + [vp]
+        fn.restype = i
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        _declare(lib)
+        _lib = lib
+    return _lib
+
+
+def check_launch(rc: int, kernel: str) -> None:
+    """Raise when a kernel's C entry point returned a CUDA error."""
+    if rc != 0:
+        msg = library().pio_error_string(rc).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({rc})")

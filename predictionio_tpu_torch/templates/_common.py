@@ -1,0 +1,138 @@
+"""Shared template helpers (port of ``predictionio_tpu/templates/_common.py``:
+the device table caches, the query filter mask, the batch ladder and the
+batched scorer warm-up)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+__all__ = ["DeviceTableMixin", "filter_bias_mask", "pow2_ladder",
+           "warm_batched_topk"]
+
+
+class DeviceTableMixin:
+    """Lazy one-time host->device transfer of the model's item factor
+    table, cached on the model instance: every scoring call reuses the
+    device-resident tensors.  The host class provides ``item_factors``
+    and ``device``.
+
+    ``dtype`` lets serving trade precision for memory bandwidth
+    (``"bfloat16"`` halves the bytes each scoring product reads, at a
+    ranking-only precision cost); each dtype is cached separately."""
+
+    def _cached_device(self, key: str, make) -> torch.Tensor:
+        dev = getattr(self, key, None)
+        if dev is None:
+            dev = make()
+            setattr(self, key, dev)
+        return dev
+
+    def device_item_factors(self, dtype: Optional[str] = None):
+        def make():
+            t = torch.as_tensor(np.asarray(self.item_factors, np.float32),
+                                device=self.device)
+            return t.to(getattr(torch, dtype)) if dtype else t
+
+        return self._cached_device(
+            f"_dev_item_factors_{dtype or 'native'}", make
+        )
+
+    def device_item_factors_t(self, dtype: Optional[str] = None):
+        """The item table pre-transposed to ``[R, M]`` (contiguous), the
+        layout of the batched serving product
+        (``ops.topk.batch_topk_scores_t``).  Cached per dtype."""
+
+        def make():
+            return self.device_item_factors(dtype).T.contiguous()
+
+        return self._cached_device(
+            f"_dev_item_factors_t_{dtype or 'native'}", make
+        )
+
+
+def filter_bias_mask(
+    items,
+    item_props: Optional[dict] = None,
+    *,
+    categories=None,
+    whitelist=None,
+    blacklist=(),
+    exclude_ix=(),
+    none_if_empty: bool = False,
+):
+    """Additive -inf bias over the item table for query-side filtering
+    (filter-by-category / whitelist / blacklist, plus query-item
+    exclusion).  ``none_if_empty=True`` returns None when no filter is
+    active so callers can dispatch the unbiased scorer."""
+    ex = tuple(exclude_ix)  # materialize ONCE: one-shot iterables
+    has_filter = bool(categories or whitelist or blacklist or ex)
+    if none_if_empty and not has_filter:
+        return None
+    n = len(items)
+    allowed = np.ones(n, dtype=bool)
+    if ex:
+        allowed[list(ex)] = False
+    if whitelist:
+        allowed &= np.isin(items.ids.astype(str),
+                           np.array(sorted(whitelist), dtype=str))
+    if categories:
+        cats = set(categories)
+        has = np.zeros(n, dtype=bool)
+        for item_id, props in (item_props or {}).items():
+            ix = items.get(item_id)
+            if ix >= 0 and cats & set(props.get("categories", [])):
+                has[ix] = True
+        allowed &= has
+    if blacklist:
+        allowed &= ~np.isin(items.ids.astype(str),
+                            np.array(sorted(blacklist), dtype=str))
+    return np.where(allowed, 0.0, -np.inf).astype(np.float32)
+
+
+def pow2_ladder(max_batch: int) -> list[int]:
+    """Every batch size a pow2-padding micro-batcher with this
+    ``max_batch`` can dispatch: 1, 2, 4, ... up to the pow2 ceiling of
+    ``max_batch`` (the reference's ``server.microbatch.
+    dispatchable_sizes``); empty when ``max_batch <= 0`` (no batcher)."""
+    if max_batch <= 0:
+        return []
+    top = 1 << (max_batch - 1).bit_length() if max_batch > 1 else 1
+    b, sizes = 1, []
+    while b <= top:
+        sizes.append(b)
+        b <<= 1
+    return sizes
+
+
+def warm_batched_topk(table_t: torch.Tensor, rank: int, n: int,
+                      unmasked_too: bool = False,
+                      max_batch: int = 64) -> None:
+    """Run the batched scorer once at every pow2 batch size the serving
+    batcher can dispatch (default num rounded to 16) and at the small-k
+    sizes at B=1, so the first real query pays no one-time device set-up
+    (library handles, allocator growth)."""
+    from ..ops.topk import batch_topk_scores_t, pow2_ceil
+
+    ladder = pow2_ladder(max_batch)
+    if not ladder:
+        return
+    dev = table_t.device
+
+    def warm(b, k, masked):
+        vecs = torch.zeros((b, rank), dtype=torch.float32, device=dev)
+        mask = (torch.zeros((b, n), dtype=torch.float32, device=dev)
+                if masked else None)
+        batch_topk_scores_t(vecs, table_t, k, mask=mask)
+
+    k_default = min(pow2_ceil(10), n)
+    for b in ladder:
+        warm(b, k_default, True)
+        if unmasked_too:
+            warm(b, k_default, False)
+    for k in {min(pow2_ceil(k), n) for k in (1, 4)}:
+        warm(1, k, True)
+        if unmasked_too:
+            warm(1, k, False)

@@ -1,0 +1,66 @@
+"""The kernel builder's bookkeeping, on the host: with a stand-in ``nvcc``
+(a shell script that records its calls and writes its ``-o`` file),
+builds that start at once compile each source once and link once, and
+an up-to-date build is reused."""
+
+import os
+import stat
+import threading
+
+from predictionio_tpu_torch.ops import _build
+
+FAKE_NVCC = """#!/bin/sh
+echo "$@" >> "{log}"
+out=""
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then out="$2"; fi
+  shift
+done
+sleep 0.2
+echo built > "$out"
+"""
+
+
+def _fake_toolkit(tmp_path, monkeypatch):
+    log = tmp_path / "calls.log"
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(FAKE_NVCC.format(log=log))
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IXUSR)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    return log
+
+
+def test_concurrent_builds_compile_once(tmp_path, monkeypatch):
+    log = _fake_toolkit(tmp_path, monkeypatch)
+    paths, errors = [], []
+
+    def run():
+        try:
+            paths.append(_build.build())
+        except Exception as e:  # pragma: no cover - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert not errors, errors
+    lib = tmp_path / "build" / _build.LIB_NAME
+    assert paths == [lib] * 4
+    calls = log.read_text().splitlines()
+    n_src = len(_build._sources())
+    assert sum(" -c " in c for c in calls) == n_src
+    assert sum("-shared" in c for c in calls) == 1
+    assert lib.read_text() == "built\n"
+    assert (tmp_path / "build" / "sources.sha256").read_text() == \
+        _build._source_hash()
+
+    # up to date: reused without a call; force: built again
+    _build.build()
+    assert len(log.read_text().splitlines()) == n_src + 1
+    _build.build(force=True)
+    assert len(log.read_text().splitlines()) == 2 * (n_src + 1)
+    assert not os.path.exists(tmp_path / "build" / (_build.LIB_NAME + ".tmp"))

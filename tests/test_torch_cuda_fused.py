@@ -1,0 +1,111 @@
+"""The fused ALS CUDA kernel against its plain PyTorch version, on the card.
+
+These kernels have no CPU mode, so every test here needs an NVIDIA GPU
+and ``nvcc`` (Hopper, ``sm_90a``) and skips without one.  Run them on the
+card with::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_*.py
+
+(``--noconftest``: the suite's conftest imports JAX, which the port's
+GPU machine need not have.)  Inputs are made with numpy from fixed seeds.
+
+Tolerance: the kernel and the plain version do the same f32 arithmetic
+in another order (per-thread running sums and FMAs against blocked
+einsums), so results agree to a few f32 ulps of the Gram entries,
+amplified by the systems' conditioning: 1e-4 of the solution's scale
+for the well-conditioned systems here, 1e-3 where K runs to 1e5.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from predictionio_tpu_torch.ops import _build
+from predictionio_tpu_torch.ops.fused_als import (
+    fused_gather_gram_solve,
+    fused_gather_gram_solve_reference,
+    fused_tile_plan,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _close(got, want, tol):
+    got = got.double().cpu()
+    want = want.double().cpu()
+    err = (got - want).abs().max().item()
+    scale = max(want.abs().max().item(), 1.0)
+    assert err <= tol * scale, (err, scale)
+
+
+def _fused_case(rng, M, R, B, K, density=0.8):
+    table = rng.normal(size=(M, R)).astype(np.float32)
+    idx = rng.integers(0, M, size=(B, K)).astype(np.int32)
+    mask = (rng.random((B, K)) < density).astype(np.float32)
+    mask[:, -1] = 0.0
+    idx = np.where(mask > 0, idx, 0).astype(np.int32)
+    val = (rng.random((B, K)) * 4.5 + 0.5).astype(np.float32)
+    reg = (0.01 * np.maximum(mask.sum(1), 1.0)).astype(np.float32) + 0.1
+    return table, idx, mask, (val * mask).astype(np.float32), reg
+
+
+@pytest.mark.parametrize("R,B,K", [
+    (5, 13, 8), (8, 11, 24), (12, 9, 21), (33, 5, 40), (64, 300, 128),
+    (64, 3, 1000), (100, 4, 200), (128, 6, 300),
+])
+def test_fused_kernel_matches_plain(dev, R, B, K):
+    rng = np.random.default_rng(R + 7 * K)
+    table, idx, cw, bw, reg = _fused_case(rng, 500, R, B, K)
+    args = [torch.from_numpy(a).to(dev) for a in (idx, cw, bw, reg)]
+    gram0 = torch.from_numpy(
+        (np.eye(R) * 0.25).astype(np.float32)).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.from_numpy(table).to(dev).to(dtype)
+        before = _build.LAUNCHES["fused_als"]
+        x = fused_gather_gram_solve(t, *args, gram0)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["fused_als"] == before + 1
+        _close(x, fused_gather_gram_solve_reference(t, *args, gram0), 1e-4)
+
+
+def test_fused_kernel_long_row(dev):
+    """One row of 2^17 entries (the heavy-item shape, shortened)."""
+    rng = np.random.default_rng(3)
+    K = 1 << 17
+    table, idx, cw, bw, reg = _fused_case(rng, 30000, 64, 2, K)
+    args = [torch.from_numpy(a).to(dev) for a in (table, idx, cw, bw, reg)]
+    x = fused_gather_gram_solve(*args)
+    torch.cuda.synchronize()
+    _close(x, fused_gather_gram_solve_reference(*args), 1e-3)
+
+
+def test_fused_kernel_implicit_weights(dev):
+    """Implicit-mode weights: cw = alpha*r can be 0 where bw = 1."""
+    rng = np.random.default_rng(5)
+    table, idx, mask, _, reg = _fused_case(rng, 400, 16, 20, 64)
+    val = rng.integers(0, 3, size=mask.shape).astype(np.float32)
+    cw = (1.5 * val * mask).astype(np.float32)
+    bw = ((1.0 + cw) * mask).astype(np.float32)
+    t = torch.from_numpy(table).to(dev)
+    gram0 = t.T @ t
+    args = [torch.from_numpy(a).to(dev) for a in (idx, cw, bw, reg)]
+    x = fused_gather_gram_solve(t, *args, gram0)
+    torch.cuda.synchronize()
+    _close(x, fused_gather_gram_solve_reference(t, *args, gram0), 1e-4)
+
+
+def test_fused_kernel_refuses_a_plan_it_disagrees_with(dev):
+    rng = np.random.default_rng(9)
+    table, idx, cw, bw, reg = _fused_case(rng, 100, 8, 4, 16)
+    args = [torch.from_numpy(a).to(dev) for a in (table, idx, cw, bw, reg)]
+    plan = fused_tile_plan(100, 8, 16)
+    bad = plan._replace(smem_bytes=plan.smem_bytes + 4)
+    with pytest.raises(RuntimeError, match="fused_als kernel launch failed"):
+        fused_gather_gram_solve(*args, plan=bad)

@@ -1,0 +1,72 @@
+"""The port stands alone: nothing in ``predictionio_tpu_torch/`` or
+``chip_smoke.py`` imports JAX, jaxlib or the JAX package, at module level
+or inside a function (an AST walk over every import statement)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "predictionio_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+FORBIDDEN = ("jax", "jaxlib", "predictionio_tpu")
+
+
+def _imported_modules(path: Path) -> list[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    mods = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.extend(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.append(node.module or "")
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__"):
+            mods.extend(a.value for a in node.args
+                        if isinstance(a, ast.Constant)
+                        and isinstance(a.value, str))
+    return mods
+
+
+def test_the_walk_sees_every_file():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert "predictionio_tpu_torch/models/als.py" in names
+    assert "chip_smoke.py" in names
+    assert len(names) >= 20
+
+
+def _group(path: Path) -> str:
+    """The file's subpackage of the port (or the file, at the top)."""
+    rel = path.relative_to(ROOT).parts
+    return rel[1] if len(rel) > 2 else rel[-1]
+
+
+GROUPS = sorted({_group(p) for p in FILES})
+
+
+@pytest.mark.parametrize("group", GROUPS)
+def test_no_jax_or_reference_imports(group):
+    bad = {
+        p.relative_to(ROOT).as_posix(): found
+        for p in FILES if _group(p) == group
+        for found in [[m for m in _imported_modules(p)
+                       if m.split(".")[0] in FORBIDDEN]]
+        if found
+    }
+    assert not bad, bad
+
+
+def test_the_walk_catches_a_forbidden_import(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text(
+        "import numpy\n"
+        "def g():\n"
+        "    from predictionio_tpu.ops import solve\n"
+        "    import jax.numpy as jnp\n"
+    )
+    assert [m for m in _imported_modules(f)
+            if m.split(".")[0] in FORBIDDEN] == [
+        "predictionio_tpu.ops", "jax.numpy"]
