@@ -2,8 +2,9 @@
 implements.
 
 Copy of ``predictionio_tpu/controller/base.py`` for the port: the
-``WorkflowContext`` carries one device instead of a mesh, and storage is
-whatever the caller hands it (no registry import).
+``WorkflowContext`` carries one device instead of a mesh, and the
+storage the caller hands it or, by default, the process-wide registry
+storage (``storage.registry.get_storage``), as in the reference.
 
 Re-expression of the reference `core` base classes
 (`PredictionIO core/src/main/scala/io/prediction/core/BaseAlgorithm.scala:29-52`,
@@ -65,16 +66,21 @@ class ModelPlacement(enum.Enum):
 class WorkflowContext:
     """Per-run handle passed to every controller — the SparkContext analogue.
 
-    Carries the device, the storage the data source reads, and run
-    identity (`workflow/WorkflowContext.scala:25-44` parity: app name
+    Carries the device, the resolved storage, and run identity
+    (`workflow/WorkflowContext.scala:25-44` parity: app name
     ``"PredictionIO <Mode>: <batch>"`` becomes :attr:`label`).  The device
-    defaults to the card; ``device="cpu"`` runs on the host.
+    defaults to the card; ``device="cpu"`` runs on the host.  ``storage``
+    defaults to the registry's (``$PIO_TPU_HOME``).
     """
 
     def __init__(self, device: DeviceLike = "cuda", storage=None,
                  mode: str = "Training", batch: str = "",
                  verbose: bool = False):
         self.device = resolve_device(device)
+        if storage is None:
+            from ..storage.registry import get_storage
+
+            storage = get_storage()
         self.storage = storage
         self.mode = mode
         self.batch = batch

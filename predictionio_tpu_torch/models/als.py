@@ -486,21 +486,29 @@ def _half_iteration(
     return upd
 
 
-def _resolve_solver(cfg: ALSConfig) -> tuple[str, Optional[str]]:
+def _resolve_solver(
+    cfg: ALSConfig, device: DeviceLike = "cuda"
+) -> tuple[str, Optional[str]]:
     """Validate the solver choice and return ``(solver,
-    fused_gather_resolved)``.  Unlike the reference, which compile-probes
-    its kernels and degrades to XLA, the port runs what was asked: a
-    kernel that cannot build or launch raises at its first call."""
+    fused_gather_resolved)``.  ``fused_gather="auto"`` resolves on
+    ``device`` (the gather probes' measured order on the card, the static
+    order on the host).  Unlike the reference, which compile-probes its
+    kernels and degrades to XLA, the port runs what was asked: a form
+    with no plan raises here, and a kernel that cannot build or launch
+    raises at its first call."""
     if cfg.solver == "fused":
         from ..ops.fused_als import resolve_gather_impl
 
         tb = 2 if cfg.gather_dtype == "bfloat16" else 4
         impl = resolve_gather_impl(
-            512, cfg.rank, tb, cfg.matmul_precision, cfg.fused_gather
+            512, cfg.rank, tb, cfg.matmul_precision, cfg.fused_gather,
+            device=device,
         )
         if impl is None:
             raise ValueError(
-                f"solver='fused' has no kernel plan at rank {cfg.rank}"
+                f"solver='fused' has no kernel plan for "
+                f"fused_gather={cfg.fused_gather!r} at rank {cfg.rank} "
+                f"with a {cfg.gather_dtype} table"
             )
         return "fused", impl
     if cfg.solver == "pallas":
@@ -546,7 +554,7 @@ class ALSTrainer:
         self.cfg = cfg
         self.n_users = n_users
         self.n_items = n_items
-        self.solver, self.fused_gather = _resolve_solver(cfg)
+        self.solver, self.fused_gather = _resolve_solver(cfg, self.device)
         if staging not in ("auto", "host", "device"):
             raise ValueError(
                 f"staging must be 'auto', 'host' or 'device', got {staging!r}"

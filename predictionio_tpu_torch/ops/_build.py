@@ -46,7 +46,14 @@ CFLAGS = ARCH_FLAGS + [
 ]
 
 # launches per kernel wrapper since the last reset_launches()
-LAUNCHES: dict[str, int] = {"gj_solve": 0, "fused_als": 0}
+LAUNCHES: dict[str, int] = {
+    "gj_solve": 0,
+    "fused_als": 0,
+    "fused_als_dma": 0,
+    "taa0_gather": 0,
+    "taa1_gather": 0,
+    "dma_row_gather": 0,
+}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -159,6 +166,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [vp] * 7 + [i] * 7 + [vp]
         fn.restype = i
+    for name in ("pio_fused_als_dma_f32", "pio_fused_als_dma_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * 7 + [i] * 8 + [vp]
+        fn.restype = i
+    for name in ("pio_taa0_gather", "pio_taa1_gather"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * 3 + [i] * 3 + [vp]
+        fn.restype = i
+    lib.pio_dma_row_gather.argtypes = [vp] * 3 + [i] * 6 + [vp]
+    lib.pio_dma_row_gather.restype = i
 
 
 def library() -> ctypes.CDLL:
@@ -176,3 +193,18 @@ def check_launch(rc: int, kernel: str) -> None:
     if rc != 0:
         msg = library().pio_error_string(rc).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({rc})")
+
+
+def check_tensor(name: str, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
+    on ``device``: a kernel is handed a bare pointer and trusts all four."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,267 @@
+// The three gather probes behind ALSConfig(fused_gather="auto"), for
+// sm_90a.
+//
+// Replaces: predictionio_tpu/ops/gather_probe.py
+//   _taa0_kernel (taa0_gather, pallas_call at :98): out[i,j] = table[idx[i,j], j]
+//   _taa1_kernel (taa1_gather, pallas_call at :144): out[i,j] = table[i, idx[i,j]]
+//   _dma_kernel (dma_row_gather, pallas_call at :224): out[k] = table[idx[k]],
+//     one asynchronous row copy per output row, _DMA_WINDOW = 16 in flight.
+//
+// On the TPU these kernels existed to find out which gather forms Mosaic
+// lowers and how fast each runs, so that the fused ALS kernel could pick
+// its in-kernel gather.  On Hopper the same question is which way table
+// rows reach the fused kernel: plain loads through L2 (the "taa" form) or
+// cp.async copies into shared memory (the "dma" form).  The probes time
+// those two access patterns in isolation; ops/gather_probe.py
+// preferred_order ranks them.
+//
+// Bound on an H100 (3.35 TB/s): a gather does no arithmetic, so each is
+// bound by bytes: the indices read once, the rows they name read once and
+// the output written once.  For the bytes-dominated shape of chip_smoke.py
+// (2^20 rows of 64 f32, 256 MB out) that is about 0.16-0.24 ms; at the
+// probe shape preferred_order uses (2,048 rows) every form is bound by its
+// launch, a few microseconds.
+//
+// Design, simple and right first:
+// * taa0/taa1: one thread per output element in a grid-stride loop; the
+//   element is copied as raw bits (4 bytes for f32, 2 for bf16), so the
+//   result is the table's value exactly.
+// * dma_row_gather: a block of 128 threads is split into groups, each
+//   group as wide as one row's 16-byte (or 4-byte) pieces; a group walks a
+//   run of output rows with a ring of kWindow row slots in shared memory.
+//   Each thread issues cp.async for its own pieces of row s into slot
+//   s % kWindow, commits one group per row, and once kWindow - 1 younger
+//   rows are in flight waits (cp.async.wait_group) and writes its pieces of
+//   the oldest row back out.  A thread only ever reads back what it copied
+//   itself, so the ring needs no block barrier.
+// * An id outside the table writes NaN instead of reading out of bounds.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;       // taa0 / taa1
+constexpr int kRowThreads = 128;    // dma_row_gather
+constexpr int kWindow = 16;         // the reference's _DMA_WINDOW
+constexpr int kRowsPerGroup = 2 * kWindow;
+constexpr int kMaxBlocks = 132 * 16;
+
+template <typename E>
+__device__ __forceinline__ E nan_bits();
+
+template <>
+__device__ __forceinline__ uint32_t nan_bits<uint32_t>() {
+  return 0x7fc00000u;  // f32 quiet NaN
+}
+
+template <>
+__device__ __forceinline__ uint16_t nan_bits<uint16_t>() {
+  return 0x7fc0u;  // bf16 quiet NaN
+}
+
+template <typename E>
+__global__ void __launch_bounds__(kThreads)
+    taa0_kernel(const E* __restrict__ table, const int* __restrict__ idx,
+                E* __restrict__ out, int N, int R) {
+  const size_t total = (size_t)N * R;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int j = (int)(e % R);
+    const int id = idx[e];
+    out[e] = (id >= 0 && id < N) ? table[(size_t)id * R + j] : nan_bits<E>();
+  }
+}
+
+template <typename E>
+__global__ void __launch_bounds__(kThreads)
+    taa1_kernel(const E* __restrict__ table, const int* __restrict__ idx,
+                E* __restrict__ out, int R, int M) {
+  const size_t total = (size_t)R * M;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const size_t i = e / M;
+    const int id = idx[e];
+    out[e] = (id >= 0 && id < M) ? table[i * M + id] : nan_bits<E>();
+  }
+}
+
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         int vec) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  if (vec == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_window() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kWindow - 1) : "memory");
+}
+
+// Pieces of one row and the thread groups that copy them, for a row of
+// row_bytes copied in vec-byte pieces by blocks of kRowThreads threads.
+struct RowPlan {
+  int pieces;   // pieces per row
+  int lanes;    // threads per group
+  int groups;   // groups per block
+};
+
+__host__ __device__ inline RowPlan row_plan(int row_bytes, int vec) {
+  RowPlan p;
+  p.pieces = row_bytes / vec;
+  p.lanes = p.pieces < kRowThreads ? p.pieces : kRowThreads;
+  p.groups = kRowThreads / p.lanes;
+  return p;
+}
+
+inline size_t row_smem_bytes(int row_bytes, int vec) {
+  return (size_t)row_plan(row_bytes, vec).groups * kWindow * row_bytes;
+}
+
+__global__ void __launch_bounds__(kRowThreads)
+    dma_row_kernel(const unsigned char* __restrict__ table,
+                   const int* __restrict__ idx, unsigned char* __restrict__ out,
+                   int M, int nout, int row_bytes, int vec, uint32_t nan4) {
+  extern __shared__ __align__(16) unsigned char ring[];
+  const RowPlan p = row_plan(row_bytes, vec);
+  const int g = threadIdx.x / p.lanes;
+  const int lane = threadIdx.x % p.lanes;
+  if (g >= p.groups) return;  // no shared barrier below: leaving is safe
+  const long first =
+      ((long)blockIdx.x * p.groups + g) * (long)kRowsPerGroup;
+  if (first >= nout) return;
+  const long left = (long)nout - first;
+  const int n = left < kRowsPerGroup ? (int)left : kRowsPerGroup;
+  unsigned char* slots = ring + (size_t)g * kWindow * row_bytes;
+
+  for (int s = 0; s < n + kWindow - 1; ++s) {
+    if (s < n) {
+      const int id = idx[first + s];
+      if (id >= 0 && id < M) {
+        unsigned char* dst = slots + (size_t)(s % kWindow) * row_bytes;
+        const unsigned char* src = table + (size_t)id * row_bytes;
+        for (int q = lane; q < p.pieces; q += p.lanes)
+          cp_async(dst + q * vec, src + q * vec, vec);
+      }
+    }
+    cp_async_commit();  // one group per step, empty ones included
+    const int k = s - (kWindow - 1);
+    if (k >= 0) {
+      cp_async_wait_window();  // the group of row k has landed
+      const int id = idx[first + k];
+      const bool ok = id >= 0 && id < M;
+      const unsigned char* src = slots + (size_t)(k % kWindow) * row_bytes;
+      unsigned char* dst = out + (size_t)(first + k) * row_bytes;
+      for (int q = lane; q < p.pieces; q += p.lanes) {
+        if (vec == 16) {
+          const uint4 v = ok ? *reinterpret_cast<const uint4*>(src + q * 16)
+                             : make_uint4(nan4, nan4, nan4, nan4);
+          *reinterpret_cast<uint4*>(dst + q * 16) = v;
+        } else {
+          *reinterpret_cast<uint32_t*>(dst + q * 4) =
+              ok ? *reinterpret_cast<const uint32_t*>(src + q * 4) : nan4;
+        }
+      }
+    }
+  }
+}
+
+int grid_for(size_t total, int threads) {
+  size_t blocks = (total + threads - 1) / threads;
+  if (blocks > (size_t)kMaxBlocks) blocks = kMaxBlocks;
+  return blocks < 1 ? 1 : (int)blocks;
+}
+
+}  // namespace
+
+extern "C" {
+
+// table [N, R], idx [N, R] int32 -> out [N, R]; elem_bytes 4 (f32) or 2
+// (bf16).  Returns the CUDA error code of the launch.
+int pio_taa0_gather(const void* table, const void* idx, void* out, int N,
+                    int R, int elem_bytes, void* stream) {
+  if (N < 0 || R < 0) return cudaErrorInvalidValue;
+  const size_t total = (size_t)N * R;
+  if (total == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = grid_for(total, kThreads);
+  if (elem_bytes == 4) {
+    taa0_kernel<uint32_t><<<blocks, kThreads, 0, s>>>(
+        static_cast<const uint32_t*>(table), static_cast<const int*>(idx),
+        static_cast<uint32_t*>(out), N, R);
+  } else if (elem_bytes == 2) {
+    taa0_kernel<uint16_t><<<blocks, kThreads, 0, s>>>(
+        static_cast<const uint16_t*>(table), static_cast<const int*>(idx),
+        static_cast<uint16_t*>(out), N, R);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// table [R, M], idx [R, M] int32 -> out [R, M].
+int pio_taa1_gather(const void* table, const void* idx, void* out, int R,
+                    int M, int elem_bytes, void* stream) {
+  if (R < 0 || M < 0) return cudaErrorInvalidValue;
+  const size_t total = (size_t)R * M;
+  if (total == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = grid_for(total, kThreads);
+  if (elem_bytes == 4) {
+    taa1_kernel<uint32_t><<<blocks, kThreads, 0, s>>>(
+        static_cast<const uint32_t*>(table), static_cast<const int*>(idx),
+        static_cast<uint32_t*>(out), R, M);
+  } else if (elem_bytes == 2) {
+    taa1_kernel<uint16_t><<<blocks, kThreads, 0, s>>>(
+        static_cast<const uint16_t*>(table), static_cast<const int*>(idx),
+        static_cast<uint16_t*>(out), R, M);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// table [M, R], idx [nout] int32 -> out [nout, R].  Rows are copied in
+// vec-byte pieces (16, or 4 where a row or the table start is not 16-byte
+// aligned); smem_bytes comes from ops/gather_probe.py dma_row_plan and
+// must match this file's accounting.
+int pio_dma_row_gather(const void* table, const void* idx, void* out, int M,
+                       int nout, int R, int elem_bytes, int vec,
+                       int smem_bytes, void* stream) {
+  if (M < 1 || nout < 0 || R < 1 || (elem_bytes != 4 && elem_bytes != 2))
+    return cudaErrorInvalidValue;
+  const int row_bytes = R * elem_bytes;
+  if ((vec != 16 && vec != 4) || row_bytes % vec != 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = row_smem_bytes(row_bytes, vec);
+  if (static_cast<size_t>(smem_bytes) != smem) return cudaErrorInvalidValue;
+  if (nout == 0) return cudaSuccess;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        dma_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const RowPlan p = row_plan(row_bytes, vec);
+  const long per_block = (long)p.groups * kRowsPerGroup;
+  const int blocks = (int)((nout + per_block - 1) / per_block);
+  const uint32_t nan4 = elem_bytes == 4 ? 0x7fc00000u : 0x7fc07fc0u;
+  dma_row_kernel<<<blocks, kRowThreads, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(table), static_cast<const int*>(idx),
+      static_cast<unsigned char*>(out), M, nout, row_bytes, vec, nan4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -7,17 +7,20 @@ them in one pass so the ``[B, K, R]`` gathered rows never reach device
 memory.
 
 The TPU package has two kernels for this function, ``"taa"`` and
-``"dma"``, which differ only in how table rows reach VMEM (Mosaic's
-gather rules forced the choice).  On an H100 the opposite factor table
-of the full-width run fits in the 50 MB L2, so one CUDA kernel
-(``csrc/fused_als.cu``) stands for both: every ``gather_impl`` value runs
-it, and :func:`resolve_gather_impl` needs no probe.
+``"dma"``, which differ only in how table rows reach VMEM.
+``csrc/fused_als.cu`` has the same two forms: ``"taa"`` loads each
+chunk's rows from global memory (L2) into a shared-memory tile, ``"dma"``
+double-buffers the tile and fills it with ``cp.async`` while the previous
+chunk accumulates.  :func:`resolve_gather_impl` picks one for
+``fused_gather="auto"`` from the gather probes' measured order
+(:func:`predictionio_tpu_torch.ops.gather_probe.preferred_order`), as the
+reference does.
 
 :func:`fused_tile_plan` budgets the kernel's shared memory and registers
 (the TPU planner budgeted VMEM and SMEM).  On a CPU tensor
 :func:`fused_gather_gram_solve` runs the plain version,
-:func:`fused_gather_gram_solve_reference`; on a CUDA tensor it launches
-the kernel or raises.
+:func:`fused_gather_gram_solve_reference`, whatever the form; on a CUDA
+tensor it launches the form it names or raises.
 """
 
 from __future__ import annotations
@@ -27,12 +30,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..device import PRECISIONS
-from ._build import LAUNCHES, check_launch, library
+from ._build import LAUNCHES, check_launch, check_tensor, library
 from .solve import MAX_RANK, spd_solve_reference
 
 __all__ = [
     "GATHER_IMPLS",
     "FusedPlan",
+    "copy_piece_bytes",
     "fused_gather_gram_solve",
     "fused_gather_gram_solve_reference",
     "fused_side_fits",
@@ -40,7 +44,7 @@ __all__ = [
     "resolve_gather_impl",
 ]
 
-# the reference's in-kernel gather forms; both run the one Hopper kernel
+# the reference's in-kernel gather forms, each a form of csrc/fused_als.cu
 GATHER_IMPLS = ("taa", "dma")
 
 # csrc/fused_als.cu: 256 threads as a 16 x 16 accumulator grid
@@ -80,12 +84,20 @@ def _pow2_ceil(x: int) -> int:
     return 1 << (max(int(x), 1) - 1).bit_length()
 
 
-def fused_smem_bytes(r: int, kc: int) -> int:
-    """Shared memory of one block (csrc/fused_als.cu
-    ``fused_smem_floats``): the ``[R, R+1]`` Gauss-Jordan system, its
-    pivot row (R+1) and column (R) scratch, the ``[KC, R]`` f32 row tile,
-    and the chunk's cw, bw and idx (KC each), all 4 bytes wide."""
-    return 4 * (r * (r + 1) + (r + 1) + r + kc * r + 3 * kc)
+def fused_smem_bytes(
+    r: int, kc: int, table_bytes: int = 4, gather_impl: str = "taa"
+) -> int:
+    """Shared memory of one block (csrc/fused_als.cu ``taa_smem_bytes``
+    and ``dma_smem_bytes``).  Both forms hold the ``[R, R+1]``
+    Gauss-Jordan system and its pivot row (R+1) and column (R) scratch in
+    f32.  ``"taa"`` adds one ``[KC, R]`` f32 row tile and the chunk's cw,
+    bw and idx (KC each, 4 bytes); ``"dma"`` double-buffers both: two
+    ``[KC, R]`` tiles of raw table rows (``table_bytes`` each) and two
+    sets of cw, bw and idx."""
+    gj = 4 * (r * (r + 1) + (r + 1) + r)
+    if gather_impl == "dma":
+        return gj + 2 * kc * r * table_bytes + 2 * 3 * kc * 4
+    return gj + 4 * (kc * r + 3 * kc)
 
 
 def fused_tile_plan(
@@ -96,9 +108,11 @@ def fused_tile_plan(
     The tile is the smallest power of two with ``16 * tile >= R``.  The
     chunk height is the largest of :data:`KC_CHOICES` that is no taller
     than K rounded up to a power of two (at least 8) and keeps the block
-    within :data:`SMEM_BUDGET`.  The table's height and element width do
-    not enter: rows are read from device memory (L2) and widened to f32
-    in shared memory.  Returns None when no plan fits (R > 128)."""
+    within :data:`SMEM_BUDGET`.  The table's height does not enter: rows
+    are read from device memory (L2).  Its element width enters only the
+    ``"dma"`` form, which stages raw rows; that form copies rows in
+    4-byte pieces at least, so a bf16 table with an odd R has no
+    ``"dma"`` plan.  Returns None when no plan fits (R > 128)."""
     if gather_impl not in GATHER_IMPLS:
         raise ValueError(
             f"gather_impl must be one of {GATHER_IMPLS}, got {gather_impl!r}"
@@ -106,6 +120,8 @@ def fused_tile_plan(
     if table_bytes not in (2, 4):
         raise ValueError(f"table_bytes must be 2 or 4, got {table_bytes}")
     if r < 1 or r > MAX_RANK:
+        return None
+    if gather_impl == "dma" and (r * table_bytes) % 4:
         return None
     tile = _pow2_ceil(-(-r // GRID))
     regs = tile * tile + 2 * tile + REGS_OVERHEAD
@@ -115,7 +131,7 @@ def fused_tile_plan(
     for kc in KC_CHOICES:
         if kc > kc_cap:
             continue
-        smem = fused_smem_bytes(r, kc)
+        smem = fused_smem_bytes(r, kc, table_bytes, gather_impl)
         if smem <= SMEM_BUDGET:
             return FusedPlan(tile=tile, kc=kc, smem_bytes=smem, regs=regs)
     return None
@@ -133,26 +149,33 @@ def fused_side_fits(
 
 def resolve_gather_impl(
     m: int, r: int, table_bytes: int = 4, precision=None,
-    requested: str = "auto",
+    requested: str = "auto", device=None,
 ) -> Optional[str]:
-    """Resolve ``ALSConfig(fused_gather=...)``.
+    """Resolve ``ALSConfig(fused_gather=...)`` to a form that can run.
 
-    Every value runs the one Hopper kernel, so no probe is needed:
-    ``"taa"`` and ``"dma"`` resolve to themselves and ``"auto"`` to
-    ``"taa"`` (the reference's preference off the TPU).  Returns None
-    when no plan exists for rank ``r``.  ``m``, ``table_bytes`` and
-    ``precision`` are the reference's arguments; no Hopper choice
-    depends on them."""
-    if requested == "auto":
-        requested = GATHER_IMPLS[0]
-    elif requested not in GATHER_IMPLS:
+    An explicit form resolves to itself when it has a plan at rank ``r``
+    and this table width, else to None (the caller then raises: no
+    library path stands in).  ``"auto"`` walks
+    :func:`~predictionio_tpu_torch.ops.gather_probe.preferred_order`
+    (the static order on the CPU, the probes' measured order on the
+    card) and takes the first form with a plan.  ``m`` and
+    ``precision`` are the reference's arguments; no Hopper plan depends
+    on them."""
+    if requested in GATHER_IMPLS:
+        if fused_tile_plan(m, r, 8, table_bytes, requested) is None:
+            return None
+        return requested
+    if requested != "auto":
         raise ValueError(
             f"fused_gather must be 'auto' or one of {GATHER_IMPLS}, "
             f"got {requested!r}"
         )
-    if fused_tile_plan(m, r, 8, table_bytes, requested) is None:
-        return None
-    return requested
+    from .gather_probe import preferred_order
+
+    for impl in preferred_order(r, table_bytes, device=device):
+        if fused_tile_plan(m, r, 8, table_bytes, impl) is not None:
+            return impl
+    return None
 
 
 def fused_gather_gram_solve_reference(
@@ -175,19 +198,6 @@ def fused_gather_gram_solve_reference(
     A = A + reg.to(torch.float32)[:, None, None] * eye
     b = torch.einsum("bk,bkr->br", bw.to(torch.float32), rows)
     return spd_solve_reference(A, b)
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def fused_gather_gram_solve(
@@ -214,7 +224,8 @@ def fused_gather_gram_solve(
     be None or False.  ``precision`` is accepted as ``None`` or one of
     ``"highest"``, ``"high"``, ``"default"``: the kernel always multiplies
     and sums in f32, which is ``"highest"``.  ``plan`` overrides
-    :func:`fused_tile_plan`."""
+    :func:`fused_tile_plan`.  ``gather_impl`` names the kernel form that
+    launches; the plain version is the same for both."""
     if gather_impl not in GATHER_IMPLS:
         raise ValueError(
             f"gather_impl must be one of {GATHER_IMPLS}, got {gather_impl!r}"
@@ -244,30 +255,54 @@ def fused_gather_gram_solve(
         )
     if plan is None:
         raise ValueError(
-            f"fused ALS kernel: no plan for rank {r} (at most {MAX_RANK})"
+            f"fused ALS kernel: no {gather_impl!r} plan for rank {r} with "
+            f"{table.element_size()}-byte elements (rank at most {MAX_RANK}"
+            ", and even for the 'dma' form of a bf16 table)"
         )
-    if table.dtype == torch.float32:
-        fn = library().pio_fused_als_f32
-    elif table.dtype == torch.bfloat16:
-        fn = library().pio_fused_als_bf16
-    else:
+    if table.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"table must be float32 or bfloat16, got {table.dtype}")
+    suffix = "f32" if table.dtype == torch.float32 else "bf16"
     if gram0 is None:
         gram0 = torch.zeros((r, r), dtype=torch.float32, device=dev)
-    _check("table", table, table.dtype, (m, r), dev)
-    _check("idx", idx, torch.int32, (b, k), dev)
-    _check("cw", cw, torch.float32, (b, k), dev)
-    _check("bw", bw, torch.float32, (b, k), dev)
-    _check("reg", reg, torch.float32, (b,), dev)
-    _check("gram0", gram0, torch.float32, (r, r), dev)
+    check_tensor("table", table, table.dtype, (m, r), dev)
+    check_tensor("idx", idx, torch.int32, (b, k), dev)
+    check_tensor("cw", cw, torch.float32, (b, k), dev)
+    check_tensor("bw", bw, torch.float32, (b, k), dev)
+    check_tensor("reg", reg, torch.float32, (b,), dev)
+    check_tensor("gram0", gram0, torch.float32, (r, r), dev)
     x = torch.empty((b, r), dtype=torch.float32, device=dev)
+    args = [
+        table.data_ptr(), idx.data_ptr(), cw.data_ptr(), bw.data_ptr(),
+        reg.data_ptr(), gram0.data_ptr(), x.data_ptr(),
+        b, k, m, r, plan.kc, plan.tile, plan.smem_bytes,
+    ]
+    if gather_impl == "dma":
+        fn = getattr(library(), f"pio_fused_als_dma_{suffix}")
+        args.append(copy_piece_bytes(table))
+        key = "fused_als_dma"
+    else:
+        fn = getattr(library(), f"pio_fused_als_{suffix}")
+        key = "fused_als"
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(
-            table.data_ptr(), idx.data_ptr(), cw.data_ptr(), bw.data_ptr(),
-            reg.data_ptr(), gram0.data_ptr(), x.data_ptr(),
-            b, k, m, r, plan.kc, plan.tile, plan.smem_bytes, stream,
-        )
-    check_launch(rc, "fused_als")
-    LAUNCHES["fused_als"] += 1
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, key)
+    LAUNCHES[key] += 1
     return x
+
+
+def copy_piece_bytes(table: torch.Tensor) -> int:
+    """Bytes per ``cp.async`` piece for rows of ``table``: 16 where every
+    row starts on a 16-byte boundary, else 4.  Raises when a row is not a
+    whole number of 4-byte pieces (a bf16 table with an odd R) or the
+    table is not 4-byte aligned: the kernels never read a row
+    misaligned."""
+    row_bytes = table.shape[-1] * table.element_size()
+    if row_bytes % 16 == 0 and table.data_ptr() % 16 == 0:
+        return 16
+    if row_bytes % 4 or table.data_ptr() % 4:
+        raise ValueError(
+            f"rows of {row_bytes} bytes at address {table.data_ptr():#x} "
+            "are not 4-byte pieces: the cp.async forms need an even rank "
+            "for a bf16 table"
+        )
+    return 4

@@ -1,0 +1,189 @@
+"""Shared HTTP server plumbing: bind/serve/stop lifecycle, a capped
+threading server and a JSON reply helper.
+
+Port of ``predictionio_tpu/server/http_base.py`` without the
+observability mounts (``/metrics``, ``/debug/*``), which wait for the
+port of ``obs/``.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Optional
+
+__all__ = [
+    "DEFAULT_MAX_CONNECTIONS",
+    "CappedThreadingHTTPServer",
+    "HTTPServerBase",
+    "JsonRequestHandler",
+]
+
+# per-server default for the concurrent-connection cap: past it, a
+# connection is answered a structured 503 and closed instead of pinning
+# one more handler thread
+DEFAULT_MAX_CONNECTIONS = 512
+
+
+class CappedThreadingHTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer with a bound on concurrent connections.
+
+    Each accepted connection (keep-alive included) holds one handler
+    thread until it closes; past ``max_connections`` of them, further
+    connections are answered with a minimal structured 503 and closed
+    instead of spawning thread number cap+1.  The refusal is written
+    inline on the listener thread — a few hundred bytes into a fresh
+    socket's send buffer never blocks.
+
+    The listen backlog is the connection cap, not socketserver's 5: with
+    5, a burst of a few dozen new connections overflows the accept queue
+    and the kernel resets some of them before the cap is ever consulted.
+    """
+
+    def __init__(self, server_address, handler_class,
+                 max_connections: int = DEFAULT_MAX_CONNECTIONS):
+        self.max_connections = max_connections
+        self.request_queue_size = max_connections
+        self._conn_sema = threading.BoundedSemaphore(max_connections)
+        super().__init__(server_address, handler_class)
+
+    def process_request(self, request, client_address):
+        if not self._conn_sema.acquire(blocking=False):
+            self._refuse(request)
+            return
+        try:
+            super().process_request(request, client_address)
+        except BaseException:
+            self._conn_sema.release()
+            raise
+
+    def process_request_thread(self, request, client_address):
+        try:
+            super().process_request_thread(request, client_address)
+        finally:
+            self._conn_sema.release()
+
+    def _refuse(self, request) -> None:
+        body = json.dumps({
+            "message": "connection limit reached",
+            "error": "TooManyConnections",
+        }).encode()
+        try:
+            request.sendall(
+                b"HTTP/1.1 503 Service Unavailable\r\n"
+                b"Content-Type: application/json\r\n"
+                b"Content-Length: " + str(len(body)).encode() + b"\r\n"
+                b"Retry-After: 1\r\nConnection: close\r\n\r\n" + body
+            )
+        except OSError:
+            pass
+        self.shutdown_request(request)
+
+
+class JsonRequestHandler(BaseHTTPRequestHandler):
+    """Base handler: HTTP/1.1 keep-alive + JSON/body helpers."""
+
+    protocol_version = "HTTP/1.1"
+    # the reply is two send() calls (buffered headers, then body); without
+    # TCP_NODELAY, Nagle holds the body segment until the client's
+    # delayed ACK, a ~40 ms stall on every keep-alive POST
+    disable_nagle_algorithm = True
+    server_logger = None  # subclasses set a logging.Logger
+
+    def log_message(self, fmt, *args):
+        if self.server_logger is not None:
+            self.server_logger.debug(fmt, *args)
+
+    def _reply(self, code: int, payload: Any,
+               ctype: str = "application/json") -> None:
+        body = (
+            payload
+            if isinstance(payload, (bytes, bytearray))
+            else json.dumps(payload).encode()
+        )
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        for k, v in getattr(self, "extra_headers", ()):
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _body(self) -> bytes:
+        n = int(self.headers.get("Content-Length", 0))
+        return self.rfile.read(n) if n else b""
+
+
+class HTTPServerBase:
+    """Mixin providing the bind/serve/background/stop lifecycle.
+
+    Subclasses implement ``_make_handler()`` and expose ``host``/``port``
+    attributes (port 0 -> ephemeral, re-read after bind).  Binding happens
+    in the caller's thread so bind errors (port in use) surface as
+    exceptions instead of hanging a background thread.
+    """
+
+    host: str
+    port: int
+    _httpd: Optional[CappedThreadingHTTPServer] = None
+
+    def _make_handler(self):
+        raise NotImplementedError
+
+    bind_retries = 3  # MasterActor retries the spray bind 3x in the reference
+    max_connections: int = DEFAULT_MAX_CONNECTIONS
+
+    def _build_httpd(self):
+        return CappedThreadingHTTPServer(
+            (self.host, self.port), self._make_handler(),
+            max_connections=self.max_connections,
+        )
+
+    def _bind(self) -> None:
+        import errno
+        import time
+
+        retries = max(1, self.bind_retries)
+        for attempt in range(retries):
+            try:
+                self._httpd = self._build_httpd()
+                break
+            except OSError as e:
+                # only a busy port is transient (a stale server shutting
+                # down); permission/addr errors fail immediately
+                if e.errno != errno.EADDRINUSE or attempt + 1 >= retries:
+                    raise
+                time.sleep(1.0)
+        self.port = self._httpd.server_address[1]
+
+    _serving: bool = False
+
+    def serve_forever(self) -> None:
+        if self._httpd is None:
+            self._bind()
+        self._serving = True
+        self._httpd.serve_forever()
+
+    def start_background(self) -> threading.Thread:
+        self._bind()
+        self._serving = True
+        t = threading.Thread(target=self._httpd.serve_forever, daemon=True)
+        t.start()
+        return t
+
+    # stop() runs from a request thread (POST /stop) and from its owner
+    # at once: the first stops the server, the second waits for that
+    _stop_lock = threading.Lock()
+
+    def stop(self) -> None:
+        with self._stop_lock:
+            if self._httpd is None:
+                return
+            if self._serving:
+                # shutdown() handshakes with the serve loop; calling it on
+                # a bound-but-never-served server would block forever
+                self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+            self._serving = False

@@ -1,28 +1,67 @@
-"""Host-side data model of the port: id dictionaries and ratings.
+"""Storage layer of the port: event data model, event stores, metadata
+store, id maps and the registry that resolves them.
 
-The event store (``event``/``levents``/``sqlite_events``/``metadata``/
-``registry``) is not ported yet; until it is, training data reaches an
-engine through a :class:`MemoryStore` carried by the ``WorkflowContext``.
+Copies of ``predictionio_tpu/storage``'s host modules (the port imports
+nothing of the JAX package): embedded SQLite and in-memory backends with
+the reference's schemas and ``$PIO_TPU_HOME`` layout, and a columnar
+batch read path (struct-of-arrays -> the ``Ratings`` COO the trainer
+stages onto the card).
 """
 
-from dataclasses import dataclass, field
-
+from .aggregate import aggregate_properties, aggregate_properties_single
 from .bimap import BiMap, StringIndex
-from .columnar import Ratings
+from .columnar import EventFrame, Ratings, dedup_coo, events_to_frame
+from .event import (
+    DataMap,
+    Event,
+    EventValidationError,
+    PropertyMap,
+    format_time,
+    now_utc,
+    parse_time,
+    validate_event,
+)
+from .levents import NO_TARGET, EventStore, MemoryEventStore
+from .metadata import (
+    AccessKey,
+    App,
+    Channel,
+    EngineInstance,
+    MetadataStore,
+    Model,
+)
+from .registry import Storage, StorageError, get_storage, reset_storage
+from .sqlite_events import SQLiteEventStore
 
 __all__ = [
+    "aggregate_properties",
+    "aggregate_properties_single",
     "BiMap",
-    "MemoryStore",
-    "Ratings",
     "StringIndex",
+    "EventFrame",
+    "Ratings",
+    "dedup_coo",
+    "events_to_frame",
+    "DataMap",
+    "Event",
+    "EventValidationError",
+    "PropertyMap",
+    "format_time",
+    "now_utc",
+    "parse_time",
+    "validate_event",
+    "NO_TARGET",
+    "EventStore",
+    "MemoryEventStore",
+    "SQLiteEventStore",
+    "AccessKey",
+    "App",
+    "Channel",
+    "EngineInstance",
+    "MetadataStore",
+    "Model",
+    "Storage",
+    "StorageError",
+    "get_storage",
+    "reset_storage",
 ]
-
-
-@dataclass
-class MemoryStore:
-    """In-memory training data for an engine: the rating COO and the
-    item properties (``{item_id: {"categories": [...], ...}}``) that
-    query filters read."""
-
-    ratings: Ratings
-    items: dict[str, dict] = field(default_factory=dict)

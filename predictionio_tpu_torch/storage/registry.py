@@ -1,0 +1,157 @@
+"""Env-var-driven storage registry.
+
+Copy of ``predictionio_tpu/storage/registry.py`` for the port, with the
+same variables and the same ``$PIO_TPU_HOME`` layout (``eventdata.db``,
+``metadata.db``, ``models/<instance>/``), so an app filled by either
+package trains and serves in the other.  Parity with the reference
+`Storage` object (`data/.../storage/Storage.scala:40-296`):
+``PIO_STORAGE_SOURCES_<NAME>_TYPE`` (+ ``_PATH``) define named sources,
+and ``PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA,MODELDATA}_{NAME,
+SOURCE}`` map the three repositories onto them.  Builtin types are
+``sqlite``, ``memory`` and ``localfs`` (for model files).  The
+``sqlite-sharded`` event store, the ``jsonfs`` metadata store and
+third-party backends named by a dotted import path are not ported yet:
+the first two raise NotImplementedError, the last an unknown type.  Without env
+config everything is SQLite under ``$PIO_TPU_HOME`` (default
+``~/.predictionio_tpu``).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from pathlib import Path
+from typing import Optional
+
+from .levents import EventStore, MemoryEventStore
+from .metadata import MetadataStore
+from .sqlite_events import SQLiteEventStore
+
+__all__ = ["Storage", "StorageError", "get_storage", "reset_storage"]
+
+
+class StorageError(RuntimeError):
+    pass
+
+
+def _home(env: dict[str, str]) -> Path:
+    return Path(
+        env.get("PIO_TPU_HOME") or os.path.expanduser("~/.predictionio_tpu")
+    )
+
+
+class Storage:
+    """One resolved storage configuration: event store + metadata + model dir."""
+
+    def __init__(self, env: Optional[dict[str, str]] = None):
+        self.env = dict(env if env is not None else os.environ)
+        self._lock = threading.Lock()
+        self._event_store: Optional[EventStore] = None
+        self._metadata: Optional[MetadataStore] = None
+
+    # -- source resolution ------------------------------------------------
+    def _repo_source(self, repo: str) -> tuple[str, dict[str, str]]:
+        """Resolve repository -> (type, source config).  Mirrors
+        `Storage.scala:45-149` (sourcesToClientMeta / repositoriesToDataObjectMeta).
+        """
+        name = self.env.get(f"PIO_STORAGE_REPOSITORIES_{repo}_NAME", repo.lower())
+        source = self.env.get(f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE", "")
+        if source:
+            stype = self.env.get(f"PIO_STORAGE_SOURCES_{source}_TYPE")
+            if stype is None:
+                raise StorageError(
+                    f"repository {repo} points at source {source} but "
+                    f"PIO_STORAGE_SOURCES_{source}_TYPE is not set"
+                )
+            conf = {
+                k[len(f"PIO_STORAGE_SOURCES_{source}_"):].lower(): v
+                for k, v in self.env.items()
+                if k.startswith(f"PIO_STORAGE_SOURCES_{source}_")
+            }
+            return stype.lower(), conf
+        # defaults under home: sqlite DBs, plain dir for model blobs
+        home = _home(self.env)
+        if repo == "MODELDATA":
+            return "localfs", {"type": "localfs", "path": str(home / "models")}
+        return "sqlite", {"type": "sqlite", "path": str(home / f"{name}.db")}
+
+    # -- accessors (Storage.scala:259-290) --------------------------------
+    def get_event_store(self) -> EventStore:
+        with self._lock:
+            if self._event_store is None:
+                stype, conf = self._repo_source("EVENTDATA")
+                if stype == "memory":
+                    self._event_store = MemoryEventStore()
+                elif stype == "sqlite":
+                    path = conf.get("path", ":memory:")
+                    if path != ":memory:":
+                        Path(path).parent.mkdir(parents=True, exist_ok=True)
+                    self._event_store = SQLiteEventStore(path)
+                elif stype == "sqlite-sharded":
+                    raise NotImplementedError(
+                        "the sqlite-sharded event store is not ported to "
+                        "predictionio_tpu_torch yet (ROADMAP Queue 1)"
+                    )
+                else:
+                    raise StorageError(f"unknown event store type: {stype}")
+            return self._event_store
+
+    def get_metadata(self) -> MetadataStore:
+        with self._lock:
+            if self._metadata is None:
+                stype, conf = self._repo_source("METADATA")
+                if stype == "memory":
+                    self._metadata = MetadataStore(":memory:")
+                elif stype == "sqlite":
+                    path = conf.get("path", ":memory:")
+                    if path != ":memory:":
+                        Path(path).parent.mkdir(parents=True, exist_ok=True)
+                    self._metadata = MetadataStore(path)
+                elif stype == "jsonfs":
+                    raise NotImplementedError(
+                        "the jsonfs metadata store is not ported to "
+                        "predictionio_tpu_torch yet (ROADMAP Queue 1)"
+                    )
+                else:
+                    raise StorageError(f"unknown metadata store type: {stype}")
+            return self._metadata
+
+    def model_data_dir(self) -> Path:
+        stype, conf = self._repo_source("MODELDATA")
+        if stype in ("sqlite", "localfs", "memory"):
+            p = Path(conf.get("path", str(_home(self.env) / "models")))
+            if p.suffix == ".db":
+                p = p.with_suffix("")
+            p.mkdir(parents=True, exist_ok=True)
+            return p
+        raise StorageError(f"unknown model data type: {stype}")
+
+    def close(self) -> None:
+        with self._lock:
+            if self._event_store is not None:
+                self._event_store.close()
+                self._event_store = None
+            if self._metadata is not None:
+                self._metadata.close()
+                self._metadata = None
+
+
+_global: Optional[Storage] = None
+_global_lock = threading.Lock()
+
+
+def get_storage() -> Storage:
+    global _global
+    with _global_lock:
+        if _global is None:
+            _global = Storage()
+        return _global
+
+
+def reset_storage(storage: Optional[Storage] = None) -> None:
+    """Swap the process-global storage (tests / embedding)."""
+    global _global
+    with _global_lock:
+        if _global is not None:
+            _global.close()
+        _global = storage

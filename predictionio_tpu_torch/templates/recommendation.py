@@ -11,9 +11,9 @@ Wire format parity: query ``{"user": "u1", "num": 4, "categories": [...],
 "whitelist": [...], "blacklist": [...]}``; result
 ``{"itemScores": [{"item": ..., "score": ...}]}``.
 
-The data source of this slice yields the in-memory ratings the
-``WorkflowContext``'s storage holds (:class:`~predictionio_tpu_torch.
-storage.MemoryStore`); the event-store read is not ported yet.
+The data source reads rate events and item properties from the event
+store of the ``WorkflowContext``'s storage, as the reference's does
+(single process; the multi-host COO exchange is not ported yet).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from ..controller import (
 from ..models.als import ALSConfig, train_als
 from ..ops.topk import batch_topk_scores_t, pow2_ceil, topk_scores
 from ..storage.columnar import Ratings
+from ..storage.levents import EventStore
 from ._common import (
     DeviceTableMixin,
     filter_bias_mask,
@@ -50,6 +51,7 @@ __all__ = [
     "ItemScore",
     "PredictedResult",
     "Query",
+    "DataSourceParams",
     "RecommendationDataSource",
     "RecommendationServing",
     "TrainingData",
@@ -107,6 +109,39 @@ class PredictedResult:
 # --------------------------------------------------------------------------
 
 
+@dataclass(frozen=True)
+class DataSourceParams(Params):
+    app_name: str = ""
+    app_id: int = -1
+    event_names: tuple[str, ...] = ("rate",)
+    rating_property: Optional[str] = "rating"
+    entity_type: str = "user"
+    target_entity_type: str = "item"
+    item_entity_type: str = "item"
+    eval_k: int = 0          # >0 asks for k-fold read_eval (not ported)
+    eval_seed: int = 3
+    # "gathered": the process reads the full rating set.  "local" (each
+    # process keeps its scan shard for a sharded trainer) needs the
+    # multi-host read, which is not ported yet.
+    coo: str = "gathered"
+
+    def __post_init__(self) -> None:
+        if self.eval_k > 0:
+            raise NotImplementedError(
+                "evalK (the k-fold read_eval) waits for the port of "
+                "evaluation (ROADMAP Queue 1)"
+            )
+        if self.coo not in ("gathered", "local"):
+            raise ValueError(
+                f"coo must be 'gathered' or 'local', got {self.coo!r}"
+            )
+        if self.coo == "local":
+            raise NotImplementedError(
+                "coo='local' (the multi-host rating exchange) is not yet "
+                "ported to predictionio_tpu_torch"
+            )
+
+
 @dataclass
 class TrainingData:
     ratings: Ratings
@@ -148,18 +183,55 @@ def decode_batch_item_scores(items, vals, ixs, nums, valid, k):
     return out
 
 
+def _resolve_app_id(ctx: WorkflowContext, p: DataSourceParams) -> int:
+    if p.app_id >= 0:
+        return p.app_id
+    app = ctx.storage.get_metadata().app_get_by_name(p.app_name)
+    if app is None:
+        raise ValueError(f"app {p.app_name!r} not found")
+    return app.id
+
+
 class RecommendationDataSource(DataSource):
-    """Yields the ratings and item properties of the context's
-    :class:`~predictionio_tpu_torch.storage.MemoryStore`."""
+    """Reads rate events + item properties
+    (reference template `DataSource.scala:29-66`)."""
+
+    params_class = DataSourceParams
+
+    def _read_items(self, es: EventStore, app_id: int) -> dict[str, dict]:
+        p: DataSourceParams = self.params
+        return {
+            k: dict(v.fields)
+            for k, v in es.aggregate_properties_of(
+                app_id=app_id, entity_type=p.item_entity_type
+            ).items()
+        }
 
     def read_training(self, ctx: WorkflowContext) -> TrainingData:
-        store = ctx.storage
-        if store is None or not hasattr(store, "ratings"):
-            raise ValueError(
-                "the recommendation data source reads ctx.storage, which "
-                "must be a MemoryStore holding the ratings"
+        p: DataSourceParams = self.params
+        app_id = _resolve_app_id(ctx, p)
+        es: EventStore = ctx.storage.get_event_store()
+        dedup = "last" if p.rating_property else "sum"
+        if hasattr(es, "find_ratings"):
+            # the SQLite store's training read (its Python branch:
+            # find_columnar + to_ratings); rating_property=None is the
+            # implicit-count mode
+            ratings = es.find_ratings(
+                app_id=app_id,
+                event_names=p.event_names,
+                rating_property=p.rating_property,
+                dedup=dedup,
+                entity_type=p.entity_type,
             )
-        return TrainingData(ratings=store.ratings, items=dict(store.items))
+        else:
+            ratings = es.find_columnar(
+                app_id=app_id,
+                entity_type=p.entity_type,
+                event_names=list(p.event_names),
+                float_property=p.rating_property,
+                minimal=True,   # only to_ratings fields are consumed
+            ).to_ratings(rating_property=p.rating_property, dedup=dedup)
+        return TrainingData(ratings=ratings, items=self._read_items(es, app_id))
 
 
 # --------------------------------------------------------------------------

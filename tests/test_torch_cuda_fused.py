@@ -61,6 +61,9 @@ def _fused_case(rng, M, R, B, K, density=0.8):
     (64, 3, 1000), (100, 4, 200), (128, 6, 300),
 ])
 def test_fused_kernel_matches_plain(dev, R, B, K):
+    """Both forms, f32 and bf16 tables (the "dma" form only where a bf16
+    row is whole 4-byte pieces), ragged K and masked tails, a gram0; each
+    launch is counted under its own form's key."""
     rng = np.random.default_rng(R + 7 * K)
     table, idx, cw, bw, reg = _fused_case(rng, 500, R, B, K)
     args = [torch.from_numpy(a).to(dev) for a in (idx, cw, bw, reg)]
@@ -68,11 +71,16 @@ def test_fused_kernel_matches_plain(dev, R, B, K):
         (np.eye(R) * 0.25).astype(np.float32)).to(dev)
     for dtype in (torch.float32, torch.bfloat16):
         t = torch.from_numpy(table).to(dev).to(dtype)
-        before = _build.LAUNCHES["fused_als"]
-        x = fused_gather_gram_solve(t, *args, gram0)
-        torch.cuda.synchronize()
-        assert _build.LAUNCHES["fused_als"] == before + 1
-        _close(x, fused_gather_gram_solve_reference(t, *args, gram0), 1e-4)
+        want = fused_gather_gram_solve_reference(t, *args, gram0)
+        for impl, key in (("taa", "fused_als"), ("dma", "fused_als_dma")):
+            if impl == "dma" and dtype == torch.bfloat16 and R % 2:
+                continue
+            before = dict(_build.LAUNCHES)
+            x = fused_gather_gram_solve(t, *args, gram0, gather_impl=impl)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES[key] == before[key] + 1
+            assert sum(_build.LAUNCHES.values()) == sum(before.values()) + 1
+            _close(x, want, 1e-4)
 
 
 def test_fused_kernel_long_row(dev):
@@ -109,3 +117,43 @@ def test_fused_kernel_refuses_a_plan_it_disagrees_with(dev):
     bad = plan._replace(smem_bytes=plan.smem_bytes + 4)
     with pytest.raises(RuntimeError, match="fused_als kernel launch failed"):
         fused_gather_gram_solve(*args, plan=bad)
+
+
+# ---- the "dma" form: rows staged by cp.async into a double-buffered tile
+def test_fused_dma_form_long_row_and_poisoned_id(dev):
+    """A long row (2^17 entries, many chunks through the double buffer),
+    and an id outside the table that poisons only its own row."""
+    rng = np.random.default_rng(4)
+    K = 1 << 17
+    table, idx, cw, bw, reg = _fused_case(rng, 30000, 64, 2, K)
+    args = [torch.from_numpy(a).to(dev) for a in (table, idx, cw, bw, reg)]
+    x = fused_gather_gram_solve(*args, gather_impl="dma")
+    torch.cuda.synchronize()
+    _close(x, fused_gather_gram_solve_reference(*args), 1e-3)
+    bad = args[1].clone()
+    bad[0, 5] = 30000
+    args[2][0, 5] = 1.0
+    y = fused_gather_gram_solve(args[0], bad, *args[2:], gather_impl="dma")
+    assert torch.isnan(y[0]).all() and torch.isfinite(y[1]).all()
+
+
+def test_fused_dma_planner_bytes_match_the_launcher(dev):
+    """The planner's byte sum is the launcher's for both forms and both
+    table widths: its own plan launches, one 4 bytes off is refused, and
+    a bf16 table of odd rank has no dma plan."""
+    rng = np.random.default_rng(9)
+    for R, dtype in ((8, torch.float32), (64, torch.bfloat16),
+                     (10, torch.bfloat16), (128, torch.float32)):
+        table, idx, cw, bw, reg = _fused_case(rng, 100, R, 4, 40)
+        t = torch.from_numpy(table).to(dev).to(dtype)
+        args = [torch.from_numpy(a).to(dev) for a in (idx, cw, bw, reg)]
+        for impl in ("taa", "dma"):
+            plan = fused_tile_plan(100, R, 40, t.element_size(), impl)
+            fused_gather_gram_solve(t, *args, plan=plan, gather_impl=impl)
+            bad = plan._replace(smem_bytes=plan.smem_bytes + 4)
+            with pytest.raises(RuntimeError, match="kernel launch failed"):
+                fused_gather_gram_solve(t, *args, plan=bad, gather_impl=impl)
+    t7 = torch.zeros((100, 7), dtype=torch.bfloat16, device=dev)
+    assert fused_tile_plan(100, 7, 40, 2, "dma") is None
+    with pytest.raises(ValueError, match="no 'dma' plan"):
+        fused_gather_gram_solve(t7, *args, gather_impl="dma")

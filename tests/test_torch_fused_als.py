@@ -209,18 +209,24 @@ def test_plan_at_the_full_width_shapes():
 )
 def test_plan_byte_accounting(r, k, table_bytes, impl):
     """Every plan's shared memory is exactly the kernel's buffers (the
-    [R, R+1] system, R+1 pivot-row and R pivot-column floats, the
-    [KC, R] f32 row tile, KC each of cw, bw, idx; 4 bytes apiece) and two
-    blocks fit an SM; the accumulator tile is the smallest power of two
-    covering R on the 16 x 16 thread grid, and its registers fit the
-    per-thread share of two blocks."""
+    [R, R+1] system, R+1 pivot-row and R pivot-column floats; for "taa"
+    the [KC, R] f32 row tile and KC each of cw, bw, idx, 4 bytes apiece;
+    for "dma" two [KC, R] tiles of raw table rows and two sets of cw,
+    bw, idx) and two blocks fit an SM; the accumulator tile is the
+    smallest power of two covering R on the 16 x 16 thread grid, and its
+    registers fit the per-thread share of two blocks.  The "dma" form
+    has no plan for a row that is not whole 4-byte pieces (bf16, odd R)."""
     plan = fused_tile_plan(10_000, r, k, table_bytes, impl)
-    if r > 128:
+    if r > 128 or (impl == "dma" and r * table_bytes % 4):
         assert plan is None
         return
     assert plan is not None
     tile, kc, smem, regs = plan
-    assert smem == 4 * (r * (r + 1) + (r + 1) + r + kc * r + 3 * kc)
+    gj = 4 * (r * (r + 1) + (r + 1) + r)
+    if impl == "dma":
+        assert smem == gj + 2 * kc * r * table_bytes + 2 * 3 * kc * 4
+    else:
+        assert smem == gj + 4 * (kc * r + 3 * kc)
     assert fmod.BLOCKS_PER_SM * (smem + fmod.SMEM_RESERVED_PER_BLOCK) \
         <= fmod.SMEM_PER_SM
     assert tile * fmod.GRID >= r and (tile == 1 or tile * fmod.GRID // 2 < r)
@@ -233,4 +239,5 @@ def test_plan_byte_accounting(r, k, table_bytes, impl):
     if bigger:
         c = min(bigger)
         assert c > max(8, 1 << (k - 1).bit_length()) or (
-            fmod.fused_smem_bytes(r, c) > fmod.SMEM_BUDGET)
+            fmod.fused_smem_bytes(r, c, table_bytes, impl)
+            > fmod.SMEM_BUDGET)

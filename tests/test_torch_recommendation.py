@@ -1,9 +1,10 @@
 """The slice end to end: the port's ``recommendation_engine()`` trains and
 serves, and answers like the JAX template on the same factors.
 
-The port trains on the CPU through the Engine DSL (data source →
-identity preparator → ``ALSAlgorithm.train`` → ``train_als``, with the
-kernels' plain versions).  The JAX template then serves the port's
+The port trains on the CPU through the Engine DSL (data source reading
+rate and ``$set`` events from an in-memory event store → identity
+preparator → ``ALSAlgorithm.train`` → ``train_als``, with the kernels'
+plain versions).  The JAX template then serves the port's
 factors through its own ``predict``/``batch_predict``; the answers must
 name the same items in the same order, with scores within 1e-5 of their
 scale (both compute f32 dot products, in another order).
@@ -28,7 +29,7 @@ from predictionio_tpu.templates.recommendation import (
 )
 from predictionio_tpu_torch.controller import ParamsError, WorkflowContext
 from predictionio_tpu_torch.convert import model_from_jax
-from predictionio_tpu_torch.storage import MemoryStore, Ratings, StringIndex
+from predictionio_tpu_torch.storage import Event, Storage, StringIndex
 from predictionio_tpu_torch.templates.recommendation import (
     ALSModel,
     Query,
@@ -48,28 +49,50 @@ def _one_torch_thread():
 N_USERS, N_ITEMS = 40, 25
 
 
+def _memory_storage() -> Storage:
+    """Event and metadata stores in memory (no files, no ``$HOME``)."""
+    return Storage({
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+    })
+
+
 def _store(seed=0):
+    """A memory-backed storage with app "shop": rate events of a rank-3
+    rating matrix and a ``$set`` of categories for every item."""
     rng = np.random.default_rng(seed)
     U = rng.normal(size=(N_USERS, 3))
     V = rng.normal(size=(N_ITEMS, 3))
     mask = rng.random((N_USERS, N_ITEMS)) < 0.4
     u, i = np.nonzero(mask)
-    v = np.clip(np.round((U @ V.T)[u, i] + 3.0), 1, 5).astype(np.float32)
-    ratings = Ratings(
-        user_ix=u.astype(np.int32), item_ix=i.astype(np.int32), rating=v,
-        users=StringIndex([f"u{k}" for k in range(N_USERS)]),
-        items=StringIndex([f"i{k}" for k in range(N_ITEMS)]),
-    )
-    items = {f"i{j}": {"categories": ["even" if j % 2 == 0 else "odd"]}
-             for j in range(N_ITEMS)}
-    return MemoryStore(ratings, items)
+    v = np.clip(np.round((U @ V.T)[u, i] + 3.0), 1, 5)
+    storage = _memory_storage()
+    app = storage.get_metadata().app_insert("shop")
+    es = storage.get_event_store()
+    es.init_channel(app.id)
+    events = [
+        Event(event="rate", entity_type="user", entity_id=f"u{a}",
+              target_entity_type="item", target_entity_id=f"i{b}",
+              properties={"rating": float(r)})
+        for a, b, r in zip(u.tolist(), i.tolist(), v.tolist())
+    ]
+    events += [
+        Event(event="$set", entity_type="item", entity_id=f"i{j}",
+              properties={"categories": ["even" if j % 2 == 0 else "odd"]})
+        for j in range(N_ITEMS)
+    ]
+    es.insert_batch(events, app.id)
+    return storage
 
 
 def _train(solver, store=None):
     engine = recommendation_engine()
-    ep = engine.params_from_variant({"algorithms": [{"name": "als", "params": {
-        "rank": 4, "numIterations": 3, "lambda": 0.05, "seed": 1,
-        "solver": solver}}]})
+    ep = engine.params_from_variant({
+        "datasource": {"params": {"appName": "shop"}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": 4, "numIterations": 3, "lambda": 0.05, "seed": 1,
+            "solver": solver}}]})
     ctx = WorkflowContext(device="cpu", storage=store or _store())
     algos, models = engine.train_components(ctx, ep)
     return algos[0], models[0]
@@ -183,15 +206,19 @@ def test_params_validation():
     with pytest.raises(NotImplementedError, match="distributedTopk"):
         engine.params_from_variant({"algorithms": [{
             "name": "als", "params": {"distributedTopk": True}}]})
-    algo_ep = engine.params_from_variant({"algorithms": [{
-        "name": "als", "params": {"factorPlacement": "sharded"}}]})
+    algo_ep = engine.params_from_variant({
+        "datasource": {"params": {"appName": "shop"}},
+        "algorithms": [{
+            "name": "als", "params": {"factorPlacement": "sharded"}}]})
     ctx = WorkflowContext(device="cpu", storage=_store())
     with pytest.raises(NotImplementedError, match="not yet ported"):
         engine.train(ctx, algo_ep)
 
 
-def test_data_source_needs_a_memory_store():
+def test_data_source_needs_a_known_app():
     engine = recommendation_engine()
-    ep = engine.params_from_variant({})
-    with pytest.raises(ValueError, match="MemoryStore"):
-        engine.train(WorkflowContext(device="cpu"), ep)
+    ep = engine.params_from_variant(
+        {"datasource": {"params": {"appName": "nowhere"}}})
+    ctx = WorkflowContext(device="cpu", storage=_memory_storage())
+    with pytest.raises(ValueError, match="app 'nowhere' not found"):
+        engine.train(ctx, ep)
