@@ -6,8 +6,10 @@
 Builds the port's CUDA kernels from ``predictionio_tpu_torch/ops/csrc``,
 holds each against its plain PyTorch version on the card at the shapes
 the main paths give it (timing kernel, plain version and a PyTorch
-library yardstick that the port never calls): the GJ solve, both forms
-of the fused ALS kernel ("taa" and "dma") and the three gather probes.
+library yardstick that the port never calls, its median over turns
+after a warm-up): the GJ solve, both forms of the fused ALS kernel
+("taa" and "dma") with the second pass of a split bucket, and the three
+gather probes.
 Then it drives three main paths through the entry points a user calls,
 each with every launch counter set to 0 just before it and read just
 after it; a kernel its path did not launch fails the run:
@@ -45,6 +47,7 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 N_USERS = 138_493
 N_ITEMS = 26_744
@@ -59,6 +62,9 @@ ML1M_RATINGS = 1_000_209
 # the gather probes: preferred_order's shape and a shape bytes dominate
 PROBE_N = 2048
 BIG_N = 1 << 20
+
+# split targets (waves of blocks over the SMs) that phase breakdown times
+SWEEP_WAVES = (1, 2, 4, 6, 8, 12, 16)
 
 
 def synth_ratings(n_users: int, n_items: int, n_ratings: int, seed: int = 0):
@@ -103,9 +109,21 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def median_ms(fn, iters: int, turns: int = 5) -> float:
+    """Median over ``turns`` runs of :func:`cuda_ms` (one warm-up call
+    first): a library call's outlier run does not stand as its time."""
+    fn()
+    return float(np.median([cuda_ms(fn, iters, warmup=0)
+                            for _ in range(turns)]))
+
+
+def bound(nbytes: float, flops: float, tc_flops: float = 0.0,
+          tc_rate: float = TF32_FLOP_PER_S) -> tuple[float, str]:
+    """Least ms for work that moves ``nbytes`` and does ``flops`` on the
+    CUDA cores (f32) and ``tc_flops`` on the tensor cores at ``tc_rate``:
+    the larger of the bytes' time and the operations' time."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = (flops / F32_FLOP_PER_S + tc_flops / tc_rate) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -171,7 +189,7 @@ def phase_gj(torch, dev) -> dict:
         L, _ = torch.linalg.cholesky_ex(A)
         return torch.cholesky_solve(b[..., None], L)
 
-    library_ms = cuda_ms(library, iters=5)
+    library_ms = median_ms(library, iters=3)
     bound_ms, bound_by = bound(spd_bytes(B, R), B * spd_solve_flops(R))
     log(f"phase gj R={R} B={B}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"library {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
@@ -190,8 +208,10 @@ def fused_cases(torch, dev):
     """The fused phases' inputs, made on the card from generator seed 2:
     the item table [26,744, 64] and a rank-64 user-half bucket [32768,
     128] against it (masked tails: counts in [65, 128]); the user table
-    [138,493, 64] and the heaviest item's row [1, 2^21] with 1,860,000
-    ratings against it.  Each bucket is (idx, cw, bw, reg, nnz)."""
+    [138,493, 64], a split item-half bucket [229, 8192] (counts in
+    [4097, 8192]) and the heaviest item's row [1, 2^21] with 1,860,000
+    ratings against it.  Each bucket is (idx, cw, bw, reg, nnz) with
+    explicit weights (cw = 1, bw = r)."""
     g = torch.Generator(device=dev).manual_seed(2)
 
     def bucket(B, K, M, lo, hi):
@@ -208,21 +228,36 @@ def fused_cases(torch, dev):
     table = torch.randn((N_ITEMS, RANK), generator=g, device=dev) / 8
     short = bucket(32_768, 128, N_ITEMS, 65, 128)
     users = torch.randn((N_USERS, RANK), generator=g, device=dev) / 8
+    split = bucket(229, 8192, N_USERS, 4097, 8192)
     long = bucket(1, 1 << 21, N_USERS, 1_860_000, 1_860_000)
-    return table, short, users, long
+    return table, short, users, split, long
 
 
-def fused_bound(B: int, nnz: int) -> tuple[float, str]:
+def implicit_of(torch, bucket, alpha: float = 1.5):
+    """The same bucket with implicit weights: cw = alpha * r for integer
+    r in {0, 1, 2} (zero confidence where r = 0), bw = 1 + cw."""
+    idx, cw, bw, reg, nnz = bucket
+    r = torch.remainder(bw * 2, 3).floor()
+    cwi = (alpha * r * cw).contiguous()
+    return idx, cwi, ((1.0 + cwi) * cw).contiguous(), reg, nnz
+
+
+def fused_bound(B: int, nnz: int, m: int,
+                table_bytes: int = 4) -> tuple[float, str]:
     """The fused function's least work on a [B, *] bucket of nnz real
-    entries against the item table: idx/cw/bw of the real entries, reg,
-    gram0, the table once and x out; one triangle of each Gram (nnz *
-    R(R+1) flop), the right-hand sides (2 nnz R) and one SPD solve per
-    row."""
-    nbytes = (nnz * 12 + B * 4 + RANK * RANK * 4 + N_ITEMS * RANK * 4
+    entries against an [m, 64] table of ``table_bytes`` elements:
+    idx/cw/bw of the real entries, reg, gram0, the table once and x out;
+    one triangle of each Gram (nnz * R(R+1) flop) and the right-hand
+    sides (2 nnz R) on the TF32 tensor cores at the f32 accuracy the
+    function asks for (an operand split into high and low TF32 parts:
+    three products for an f32 table, two for a bf16 table, whose values
+    are exact in TF32), and one SPD solve per row in f32."""
+    nbytes = (nnz * 12 + B * 4 + RANK * RANK * 4 + m * RANK * table_bytes
               + B * RANK * 4)
-    flops = (nnz * RANK * (RANK + 1) + 2 * nnz * RANK
-             + B * spd_solve_flops(RANK))
-    return bound(nbytes, flops)
+    products = 3 if table_bytes == 4 else 2
+    return bound(nbytes, B * spd_solve_flops(RANK),
+                 nnz * RANK * (RANK + 1) + 2 * nnz * RANK,
+                 TF32_FLOP_PER_S / products)
 
 
 def fused_library(torch, table, idx, cw, bw, reg):
@@ -237,128 +272,162 @@ def fused_library(torch, table, idx, cw, bw, reg):
     return torch.cholesky_solve(rhs, L)
 
 
-def phase_fused(torch, dev) -> dict:
-    """Fused kernel ("taa" form) vs its plain version at rank 64 on
-    :func:`fused_cases`' bucket with a f32 and a bf16 table, and on the
-    heaviest item's row.  Tolerance: 1e-4 of the solution's scale, 1e-3
-    for the long row (the same f32 sums in another order; the long row
-    sums 1.86M terms)."""
+def phase_fused(torch, dev) -> list[dict]:
+    """Both forms of the fused kernel ("taa": rows loaded through L2;
+    "dma": rows staged by cp.async into a double tile) and pass 2 of a
+    split bucket, against their plain versions, on the [32768, 128]
+    bucket (f32 and bf16 tables, explicit and implicit weights with a
+    gram0), the split [229, 8192] bucket and the heavy [1, 2^21] row
+    (f32 and bf16 tables).  Tolerance: 1e-4 of the solution's scale,
+    1e-3 on the heavy row (TF32 parts with a high/low split against f32
+    products, Cholesky against Gauss-Jordan, sums in another order; the
+    long row sums 1.86M terms).  Two calls give the same bits.  Times,
+    in turns (taa, dma, dma, taa), at the [32768, 128] bucket and the
+    heavy row beside their bounds and the library call's median."""
     from predictionio_tpu_torch.ops.fused_als import (
         fused_gather_gram_solve, fused_gather_gram_solve_reference,
+        fused_partials_reference, fused_reduce_solve,
+        fused_reduce_solve_reference, fused_tile_plan, sm_count,
     )
 
-    table, (idx, cw, bw, reg, nnz), users, long = fused_cases(torch, dev)
-    B, K = idx.shape
-    err = max_err(fused_gather_gram_solve(table, idx, cw, bw, reg),
-                  fused_gather_gram_solve_reference(table, idx, cw, bw, reg),
-                  1e-4, f"fused f32 [{B},{K}]")
-    t16 = table.to(torch.bfloat16)
-    err16 = max_err(fused_gather_gram_solve(t16, idx, cw, bw, reg),
-                    fused_gather_gram_solve_reference(t16, idx, cw, bw, reg),
-                    1e-4, f"fused bf16 [{B},{K}]")
-    log(f"phase fused bf16 table [{B},{K}] R={RANK}: max_abs_err {err16:.3e}")
-    ms = cuda_ms(lambda: fused_gather_gram_solve(table, idx, cw, bw, reg),
-                 iters=10)
-    ms16 = cuda_ms(lambda: fused_gather_gram_solve(t16, idx, cw, bw, reg),
-                   iters=10)
-    plain_ms = cuda_ms(
-        lambda: fused_gather_gram_solve_reference(table, idx, cw, bw, reg),
-        iters=2)
-    library_ms = cuda_ms(lambda: fused_library(torch, table, idx, cw, bw, reg),
-                         iters=5)
-    bound_ms, bound_by = fused_bound(B, nnz)
-    log(f"phase fused f32 [{B},{K}] R={RANK}: kernel {ms:.3f} ms "
-        f"(bf16 table {ms16:.3f} ms), plain {plain_ms:.3f} ms, library "
-        f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
-        f"max_abs_err {err:.3e}")
-    del idx, cw, bw, reg, t16
-
-    # the heaviest item of the item half: one block runs the whole row
-    idx, cw, bw, reg, _ = long
-    Kl = idx.shape[1]
-    err_long = max_err(
-        fused_gather_gram_solve(users, idx, cw, bw, reg),
-        fused_gather_gram_solve_reference(users, idx, cw, bw, reg),
-        1e-3, f"fused long row [1,{Kl}]")
-    ms_long = cuda_ms(lambda: fused_gather_gram_solve(users, idx, cw, bw, reg),
-                      iters=2)
-    log(f"phase fused long row [1,{Kl}] (1,860,000 ratings) R={RANK}: kernel "
-        f"{ms_long:.3f} ms, max_abs_err {err_long:.3e} (tol 1e-3 x scale)")
-    return dict(
-        name="fused_als", route="cuda",
-        source="predictionio_tpu_torch/ops/csrc/fused_als.cu",
-        replaces="predictionio_tpu/ops/fused_als.py:368",
-        max_abs_err=max(err, err16, err_long), ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-        shape=f"table[{N_ITEMS},{RANK}] f32, idx[{B},{K}]",
-        bf16_ms=ms16, long_row_ms=ms_long,
+    sms = sm_count(dev)
+    table, short, users, split, long = fused_cases(torch, dev)
+    t16, u16 = table.to(torch.bfloat16), users.to(torch.bfloat16)
+    gram_i = (table.T @ table).contiguous()
+    forms = ("taa", "dma")
+    errs = {impl: [] for impl in forms}
+    checks = (
+        ("[32768,128] f32", table, short[:4], None, 1e-4),
+        ("[32768,128] bf16", t16, short[:4], None, 1e-4),
+        ("[32768,128] implicit", table, implicit_of(torch, short)[:4],
+         gram_i, 1e-4),
+        ("[229,8192] f32", users, split[:4], None, 1e-4),
+        ("[229,8192] bf16", u16, split[:4], None, 1e-4),
+        ("[1,2^21] f32", users, long[:4], None, 1e-3),
+        ("[1,2^21] bf16", u16, long[:4], None, 1e-3),
     )
+    for what, t, args, g0, tol in checks:
+        want = fused_gather_gram_solve_reference(t, *args, g0)
+        for impl in forms:
+            x = fused_gather_gram_solve(t, *args, g0, gather_impl=impl)
+            y = fused_gather_gram_solve(t, *args, g0, gather_impl=impl)
+            torch.cuda.synchronize()
+            if not torch.equal(x, y):
+                raise AssertionError(f"fused {impl} {what}: two calls differ")
+            errs[impl].append(max_err(x, want, tol, f"fused {impl} {what}"))
+        del want
+    log("phase fused checks (max_abs_err, taa / dma; two calls equal "
+        "bitwise): " + "; ".join(
+            f"{c[0]} {errs['taa'][k]:.2e} / {errs['dma'][k]:.2e}"
+            for k, c in enumerate(checks)))
 
-
-def phase_fused_dma(torch, dev) -> dict:
-    """The fused kernel's "dma" form (rows staged by cp.async into a
-    double-buffered tile) vs the plain version on the same inputs and
-    tolerances as phase fused; both forms timed side by side, in turns
-    (taa, dma, dma, taa)."""
-    from predictionio_tpu_torch.ops.fused_als import (
-        fused_gather_gram_solve, fused_gather_gram_solve_reference,
-    )
-
-    table, (idx, cw, bw, reg, nnz), users, long = fused_cases(torch, dev)
-    B, K = idx.shape
-    t16 = table.to(torch.bfloat16)
-    errs = []
-    for t, what in ((table, "f32"), (t16, "bf16")):
-        errs.append(max_err(
-            fused_gather_gram_solve(t, idx, cw, bw, reg, gather_impl="dma"),
-            fused_gather_gram_solve_reference(t, idx, cw, bw, reg),
-            1e-4, f"fused dma {what} [{B},{K}]"))
-
-    def turns(t, iters):
-        times = {"taa": [], "dma": []}
+    def turns(t, args, iters):
+        times = {impl: [] for impl in forms}
         for impl in ("taa", "dma", "dma", "taa"):
-            times[impl].append(cuda_ms(
-                lambda: fused_gather_gram_solve(*t, gather_impl=impl), iters))
+            times[impl].append(cuda_ms(lambda: fused_gather_gram_solve(
+                t, *args, gather_impl=impl), iters))
         return {k: sum(v) / len(v) for k, v in times.items()}
 
-    ms = turns((table, idx, cw, bw, reg), 5)
-    ms16 = turns((t16, idx, cw, bw, reg), 5)
-    plain_ms = cuda_ms(
-        lambda: fused_gather_gram_solve_reference(table, idx, cw, bw, reg),
-        iters=2)
-    library_ms = cuda_ms(lambda: fused_library(torch, table, idx, cw, bw, reg),
-                         iters=5)
-    bound_ms, bound_by = fused_bound(B, nnz)
-    log(f"phase fused dma [{B},{K}] R={RANK}: f32 table dma {ms['dma']:.3f} "
-        f"ms vs taa {ms['taa']:.3f} ms; bf16 table dma {ms16['dma']:.3f} ms "
-        f"vs taa {ms16['taa']:.3f} ms; plain {plain_ms:.3f} ms, library "
-        f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
-        f"max_abs_err f32 {errs[0]:.3e} bf16 {errs[1]:.3e}")
-    del idx, cw, bw, reg, t16
+    recs = {impl: {} for impl in forms}
+    for tag, t, bucket, m, iters in (
+            ("", table, short, N_ITEMS, 10),
+            ("bf16_", t16, short, N_ITEMS, 10),
+            ("split_", users, split, N_USERS, 5),
+            ("long_row_", users, long, N_USERS, 3),
+            ("long_row_bf16_", u16, long, N_USERS, 3)):
+        args = bucket[:4]
+        ms = turns(t, args, iters)
+        plans = {impl: fused_tile_plan(*t.shape, args[0].shape[1],
+                                       t.element_size(), impl,
+                                       b=args[0].shape[0], sms=sms)
+                 for impl in forms}
+        bnd, by = fused_bound(args[0].shape[0], bucket[4], m,
+                              t.element_size())
+        for impl in forms:
+            recs[impl].update({tag + "ms": ms[impl],
+                               tag + "segments": plans[impl].segments,
+                               tag + "bound_ms": bnd, tag + "bound_by": by})
+        if tag in ("", "long_row_"):
+            plain = cuda_ms(lambda: fused_gather_gram_solve_reference(
+                t, *args), iters=1 if tag else 2)
+            lib = median_ms(lambda: fused_library(torch, t, *args), iters=1)
+            for impl in forms:
+                recs[impl].update({tag + "plain_ms": plain,
+                                   tag + "library_ms": lib})
+        log(f"phase fused {tag or 'f32_'}[{args[0].shape[0]},"
+            f"{args[0].shape[1]}] (segments taa {plans['taa'].segments}, "
+            f"dma {plans['dma'].segments}): taa {ms['taa']:.3f} ms, dma "
+            f"{ms['dma']:.3f} ms, bound {bnd:.3f} ms ({by}; taa "
+            f"{ms['taa'] / bnd:.1f}x, dma {ms['dma'] / bnd:.1f}x)" + (
+                f"; plain {plain:.3f} ms, library {lib:.3f} ms (median)"
+                if tag in ("", "long_row_") else ""))
 
+    # pass 2 alone, on the heavy row's partials from the plain pass 1
     idx, cw, bw, reg, _ = long
-    Kl = idx.shape[1]
-    err_long = max_err(
-        fused_gather_gram_solve(users, idx, cw, bw, reg, gather_impl="dma"),
-        fused_gather_gram_solve_reference(users, idx, cw, bw, reg),
-        1e-3, f"fused dma long row [1,{Kl}]")
-    long_ms = {impl: cuda_ms(lambda: fused_gather_gram_solve(
-        users, idx, cw, bw, reg, gather_impl=impl), iters=1)
-        for impl in ("dma", "taa")}
-    log(f"phase fused dma long row [1,{Kl}] (1,860,000 ratings): dma "
-        f"{long_ms['dma']:.3f} ms vs taa {long_ms['taa']:.3f} ms, "
-        f"max_abs_err {err_long:.3e} (tol 1e-3 x scale)")
-    return dict(
-        name="fused_als_dma", route="cuda",
+    plan = fused_tile_plan(N_USERS, RANK, idx.shape[1], 4, "taa", b=1,
+                           sms=sms)
+    parts = fused_partials_reference(users, idx, cw, bw, plan.seg_len)
+    red_err = max_err(fused_reduce_solve(parts, reg),
+                      fused_reduce_solve_reference(parts, reg), 1e-4,
+                      "fused_als_reduce [1,2^21] partials")
+    red_ms = cuda_ms(lambda: fused_reduce_solve(parts, reg), iters=20)
+    red_plain = cuda_ms(lambda: fused_reduce_solve_reference(parts, reg),
+                        iters=2)
+    red_bound, red_by = bound(parts.numel() * 4 + RANK * RANK * 4 + 4
+                              + RANK * 4,
+                              parts.numel() + spd_solve_flops(RANK))
+    log(f"phase fused reduce {list(parts.shape)}: kernel {red_ms:.4f} ms, "
+        f"plain {red_plain:.3f} ms, bound {red_bound:.4f} ms ({red_by}), "
+        f"max_abs_err {red_err:.3e}")
+    del parts
+    out = []
+    for impl, line in (("taa", 368), ("dma", 500)):
+        r = recs[impl]
+        out.append(dict(
+            name="fused_als" if impl == "taa" else "fused_als_dma",
+            route="cuda", source="predictionio_tpu_torch/ops/csrc/fused_als.cu",
+            replaces=f"predictionio_tpu/ops/fused_als.py:{line}",
+            max_abs_err=max(errs[impl]), ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
+            shape=f"table[{N_ITEMS},{RANK}] f32, idx[32768,128]",
+            **{k: v for k, v in r.items()
+               if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms")}))
+    out.append(dict(
+        name="fused_als_reduce", route="cuda",
         source="predictionio_tpu_torch/ops/csrc/fused_als.cu",
-        replaces="predictionio_tpu/ops/fused_als.py:500",
-        max_abs_err=max(errs + [err_long]), ms=ms["dma"], plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-        shape=f"table[{N_ITEMS},{RANK}] f32, idx[{B},{K}]",
-        taa_ms_same_run=ms["taa"], bf16_ms=ms16["dma"],
-        bf16_taa_ms_same_run=ms16["taa"], long_row_ms=long_ms["dma"],
-        long_row_taa_ms_same_run=long_ms["taa"],
-    )
+        replaces="predictionio_tpu/ops/fused_als.py:368",
+        part_of=["fused_als", "fused_als_dma"], max_abs_err=red_err,
+        ms=red_ms, plain_ms=red_plain, bound_ms=red_bound, bound_by=red_by,
+        library_ms=None,
+        shape=f"partials[1,{plan.segments},{RANK * (RANK + 1) // 2 + RANK}]"))
+    del table, users, t16, u16, short, split, long
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_device_us(torch, fn, calls: int = 200) -> tuple[float, float]:
+    """Host microseconds per call (the clock around ``calls`` calls that
+    only enqueue; the card keeps up with them) and device microseconds
+    per call (``torch.profiler`` kernel time over as many calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    device = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / calls
+    return host, device
 
 
 def phase_gather(torch, dev) -> list[dict]:
@@ -447,12 +516,20 @@ def phase_gather(torch, dev) -> list[dict]:
             exact(fn(), plain(), f"{name} n={n}")
             rec[tag + "ms"] = cuda_ms(fn, iters)
             rec[tag + "plain_ms"] = cuda_ms(plain, iters)
-            rec[tag + "library_ms"] = cuda_ms(lib, iters)
+            rec[tag + "library_ms"] = median_ms(lib, iters)
             rec[tag + "bound_ms"], rec[tag + "bound_by"] = bound(nbytes, 0)
+            if not tag:
+                # the probe shape: where the host's work shows
+                rec["host_us"], rec["device_us"] = host_device_us(torch, fn)
+                (rec["library_host_us"],
+                 rec["library_device_us"]) = host_device_us(torch, lib)
             rec[tag + "shape"] = (f"[{RANK},{n}]" if kind == "taa1"
                                   else f"[{n},{RANK}]") + " f32"
             del fn, plain, lib
-        log(f"phase gather {name}: {rec['shape']} kernel {rec['ms']:.4f} ms, "
+        log(f"phase gather {name}: {rec['shape']} kernel {rec['ms']:.4f} ms "
+            f"(host {rec['host_us']:.1f} us, device {rec['device_us']:.2f} "
+            f"us a call; library host {rec['library_host_us']:.1f} us, "
+            f"device {rec['library_device_us']:.2f} us), "
             f"plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} "
             f"ms, bound {rec['bound_ms']:.4f} ms; {rec['big_shape']} kernel "
             f"{rec['big_ms']:.4f} ms, plain {rec['big_plain_ms']:.4f} ms, "
@@ -477,6 +554,7 @@ def phase_small_reference(torch) -> None:
     the card agree with the library (Cholesky) solver on the host, from
     the same start, within 1e-3 of the factors' scale."""
     from predictionio_tpu_torch.models.als import ALSConfig, ALSTrainer
+    from predictionio_tpu_torch.ops.fused_als import WAVES
 
     rng = np.random.default_rng(7)
     nu, ni = 300, 120
@@ -865,21 +943,67 @@ def phase_topk(torch, dev) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_breakdown(torch, ratings) -> None:
+def fused_half_by_bucket(torch, tr, U, V, side: str, waves) -> list:
+    """One fused half taken bucket by bucket: for each bucket of
+    ``side``, its rows B, width K, and for each split target in
+    ``waves`` (the planner's ``WAVES``) the plan's segments S and the
+    CUDA-event time of the fused call on the trainer's own inputs:
+    ``[(B, K, {w: (S, ms)}), ...]``."""
+    from predictionio_tpu_torch.models.als import (
+        _bucket_inputs, _fused_weights,
+    )
+    from predictionio_tpu_torch.ops.fused_als import (
+        fused_gather_gram_solve, fused_tile_plan, sm_count,
+    )
+
+    cfg = tr.cfg
+    sd = tr._item_side if side == "item" else tr._user_side
+    opp = (U if side == "item" else V).contiguous()
+    sms = sm_count(opp.device)
+    lam_t = torch.tensor(cfg.lam, dtype=torch.float32, device=opp.device)
+    alpha_t = torch.tensor(cfg.alpha, dtype=torch.float32, device=opp.device)
+    gram = (opp.T @ opp) if cfg.implicit else None
+    impl = tr.fused_gather
+    rows = []
+    for (_, starts, counts), k in zip(sd["buckets"], sd["ks"]):
+        idx, val, valid, reg = _bucket_inputs(
+            sd["c_sorted"], sd["v_sorted"], starts, counts, k, lam_t,
+            cfg.weighted_lambda)
+        cw, bw = _fused_weights(val, valid, alpha_t, cfg.implicit)
+        per = {}
+        for w in waves:
+            plan = fused_tile_plan(*opp.shape, k, opp.element_size(), impl,
+                                   b=idx.shape[0], sms=sms, waves=w)
+            per[w] = (plan.segments, cuda_ms(
+                lambda: fused_gather_gram_solve(
+                    opp, idx, cw, bw, reg, gram, plan=plan,
+                    gather_impl=impl), iters=3))
+        rows.append((int(idx.shape[0]), int(k), per))
+    return rows
+
+
+def phase_breakdown(torch, ratings) -> dict:
     """Where one full-width iteration's device time goes, per solver:
     one iteration without the profiler (its fenced halves), then one
     under ``torch.profiler``: device time by kernel (top 6) and the
-    device's busy share of that iteration's wall time."""
+    device's busy share of that iteration's wall time.  For the fused
+    solver, each half once more bucket by bucket (B, K, segments, ms) at
+    every split target of SWEEP_WAVES, in turns within each bucket: the
+    halves' sums say which target the planner's ``WAVES`` should be.
+    Returns each solver's unprofiled iteration seconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from predictionio_tpu_torch.models.als import ALSConfig, ALSTrainer
+    from predictionio_tpu_torch.ops.fused_als import WAVES
 
+    iteration = {}
     for solver in ("fused", "pallas"):
         tr = ALSTrainer(ratings, cfg=ALSConfig(
             rank=RANK, lam=0.01, solver=solver, loss_every=0))
         U, V = tr.init_factors()
-        tr.run(U, V, 1)
+        U, V = tr.run(U, V, 1)
+        iteration[solver] = sum(t for _, t in tr.half_seconds)
         plain = ", ".join(f"{s} {t * 1e3:.1f} ms" for s, t in tr.half_seconds)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -897,11 +1021,72 @@ def phase_breakdown(torch, ratings) -> None:
         halves = ", ".join(f"{s} {t * 1e3:.1f} ms" for s, t in tr.half_seconds)
         top = "; ".join(f"{k[:70]} x{c} {t / 1e3:.1f} ms ({t / total:.1%})"
                         for t, k, c in rows[:6]) if total else "none"
-        log(f"phase breakdown solver={solver}: unprofiled [{plain}]; "
-            f"profiled wall {wall * 1e3:.1f} ms [{halves}], device time {total / 1e3:.1f} ms (busy "
+        log(f"phase breakdown solver={solver}"
+            + (f" ({tr.fused_gather!r} form)" if solver == "fused" else "")
+            + f": unprofiled [{plain}]; profiled wall {wall * 1e3:.1f} ms "
+            f"[{halves}], device time {total / 1e3:.1f} ms (busy "
             f"{total / 1e6 / wall:.1%} of wall); top kernels: {top}")
+        if solver == "fused":
+            sweep = sorted({WAVES, *SWEEP_WAVES})
+            sums = {w: 0.0 for w in sweep}
+            for side in ("user", "item"):
+                by_bucket = fused_half_by_bucket(torch, tr, U, V, side,
+                                                 sweep)
+                log(f"phase breakdown fused {side} half by bucket (B x K, "
+                    f"segments, ms) at WAVES={WAVES}: " + "; ".join(
+                        f"{b} x {k} S={per[WAVES][0]} {per[WAVES][1]:.3f}"
+                        for b, k, per in by_bucket)
+                    + f"; sum {sum(p[WAVES][1] for *_, p in by_bucket):.3f}"
+                    " ms")
+                for w in sweep:
+                    half = sum(p[w][1] for *_, p in by_bucket)
+                    sums[w] += half
+                    split = [(b, k, *p[w]) for b, k, p in by_bucket
+                             if p[w][0] > 1]
+                    log(f"phase breakdown fused {side} half at WAVES={w}: "
+                        f"{half:.3f} ms; split buckets (B x K S ms) "
+                        + ", ".join(f"{b} x {k} S={s} {ms:.3f}"
+                                    for b, k, s, ms in split))
+            best = min(sums, key=sums.get)
+            log("phase breakdown fused split target (both halves, ms): "
+                + ", ".join(f"WAVES={w} {t:.3f}" for w, t in sums.items())
+                + f"; least at WAVES={best}, the planner uses {WAVES}")
         del tr, U, V
         torch.cuda.empty_cache()
+    log(f"phase breakdown iteration (sum of the fenced halves): fused "
+        f"{iteration['fused'] * 1e3:.1f} ms, pallas "
+        f"{iteration['pallas'] * 1e3:.1f} ms")
+    return iteration
+
+
+def kernel_registers(build_log) -> dict:
+    """Registers per thread of each kernel, from ptxas's report in the
+    build log: ``{"fused_als_kernel<f32,3>": 64, ...}``."""
+    import re
+
+    regs, name = {}, None
+    for ln in build_log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            mangled, name, args = m.group(1), m.group(1), ""
+            # the kernel's own name is a length-prefixed "..._kernel"
+            for k in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled):
+                n, rest = int(k.group(1)), k.group(2)
+                if len(rest) >= n and rest[:n].endswith("_kernel"):
+                    name, args = rest[:n], rest[n:]
+                    break
+            if args.startswith("I"):
+                dtype = "bf16" if "bfloat16" in args else {
+                    "f": "f32", "t": "u16", "j": "u32"}.get(args[1], "")
+                n = re.match(r"I(?:f|13__nv_bfloat16|[a-z])?Li(\d+)E", args)
+                targs = [x for x in (dtype, n and n.group(1)) if x]
+                if targs:
+                    name += f"<{','.join(targs)}>"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            regs[name] = int(m.group(1))
+            name = None
+    return regs
 
 
 def main() -> int:
@@ -928,17 +1113,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.library()
-    build_log = (_build.BUILD_DIR / "build.log").read_text()
-    regs = [ln.split(":", 1)[1].strip() for ln in build_log.splitlines()
-            if "registers" in ln]
-    log(f"phase build: {time.perf_counter() - t0:.1f} s; ptxas: {regs}")
+    log(f"phase build: {time.perf_counter() - t0:.1f} s; registers per "
+        f"thread (ptxas): {kernel_registers(_build.BUILD_DIR / 'build.log')}")
 
     kernels = [phase_gj(torch, dev)]
     torch.cuda.empty_cache()
-    kernels.append(phase_fused(torch, dev))
-    torch.cuda.empty_cache()
-    kernels.append(phase_fused_dma(torch, dev))
-    torch.cuda.empty_cache()
+    kernels.extend(phase_fused(torch, dev))
     kernels.extend(phase_gather(torch, dev))
     phase_small_reference(torch)
     phase_topk(torch, dev)
@@ -984,7 +1164,8 @@ def main() -> int:
         raise AssertionError(f"gather_probe.smoke failed: {recs}")
     log(f"phase main path launches: {paths}")
     expected = {
-        "ml20m": ("gj_solve", "taa0_gather", "dma_row_gather"),
+        "ml20m": ("gj_solve", "fused_als_reduce", "taa0_gather",
+                  "dma_row_gather"),
         "pio": ("fused_als", "fused_als_dma", "taa0_gather",
                 "dma_row_gather"),
         "probe_smoke": ("taa0_gather", "taa1_gather", "dma_row_gather"),

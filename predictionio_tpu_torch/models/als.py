@@ -379,6 +379,48 @@ def _spd_solve(A: torch.Tensor, b: torch.Tensor, solver: str) -> torch.Tensor:
     return torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
 
 
+def _bucket_inputs(
+    c_sorted: torch.Tensor,   # [nnz] int32
+    v_sorted: torch.Tensor,   # [nnz] f32
+    starts: torch.Tensor,     # [B] int64
+    counts: torch.Tensor,     # [B] int64
+    k: int,
+    lam_t: torch.Tensor,
+    weighted_lambda: bool,
+):
+    """One bucket's ``[B, K]`` block expanded from the sorted COO: the
+    opposite ids (masked -> 0), the values (masked -> 0), the mask and
+    the ridge diagonal (``lam * max(n, 1)`` for ALS-WR, else ``lam``)."""
+    dev = c_sorted.device
+    nnz = c_sorted.shape[0]
+    iota = torch.arange(k, dtype=torch.int64, device=dev)
+    pos = torch.clamp(starts[:, None] + iota[None, :], max=nnz - 1)
+    valid = iota[None, :] < counts[:, None]                 # [B, K]
+    idx = torch.where(valid, c_sorted[pos], 0).to(torch.int32)
+    val = torch.where(valid, v_sorted[pos], 0.0)            # f32, masked
+    n_row = counts.to(torch.float32)
+    if weighted_lambda:
+        reg = lam_t * torch.clamp(n_row, min=1.0)          # ALS-WR
+    else:
+        reg = lam_t.expand(n_row.shape).contiguous()
+    return idx, val, valid, reg
+
+
+def _fused_weights(val, valid, alpha_t, implicit: bool):
+    """The fused kernel's Gram and rhs weights for one bucket, as the
+    reference builds them: implicit ``cw = alpha r`` (the confidence
+    minus one) and ``bw = 1 + cw``; explicit ``cw = 1`` and ``bw = r``;
+    both 0 where masked."""
+    maskf = valid.to(torch.float32)
+    if implicit:
+        cwk = alpha_t * val * maskf
+        bwk = (1.0 + cwk) * maskf
+    else:
+        cwk = maskf
+        bwk = val * maskf
+    return cwk.contiguous(), bwk.contiguous()
+
+
 def _solve_buckets(
     upd: torch.Tensor,        # [N, R] table being solved, written in place
     opp: torch.Tensor,        # [M, R] opposite-side table
@@ -399,14 +441,14 @@ def _solve_buckets(
 
     Per bucket: expand the ``[B, K]`` index/value block from the sorted
     COO, then either the fused kernel (``solver="fused"``, weights and
-    ridge diagonal as the reference builds them) or gather ``[B, K, R]``
-    + einsum Gram + ``_spd_solve``.  The Gram operands are the gathered
+    ridge diagonal as the reference builds them; it splits the long rows
+    of a short bucket across the card itself) or gather ``[B, K, R]`` +
+    einsum Gram + ``_spd_solve``.  The Gram operands are the gathered
     rows widened to f32, so a bf16 gather table gives bf16 operands with
     f32 accumulation, as in the reference."""
     f32 = torch.float32
     dev = opp.device
     r = opp.shape[-1]
-    nnz = c_sorted.shape[0]
     lam_t = torch.tensor(lam, dtype=f32, device=dev)
     alpha_t = torch.tensor(alpha, dtype=f32, device=dev)
     gram = (opp.T @ opp).to(f32) if implicit else None
@@ -419,32 +461,19 @@ def _solve_buckets(
     # the plan does not depend on K: no bucket leaves the kernel
     fused_side = solver == "fused"
     for (rows, starts, counts), k in zip(buckets, ks):
-        iota = torch.arange(k, dtype=torch.int64, device=dev)
-        pos = torch.clamp(starts[:, None] + iota[None, :], max=nnz - 1)
-        valid = iota[None, :] < counts[:, None]                 # [B, K]
-        idx = torch.where(valid, c_sorted[pos], 0).to(torch.int32)
-        val = torch.where(valid, v_sorted[pos], 0.0)            # f32, masked
-        maskf = valid.to(f32)
-        n_row = counts.to(f32)
-        if weighted_lambda:
-            reg = lam_t * torch.clamp(n_row, min=1.0)          # ALS-WR
-        else:
-            reg = lam_t.expand(n_row.shape).contiguous()
+        idx, val, valid, reg = _bucket_inputs(
+            c_sorted, v_sorted, starts, counts, k, lam_t, weighted_lambda
+        )
         if fused_side:
             from ..ops.fused_als import fused_gather_gram_solve
 
-            if implicit:
-                cwk = alpha_t * val * maskf
-                bwk = (1.0 + cwk) * maskf
-            else:
-                cwk = maskf
-                bwk = val * maskf
+            cwk, bwk = _fused_weights(val, valid, alpha_t, implicit)
             x = fused_gather_gram_solve(
-                opp_g, idx, cwk.contiguous(), bwk.contiguous(), reg,
-                gram, gather_impl=fused_gather,
+                opp_g, idx, cwk, bwk, reg, gram, gather_impl=fused_gather,
             )
         else:
-            Vm = opp_g[idx].to(f32) * valid[..., None].to(f32)  # [B, K, R]
+            maskf = valid.to(f32)
+            Vm = opp_g[idx].to(f32) * maskf[..., None]          # [B, K, R]
             if implicit:
                 cw = alpha_t * val * maskf                       # (c - 1)
                 A = gram + torch.einsum("bk,bkr,bks->brs", cw, Vm, Vm)

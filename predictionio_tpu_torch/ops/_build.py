@@ -13,7 +13,10 @@ A missing ``nvcc``, a failed compile or a failed load raises: there is
 no fallback.
 
 Each kernel wrapper counts its launches in :data:`LAUNCHES`, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels.  :func:`launch` is the
+wrappers' one way in: it calls an entry point looked up once at load, on
+the current stream of the tensors' device (entering that device only when
+it is not already current), raises on a launch error and counts.
 """
 
 from __future__ import annotations
@@ -27,11 +30,16 @@ import subprocess
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 __all__ = [
     "BUILD_DIR",
     "LAUNCHES",
+    "SIGNATURES",
     "build",
     "check_launch",
+    "check_tensor",
+    "launch",
     "library",
     "nvcc_path",
     "reset_launches",
@@ -50,12 +58,15 @@ LAUNCHES: dict[str, int] = {
     "gj_solve": 0,
     "fused_als": 0,
     "fused_als_dma": 0,
+    "fused_als_reduce": 0,
     "taa0_gather": 0,
     "taa1_gather": 0,
     "dma_row_gather": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
+# entry point name -> its ctypes function, filled when the library loads
+_ENTRY: dict = {}
 
 
 def reset_launches() -> None:
@@ -156,26 +167,32 @@ def _build_locked(force: bool) -> Path:
     return lib_path
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.pio_error_string.argtypes = [i]
-    lib.pio_error_string.restype = ctypes.c_char_p
-    lib.pio_gj_solve.argtypes = [vp, vp, vp, i, i, vp]
-    lib.pio_gj_solve.restype = i
-    for name in ("pio_fused_als_f32", "pio_fused_als_bf16"):
+_vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FUSED = [_vp] * 8 + [_i] * 9 + [_ll]
+# every entry point's argument types (each returns a CUDA error code)
+SIGNATURES = {
+    "pio_gj_solve": [_vp, _vp, _vp, _i, _i, _vp],
+    "pio_fused_als_f32": _FUSED + [_vp],
+    "pio_fused_als_bf16": _FUSED + [_vp],
+    "pio_fused_als_dma_f32": _FUSED + [_i, _vp],
+    "pio_fused_als_dma_bf16": _FUSED + [_i, _vp],
+    "pio_fused_als_reduce": [_vp] * 4 + [_i] * 3 + [_ll, _vp],
+    "pio_taa0_gather": [_vp] * 3 + [_i] * 3 + [_vp],
+    "pio_taa1_gather": [_vp] * 3 + [_i] * 3 + [_vp],
+    "pio_dma_row_gather": [_vp] * 3 + [_i] * 6 + [_vp],
+}
+
+
+def _declare(lib: ctypes.CDLL, names=None) -> dict:
+    """Set the argument and result types of the entry points ``names``
+    (all of :data:`SIGNATURES` when None); returns them by name."""
+    entries = {}
+    for name in SIGNATURES if names is None else names:
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * 7 + [i] * 7 + [vp]
-        fn.restype = i
-    for name in ("pio_fused_als_dma_f32", "pio_fused_als_dma_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [vp] * 7 + [i] * 8 + [vp]
-        fn.restype = i
-    for name in ("pio_taa0_gather", "pio_taa1_gather"):
-        fn = getattr(lib, name)
-        fn.argtypes = [vp] * 3 + [i] * 3 + [vp]
-        fn.restype = i
-    lib.pio_dma_row_gather.argtypes = [vp] * 3 + [i] * 6 + [vp]
-    lib.pio_dma_row_gather.restype = i
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = _i
+        entries[name] = fn
+    return entries
 
 
 def library() -> ctypes.CDLL:
@@ -183,9 +200,27 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        _declare(lib)
+        lib.pio_error_string.argtypes = [_i]
+        lib.pio_error_string.restype = ctypes.c_char_p
+        _ENTRY.update(_declare(lib))
         _lib = lib
     return _lib
+
+
+def launch(entry: str, key: str, device, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and the current
+    stream of ``device`` (a CUDA ``torch.device`` with an index), raise
+    on a launch error, and count the launch under ``key``."""
+    if _lib is None:
+        library()
+    fn = _ENTRY[entry]
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, key)
+    LAUNCHES[key] += 1
 
 
 def check_launch(rc: int, kernel: str) -> None:

@@ -37,7 +37,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ._build import LAUNCHES, check_launch, check_tensor, library
+from ._build import check_tensor, launch
 
 __all__ = [
     "dma_row_gather",
@@ -103,16 +103,6 @@ def _elem_bytes(table: torch.Tensor) -> int:
     return table.element_size()
 
 
-def _launch(name: str, dev: torch.device, *args) -> None:
-    """Call the C entry point ``name`` on ``dev``'s current stream, raise
-    on a launch error, and count the launch under the kernel's name."""
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(library(), f"pio_{name}")(*args, stream)
-    check_launch(rc, name)
-    LAUNCHES[name] += 1
-
-
 # ---------------------------------------------------------------- A --
 
 def taa0_gather_reference(table: torch.Tensor,
@@ -136,8 +126,8 @@ def taa0_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     check_tensor("table", table, table.dtype, (n, r), table.device)
     check_tensor("idx", idx, torch.int32, (n, r), table.device)
     out = torch.empty_like(table)
-    _launch("taa0_gather", table.device,
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), n, r, eb)
+    launch("pio_taa0_gather", "taa0_gather", table.device,
+           table.data_ptr(), idx.data_ptr(), out.data_ptr(), n, r, eb)
     return out
 
 
@@ -187,8 +177,8 @@ def taa1_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     check_tensor("table", table, table.dtype, (r, m), table.device)
     check_tensor("idx", idx, torch.int32, (r, m), table.device)
     out = torch.empty_like(table)
-    _launch("taa1_gather", table.device,
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), r, m, eb)
+    launch("pio_taa1_gather", "taa1_gather", table.device,
+           table.data_ptr(), idx.data_ptr(), out.data_ptr(), r, m, eb)
     return out
 
 
@@ -270,9 +260,9 @@ def dma_row_gather(table: torch.Tensor, idx: torch.Tensor, *,
             "(a row must be a whole number of 4-byte pieces)"
         )
     out = torch.empty((nout, r), dtype=table.dtype, device=table.device)
-    _launch("dma_row_gather", table.device,
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), m, nout, r, eb,
-            plan.vec, plan.smem_bytes)
+    launch("pio_dma_row_gather", "dma_row_gather", table.device,
+           table.data_ptr(), idx.data_ptr(), out.data_ptr(), m, nout, r, eb,
+           plan.vec, plan.smem_bytes)
     return out
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ._build import LAUNCHES, check_launch, library
+from ._build import launch
 
 __all__ = [
     "MAX_RANK",
@@ -81,13 +81,8 @@ def spd_solve_batched(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check_cuda("A", A, (B, R, R), A.device)
     _check_cuda("b", b, (B, R), A.device)
     x = torch.empty((B, R), dtype=torch.float32, device=A.device)
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = library().pio_gj_solve(
-            A.data_ptr(), b.data_ptr(), x.data_ptr(), B, R, stream
-        )
-    check_launch(rc, "gj_solve")
-    LAUNCHES["gj_solve"] += 1
+    launch("pio_gj_solve", "gj_solve", A.device,
+           A.data_ptr(), b.data_ptr(), x.data_ptr(), B, R)
     return x
 
 

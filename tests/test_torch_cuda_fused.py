@@ -9,11 +9,15 @@ card with::
 (``--noconftest``: the suite's conftest imports JAX, which the port's
 GPU machine need not have.)  Inputs are made with numpy from fixed seeds.
 
-Tolerance: the kernel and the plain version do the same f32 arithmetic
-in another order (per-thread running sums and FMAs against blocked
-einsums), so results agree to a few f32 ulps of the Gram entries,
-amplified by the systems' conditioning: 1e-4 of the solution's scale
-for the well-conditioned systems here, 1e-3 where K runs to 1e5.
+Tolerance: the kernel multiplies on the tensor cores with every operand
+split into TF32 high and low parts (about 22 significant bits, f32
+sums) and solves by Cholesky, the plain version multiplies in f32 and
+solves by Gauss-Jordan: results agree to a few f32 ulps of the Gram
+entries, amplified by the systems' conditioning: 1e-4 of the solution's
+scale for the well-conditioned systems here, 1e-3 where K runs to 1e5.
+A bucket of fewer rows than fill the card splits its long rows across
+blocks (pass 1) and sums the partials in a fixed order (pass 2,
+``fused_als_reduce``): two calls give the same bits.
 """
 
 import numpy as np
@@ -24,6 +28,7 @@ from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.ops.fused_als import (
     fused_gather_gram_solve,
     fused_gather_gram_solve_reference,
+    fused_split_reference,
     fused_tile_plan,
 )
 
@@ -84,32 +89,56 @@ def test_fused_kernel_matches_plain(dev, R, B, K):
 
 
 def test_fused_kernel_long_row(dev):
-    """One row of 2^17 entries (the heavy-item shape, shortened)."""
+    """Two rows of 2^17 entries (the heavy-item shape, shortened): the
+    planner splits them into segments, so each call is pass 1 and pass 2;
+    both forms, f32 and bf16 tables, two calls give the same bits."""
     rng = np.random.default_rng(3)
     K = 1 << 17
     table, idx, cw, bw, reg = _fused_case(rng, 30000, 64, 2, K)
-    args = [torch.from_numpy(a).to(dev) for a in (table, idx, cw, bw, reg)]
-    x = fused_gather_gram_solve(*args)
-    torch.cuda.synchronize()
-    _close(x, fused_gather_gram_solve_reference(*args), 1e-3)
+    args = [torch.from_numpy(a).to(dev) for a in (idx, cw, bw, reg)]
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.from_numpy(table).to(dev).to(dtype)
+        want = fused_gather_gram_solve_reference(t, *args)
+        for impl, key in (("taa", "fused_als"), ("dma", "fused_als_dma")):
+            plan = fused_tile_plan(30000, 64, K, t.element_size(), impl, b=2)
+            assert plan.segments > 1 and plan.workspace_bytes > 0
+            before = dict(_build.LAUNCHES)
+            x = fused_gather_gram_solve(t, *args, gather_impl=impl)
+            y = fused_gather_gram_solve(t, *args, gather_impl=impl)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES[key] == before[key] + 2
+            assert (_build.LAUNCHES["fused_als_reduce"]
+                    == before["fused_als_reduce"] + 2)
+            assert torch.equal(x, y)
+            _close(x, want, 1e-3)
 
 
 def test_fused_kernel_implicit_weights(dev):
-    """Implicit-mode weights: cw = alpha*r can be 0 where bw = 1."""
+    """Implicit-mode weights: cw = alpha*r can be 0 where bw = 1, with
+    gram0 = YᵀY; a short bucket of 4096-slot rows is split, and both
+    passes agree with the plain two-pass version too."""
     rng = np.random.default_rng(5)
-    table, idx, mask, _, reg = _fused_case(rng, 400, 16, 20, 64)
-    val = rng.integers(0, 3, size=mask.shape).astype(np.float32)
-    cw = (1.5 * val * mask).astype(np.float32)
-    bw = ((1.0 + cw) * mask).astype(np.float32)
-    t = torch.from_numpy(table).to(dev)
-    gram0 = t.T @ t
-    args = [torch.from_numpy(a).to(dev) for a in (idx, cw, bw, reg)]
-    x = fused_gather_gram_solve(t, *args, gram0)
-    torch.cuda.synchronize()
-    _close(x, fused_gather_gram_solve_reference(t, *args, gram0), 1e-4)
+    for B, K in ((20, 64), (3, 4096)):
+        table, idx, mask, _, reg = _fused_case(rng, 400, 16, B, K)
+        val = rng.integers(0, 3, size=mask.shape).astype(np.float32)
+        cw = (1.5 * val * mask).astype(np.float32)
+        bw = ((1.0 + cw) * mask).astype(np.float32)
+        t = torch.from_numpy(table).to(dev)
+        gram0 = t.T @ t
+        args = [torch.from_numpy(a).to(dev) for a in (idx, cw, bw, reg)]
+        want = fused_gather_gram_solve_reference(t, *args, gram0)
+        for impl in ("taa", "dma"):
+            plan = fused_tile_plan(400, 16, K, 4, impl, b=B)
+            x = fused_gather_gram_solve(t, *args, gram0, gather_impl=impl)
+            torch.cuda.synchronize()
+            _close(x, want, 1e-4)
+            _close(x, fused_split_reference(t, *args, gram0,
+                                            seg_len=plan.seg_len), 1e-4)
 
 
 def test_fused_kernel_refuses_a_plan_it_disagrees_with(dev):
+    """A plan whose bytes differ from the kernel's own is refused: its
+    shared memory, its split workspace, or segments that do not tile K."""
     rng = np.random.default_rng(9)
     table, idx, cw, bw, reg = _fused_case(rng, 100, 8, 4, 16)
     args = [torch.from_numpy(a).to(dev) for a in (table, idx, cw, bw, reg)]
@@ -117,12 +146,22 @@ def test_fused_kernel_refuses_a_plan_it_disagrees_with(dev):
     bad = plan._replace(smem_bytes=plan.smem_bytes + 4)
     with pytest.raises(RuntimeError, match="fused_als kernel launch failed"):
         fused_gather_gram_solve(*args, plan=bad)
+    table, idx, cw, bw, reg = _fused_case(rng, 100, 8, 4, 4096)
+    args = [torch.from_numpy(a).to(dev) for a in (table, idx, cw, bw, reg)]
+    plan = fused_tile_plan(100, 8, 4096, b=4)
+    assert plan.segments > 1
+    for bad in (plan._replace(workspace_bytes=plan.workspace_bytes + 4),
+                plan._replace(segments=plan.segments - 1)):
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            fused_gather_gram_solve(*args, plan=bad)
+    fused_gather_gram_solve(*args, plan=plan)
 
 
 # ---- the "dma" form: rows staged by cp.async into a double-buffered tile
 def test_fused_dma_form_long_row_and_poisoned_id(dev):
-    """A long row (2^17 entries, many chunks through the double buffer),
-    and an id outside the table that poisons only its own row."""
+    """A long row (2^17 entries, many chunks through the double buffer,
+    split across blocks), and an id outside the table that poisons only
+    its own row, through both passes."""
     rng = np.random.default_rng(4)
     K = 1 << 17
     table, idx, cw, bw, reg = _fused_case(rng, 30000, 64, 2, K)

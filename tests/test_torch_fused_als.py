@@ -187,12 +187,14 @@ def test_resolve_gather_impl():
 
 def test_plan_at_the_full_width_shapes():
     """Rank 64 plans for the ML-20M item and user tables, any bucket K
-    up to the heaviest item's 2^21, f32 or bf16; rank > 128 has none."""
+    up to the heaviest item's 2^21, f32 or bf16; rank > 128 has none.
+    Rank 64 has 24 m16n8 tiles (the Gram's lower triangle and diagonal
+    tiles, and the rhs), 3 for each of the 8 warps."""
     for m in (26_744, 138_493):
         for k in (8, 128, 4096, 1 << 21):
             for tb in (2, 4):
                 plan = fused_tile_plan(m, 64, k, tb)
-                assert plan is not None and plan.tile == 4
+                assert plan is not None and plan.tile == 3
     assert fused_tile_plan(1000, 64, 1 << 21).kc == fmod.KC_CHOICES[0]
     assert fused_tile_plan(1000, 64, 5).kc == 8
     assert not fused_side_fits(1000, 129, 64)
@@ -208,36 +210,46 @@ def test_plan_at_the_full_width_shapes():
     impl=st.sampled_from(GATHER_IMPLS),
 )
 def test_plan_byte_accounting(r, k, table_bytes, impl):
-    """Every plan's shared memory is exactly the kernel's buffers (the
-    [R, R+1] system, R+1 pivot-row and R pivot-column floats; for "taa"
-    the [KC, R] f32 row tile and KC each of cw, bw, idx, 4 bytes apiece;
-    for "dma" two [KC, R] tiles of raw table rows and two sets of cw,
-    bw, idx) and two blocks fit an SM; the accumulator tile is the
-    smallest power of two covering R on the 16 x 16 thread grid, and its
+    """Every plan's shared memory is exactly the kernel's buffers: for
+    "taa" one [KC, stride] f32 row tile, for "dma" two [KC, stride] tiles
+    of raw table rows (f32 rows pad16(R) + 8 words apart, bf16 rows
+    pad16(R)/2 + 4), the [R, R+1] f32 system reusing the tiles, and KC
+    each of cw, bw, idx (two sets for "dma"), 4 bytes apiece; two blocks
+    fit an SM.  The "dma" form's two tiles take no more than the "taa"
+    form's one at the same K (but for the smallest chunk).  Tiles per
+    warp cover the m16 (m16 + 2) output tiles over 8 warps, and their
     registers fit the per-thread share of two blocks.  The "dma" form
-    has no plan for a row that is not whole 4-byte pieces (bf16, odd R)."""
+    has no plan for a row that is not whole 4-byte pieces (bf16, odd R).
+    Without the bucket's height there is one segment."""
     plan = fused_tile_plan(10_000, r, k, table_bytes, impl)
     if r > 128 or (impl == "dma" and r * table_bytes % 4):
         assert plan is None
         return
     assert plan is not None
-    tile, kc, smem, regs = plan
-    gj = 4 * (r * (r + 1) + (r + 1) + r)
+    tile, kc, smem, regs, segments, seg_len, ws = plan
+    p16 = -(-r // 16) * 16
+    stride = {4: 4 * (p16 + 8), 2: 4 * (p16 // 2 + 4)}
+    system = 4 * r * (r + 1)
+    taa = fused_tile_plan(10_000, r, k, table_bytes, "taa")
     if impl == "dma":
-        assert smem == gj + 2 * kc * r * table_bytes + 2 * 3 * kc * 4
+        assert smem == max(2 * kc * stride[table_bytes], system) + 24 * kc
+        assert (2 * kc * stride[table_bytes] <= taa.kc * stride[4]
+                or kc == fmod.KC_CHOICES[-1])
     else:
-        assert smem == gj + 4 * (kc * r + 3 * kc)
+        assert smem == max(kc * stride[4], system) + 12 * kc
     assert fmod.BLOCKS_PER_SM * (smem + fmod.SMEM_RESERVED_PER_BLOCK) \
         <= fmod.SMEM_PER_SM
-    assert tile * fmod.GRID >= r and (tile == 1 or tile * fmod.GRID // 2 < r)
-    assert tile & (tile - 1) == 0
-    assert regs == tile * tile + 2 * tile + fmod.REGS_OVERHEAD
+    m16 = p16 // 16
+    assert tile in fmod.TPW_CHOICES and tile * 8 >= m16 * (m16 + 2)
+    assert all(c * 8 < m16 * (m16 + 2) for c in fmod.TPW_CHOICES if c < tile)
+    assert regs == 4 * tile + fmod.REGS_OVERHEAD
     assert regs * fmod.THREADS * fmod.BLOCKS_PER_SM <= 65536
     assert kc in fmod.KC_CHOICES and kc <= max(8, 1 << (k - 1).bit_length())
-    # the largest chunk that fits: the next size up would break a bound
-    bigger = [c for c in fmod.KC_CHOICES if c > kc]
+    assert (segments, ws) == (1, 0) and seg_len % kc == 0 and seg_len >= k
+    # the "taa" form takes the largest chunk that fits: the next size up
+    # would break a bound
+    bigger = [c for c in fmod.KC_CHOICES if c > taa.kc]
     if bigger:
         c = min(bigger)
         assert c > max(8, 1 << (k - 1).bit_length()) or (
-            fmod.fused_smem_bytes(r, c, table_bytes, impl)
-            > fmod.SMEM_BUDGET)
+            fmod.fused_smem_bytes(r, c, 4, "taa") > fmod.SMEM_BUDGET)
