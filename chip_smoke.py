@@ -6,10 +6,11 @@
 Builds the port's CUDA kernels from ``predictionio_tpu_torch/ops/csrc``,
 holds each against its plain PyTorch version on the card at the shapes
 the main paths give it (timing kernel, plain version and a PyTorch
-library yardstick that the port never calls, its median over turns
-after a warm-up): the GJ solve, both forms of the fused ALS kernel
-("taa" and "dma") with the second pass of a split bucket, and the three
-gather probes.
+library yardstick that the port never calls the same way: medians over
+the same turns, taken in turns, after a warm-up): the GJ solve, both
+forms of the fused ALS kernel ("taa" and "dma") with the second pass of
+a split bucket, and the three gather probes, whose launch path it takes
+apart step by step at the probe shape.
 Then it drives three main paths through the entry points a user calls,
 each with every launch counter set to 0 just before it and read just
 after it; a kernel its path did not launch fails the run:
@@ -36,6 +37,7 @@ device or without the package beside the script.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -109,12 +111,21 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def median_ms(fn, iters: int, turns: int = 5) -> float:
-    """Median over ``turns`` runs of :func:`cuda_ms` (one warm-up call
-    first): a library call's outlier run does not stand as its time."""
-    fn()
-    return float(np.median([cuda_ms(fn, iters, warmup=0)
-                            for _ in range(turns)]))
+def interleaved_ms(fns: dict, turns: int = 5) -> dict:
+    """Median over ``turns`` turns of :func:`cuda_ms` for each
+    ``fns[name] = (fn, iters)``, after one warm-up call of each.  In each
+    turn every function runs once, the order rotating from turn to turn,
+    so that drift of the host or the card hits all of them alike and an
+    outlier run does not stand as anyone's time."""
+    names = list(fns)
+    for fn, _ in fns.values():
+        fn()
+    times = {n: [] for n in names}
+    for t in range(turns):
+        for n in names[t % len(names):] + names[:t % len(names)]:
+            fn, iters = fns[n]
+            times[n].append(cuda_ms(fn, iters, warmup=0))
+    return {n: float(np.median(v)) for n, v in times.items()}
 
 
 def bound(nbytes: float, flops: float, tc_flops: float = 0.0,
@@ -182,18 +193,20 @@ def phase_gj(torch, dev) -> dict:
     A, b = spd(B, R)
     errs.append(max_err(spd_solve_batched(A, b), spd_solve_reference(A, b),
                         1e-4, f"gj R={R} B={B}"))
-    ms = cuda_ms(lambda: spd_solve_batched(A, b), iters=10)
-    plain_ms = cuda_ms(lambda: spd_solve_reference(A, b), iters=2)
 
     def library():
         L, _ = torch.linalg.cholesky_ex(A)
         return torch.cholesky_solve(b[..., None], L)
 
-    library_ms = median_ms(library, iters=3)
+    t = interleaved_ms({
+        "kernel": (lambda: spd_solve_batched(A, b), 10),
+        "plain": (lambda: spd_solve_reference(A, b), 2),
+        "library": (library, 3)})
+    ms, plain_ms, library_ms = t["kernel"], t["plain"], t["library"]
     bound_ms, bound_by = bound(spd_bytes(B, R), B * spd_solve_flops(R))
-    log(f"phase gj R={R} B={B}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"library {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
-        f"max_abs_err {errs[-1]:.3e}")
+    log(f"phase gj R={R} B={B} (medians of 5 interleaved turns): kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
+        f"bound {bound_ms:.3f} ms ({bound_by}), max_abs_err {errs[-1]:.3e}")
     return dict(
         name="gj_solve", route="cuda",
         source="predictionio_tpu_torch/ops/csrc/gj_solve.cu",
@@ -281,9 +294,10 @@ def phase_fused(torch, dev) -> list[dict]:
     (f32 and bf16 tables).  Tolerance: 1e-4 of the solution's scale,
     1e-3 on the heavy row (TF32 parts with a high/low split against f32
     products, Cholesky against Gauss-Jordan, sums in another order; the
-    long row sums 1.86M terms).  Two calls give the same bits.  Times,
-    in turns (taa, dma, dma, taa), at the [32768, 128] bucket and the
-    heavy row beside their bounds and the library call's median."""
+    long row sums 1.86M terms).  Two calls give the same bits.  Times
+    (:func:`interleaved_ms`: the two forms, and at the [32768, 128]
+    bucket and the heavy row the plain version and the library call too,
+    in the same turns) beside their bounds."""
     from predictionio_tpu_torch.ops.fused_als import (
         fused_gather_gram_solve, fused_gather_gram_solve_reference,
         fused_partials_reference, fused_reduce_solve,
@@ -321,13 +335,6 @@ def phase_fused(torch, dev) -> list[dict]:
             f"{c[0]} {errs['taa'][k]:.2e} / {errs['dma'][k]:.2e}"
             for k, c in enumerate(checks)))
 
-    def turns(t, args, iters):
-        times = {impl: [] for impl in forms}
-        for impl in ("taa", "dma", "dma", "taa"):
-            times[impl].append(cuda_ms(lambda: fused_gather_gram_solve(
-                t, *args, gather_impl=impl), iters))
-        return {k: sum(v) / len(v) for k, v in times.items()}
-
     recs = {impl: {} for impl in forms}
     for tag, t, bucket, m, iters in (
             ("", table, short, N_ITEMS, 10),
@@ -336,7 +343,15 @@ def phase_fused(torch, dev) -> list[dict]:
             ("long_row_", users, long, N_USERS, 3),
             ("long_row_bf16_", u16, long, N_USERS, 3)):
         args = bucket[:4]
-        ms = turns(t, args, iters)
+        fns = {impl: (functools.partial(fused_gather_gram_solve, t, *args,
+                                        gather_impl=impl), iters)
+               for impl in forms}
+        if tag in ("", "long_row_"):
+            fns["plain"] = (functools.partial(
+                fused_gather_gram_solve_reference, t, *args), 1 if tag else 2)
+            fns["library"] = (functools.partial(
+                fused_library, torch, t, *args), 1)
+        ms = interleaved_ms(fns)
         plans = {impl: fused_tile_plan(*t.shape, args[0].shape[1],
                                        t.element_size(), impl,
                                        b=args[0].shape[0], sms=sms)
@@ -348,9 +363,7 @@ def phase_fused(torch, dev) -> list[dict]:
                                tag + "segments": plans[impl].segments,
                                tag + "bound_ms": bnd, tag + "bound_by": by})
         if tag in ("", "long_row_"):
-            plain = cuda_ms(lambda: fused_gather_gram_solve_reference(
-                t, *args), iters=1 if tag else 2)
-            lib = median_ms(lambda: fused_library(torch, t, *args), iters=1)
+            plain, lib = ms["plain"], ms["library"]
             for impl in forms:
                 recs[impl].update({tag + "plain_ms": plain,
                                    tag + "library_ms": lib})
@@ -359,7 +372,7 @@ def phase_fused(torch, dev) -> list[dict]:
             f"dma {plans['dma'].segments}): taa {ms['taa']:.3f} ms, dma "
             f"{ms['dma']:.3f} ms, bound {bnd:.3f} ms ({by}; taa "
             f"{ms['taa'] / bnd:.1f}x, dma {ms['dma'] / bnd:.1f}x)" + (
-                f"; plain {plain:.3f} ms, library {lib:.3f} ms (median)"
+                f"; plain {plain:.3f} ms, library {lib:.3f} ms"
                 if tag in ("", "long_row_") else ""))
 
     # pass 2 alone, on the heavy row's partials from the plain pass 1
@@ -370,9 +383,10 @@ def phase_fused(torch, dev) -> list[dict]:
     red_err = max_err(fused_reduce_solve(parts, reg),
                       fused_reduce_solve_reference(parts, reg), 1e-4,
                       "fused_als_reduce [1,2^21] partials")
-    red_ms = cuda_ms(lambda: fused_reduce_solve(parts, reg), iters=20)
-    red_plain = cuda_ms(lambda: fused_reduce_solve_reference(parts, reg),
-                        iters=2)
+    t = interleaved_ms({
+        "kernel": (lambda: fused_reduce_solve(parts, reg), 20),
+        "plain": (lambda: fused_reduce_solve_reference(parts, reg), 2)})
+    red_ms, red_plain = t["kernel"], t["plain"]
     red_bound, red_by = bound(parts.numel() * 4 + RANK * RANK * 4 + 4
                               + RANK * 4,
                               parts.numel() + spd_solve_flops(RANK))
@@ -407,46 +421,184 @@ def phase_fused(torch, dev) -> list[dict]:
     return out
 
 
-def host_device_us(torch, fn, calls: int = 200) -> tuple[float, float]:
-    """Host microseconds per call (the clock around ``calls`` calls that
-    only enqueue; the card keeps up with them) and device microseconds
-    per call (``torch.profiler`` kernel time over as many calls)."""
+def host_us(torch, fns: dict, calls: int = 200, turns: int = 5) -> dict:
+    """Host microseconds a call of each ``fns[name]``: the clock around
+    ``calls`` calls that only enqueue (the card keeps up with them), the
+    median of ``turns`` turns in which every function takes its turn,
+    the order rotating.  Run it before any ``torch.profiler`` session of
+    the process: once one has run, every PyTorch call costs the host
+    more (:func:`phase_gather` times the host first for that reason)."""
+    names = list(fns)
+    host = {n: [] for n in names}
+    for fn in fns.values():
+        fn()
+    for t in range(turns):
+        for n in names[t % len(names):] + names[:t % len(names)]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fns[n]()
+            host[n].append((time.perf_counter() - t0) / calls * 1e6)
+    return {n: float(np.median(v)) for n, v in host.items()}
+
+
+def device_us(torch, fn, calls: int = 200) -> float:
+    """Device microseconds a call of ``fn``: ``torch.profiler`` kernel
+    time over ``calls`` calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    host = (time.perf_counter() - t0) / calls * 1e6
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    device = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA) / calls
-    return host, device
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / calls
+
+
+def launch_steps_us(torch, kind: str, t, i, calls: int = 4000,
+                    turns: int = 3) -> dict:
+    """Host microseconds a call of each step of the ``taa0_gather`` or
+    ``dma_row_gather`` wrapper (``kind`` "taa0" or "dma") on the table
+    ``t`` and ids ``i``, each step timed alone over ``calls`` calls, the
+    median of ``turns`` turns taken in turns, less the cost of the
+    timing loop itself: the device branch, the checks, the row-copy plan
+    (from its cache, and computed), the output's allocation, the three
+    pointers, the current device and its stream's raw handle (and, for
+    comparison, through ``torch.cuda.current_device`` and
+    ``current_stream``, which builds a ``Stream`` object), packing the
+    argument block, the bare ctypes call into ``pio_noop`` with the GIL
+    released (the loaded library) and kept (a ``ctypes.PyDLL`` handle on
+    the same library), and for comparison with the 7 arguments as a list
+    (ctypes converting each), the entry point itself (packing, ctypes
+    and the CUDA launch), ``launch``, the whole wrapper and the library
+    call it is held against."""
+    import ctypes
+
+    from predictionio_tpu_torch.ops import _build
+    from predictionio_tpu_torch.ops import gather_probe as gp
+    from predictionio_tpu_torch.ops.fused_als import sm_count
+
+    dev = t.device
+    index = dev.index
+    m, r = t.shape
+    nout = i.shape[0]
+    sms = sm_count(index)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    noop, pack_taa = _build._ENTRY["pio_noop"]
+    gil_kept = ctypes.PyDLL(str(_build.BUILD_DIR / _build.LIB_NAME))
+    kept = _build._declare(gil_kept, ["pio_noop"])["pio_noop"][0]
+    as_list = _build.library().pio_noop_list
+    as_list.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    as_list.restype = ctypes.c_int
+    noop_args = (t.data_ptr(), i.data_ptr(), t.data_ptr(), m, r, 4, stream)
+    block = pack_taa(*noop_args)
+    if kind == "taa0":
+        out = torch.empty_like(t)
+        i64 = i.long()
+        entry = "pio_taa0_gather"
+        args = (t.data_ptr(), i.data_ptr(), out.data_ptr(), m, r, 4)
+        steps = {
+            "device branch": lambda: t.is_cuda,
+            "checks": lambda: gp._gather_checks(t, i, (m, r)),
+            "output (empty_like)": lambda: torch.empty_like(t),
+        }
+        wrapper = lambda: gp.taa0_gather(t, i)  # noqa: E731
+        library = lambda: torch.gather(t, 0, i64)  # noqa: E731
+    else:
+        out = t.new_empty((nout, r))
+        plan = gp.dma_row_plan(r, 4, nout, True, sms)
+        entry = "pio_dma_row_gather"
+        args = (t.data_ptr(), i.data_ptr(), out.data_ptr(), m, nout, r, 4,
+                plan.vec, plan.rows_per_group, plan.blocks, plan.smem_bytes)
+        shape = (nout,)
+        steps = {
+            "device branch": lambda: (i.shape != shape, t.is_cuda),
+            "checks": lambda: gp._gather_checks(t, i, shape),
+            "plan (cached)": lambda: gp.dma_row_plan(
+                r, 4, nout, t.data_ptr() % 16 == 0, sm_count(index)),
+            "plan (computed)": lambda: gp.dma_row_plan.__wrapped__(
+                r, 4, nout, True, sms),
+            "output (new_empty)": lambda: t.new_empty((nout, r)),
+        }
+        wrapper = lambda: gp.dma_row_gather(t, i, nout=nout)  # noqa: E731
+        library = lambda: torch.index_select(t, 0, i)  # noqa: E731
+    fn, pack = _build._ENTRY[entry]
+    key = "taa0_gather" if kind == "taa0" else "dma_row_gather"
+    steps.update({
+        "pointers (3 data_ptr)": lambda: (
+            t.data_ptr(), i.data_ptr(), out.data_ptr()),
+        "device + raw stream": lambda: (
+            torch._C._cuda_getDevice() == index
+            and torch._C._cuda_getCurrentRawStream(index)),
+        "device + Stream object": lambda: (
+            torch.cuda.current_device() == index
+            and torch.cuda.current_stream(dev).cuda_stream),
+        f"pack ({len(args) + 1} fields)": lambda: pack(*args, stream),
+        "noop, block": lambda: noop(block),
+        "noop, block, GIL kept": lambda: kept(block),
+        "noop, 7 arguments": lambda: as_list(*noop_args),
+        "entry point (pack + launch)": lambda: fn(pack(*args, stream)),
+        "launch()": lambda: _build.launch(entry, key, dev, *args),
+        "wrapper": wrapper,
+        "library": library,
+    })
+    names = list(steps)
+    times = {n: [] for n in names}
+    empty = []
+    for f in steps.values():
+        f()
+    for turn in range(turns):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            pass
+        empty.append(time.perf_counter() - t0)
+        for n in names[turn % len(names):] + names[:turn % len(names)]:
+            f = steps[n]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                f()
+            times[n].append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    loop = float(np.median(empty))
+    return {n: (float(np.median(v)) - loop) / calls * 1e6
+            for n, v in times.items()}
 
 
 def phase_gather(torch, dev) -> list[dict]:
     """The three gather probe kernels vs their plain versions, exactly
-    (a gather is a copy): f32 and bf16 tables, R in {16, 64}.  Each is
-    timed at the shape its path gives it (preferred_order's 2,048 rows
-    for taa0 and the row copy, smoke(64)'s [64, 256] for taa1) and at a
-    shape where bytes dominate (2^20 rows or columns of 64 f32), beside
-    its plain version, the library call (``torch.gather`` or
-    ``torch.index_select``) and its bound: the bytes of the indices, of
-    the distinct table rows (or columns) they name, and of the output,
-    over 3.35 TB/s."""
+    (a gather is a copy): f32 and bf16 tables, R in {16, 64}, the row
+    copy at fewer rows than one block takes and at a count that is not a
+    whole number of its runs, a table that is not 16-byte aligned (the
+    row copy's 4-byte pieces) and ids outside the table (NaN rows).
+    Each kernel is timed at the shape its path gives it
+    (preferred_order's 2,048 rows for taa0 and the row copy, smoke(64)'s
+    [64, 256] for taa1) and at a shape where bytes dominate (2^20 rows
+    or columns of 64 f32), beside its plain version, the library call
+    (``torch.gather`` or ``torch.index_select``) and its bound: the
+    bytes of the indices, of the distinct table rows (or columns) they
+    name, and of the output, over 3.35 TB/s.  At the probe shape it
+    adds host and device microseconds a call, and for taa0 and the row
+    copy the launch path step by step (:func:`launch_steps_us`); every
+    host time is taken before the phase's profiler sessions.  Then
+    ``preferred_order`` three times, from an empty cache each time."""
     from predictionio_tpu_torch.ops import gather_probe as gp
+    from predictionio_tpu_torch.ops.fused_als import sm_count
 
     rng = np.random.default_rng(5)
+    sms = sm_count(dev)
 
     def table_of(n, r, dtype):
         return torch.from_numpy(
             rng.normal(size=(n, r)).astype(np.float32)).to(dev).to(dtype)
+
+    def ids(n, hi):
+        return torch.from_numpy(
+            rng.integers(0, hi, size=n).astype(np.int32)).to(dev)
 
     def exact(got, want, what):
         torch.cuda.synchronize()
@@ -457,8 +609,7 @@ def phase_gather(torch, dev) -> list[dict]:
         for r in (16, 64):
             n = 4099
             t = table_of(n, r, dtype)
-            rows = torch.from_numpy(
-                rng.integers(0, n, size=n).astype(np.int32)).to(dev)
+            rows = ids(n, n)
             i0 = rows[:, None].expand(n, r).contiguous()
             exact(gp.taa0_gather(t, i0), gp.taa0_gather_reference(t, i0),
                   f"taa0 {dtype} R={r}")
@@ -466,29 +617,70 @@ def phase_gather(torch, dev) -> list[dict]:
             i1 = rows[None, :].expand(r, n).contiguous()
             exact(gp.taa1_gather(t1, i1), gp.taa1_gather_reference(t1, i1),
                   f"taa1 {dtype} R={r}")
-            exact(gp.dma_row_gather(t, rows[:3001], nout=3001),
-                  gp.dma_row_gather_reference(t, rows[:3001]),
-                  f"dma_row_gather {dtype} R={r}")
-    log("phase gather: taa0, taa1 and the row copy equal their plain "
-        "versions exactly (f32 and bf16, R in {16, 64})")
+            for nout in (3, 3001, 32771):
+                rr = ids(nout, n)
+                exact(gp.dma_row_gather(t, rr, nout=nout),
+                      gp.dma_row_gather_reference(t, rr),
+                      f"dma_row_gather {dtype} R={r} nout={nout}")
+            # ids outside the table: NaN rows (columns for taa1)
+            bad = rows.clone()
+            bad[1::3] = n
+            bad[2::3] = -1
+            want = gp.dma_row_gather_reference(t, bad.clamp(0, n - 1))
+            want[1::3] = float("nan")
+            want[2::3] = float("nan")
+            for what, got in (
+                    ("dma_row_gather", gp.dma_row_gather(t, bad, nout=n)),
+                    ("taa0", gp.taa0_gather(
+                        t, bad[:, None].expand(n, r).contiguous()))):
+                torch.cuda.synchronize()
+                if not torch.equal(got.isnan(), want.isnan()) or \
+                        not torch.equal(got[~got.isnan()],
+                                        want[~want.isnan()]):
+                    raise AssertionError(f"{what} {dtype} R={r}: ids out "
+                                         "of range do not give NaN rows")
+            got = gp.taa1_gather(t1, bad[None, :].expand(r, n).contiguous())
+            torch.cuda.synchronize()
+            if not (got[:, 1::3].isnan().all() and got[:, 2::3].isnan().all()
+                    and not got[:, 0::3].isnan().any()):
+                raise AssertionError(f"taa1 {dtype} R={r}: ids out of range "
+                                     "do not give NaN columns")
+    # a table that starts 4 bytes past an allocation: 4-byte pieces
+    base = table_of(400 * RANK + 1, 1, torch.float32).view(-1)
+    t = base[1:].view(400, RANK)
+    rr = ids(3001, 400)
+    if t.data_ptr() % 16 == 0 or gp.dma_row_plan(
+            RANK, 4, 3001, False, sms).vec != 4:
+        raise AssertionError("the unaligned table is not copied in 4-byte "
+                             "pieces")
+    exact(gp.dma_row_gather(t, rr, nout=3001),
+          gp.dma_row_gather_reference(t, rr), "dma_row_gather unaligned")
+    probe_plan = gp.dma_row_plan(RANK, 4, PROBE_N, True, sms)
+    if probe_plan.blocks < sms:
+        raise AssertionError(f"row copy at the probe shape: {probe_plan} "
+                             f"leaves SMs of {sms} idle")
+    log(f"phase gather: taa0, taa1 and the row copy equal their plain "
+        f"versions exactly (f32 and bf16, R in {{16, 64}}, the row copy at "
+        f"3, 3001 and 32771 rows and from an unaligned table; ids out of "
+        f"range give NaN); row copy plan at [{PROBE_N},{RANK}] f32: "
+        f"{probe_plan} on {sms} SMs")
 
     def shapes(kind, n):
-        """(kernel, plain, library, least bytes) at n rows of 64 f32."""
+        """(kernel, plain, library, least bytes, table, ids) at n rows
+        of 64 f32."""
         r = RANK
         if kind == "taa1":
             t = table_of(r, n, torch.float32)
-            cols = torch.from_numpy(
-                rng.integers(0, n, size=n).astype(np.int32)).to(dev)
+            cols = ids(n, n)
             i = cols[None, :].expand(r, n).contiguous()
             i64 = i.long()
             named = torch.unique(cols).numel()
             nbytes = named * r * 4 + i.numel() * 4 + t.numel() * 4
             return (lambda: gp.taa1_gather(t, i),
                     lambda: gp.taa1_gather_reference(t, i),
-                    lambda: torch.gather(t, 1, i64), nbytes)
+                    lambda: torch.gather(t, 1, i64), nbytes, t, i)
         t = table_of(n, r, torch.float32)
-        rows = torch.from_numpy(
-            rng.integers(0, n, size=n).astype(np.int32)).to(dev)
+        rows = ids(n, n)
         named = torch.unique(rows).numel()
         if kind == "taa0":
             i = rows[:, None].expand(n, r).contiguous()
@@ -496,13 +688,13 @@ def phase_gather(torch, dev) -> list[dict]:
             nbytes = named * r * 4 + i.numel() * 4 + t.numel() * 4
             return (lambda: gp.taa0_gather(t, i),
                     lambda: gp.taa0_gather_reference(t, i),
-                    lambda: torch.gather(t, 0, i64), nbytes)
+                    lambda: torch.gather(t, 0, i64), nbytes, t, i)
         nbytes = named * r * 4 + n * 4 + n * r * 4
         return (lambda: gp.dma_row_gather(t, rows, nout=n),
                 lambda: gp.dma_row_gather_reference(t, rows),
-                lambda: torch.index_select(t, 0, rows), nbytes)
+                lambda: torch.index_select(t, 0, rows), nbytes, t, rows)
 
-    out = []
+    out, probe_fns = [], []
     for name, kind, line, n_main in (
             ("taa0_gather", "taa0", 98, PROBE_N),
             ("taa1_gather", "taa1", 144, 256),
@@ -512,38 +704,67 @@ def phase_gather(torch, dev) -> list[dict]:
                    replaces=f"predictionio_tpu/ops/gather_probe.py:{line}",
                    max_abs_err=0.0)
         for tag, n, iters in (("", n_main, 200), ("big_", BIG_N, 20)):
-            fn, plain, lib, nbytes = shapes(kind, n)
+            fn, plain, lib, nbytes, t, i = shapes(kind, n)
             exact(fn(), plain(), f"{name} n={n}")
-            rec[tag + "ms"] = cuda_ms(fn, iters)
-            rec[tag + "plain_ms"] = cuda_ms(plain, iters)
-            rec[tag + "library_ms"] = median_ms(lib, iters)
+            ms = interleaved_ms({"kernel": (fn, iters),
+                                 "plain": (plain, iters),
+                                 "library": (lib, iters)})
+            rec[tag + "ms"] = ms["kernel"]
+            rec[tag + "plain_ms"] = ms["plain"]
+            rec[tag + "library_ms"] = ms["library"]
             rec[tag + "bound_ms"], rec[tag + "bound_by"] = bound(nbytes, 0)
             if not tag:
                 # the probe shape: where the host's work shows
-                rec["host_us"], rec["device_us"] = host_device_us(torch, fn)
-                (rec["library_host_us"],
-                 rec["library_device_us"]) = host_device_us(torch, lib)
+                hu = host_us(torch, {"kernel": fn, "library": lib})
+                rec["host_us"], rec["library_host_us"] = \
+                    hu["kernel"], hu["library"]
+                if kind != "taa1":
+                    rec["launch_steps_us"] = launch_steps_us(
+                        torch, kind, t, i)
+                probe_fns.append((rec, fn, lib))
             rec[tag + "shape"] = (f"[{RANK},{n}]" if kind == "taa1"
                                   else f"[{n},{RANK}]") + " f32"
-            del fn, plain, lib
-        log(f"phase gather {name}: {rec['shape']} kernel {rec['ms']:.4f} ms "
-            f"(host {rec['host_us']:.1f} us, device {rec['device_us']:.2f} "
-            f"us a call; library host {rec['library_host_us']:.1f} us, "
-            f"device {rec['library_device_us']:.2f} us), "
-            f"plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} "
-            f"ms, bound {rec['bound_ms']:.4f} ms; {rec['big_shape']} kernel "
+            del fn, plain, lib, t, i
+        out.append(rec)
+    # device time a call at the probe shape, after every host time; then
+    # the host time once more, to show what a profiler session leaves
+    for rec, fn, lib in probe_fns:
+        rec["device_us"] = device_us(torch, fn)
+        rec["library_device_us"] = device_us(torch, lib)
+    for rec, fn, lib in probe_fns:
+        hu = host_us(torch, {"kernel": fn, "library": lib})
+        rec["host_us_after_profiler"] = hu["kernel"]
+        rec["library_host_us_after_profiler"] = hu["library"]
+    del probe_fns
+    for rec in out:
+        log(f"phase gather {rec['name']} (medians of 5 interleaved turns): "
+            f"{rec['shape']} kernel {rec['ms']:.4f} ms (host "
+            f"{rec['host_us']:.2f} us, device {rec['device_us']:.2f} us a "
+            f"call; library host {rec['library_host_us']:.2f} us, device "
+            f"{rec['library_device_us']:.2f} us; after the profiler ran, "
+            f"host {rec['host_us_after_profiler']:.2f} us, library "
+            f"{rec['library_host_us_after_profiler']:.2f} us), plain "
+            f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.4f} ms; {rec['big_shape']} kernel "
             f"{rec['big_ms']:.4f} ms, plain {rec['big_plain_ms']:.4f} ms, "
             f"library {rec['big_library_ms']:.4f} ms, bound "
             f"{rec['big_bound_ms']:.4f} ms (bytes)")
-        out.append(rec)
-    # the order fused_gather="auto" takes, with the probes it rests on;
-    # cleared after, so that each main path ranks the forms itself
-    for tb, dtype in ((4, torch.float32), (2, torch.bfloat16)):
-        order = gp.preferred_order(RANK, tb)
-        taa = gp.probe_taa0(PROBE_N, RANK, dtype)["ns_per_row"]
-        dma = gp.probe_dma(PROBE_N, PROBE_N, RANK, dtype)["ns_per_row"]
-        log(f"phase gather preferred_order({RANK}, {tb}) = {order}: taa0 "
-            f"{taa:.2f} ns/row, row copy {dma:.2f} ns/row at n={PROBE_N}")
+        if "launch_steps_us" in rec:
+            log(f"phase gather {rec['name']} launch steps at {rec['shape']} "
+                f"(host us a call, median of 3 turns of 4000 calls, the "
+                f"loop's own cost taken out): " + "; ".join(
+                    f"{k} {v:.3f}" for k, v in rec["launch_steps_us"].items()))
+    # the order fused_gather="auto" takes, from the card's time of the
+    # probes it rests on, three times from an empty cache; cleared after,
+    # so that each main path ranks the forms itself
+    for tb in (4, 2):
+        for k in range(3):
+            gp._ORDER_CACHE.clear()
+            order = gp.preferred_order(RANK, tb)
+            ns = gp.PROBE_NS[(torch.cuda.get_device_name(dev), RANK, tb)]
+            log(f"phase gather preferred_order({RANK}, {tb}) call {k + 1} of "
+                f"3 = {order}: taa0 {ns['taa']:.3f} ns/row, row copy "
+                f"{ns['dma']:.3f} ns/row (device time at n={PROBE_N})")
     gp._ORDER_CACHE.clear()
     torch.cuda.empty_cache()
     return out
@@ -831,7 +1052,8 @@ def phase_pio(torch) -> dict:
             raise AssertionError(f"the fusedGather={other!r} run failed")
         log(f"phase pio train: read_training {read_s[0]:.2f} s, run_train "
             f"wall {train_s:.2f} s, fused_gather 'auto' resolved to "
-            f"{resolved!r} (probe order {gather_probe._ORDER_CACHE}); "
+            f"{resolved!r} (probe order {gather_probe._ORDER_CACHE}, "
+            f"device ns/row {gather_probe.PROBE_NS}); "
             f"fusedGather={other!r} run {other_s:.2f} s (read "
             f"{read_s[1]:.2f} s); instance {iid} COMPLETED, model file "
             f"written")

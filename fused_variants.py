@@ -131,19 +131,19 @@ def main() -> int:
                                         sms=fmod.sm_count(dev))
             x = torch.empty((b, cs.RANK), device=dev)
             ws = torch.empty(max(plan.workspace_bytes // 4, 1), device=dev)
+            vec = fmod.copy_piece_bytes(t) if impl == "dma" else 0
             args = [t.data_ptr(), idx.data_ptr(), cw.data_ptr(),
                     bw.data_ptr(), reg.data_ptr(), gram0.data_ptr(),
                     x.data_ptr(), ws.data_ptr(), b, k, t.shape[0], cs.RANK,
                     plan.kc, plan.tile, plan.smem_bytes, plan.segments,
-                    plan.seg_len, plan.workspace_bytes]
-            if impl == "dma":
-                args.append(fmod.copy_piece_bytes(t))
+                    plan.seg_len, plan.workspace_bytes, vec, stream]
             name = "pio_fused_als_f32" if impl == "taa" \
                 else "pio_fused_als_dma_f32"
             times = []
             for var, entries in libs.items():
-                def call(fn=entries[name]):
-                    _build.check_launch(fn(*args, stream), var)
+                def call(entry=entries[name]):
+                    fn, pack = entry
+                    _build.check_launch(fn(pack(*args)), var)
 
                 times.append(f"{var} {cs.cuda_ms(call, iters=5):.3f}")
             print(f"pass 1 {shape} {impl} (segments {plan.segments}) ms: "
@@ -153,11 +153,12 @@ def main() -> int:
     x = torch.empty((parts.shape[0], cs.RANK), device=dev)
     times = []
     for var, entries in libs.items():
-        def call(fn=entries["pio_fused_als_reduce"]):
-            _build.check_launch(fn(
+        def call(entry=entries["pio_fused_als_reduce"]):
+            fn, pack = entry
+            _build.check_launch(fn(pack(
                 parts.data_ptr(), reg.data_ptr(), gram0.data_ptr(),
                 x.data_ptr(), parts.shape[0], cs.RANK, 2,
-                parts.numel() * 4, stream), var)
+                parts.numel() * 4, stream)), var)
 
         times.append(f"{var} {cs.cuda_ms(call, iters=5):.3f}")
     print(f"pass 2 {list(parts.shape)} ms: " + ", ".join(times), flush=True)

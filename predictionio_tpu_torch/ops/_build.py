@@ -3,9 +3,11 @@
 Every ``ops/csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into
 an object of its own (all of them at once, one process each), and the
 objects are linked into ``build/kernels/libpio_kernels.so`` at the root
-of the checkout.  The sources expose a plain C interface: pointers and
-the CUDA stream travel as ``c_void_p``, sizes as ``c_int``, and every
-entry point returns the CUDA error code of its launch.
+of the checkout.  The sources expose a plain C interface: every entry
+point takes one pointer to a block of its arguments (a struct of
+``csrc/launch_args.cuh``: pointers, sizes, and the CUDA stream last),
+which :func:`launch` packs with :mod:`struct` in the same native layout
+(:data:`ARG_STRUCTS`), and returns the CUDA error code of its launch.
 
 The build happens at first use, never at import, and is reused while
 the sources are unchanged (a hash of them is kept beside the library).
@@ -17,6 +19,16 @@ show that its main path went through the kernels.  :func:`launch` is the
 wrappers' one way in: it calls an entry point looked up once at load, on
 the current stream of the tensors' device (entering that device only when
 it is not already current), raises on a launch error and counts.
+
+The launch path is kept near the host time of one PyTorch call: the
+current device and its stream's raw handle are read straight from
+PyTorch's C layer (``torch._C._cuda_getDevice``,
+``torch._C._cuda_getCurrentRawStream``; ``torch.cuda.current_stream``
+builds a ``Stream`` object each call), the arguments cross ctypes as one
+packed block (ctypes converts each argument of a list on its own), and
+:func:`check_tensor` reads each attribute once.  A call releases the GIL
+as ctypes does by default: keeping it (``ctypes.PyDLL``) saves a tenth
+of a microsecond a call but lengthens a profiled training iteration.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ import fcntl
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 from pathlib import Path
 from typing import Optional
@@ -33,9 +46,10 @@ from typing import Optional
 import torch
 
 __all__ = [
+    "ARG_STRUCTS",
     "BUILD_DIR",
+    "ENTRY_ARGS",
     "LAUNCHES",
-    "SIGNATURES",
     "build",
     "check_launch",
     "check_tensor",
@@ -67,6 +81,10 @@ LAUNCHES: dict[str, int] = {
 _lib: Optional[ctypes.CDLL] = None
 # entry point name -> its ctypes function, filled when the library loads
 _ENTRY: dict = {}
+# torch._C's current-device and raw-stream readers, bound at load (a
+# build of torch without CUDA has neither)
+_get_device = None
+_raw_stream = None
 
 
 def reset_launches() -> None:
@@ -167,59 +185,77 @@ def _build_locked(force: bool) -> Path:
     return lib_path
 
 
-_vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_FUSED = [_vp] * 8 + [_i] * 9 + [_ll]
-# every entry point's argument types (each returns a CUDA error code)
-SIGNATURES = {
-    "pio_gj_solve": [_vp, _vp, _vp, _i, _i, _vp],
-    "pio_fused_als_f32": _FUSED + [_vp],
-    "pio_fused_als_bf16": _FUSED + [_vp],
-    "pio_fused_als_dma_f32": _FUSED + [_i, _vp],
-    "pio_fused_als_dma_bf16": _FUSED + [_i, _vp],
-    "pio_fused_als_reduce": [_vp] * 4 + [_i] * 3 + [_ll, _vp],
-    "pio_taa0_gather": [_vp] * 3 + [_i] * 3 + [_vp],
-    "pio_taa1_gather": [_vp] * 3 + [_i] * 3 + [_vp],
-    "pio_dma_row_gather": [_vp] * 3 + [_i] * 6 + [_vp],
+# each argument block of csrc/launch_args.cuh as a struct format, field
+# for field in the compiler's native layout ("@"): "P" a pointer, "i" an
+# int, "q" a long long; the stream is the last field
+ARG_STRUCTS = {
+    "GjArgs": "@3P2iP",
+    "FusedArgs": "@8P9iqiP",
+    "ReduceArgs": "@4P3iqP",
+    "TaaArgs": "@3P3iP",
+    "RowCopyArgs": "@3P8iP",
+}
+# every entry point's argument block (each returns a CUDA error code)
+ENTRY_ARGS = {
+    "pio_gj_solve": "GjArgs",
+    "pio_fused_als_f32": "FusedArgs",
+    "pio_fused_als_bf16": "FusedArgs",
+    "pio_fused_als_dma_f32": "FusedArgs",
+    "pio_fused_als_dma_bf16": "FusedArgs",
+    "pio_fused_als_reduce": "ReduceArgs",
+    "pio_taa0_gather": "TaaArgs",
+    "pio_taa1_gather": "TaaArgs",
+    "pio_dma_row_gather": "RowCopyArgs",
+    "pio_noop": "TaaArgs",
 }
 
 
 def _declare(lib: ctypes.CDLL, names=None) -> dict:
-    """Set the argument and result types of the entry points ``names``
-    (all of :data:`SIGNATURES` when None); returns them by name."""
+    """Declare the entry points ``names`` (all of :data:`ENTRY_ARGS` when
+    None): one argument, the packed block, and an int result.  Returns
+    ``{name: (function, pack)}``, ``pack(*args, stream)`` giving the
+    block's bytes."""
     entries = {}
-    for name in SIGNATURES if names is None else names:
+    for name in ENTRY_ARGS if names is None else names:
         fn = getattr(lib, name)
-        fn.argtypes = SIGNATURES[name]
-        fn.restype = _i
-        entries[name] = fn
+        fn.argtypes = [ctypes.c_char_p]
+        fn.restype = ctypes.c_int
+        entries[name] = (fn, struct.Struct(ARG_STRUCTS[ENTRY_ARGS[name]]).pack)
     return entries
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    global _lib
+    global _lib, _get_device, _raw_stream
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        lib.pio_error_string.argtypes = [_i]
+        lib.pio_error_string.argtypes = [ctypes.c_int]
         lib.pio_error_string.restype = ctypes.c_char_p
         _ENTRY.update(_declare(lib))
+        _get_device = torch._C._cuda_getDevice
+        _raw_stream = torch._C._cuda_getCurrentRawStream
         _lib = lib
     return _lib
 
 
 def launch(entry: str, key: str, device, *args) -> None:
-    """Call the C entry point ``entry`` with ``args`` and the current
-    stream of ``device`` (a CUDA ``torch.device`` with an index), raise
-    on a launch error, and count the launch under ``key``."""
+    """Call the C entry point ``entry`` with ``args`` (its argument
+    block's fields but the stream; a pointer is an int, 0 for NULL) and
+    the current stream of ``device`` (a CUDA ``torch.device``; without an
+    index, the current device), raise on a launch error, and count the
+    launch under ``key``."""
     if _lib is None:
         library()
-    fn = _ENTRY[entry]
-    if device.index == torch.cuda.current_device():
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    fn, pack = _ENTRY[entry]
+    index = device.index
+    current = _get_device()
+    if index is None or index == current:
+        rc = fn(pack(*args, _raw_stream(current)))
     else:
-        with torch.cuda.device(device):
-            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    check_launch(rc, key)
+        with torch.cuda.device(index):
+            rc = fn(pack(*args, _raw_stream(index)))
+    if rc:
+        check_launch(rc, key)
     LAUNCHES[key] += 1
 
 
@@ -232,12 +268,13 @@ def check_launch(rc: int, kernel: str) -> None:
 
 def check_tensor(name: str, t, dtype, shape, device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
-    on ``device``: a kernel is handed a bare pointer and trusts all four."""
+    (a tuple) on ``device``: a kernel is handed a bare pointer and trusts
+    all four."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(
             f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}"
         )

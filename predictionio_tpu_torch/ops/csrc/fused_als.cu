@@ -81,6 +81,8 @@
 #include <cmath>
 #include <cstdint>
 
+#include "launch_args.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -854,80 +856,63 @@ int dispatch(bool dma, const void* table, const void* idx, const void* cw,
   }
 }
 
+template <typename T>
+int dispatch_args(bool dma, const void* block) {
+  const FusedArgs a = pio::load_args<FusedArgs>(block);
+  return dispatch<T>(dma, a.table, a.idx, a.cw, a.bw, a.reg, a.gram0, a.x,
+                     a.ws, a.B, a.K, a.M, a.R, a.kc, a.tile, a.smem_bytes,
+                     a.segments, a.seg_len, a.ws_bytes, dma ? a.vec : 0,
+                     a.stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Pass 1.  table [M, R] (f32 or bf16), idx [B, K] int32, cw/bw [B, K]
-// f32, reg [B] f32, gram0 [R, R] f32 (symmetric; its lower triangle is
-// read) -> x [B, R] f32 when segments == 1, else the partials in ws
-// ([B, segments, R(R+1)/2 + R] f32, ws_bytes bytes); all contiguous on
-// the device of `stream`.  kc, tile, smem_bytes, segments, seg_len and
+// Pass 1 (FusedArgs).  table [M, R] (f32 or bf16), idx [B, K] int32,
+// cw/bw [B, K] f32, reg [B] f32, gram0 [R, R] f32 (symmetric; its lower
+// triangle is read) -> x [B, R] f32 when segments == 1, else the partials
+// in ws ([B, segments, R(R+1)/2 + R] f32, ws_bytes bytes); all contiguous
+// on the device of `stream`.  kc, tile, smem_bytes, segments, seg_len and
 // ws_bytes come from fused_tile_plan and must match this file's own
 // accounting.  Returns the CUDA error code of the launch (0 on success).
-int pio_fused_als_f32(const void* table, const void* idx, const void* cw,
-                      const void* bw, const void* reg, const void* gram0,
-                      void* x, void* ws, int B, int K, int M, int R, int kc,
-                      int tile, int smem_bytes, int segments, int seg_len,
-                      long long ws_bytes, void* stream) {
-  return dispatch<float>(false, table, idx, cw, bw, reg, gram0, x, ws, B, K,
-                         M, R, kc, tile, smem_bytes, segments, seg_len,
-                         ws_bytes, 0, stream);
+int pio_fused_als_f32(const void* block) {
+  return dispatch_args<float>(false, block);
 }
 
-int pio_fused_als_bf16(const void* table, const void* idx, const void* cw,
-                       const void* bw, const void* reg, const void* gram0,
-                       void* x, void* ws, int B, int K, int M, int R, int kc,
-                       int tile, int smem_bytes, int segments, int seg_len,
-                       long long ws_bytes, void* stream) {
-  return dispatch<__nv_bfloat16>(false, table, idx, cw, bw, reg, gram0, x, ws,
-                                 B, K, M, R, kc, tile, smem_bytes, segments,
-                                 seg_len, ws_bytes, 0, stream);
+int pio_fused_als_bf16(const void* block) {
+  return dispatch_args<__nv_bfloat16>(false, block);
 }
 
-// The "dma" form, same arguments plus `vec`: the cp.async piece size in
-// bytes, 16 where a row and the table start are 16-byte aligned, else 4.
-int pio_fused_als_dma_f32(const void* table, const void* idx, const void* cw,
-                          const void* bw, const void* reg, const void* gram0,
-                          void* x, void* ws, int B, int K, int M, int R,
-                          int kc, int tile, int smem_bytes, int segments,
-                          int seg_len, long long ws_bytes, int vec,
-                          void* stream) {
-  return dispatch<float>(true, table, idx, cw, bw, reg, gram0, x, ws, B, K, M,
-                         R, kc, tile, smem_bytes, segments, seg_len, ws_bytes,
-                         vec, stream);
+// The "dma" form: `vec` is the cp.async piece size in bytes, 16 where a
+// row and the table start are 16-byte aligned, else 4.
+int pio_fused_als_dma_f32(const void* block) {
+  return dispatch_args<float>(true, block);
 }
 
-int pio_fused_als_dma_bf16(const void* table, const void* idx, const void* cw,
-                           const void* bw, const void* reg, const void* gram0,
-                           void* x, void* ws, int B, int K, int M, int R,
-                           int kc, int tile, int smem_bytes, int segments,
-                           int seg_len, long long ws_bytes, int vec,
-                           void* stream) {
-  return dispatch<__nv_bfloat16>(true, table, idx, cw, bw, reg, gram0, x, ws,
-                                 B, K, M, R, kc, tile, smem_bytes, segments,
-                                 seg_len, ws_bytes, vec, stream);
+int pio_fused_als_dma_bf16(const void* block) {
+  return dispatch_args<__nv_bfloat16>(true, block);
 }
 
-// Pass 2 of a split bucket: ws [B, segments, R(R+1)/2 + R] f32 from
-// pass 1, reg [B], gram0 [R, R] -> x [B, R].
-int pio_fused_als_reduce(const void* ws, const void* reg, const void* gram0,
-                         void* x, int B, int R, int segments,
-                         long long ws_bytes, void* stream) {
+// Pass 2 of a split bucket (ReduceArgs): ws [B, segments, R(R+1)/2 + R]
+// f32 from pass 1, reg [B], gram0 [R, R] -> x [B, R].
+int pio_fused_als_reduce(const void* block) {
+  const ReduceArgs a = pio::load_args<ReduceArgs>(block);
+  const int B = a.B, R = a.R, segments = a.segments;
   if (B < 0 || R < 1 || R > kMaxRank || segments < 2 ||
-      ws_bytes != (long long)B * segments * (long long)partial_floats(R) * 4)
+      a.ws_bytes != (long long)B * segments * (long long)partial_floats(R) * 4)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t s = static_cast<cudaStream_t>(a.stream);
   switch ((R + 31) / 32) {
     case 1:
-      return launch_reduce<1>(ws, reg, gram0, x, B, R, segments, s);
+      return launch_reduce<1>(a.ws, a.reg, a.gram0, a.x, B, R, segments, s);
     case 2:
-      return launch_reduce<2>(ws, reg, gram0, x, B, R, segments, s);
+      return launch_reduce<2>(a.ws, a.reg, a.gram0, a.x, B, R, segments, s);
     case 3:
-      return launch_reduce<3>(ws, reg, gram0, x, B, R, segments, s);
+      return launch_reduce<3>(a.ws, a.reg, a.gram0, a.x, B, R, segments, s);
     default:
-      return launch_reduce<4>(ws, reg, gram0, x, B, R, segments, s);
+      return launch_reduce<4>(a.ws, a.reg, a.gram0, a.x, B, R, segments, s);
   }
 }
 

@@ -9,9 +9,9 @@
 // pivoting is safe because ALS only ever solves Gram + reg*I with
 // reg > 0 (symmetric positive definite, diagonally loaded).
 //
-// Shared by gj_solve.cu (the solves alone) and fused_als.cu (the solve
-// that closes the fused gather+Gram kernel), the way the TPU package
-// shares the math between its two kernels.
+// Included by gj_solve.cu (the solves alone).  The fused gather+Gram
+// kernel (fused_als.cu) closes with a blocked Cholesky of its own and
+// does not include this file.
 
 #pragma once
 

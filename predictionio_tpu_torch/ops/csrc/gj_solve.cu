@@ -29,6 +29,7 @@
 #include <cuda_runtime.h>
 
 #include "gj.cuh"
+#include "launch_args.cuh"
 
 namespace {
 
@@ -65,9 +66,11 @@ const char* pio_error_string(int code) {
 }
 
 // A [B, R, R], b [B, R], x [B, R]: float32, contiguous, on the device of
-// `stream`.  Returns the CUDA error code of the launch (0 on success).
-int pio_gj_solve(const void* A, const void* b, void* x, int B, int R,
-                 void* stream) {
+// `stream` (GjArgs).  Returns the CUDA error code of the launch (0 on
+// success).
+int pio_gj_solve(const void* block) {
+  const GjArgs a = pio::load_args<GjArgs>(block);
+  const int B = a.B, R = a.R;
   if (B < 0 || R < 1 || R > pio::kMaxRank) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const size_t smem = pio::gj_smem_floats(R) * sizeof(float);
@@ -78,9 +81,9 @@ int pio_gj_solve(const void* A, const void* b, void* x, int B, int R,
     if (e != cudaSuccess) return e;
   }
   const int threads = R <= 16 ? 32 : (R <= 64 ? 128 : 256);
-  gj_solve_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(A), static_cast<const float*>(b),
-      static_cast<float*>(x), R);
+  gj_solve_kernel<<<B, threads, smem, static_cast<cudaStream_t>(a.stream)>>>(
+      static_cast<const float*>(a.A), static_cast<const float*>(a.b),
+      static_cast<float*>(a.x), R);
   return static_cast<int>(cudaGetLastError());
 }
 

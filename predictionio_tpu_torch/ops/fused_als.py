@@ -160,8 +160,9 @@ def fused_smem_bytes(
 
 
 @functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of a CUDA ``device``."""
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA ``device`` (a
+    ``torch.device`` or its index)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -258,9 +259,10 @@ def resolve_gather_impl(
     An explicit form resolves to itself when it has a plan at rank ``r``
     and this table width, else to None (the caller then raises: no
     library path stands in).  ``"auto"`` walks
-    :func:`~predictionio_tpu_torch.ops.gather_probe.preferred_order`
-    (the static order on the CPU, the probes' measured order on the
-    card) and takes the first form with a plan.  ``m`` and
+    :func:`~predictionio_tpu_torch.ops.gather_probe.preferred_order` on
+    ``device`` (the static order for ``"cpu"``, the probes' measured
+    order on the card, which None names: it raises without one) and
+    takes the first form with a plan.  ``m`` and
     ``precision`` are the reference's arguments; no Hopper plan depends
     on them."""
     if requested in GATHER_IMPLS:
@@ -497,7 +499,7 @@ def fused_gather_gram_solve(
     args = (
         table.data_ptr(), idx.data_ptr(), cw.data_ptr(), bw.data_ptr(),
         reg.data_ptr(), gram0.data_ptr(), x.data_ptr(),
-        None if ws is None else ws.data_ptr(),
+        0 if ws is None else ws.data_ptr(),
         b, k, m, r, plan.kc, plan.tile, plan.smem_bytes, plan.segments,
         plan.seg_len, plan.workspace_bytes,
     )
@@ -505,7 +507,8 @@ def fused_gather_gram_solve(
         launch(f"pio_fused_als_dma_{suffix}", "fused_als_dma", dev, *args,
                copy_piece_bytes(table))
     else:
-        launch(f"pio_fused_als_{suffix}", "fused_als", dev, *args)
+        # the "taa" form has no cp.async piece size
+        launch(f"pio_fused_als_{suffix}", "fused_als", dev, *args, 0)
     if ws is None:
         return x
     return fused_reduce_solve(

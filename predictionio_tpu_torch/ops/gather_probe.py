@@ -25,21 +25,33 @@ tensor it launches its kernel or raises.  A probe checks a kernel's
 output against the plain version with ``torch.equal`` (a gather is a
 copy: the tolerance is zero) and, unlike the reference, lets a launch
 error raise: on the card a failing probe is a fault of the port, not
-data about a compiler.  :func:`preferred_order` measures only on the
-card; a CPU run gets the static order.
+data about a compiler.  A probe runs on the card unless it is given
+``device="cpu"``, and raises without one.  :func:`preferred_order`
+measures only on the card, and there times the card's work, not the
+host's (:func:`_bench`); a CPU run gets the static order.
+
+The wrappers of forms A and C are held to the host cost of the PyTorch
+call each stands beside: one pass of checks over the two tensors
+(:func:`_gather_checks`), one allocation, and the row-copy plan from a
+cache.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ._build import check_tensor, launch
+from ..device import resolve_device
+from ._build import launch
+from .fused_als import SMS, sm_count
 
 __all__ = [
+    "PROBE_NS",
+    "RowPlan",
     "dma_row_gather",
     "dma_row_gather_reference",
     "dma_row_plan",
@@ -58,49 +70,84 @@ __all__ = [
 ]
 
 _DMA_WINDOW = 16
+# csrc/gather_probe.cu kMaxRowsPerGroup: the longest run of rows one
+# copying group walks
+_MAX_ROWS_PER_GROUP = 2 * _DMA_WINDOW
 
 # csrc/gather_probe.cu dma_row_kernel: blocks of 128 threads
 _ROW_THREADS = 128
 # shared memory one block may hold on an H100 (after the opt-in)
 _SMEM_MAX = 232_448
 
+# device cycles the card spins before a timed run (about 2 ms on an
+# H100), so that the run's launches are all queued before it starts
+_SPIN_CYCLES = 1 << 22
+
+_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+
 
 def _probe_device(device) -> torch.device:
-    """The device a probe runs on: ``device`` when given, else the card
-    when one is visible, else the host (the reference's
-    ``jax.default_backend()`` check)."""
-    if device is not None:
-        return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device a probe runs on: ``device``, the card when it is None
+    (:func:`~predictionio_tpu_torch.device.resolve_device`: raises
+    without one)."""
+    return resolve_device("cuda" if device is None else device)
 
 
-def _bench(fn, *args, reps: int = 20):
+def _bench(fn, *args, reps: int = 50):
     """Mean seconds of ``fn(*args)`` over ``reps`` calls after one
-    warm-up call, and the last output.  On the card the time is taken
-    with CUDA events around the whole run; on the host with the clock."""
+    warm-up call, and the last output.  On the host the clock times the
+    calls.  On the card CUDA events time the card's work alone: the
+    stream first spins (``torch.cuda._sleep``) while the host queues all
+    ``reps`` calls, so the events see the kernels back to back and not
+    the host's launch path.  When the spin ran out before the last call
+    was queued, the run is taken again behind a spin four times longer
+    (up to 64 times the first)."""
     out = fn(*args)
-    if out.device.type == "cuda":
-        torch.cuda.synchronize(out.device)
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
+    if out.device.type != "cuda":
+        t0 = time.perf_counter()
         for _ in range(reps):
             out = fn(*args)
-        t1.record()
-        t1.synchronize()
-        return t0.elapsed_time(t1) / 1e3 / reps, out
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        out = fn(*args)
-    return (time.perf_counter() - t0) / reps, out
+        return (time.perf_counter() - t0) / reps, out
+    with torch.cuda.device(out.device):
+        torch.cuda.synchronize()
+        cycles = _SPIN_CYCLES
+        while True:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            t0.record()
+            for _ in range(reps):
+                out = fn(*args)
+            t1.record()
+            queued_ahead = not t0.query()
+            t1.synchronize()
+            if queued_ahead or cycles >= _SPIN_CYCLES << 6:
+                return t0.elapsed_time(t1) / 1e3 / reps, out
+            cycles <<= 2
 
 
-def _elem_bytes(table: torch.Tensor) -> int:
-    if table.dtype not in (torch.float32, torch.bfloat16):
+def _gather_checks(table: torch.Tensor, idx: torch.Tensor,
+                   idx_shape) -> int:
+    """Raise unless ``table`` is a contiguous f32 or bf16 tensor and
+    ``idx`` a contiguous int32 tensor of ``idx_shape`` on the same
+    device: the kernels are handed bare pointers and trust all of it.
+    Returns the table's element bytes."""
+    eb = _ELEM_BYTES.get(table.dtype)
+    if eb is None:
         raise TypeError(
             f"table must be float32 or bfloat16, got {table.dtype}"
         )
-    return table.element_size()
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be torch.int32, got {idx.dtype}")
+    if idx.shape != idx_shape:
+        raise ValueError(
+            f"idx has shape {tuple(idx.shape)}, expected {tuple(idx_shape)}"
+        )
+    if idx.get_device() != table.get_device():
+        raise ValueError(f"idx is on {idx.device}, expected {table.device}")
+    if not (table.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("table and idx must be contiguous")
+    return eb
 
 
 # ---------------------------------------------------------------- A --
@@ -117,14 +164,12 @@ def taa0_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     ``idx [N, R]`` int32 (row ids broadcast across the columns) ->
     ``[N, R]``.  An id outside the table gives NaN on the card; the plain
     version raises."""
-    if table.device.type == "cpu":
-        return taa0_gather_reference(table, idx)
-    if table.device.type != "cuda":
+    if not table.is_cuda:
+        if table.is_cpu:
+            return taa0_gather_reference(table, idx)
         raise ValueError(f"unsupported device {table.device}")
     n, r = table.shape
-    eb = _elem_bytes(table)
-    check_tensor("table", table, table.dtype, (n, r), table.device)
-    check_tensor("idx", idx, torch.int32, (n, r), table.device)
+    eb = _gather_checks(table, idx, (n, r))
     out = torch.empty_like(table)
     launch("pio_taa0_gather", "taa0_gather", table.device,
            table.data_ptr(), idx.data_ptr(), out.data_ptr(), n, r, eb)
@@ -173,9 +218,7 @@ def taa1_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
     r, m = table.shape
-    eb = _elem_bytes(table)
-    check_tensor("table", table, table.dtype, (r, m), table.device)
-    check_tensor("idx", idx, torch.int32, (r, m), table.device)
+    eb = _gather_checks(table, idx, (r, m))
     out = torch.empty_like(table)
     launch("pio_taa1_gather", "taa1_gather", table.device,
            table.data_ptr(), idx.data_ptr(), out.data_ptr(), r, m, eb)
@@ -201,21 +244,38 @@ def probe_taa1(m, r, dtype, device=None) -> dict:
 
 class RowPlan(NamedTuple):
     """Launch plan of the row-copy kernel: ``vec`` bytes per ``cp.async``
-    piece and the block's shared memory (its ring of row slots)."""
+    piece, the rows each copying group walks, the grid, and one block's
+    shared memory (each group's ring of row slots and the block's ids)."""
 
     vec: int
+    rows_per_group: int
+    blocks: int
     smem_bytes: int
 
 
-def dma_row_plan(r: int, elem_bytes: int, aligned16: bool = True
-                 ) -> Optional[RowPlan]:
-    """Plan of ``csrc/gather_probe.cu`` ``dma_row_kernel`` for rows of
-    ``r`` elements of ``elem_bytes``: 16-byte pieces where a row is a
-    whole number of them and the table starts 16-byte aligned, else
-    4-byte pieces.  Each block of 128 threads splits into groups as wide
-    as a row's pieces, each with a ring of 16 row slots.  None when a row
-    is not a whole number of 4-byte pieces (a bf16 row of odd ``r``) or
-    the ring does not fit a block's shared memory."""
+def _row_smem_bytes(groups: int, row_bytes: int, rows_per_group: int) -> int:
+    """csrc/gather_probe.cu ``row_smem_bytes``: each group's ring of
+    ``min(rows_per_group, 16)`` row slots, then the block's int32 ids."""
+    slots = min(rows_per_group, _DMA_WINDOW)
+    return groups * (slots * row_bytes + rows_per_group * 4)
+
+
+@functools.lru_cache(maxsize=1024)
+def dma_row_plan(r: int, elem_bytes: int, nout: int, aligned16: bool = True,
+                 sms: int = SMS) -> Optional[RowPlan]:
+    """Plan of ``csrc/gather_probe.cu`` ``dma_row_kernel`` for ``nout``
+    rows of ``r`` elements of ``elem_bytes`` on a card of ``sms`` SMs
+    (cached: the wrapper asks on every call).
+
+    Rows are copied in 16-byte pieces where a row is a whole number of
+    them and the table starts 16-byte aligned, else in 4-byte pieces.
+    Each block of 128 threads splits into groups as wide as a row's
+    pieces.  A group walks ``nout // (groups * sms)`` rows, at least 1
+    and at most 32, so that a launch of ``nout >= groups * sms`` rows
+    covers every SM at least once, with at most 16 rows in flight.  None
+    when a row is not a whole number of 4-byte pieces (a bf16 row of odd
+    ``r``) or a ring of 16 slots and 32 ids per group does not fit a
+    block's shared memory, whatever ``nout``."""
     row_bytes = r * elem_bytes
     if r < 1 or row_bytes % 4:
         return None
@@ -223,10 +283,12 @@ def dma_row_plan(r: int, elem_bytes: int, aligned16: bool = True
     pieces = row_bytes // vec
     lanes = min(pieces, _ROW_THREADS)
     groups = _ROW_THREADS // lanes
-    smem = groups * _DMA_WINDOW * row_bytes
-    if smem > _SMEM_MAX:
+    if _row_smem_bytes(groups, row_bytes, _MAX_ROWS_PER_GROUP) > _SMEM_MAX:
         return None
-    return RowPlan(vec=vec, smem_bytes=smem)
+    rpg = max(1, min(_MAX_ROWS_PER_GROUP, nout // (groups * sms)))
+    return RowPlan(vec=vec, rows_per_group=rpg,
+                   blocks=-(-nout // (groups * rpg)),
+                   smem_bytes=_row_smem_bytes(groups, row_bytes, rpg))
 
 
 def dma_row_gather_reference(table: torch.Tensor,
@@ -242,27 +304,28 @@ def dma_row_gather(table: torch.Tensor, idx: torch.Tensor, *,
     per output row with 16 rows in flight per copying group.  Raises
     ``ValueError`` for a table with no plan (a bf16 table of odd R);
     an id outside the table gives NaN on the card."""
-    if tuple(idx.shape) != (nout,):
+    shape = (nout,)
+    if idx.shape != shape:
         raise ValueError(f"idx has shape {tuple(idx.shape)}, expected "
                          f"({nout},)")
     m, r = table.shape
-    if table.device.type == "cpu":
-        return dma_row_gather_reference(table, idx)
-    if table.device.type != "cuda":
+    if not table.is_cuda:
+        if table.is_cpu:
+            return dma_row_gather_reference(table, idx)
         raise ValueError(f"unsupported device {table.device}")
-    eb = _elem_bytes(table)
-    check_tensor("table", table, table.dtype, (m, r), table.device)
-    check_tensor("idx", idx, torch.int32, (nout,), table.device)
-    plan = dma_row_plan(r, eb, table.data_ptr() % 16 == 0)
-    if plan is None or table.data_ptr() % 4:
+    eb = _gather_checks(table, idx, shape)
+    dev = table.device
+    ptr = table.data_ptr()
+    plan = dma_row_plan(r, eb, nout, ptr % 16 == 0, sm_count(dev.index))
+    if plan is None or ptr % 4:
         raise ValueError(
             f"dma_row_gather: no plan for rows of {r} x {eb} bytes "
             "(a row must be a whole number of 4-byte pieces)"
         )
-    out = torch.empty((nout, r), dtype=table.dtype, device=table.device)
-    launch("pio_dma_row_gather", "dma_row_gather", table.device,
-           table.data_ptr(), idx.data_ptr(), out.data_ptr(), m, nout, r, eb,
-           plan.vec, plan.smem_bytes)
+    out = table.new_empty((nout, r))
+    launch("pio_dma_row_gather", "dma_row_gather", dev,
+           ptr, idx.data_ptr(), out.data_ptr(), m, nout, r, eb,
+           plan.vec, plan.rows_per_group, plan.blocks, plan.smem_bytes)
     return out
 
 
@@ -273,7 +336,7 @@ def probe_dma(m, nout, r, dtype, device=None) -> dict:
     rec = dict(metric="dma_row_gather", m=m, nout=nout, r=r,
                dtype=_dtype_name(dtype), device=dev.type)
     elem = torch.empty((), dtype=dtype).element_size()
-    if dma_row_plan(r, elem) is None:
+    if dma_row_plan(r, elem, nout) is None:
         return dict(rec, ok=False,
                     error=f"no row-copy plan for r={r} at {elem} bytes")
     rng = np.random.default_rng(0)
@@ -360,18 +423,22 @@ _STATIC_ORDER = ("taa", "dma")
 
 # (device name, r, table_bytes) -> measured preference order
 _ORDER_CACHE: dict[tuple, tuple] = {}
+# the same key -> each form's measured ns per row behind that order
+PROBE_NS: dict[tuple, dict] = {}
 
 
 def preferred_order(r: int = 64, table_bytes: int = 4,
                     device=None) -> tuple:
     """Gather-form preference order for ``fused_gather="auto"``.
 
-    On a CPU run (``device`` the host, or no card visible when it is
-    None) this is the static documentation order: deterministic, which
-    the CPU tests depend on.  On the card it runs the form-A and form-C
-    probes at n = 2048 once per (device name, rank, table width), ranks
-    the forms by measured nanoseconds per row and caches the order.  A
-    form with no plan at that rank and width sorts last."""
+    On the host (``device="cpu"``) this is the static documentation
+    order: deterministic, which the CPU tests depend on.  On the card
+    (``device`` None or CUDA; None without a card raises) it runs the
+    form-A and form-C probes at n = 2048 once per (device name, rank,
+    table width), ranks the forms by the card's nanoseconds per row
+    (:func:`_bench` keeps the host's launch path out of them), caches
+    the order and keeps the numbers in :data:`PROBE_NS`.  A form with no
+    plan at that rank and width sorts last."""
     dev = _probe_device(device)
     if dev.type != "cuda":
         return _STATIC_ORDER
@@ -398,6 +465,8 @@ def preferred_order(r: int = 64, table_bytes: int = 4,
 
     order = tuple(sorted(_STATIC_ORDER, key=rank_key))
     _ORDER_CACHE[key] = order
+    PROBE_NS[key] = {impl: rec.get("ns_per_row")
+                     for impl, rec in results.items()}
     return order
 
 

@@ -4,6 +4,7 @@ builds that start at once compile each source once and link once, and
 an up-to-date build is reused."""
 
 import os
+import re
 import stat
 import threading
 
@@ -64,3 +65,37 @@ def test_concurrent_builds_compile_once(tmp_path, monkeypatch):
     _build.build(force=True)
     assert len(log.read_text().splitlines()) == 2 * (n_src + 1)
     assert not os.path.exists(tmp_path / "build" / (_build.LIB_NAME + ".tmp"))
+
+
+def _expand(fmt: str) -> str:
+    """A struct format without repeat counts: "@3P2iP" -> "PPPiiP"."""
+    return "".join(c * int(n or 1)
+                   for n, c in re.findall(r"(\d*)([A-Za-z])", fmt))
+
+
+def test_argument_blocks_match_the_c_structs():
+    """Every argument block _build packs has the fields of its struct in
+    csrc/launch_args.cuh, in order (a pointer "P", an int "i", a long
+    long "q", the stream last), and every entry point of the sources
+    takes one block and is declared with the block it reads."""
+    header = (_build.CSRC / "launch_args.cuh").read_text()
+    structs = dict(re.findall(r"struct (\w+) \{(.*?)\};", header, re.S))
+    assert set(structs) == set(_build.ARG_STRUCTS)
+    for name, body in structs.items():
+        fields = [f.strip() for f in body.split(";") if f.strip()]
+        codes = "".join("P" if "*" in f else "q" if f.startswith("long long")
+                        else "i" if f.startswith("int ") else "?"
+                        for f in fields)
+        fmt = _build.ARG_STRUCTS[name]
+        assert fmt.startswith("@") and _expand(fmt[1:]) == codes, name
+        assert fields[-1] == "void* stream", name
+    entries = {}
+    for src in _build._sources():
+        text = src.read_text()
+        for entry in re.findall(r"^int (pio_\w+)\(const void\* block\)",
+                                text, re.M):
+            entries[entry] = text
+    assert set(entries) == set(_build.ENTRY_ARGS) - {"pio_noop"}
+    for entry, text in entries.items():
+        # the file that defines the entry point reads its block
+        assert f"load_args<{_build.ENTRY_ARGS[entry]}>" in text, entry

@@ -67,8 +67,15 @@ def test_taa1_matches_plain(dev, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_dma_row_gather_matches_plain(dev, dtype):
+    sms = gp.sm_count(dev)
+    # rows a group walks where 2^20 rows of 64 f32 make long runs
+    runs = gp.dma_row_plan(64, 4, 32771, True, sms).rows_per_group
+    assert runs > 1 and 32771 % runs
     for m, nout, r in ((512, 256, 16), (2048, 2048, 64), (1000, 5, 64),
-                       (300, 1234, 10), (100, 999, 128), (50, 70, 6)):
+                       (300, 1234, 10), (100, 999, 128), (50, 70, 6),
+                       (64, 3, 16),            # below one block's rows
+                       (4099, 32771, 64),      # not a whole number of runs
+                       (1 << 20, 1 << 20, 64)):
         rng = np.random.default_rng(m + nout + r)
         table = _table(rng, m, r, dtype, dev)
         idx = torch.from_numpy(
@@ -78,6 +85,56 @@ def test_dma_row_gather_matches_plain(dev, dtype):
         torch.cuda.synchronize()
         assert _build.LAUNCHES["dma_row_gather"] == before + 1
         assert torch.equal(out, table[idx.long()])
+
+
+def test_row_copy_entry_refuses_a_plan_that_differs(dev):
+    """The C entry point recomputes the grid and the shared memory from
+    the plan's rows per group and refuses a launch whose numbers differ;
+    a refused launch raises and is not counted."""
+    table = torch.ones((100, 64), device=dev)
+    idx = torch.zeros((2048,), dtype=torch.int32, device=dev)
+    out = torch.empty((2048, 64), device=dev)
+    plan = gp.dma_row_plan(64, 4, 2048, True, gp.sm_count(dev))
+    good = (plan.vec, plan.rows_per_group, plan.blocks, plan.smem_bytes)
+    for bad in ((plan.vec, plan.rows_per_group, plan.blocks + 1,
+                 plan.smem_bytes),
+                (plan.vec, plan.rows_per_group + 1, plan.blocks,
+                 plan.smem_bytes),
+                (plan.vec, plan.rows_per_group, plan.blocks,
+                 plan.smem_bytes + 4),
+                (plan.vec, 33, -(-2048 // (8 * 33)), 8 * (16 * 256 + 132))):
+        before = _build.LAUNCHES["dma_row_gather"]
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _build.launch("pio_dma_row_gather", "dma_row_gather", dev,
+                          table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                          100, 2048, 64, 4, *bad)
+        assert _build.LAUNCHES["dma_row_gather"] == before
+    _build.launch("pio_dma_row_gather", "dma_row_gather", dev,
+                  table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                  100, 2048, 64, 4, *good)
+    torch.cuda.synchronize()
+    assert (out == 1).all()
+
+
+def test_launches_follow_the_current_stream(dev):
+    """A kernel runs on PyTorch's current stream: on a side stream that
+    first waits behind a long spin, the output is only there once that
+    stream is done."""
+    rng = np.random.default_rng(9)
+    table = _table(rng, 2048, 64, torch.float32, dev)
+    rows = torch.from_numpy(
+        rng.integers(0, 2048, size=(2048,)).astype(np.int32)).to(dev)
+    idx = rows[:, None].expand(2048, 64).contiguous()
+    side = torch.cuda.Stream(device=dev)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(1 << 24)
+        a = gp.taa0_gather(table, idx)
+        b = gp.dma_row_gather(table, rows, nout=2048)
+    assert not side.query()            # still spinning: queued behind it
+    side.synchronize()
+    want = table[rows.long()]
+    assert torch.equal(a, want) and torch.equal(b, want)
 
 
 def test_dma_row_gather_unaligned_table_takes_4_byte_pieces(dev):

@@ -178,9 +178,9 @@ def test_argument_validation():
 
 
 def test_resolve_gather_impl():
-    assert resolve_gather_impl(512, 8) == "taa"
+    assert resolve_gather_impl(512, 8, device="cpu") == "taa"
     assert resolve_gather_impl(512, 8, requested="dma") == "dma"
-    assert resolve_gather_impl(512, 200) is None
+    assert resolve_gather_impl(512, 200, device="cpu") is None
     with pytest.raises(ValueError, match="fused_gather"):
         resolve_gather_impl(512, 8, requested="nope")
 

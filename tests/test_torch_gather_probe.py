@@ -9,6 +9,9 @@ on a CPU run, and the planners refuse what the ``cp.async`` forms cannot
 copy (a bf16 row of odd R).
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,21 +83,27 @@ def test_dma_row_gather_matches_jax(dtype):
 def test_preferred_order_is_static_on_the_cpu():
     assert gp.preferred_order(64, 4, device="cpu") == ("taa", "dma")
     assert gp.preferred_order(7, 2, device="cpu") == ("taa", "dma")
-    # no card here: the default device is the host, as the reference's
-    # order off the TPU
-    assert gp.preferred_order() == jgp.preferred_order() == ("taa", "dma")
-    assert gp._ORDER_CACHE == {}
+    # the host asked for by name gives the reference's order off the TPU
+    assert gp.preferred_order(device="cpu") == jgp.preferred_order() == (
+        "taa", "dma")
+    assert gp._ORDER_CACHE == {} and gp.PROBE_NS == {}
+    if not torch.cuda.is_available():
+        # no default to the host: None names the card, and there is none
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            gp.preferred_order()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            gp.probe_taa0(8, 4, torch.float32)
 
 
 def test_resolve_gather_impl_walks_the_order_to_a_plan(monkeypatch):
-    assert resolve_gather_impl(512, 64) == "taa"
+    assert resolve_gather_impl(512, 64, device="cpu") == "taa"
     assert resolve_gather_impl(512, 64, 2, requested="dma") == "dma"
     assert resolve_gather_impl(512, 7, 4, requested="dma") == "dma"
     # an explicit form resolves to itself or to None, never to the other
     assert resolve_gather_impl(512, 7, 2, requested="dma") is None
     assert resolve_gather_impl(512, 7, 2, requested="taa") == "taa"
     assert resolve_gather_impl(512, 200, requested="taa") is None
-    assert resolve_gather_impl(512, 200) is None
+    assert resolve_gather_impl(512, 200, device="cpu") is None
     with pytest.raises(ValueError, match="fused_gather"):
         resolve_gather_impl(512, 8, requested="nope")
     # a measured order that puts "dma" first: "auto" takes it where it
@@ -110,11 +119,13 @@ def test_dma_planners_refuse_a_bf16_row_of_odd_rank():
         assert fused_tile_plan(1000, r, 64, 2, "dma") is None
         assert fused_tile_plan(1000, r, 64, 4, "dma") is not None
         assert fused_tile_plan(1000, r, 64, 2, "taa") is not None
-        assert gp.dma_row_plan(r, 2) is None
-    assert gp.dma_row_plan(64, 4) == gp.RowPlan(vec=16, smem_bytes=8 * 16 * 256)
-    assert gp.dma_row_plan(64, 4, aligned16=False).vec == 4
-    assert gp.dma_row_plan(10, 4).vec == 4     # 40-byte rows
-    assert gp.dma_row_plan(10, 2).vec == 4     # 20-byte rows
+        assert gp.dma_row_plan(r, 2, 2048) is None
+    # 2,048 rows of 64 f32: 8 groups of 16 lanes a block, one row a group
+    assert gp.dma_row_plan(64, 4, 2048) == gp.RowPlan(
+        vec=16, rows_per_group=1, blocks=256, smem_bytes=8 * (256 + 4))
+    assert gp.dma_row_plan(64, 4, 2048, aligned16=False).vec == 4
+    assert gp.dma_row_plan(10, 4, 2048).vec == 4     # 40-byte rows
+    assert gp.dma_row_plan(10, 2, 2048).vec == 4     # 20-byte rows
     assert copy_piece_bytes(torch.zeros((3, 64))) == 16
     with pytest.raises(ValueError, match="even rank"):
         copy_piece_bytes(torch.zeros((3, 7), dtype=torch.bfloat16))
@@ -126,6 +137,56 @@ def test_dma_planners_refuse_a_bf16_row_of_odd_rank():
     assert _resolve_solver(ALSConfig(rank=7, solver="fused",
                                      gather_dtype="bfloat16"), "cpu") == (
         "fused", "taa")
+
+
+CSRC = Path(gp.__file__).with_name("csrc") / "gather_probe.cu"
+
+
+# (r, elem bytes, nout, 16-byte aligned table, SMs)
+PLAN_CASES = (
+    (64, 4, 2048, True, 132),      # preferred_order's probe shape
+    (64, 2, 2048, True, 132),
+    (64, 4, 1 << 20, True, 132),   # bytes dominate: long runs
+    (64, 4, 32771, True, 132),     # not a whole number of runs
+    (16, 4, 3, True, 132),         # fewer rows than one block takes
+    (10, 2, 1234, True, 132),      # 4-byte pieces
+    (128, 4, 5000, False, 114),    # unaligned table, a 114-SM card
+    (1, 4, 70000, True, 132),      # one piece a row: 128 groups
+)
+
+
+def test_dma_row_plan_accounting():
+    """The row-copy plan against the kernel's own accounting, as
+    csrc/gather_probe.cu writes it (its constants read from the source):
+    groups of a row's pieces in blocks of 128 threads, a ring of
+    min(rows_per_group, 16) slots and the block's ids in shared memory,
+    a grid that takes every row once and covers every SM once there are
+    rows enough, and never more than 16 rows in flight per group."""
+    src = CSRC.read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", src))
+    assert int(consts["kWindow"]) == gp._DMA_WINDOW == 16
+    assert int(consts["kRowThreads"]) == gp._ROW_THREADS
+    assert consts["kMaxRowsPerGroup"] == "2 * kWindow"
+    for r, eb, nout, aligned, sms in PLAN_CASES:
+        plan = gp.dma_row_plan(r, eb, nout, aligned, sms)
+        row_bytes = r * eb
+        vec = 16 if row_bytes % 16 == 0 and aligned else 4
+        lanes = min(row_bytes // vec, 128)
+        groups = 128 // lanes
+        rpg = plan.rows_per_group
+        window = min(rpg, 16)
+        assert plan.vec == vec and 1 <= rpg <= 2 * 16 and window <= 16
+        assert plan.smem_bytes == groups * (window * row_bytes + 4 * rpg)
+        per_block = groups * rpg
+        assert plan.blocks == -(-nout // per_block)
+        assert (plan.blocks - 1) * per_block < nout <= plan.blocks * per_block
+        if nout >= groups * sms:
+            assert plan.blocks >= sms
+        if nout >= 32 * groups * sms:
+            assert rpg == 32
+    # the probe shape fills the card: 256 blocks of one row a group
+    probe = gp.dma_row_plan(64, 4, 2048, True, 132)
+    assert probe.blocks >= 132 and probe.rows_per_group == 1
 
 
 def test_probe_records_and_smoke_on_the_cpu():
