@@ -7,10 +7,11 @@ Builds the port's CUDA kernels from ``predictionio_tpu_torch/ops/csrc``,
 holds each against its plain PyTorch version on the card at the shapes
 the main paths give it (timing kernel, plain version and a PyTorch
 library yardstick that the port never calls the same way: medians over
-the same turns, taken in turns, after a warm-up): the GJ solve, both
-forms of the fused ALS kernel ("taa" and "dma") with the second pass of
-a split bucket, and the three gather probes, whose launch path it takes
-apart step by step at the probe shape.
+the same turns, taken in turns, after a warm-up): the SPD solve (on
+ALS-built, zero and padded-rank boundary systems too, and against a
+float64 solve), both forms of the fused ALS kernel ("taa" and "dma")
+with the second pass of a split bucket, and the three gather probes,
+whose launch path it takes apart step by step at the probe shape.
 Then it drives three main paths through the entry points a user calls,
 each with every launch counter set to 0 just before it and read just
 after it; a kernel its path did not launch fails the run:
@@ -33,6 +34,13 @@ phase, a ``{"kernels": [...]}`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
 exits non-zero without that last line; so does a run without a CUDA
 device or without the package beside the script.
+
+    python3 chip_smoke.py --breakdown
+
+builds the kernels and runs only the ML-20M breakdown (the last phase:
+an iteration of each solver after a warm-up one, under the profiler
+too), with no result line: a copy of this script run from the root of
+another tree of the port times that tree by the same method.
 """
 
 from __future__ import annotations
@@ -166,54 +174,140 @@ def max_err(got, want, tol: float, what: str) -> float:
 
 # ---------------------------------------------------------------- phases --
 
-def phase_gj(torch, dev) -> dict:
-    """GJ kernel vs its plain version at R in {10, 64, 128} (ragged
-    batches included); times at the main path's rank-64 bucket shape.
-    Tolerance 1e-4 of the solution's scale: same f32 elimination, other
-    rounding (FMA) of the updates."""
+def als_systems(torch, dev, ratings, lo: int = 33, hi: int = 64,
+                most: int = 16_384, lam: float = 0.01):
+    """Normal equations as the trainer builds them for the rank-64
+    user-half bucket of ML-20M: users with ``lo``..``hi`` ratings (the
+    K = 64 bucket), at most ``most`` of them; the Gram of the item factor
+    rows they rated (MLlib's init, N(0, 1) / sqrt(64), seed 3) plus
+    ``lam * n * I`` (ALS-WR) and the right-hand side ``sum r v``."""
+    u, i, v = ratings
+    counts = np.bincount(u, minlength=N_USERS)
+    users = np.flatnonzero((counts >= lo) & (counts <= hi))[:most]
+    chosen = np.zeros(N_USERS, bool)
+    chosen[users] = True
+    keep = chosen[u]
+    uu, ii, vv = u[keep], i[keep], v[keep]
+    order = np.argsort(uu, kind="stable")
+    uu, ii, vv = uu[order], ii[order], vv[order]
+    row = np.searchsorted(users, uu)
+    pos = np.arange(len(uu)) - np.searchsorted(uu, users)[row]
+    B = len(users)
+    idx = np.zeros((B, hi), np.int64)
+    val = np.zeros((B, hi), np.float32)
+    mask = np.zeros((B, hi), np.float32)
+    idx[row, pos], val[row, pos], mask[row, pos] = ii, vv, 1.0
+    V = torch.randn((N_ITEMS, RANK), generator=torch.Generator().manual_seed(
+        3)) / math.sqrt(RANK)
+    mask_t = torch.from_numpy(mask).to(dev)
+    Vm = V.to(dev)[torch.from_numpy(idx).to(dev)] * mask_t[..., None]
+    n = torch.from_numpy(counts[users].astype(np.float32)).to(dev)
+    A = torch.einsum("bkr,bks->brs", Vm, Vm) + (lam * n)[:, None, None] * \
+        torch.eye(RANK, device=dev)
+    b = torch.einsum("bk,bkr->br", torch.from_numpy(val).to(dev), Vm)
+    return A.contiguous(), b.contiguous()
+
+
+def phase_gj(torch, dev, ratings) -> dict:
+    """The SPD solve kernel against its plain version (the lock-step
+    Gauss-Jordan of the TPU kernel), 1e-4 of the solution's scale (other
+    steps, Cholesky against Gauss-Jordan, in f32), and against a float64
+    solve on the host, 1e-3: on systems built as ALS builds them (the
+    ML-20M user-half bucket of rank 64, :func:`als_systems`), on a batch
+    of zero systems (x must be 0 exactly, as the plain version gives: a
+    zero system has no float64 solve), and at every padded-rank boundary
+    (R = 16, 17, 32, 33, 64, 65, 127, 128) and R = 10, in batches with a
+    ragged last block and batches too small to fill the card.  Times at
+    the main path's rank-64 bucket shape beside the plain version and
+    the library's Cholesky, and so at rank 128 (16,384 systems)."""
     from predictionio_tpu_torch.ops.solve import (
-        spd_solve_batched, spd_solve_reference,
+        gj_plan, sm_count, spd_solve_batched, spd_solve_reference,
     )
 
     g = torch.Generator(device=dev).manual_seed(1)
+    sms = sm_count(dev)
 
     def spd(B, R):
         G = torch.randn((B, R, R), generator=g, device=dev)
         A = torch.bmm(G, G.mT) / R + 0.5 * torch.eye(R, device=dev)
         return A.contiguous(), torch.randn((B, R), generator=g, device=dev)
 
-    errs = []
-    for R, B in ((10, 4099), (64, 1031), (128, 4099)):
+    def check(A, b, what):
+        x = spd_solve_batched(A, b)
+        err = max_err(x, spd_solve_reference(A, b), 1e-4, what)
+        want = torch.linalg.solve(A.double().cpu(), b.double().cpu())
+        err64 = max_err(x.cpu(), want, 1e-3, what + " (float64)")
+        return err, err64
+
+    errs, err64s = [], []
+    cases = [("ALS user-half bucket", *als_systems(torch, dev, ratings))]
+    for R, B in ((10, 4099), (16, 1031), (17, 1031), (32, 1031), (33, 7),
+                 (64, 1031), (65, 1031), (127, 3), (128, 4099)):
+        cases.append((f"R={R} B={B}", *spd(B, R)))
+    for what, A, b in cases:
+        B, R = b.shape
+        e, e64 = check(A, b, f"gj {what}")
+        errs.append(e)
+        err64s.append(e64)
+        log(f"phase gj {what} [{B},{R},{R}] plan {tuple(gj_plan(R, B, sms))}: "
+            f"max_abs_err {e:.3e} against the plain version (tol 1e-4 x "
+            f"scale), {e64:.3e} against float64 (tol 1e-3 x scale)")
+    del cases
+    # a zero system has no float64 solve: x must be 0 exactly, as the
+    # plain version's clamped pivot gives
+    zero = torch.zeros((1031, RANK, RANK), device=dev)
+    zb = torch.zeros((1031, RANK), device=dev)
+    x = spd_solve_batched(zero, zb)
+    torch.cuda.synchronize()
+    if not (torch.equal(x, torch.zeros_like(x))
+            and torch.equal(spd_solve_reference(zero, zb), x)):
+        raise AssertionError("gj: a batch of zero systems does not solve to 0")
+    log("phase gj zero systems [1031,64,64]: x == 0 exactly, as the plain "
+        "version gives")
+
+    def timed(R, B, kernel_iters):
+        """Kernel, plain version and library in turns on B random
+        systems of rank R: (ms, plain ms, library ms, bound ms, bound
+        by, max_abs_err)."""
         A, b = spd(B, R)
-        errs.append(max_err(spd_solve_batched(A, b), spd_solve_reference(A, b),
-                            1e-4, f"gj R={R} B={B}"))
-        log(f"phase gj R={R} B={B}: max_abs_err {errs[-1]:.3e} (tol 1e-4 x scale)")
+        err = max_err(spd_solve_batched(A, b), spd_solve_reference(A, b),
+                      1e-4, f"gj R={R} B={B}")
+
+        def library():
+            L, _ = torch.linalg.cholesky_ex(A)
+            return torch.cholesky_solve(b[..., None], L)
+
+        t = interleaved_ms({
+            "kernel": (lambda: spd_solve_batched(A, b), kernel_iters),
+            "plain": (lambda: spd_solve_reference(A, b),
+                      max(1, kernel_iters // 10)),
+            "library": (library, 3)})
+        bound_ms, bound_by = bound(spd_bytes(B, R), B * spd_solve_flops(R))
+        log(f"phase gj R={R} B={B} (medians of 5 interleaved turns): kernel "
+            f"{t['kernel']:.4f} ms ({t['kernel'] / bound_ms:.1f}x bound), "
+            f"plain {t['plain']:.3f} ms, library {t['library']:.3f} ms, "
+            f"bound {bound_ms:.3f} ms ({bound_by}), max_abs_err {err:.3e}, "
+            f"plan {tuple(gj_plan(R, B, sms))}")
+        return t["kernel"], t["plain"], t["library"], bound_ms, bound_by, err
+
     # the main path's shape: a full rank-64 bucket of the user half
-    R, B = RANK, 65_536
-    A, b = spd(B, R)
-    errs.append(max_err(spd_solve_batched(A, b), spd_solve_reference(A, b),
-                        1e-4, f"gj R={R} B={B}"))
-
-    def library():
-        L, _ = torch.linalg.cholesky_ex(A)
-        return torch.cholesky_solve(b[..., None], L)
-
-    t = interleaved_ms({
-        "kernel": (lambda: spd_solve_batched(A, b), 10),
-        "plain": (lambda: spd_solve_reference(A, b), 2),
-        "library": (library, 3)})
-    ms, plain_ms, library_ms = t["kernel"], t["plain"], t["library"]
-    bound_ms, bound_by = bound(spd_bytes(B, R), B * spd_solve_flops(R))
-    log(f"phase gj R={R} B={B} (medians of 5 interleaved turns): kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
-        f"bound {bound_ms:.3f} ms ({bound_by}), max_abs_err {errs[-1]:.3e}")
+    ms, plain_ms, library_ms, bound_ms, bound_by, err = timed(RANK, 65_536,
+                                                              20)
+    errs.append(err)
+    # rank 128, the largest the kernel takes (one row a thread, a block a
+    # system), as the iALS++ subspace sweep will give it
+    ms128, plain128, library128, bound128, _, err = timed(128, 16_384, 10)
+    errs.append(err)
     return dict(
         name="gj_solve", route="cuda",
         source="predictionio_tpu_torch/ops/csrc/gj_solve.cu",
         replaces="predictionio_tpu/ops/solve.py:162",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-        shape=f"A[{B},{R},{R}] f32",
+        max_abs_err=max(errs), max_abs_err_float64=max(err64s), ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=library_ms, shape=f"A[65536,{RANK},{RANK}] f32",
+        rank_128=dict(shape="A[16384,128,128] f32", ms=ms128,
+                      plain_ms=plain128, library_ms=library128,
+                      bound_ms=bound128),
     )
 
 
@@ -459,12 +553,14 @@ def device_us(torch, fn, calls: int = 200) -> float:
 
 def launch_steps_us(torch, kind: str, t, i, calls: int = 4000,
                     turns: int = 3) -> dict:
-    """Host microseconds a call of each step of the ``taa0_gather`` or
-    ``dma_row_gather`` wrapper (``kind`` "taa0" or "dma") on the table
-    ``t`` and ids ``i``, each step timed alone over ``calls`` calls, the
-    median of ``turns`` turns taken in turns, less the cost of the
-    timing loop itself: the device branch, the checks, the row-copy plan
-    (from its cache, and computed), the output's allocation, the three
+    """Host microseconds a call of each step of the ``taa0_gather``,
+    ``taa1_gather`` or ``dma_row_gather`` wrapper (``kind`` "taa0",
+    "taa1" or "dma") on the table ``t`` and ids ``i``, each step timed
+    alone over ``calls`` calls, the median of ``turns`` turns taken in
+    turns, less the cost of the timing loop itself: the device branch
+    (for taa1 also as its wrapper took it in its first form,
+    ``device.type`` twice), the checks, the row-copy plan (from its
+    cache, and computed), the output's allocation, the three
     pointers, the current device and its stream's raw handle (and, for
     comparison, through ``torch.cuda.current_device`` and
     ``current_stream``, which builds a ``Stream`` object), packing the
@@ -495,18 +591,24 @@ def launch_steps_us(torch, kind: str, t, i, calls: int = 4000,
     as_list.restype = ctypes.c_int
     noop_args = (t.data_ptr(), i.data_ptr(), t.data_ptr(), m, r, 4, stream)
     block = pack_taa(*noop_args)
-    if kind == "taa0":
+    if kind in ("taa0", "taa1"):
         out = torch.empty_like(t)
         i64 = i.long()
-        entry = "pio_taa0_gather"
+        entry = f"pio_{kind}_gather"
         args = (t.data_ptr(), i.data_ptr(), out.data_ptr(), m, r, 4)
         steps = {
             "device branch": lambda: t.is_cuda,
             "checks": lambda: gp._gather_checks(t, i, (m, r)),
             "output (empty_like)": lambda: torch.empty_like(t),
         }
-        wrapper = lambda: gp.taa0_gather(t, i)  # noqa: E731
-        library = lambda: torch.gather(t, 0, i64)  # noqa: E731
+        if kind == "taa0":
+            wrapper = lambda: gp.taa0_gather(t, i)  # noqa: E731
+            library = lambda: torch.gather(t, 0, i64)  # noqa: E731
+        else:
+            steps["device branch by device.type"] = lambda: (
+                t.device.type == "cpu", t.device.type != "cuda")
+            wrapper = lambda: gp.taa1_gather(t, i)  # noqa: E731
+            library = lambda: torch.gather(t, 1, i64)  # noqa: E731
     else:
         out = t.new_empty((nout, r))
         plan = gp.dma_row_plan(r, 4, nout, True, sms)
@@ -526,7 +628,8 @@ def launch_steps_us(torch, kind: str, t, i, calls: int = 4000,
         wrapper = lambda: gp.dma_row_gather(t, i, nout=nout)  # noqa: E731
         library = lambda: torch.index_select(t, 0, i)  # noqa: E731
     fn, pack = _build._ENTRY[entry]
-    key = "taa0_gather" if kind == "taa0" else "dma_row_gather"
+    key = {"taa0": "taa0_gather", "taa1": "taa1_gather"}.get(
+        kind, "dma_row_gather")
     steps.update({
         "pointers (3 data_ptr)": lambda: (
             t.data_ptr(), i.data_ptr(), out.data_ptr()),
@@ -574,7 +677,9 @@ def phase_gather(torch, dev) -> list[dict]:
     (a gather is a copy): f32 and bf16 tables, R in {16, 64}, the row
     copy at fewer rows than one block takes and at a count that is not a
     whole number of its runs, a table that is not 16-byte aligned (the
-    row copy's 4-byte pieces) and ids outside the table (NaN rows).
+    row copy's 4-byte pieces), taa1 rows that are not whole 16-byte
+    vectors and a taa1 table and ids one element off their start, and
+    ids outside the table (NaN rows, or columns for taa1).
     Each kernel is timed at the shape its path gives it
     (preferred_order's 2,048 rows for taa0 and the row copy, smoke(64)'s
     [64, 256] for taa1) and at a shape where bytes dominate (2^20 rows
@@ -582,8 +687,8 @@ def phase_gather(torch, dev) -> list[dict]:
     (``torch.gather`` or ``torch.index_select``) and its bound: the
     bytes of the indices, of the distinct table rows (or columns) they
     name, and of the output, over 3.35 TB/s.  At the probe shape it
-    adds host and device microseconds a call, and for taa0 and the row
-    copy the launch path step by step (:func:`launch_steps_us`); every
+    adds host and device microseconds a call, and each wrapper's launch
+    path step by step (:func:`launch_steps_us`); every
     host time is taken before the phase's profiler sessions.  Then
     ``preferred_order`` three times, from an empty cache each time."""
     from predictionio_tpu_torch.ops import gather_probe as gp
@@ -655,14 +760,35 @@ def phase_gather(torch, dev) -> list[dict]:
                              "pieces")
     exact(gp.dma_row_gather(t, rr, nout=3001),
           gp.dma_row_gather_reference(t, rr), "dma_row_gather unaligned")
+    # taa1: rows whose length is not a whole number of 16-byte vectors
+    # (f32 vectors hold 4 columns, bf16 vectors 8), and a table and ids
+    # that start one element past their allocations (ids off the output's
+    # 16-byte boundaries: one element at a time)
+    for dtype in (torch.float32, torch.bfloat16):
+        for r, m in ((3, 1), (5, 3), (7, 5), (64, 7), (9, 9), (16, 4100),
+                     (64, 4104), (64, 4097), (2, 40_001)):
+            t1 = table_of(r, m, dtype)
+            i1 = torch.from_numpy(rng.integers(0, m, size=(r, m)).astype(
+                np.int32)).to(dev)
+            exact(gp.taa1_gather(t1, i1), gp.taa1_gather_reference(t1, i1),
+                  f"taa1 {dtype} [{r},{m}]")
+            tb = table_of(r * m + 1, 1, dtype).view(-1)[1:].view(r, m)
+            ib = torch.from_numpy(rng.integers(0, m, size=r * m + 1).astype(
+                np.int32)).to(dev)[1:].view(r, m)
+            if ib.data_ptr() % 16 == 0 or tb.data_ptr() % 16 == 0:
+                raise AssertionError("taa1's sliced table or ids is aligned")
+            exact(gp.taa1_gather(tb, ib), gp.taa1_gather_reference(tb, ib),
+                  f"taa1 {dtype} [{r},{m}] unaligned")
     probe_plan = gp.dma_row_plan(RANK, 4, PROBE_N, True, sms)
     if probe_plan.blocks < sms:
         raise AssertionError(f"row copy at the probe shape: {probe_plan} "
                              f"leaves SMs of {sms} idle")
     log(f"phase gather: taa0, taa1 and the row copy equal their plain "
         f"versions exactly (f32 and bf16, R in {{16, 64}}, the row copy at "
-        f"3, 3001 and 32771 rows and from an unaligned table; ids out of "
-        f"range give NaN); row copy plan at [{PROBE_N},{RANK}] f32: "
+        f"3, 3001 and 32771 rows and from an unaligned table, taa1 at rows "
+        f"of 1 to 40,001 columns that are not whole vectors and from a "
+        f"table and ids one element off their start; ids out of range "
+        f"give NaN); row copy plan at [{PROBE_N},{RANK}] f32: "
         f"{probe_plan} on {sms} SMs")
 
     def shapes(kind, n):
@@ -718,9 +844,7 @@ def phase_gather(torch, dev) -> list[dict]:
                 hu = host_us(torch, {"kernel": fn, "library": lib})
                 rec["host_us"], rec["library_host_us"] = \
                     hu["kernel"], hu["library"]
-                if kind != "taa1":
-                    rec["launch_steps_us"] = launch_steps_us(
-                        torch, kind, t, i)
+                rec["launch_steps_us"] = launch_steps_us(torch, kind, t, i)
                 probe_fns.append((rec, fn, lib))
             rec[tag + "shape"] = (f"[{RANK},{n}]" if kind == "taa1"
                                   else f"[{n},{RANK}]") + " f32"
@@ -1205,9 +1329,11 @@ def fused_half_by_bucket(torch, tr, U, V, side: str, waves) -> list:
 
 
 def phase_breakdown(torch, ratings) -> dict:
-    """Where one full-width iteration's device time goes, per solver:
-    one iteration without the profiler (its fenced halves), then one
-    under ``torch.profiler``: device time by kernel (top 6) and the
+    """Where one full-width iteration's device time goes, per solver: a
+    first iteration (it also pays the caching allocator's device
+    allocations, after the ``empty_cache`` before it), one without the
+    profiler (its fenced halves: the iteration time), then one under
+    ``torch.profiler``: device time by kernel (top 6) and the
     device's busy share of that iteration's wall time.  For the fused
     solver, each half once more bucket by bucket (B, K, segments, ms) at
     every split target of SWEEP_WAVES, in turns within each bucket: the
@@ -1224,6 +1350,8 @@ def phase_breakdown(torch, ratings) -> dict:
         tr = ALSTrainer(ratings, cfg=ALSConfig(
             rank=RANK, lam=0.01, solver=solver, loss_every=0))
         U, V = tr.init_factors()
+        U, V = tr.run(U, V, 1)
+        first = ", ".join(f"{s} {t * 1e3:.1f} ms" for s, t in tr.half_seconds)
         U, V = tr.run(U, V, 1)
         iteration[solver] = sum(t for _, t in tr.half_seconds)
         plain = ", ".join(f"{s} {t * 1e3:.1f} ms" for s, t in tr.half_seconds)
@@ -1245,7 +1373,8 @@ def phase_breakdown(torch, ratings) -> dict:
                         for t, k, c in rows[:6]) if total else "none"
         log(f"phase breakdown solver={solver}"
             + (f" ({tr.fused_gather!r} form)" if solver == "fused" else "")
-            + f": unprofiled [{plain}]; profiled wall {wall * 1e3:.1f} ms "
+            + f": first iteration [{first}], unprofiled [{plain}]; profiled "
+            f"wall {wall * 1e3:.1f} ms "
             f"[{halves}], device time {total / 1e3:.1f} ms (busy "
             f"{total / 1e6 / wall:.1%} of wall); top kernels: {top}")
         if solver == "fused":
@@ -1311,7 +1440,10 @@ def kernel_registers(build_log) -> dict:
     return regs
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    if argv not in ([], ["--breakdown"]):
+        print("usage: chip_smoke.py [--breakdown]", file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -1338,13 +1470,6 @@ def main() -> int:
     log(f"phase build: {time.perf_counter() - t0:.1f} s; registers per "
         f"thread (ptxas): {kernel_registers(_build.BUILD_DIR / 'build.log')}")
 
-    kernels = [phase_gj(torch, dev)]
-    torch.cuda.empty_cache()
-    kernels.extend(phase_fused(torch, dev))
-    kernels.extend(phase_gather(torch, dev))
-    phase_small_reference(torch)
-    phase_topk(torch, dev)
-
     t0 = time.perf_counter()
     u, i, v = synth_ml20m(seed=0)
     from predictionio_tpu_torch.storage import Ratings, StringIndex
@@ -1354,10 +1479,22 @@ def main() -> int:
         users=StringIndex([f"u{k}" for k in range(N_USERS)]),
         items=StringIndex([f"i{k}" for k in range(N_ITEMS)]),
     )
+    t_data = time.perf_counter() - t0
+    if argv:
+        phase_breakdown(torch, ratings)
+        return 0
+    kernels = [phase_gj(torch, dev, (u, i, v))]
+    torch.cuda.empty_cache()
+    kernels.extend(phase_fused(torch, dev))
+    kernels.extend(phase_gather(torch, dev))
+    phase_small_reference(torch)
+    phase_topk(torch, dev)
+
+    t0 = time.perf_counter()
     items = {f"i{j}": {"categories": ["even" if j % 2 == 0 else "odd"]}
              for j in range(N_ITEMS)}
     log(f"phase data: {len(v):,} ratings, {N_USERS:,} users, "
-        f"{N_ITEMS:,} items in {time.perf_counter() - t0:.1f} s")
+        f"{N_ITEMS:,} items in {t_data + time.perf_counter() - t0:.1f} s")
     data = (ratings, items, (u, i, v))
 
     # The main paths, each with the counts set to 0 just before it and
@@ -1411,4 +1548,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -10,7 +10,9 @@ device:
   Gram matrices, Cholesky-solve through ``torch.linalg`` (the library
   path that stands for the reference's XLA solver);
 * ``solver="pallas"`` — the same gather and einsums, then the hand-written
-  Gauss-Jordan kernel (``ops/solve.py`` → ``ops/csrc/gj_solve.cu``);
+  SPD solve kernel, a Cholesky factorisation in registers (``ops/solve.py``
+  → ``ops/csrc/gj_solve.cu``; its plain version is the reference kernel's
+  Gauss-Jordan);
 * ``solver="fused"`` — the hand-written single-pass gather+Gram+solve
   kernel (``ops/fused_als.py`` → ``ops/csrc/fused_als.cu``), which never
   materialises ``[B, K, R]``.
@@ -90,7 +92,7 @@ class ALSConfig:
     # "highest" is true f32 (TF32 off), "high"/"default" allow TF32
     matmul_precision: str = "highest"
     # batched SPD solver: "xla" (torch.linalg Cholesky), "pallas" (the
-    # Gauss-Jordan kernel for the solves alone) or "fused" (the
+    # SPD solve kernel for the solves alone) or "fused" (the
     # single-pass gather+Gram+solve kernel)
     solver: str = "xla"
     # the reference's in-kernel gather form of the fused kernel; every
@@ -365,9 +367,10 @@ def _device_expand_sides(col_by_row, val_by_row, row_counts, val_scale):
 
 def _spd_solve(A: torch.Tensor, b: torch.Tensor, solver: str) -> torch.Tensor:
     """Batched SPD solve ``A[i] x[i] = b[i]`` via the configured solver:
-    ``"pallas"`` runs the Gauss-Jordan kernel (its plain version on CPU
-    tensors), anything else a Cholesky factorisation and two triangular
-    solves, as the reference's XLA path does."""
+    ``"pallas"`` runs the SPD solve kernel (its plain version, the
+    reference's Gauss-Jordan, on CPU tensors), anything else a Cholesky
+    factorisation and two triangular solves, as the reference's XLA path
+    does."""
     if solver == "pallas":
         from ..ops.solve import spd_solve_batched
 

@@ -189,7 +189,7 @@ def _build_locked(force: bool) -> Path:
 # for field in the compiler's native layout ("@"): "P" a pointer, "i" an
 # int, "q" a long long; the stream is the last field
 ARG_STRUCTS = {
-    "GjArgs": "@3P2iP",
+    "GjArgs": "@3P7iP",
     "FusedArgs": "@8P9iqiP",
     "ReduceArgs": "@4P3iqP",
     "TaaArgs": "@3P3iP",

@@ -23,10 +23,36 @@
 // well under a microsecond and every form is held by latency: its launch,
 // the index load and the row load behind it.
 //
-// Design, simple and right first:
-// * taa0/taa1: one thread per output element in a grid-stride loop; the
-//   element is copied as raw bits (4 bytes for f32, 2 for bf16), so the
-//   result is the table's value exactly.
+// Every element is copied as raw bits (4 bytes for f32, 2 for bf16), so
+// the result is the table's value exactly.  Design:
+// * taa0: one thread per output element in a grid-stride loop.
+// * taa1 (redesigned): its first design, taa0's loop, took 0.80
+//   ms at [64, 2^20] f32 against torch.gather's 0.64 and a 0.21 ms bytes
+//   bound.  Each element cost a 64-bit e / M, and a thread had one random
+//   table load in flight at a time, behind its own id load, while the ids
+//   and the output (256 MB each) streamed through the L2 that should hold
+//   table row i (4 MB).  Now the row comes from blockIdx.y and the columns
+//   from blockIdx.x (no division).  A row of more than 1,024 columns
+//   that is whole 16-byte vectors of ids and of output (M a multiple of
+//   4 f32 or 8 bf16 columns, ids and output 16-byte aligned) takes 16
+//   columns a thread as 16-byte vectors and issues all its table loads
+//   before its first store; ids are loaded and the output stored with
+//   streaming hints (evict first) and the table read through the
+//   read-only path, so row i stays in L2 while its blocks run.  Every
+//   other row takes one column a thread (taa1_col_kernel): a short row
+//   (the probe's [64, 256]) is held by the latency of the id load and the
+//   table load behind it, and the thread issues its id load before any
+//   other work; a long row that is not whole aligned vectors (a tail, a
+//   sliced tensor) loses 2-4% to the vector path there.  Below the bytes
+//   bound, the practical floor at [64, 2^20] is the L2: each random
+//   4-byte table read moves a 32-byte sector, 2^26 x 32 B = 2.1 GB,
+//   beside 0.5 GB of streamed ids and output.  Measured (chip_smoke.py
+//   and kernel_variants.py taa1, NVIDIA H100 80GB HBM3, 700 W): 0.602-0.610
+//   ms at [64, 2^20] f32 against torch.gather's 0.638-0.645 in the same
+//   turns (the first design 0.796-0.797); one column a thread on every
+//   row 0.619 ms aligned and 0.626-0.629 unaligned, against the vector
+//   path's 0.605 in the same turns; 1.33-1.36 us of device time a call at
+//   [64, 256] (the first design 1.38-1.40).
 // * dma_row_gather: a block of 128 threads is split into groups, each
 //   group as wide as one row's 16-byte (or 4-byte) pieces; a group walks a
 //   run of rows_per_group output rows with a ring of row slots in shared
@@ -90,16 +116,97 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// taa1_gather's vector: 16 bytes of output, 4 f32 or 8 bf16 columns
+template <typename E>
+constexpr int kTaa1Vec = 16 / sizeof(E);
+// columns a thread of taa1_kernel takes: 16, as 4 f32 or 2 bf16 vectors
+constexpr int kTaa1Cols = 16;
+// the longest row taa1_col_kernel takes where taa1_kernel could:
+// 4 blocks of kThreads
+constexpr int kTaa1Short = 4 * kThreads;
+
+template <typename E>
+__device__ __forceinline__ uint4 pack16(const E (&v)[16 / sizeof(E)]);
+
+template <>
+__device__ __forceinline__ uint4 pack16<uint32_t>(const uint32_t (&v)[4]) {
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+template <>
+__device__ __forceinline__ uint4 pack16<uint16_t>(const uint16_t (&v)[8]) {
+  return make_uint4(v[0] | (uint32_t)v[1] << 16, v[2] | (uint32_t)v[3] << 16,
+                    v[4] | (uint32_t)v[5] << 16, v[6] | (uint32_t)v[7] << 16);
+}
+
+template <typename E>
+__device__ __forceinline__ E taa1_pick(const E* __restrict__ row, int id,
+                                       int M) {
+  return (unsigned)id < (unsigned)M ? __ldg(row + id) : nan_bits<E>();
+}
+
+// out[i, j] = table[i, idx[i, j]] on rows of more than kTaa1Short columns
+// that are whole 16-byte vectors of ids and of output (M a multiple of
+// kTaa1Vec, idx and out 16-byte aligned: launch_taa1 checks): row i from
+// blockIdx.y (looping where R exceeds the grid's 65,535), kTaa1Cols
+// columns a thread from blockIdx.x.  The thread loads its ids as 16-byte
+// vectors and stores 16-byte vectors, both streaming (evict first),
+// issuing every table load of its columns before its first store; table
+// rows go through the read-only path and stay in L2.
 template <typename E>
 __global__ void __launch_bounds__(kThreads)
     taa1_kernel(const E* __restrict__ table, const int* __restrict__ idx,
                 E* __restrict__ out, int R, int M) {
-  const size_t total = (size_t)R * M;
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const size_t i = e / M;
-    const int id = idx[e];
-    out[e] = (id >= 0 && id < M) ? table[i * M + id] : nan_bits<E>();
+  constexpr int V = kTaa1Vec<E>, U = kTaa1Cols / V;
+  const int T = blockDim.x, nvec = M / V;
+  const int v0 = blockIdx.x * T * U + threadIdx.x;
+  for (int i = blockIdx.y; i < R; i += gridDim.y) {
+    const size_t base = (size_t)i * M;
+    const E* trow = table + base;
+    const int4* irow = reinterpret_cast<const int4*>(idx + base);
+    uint4* orow = reinterpret_cast<uint4*>(out + base);
+    int ids[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int v = v0 + u * T;
+#pragma unroll
+      for (int q = 0; q < V / 4; ++q) {
+        const int4 w = v < nvec ? __ldcs(irow + (size_t)v * (V / 4) + q)
+                                : make_int4(0, 0, 0, 0);
+        ids[u][4 * q + 0] = w.x;
+        ids[u][4 * q + 1] = w.y;
+        ids[u][4 * q + 2] = w.z;
+        ids[u][4 * q + 3] = w.w;
+      }
+    }
+    E vals[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) vals[u][e] = taa1_pick(trow, ids[u][e], M);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int v = v0 + u * T;
+      if (v < nvec) __stcs(orow + v, pack16<E>(vals[u]));
+    }
+  }
+}
+
+// The same one column a thread, the row from blockIdx.y: on a row of at
+// most kTaa1Short columns (the probe's [64, 256]) the latency of the id
+// load and the table load behind it is the whole cost, and the thread
+// issues its id load first, with no other work before it; it also takes
+// every row that is not whole aligned vectors, at any length.
+template <typename E>
+__global__ void __launch_bounds__(kThreads)
+    taa1_col_kernel(const E* __restrict__ table, const int* __restrict__ idx,
+                    E* __restrict__ out, int R, int M) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= M) return;
+  for (int i = blockIdx.y; i < R; i += gridDim.y) {
+    const size_t e = (size_t)i * M + j;
+    out[e] = taa1_pick(table + (size_t)i * M, __ldcs(idx + e), M);
   }
 }
 
@@ -237,6 +344,29 @@ int grid_for(size_t total, int threads) {
   return blocks < 1 ? 1 : (int)blocks;
 }
 
+template <typename E>
+void launch_taa1(const TaaArgs& a, cudaStream_t s) {
+  const int R = a.rows, M = a.cols;
+  const E* table = static_cast<const E*>(a.table);
+  const int* idx = static_cast<const int*>(a.idx);
+  E* out = static_cast<E*>(a.out);
+  const unsigned rows = R < 65535 ? R : 65535;
+  const bool vectors =
+      M > kTaa1Short && M % kTaa1Vec<E> == 0 &&
+      ((reinterpret_cast<uintptr_t>(idx) | reinterpret_cast<uintptr_t>(out)) &
+       15) == 0;
+  if (vectors) {
+    const int per_block = kThreads * kTaa1Cols;
+    taa1_kernel<E><<<dim3((M + per_block - 1) / per_block, rows), kThreads,
+                     0, s>>>(table, idx, out, R, M);
+    return;
+  }
+  int threads = 32;
+  while (threads < M && threads < kThreads) threads *= 2;
+  taa1_col_kernel<E><<<dim3((M + threads - 1) / threads, rows), threads, 0,
+                       s>>>(table, idx, out, R, M);
+}
+
 }  // namespace
 
 extern "C" {
@@ -267,23 +397,16 @@ int pio_taa0_gather(const void* block) {
 }
 
 // TaaArgs: table [R, M], idx [R, M] int32 -> out [R, M] (rows = R,
-// cols = M).
+// cols = M); a row's columns over grid.x, the rows over grid.y.
 int pio_taa1_gather(const void* block) {
   const TaaArgs a = pio::load_args<TaaArgs>(block);
-  const int R = a.rows, M = a.cols;
-  if (R < 0 || M < 0) return cudaErrorInvalidValue;
-  const size_t total = (size_t)R * M;
-  if (total == 0) return cudaSuccess;
+  if (a.rows < 0 || a.cols < 0) return cudaErrorInvalidValue;
+  if ((size_t)a.rows * a.cols == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(a.stream);
-  const int blocks = grid_for(total, kThreads);
   if (a.elem_bytes == 4) {
-    taa1_kernel<uint32_t><<<blocks, kThreads, 0, s>>>(
-        static_cast<const uint32_t*>(a.table), static_cast<const int*>(a.idx),
-        static_cast<uint32_t*>(a.out), R, M);
+    launch_taa1<uint32_t>(a, s);
   } else if (a.elem_bytes == 2) {
-    taa1_kernel<uint16_t><<<blocks, kThreads, 0, s>>>(
-        static_cast<const uint16_t*>(a.table), static_cast<const int*>(a.idx),
-        static_cast<uint16_t*>(a.out), R, M);
+    launch_taa1<uint16_t>(a, s);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -31,13 +31,19 @@ inline T load_args(const void* block) {
 
 extern "C" {
 
-// gj_solve.cu pio_gj_solve
+// gj_solve.cu pio_gj_solve; rank_pad, threads, systems (a block),
+// blocks and smem_bytes are the plan of ops/solve.py gj_plan
 struct GjArgs {
   const void* A;
   const void* b;
   void* x;
   int B;
   int R;
+  int rank_pad;
+  int threads;
+  int systems;
+  int blocks;
+  int smem_bytes;
   void* stream;
 };
 

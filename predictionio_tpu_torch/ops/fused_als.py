@@ -42,7 +42,7 @@ import torch
 
 from ..device import PRECISIONS
 from ._build import check_tensor, launch
-from .solve import MAX_RANK, spd_solve_reference
+from .solve import MAX_RANK, SMS, sm_count, spd_solve_reference
 
 __all__ = [
     "GATHER_IMPLS",
@@ -83,10 +83,10 @@ REGS_OVERHEAD = 48
 # K-chunk heights the planner tries, largest first
 KC_CHOICES = (128, 64, 32, 16, 8)
 # the split: enough blocks for WAVES waves over the card's SMs, but no
-# segment shorter than MIN_SEGMENT slots; SMS (an H100 SXM's count) when
-# no device is named.  WAVES is the least of chip_smoke.py's sweep over
-# the ML-20M trainer's buckets (both fused halves summed).
-SMS = 132
+# segment shorter than MIN_SEGMENT slots; SMS (ops/solve.py, an H100
+# SXM's count) when no device is named.  WAVES is the least of
+# chip_smoke.py's sweep over the ML-20M trainer's buckets (both fused
+# halves summed).
 WAVES = 8
 MIN_SEGMENT = 1024
 
@@ -157,13 +157,6 @@ def fused_smem_bytes(
         tiles = 2 * kc * stride_bytes(r, table_bytes)
         return max(tiles, system) + 2 * 3 * kc * 4
     return max(kc * stride_bytes(r, 4), system) + 3 * kc * 4
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device) -> int:
-    """Streaming multiprocessors of a CUDA ``device`` (a
-    ``torch.device`` or its index)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def split_segments(

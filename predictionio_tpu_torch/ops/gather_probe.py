@@ -12,7 +12,10 @@ Hopper the question is the same, with the forms the fused kernel
      ``out[i, j] = table[idx[i, j], j]``, one thread per element; the
      access pattern of the fused kernel's ``"taa"`` form.
   B. :func:`taa1_gather` — the transposed form on ``[R, M]``:
-     ``out[i, j] = table[i, idx[i, j]]``; measured for completeness.
+     ``out[i, j] = table[i, idx[i, j]]``, a row from the grid's second
+     axis; 16 columns a thread as 16-byte vectors on a long row of whole
+     aligned vectors, one column a thread on every other row; measured
+     for completeness.
   C. :func:`dma_row_gather` — ``out[k] = table[idx[k]]`` through a ring
      of 16 row slots (the reference's ``_DMA_WINDOW``) filled by
      ``cp.async``; the fused kernel's ``"dma"`` form.
@@ -30,8 +33,9 @@ data about a compiler.  A probe runs on the card unless it is given
 measures only on the card, and there times the card's work, not the
 host's (:func:`_bench`); a CPU run gets the static order.
 
-The wrappers of forms A and C are held to the host cost of the PyTorch
-call each stands beside: one pass of checks over the two tensors
+The wrappers are held to the host cost of the PyTorch call each stands
+beside: one branch on the table's device (``is_cuda``, which builds no
+``torch.device``), one pass of checks over the two tensors
 (:func:`_gather_checks`), one allocation, and the row-copy plan from a
 cache.
 """
@@ -212,10 +216,11 @@ def taa1_gather_reference(table: torch.Tensor,
 
 def taa1_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[i, j] = table[i, idx[i, j]]`` for ``table [R, M]`` and
-    ``idx [R, M]`` int32 -> ``[R, M]`` (form B)."""
-    if table.device.type == "cpu":
-        return taa1_gather_reference(table, idx)
-    if table.device.type != "cuda":
+    ``idx [R, M]`` int32 -> ``[R, M]`` (form B).  An id outside the row
+    gives NaN on the card; the plain version raises."""
+    if not table.is_cuda:
+        if table.is_cpu:
+            return taa1_gather_reference(table, idx)
         raise ValueError(f"unsupported device {table.device}")
     r, m = table.shape
     eb = _gather_checks(table, idx, (r, m))

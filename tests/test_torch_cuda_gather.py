@@ -53,16 +53,25 @@ def test_taa0_matches_plain(dev, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_taa1_matches_plain(dev, dtype):
-    for r, m in ((16, 256), (64, 3001)):
+    """Rows of whole 16-byte vectors, rows with a tail (and rows whose
+    start is off a vector boundary: M not a multiple of 4 or 8), and a
+    table and ids sliced one element off their start (the ids off the
+    output's boundaries: one element at a time), bitwise."""
+    for r, m in ((16, 256), (64, 3001), (1, 1), (3, 5), (5, 7), (64, 9),
+                 (8, 4100), (4, 4104), (2, 40_001)):
         rng = np.random.default_rng(r * m)
-        table = _table(rng, r, m, dtype, dev)
-        idx = torch.from_numpy(
-            rng.integers(0, m, size=(r, m)).astype(np.int32)).to(dev)
-        before = _build.LAUNCHES["taa1_gather"]
-        out = gp.taa1_gather(table, idx)
-        torch.cuda.synchronize()
-        assert _build.LAUNCHES["taa1_gather"] == before + 1
-        assert torch.equal(out, gp.taa1_gather(table.cpu(), idx.cpu()).to(dev))
+        for sliced in (False, True):
+            n = r * m + sliced
+            table = _table(rng, n, 1, dtype, dev).view(-1)[sliced:].view(r, m)
+            idx = torch.from_numpy(rng.integers(0, m, size=n).astype(
+                np.int32)).to(dev)[sliced:].view(r, m)
+            assert (idx.data_ptr() % 16 != 0) == sliced
+            before = _build.LAUNCHES["taa1_gather"]
+            out = gp.taa1_gather(table, idx)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["taa1_gather"] == before + 1
+            assert torch.equal(
+                out, gp.taa1_gather(table.cpu(), idx.cpu()).to(dev))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -159,6 +168,17 @@ def test_out_of_range_ids_give_nan(dev):
     idx2 = idx[:, None].expand(4, 16).contiguous()
     out2 = gp.taa0_gather(torch.ones((4, 16), device=dev), idx2)
     assert torch.isnan(out2[1:3]).all() and (out2[[0, 3]] == 1).all()
+    # taa1: columns, one a thread (M = 8, 9) and on the vector path
+    # (M = 4096)
+    for dtype in DTYPES:
+        for m in (8, 9, 4096):
+            ids = torch.tensor(([0, m, -1, 3] * m)[:m], dtype=torch.int32,
+                               device=dev)
+            out3 = gp.taa1_gather(torch.ones((3, m), dtype=dtype, device=dev),
+                                  ids[None].expand(3, m).contiguous())
+            bad = (ids < 0) | (ids >= m)
+            assert torch.isnan(out3[:, bad]).all()
+            assert (out3[:, ~bad] == 1).all()
 
 
 def test_bf16_odd_rank_is_refused(dev):

@@ -17,7 +17,11 @@ import torch
 
 from predictionio_tpu.ops.solve import spd_solve_batched as jax_solve
 from predictionio_tpu_torch.ops.solve import (
+    GJ_RANKS,
+    MAX_RANK,
     cholesky_solve_batched,
+    gj_plan,
+    gj_rows_per_thread,
     spd_solve_batched,
     spd_solve_reference,
 )
@@ -90,3 +94,47 @@ def test_ill_conditioned_but_regularized():
 def test_rejects_non_square():
     with pytest.raises(ValueError, match="B, R, R"):
         spd_solve_batched(torch.zeros(2, 3, 4), torch.zeros(2, 3))
+
+
+def test_zero_systems_solve_to_zero_like_the_jax_kernel():
+    """The clamped pivot: an all-zero system gives x = 0 in both
+    packages (the CUDA kernel clamps the same way)."""
+    A = np.zeros((3, 17, 17), np.float32)
+    b = np.zeros((3, 17), np.float32)
+    x = spd_solve_batched(torch.from_numpy(A), torch.from_numpy(b))
+    assert torch.equal(x, torch.zeros(3, 17))
+    np.testing.assert_array_equal(np.asarray(jax_solve(A, b)), 0.0)
+
+
+def test_gj_plan_accounting():
+    """csrc/gj_solve.cu's launch plan for every rank 1..128: the padded
+    rank is the least compiled one covering R; a system takes RP / (rows
+    a thread) threads, two rows a thread up to rank 64; a block is whole
+    warps, a power of two of systems within 128 threads and 48 KB of
+    shared memory, or one system of more than a warp (rank 128); its
+    shared memory (each system's [RP, RP+1] triangle and two step vectors
+    of RP + 4 floats) fits an H100 block; the grid covers the batch, and
+    a small batch takes as many SMs as it can."""
+    for r in range(1, MAX_RANK + 1):
+        for b in (1, 7, 131, 132, 1031, 65_536, 138_493):
+            for sms in (1, 114, 132):
+                p = gj_plan(r, b, sms)
+                assert p.rank_pad in GJ_RANKS and p.rank_pad >= r
+                assert p.rank_pad == 16 or p.rank_pad // 2 < r
+                h = gj_rows_per_thread(p.rank_pad)
+                assert h == (1 if p.rank_pad == 128 else 2)
+                ts = p.rank_pad // h
+                assert p.threads == p.systems * ts
+                assert p.threads % 32 == 0 and p.threads <= 128
+                assert p.systems & (p.systems - 1) == 0
+                assert p.smem_bytes == 4 * p.systems * (
+                    p.rank_pad * (p.rank_pad + 1) + 2 * (p.rank_pad + 4))
+                assert p.smem_bytes <= 232_448
+                if p.systems > 1:
+                    assert ts <= 32 and p.smem_bytes <= 48 * 1024
+                assert p.blocks * p.systems >= b > (p.blocks - 1) * p.systems
+                if p.systems > max(1, 32 // ts):
+                    # half as many systems a block would not fit the SMs
+                    assert -(-b // (p.systems // 2)) > sms
+    with pytest.raises(ValueError, match="rank"):
+        gj_plan(MAX_RANK + 1, 4)
