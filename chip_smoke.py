@@ -12,20 +12,24 @@ ALS-built, zero and padded-rank boundary systems too, and against a
 float64 solve), both forms of the fused ALS kernel ("taa" and "dma")
 with the second pass of a split bucket, and the three gather probes,
 whose launch path it takes apart step by step at the probe shape.
-Then it drives three main paths through the entry points a user calls,
-each with every launch counter set to 0 just before it and read just
-after it; a kernel its path did not launch fails the run:
+It builds the native host runtime (``build/native/``, ``g++``) beside
+the kernels.  Then it drives three main paths through the entry points a
+user calls, each with every launch counter set to 0 just before it and
+read just after it; a kernel its path did not launch fails the run:
 
 * ML-20M: ratings shaped like MovieLens-20M (138,493 users x 26,744
-  items x 20,000,263 ratings, made with numpy from a seed) → the
-  recommendation engine training at rank 64 with ``solver="fused"``
-  (2 iterations) and ``solver="pallas"`` (1 iteration) → serving solo
-  and batched top-K queries;
+  items x 20,000,263 ratings, every (user, item) pair distinct, made
+  with numpy from a seed) imported as JSON lines into the SQLite event
+  store and read back by the native scan (``find_ratings``, held against
+  the synthetic triples) → the recommendation engine training at rank 64 with
+  ``solver="fused"`` (2 iterations) and ``solver="pallas"`` (1
+  iteration) → serving solo and batched top-K queries;
 * pio: MovieLens-1M-shaped events (6,040 x 3,706 x 1,000,209) into the
-  SQLite event store of a fresh ``$PIO_TPU_HOME`` → ``run_train``
-  (``fused_gather="auto"``, which ranks the fused kernel's forms with
-  the gather probe kernels) → ``EngineServer`` answering solo and
-  concurrent ``POST /queries.json`` like an in-process ``predict``;
+  SQLite event store of a fresh ``$PIO_TPU_HOME`` through the REST event
+  server (one with the group-commit WAL) and ``import_events`` →
+  ``run_train`` (``fused_gather="auto"``, which ranks the fused kernel's
+  forms with the gather probe kernels) → ``EngineServer`` answering solo
+  and concurrent ``POST /queries.json`` like an in-process ``predict``;
 * probe smoke: ``gather_probe.smoke``, the probe module's own entry
   point.
 
@@ -39,8 +43,14 @@ device or without the package beside the script.
 
 builds the kernels and runs only the ML-20M breakdown (the last phase:
 an iteration of each solver after a warm-up one, under the profiler
-too), with no result line: a copy of this script run from the root of
-another tree of the port times that tree by the same method.
+too, on the ratings the store gives), with no result line:
+a copy of this script run from the root of another tree of the port
+times that tree by the same method.
+
+    python3 chip_smoke.py --store
+
+builds and runs only the ML-20M store phase (write, import, read,
+check) and the host sort's timing, with no result line.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -77,10 +88,14 @@ BIG_N = 1 << 20
 SWEEP_WAVES = (1, 2, 4, 6, 8, 12, 16)
 
 
-def synth_ratings(n_users: int, n_items: int, n_ratings: int, seed: int = 0):
+def synth_ratings(n_users: int, n_items: int, n_ratings: int, seed: int = 0,
+                  distinct: bool = False):
     """MovieLens-shaped ratings: Zipf 0.8 user activity, Zipf 1.0 item
     popularity, half-star values 0.5..5 (the repository's ``bench.py``
-    generator)."""
+    generator).  With ``distinct``, every (user, item) pair is drawn
+    once, as in MovieLens: a pair drawn again keeps its place in the
+    draw order and is redrawn, both ends from the same marginals, until
+    it is new (so the heaviest users and items fill their whole row)."""
     rng = np.random.default_rng(seed)
     w_u = 1.0 / np.arange(1, n_users + 1) ** 0.8
     w_u /= w_u.sum()
@@ -89,12 +104,108 @@ def synth_ratings(n_users: int, n_items: int, n_ratings: int, seed: int = 0):
     w_i /= w_i.sum()
     i = rng.choice(n_items, size=n_ratings, p=w_i).astype(np.int32)
     v = (rng.integers(1, 11, size=n_ratings) * 0.5).astype(np.float32)
+    if not distinct:
+        return u, i, v
+    key = u.astype(np.int64) * n_items + i
+    order = np.argsort(key, kind="stable")
+    ks = key[order]
+    first = np.r_[True, ks[1:] != ks[:-1]]
+    seen = ks[first]                  # the pairs taken, sorted
+    todo = np.sort(order[~first])     # the later draws of a taken pair
+    while len(todo):
+        cu = rng.choice(n_users, size=len(todo), p=w_u).astype(np.int32)
+        ci = rng.choice(n_items, size=len(todo), p=w_i).astype(np.int32)
+        ck = cu.astype(np.int64) * n_items + ci
+        # sorted candidates: the first of equal ones, if not yet taken
+        o = np.argsort(ck, kind="stable")
+        cs = ck[o]
+        pos = np.searchsorted(seen, cs)
+        fresh = np.r_[True, cs[1:] != cs[:-1]] & (
+            seen[np.minimum(pos, len(seen) - 1)] != cs)
+        ok = np.zeros(len(ck), bool)
+        ok[o[fresh]] = True
+        u[todo[ok]], i[todo[ok]] = cu[ok], ci[ok]
+        seen = np.insert(seen, pos[fresh], cs[fresh])
+        todo = todo[~ok]
     return u, i, v
 
 
 def synth_ml20m(seed: int = 0):
-    """The ``bench.py`` generator at MovieLens-20M's counts."""
-    return synth_ratings(N_USERS, N_ITEMS, N_RATINGS, seed)
+    """The ``bench.py`` generator at MovieLens-20M's counts, every
+    (user, item) pair distinct as in MovieLens-20M."""
+    return synth_ratings(N_USERS, N_ITEMS, N_RATINGS, seed, distinct=True)
+
+
+def user_id(k) -> str:
+    return f"u{int(k):06d}"
+
+
+def item_id(k) -> str:
+    return f"i{int(k):05d}"
+
+
+# the event time of the k-th synthetic rating: T0_MS + k ms, so that
+# dedup "last" keeps each (user, item) pair's last draw
+T0_MS = 1_420_070_400_000   # 2015-01-01T00:00:00Z
+
+
+def rate_line(a, b, r, k) -> dict:
+    """One synthetic rating as the event JSON a user posts."""
+    return {"event": "rate", "entityType": "user", "entityId": user_id(a),
+            "targetEntityType": "item", "targetEntityId": item_id(b),
+            "properties": {"rating": float(r)},
+            "eventTime": str(np.datetime64(T0_MS + int(k), "ms")) + "Z"}
+
+
+_LINE = (b'{"event":"rate","entityType":"user","entityId":"u', 6,
+         b'","targetEntityType":"item","targetEntityId":"i', 5,
+         b'","properties":{"rating":', "r", b'},"eventTime":"', "t",
+         b'Z"}\n')
+
+
+def _digits(m, col: int, x, n: int) -> None:
+    for d in range(n):
+        m[:, col + d] = 48 + (x // 10 ** (n - 1 - d)) % 10
+
+
+def write_rate_lines(f, u, i, v, k0: int, chunk: int = 1 << 20) -> None:
+    """Write ratings ``(u, i, v)`` (the ``k0``-th synthetic rating first)
+    to ``f`` as JSON lines equal to :func:`rate_line`'s, built as one
+    fixed-width byte matrix per ``chunk`` ratings (ids zero-padded, the
+    half-star rating as three characters, the time to the millisecond)."""
+    if k0 + len(v) > 86_400_000:
+        raise ValueError("the event times must fall within one day")
+    widths = [len(x) if isinstance(x, bytes) else
+              {"r": 3, "t": 23}.get(x, x) for x in _LINE]
+    width = sum(widths)
+    for s in range(0, len(v), chunk):
+        uu, ii = u[s:s + chunk], i[s:s + chunk]
+        n = len(uu)
+        m = np.empty((n, width), np.uint8)
+        col = 0
+        for part, w in zip(_LINE, widths):
+            if isinstance(part, bytes):
+                m[:, col:col + w] = np.frombuffer(part, np.uint8)
+            elif part == "r":
+                twice = np.rint(v[s:s + chunk] * 2).astype(np.int64)
+                m[:, col] = 48 + twice // 2
+                m[:, col + 1] = ord(".")
+                m[:, col + 2] = 48 + 5 * (twice % 2)
+            elif part == "t":
+                # within the first day: "2015-01-01T" and HH:MM:SS.mmm
+                ms = np.arange(k0 + s, k0 + s + n, dtype=np.int64)
+                m[:, col:col + 11] = np.frombuffer(b"2015-01-01T", np.uint8)
+                for c, (unit, mod, digits) in zip(
+                        (11, 14, 17, 20),
+                        ((3_600_000, 24, 2), (60_000, 60, 2),
+                         (1000, 60, 2), (1, 1000, 3))):
+                    _digits(m, col + c, (ms // unit) % mod, digits)
+                m[:, col + 13] = m[:, col + 16] = ord(":")
+                m[:, col + 19] = ord(".")
+            else:
+                _digits(m, col, uu if w == 6 else ii, w)
+            col += w
+        f.write(m.tobytes())
 
 
 def log(msg: str) -> None:
@@ -923,11 +1034,149 @@ def phase_small_reference(torch) -> None:
             f"host Cholesky path (300x120, rank 16, 3 iterations)")
 
 
+def expected_ratings(u, i, v, n_items: int):
+    """The synthetic triples as the event store must give them back: ids
+    through :func:`user_id` and :func:`item_id` (zero-padded, so their
+    sorted order is the numeric one), each (user, item) pair deduplicated
+    "last" (its last draw: event times grow with the draw), pairs in
+    ascending order."""
+    from predictionio_tpu_torch.storage import Ratings, StringIndex
+
+    pair = u.astype(np.int64) * n_items + i
+    order = np.argsort(pair, kind="stable")
+    ps = pair[order]
+    sel = order[np.r_[ps[1:] != ps[:-1], True]]
+    uu, ii = u[sel], i[sel]
+    users, items = np.unique(uu), np.unique(ii)
+    return Ratings(
+        user_ix=np.searchsorted(users, uu).astype(np.int32),
+        item_ix=np.searchsorted(items, ii).astype(np.int32),
+        rating=np.ascontiguousarray(v[sel], dtype=np.float32),
+        users=StringIndex([user_id(k) for k in users]),
+        items=StringIndex([item_id(k) for k in items]),
+    )
+
+
+def same_ratings(got, want, what: str) -> None:
+    """Two ``Ratings`` bit for bit: the id lists and the COO arrays."""
+    if list(got.users.ids) != list(want.users.ids) or \
+            list(got.items.ids) != list(want.items.ids):
+        raise AssertionError(f"{what}: the id lists differ")
+    for f in ("user_ix", "item_ix", "rating"):
+        a, b = getattr(got, f), getattr(want, f)
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def phase_store(u, i, v):
+    """ML-20M through the event store, as a user loads it: the
+    20,000,263 synthetic ratings (event time ``T0_MS`` + draw ms) written
+    as one JSON-lines file in chunks → ``import_events`` into the SQLite
+    store of a fresh ``$PIO_TPU_HOME`` (the native scanner, one bulk
+    scope) → the file deleted → ``find_ratings`` (must take the native
+    scan), held bit for bit against :func:`expected_ratings`; the draws'
+    pairs are distinct, so every rating must come back.  Returns the
+    store's ``Ratings``."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from predictionio_tpu_torch.storage import Storage
+    from predictionio_tpu_torch.tools import import_events
+
+    home = Path(tempfile.mkdtemp(prefix="pio_ml20m_"))
+    try:
+        storage = Storage({"PIO_TPU_HOME": str(home)})
+        app = storage.get_metadata().app_insert("ml20m")
+        es = storage.get_event_store()
+        es.init_channel(app.id)
+        src = home / "ratings.jsonl"
+        t0 = time.perf_counter()
+        with open(src, "wb") as f:
+            write_rate_lines(f, u, i, v, 0)
+        write_s = time.perf_counter() - t0
+        file_gb = src.stat().st_size / 1e9
+        counts = {}
+        t0 = time.perf_counter()
+        n = import_events(src, es, app.id, counts=counts)
+        import_s = time.perf_counter() - t0
+        src.unlink()
+        if n != len(v) or counts != {"native": len(v), "python": 0}:
+            raise AssertionError(f"imported {n} events, branches {counts}")
+        db_gb = sum(p.stat().st_size for p in home.glob("eventdata.db*")) / 1e9
+        t0 = time.perf_counter()
+        ratings = es.find_ratings(app.id)
+        read_s = time.perf_counter() - t0
+        if es.last_ratings_scan_path != "native":
+            raise AssertionError(
+                f"find_ratings took the {es.last_ratings_scan_path} branch "
+                f"({es.last_ratings_scan_reason})")
+        t0 = time.perf_counter()
+        same_ratings(ratings, expected_ratings(u, i, v, N_ITEMS),
+                     "ML-20M from the store")
+        if len(ratings.rating) != len(v):
+            raise AssertionError(
+                f"the store gave back {len(ratings.rating):,} of "
+                f"{len(v):,} distinct ratings")
+        check_s = time.perf_counter() - t0
+        log(f"phase store ML-20M: {len(v):,} rate events written as JSON "
+            f"lines ({file_gb:.2f} GB) in {write_s:.1f} s; import_events "
+            f"{import_s:.1f} s ({len(v) / import_s:,.0f} events/s, all "
+            f"through the native scanner), sqlite files {db_gb:.2f} GB; "
+            f"find_ratings {read_s:.1f} s (last_ratings_scan_path "
+            f"{es.last_ratings_scan_path!r}): {len(ratings.rating):,} "
+            f"ratings ({ratings.n_users:,} users x {ratings.n_items:,} "
+            f"items), equal to the synthetic triples ({check_s:.1f} s)")
+        return ratings
+    finally:
+        shutil.rmtree(home, ignore_errors=True)
+
+
+def phase_sort(ratings, u, i, v, turns: int = 3) -> None:
+    """Staging's host sort at ML-20M: the native counting sort
+    (``sort_coo_by_row``, by user, as ``_stage_device`` calls it) against
+    its plain version, the stable NumPy argsort, on the store's
+    ``Ratings`` (the main path's input: the store gives them in (user,
+    item) order) and on the same triples in draw order (the order the
+    trainers took them in from memory before they read the store).
+    Outputs equal bit for bit; host seconds, the median of ``turns``
+    turns in which each runs once, the order alternating."""
+    from predictionio_tpu_torch.native import (
+        sort_coo_by_row, sort_coo_by_row_numpy,
+    )
+
+    inputs = {
+        "store order": (ratings.user_ix, ratings.item_ix, ratings.rating,
+                        ratings.n_users),
+        "draw order": (u, i, v, N_USERS),
+    }
+    sorts = [("native", sort_coo_by_row), ("numpy", sort_coo_by_row_numpy)]
+    for what, args in inputs.items():
+        secs = {name: [] for name, _ in sorts}
+        out = {}
+        for turn in range(turns):
+            for name, fn in (sorts if turn % 2 == 0 else sorts[::-1]):
+                t0 = time.perf_counter()
+                out[name] = fn(*args)
+                secs[name].append(time.perf_counter() - t0)
+        for a, b in zip(out["native"], out["numpy"]):
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                raise AssertionError(
+                    f"sort_coo_by_row differs from the plain version "
+                    f"({what})")
+        med = {name: float(np.median(t)) for name, t in secs.items()}
+        log(f"phase sort ML-20M {what} ({len(args[2]):,} ratings by user): "
+            f"native counting sort {med['native']:.3f} s, NumPy stable "
+            f"argsort {med['numpy']:.3f} s "
+            f"({med['numpy'] / med['native']:.1f}x), bit for bit equal "
+            f"(median of {turns} turns)")
+
+
 def engine_over(ratings, items):
     """The recommendation engine's own components with a data source
-    that hands over ratings already in memory.  ML-20M through the event
-    store waits for the port of the native SQLite scan: its Python read
-    alone takes minutes at 20M events."""
+    that hands over the ratings phase store read from the event store
+    (``find_ratings``, the call the template's data source makes), so
+    that the store is filled and read once for the three trainers."""
     from predictionio_tpu_torch.controller import Engine, IdentityPreparator
     from predictionio_tpu_torch.templates.recommendation import (
         ALSAlgorithm, RecommendationDataSource, RecommendationServing,
@@ -963,7 +1212,8 @@ def phase_train(torch, data, solver: str, iterations: int):
                       u, i, v)
     halves = ", ".join(f"{s} {t * 1e3:.1f} ms" for s, t in rep["half_seconds"])
     log(f"phase train solver={solver}: {iterations} iteration(s), wall "
-        f"{wall:.1f} s, buckets {rep['buckets']}, staging ({rep['staging']}) "
+        f"{wall:.1f} s, buckets {rep['buckets']}, staging ({rep['staging']}, "
+        f"native counting sort) "
         f"{rep['staging_seconds']:.2f} s, halves [{halves}], sweep losses "
         f"{[round(x, 5) for x in rep['sweep_losses']]}, training RMSE "
         f"{train_rmse:.5f}, peak device memory "
@@ -973,8 +1223,8 @@ def phase_train(torch, data, solver: str, iterations: int):
         raise AssertionError(
             f"training RMSE {train_rmse} does not beat the zero model "
             f"({zero_rmse})")
-    if model.user_factors.shape != (N_USERS, RANK) or \
-            model.item_factors.shape != (N_ITEMS, RANK):
+    if model.user_factors.shape != (ratings.n_users, RANK) or \
+            model.item_factors.shape != (ratings.n_items, RANK):
         raise AssertionError("factor tables have the wrong shape")
     return algos[0], model, rep
 
@@ -1002,8 +1252,8 @@ def phase_serve(torch, algo, model) -> dict:
     algo.warmup(model, max_batch=64)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    solo = [Query(user=f"u{k}", num=10) for k in range(6)]
-    solo.append(Query(user="u7", num=10, categories=("even",)))
+    solo = [Query(user=user_id(k), num=10) for k in range(6)]
+    solo.append(Query(user=user_id(7), num=10, categories=("even",)))
     solo.append(Query(user="nobody", num=10))
     answers, lat = [], []
     for q in solo:
@@ -1015,10 +1265,10 @@ def phase_serve(torch, algo, model) -> dict:
     for q, a in zip(solo[:-1], answers[:-1]):
         if len(a.item_scores) != 10:
             raise AssertionError(f"{q} got {len(a.item_scores)} items")
-    evens = {f"i{j}" for j in range(0, N_ITEMS, 2)}
+    evens = {item_id(j) for j in range(0, N_ITEMS, 2)}
     if not all(s.item in evens for s in answers[6].item_scores):
         raise AssertionError("the category filter let an odd item through")
-    batch = solo + [Query(user=f"u{k}", num=10) for k in range(100, 156)]
+    batch = solo + [Query(user=user_id(k), num=10) for k in range(100, 156)]
     t0 = time.perf_counter()
     got = algo.batch_predict(model, batch)
     batch_ms = (time.perf_counter() - t0) * 1e3
@@ -1059,11 +1309,138 @@ def _same_reply(got: dict, want: dict, what: str) -> int:
     return trades
 
 
+def _post_all(port: int, path: str, bodies, clients: int) -> list:
+    """POST each body to ``path`` from ``clients`` threads, each over one
+    keep-alive connection; returns ``(status, reply)`` in body order."""
+    import http.client
+
+    def run(part):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        out = []
+        try:
+            for body in part:
+                conn.request("POST", path, json.dumps(body),
+                             {"Content-Type": "application/json"})
+                r = conn.getresponse()
+                out.append((r.status, json.loads(r.read())))
+        finally:
+            conn.close()
+        return out
+
+    parts = [bodies[c::clients] for c in range(clients)]
+    with ThreadPoolExecutor(max_workers=clients) as pool:
+        done = list(pool.map(run, parts))
+    out = [None] * len(bodies)
+    for c, part in enumerate(done):
+        out[c::clients] = part
+    return out
+
+
+def ingest_ml1m(storage, app_id: int, u, i, v) -> dict:
+    """The ML-1M-shaped events through the user's two entry points, each
+    event with an explicit ``eventTime``: the REST event server (default
+    config) takes the 3,706 item ``$set`` events (32 as solo ``POST
+    /events.json``, the rest as ``POST /batch/events.json`` of 50); a
+    second event server on the same store, with the group-commit WAL,
+    takes the first 100,000 rate events as batches of 50 from 8
+    concurrent clients (every status must be 201; ``barrier()`` before
+    the read); ``import_events`` loads the remaining rate events from a
+    JSON-lines file.  Returns each entry point's seconds."""
+    import tempfile
+    from pathlib import Path
+
+    from predictionio_tpu_torch.server import EventServer, EventServerConfig
+    from predictionio_tpu_torch.storage import AccessKey
+    from predictionio_tpu_torch.tools import import_events
+
+    md = storage.get_metadata()
+    key = md.access_key_insert(AccessKey(key="", appid=app_id))
+    sets = [{"event": "$set", "entityType": "item", "entityId": item_id(j),
+             "properties": {"categories": ["even" if j % 2 == 0 else "odd"]},
+             "eventTime": "2014-12-31T00:00:00.000Z"}
+            for j in range(ML1M_ITEMS)]
+    out = {}
+
+    srv = EventServer(storage, EventServerConfig(host="127.0.0.1", port=0))
+    srv.start_background()
+    try:
+        t0 = time.perf_counter()
+        solo = _post_all(srv.port, f"/events.json?accessKey={key}",
+                         sets[:32], 1)
+        out["solo_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batched = _post_all(srv.port, f"/batch/events.json?accessKey={key}",
+                            [sets[s:s + 50] for s in range(32, len(sets), 50)],
+                            1)
+        out["set_batches_s"] = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    if any(st != 201 for st, _ in solo) or any(
+            st != 200 or any(e["status"] != 201 for e in r)
+            for st, r in batched):
+        raise AssertionError("the event server refused a $set event")
+
+    n_http = 100_000
+    wal_dir = Path(tempfile.mkdtemp(prefix="pio_wal_"))
+    srv = EventServer(storage, EventServerConfig(
+        host="127.0.0.1", port=0, wal_dir=str(wal_dir)))
+    srv.start_background()
+    try:
+        rates = [rate_line(a, b, r, k) for k, (a, b, r) in enumerate(zip(
+            u[:n_http].tolist(), i[:n_http].tolist(), v[:n_http].tolist()))]
+        t0 = time.perf_counter()
+        replies = _post_all(
+            srv.port, f"/batch/events.json?accessKey={key}",
+            [rates[s:s + 50] for s in range(0, n_http, 50)], 8)
+        out["wal_post_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        srv.barrier()
+        out["wal_barrier_s"] = time.perf_counter() - t0
+    finally:
+        srv.stop()
+        import shutil
+
+        shutil.rmtree(wal_dir, ignore_errors=True)
+    statuses = [e["status"] for st, r in replies for e in r]
+    if any(st != 200 for st, _ in replies) or statuses != [201] * n_http:
+        raise AssertionError("the group-commit event server refused a rate "
+                             "event")
+
+    es = storage.get_event_store()
+    src = Path(tempfile.mkdtemp(prefix="pio_import_")) / "ratings.jsonl"
+    try:
+        with open(src, "wb") as f:
+            write_rate_lines(f, u[n_http:], i[n_http:], v[n_http:], n_http)
+        counts = {}
+        t0 = time.perf_counter()
+        n = import_events(src, es, app_id, counts=counts)
+        out["import_s"] = time.perf_counter() - t0
+    finally:
+        src.unlink(missing_ok=True)
+        src.parent.rmdir()
+    if n != len(v) - n_http or counts["python"]:
+        raise AssertionError(f"imported {n} events, branches {counts}")
+    log(f"phase pio ingest: event server {ML1M_ITEMS:,} $set events (32 solo "
+        f"POST /events.json in {out['solo_s']:.2f} s, "
+        f"{32 / out['solo_s']:,.0f} events/s; the rest in "
+        f"{len(batched)} batches in {out['set_batches_s']:.2f} s, "
+        f"{(ML1M_ITEMS - 32) / out['set_batches_s']:,.0f} events/s); "
+        f"group-commit event server {n_http:,} rate events in "
+        f"{n_http // 50:,} batches from 8 clients in "
+        f"{out['wal_post_s']:.2f} s ({n_http / out['wal_post_s']:,.0f} "
+        f"events/s, every status 201), barrier {out['wal_barrier_s']:.2f} "
+        f"s; import_events {n:,} rate events in {out['import_s']:.2f} s "
+        f"({n / out['import_s']:,.0f} events/s, branches {counts})")
+    return out
+
+
 def phase_pio(torch) -> dict:
     """The event-store path, as a user runs it: a fresh ``$PIO_TPU_HOME``,
     an app, MovieLens-1M-shaped rate events (6,040 users x 3,706 items x
     1,000,209 ratings, seed 0) and a ``$set`` of categories for every
-    item through the SQLite store's bulk path → ``run_train`` (rank 64,
+    item through the event server and ``import_events``
+    (:func:`ingest_ml1m`) → the training read, native against the
+    Python branch → ``run_train`` (rank 64,
     ``solver="fused"``, 2 iterations, ``fusedGather`` at its ``"auto"``
     default, so the trainer ranks the gather forms with the probe
     kernels) → ``EngineServer`` on 127.0.0.1 answering 32 solo and 64
@@ -1075,14 +1452,13 @@ def phase_pio(torch) -> dict:
     after the last query."""
     import os
     import tempfile
-    from concurrent.futures import ThreadPoolExecutor
 
     from predictionio_tpu_torch.controller import (
         Engine, IdentityPreparator, WorkflowContext,
     )
     from predictionio_tpu_torch.ops import _build, gather_probe
     from predictionio_tpu_torch.server import EngineServer, ServerConfig
-    from predictionio_tpu_torch.storage import Event, Storage, reset_storage
+    from predictionio_tpu_torch.storage import Storage, reset_storage
     from predictionio_tpu_torch.templates.recommendation import (
         ALSAlgorithm, Query, RecommendationDataSource, RecommendationServing,
     )
@@ -1117,28 +1493,29 @@ def phase_pio(torch) -> dict:
         es = storage.get_event_store()
         es.init_channel(app.id)
         u, i, v = synth_ratings(ML1M_USERS, ML1M_ITEMS, ML1M_RATINGS, seed=0)
+        ingest = ingest_ml1m(storage, app.id, u, i, v)
+        # the training read, both branches: the native fused scan (the
+        # one the data source takes) and the Python one
         t0 = time.perf_counter()
-        step = 100_000
-        with es.bulk():
-            for s in range(0, len(v), step):
-                es.insert_batch([
-                    Event(event="rate", entity_type="user",
-                          entity_id=f"u{a}", target_entity_type="item",
-                          target_entity_id=f"i{b}",
-                          properties={"rating": float(r)})
-                    for a, b, r in zip(u[s:s + step].tolist(),
-                                       i[s:s + step].tolist(),
-                                       v[s:s + step].tolist())
-                ], app.id, validate=False)
-            es.insert_batch([
-                Event(event="$set", entity_type="item", entity_id=f"i{j}",
-                      properties={"categories": [
-                          "even" if j % 2 == 0 else "odd"]})
-                for j in range(ML1M_ITEMS)
-            ], app.id, validate=False)
-        ingest_s = time.perf_counter() - t0
-        log(f"phase pio ingest: {len(v):,} rate + {ML1M_ITEMS:,} $set events "
-            f"in {ingest_s:.1f} s")
+        got = es.find_ratings(app.id)
+        native_s = time.perf_counter() - t0
+        if es.last_ratings_scan_path != "native":
+            raise AssertionError(
+                f"find_ratings took the {es.last_ratings_scan_path} branch "
+                f"({es.last_ratings_scan_reason})")
+        t0 = time.perf_counter()
+        plain = es.find_columnar(
+            app.id, event_names=["rate"], float_property="rating",
+            minimal=True).to_ratings(rating_property="rating", dedup="last")
+        python_s = time.perf_counter() - t0
+        same_ratings(got, plain, "ML-1M native against the Python branch")
+        same_ratings(got, expected_ratings(u, i, v, ML1M_ITEMS),
+                     "ML-1M from the store")
+        log(f"phase pio read: find_ratings native {native_s:.2f} s "
+            f"(last_ratings_scan_path {es.last_ratings_scan_path!r}), "
+            f"Python branch {python_s:.2f} s, bit for bit equal; "
+            f"{len(got.rating):,} ratings after dedup 'last', equal to the "
+            f"synthetic triples deduplicated")
 
         def variant(**algo):
             return engine.params_from_variant({
@@ -1148,6 +1525,8 @@ def phase_pio(torch) -> dict:
 
         # a `pio train` is a process of its own: no probe order cached
         gather_probe._ORDER_CACHE.clear()
+        # only the data source's own read may set the scan path now
+        es.last_ratings_scan_path = None
         _build.reset_launches()
         ep = variant()
         t0 = time.perf_counter()
@@ -1155,6 +1534,9 @@ def phase_pio(torch) -> dict:
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         after_auto = dict(_build.LAUNCHES)
+        if es.last_ratings_scan_path != "native":
+            raise AssertionError("the data source's read took the "
+                                 f"{es.last_ratings_scan_path} branch")
         forms = [f for f, k in (("taa", "fused_als"), ("dma", "fused_als_dma"))
                  if after_auto[k] > 0]
         if len(forms) != 1:
@@ -1174,7 +1556,8 @@ def phase_pio(torch) -> dict:
         other_s = time.perf_counter() - t0
         if md.engine_instance_get(iid_other).status != "COMPLETED":
             raise AssertionError(f"the fusedGather={other!r} run failed")
-        log(f"phase pio train: read_training {read_s[0]:.2f} s, run_train "
+        log(f"phase pio train: read_training {read_s[0]:.2f} s (native "
+            f"scan), run_train "
             f"wall {train_s:.2f} s, fused_gather 'auto' resolved to "
             f"{resolved!r} (probe order {gather_probe._ORDER_CACHE}, "
             f"device ns/row {gather_probe.PROBE_NS}); "
@@ -1192,10 +1575,10 @@ def phase_pio(torch) -> dict:
         thread = srv.start_background()
         deploy_s = time.perf_counter() - t0
         rng = np.random.default_rng(11)
-        items = [f"i{j}" for j in range(ML1M_ITEMS)]
+        items = [item_id(j) for j in range(ML1M_ITEMS)]
 
         def query(k):
-            q = {"user": f"u{int(rng.integers(0, ML1M_USERS))}", "num": 10}
+            q = {"user": user_id(rng.integers(0, ML1M_USERS)), "num": 10}
             if k % 4 == 1:
                 q["categories"] = ["even"]
             elif k % 4 == 2:
@@ -1244,7 +1627,7 @@ def phase_pio(torch) -> dict:
             f"microbatch {status.get('microbatch')}); all 96 replies match "
             f"in-process predict ({trades} tied items traded places); "
             f"stopped")
-        return dict(launches=launches, resolved=resolved, ingest_s=ingest_s,
+        return dict(launches=launches, resolved=resolved, ingest=ingest,
                     read_s=read_s[0], train_s=train_s, solo_ms=solo_ms,
                     conc_wall_ms=conc_wall, conc_ms=conc_ms)
     finally:
@@ -1441,8 +1824,8 @@ def kernel_registers(build_log) -> dict:
 
 
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--breakdown"]):
-        print("usage: chip_smoke.py [--breakdown]", file=sys.stderr)
+    if argv not in ([], ["--breakdown"], ["--store"]):
+        print("usage: chip_smoke.py [--breakdown | --store]", file=sys.stderr)
         return 2
     import torch
 
@@ -1465,40 +1848,58 @@ def main(argv: list[str]) -> int:
     log(f"torch {torch.__version__} CUDA {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
 
+    from predictionio_tpu_torch import native
+
+    # both builds at once: the CUDA kernels (nvcc) and the native host
+    # runtime (g++, build/native/)
     t0 = time.perf_counter()
-    _build.library()
-    log(f"phase build: {time.perf_counter() - t0:.1f} s; registers per "
-        f"thread (ptxas): {kernel_registers(_build.BUILD_DIR / 'build.log')}")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        host = pool.submit(native.build)
+        _build.library()
+        host.result()
+    log(f"phase build: {time.perf_counter() - t0:.1f} s (CUDA kernels and "
+        f"{native.BUILD_DIR / native.LIB_NAME}); registers per thread "
+        f"(ptxas): {kernel_registers(_build.BUILD_DIR / 'build.log')}")
 
     t0 = time.perf_counter()
     u, i, v = synth_ml20m(seed=0)
-    from predictionio_tpu_torch.storage import Ratings, StringIndex
-
-    ratings = Ratings(
-        user_ix=u, item_ix=i, rating=v,
-        users=StringIndex([f"u{k}" for k in range(N_USERS)]),
-        items=StringIndex([f"i{k}" for k in range(N_ITEMS)]),
-    )
     t_data = time.perf_counter() - t0
-    if argv:
-        phase_breakdown(torch, ratings)
-        return 0
-    kernels = [phase_gj(torch, dev, (u, i, v))]
-    torch.cuda.empty_cache()
-    kernels.extend(phase_fused(torch, dev))
-    kernels.extend(phase_gather(torch, dev))
-    phase_small_reference(torch)
-    phase_topk(torch, dev)
-
-    t0 = time.perf_counter()
-    items = {f"i{j}": {"categories": ["even" if j % 2 == 0 else "odd"]}
-             for j in range(N_ITEMS)}
     log(f"phase data: {len(v):,} ratings, {N_USERS:,} users, "
-        f"{N_ITEMS:,} items in {t_data + time.perf_counter() - t0:.1f} s")
-    data = (ratings, items, (u, i, v))
+        f"{N_ITEMS:,} items in {t_data:.1f} s")
+    if argv == ["--breakdown"]:
+        # the input phase store reads, made in memory (the full run holds
+        # the two equal)
+        phase_breakdown(torch, expected_ratings(u, i, v, N_ITEMS))
+        return 0
+    # host seconds of each phase, logged before the kernels line
+    secs = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    ratings = timed("store", phase_store, u, i, v)
+    timed("sort", phase_sort, ratings, u, i, v)
+    if argv == ["--store"]:
+        return 0
+    kernels = [timed("gj", phase_gj, torch, dev, (
+        ratings.user_ix, ratings.item_ix, ratings.rating))]
+    torch.cuda.empty_cache()
+    kernels.extend(timed("fused", phase_fused, torch, dev))
+    kernels.extend(timed("gather", phase_gather, torch, dev))
+    timed("small reference", phase_small_reference, torch)
+    timed("topk", phase_topk, torch, dev)
+
+    items = {item_id(j): {"categories": ["even" if j % 2 == 0 else "odd"]}
+             for j in range(N_ITEMS)}
+    data = (ratings, items, (ratings.user_ix, ratings.item_ix,
+                             ratings.rating))
 
     # The main paths, each with the counts set to 0 just before it and
     # read just after.  ML-20M: train both kernel solvers and serve.
+    t0 = time.perf_counter()
     _build.reset_launches()
     algo, model, _ = phase_train(torch, data, "fused", 2)
     del model
@@ -1507,10 +1908,11 @@ def main(argv: list[str]) -> int:
     phase_serve(torch, algo, model)
     torch.cuda.synchronize()
     paths = {"ml20m": dict(_build.LAUNCHES)}
+    secs["train and serve"] = round(time.perf_counter() - t0, 1)
     del algo, model
     torch.cuda.empty_cache()
     # events -> run_train -> EngineServer (resets the counts itself)
-    paths["pio"] = phase_pio(torch)["launches"]
+    paths["pio"] = timed("pio", phase_pio, torch)["launches"]
     # the probe module's own entry point (the reference's
     # tools/probe_gather.py --smoke), the one path taa1 lies on
     from predictionio_tpu_torch.ops import gather_probe
@@ -1539,7 +1941,8 @@ def main(argv: list[str]) -> int:
         k["launches"] = sum(p[k["name"]] for p in paths.values())
         k["launches_by_path"] = {n: p[k["name"]] for n, p in paths.items()}
 
-    phase_breakdown(torch, ratings)
+    timed("breakdown", phase_breakdown, torch, ratings)
+    log(f"phase seconds (host clock): {secs}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

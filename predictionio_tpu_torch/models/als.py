@@ -4,7 +4,10 @@ Port of ``predictionio_tpu/models/als.py`` (replicated placement, full
 solves).  The host groups each side's rows into power-of-two padded
 buckets (ALX-style, arXiv 2112.02194; NumPy, copied from the reference),
 and each half-iteration solves every bucket's normal equations on the
-device:
+device.  Both staging paths group the COO by row with the native O(n)
+counting sort (``native/bucketize.cpp`` through
+:func:`predictionio_tpu_torch.native.sort_coo_by_row`), as the
+reference does.
 
 * ``solver="xla"`` — gather the opposite rows ``[B, K, R]``, einsum the
   Gram matrices, Cholesky-solve through ``torch.linalg`` (the library
@@ -42,6 +45,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, fence, matmul_precision, resolve_device
+from ..native import sort_coo_by_row
 from ..storage.columnar import Ratings
 
 logger = logging.getLogger(__name__)
@@ -246,28 +250,6 @@ class BucketLayout:
     buckets: list[Bucket] = field(default_factory=list)
 
 
-def sort_coo_by_row(row_ix, col_ix, val, n_rows: int):
-    """Group a COO by row id, stably: returns ``(c_sorted, v_sorted,
-    counts, starts)`` with row ``r`` at ``[starts[r], starts[r+1])``.
-    (The reference uses its native counting sort and falls back to this
-    NumPy form.)"""
-    row_ix = np.ascontiguousarray(row_ix, dtype=np.int32)
-    col_ix = np.ascontiguousarray(col_ix, dtype=np.int32)
-    val = np.ascontiguousarray(val, dtype=np.float32)
-    if len(val) and (row_ix.min() < 0 or row_ix.max() >= n_rows):
-        raise ValueError(
-            f"row ids must be in [0, {n_rows}); got "
-            f"[{int(row_ix.min())}, {int(row_ix.max())}]"
-        )
-    order = np.argsort(row_ix, kind="stable")
-    c_sorted = np.ascontiguousarray(col_ix[order])
-    v_sorted = np.ascontiguousarray(val[order])
-    counts = np.bincount(row_ix, minlength=n_rows).astype(np.int64)
-    starts = np.zeros(n_rows + 1, dtype=np.int64)
-    np.cumsum(counts, out=starts[1:])
-    return c_sorted, v_sorted, counts, starts
-
-
 def build_bucket_layout(
     row_ix: np.ndarray,
     col_ix: np.ndarray,
@@ -281,7 +263,8 @@ def build_bucket_layout(
     shapes.  Rows with zero ratings are excluded (their factors stay at
     init); oversized buckets are split so ``B*K <= max_entries``.  (The
     reference also pads each bucket's batch to its mesh size; one device
-    needs no batch padding.)"""
+    needs no batch padding.)  The rows are grouped by the native
+    counting sort."""
     if len(val) >= np.iinfo(np.int32).max:
         raise ValueError(
             f"{len(val):,} ratings exceed the int32 offset range of a "
@@ -660,6 +643,13 @@ class ALSTrainer:
         only ``(item ids, values)`` in transfer order in the narrowest
         lossless dtypes (uint16 ids when they fit, uint8 half-star
         codes), and expand both sides on the device."""
+        if len(v) >= np.iinfo(np.int32).max:
+            # same int32-offset ceiling as build_bucket_layout: starts and
+            # gather positions would wrap
+            raise ValueError(
+                f"{len(v):,} ratings exceed the int32 offset range of a "
+                "single bucket layout; shard the COO across hosts first"
+            )
         u = np.asarray(u)
         i = np.asarray(i)
         if len(v):
@@ -673,6 +663,8 @@ class ALSTrainer:
                     f"item ids must be in [0, {ni}); "
                     f"got [{int(i.min())}, {int(i.max())}]"
                 )
+        # one O(n) native counting sort by user; its counts and starts
+        # feed the user-side bucket plan directly
         i_by_u, v_by_u, counts_u, starts_u = sort_coo_by_row(u, i, v, nu)
         counts_i = np.bincount(i, minlength=ni).astype(np.int32)
         starts_i = np.concatenate(([0], np.cumsum(counts_i)[:-1])).astype(

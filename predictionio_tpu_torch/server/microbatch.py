@@ -32,10 +32,10 @@ import threading
 import time
 from typing import Any, Callable, Optional, Sequence
 
+from ..resilience.policy import Deadline, DeadlineExceeded
+
 __all__ = [
     "AdmissionRejected",
-    "Deadline",
-    "DeadlineExceeded",
     "EwmaEstimator",
     "MicroBatcher",
     "dispatchable_sizes",
@@ -45,42 +45,6 @@ logger = logging.getLogger(__name__)
 
 # distinguishes "no result produced" from a legitimate None result
 _UNSET = object()
-
-
-class DeadlineExceeded(TimeoutError):
-    """A request's time budget ran out before it was served
-    (``predictionio_tpu/resilience/policy.py``)."""
-
-
-class Deadline:
-    """A fixed point in (monotonic) time a request must finish by (copy of
-    ``predictionio_tpu/resilience/policy.py``'s ``Deadline``)."""
-
-    __slots__ = ("expires_at", "budget_s", "_clock")
-
-    def __init__(self, budget_s: float,
-                 clock: Callable[[], float] = time.monotonic):
-        self.budget_s = budget_s
-        self._clock = clock
-        self.expires_at = clock() + budget_s
-
-    @classmethod
-    def after(cls, budget_s: float,
-              clock: Callable[[], float] = time.monotonic) -> "Deadline":
-        return cls(budget_s, clock)
-
-    def remaining(self) -> float:
-        return self.expires_at - self._clock()
-
-    @property
-    def expired(self) -> bool:
-        return self.remaining() <= 0
-
-    def check(self, what: str = "operation") -> None:
-        if self.expired:
-            raise DeadlineExceeded(
-                f"{what} exceeded its {self.budget_s:.3f}s deadline"
-            )
 
 
 class AdmissionRejected(DeadlineExceeded):

@@ -40,14 +40,10 @@ import numpy as np
 
 from ..controller.base import Algorithm, WorkflowContext
 from ..controller.engine import Engine, EngineParams
+from ..resilience.policy import Deadline, DeadlineExceeded
 from ..workflow.train import prepare_deploy_components
 from .http_base import DEFAULT_MAX_CONNECTIONS, HTTPServerBase, JsonRequestHandler
-from .microbatch import (
-    AdmissionRejected,
-    Deadline,
-    DeadlineExceeded,
-    MicroBatcher,
-)
+from .microbatch import AdmissionRejected, MicroBatcher
 
 logger = logging.getLogger(__name__)
 

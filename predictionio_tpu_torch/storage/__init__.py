@@ -3,9 +3,11 @@ store, id maps and the registry that resolves them.
 
 Copies of ``predictionio_tpu/storage``'s host modules (the port imports
 nothing of the JAX package): embedded SQLite and in-memory backends with
-the reference's schemas and ``$PIO_TPU_HOME`` layout, and a columnar
+the reference's schemas and ``$PIO_TPU_HOME`` layout, a columnar
 batch read path (struct-of-arrays -> the ``Ratings`` COO the trainer
-stages onto the card).
+stages onto the card; the native fused scan, with its snapshot cache),
+the group-commit ingest WAL (``wal``) and the engine-facing facades
+(``store``; the deprecated ``views``).
 """
 
 from .aggregate import aggregate_properties, aggregate_properties_single
@@ -21,7 +23,12 @@ from .event import (
     parse_time,
     validate_event,
 )
-from .levents import NO_TARGET, EventStore, MemoryEventStore
+from .levents import (
+    NO_TARGET,
+    EventStore,
+    MemoryEventStore,
+    ShardUnavailableError,
+)
 from .metadata import (
     AccessKey,
     App,
@@ -32,6 +39,7 @@ from .metadata import (
 )
 from .registry import Storage, StorageError, get_storage, reset_storage
 from .sqlite_events import SQLiteEventStore
+from .store import LEventStore, PEventStore, app_name_to_id
 
 __all__ = [
     "aggregate_properties",
@@ -53,7 +61,11 @@ __all__ = [
     "NO_TARGET",
     "EventStore",
     "MemoryEventStore",
+    "ShardUnavailableError",
     "SQLiteEventStore",
+    "LEventStore",
+    "PEventStore",
+    "app_name_to_id",
     "AccessKey",
     "App",
     "Channel",

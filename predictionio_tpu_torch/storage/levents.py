@@ -5,9 +5,8 @@ synchronous re-expression of the reference `LEvents` DAO
 (`data/.../storage/LEvents.scala:31-451`).  Filter semantics of ``find``
 match the reference exactly, including the tri-state target-entity
 filters (``None`` = unrestricted, ``NO_TARGET`` = event must have no
-target, a string = must equal).  The sharded store's
-``ShardUnavailableError`` and ``extract_entity_map`` (which needs
-``EntityMap``) are not ported yet.
+target, a string = must equal).  ``extract_entity_map`` (which needs
+``EntityMap``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +21,25 @@ from typing import Iterable, Iterator, Optional, Sequence, Union
 from .aggregate import aggregate_properties, aggregate_properties_single
 from .event import Event, PropertyMap, new_event_id, validate_event
 
-__all__ = ["NO_TARGET", "EventStore", "MemoryEventStore"]
+__all__ = ["NO_TARGET", "EventStore", "MemoryEventStore",
+           "ShardUnavailableError"]
+
+
+class ShardUnavailableError(Exception):
+    """One shard of the event store cannot serve right now (a broken
+    ingest WAL; in the reference also a dead owner worker or an injected
+    ``store.shard_down``).
+
+    Deliberately not a ``sqlite3.OperationalError``: the condition is
+    sticky until the owner recovers, so the ingest edge answers a
+    structured 503 + Retry-After at once instead of spending its
+    transient-error retry budget.  ``shard`` names the component that is
+    down, never the whole store."""
+
+    def __init__(self, shard: int, reason: str = "shard unavailable"):
+        super().__init__(f"shard {shard} unavailable: {reason}")
+        self.shard = int(shard)
+        self.reason = reason
 
 
 class _NoTarget:

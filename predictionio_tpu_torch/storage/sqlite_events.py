@@ -11,10 +11,13 @@ single writer.
 
 The batch read path (:meth:`SQLiteEventStore.find_columnar`) reads
 straight into NumPy arrays, the `PEvents` analogue
-(`HBPEvents.scala:66-199`).  :meth:`SQLiteEventStore.find_ratings` is the
-reference's Python branch, ``find_columnar(minimal=True) -> to_ratings``;
-the native scan (``native/sqlite_scan.cpp``), the scan snapshot cache,
-the sharded store and the ingest WAL are not ported yet (ROADMAP Queue 1).
+(`HBPEvents.scala:66-199`).  :meth:`SQLiteEventStore.find_ratings` fuses
+the scan and the string-id encode in one native pass
+(``native/sqlite_scan.cpp``) and takes the reference's Python branch,
+``find_columnar(minimal=True) -> to_ratings``, only for the data reasons
+the reference does.  Both reads may be served from the scan snapshot
+cache (``scan_cache.py``).  The sharded store and the pio-live
+incremental scans are not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import contextlib
 import datetime as _dt
 import json
 import logging
+import os
 import re
 import sqlite3
 import threading
@@ -31,6 +35,7 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
+from ..resilience.policy import check_deadline
 from ._sqlite_util import SerializedConnection
 from .columnar import EventFrame, Ratings
 from .event import (
@@ -149,14 +154,6 @@ CREATE TABLE IF NOT EXISTS _scan_versions (
 def _table_name(app_id: int, channel_id: int) -> str:
     # mirrors events_<appId>[_<channelId>] (HBEventsUtil.scala:51-57)
     return f"events_{app_id}" if channel_id == 0 else f"events_{app_id}_{channel_id}"
-
-
-def _no_scan_cache(cache: Optional[bool]) -> None:
-    if cache:
-        raise NotImplementedError(
-            "the scan snapshot cache (storage/scan_cache.py) is not ported "
-            "to predictionio_tpu_torch yet (ROADMAP Queue 1)"
-        )
 
 
 class SQLiteEventStore(EventStore):
@@ -345,6 +342,9 @@ class SQLiteEventStore(EventStore):
 
     def insert(self, event: Event, app_id: int, channel_id: int = 0,
                validate: bool = True) -> str:
+        # the storage boundary honors a caller's propagated time budget
+        # (resilience/policy.Deadline): no-op unless a scope is active
+        check_deadline("event store write")
         if validate:
             validate_event(event)
         t = self._ensure_table(app_id, channel_id)
@@ -383,6 +383,75 @@ class SQLiteEventStore(EventStore):
             if not self._bulk_depth:
                 self._conn.commit()
         return ids
+
+    def insert_raw_rows(self, rows, app_id: int, channel_id: int = 0) -> None:
+        """Low-level bulk insert of pre-built storage rows.
+
+        The native importer fast path (`tools/import_export.py` +
+        `native/jsonl_scan.cpp`) and the ingest WAL's drain hand over
+        row fields without constructing Event objects; each row must
+        match the 11-column events schema of :meth:`_row` exactly and be
+        pre-validated.  Not part of the EventStore contract: callers
+        feature-test with ``hasattr``.
+        """
+        t = self._ensure_table(app_id, channel_id)
+        with self._lock:
+            if self._bulk_depth:
+                self._maybe_defer_indexes(t)
+            self._conn.executemany(
+                f"INSERT OR REPLACE INTO {t} VALUES (?,?,?,?,?,?,?,?,?,?,?)",
+                rows,
+            )
+            self._bump_version(t)
+            if not self._bulk_depth:
+                self._conn.commit()
+
+    def purge_older_than(self, cutoff_millis: int, app_id: int,
+                         channel_id: int = 0) -> int:
+        """TTL enforcement for the live ingest window: delete rows whose
+        EVENT time predates ``cutoff_millis`` and return the count.
+
+        Event time, not creation time — the window the trending
+        re-scans and fold-in deltas reason in.  Watermark cursors stay
+        valid: a purge below the cursor is invisible to the scan, and a
+        cursor below the purge floor simply finds fewer rows — stale
+        events it would have folded in are gone, which is the TTL's
+        contract.  (sqlite only ever reuses a freed MAX rowid, and only
+        when the newest-INSERTED row carries the oldest EVENT time —
+        live ingest never does that; bulk historical imports should
+        purge before cursors are cut.)  Not part of the EventStore ABC
+        — callers feature-test with ``hasattr``.
+        """
+        t = self._ensure_table(app_id, channel_id)
+        with self._lock:
+            cur = self._conn.execute(
+                f"DELETE FROM {t} WHERE event_time < ?",
+                (int(cutoff_millis),),
+            )
+            n = cur.rowcount if cur.rowcount and cur.rowcount > 0 else 0
+            if n:
+                self._bump_version(t)
+            if not self._bulk_depth:
+                self._conn.commit()
+        return n
+
+    def iter_raw_rows(self, app_id: int, channel_id: int = 0):
+        """Yield raw 11-column storage rows (schema of :meth:`_row`).
+
+        The exporter fast path: composing wire JSON straight from stored
+        parts skips Event construction + re-serialization.  Not part of
+        the EventStore contract — callers feature-test with ``hasattr``.
+        """
+        t = self._ensure_table(app_id, channel_id)
+        # same ordering as find(): exports stay time-sorted
+        cur = self._conn.execute(
+            f"SELECT * FROM {t} ORDER BY event_time, event_id"
+        )
+        while True:
+            rows = cur.fetchmany(10_000)
+            if not rows:
+                return
+            yield from rows
 
     @property
     def _bulk_depth(self) -> int:
@@ -626,6 +695,7 @@ class SQLiteEventStore(EventStore):
         limit: Optional[int] = None,
         reversed: bool = False,
     ) -> Iterator[Event]:
+        check_deadline("event store scan")
         t = self._ensure_table(app_id, channel_id)
         sql, params = self._query(
             t, start_time, until_time, entity_type, entity_id, event_names,
@@ -634,7 +704,7 @@ class SQLiteEventStore(EventStore):
         cur = self._conn.execute(sql, params)
         return (self._event_from_row(r) for r in iter(cur.fetchone, None))
 
-    # -- training read ----------------------------------------------------
+    # -- fused training read (scan + encode in C) -------------------------
     def find_ratings(
         self,
         app_id: int,
@@ -646,18 +716,154 @@ class SQLiteEventStore(EventStore):
         cache: Optional[bool] = None,
     ) -> Ratings:
         """COO :class:`~predictionio_tpu_torch.storage.columnar.Ratings`
-        of the (app, channel) table: the reference's Python branch,
-        exactly ``find_columnar(minimal=True) -> to_ratings`` (sorted-unique
-        id encoding, ``dedup_coo``).  ``rating_property=None`` is the
-        implicit-feedback read (every event counts 1.0).  The reference's
-        native scan, which this branch stands beside, is not ported yet."""
-        _no_scan_cache(cache)
-        frame = self.find_columnar(
-            app_id, channel_id, event_names=list(event_names),
-            float_property=rating_property, minimal=True,
-            entity_type=entity_type,
+        straight from the events table in one native pass
+        (``native/sqlite_scan.cpp``: the sqlite scan and the string-id
+        dictionary build fused).  ``rating_property=None`` is the
+        implicit-feedback read (every event counts 1.0).
+
+        The Python branch, exactly ``find_columnar(minimal=True) ->
+        to_ratings``, runs only where the reference's does for a reason
+        of the data or the store: an in-memory db, an open bulk scope
+        (uncommitted rows live on this thread's connection), no event
+        names, a property name that is not ``[A-Za-z0-9_]+``, or a scan
+        that sqlite fails (``json_extract`` on a NaN or Infinity token).
+        A failed native build raises.  The branch taken is kept in
+        ``last_ratings_scan_path`` (``"native"``, ``"python"`` or
+        ``"cache"``) and the Python branch's reason in
+        ``last_ratings_scan_reason``.
+
+        Encoding matches ``to_ratings``' sorted-unique determinism: the
+        native first-seen codes are remapped through one argsort of the
+        (small) unique-id table.  Dedup shares ``dedup_coo`` with the
+        Python branch.
+        """
+        from ..native import NativeScanError, scan_ratings_sqlite
+        from . import scan_cache
+        from .bimap import StringIndex
+        from .columnar import dedup_coo
+
+        event_names = list(event_names)
+        # same snapshot cache as find_columnar, at the RATINGS level:
+        # repeat trains skip the scan and the encode
+        cache_key = None
+        v_before = None
+        if (
+            scan_cache.enabled(cache)
+            and self._path != ":memory:"
+            and self._bulk_depth == 0
+        ):
+            t0 = self._ensure_table(app_id, channel_id)
+            st = os.stat(self._path)
+            v_before = self._version(t0)
+            cache_key = scan_cache.key(
+                self._path, t0,
+                (v_before, st.st_ino, st.st_ctime_ns),
+                ["find_ratings", event_names, rating_property, dedup,
+                 entity_type],
+            )
+            cached = scan_cache.load_ratings(cache_key)
+            if cached is not None:
+                self.last_ratings_scan_path = "cache"
+                self.last_ratings_scan_reason = None
+                return cached
+
+        if self._path == ":memory:":
+            reason = "in-memory db"
+        elif self._bulk_depth:
+            reason = "open bulk scope"
+        elif not event_names:
+            reason = "no event names"
+        elif rating_property is not None and not re.fullmatch(
+                r"[A-Za-z0-9_]+", rating_property):
+            reason = f"property name {rating_property!r}"
+        else:
+            reason = None
+        native = None
+        if reason is None:
+            t = self._ensure_table(app_id, channel_id)
+            # same WHERE semantics as the Python branch's _query: event
+            # names and entity_type are VALUES (bound); the table name
+            # and the validated property name are identifiers
+            value_sql = (
+                f", json_extract(properties, '$.{rating_property}')"
+                if rating_property is not None else ""
+            )
+            qs = ",".join("?" * len(event_names))
+            sql = (
+                f"SELECT entity_id, target_entity_id, event_time"
+                f"{value_sql} FROM {t} WHERE event IN ({qs})"
+            )
+            binds = list(event_names)
+            if entity_type is not None:
+                sql += f" AND entity_type = ?{len(binds) + 1}"
+                binds.append(entity_type)
+            try:
+                native = scan_ratings_sqlite(
+                    self._path, sql, binds,
+                    has_value_col=rating_property is not None,
+                )
+            except NativeScanError as e:
+                reason = f"sqlite scan error: {e}"
+                logger.warning(
+                    "native ratings scan fell back to python: %s", e
+                )
+        if native is None:
+            self.last_ratings_scan_path = "python"
+            self.last_ratings_scan_reason = reason
+            # cache=False: the result is cached at the RATINGS level
+            # below; a frame snapshot would never be read back
+            frame = self.find_columnar(
+                app_id, channel_id, event_names=event_names,
+                float_property=rating_property, minimal=True,
+                entity_type=entity_type, cache=False,
+            )
+            out = frame.to_ratings(
+                rating_property=rating_property, dedup=dedup
+            )
+            return self._maybe_store_ratings(
+                out, cache_key, v_before, app_id, channel_id
+            )
+        self.last_ratings_scan_path = "native"
+        self.last_ratings_scan_reason = None
+
+        u, i, v, t_ms, user_ids, item_ids = native
+        # first-seen -> sorted-unique codes (to_ratings determinism)
+        uo = np.argsort(user_ids)
+        io = np.argsort(item_ids)
+        urank = np.empty(len(uo), np.int32)
+        urank[uo] = np.arange(len(uo), dtype=np.int32)
+        irank = np.empty(len(io), np.int32)
+        irank[io] = np.arange(len(io), dtype=np.int32)
+        u = urank[u] if len(u) else u
+        i = irank[i] if len(i) else i
+        ok = ~np.isnan(v)
+        u, i, v, t_ms = u[ok], i[ok], v[ok], t_ms[ok]
+        u, i, v = dedup_coo(u, i, v, t_ms, len(item_ids), dedup)
+        out = Ratings(
+            user_ix=u.astype(np.int32),
+            item_ix=i.astype(np.int32),
+            rating=v.astype(np.float32),
+            users=StringIndex(user_ids[uo]),
+            items=StringIndex(item_ids[io]),
         )
-        return frame.to_ratings(rating_property=rating_property, dedup=dedup)
+        return self._maybe_store_ratings(
+            out, cache_key, v_before, app_id, channel_id
+        )
+
+    def _maybe_store_ratings(self, out, cache_key, v_before, app_id,
+                             channel_id):
+        """One store gate for both find_ratings branches: snapshot only
+        when the table is provably unchanged across the scan (the same
+        rule as find_columnar's frame snapshots)."""
+        from . import scan_cache
+
+        if (
+            cache_key is not None
+            and self._version(self._ensure_table(app_id, channel_id))
+            == v_before
+        ):
+            scan_cache.store_ratings(cache_key, out)
+        return out
 
     # -- columnar batch read (PEvents analogue) ---------------------------
     def find_columnar(
@@ -688,11 +894,43 @@ class SQLiteEventStore(EventStore):
         instead of 7 is ~2x (the other EventFrame fields come back
         ``None``; ``to_ratings``/``select`` handle that).
 
-        ``cache``: the reference's scan snapshot cache is not ported yet;
-        only None or False is accepted.
+        ``cache`` (default: env ``PIO_TPU_SCAN_CACHE=1``) snapshots the
+        result to an npz keyed by the table's write-version counter (see
+        :meth:`_bump_version`) plus the database file's identity, so
+        repeat trains on an unchanged table read back at numpy speed
+        instead of re-paying the cursor scan (scan_cache.py).
         """
-        _no_scan_cache(cache)
         t = self._ensure_table(app_id, channel_id)
+        from . import scan_cache
+
+        cache_key = None
+        v_before = None
+        # no caching inside a bulk() scope: uncommitted rows must never be
+        # published, and a rollback would strand the snapshot
+        if (
+            scan_cache.enabled(cache)
+            and self._path != ":memory:"
+            and self._bulk_depth == 0
+        ):
+            st = os.stat(self._path)
+            v_before = self._version(t)
+            cache_key = scan_cache.key(
+                self._path, t,
+                # db-file identity: deleting and recreating the database
+                # resets the version counter, so the inode/ctime must be
+                # part of the fingerprint or the old file's snapshots
+                # would be served for the new file's data
+                (v_before, st.st_ino, st.st_ctime_ns),
+                [
+                    str(start_time), str(until_time), entity_type,
+                    entity_id, event_names, target_entity_type,
+                    target_entity_id, float_property, float_default,
+                    minimal,
+                ],
+            )
+            cached = scan_cache.load(cache_key)
+            if cached is not None:
+                return cached
         # json_extract path syntax can't express arbitrary key names
         # safely; only simple names take the SQL fast path.  NOTE: rows
         # whose properties blob holds NaN/Infinity tokens (json.dumps
@@ -776,6 +1014,10 @@ class SQLiteEventStore(EventStore):
                 properties=props,
                 value=values,
             )
+        if cache_key is not None and self._version(t) == v_before:
+            # store only when no write landed during the scan: the
+            # fingerprint then provably describes the snapshot's contents
+            scan_cache.store(cache_key, frame)
         return frame
 
     def _scan_columns(self, t, minimal, float_property, extract_in_sql,

@@ -213,9 +213,9 @@ class RecommendationDataSource(DataSource):
         es: EventStore = ctx.storage.get_event_store()
         dedup = "last" if p.rating_property else "sum"
         if hasattr(es, "find_ratings"):
-            # the SQLite store's training read (its Python branch:
-            # find_columnar + to_ratings); rating_property=None is the
-            # implicit-count mode
+            # the SQLite store's training read (the native fused scan
+            # and encode); rating_property=None is the implicit-count
+            # mode
             ratings = es.find_ratings(
                 app_id=app_id,
                 event_names=p.event_names,
