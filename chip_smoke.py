@@ -55,9 +55,13 @@ check) and the host sort's timing, with no result line.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
+import logging
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1068,68 +1072,211 @@ def same_ratings(got, want, what: str) -> None:
             raise AssertionError(f"{what}: {f} differs")
 
 
-def phase_store(u, i, v):
-    """ML-20M through the event store, as a user loads it: the
-    20,000,263 synthetic ratings (event time ``T0_MS`` + draw ms) written
-    as one JSON-lines file in chunks → ``import_events`` into the SQLite
-    store of a fresh ``$PIO_TPU_HOME`` (the native scanner, one bulk
-    scope) → the file deleted → ``find_ratings`` (must take the native
-    scan), held bit for bit against :func:`expected_ratings`; the draws'
-    pairs are distinct, so every rating must come back.  Returns the
-    store's ``Ratings``."""
-    import shutil
-    import tempfile
+# the port's log messages (their formats) that phases store and cli read
+_IMPORT_LOG = ("import of %s: %d events by the native scanner, %d parsed "
+               "in Python")
+_READ_LOG = "read_training: %.3f s"
+_ALS_LOG = "ALS trained: %s"
+_SAVE_LOG = "models of instance %s saved: %.3f s"
+
+
+class CaptureLog(logging.Handler):
+    """The port's log records of one step (the CLI's import branches,
+    the training read, the ALS report, the model save), by message."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records: list[logging.LogRecord] = []
+
+    def __enter__(self):
+        logging.getLogger("predictionio_tpu_torch").addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("predictionio_tpu_torch").removeHandler(self)
+
+    def emit(self, record: logging.LogRecord) -> None:
+        self.records.append(record)
+
+    def args(self, msg: str) -> tuple:
+        found = [r.args for r in self.records if r.msg == msg]
+        if len(found) != 1:
+            raise AssertionError(f"{len(found)} log records {msg!r}")
+        return found[0]
+
+
+def cli(argv: list, storage=None) -> str:
+    """The port's console in this process, on the card: its stdout;
+    raises unless it exits with 0."""
+    from predictionio_tpu_torch.cli.main import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv, storage=storage)
+    if rc != 0:
+        raise AssertionError(f"{argv} exited with {rc}: {out.getvalue()}")
+    return out.getvalue()
+
+
+class Console:
+    """``python -m predictionio_tpu_torch <argv>`` as a process on a
+    store's home, its output kept in a log file: started, waited for its
+    ``--port-file``, stopped.  A failure prints the log."""
+
+    def __init__(self, home, argv: list, name: str):
+        from pathlib import Path
+
+        self.log_path = Path(home) / f"{name}.log"
+        self.port_file = Path(home) / f"{name}.port"
+        self.port_file.unlink(missing_ok=True)
+        root = str(Path(__file__).resolve().parent)
+        env = dict(os.environ, PIO_TPU_HOME=str(home), PYTHONPATH=root)
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "wb") as logf:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "predictionio_tpu_torch", *argv,
+                 "--port-file", str(self.port_file)],
+                cwd=root, env=env, stdout=logf, stderr=subprocess.STDOUT)
+
+    def wait_port(self, timeout: float = 300.0) -> int:
+        """The bound port, once the process has written it; the boot
+        seconds are kept in ``boot_s``."""
+        deadline = time.monotonic() + timeout
+        while not (self.port_file.exists()
+                   and self.port_file.read_text().endswith("\n")):
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                self.fail("did not announce its port")
+            time.sleep(0.05)
+        self.boot_s = time.perf_counter() - self.t0
+        return int(self.port_file.read_text())
+
+    def fail(self, what: str):
+        raise AssertionError(
+            f"{self.proc.args[3]} {what} (rc {self.proc.poll()}); its log:\n"
+            + self.log_path.read_text(errors="replace")[-8000:])
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+
+class StoreHome:
+    """The ML-20M store of phase store: a ``$PIO_TPU_HOME`` with the app,
+    its access key and its ``Storage``; it lives until phase cli ends."""
+
+    def __init__(self):
+        import tempfile
+
+        from predictionio_tpu_torch.storage import Storage
+
+        self.home = tempfile.mkdtemp(prefix="pio_ml20m_")
+        self.storage = Storage({"PIO_TPU_HOME": self.home})
+        self.app_id = self.key = None
+
+    def close(self) -> None:
+        import shutil
+
+        self.storage.close()
+        shutil.rmtree(self.home, ignore_errors=True)
+
+
+def post_item_sets(store: StoreHome, n_items: int) -> dict:
+    """The items' ``$set`` category events through the REST event server
+    as a process of its own (``python -m predictionio_tpu_torch
+    eventserver --port 0``) on the store's home, as batches of 50 from
+    one keep-alive client; every status must be 201.  Returns the boot
+    and post seconds."""
+    sets = [{"event": "$set", "entityType": "item", "entityId": item_id(j),
+             "properties": {"categories": ["even" if j % 2 == 0 else "odd"]},
+             "eventTime": "2014-12-31T00:00:00.000Z"}
+            for j in range(n_items)]
+    srv = Console(store.home, ["eventserver", "--ip", "127.0.0.1", "--port",
+                               "0"], "eventserver")
+    try:
+        port = srv.wait_port()
+        t0 = time.perf_counter()
+        replies = _post_all(port, f"/batch/events.json?accessKey={store.key}",
+                            [sets[s:s + 50] for s in range(0, n_items, 50)],
+                            1)
+        post_s = time.perf_counter() - t0
+        if any(st != 200 or any(e["status"] != 201 for e in r)
+               for st, r in replies):
+            srv.fail("refused an item $set event")
+    finally:
+        srv.stop()
+    return {"boot_s": srv.boot_s, "post_s": post_s,
+            "events_per_s": n_items / post_s}
+
+
+def phase_store(store: StoreHome, u, i, v):
+    """ML-20M through the event store, as a user loads it: ``app new``
+    through the port's console → the 20,000,263 synthetic ratings (event
+    time ``T0_MS`` + draw ms) written as one JSON-lines file in chunks →
+    the console's ``import`` into the SQLite store (the native scanner,
+    one bulk scope; the file deleted after) → the items' ``$set`` events
+    through the event server process (:func:`post_item_sets`) →
+    ``find_ratings`` as the template's data source calls it, with the
+    scan cache on (the snapshot phase cli's training read finds; must
+    take the native scan), held bit for bit against
+    :func:`expected_ratings`; the draws' pairs are distinct, so every
+    rating must come back.  Returns the store's ``Ratings``."""
     from pathlib import Path
 
-    from predictionio_tpu_torch.storage import Storage
-    from predictionio_tpu_torch.tools import import_events
-
-    home = Path(tempfile.mkdtemp(prefix="pio_ml20m_"))
-    try:
-        storage = Storage({"PIO_TPU_HOME": str(home)})
-        app = storage.get_metadata().app_insert("ml20m")
-        es = storage.get_event_store()
-        es.init_channel(app.id)
-        src = home / "ratings.jsonl"
-        t0 = time.perf_counter()
-        with open(src, "wb") as f:
-            write_rate_lines(f, u, i, v, 0)
-        write_s = time.perf_counter() - t0
-        file_gb = src.stat().st_size / 1e9
-        counts = {}
-        t0 = time.perf_counter()
-        n = import_events(src, es, app.id, counts=counts)
-        import_s = time.perf_counter() - t0
-        src.unlink()
-        if n != len(v) or counts != {"native": len(v), "python": 0}:
-            raise AssertionError(f"imported {n} events, branches {counts}")
-        db_gb = sum(p.stat().st_size for p in home.glob("eventdata.db*")) / 1e9
-        t0 = time.perf_counter()
-        ratings = es.find_ratings(app.id)
-        read_s = time.perf_counter() - t0
-        if es.last_ratings_scan_path != "native":
-            raise AssertionError(
-                f"find_ratings took the {es.last_ratings_scan_path} branch "
-                f"({es.last_ratings_scan_reason})")
-        t0 = time.perf_counter()
-        same_ratings(ratings, expected_ratings(u, i, v, N_ITEMS),
-                     "ML-20M from the store")
-        if len(ratings.rating) != len(v):
-            raise AssertionError(
-                f"the store gave back {len(ratings.rating):,} of "
-                f"{len(v):,} distinct ratings")
-        check_s = time.perf_counter() - t0
-        log(f"phase store ML-20M: {len(v):,} rate events written as JSON "
-            f"lines ({file_gb:.2f} GB) in {write_s:.1f} s; import_events "
-            f"{import_s:.1f} s ({len(v) / import_s:,.0f} events/s, all "
-            f"through the native scanner), sqlite files {db_gb:.2f} GB; "
-            f"find_ratings {read_s:.1f} s (last_ratings_scan_path "
-            f"{es.last_ratings_scan_path!r}): {len(ratings.rating):,} "
-            f"ratings ({ratings.n_users:,} users x {ratings.n_items:,} "
-            f"items), equal to the synthetic triples ({check_s:.1f} s)")
-        return ratings
-    finally:
-        shutil.rmtree(home, ignore_errors=True)
+    home = Path(store.home)
+    out = cli(["app", "new", "ml20m"], store.storage)
+    store.key = out.split("Access key: ")[1].split()[0]
+    store.app_id = store.storage.get_metadata().app_get_by_name("ml20m").id
+    es = store.storage.get_event_store()
+    src = home / "ratings.jsonl"
+    t0 = time.perf_counter()
+    with open(src, "wb") as f:
+        write_rate_lines(f, u, i, v, 0)
+    write_s = time.perf_counter() - t0
+    file_gb = src.stat().st_size / 1e9
+    t0 = time.perf_counter()
+    with CaptureLog() as records:
+        out = cli(["import", "--appid", str(store.app_id), "--input",
+                   str(src)], store.storage)
+    import_s = time.perf_counter() - t0
+    src.unlink()
+    counts = records.args(_IMPORT_LOG)[1:]
+    if out != f"Imported {len(v)} events.\n" or counts != (len(v), 0):
+        raise AssertionError(f"{out!r}, (native, python) branches {counts}")
+    db_gb = sum(p.stat().st_size for p in home.glob("eventdata.db*")) / 1e9
+    sets = post_item_sets(store, N_ITEMS)
+    t0 = time.perf_counter()
+    ratings = es.find_ratings(store.app_id, entity_type="user", cache=True)
+    read_s = time.perf_counter() - t0
+    if es.last_ratings_scan_path != "native":
+        raise AssertionError(
+            f"find_ratings took the {es.last_ratings_scan_path} branch "
+            f"({es.last_ratings_scan_reason})")
+    t0 = time.perf_counter()
+    same_ratings(ratings, expected_ratings(u, i, v, N_ITEMS),
+                 "ML-20M from the store")
+    if len(ratings.rating) != len(v):
+        raise AssertionError(
+            f"the store gave back {len(ratings.rating):,} of "
+            f"{len(v):,} distinct ratings")
+    check_s = time.perf_counter() - t0
+    log(f"phase store ML-20M: {len(v):,} rate events written as JSON "
+        f"lines ({file_gb:.2f} GB) in {write_s:.1f} s; console import "
+        f"{import_s:.1f} s ({len(v) / import_s:,.0f} events/s, all "
+        f"through the native scanner), sqlite files {db_gb:.2f} GB; "
+        f"event server process: boot {sets['boot_s']:.1f} s, {N_ITEMS:,} "
+        f"item $set events in {sets['post_s']:.2f} s "
+        f"({sets['events_per_s']:,.0f} events/s, every status 201); "
+        f"find_ratings {read_s:.1f} s with the scan cache on "
+        f"(last_ratings_scan_path {es.last_ratings_scan_path!r}): "
+        f"{len(ratings.rating):,} ratings ({ratings.n_users:,} users x "
+        f"{ratings.n_items:,} items), equal to the synthetic triples "
+        f"({check_s:.1f} s)")
+    return ratings
 
 
 def phase_sort(ratings, u, i, v, turns: int = 3) -> None:
@@ -1309,9 +1456,10 @@ def _same_reply(got: dict, want: dict, what: str) -> int:
     return trades
 
 
-def _post_all(port: int, path: str, bodies, clients: int) -> list:
+def _post_timed(port: int, path: str, bodies, clients: int) -> list:
     """POST each body to ``path`` from ``clients`` threads, each over one
-    keep-alive connection; returns ``(status, reply)`` in body order."""
+    keep-alive connection; returns ``(status, reply, ms)`` in body
+    order."""
     import http.client
 
     def run(part):
@@ -1319,10 +1467,13 @@ def _post_all(port: int, path: str, bodies, clients: int) -> list:
         out = []
         try:
             for body in part:
+                t0 = time.perf_counter()
                 conn.request("POST", path, json.dumps(body),
                              {"Content-Type": "application/json"})
                 r = conn.getresponse()
-                out.append((r.status, json.loads(r.read())))
+                reply = json.loads(r.read())
+                out.append((r.status, reply,
+                            (time.perf_counter() - t0) * 1e3))
         finally:
             conn.close()
         return out
@@ -1333,6 +1484,29 @@ def _post_all(port: int, path: str, bodies, clients: int) -> list:
     out = [None] * len(bodies)
     for c, part in enumerate(done):
         out[c::clients] = part
+    return out
+
+
+def _post_all(port: int, path: str, bodies, clients: int) -> list:
+    """:func:`_post_timed` without the times: ``(status, reply)``."""
+    return [(st, r) for st, r, _ in _post_timed(port, path, bodies, clients)]
+
+
+def query_mix(n: int, seed: int, n_users: int, n_items: int) -> list:
+    """``n`` serving queries from a seed, num 10, in turn: plain, with a
+    category filter, a white list of 50 items, a black list of 20."""
+    rng = np.random.default_rng(seed)
+    items = [item_id(j) for j in range(n_items)]
+    out = []
+    for k in range(n):
+        q = {"user": user_id(rng.integers(0, n_users)), "num": 10}
+        if k % 4 == 1:
+            q["categories"] = ["even"]
+        elif k % 4 == 2:
+            q["whiteList"] = list(rng.choice(items, 50, replace=False))
+        elif k % 4 == 3:
+            q["blackList"] = list(rng.choice(items, 20, replace=False))
+        out.append(q)
     return out
 
 
@@ -1574,21 +1748,8 @@ def phase_pio(torch) -> dict:
             mode="Serving"), config=ServerConfig(host="127.0.0.1", port=0))
         thread = srv.start_background()
         deploy_s = time.perf_counter() - t0
-        rng = np.random.default_rng(11)
-        items = [item_id(j) for j in range(ML1M_ITEMS)]
-
-        def query(k):
-            q = {"user": user_id(rng.integers(0, ML1M_USERS)), "num": 10}
-            if k % 4 == 1:
-                q["categories"] = ["even"]
-            elif k % 4 == 2:
-                q["whiteList"] = list(rng.choice(items, 50, replace=False))
-            elif k % 4 == 3:
-                q["blackList"] = list(rng.choice(items, 20, replace=False))
-            return q
-
-        solo_q = [query(k) for k in range(32)]
-        conc_q = [query(k) for k in range(64)]
+        queries = query_mix(96, 11, ML1M_USERS, ML1M_ITEMS)
+        solo_q, conc_q = queries[:32], queries[32:]
         solo, solo_ms = [], []
         for q in solo_q:
             t1 = time.perf_counter()
@@ -1639,6 +1800,164 @@ def phase_pio(torch) -> dict:
         import shutil
 
         shutil.rmtree(home, ignore_errors=True)
+
+
+def http_load(port: int, solo_q: list, conc_q: list, clients: int) -> dict:
+    """The solo queries one after another over one keep-alive connection,
+    then the concurrent ones from ``clients`` threads; every status must
+    be 200.  Returns the replies, each request's ms, the concurrent
+    run's wall ms and its queries/s."""
+    solo = _post_timed(port, "/queries.json", solo_q, 1)
+    t0 = time.perf_counter()
+    conc = _post_timed(port, "/queries.json", conc_q, clients)
+    wall = time.perf_counter() - t0
+    bad = [(st, r) for st, r, _ in solo + conc if st != 200]
+    if bad:
+        raise AssertionError(f"{len(bad)} queries failed, e.g. {bad[0]}")
+    return {"replies": [r for _, r, _ in solo + conc],
+            "solo_ms": [ms for _, _, ms in solo],
+            "conc_ms": [ms for _, _, ms in conc],
+            "wall_ms": wall * 1e3, "qps": len(conc_q) / wall}
+
+
+def pcts(ms: list) -> str:
+    p50, p99 = np.percentile(ms, [50, 99])
+    return f"p50 {p50:.3f} ms p99 {p99:.3f} ms"
+
+
+def phase_cli(torch, store: StoreHome) -> dict:
+    """The quickstart at ML-20M through the port's console, on the store
+    phase store filled (its app imported through ``import``, its items'
+    ``$set`` events through the event server process, its ratings read
+    once with the scan cache on): ``template get recommendation`` →
+    engine.json (rank 64, 2 iterations, lambda 0.01, ``solver="fused"``,
+    ``fusedGather`` "auto") → ``build`` → ``train --scan-cache`` in this
+    process on the card (the read must hit the scan cache; the launch
+    counts are set to 0 just before it and read just after) →
+    ``deploy`` as a process of its own on the default event-loop edge
+    with the shared batcher, answering 32 solo and 1,024 queries from 64
+    client threads, each reply held against an in-process ``predict`` on
+    the same instance → the same load on an in-process threads-edge
+    ``EngineServer`` → ``undeploy``, after which the deploy process must
+    exit with 0."""
+    from pathlib import Path
+
+    from predictionio_tpu_torch.cli.main import load_engine_from_variant
+    from predictionio_tpu_torch.controller import WorkflowContext
+    from predictionio_tpu_torch.ops import _build, gather_probe
+    from predictionio_tpu_torch.server import EngineServer, ServerConfig
+    from predictionio_tpu_torch.templates.recommendation import Query
+    from predictionio_tpu_torch.workflow import prepare_deploy_components
+
+    st = store.storage
+    es = st.get_event_store()
+    eng = Path(store.home) / "engine"
+    cli(["template", "get", "recommendation", str(eng)], st)
+    ej = eng / "engine.json"
+    variant = json.loads(ej.read_text())
+    variant["datasource"] = {"params": {"appName": "ml20m",
+                                        "eventNames": ["rate"]}}
+    variant["algorithms"] = [{"name": "als", "params": {
+        "rank": RANK, "numIterations": 2, "lambda": 0.01,
+        "solver": "fused"}}]
+    ej.write_text(json.dumps(variant, indent=2))
+    cli(["build", "--engine-json", str(ej)], st)
+
+    # a `train` is a process of its own: no probe order cached
+    gather_probe._ORDER_CACHE.clear()
+    es.last_ratings_scan_path = None
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with CaptureLog() as records:
+        out = cli(["train", "--scan-cache", "--engine-json", str(ej)], st)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    iid = out.split()[-1]
+    if st.get_metadata().engine_instance_get(iid).status != "COMPLETED":
+        raise AssertionError(f"instance {iid} did not complete: {out}")
+    read_path = es.last_ratings_scan_path
+    (read_s,) = records.args(_READ_LOG)
+    report = records.args(_ALS_LOG)  # one Mapping argument: the report
+    save_s = records.args(_SAVE_LOG)[1]
+    halves = ", ".join(f"{n} {t * 1e3:.1f} ms"
+                       for n, t in report["half_seconds"])
+    log(f"phase cli train: console train {train_s:.1f} s; read_training "
+        f"{read_s:.2f} s (last_ratings_scan_path {read_path!r}: the scan "
+        f"cache {'hit' if read_path == 'cache' else 'MISSED'}), staging "
+        f"{report['staging_seconds']:.2f} s, halves [{halves}], fused "
+        f"gather {report['fused_gather']!r}, model save {save_s:.2f} s; "
+        f"instance {iid} COMPLETED; launches {launches}")
+    if launches["fused_als"] + launches["fused_als_dma"] <= 0:
+        raise AssertionError("the console's train never launched the fused "
+                             "kernel")
+
+    engine, ep, _ = load_engine_from_variant(ej)
+    algos, models, _ = prepare_deploy_components(
+        engine, ep, iid, ctx=WorkflowContext(mode="Serving", storage=st))
+    queries = query_mix(32 + 1024, 17, N_USERS, N_ITEMS)
+    solo_q, conc_q = queries[:32], queries[32:]
+    want = [algos[0].predict(models[0], Query.from_json(q)).to_json()
+            for q in queries]
+
+    def held(replies, what) -> int:
+        if not any(r["itemScores"] for r in replies):
+            raise AssertionError(f"{what}: no query got recommendations")
+        return sum(_same_reply(g, w, f"{what} query {q}")
+                   for q, g, w in zip(queries, replies, want))
+
+    edges = {}
+    proc = Console(store.home, ["deploy", "--engine-json", str(ej), "--ip",
+                                "127.0.0.1", "--port", "0"], "deploy")
+    try:
+        port = proc.wait_port()
+        try:
+            load = http_load(port, solo_q, conc_q, 64)
+            load["trades"] = held(load["replies"], "deploy")
+            status = _http(port, "/")
+        except Exception as e:
+            proc.fail(f"failed its queries: {e!r}")
+        mb = status["microbatch"]
+        if status["requestCount"] != len(queries) or mb["maxBatchSeen"] <= 1:
+            proc.fail(f"counted {status['requestCount']} queries, batches "
+                      f"{mb}")
+        edges["eventloop"] = dict(load, batches=mb)
+        if "Undeployed" not in cli(["undeploy", "--port", str(port)], st):
+            proc.fail("was not undeployed")
+        try:
+            rc = proc.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.fail("did not stop after undeploy")
+        if rc != 0:
+            proc.fail("exited after undeploy")
+    finally:
+        proc.stop()
+
+    srv = EngineServer(engine, ep, iid, ctx=WorkflowContext(
+        mode="Serving", storage=st), config=ServerConfig(
+        host="127.0.0.1", port=0, edge="threads"))
+    thread = srv.start_background()
+    try:
+        load = http_load(srv.port, solo_q, conc_q, 64)
+        load["trades"] = held(load["replies"], "threads edge")
+        edges["threads"] = dict(load, batches=srv.status_json()["microbatch"])
+    finally:
+        srv.stop()
+        thread.join(timeout=30)
+    for name, e in edges.items():
+        b = e["batches"]
+        log(f"phase cli serve {name} edge: 32 solo {pcts(e['solo_ms'])}; "
+            f"1,024 from 64 clients {pcts(e['conc_ms'])}, "
+            f"{e['qps']:,.0f} queries/s; batches {b['batches']} for "
+            f"{b['requests']} requests (largest {b['maxBatchSeen']}); all "
+            f"{len(queries)} replies match in-process predict "
+            f"({e['trades']} tied items traded places)")
+    log(f"phase cli deploy: the process booted in {proc.boot_s:.1f} s "
+        f"(python -m predictionio_tpu_torch deploy to its port), answered "
+        f"on the event-loop edge with the shared batcher, and exited 0 "
+        f"after undeploy")
+    return {"launches": launches, "train_s": train_s, "read_path": read_path,
+            "boot_s": proc.boot_s, "edges": edges}
 
 
 def phase_topk(torch, dev) -> None:
@@ -1880,36 +2199,56 @@ def main(argv: list[str]) -> int:
         secs[name] = round(time.perf_counter() - t0, 1)
         return out
 
-    ratings = timed("store", phase_store, u, i, v)
-    timed("sort", phase_sort, ratings, u, i, v)
-    if argv == ["--store"]:
-        return 0
-    kernels = [timed("gj", phase_gj, torch, dev, (
-        ratings.user_ix, ratings.item_ix, ratings.rating))]
-    torch.cuda.empty_cache()
-    kernels.extend(timed("fused", phase_fused, torch, dev))
-    kernels.extend(timed("gather", phase_gather, torch, dev))
-    timed("small reference", phase_small_reference, torch)
-    timed("topk", phase_topk, torch, dev)
+    # the ML-20M store lives from phase store to phase cli; the scan
+    # cache keeps its snapshots under $PIO_TPU_HOME, and the console's
+    # train --scan-cache turns the cache on for the whole process
+    store = StoreHome()
+    saved_env = {k: os.environ.get(k)
+                 for k in ("PIO_TPU_HOME", "PIO_TPU_SCAN_CACHE")}
+    os.environ["PIO_TPU_HOME"] = store.home
+    try:
+        ratings = timed("store", phase_store, store, u, i, v)
+        timed("sort", phase_sort, ratings, u, i, v)
+        if argv == ["--store"]:
+            return 0
+        kernels = [timed("gj", phase_gj, torch, dev, (
+            ratings.user_ix, ratings.item_ix, ratings.rating))]
+        torch.cuda.empty_cache()
+        kernels.extend(timed("fused", phase_fused, torch, dev))
+        kernels.extend(timed("gather", phase_gather, torch, dev))
+        timed("small reference", phase_small_reference, torch)
+        timed("topk", phase_topk, torch, dev)
 
-    items = {item_id(j): {"categories": ["even" if j % 2 == 0 else "odd"]}
-             for j in range(N_ITEMS)}
-    data = (ratings, items, (ratings.user_ix, ratings.item_ix,
-                             ratings.rating))
+        items = {item_id(j): {"categories": ["even" if j % 2 == 0 else
+                                             "odd"]}
+                 for j in range(N_ITEMS)}
+        data = (ratings, items, (ratings.user_ix, ratings.item_ix,
+                                 ratings.rating))
 
-    # The main paths, each with the counts set to 0 just before it and
-    # read just after.  ML-20M: train both kernel solvers and serve.
-    t0 = time.perf_counter()
-    _build.reset_launches()
-    algo, model, _ = phase_train(torch, data, "fused", 2)
-    del model
-    torch.cuda.empty_cache()
-    algo, model, _ = phase_train(torch, data, "pallas", 1)
-    phase_serve(torch, algo, model)
-    torch.cuda.synchronize()
-    paths = {"ml20m": dict(_build.LAUNCHES)}
-    secs["train and serve"] = round(time.perf_counter() - t0, 1)
-    del algo, model
+        # The main paths, each with the counts set to 0 just before it
+        # and read just after.  ML-20M: train both kernel solvers and
+        # serve.
+        t0 = time.perf_counter()
+        _build.reset_launches()
+        algo, model, _ = phase_train(torch, data, "fused", 2)
+        del model
+        torch.cuda.empty_cache()
+        algo, model, _ = phase_train(torch, data, "pallas", 1)
+        phase_serve(torch, algo, model)
+        torch.cuda.synchronize()
+        paths = {"ml20m": dict(_build.LAUNCHES)}
+        secs["train and serve"] = round(time.perf_counter() - t0, 1)
+        del algo, model, data
+        torch.cuda.empty_cache()
+        # the quickstart through the console (resets the counts itself)
+        paths["cli"] = timed("cli", phase_cli, torch, store)["launches"]
+    finally:
+        store.close()
+        for k, val in saved_env.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
     torch.cuda.empty_cache()
     # events -> run_train -> EngineServer (resets the counts itself)
     paths["pio"] = timed("pio", phase_pio, torch)["launches"]
@@ -1927,6 +2266,7 @@ def main(argv: list[str]) -> int:
     expected = {
         "ml20m": ("gj_solve", "fused_als_reduce", "taa0_gather",
                   "dma_row_gather"),
+        "cli": ("fused_als_reduce", "taa0_gather", "dma_row_gather"),
         "pio": ("fused_als", "fused_als_dma", "taa0_gather",
                 "dma_row_gather"),
         "probe_smoke": ("taa0_gather", "taa1_gather", "dma_row_gather"),
@@ -1935,8 +2275,10 @@ def main(argv: list[str]) -> int:
         for name in names:
             if paths[path][name] <= 0:
                 raise AssertionError(f"path {path} never launched {name}")
-    if paths["ml20m"]["fused_als"] + paths["ml20m"]["fused_als_dma"] <= 0:
-        raise AssertionError("path ml20m never launched the fused kernel")
+    for path in ("ml20m", "cli"):
+        if paths[path]["fused_als"] + paths[path]["fused_als_dma"] <= 0:
+            raise AssertionError(f"path {path} never launched the fused "
+                                 "kernel")
     for k in kernels:
         k["launches"] = sum(p[k["name"]] for p in paths.values())
         k["launches_by_path"] = {n: p[k["name"]] for n, p in paths.items()}

@@ -9,8 +9,14 @@ of the ported path is a CUDA C++ kernel written for ``sm_90a``
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``; on a CPU tensor a kernel wrapper runs its plain
 PyTorch version, on a CUDA tensor it launches the kernel or raises.
+
+``python -m predictionio_tpu_torch <command>`` is the console (``cli``).
 """
 
 from .device import fence, resolve_device
 
-__all__ = ["fence", "resolve_device"]
+# the reference's version: the port serves the same CLI, file formats and
+# template min-version gate
+__version__ = "0.3.0"
+
+__all__ = ["__version__", "fence", "resolve_device"]

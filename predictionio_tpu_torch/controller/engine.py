@@ -18,6 +18,7 @@ Re-expression of reference `controller/Engine.scala` (class `Engine`
 from __future__ import annotations
 
 import logging
+import time
 from typing import Any, Generic, Mapping, Optional, Sequence, Tuple
 
 from .base import (
@@ -190,7 +191,9 @@ class Engine(Generic[TD, EI, PD, Q, P, A]):
         if algo_indices is not None:
             algorithms = [algorithms[i] for i in algo_indices]
 
+        t0 = time.perf_counter()
         td = data_source.read_training(ctx)
+        logger.info("read_training: %.3f s", time.perf_counter() - t0)
         if not wp.skip_sanity_check:
             _sanity(td, "training data")
         if wp.stop_after_read:

@@ -1,0 +1,162 @@
+"""Engine specs: the one-file-engine registry.
+
+Port of ``predictionio_tpu/engines/spec.py``.  :class:`EngineSpec` is one
+declaration per engine (factory, engine.json-shaped default params and a
+query example), registered by decorator; the CLI's ``engines
+list/describe``, ``train/deploy --engine NAME`` and the template gallery
+(``tools/template_gallery.py``) all read it.  The reference's
+``evaluation`` and ``ConformanceFixture`` fields wait for the port of
+evaluation: every port spec describes itself with ``"evaluation": null``
+and ``"conformance": false``.
+
+Registration is a side effect of import: decorating a zero-arg factory
+registers the spec, and :func:`~predictionio_tpu_torch.engines.discovery.
+discover` imports the built-in ``templates/`` package and any user engine
+dirs on ``PIO_TPU_ENGINE_PATH``.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+from typing import Any, Callable, Mapping, Optional
+
+__all__ = [
+    "EngineSpec",
+    "engine_spec",
+    "register",
+    "get_engine_spec",
+    "list_engine_specs",
+]
+
+
+@dataclass(frozen=True)
+class EngineSpec:
+    """One engine, declared once.
+
+    ``factory`` is the zero-arg callable producing the
+    :class:`~predictionio_tpu_torch.controller.engine.Engine`;
+    ``default_params`` is the engine.json-shaped component params dict
+    (``datasource``/``preparator``/``algorithms``/``serving`` keys) that
+    seeds both the template gallery's scaffold and ``--engine NAME``
+    dispatch when no engine.json exists."""
+
+    name: str
+    description: str
+    factory: Callable[[], Any]
+    factory_path: str
+    default_params: Mapping[str, Any] = field(default_factory=dict)
+    query_example: Mapping[str, Any] = field(default_factory=dict)
+    source: str = "builtin"
+
+    def build(self):
+        return self.factory()
+
+    def default_variant(self) -> dict:
+        """The synthetic engine.json of registry dispatch: ``engine``
+        (not ``engineFactory``) is the loader key."""
+        return {
+            "id": self.name,
+            "engine": self.name,
+            "description": self.description,
+            **{k: _plain(v) for k, v in self.default_params.items()},
+        }
+
+    def instance_variant_key(self) -> str:
+        """The engine-variant string instances of ``--engine NAME`` are
+        registered under."""
+        return f"engine:{self.name}"
+
+    def describe(self) -> dict:
+        return {
+            "name": self.name,
+            "description": self.description,
+            "factory": self.factory_path,
+            "source": self.source,
+            "defaultParams": _plain(self.default_params),
+            "queryExample": _plain(self.query_example),
+            "evaluation": None,
+            "conformance": False,
+        }
+
+
+def _plain(v):
+    """Deep-copy mappings/sequences to plain json-shaped types."""
+    if isinstance(v, Mapping):
+        return {k: _plain(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_plain(x) for x in v]
+    return v
+
+
+_lock = threading.Lock()
+_registry: dict[str, EngineSpec] = {}
+# set by discovery while importing a user engine dir so decorators in
+# that module register with the right provenance
+_current_source: str = "builtin"
+
+
+def register(spec: EngineSpec) -> EngineSpec:
+    """Idempotent per (name, factory_path); a DIFFERENT factory under an
+    existing name is a collision and raises."""
+    with _lock:
+        prior = _registry.get(spec.name)
+        if prior is not None and prior.factory_path != spec.factory_path:
+            raise ValueError(
+                f"engine {spec.name!r} is already registered by "
+                f"{prior.factory_path} (source: {prior.source}); "
+                f"refusing to overwrite with {spec.factory_path}"
+            )
+        _registry[spec.name] = spec
+    return spec
+
+
+def engine_spec(
+    name: str,
+    *,
+    description: str = "",
+    default_params: Optional[Mapping[str, Any]] = None,
+    query_example: Optional[Mapping[str, Any]] = None,
+):
+    """Decorator: register a zero-arg engine factory as an engine; the
+    factory itself is returned unchanged."""
+
+    def wrap(factory: Callable[[], Any]):
+        desc = description
+        if not desc and factory.__doc__:
+            desc = factory.__doc__.strip().splitlines()[0]
+        register(EngineSpec(
+            name=name,
+            description=desc,
+            factory=factory,
+            factory_path=f"{factory.__module__}.{factory.__qualname__}",
+            default_params=dict(default_params or {}),
+            query_example=dict(query_example or {}),
+            source=_current_source,
+        ))
+        return factory
+
+    return wrap
+
+
+def get_engine_spec(name: str) -> EngineSpec:
+    from .discovery import discover
+
+    discover()
+    with _lock:
+        spec = _registry.get(name)
+        if spec is None:
+            known = ", ".join(sorted(_registry)) or "(none)"
+            raise KeyError(
+                f"no engine named {name!r} is registered; known: {known}"
+                " — set PIO_TPU_ENGINE_PATH to add user engine dirs"
+            )
+        return spec
+
+
+def list_engine_specs() -> list[EngineSpec]:
+    from .discovery import discover
+
+    discover()
+    with _lock:
+        return sorted(_registry.values(), key=lambda s: s.name)

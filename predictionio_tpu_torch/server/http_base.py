@@ -3,7 +3,10 @@ threading server and a JSON reply helper.
 
 Port of ``predictionio_tpu/server/http_base.py`` without the
 observability mounts (``/metrics``, ``/debug/*``), which wait for the
-port of ``obs/``.
+port of ``obs/``.  The lifecycle drives either edge: the capped
+threading server built here, or the ``eventloop.EventLoopHTTPServer``
+a subclass's ``_build_httpd`` returns (``EngineServer`` on its default
+edge).
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ from __future__ import annotations
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Optional
+from typing import Any
 
 __all__ = [
     "DEFAULT_MAX_CONNECTIONS",
@@ -126,7 +129,7 @@ class HTTPServerBase:
 
     host: str
     port: int
-    _httpd: Optional[CappedThreadingHTTPServer] = None
+    _httpd = None  # CappedThreadingHTTPServer | EventLoopHTTPServer
 
     def _make_handler(self):
         raise NotImplementedError
@@ -135,6 +138,10 @@ class HTTPServerBase:
     max_connections: int = DEFAULT_MAX_CONNECTIONS
 
     def _build_httpd(self):
+        """The bound server object.  Default: the capped threading edge;
+        ``EngineServer`` returns an ``EventLoopHTTPServer`` on its
+        event-loop edge (same ``server_address``/``serve_forever``/
+        ``shutdown``/``server_close`` surface, one lifecycle here)."""
         return CappedThreadingHTTPServer(
             (self.host, self.port), self._make_handler(),
             max_connections=self.max_connections,

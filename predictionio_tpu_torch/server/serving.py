@@ -1,32 +1,40 @@
 """Engine deployment server: answers ``/queries.json`` with predictions.
 
-Port of ``predictionio_tpu/server/serving.py`` on its ``"threads"`` edge
-(the stdlib threading HTTP server), a re-expression of the reference's
-`workflow/CreateServer.scala` (`ServerActor` routes `:433-612`,
-`MasterActor` lifecycle `:255-377`).  Routes:
+Port of ``predictionio_tpu/server/serving.py``, a re-expression of the
+reference's `workflow/CreateServer.scala` (`ServerActor` routes
+`:433-612`, `MasterActor` lifecycle `:255-377`).  Routes:
 
 * ``GET  /``             — status JSON: engine info, request count, latency
   (``avgServingSec``/``lastServingSec`` parity, `CreateServer.scala:552-559`)
 * ``POST /queries.json`` — score a query (the hot path); concurrent
-  queries are coalesced into one batched device call by
-  :class:`~predictionio_tpu_torch.server.microbatch.MicroBatcher` when
+  queries are coalesced into one batched device call by the
+  micro-batcher (:mod:`predictionio_tpu_torch.server.microbatch`) when
   every algorithm has a real ``batch_predict`` (``microbatch="auto"``)
 * ``GET  /reload``       — hot-swap to the latest COMPLETED engine instance
 * ``POST /stop``         — graceful shutdown
+
+Two edges answer the port (``ServerConfig.edge``): ``"eventloop"`` (the
+default) is one selector thread (:mod:`.eventloop`) that parses every
+connection and hands queries to the batcher's dispatcher with
+``submit_nowait``, blocking routes to a small aux pool; ``"threads"`` is
+the stdlib threading server, one thread per connection, each query a
+blocking ``submit``.  With ``shared_batcher`` (the default) the server's
+batcher is a view on one :class:`~.microbatch.SharedBatcher`.
 
 Query/result JSON mapping: the engine's first algorithm may declare
 ``query_class`` (with ``from_json``) and results may expose ``to_json``.
 The server's device is its context's, which defaults to the card.
 
-Not ported yet, and refused where a caller asks for them: the
-``"eventloop"`` edge, feedback-loop event injection, remote error logs,
-fold-in deltas, tenancy and experiments, the HTML status page and the
-observability mounts.
+Not ported yet, and refused where a caller asks for them:
+feedback-loop event injection, remote error logs, fold-in deltas,
+tenancy and experiments, the HTML status page and the observability
+mounts; their routes answer 404.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import json
 import logging
 import sys
@@ -42,8 +50,14 @@ from ..controller.base import Algorithm, WorkflowContext
 from ..controller.engine import Engine, EngineParams
 from ..resilience.policy import Deadline, DeadlineExceeded
 from ..workflow.train import prepare_deploy_components
+from .eventloop import EventLoopHTTPServer, callback_scope
 from .http_base import DEFAULT_MAX_CONNECTIONS, HTTPServerBase, JsonRequestHandler
-from .microbatch import AdmissionRejected, MicroBatcher
+from .microbatch import (
+    AdmissionRejected,
+    MicroBatcher,
+    SharedBatcher,
+    SharedBatcherView,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -56,28 +70,28 @@ _LATENCY_WINDOW = 4096
 class ServerConfig:
     def __init__(self, host: str = "127.0.0.1", port: int = 8000,
                  microbatch: str = "auto", microbatch_max: int = 64,
+                 shared_batcher: bool = True,
                  query_timeout_s: Optional[float] = None,
-                 edge: str = "threads",
+                 edge: str = "eventloop",
                  max_connections: int = DEFAULT_MAX_CONNECTIONS,
                  feedback: bool = False):
         self.host = host
         self.port = port
-        if edge == "eventloop":
-            raise NotImplementedError(
-                "the eventloop edge (server/eventloop.py) is not ported to "
-                "predictionio_tpu_torch yet (ROADMAP Queue 1); use "
-                "edge='threads'"
-            )
-        if edge != "threads":
+        # which HTTP front end answers the port: "eventloop" = one
+        # selector thread parses and routes every connection, device work
+        # rides the batcher's dispatcher, blocking routes a small aux
+        # pool; "threads" = the stdlib threading server, one thread per
+        # connection
+        if edge not in ("eventloop", "threads"):
             raise ValueError(f"edge must be eventloop|threads, got {edge!r}")
         self.edge = edge
-        # concurrent-connection cap: connection attempts past it are
-        # answered a structured 503 and closed
+        # concurrent-connection cap (both edges): connection attempts
+        # past it are answered a structured 503 and closed
         self.max_connections = max_connections
         if feedback:
             raise NotImplementedError(
                 "feedback-loop event injection is not ported to "
-                "predictionio_tpu_torch yet (ROADMAP Queue 1)"
+                "predictionio_tpu_torch yet (ROADMAP Queue 1 item 4)"
             )
         # concurrent-query coalescing (server/microbatch.py): "auto"
         # batches when every algorithm provides a real batch_predict,
@@ -88,10 +102,31 @@ class ServerConfig:
             )
         self.microbatch = microbatch
         self.microbatch_max = microbatch_max
+        # one SharedBatcher per server, this server's batcher a view on
+        # it (off = a private MicroBatcher)
+        self.shared_batcher = shared_batcher
         # per-request time budget (None = unbounded); expiry answers a
         # structured 503 instead of queueing device work for a client
         # that already gave up
         self.query_timeout_s = query_timeout_s
+
+
+class _QueryCtx:
+    """Per-query snapshot shared by the blocking and event-loop paths:
+    the decoded query, its deadline and the components captured under
+    the state lock."""
+
+    __slots__ = ("query", "deadline", "algorithms", "models", "serving",
+                 "batcher")
+
+    def __init__(self, query, deadline, algorithms, models, serving,
+                 batcher):
+        self.query = query
+        self.deadline = deadline
+        self.algorithms = algorithms
+        self.models = models
+        self.serving = serving
+        self.batcher = batcher
 
 
 def _default_query_decoder(engine: Engine, engine_params: EngineParams):
@@ -117,6 +152,38 @@ def _result_to_json(r: Any) -> Any:
     if isinstance(r, dict):
         return {k: _result_to_json(v) for k, v in r.items()}
     return r
+
+
+def _parse_query(body: bytes, query_str: str) -> tuple:
+    """``(query JSON, per-request timeout or None, None)`` of a ``POST
+    /queries.json`` (``?timeout=0.5`` sets the budget), or ``(None,
+    None, the 400 message)``; both edges."""
+    try:
+        query_json = json.loads(body.decode() or "{}")
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        return None, None, f"invalid JSON: {e}"
+    tv = urllib.parse.parse_qs(query_str).get("timeout")
+    if not tv:
+        return query_json, None, None
+    try:
+        return query_json, float(tv[0]), None
+    except ValueError:
+        return None, None, f"bad timeout: {tv[0]!r}"
+
+
+def _error_reply(e: BaseException) -> tuple:
+    """``(code, payload, extra headers)`` answering a failed query, on
+    both edges."""
+    if isinstance(e, AdmissionRejected):
+        return (503, {"message": str(e), "error": "AdmissionRejected"},
+                [("Retry-After", "1")])
+    if isinstance(e, DeadlineExceeded):
+        return (503, {"message": str(e), "error": "DeadlineExceeded"},
+                [("Retry-After", "1")])
+    if isinstance(e, (KeyError, ValueError, TypeError)):
+        return 400, {"message": f"bad query: {e}"}, []
+    logger.error("query failed", exc_info=e)
+    return 500, {"message": str(e)}, []
 
 
 def _warm_components(algorithms, models, warm_max: int) -> None:
@@ -165,6 +232,14 @@ class EngineServer(HTTPServerBase):
         )
         self._lock = threading.RLock()
         self.last_reload_error: Optional[str] = None
+        # aux pool for the event-loop edge's blocking routes (status,
+        # reload, unbatched predicts); built at its first bind
+        self._aux_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        # the server's SharedBatcher, built by the first _make_batcher
+        # that wants one
+        self._shared_core: Optional[SharedBatcher] = None
+        self._shared_lock = threading.Lock()
+        self._teardown_lock = threading.Lock()
         self._load(instance_id)
         # serving stats (CreateServer.scala:396-398)
         self.request_count = 0
@@ -202,18 +277,24 @@ class EngineServer(HTTPServerBase):
         warm_max = self.config.microbatch_max if batcher is not None else 0
         _warm_components(algorithms, models, warm_max)
         with self._lock:
+            old_batcher = getattr(self, "batcher", None)
             self.engine_params = engine_params
             self.models = models
             self.algorithms = algorithms
             self.serving = serving
             self.instance_id = instance_id
             self.batcher = batcher
+        # the old batcher's dispatcher (continuous path) drains and
+        # exits; in-flight queries still holding it complete
+        if old_batcher is not None and old_batcher is not batcher:
+            old_batcher.close()
 
-    def _make_batcher(self, algorithms, models) -> Optional[MicroBatcher]:
-        """The query micro-batcher for this (algorithms, models) snapshot,
-        or None when batching cannot help: ``"auto"`` batches only when
-        every algorithm overrides ``batch_predict`` (the base class just
-        maps ``predict``)."""
+    def _make_batcher(self, algorithms, models):
+        """The query micro-batcher for this (algorithms, models) snapshot
+        (a view on the server's SharedBatcher, or a private
+        MicroBatcher), or None when batching cannot help: ``"auto"``
+        batches only when every algorithm overrides ``batch_predict``
+        (the base class just maps ``predict``)."""
         mode = self.config.microbatch
         if mode == "off":
             return None
@@ -239,9 +320,20 @@ class EngineServer(HTTPServerBase):
                 [pa[i] for pa in per_algo] for i in range(len(queries))
             ]
 
-        return MicroBatcher(
-            batch_fn, max_batch=self.config.microbatch_max, pad_batches=True,
-        )
+        if not self.config.shared_batcher:
+            return MicroBatcher(
+                batch_fn, max_batch=self.config.microbatch_max,
+                pad_batches=True,
+            )
+        # the view carries this snapshot's batch_fn, so in-flight queries
+        # survive a reload on the model they snapshotted
+        with self._shared_lock:
+            if self._shared_core is None:
+                self._shared_core = SharedBatcher(
+                    max_batch=self.config.microbatch_max, pad_batches=True,
+                )
+            core = self._shared_core
+        return SharedBatcherView(core, "__anchor__", batch_fn)
 
     def reload(self) -> str:
         """Swap in the latest COMPLETED instance (GET /reload).  A failed
@@ -264,33 +356,30 @@ class EngineServer(HTTPServerBase):
         return latest.id
 
     # -- query path -------------------------------------------------------
-    def predict_json(self, query_json: dict,
-                     timeout_s: Optional[float] = None) -> Any:
-        """Decode, predict (through the batcher when there is one),
-        serve and encode one query; the blocking path of the threads
-        edge and of direct library callers."""
-        t0 = time.perf_counter()
+    def _query_setup(self, query_json: dict,
+                     timeout_s: Optional[float]) -> _QueryCtx:
+        """The front half of a query on either edge: budget, decode,
+        state snapshot, deadline-aware admission.  Never blocks."""
         budget = (timeout_s if timeout_s is not None
                   else self.config.query_timeout_s)
         deadline = Deadline.after(budget) if budget is not None else None
         query = self.query_decoder(query_json)
         with self._lock:
-            algorithms, models = self.algorithms, self.models
-            serving, batcher = self.serving, self.batcher
+            ctx = _QueryCtx(query, deadline, self.algorithms, self.models,
+                            self.serving, self.batcher)
         if deadline is not None:
-            if batcher is not None:
-                batcher.check_admission(deadline)
-            deadline.check("query device dispatch")
-        if batcher is not None:
-            predictions = batcher.submit(query, deadline=deadline)
-        else:
-            predictions = [
-                algo.predict(model, query)
-                for algo, model in zip(algorithms, models)
-            ]
-        if deadline is not None:
-            deadline.check("query serving")
-        out = _result_to_json(serving.serve(query, predictions))
+            if ctx.batcher is not None:
+                ctx.batcher.check_admission(deadline)
+            else:
+                deadline.check("query admission")
+        return ctx
+
+    def _query_finish(self, ctx: _QueryCtx, predictions, t0: float) -> Any:
+        """The back half: serve, encode and book the latency, on
+        whatever thread completed the device work."""
+        if ctx.deadline is not None:
+            ctx.deadline.check("query serving")
+        out = _result_to_json(ctx.serving.serve(ctx.query, predictions))
         dt = time.perf_counter() - t0
         with self._lock:
             self.request_count += 1
@@ -298,6 +387,29 @@ class EngineServer(HTTPServerBase):
             self._latency_sum += dt
             self._latencies.append(dt)
         return out
+
+    @staticmethod
+    def _predict_direct(ctx: _QueryCtx) -> list:
+        if ctx.deadline is not None:
+            ctx.deadline.check("query device dispatch")
+        return [algo.predict(model, ctx.query)
+                for algo, model in zip(ctx.algorithms, ctx.models)]
+
+    def predict_json(self, query_json: dict,
+                     timeout_s: Optional[float] = None) -> Any:
+        """Decode, predict (through the batcher when there is one),
+        serve and encode one query; the blocking path of the threads
+        edge and of direct library callers."""
+        t0 = time.perf_counter()
+        ctx = self._query_setup(query_json, timeout_s)
+        if ctx.batcher is None:
+            predictions = self._predict_direct(ctx)
+        else:
+            if ctx.deadline is not None:
+                ctx.deadline.check("query device dispatch")
+            predictions = ctx.batcher.submit(ctx.query,
+                                             deadline=ctx.deadline)
+        return self._query_finish(ctx, predictions, t0)
 
     def latency_stats(self) -> dict:
         """Average over every query served, percentiles over the most
@@ -343,6 +455,176 @@ class EngineServer(HTTPServerBase):
             out["microbatch"] = batcher.stats()
         return out
 
+    # -- event-loop edge ----------------------------------------------------
+    def _build_httpd(self):
+        if self.config.edge != "eventloop":
+            return super()._build_httpd()
+        if self._aux_pool is None:
+            # blocking routes only (status, reload, unbatched predicts);
+            # the batched query path never lands here
+            self._aux_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=8, thread_name_prefix="serve-aux",
+            )
+        return EventLoopHTTPServer(
+            (self.host, self.port), self._el_handle,
+            max_connections=self.config.max_connections, name="serving",
+        )
+
+    def _aux_submit(self, respond, fn) -> None:
+        """Hand a blocking route to the aux pool; once the pool is gone
+        (server stopping) answer 503 instead of crashing the loop."""
+        pool = self._aux_pool
+        if pool is not None:
+            try:
+                pool.submit(fn)
+                return
+            except RuntimeError:  # shut down meanwhile
+                pass
+        try:
+            respond(503, {"message": "server is stopping"})
+        except RuntimeError:
+            pass  # already answered
+
+    def _aux(self, respond, fn, *args) -> None:
+        """Run ``fn(*args) -> (code, payload)`` on the aux pool and
+        answer from there."""
+        def run():
+            try:
+                code, payload = fn(*args)
+                respond(code, payload)
+            except Exception as e:
+                logger.exception("aux route failed")
+                try:
+                    respond(500, {"message": str(e)})
+                except RuntimeError:
+                    pass  # the route answered before raising
+
+        self._aux_submit(respond, run)
+
+    @callback_scope
+    def _el_handle(self, req, respond) -> None:
+        """Event-loop request router, ON the loop thread: every branch
+        answers from memory or hands off without blocking."""
+        u = urllib.parse.urlparse(req.path)
+        if req.method == "POST":
+            if u.path == "/queries.json":
+                self._el_query(req, u.query, respond)
+            elif u.path == "/stop":
+                respond(200, {"message": "stopping"})
+                threading.Thread(target=self.stop, daemon=True).start()
+            else:
+                respond(404, {"message": "not found"})
+            return
+        if req.method == "GET":
+            self._aux(respond, self._blocking_get, u.path)
+            return
+        respond(405, {"message": f"method {req.method} not allowed"})
+
+    def _blocking_get(self, path: str):
+        """``(code, payload)`` of a GET route, for both edges (on the
+        event-loop edge it runs on the aux pool)."""
+        if path == "/":
+            return 200, self.status_json()
+        if path == "/reload":
+            try:
+                return 200, {"reloaded": self.reload()}
+            except LookupError as e:
+                return 404, {"message": str(e)}
+            except Exception as e:
+                logger.exception("reload failed")
+                return 500, {"message": f"reload failed: {e}"}
+        return 404, {"message": "not found"}
+
+    @callback_scope
+    def _el_query(self, req, query_str: str, respond) -> None:
+        """The continuous hot path: parse and admission on the loop
+        thread, device work on the batcher's dispatcher, serve/encode in
+        its callback, the socket write back on the loop."""
+        t0 = time.perf_counter()
+        query_json, timeout_s, bad = _parse_query(req.body, query_str)
+        if bad is not None:
+            respond(400, {"message": bad})
+            return
+        try:
+            ctx = self._query_setup(query_json, timeout_s)
+        except Exception as e:
+            self._el_reply_error(e, respond)
+            return
+
+        if ctx.batcher is None:
+            # no batched path: the per-query predict is blocking device
+            # work, so it goes to the aux pool, not the loop
+            def run_direct():
+                try:
+                    out = self._query_finish(
+                        ctx, self._predict_direct(ctx), t0)
+                except Exception as e:
+                    self._el_reply_error(e, respond)
+                    return
+                respond(200, out)
+
+            self._aux_submit(respond, run_direct)
+            return
+
+        def done(entry):
+            # on the dispatcher thread, once the entry has its result
+            err = entry.error
+            out = None
+            if err is None:
+                try:
+                    out = self._query_finish(ctx, entry.value, t0)
+                except Exception as e:
+                    err = e
+            if err is not None:
+                self._el_reply_error(err, respond)
+                return
+            respond(200, out)
+
+        try:
+            ctx.batcher.submit_nowait(ctx.query, done, deadline=ctx.deadline)
+        except RuntimeError:
+            # the snapshot raced a reload that closed this batcher: retry
+            # once on the current one
+            with self._lock:
+                batcher = self.batcher
+            if batcher is not None and batcher is not ctx.batcher:
+                ctx.batcher = batcher
+                batcher.submit_nowait(ctx.query, done, deadline=ctx.deadline)
+            else:
+                self._el_reply_error(
+                    RuntimeError("batcher unavailable during reload"),
+                    respond)
+
+    @staticmethod
+    def _el_reply_error(e: BaseException, respond) -> None:
+        code, payload, headers = _error_reply(e)
+        try:
+            respond(code, payload, extra_headers=headers)
+        except RuntimeError:
+            pass  # request already answered
+
+    def stop(self) -> None:
+        # the whole teardown under one lock: a second caller (the deploy
+        # command, once POST /stop has ended its loop) returns only when
+        # the first has finished
+        with self._teardown_lock:
+            super().stop()
+            # release the batcher's dispatcher and the aux pool, waiting
+            # for their threads (pending entries drain first)
+            with self._lock:
+                batcher = getattr(self, "batcher", None)
+            if batcher is not None:
+                batcher.close()
+            # a view's close only retires its tenant: the shared core and
+            # its dispatcher are the server's to stop
+            with self._shared_lock:
+                core, self._shared_core = self._shared_core, None
+            if core is not None:
+                core.close()
+            pool, self._aux_pool = self._aux_pool, None
+            if pool is not None:
+                pool.shutdown(wait=True)
+
     # -- http --------------------------------------------------------------
     @property
     def host(self) -> str:
@@ -365,66 +647,31 @@ class EngineServer(HTTPServerBase):
             server_logger = logger
 
             def do_GET(self):
-                path = urllib.parse.urlparse(self.path).path
-                if path == "/":
-                    self._reply(200, server.status_json())
-                elif path == "/reload":
-                    try:
-                        self._reply(200, {"reloaded": server.reload()})
-                    except LookupError as e:
-                        self._reply(404, {"message": str(e)})
-                    except Exception as e:
-                        logger.exception("reload failed")
-                        self._reply(500, {"message": f"reload failed: {e}"})
-                else:
-                    self._reply(404, {"message": "not found"})
+                self._reply(*server._blocking_get(
+                    urllib.parse.urlparse(self.path).path))
 
             def do_POST(self):
-                raw = self._body() or b"{}"
-                path = urllib.parse.urlparse(self.path).path
-                if path == "/queries.json":
-                    self._post_query(raw)
-                elif path == "/stop":
+                raw = self._body()  # read on every route: keep-alive
+                u = urllib.parse.urlparse(self.path)
+                if u.path == "/queries.json":
+                    self._post_query(raw, u.query)
+                elif u.path == "/stop":
                     self._reply(200, {"message": "stopping"})
                     threading.Thread(target=server.stop, daemon=True).start()
                 else:
                     self._reply(404, {"message": "not found"})
 
-            def _post_query(self, raw: bytes) -> None:
-                try:
-                    query_json = json.loads(raw.decode() or "{}")
-                except (UnicodeDecodeError, json.JSONDecodeError) as e:
-                    self._reply(400, {"message": f"invalid JSON: {e}"})
+            def _post_query(self, raw: bytes, query_str: str) -> None:
+                query_json, timeout_s, bad = _parse_query(raw, query_str)
+                if bad is not None:
+                    self._reply(400, {"message": bad})
                     return
-                # optional per-request budget: /queries.json?timeout=0.5
-                timeout_s = None
-                tv = urllib.parse.parse_qs(
-                    urllib.parse.urlparse(self.path).query
-                ).get("timeout")
-                if tv:
-                    try:
-                        timeout_s = float(tv[0])
-                    except ValueError:
-                        self._reply(
-                            400, {"message": f"bad timeout: {tv[0]!r}"}
-                        )
-                        return
                 try:
                     self._reply(200, server.predict_json(
                         query_json, timeout_s=timeout_s))
-                except AdmissionRejected as e:
-                    self.extra_headers = [("Retry-After", "1")]
-                    self._reply(503, {"message": str(e),
-                                      "error": "AdmissionRejected"})
-                except DeadlineExceeded as e:
-                    self.extra_headers = [("Retry-After", "1")]
-                    self._reply(503, {"message": str(e),
-                                      "error": "DeadlineExceeded"})
-                except (KeyError, ValueError, TypeError) as e:
-                    self._reply(400, {"message": f"bad query: {e}"})
                 except Exception as e:
-                    logger.exception("query failed")
-                    self._reply(500, {"message": str(e)})
+                    code, payload, self.extra_headers = _error_reply(e)
+                    self._reply(code, payload)
                 finally:
                     self.extra_headers = []
 

@@ -34,6 +34,7 @@ from .metadata import (
     App,
     Channel,
     EngineInstance,
+    EngineManifest,
     MetadataStore,
     Model,
 )
@@ -70,6 +71,7 @@ __all__ = [
     "App",
     "Channel",
     "EngineInstance",
+    "EngineManifest",
     "MetadataStore",
     "Model",
     "Storage",

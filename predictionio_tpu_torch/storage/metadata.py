@@ -8,10 +8,10 @@ backend and the record definitions in `storage/{Apps,AccessKeys,Channels,
 EngineManifests,EngineInstances,EvaluationInstances,Models}.scala` with
 one embedded SQLite database; the ``ESSequences`` id generator becomes
 SQLite AUTOINCREMENT.  Model blobs (reference `Models.scala:30-48`) hold
-the model manifest JSON that ``workflow/model_io.py`` writes.  The
-schema keeps the reference's ``engine_manifests`` and
-``evaluation_instances`` tables; their DAOs wait for the port of the
-CLI and of evaluation (ROADMAP Queue 1).
+the model manifest JSON that ``workflow/model_io.py`` writes; engine
+manifests are what the CLI's ``build`` registers.  The schema keeps the
+reference's ``evaluation_instances`` table; its DAO waits for the port
+of evaluation (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ __all__ = [
     "AccessKey",
     "Channel",
     "EngineInstance",
+    "EngineManifest",
     "Model",
     "MetadataStore",
     "CHANNEL_NAME_RE",
@@ -100,6 +101,16 @@ class EngineInstance:
 class Model:
     id: str
     models: bytes
+
+
+@dataclass
+class EngineManifest:
+    id: str
+    version: str
+    name: str
+    description: Optional[str] = None
+    files: list[str] = field(default_factory=list)
+    engine_factory: str = ""
 
 
 _SCHEMA = """
@@ -303,6 +314,39 @@ class MetadataStore:
     def channel_delete(self, channel_id: int) -> None:
         with self._lock:
             self._conn.execute("DELETE FROM channels WHERE id=?", (channel_id,))
+            self._conn.commit()
+
+    # ---------------- engine manifests (EngineManifests.scala) ------------
+    def manifest_upsert(self, m: EngineManifest) -> None:
+        with self._lock:
+            self._conn.execute(
+                "INSERT OR REPLACE INTO engine_manifests VALUES (?,?,?,?,?,?)",
+                (m.id, m.version, m.name, m.description, json.dumps(m.files),
+                 m.engine_factory),
+            )
+            self._conn.commit()
+
+    def manifest_get(self, id: str, version: str) -> Optional[EngineManifest]:
+        r = self._conn.execute(
+            "SELECT * FROM engine_manifests WHERE id=? AND version=?",
+            (id, version),
+        ).fetchone()
+        if not r:
+            return None
+        return EngineManifest(r[0], r[1], r[2], r[3], json.loads(r[4]), r[5])
+
+    def manifest_get_all(self) -> list[EngineManifest]:
+        return [
+            EngineManifest(r[0], r[1], r[2], r[3], json.loads(r[4]), r[5])
+            for r in self._conn.execute("SELECT * FROM engine_manifests")
+        ]
+
+    def manifest_delete(self, id: str, version: str) -> None:
+        with self._lock:
+            self._conn.execute(
+                "DELETE FROM engine_manifests WHERE id=? AND version=?",
+                (id, version),
+            )
             self._conn.commit()
 
     # ---------------- engine instances (EngineInstances.scala) ------------

@@ -23,6 +23,7 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+from .event import Event, now_utc
 from .levents import EventStore, MemoryEventStore
 from .metadata import MetadataStore
 from .sqlite_events import SQLiteEventStore
@@ -125,6 +126,19 @@ class Storage:
             p.mkdir(parents=True, exist_ok=True)
             return p
         raise StorageError(f"unknown model data type: {stype}")
+
+    def verify_all_data_objects(self) -> None:
+        """Touch all repositories, incl. a test event write to app 0."""
+        self.get_metadata().app_get_all()
+        es = self.get_event_store()
+        es.init_channel(0)
+        eid = es.insert(
+            Event(event="test", entity_type="test", entity_id="test",
+                  event_time=now_utc()),
+            app_id=0,
+        )
+        es.delete(eid, app_id=0)
+        self.model_data_dir()
 
     def close(self) -> None:
         with self._lock:

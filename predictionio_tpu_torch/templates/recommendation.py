@@ -18,6 +18,7 @@ store of the ``WorkflowContext``'s storage, as the reference's does
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
 
@@ -43,6 +44,8 @@ from ._common import (
     filter_bias_mask,
     warm_batched_topk,
 )
+
+logger = logging.getLogger(__name__)
 
 __all__ = [
     "ALSAlgorithm",
@@ -359,6 +362,7 @@ class ALSAlgorithm(Algorithm):
         factors = train_als(data.ratings, cfg=self._config(),
                             device=ctx.device)
         self.train_report = factors.report
+        logger.info("ALS trained: %s", factors.report)
         return ALSModel(
             user_factors=factors.user_factors,
             item_factors=factors.item_factors,
@@ -488,3 +492,27 @@ def recommendation_engine() -> Engine:
         {"als": ALSAlgorithm, "": ALSAlgorithm},
         RecommendationServing,
     )
+
+
+from ..engines import engine_spec  # noqa: E402
+
+recommendation_engine = engine_spec(
+    "recommendation",
+    description=(
+        "Personalized recommendation via block-ALS on the GPU "
+        "(scala-parallel-recommendation analogue)"
+    ),
+    default_params={
+        "datasource": {
+            "params": {"appName": "MyApp", "eventNames": ["rate", "buy"]}
+        },
+        "algorithms": [
+            {
+                "name": "als",
+                "params": {"rank": 10, "numIterations": 20,
+                           "lambda": 0.01, "seed": 3},
+            }
+        ],
+    },
+    query_example={"user": "1", "num": 4},
+)(recommendation_engine)

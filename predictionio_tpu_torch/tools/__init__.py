@@ -1,7 +1,10 @@
-"""Host tools of the port: the JSON-lines event import and export
-(``import_export``, port of ``predictionio_tpu/tools/import_export.py``).
-The reference's template gallery and trim tools are not ported yet."""
+"""Host tools of the port (ports of ``predictionio_tpu/tools``'s
+``import_export``, ``trim`` and ``template_gallery``): the JSON-lines
+event import and export, the event trim behind ``app trim``, and the
+template gallery behind ``template list|get``."""
 
 from .import_export import export_events, import_events, import_ratings_csv
+from .trim import trim_events
 
-__all__ = ["export_events", "import_events", "import_ratings_csv"]
+__all__ = ["export_events", "import_events", "import_ratings_csv",
+           "trim_events"]

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import json
 import logging
+import time
 import uuid
 from typing import Any, Optional
 
@@ -95,7 +96,10 @@ def run_train(
         algos, models = engine.train_components(ctx, engine_params, wp)
         if wp.save_model:
             names = [n for n, _ in engine_params.algorithms]
+            t0 = time.perf_counter()
             save_models(ctx, instance_id, list(zip(names, algos, models)))
+            logger.info("models of instance %s saved: %.3f s", instance_id,
+                        time.perf_counter() - t0)
         ei.status = "COMPLETED"
         ei.end_time = format_time(now_utc())
         md.engine_instance_update(ei)

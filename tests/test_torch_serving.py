@@ -117,7 +117,7 @@ def server(deployed):
     srv = EngineServer(engine, ep, iid,
                        ctx=WorkflowContext(device="cpu", storage=st,
                                            mode="Serving"),
-                       config=ServerConfig(port=0))
+                       config=ServerConfig(port=0, edge="threads"))
     thread = srv.start_background()
     yield srv
     srv.stop()
@@ -219,13 +219,15 @@ def test_status_reload_and_stop(deployed, server):
 
 
 def test_unported_edges_are_refused():
-    with pytest.raises(NotImplementedError, match="eventloop"):
-        ServerConfig(edge="eventloop")
+    # the reference's default edge and batcher are the port's too; the
+    # threads edge stays selectable, an unknown edge and feedback raise
+    assert ServerConfig().edge == "eventloop"
+    assert ServerConfig().shared_batcher is True
+    assert ServerConfig(edge="threads").edge == "threads"
     with pytest.raises(NotImplementedError, match="feedback"):
         ServerConfig(feedback=True)
     with pytest.raises(ValueError, match="edge"):
         ServerConfig(edge="asyncio")
-    assert ServerConfig().edge == "threads"
 
 
 def test_micro_batcher_coalesces_and_pads():
