@@ -13,7 +13,7 @@ float64 solve), both forms of the fused ALS kernel ("taa" and "dma")
 with the second pass of a split bucket, and the three gather probes,
 whose launch path it takes apart step by step at the probe shape.
 It builds the native host runtime (``build/native/``, ``g++``) beside
-the kernels.  Then it drives three main paths through the entry points a
+the kernels.  Then it drives five main paths through the entry points a
 user calls, each with every launch counter set to 0 just before it and
 read just after it; a kernel its path did not launch fails the run:
 
@@ -24,12 +24,22 @@ read just after it; a kernel its path did not launch fails the run:
   the synthetic triples) → the recommendation engine training at rank 64 with
   ``solver="fused"`` (2 iterations) and ``solver="pallas"`` (1
   iteration) → serving solo and batched top-K queries;
+* cli: the quickstart on that store through the port's console
+  (``template get``, ``build``, ``train --scan-cache`` in process, a
+  ``deploy`` process on the event-loop edge answering queries like an
+  in-process ``predict``, ``undeploy``);
+* eval: ``pio eval`` on that store through the console, in process: a
+  sweep of two candidates over 3 folds (:class:`ML20MSweep`), its folds
+  held against a numpy split and its winner's RMSE against a float64
+  recomputation;
 * pio: MovieLens-1M-shaped events (6,040 x 3,706 x 1,000,209) into the
   SQLite event store of a fresh ``$PIO_TPU_HOME`` through the REST event
   server (one with the group-commit WAL) and ``import_events`` →
   ``run_train`` (``fused_gather="auto"``, which ranks the fused kernel's
   forms with the gather probe kernels) → ``EngineServer`` answering solo
-  and concurrent ``POST /queries.json`` like an in-process ``predict``;
+  and concurrent ``POST /queries.json`` like an in-process ``predict``,
+  then the eval sweep on that store sequentially and with
+  ``--parallelism 2``, which must agree;
 * probe smoke: ``gather_probe.smoke``, the probe module's own entry
   point.
 
@@ -64,6 +74,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -90,6 +101,49 @@ BIG_N = 1 << 20
 
 # split targets (waves of blocks over the SMs) that phase breakdown times
 SWEEP_WAVES = (1, 2, 4, 6, 8, 12, 16)
+
+# phase eval's sweep: two candidates that differ only in lambda, k folds
+SWEEP_LAMBDAS = (0.01, 0.1)
+EVAL_K = 3
+EVAL_SEED = 3
+
+
+def sweep_variant(app: str, lam: float) -> dict:
+    """One candidate of the sweep as an engine.json variant: rank 64, 2
+    iterations, ``solver="fused"`` with ``fusedGather`` "auto", over
+    :data:`EVAL_K` folds of ``app``'s rate events."""
+    return {
+        "datasource": {"params": {"appName": app, "eventNames": ["rate"],
+                                  "evalK": EVAL_K, "evalSeed": EVAL_SEED}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": RANK, "numIterations": 2, "lambda": lam,
+            "solver": "fused", "fusedGather": "auto"}}],
+    }
+
+
+class ML20MSweep:
+    """The ``EngineParamsGenerator`` phase eval names on the console
+    (``eval --engine recommendation __main__.ML20MSweep``): one candidate
+    per :data:`SWEEP_LAMBDAS` over the ML-20M store's app.  The console
+    instantiates the class, so the port is imported only then."""
+
+    APP = "ml20m"
+
+    def __init__(self):
+        from predictionio_tpu_torch.templates.recommendation import (
+            recommendation_evaluation,
+        )
+
+        engine = recommendation_evaluation().engine
+        self.engine_params_list = [
+            engine.params_from_variant(sweep_variant(self.APP, lam))
+            for lam in SWEEP_LAMBDAS]
+
+
+class ML1MSweep(ML20MSweep):
+    """The same sweep over phase pio's ML-1M app."""
+
+    APP = "ml1m"
 
 
 def synth_ratings(n_users: int, n_items: int, n_ratings: int, seed: int = 0,
@@ -1078,6 +1132,11 @@ _IMPORT_LOG = ("import of %s: %d events by the native scanner, %d parsed "
 _READ_LOG = "read_training: %.3f s"
 _ALS_LOG = "ALS trained: %s"
 _SAVE_LOG = "models of instance %s saved: %.3f s"
+# ... and phase eval
+_EVAL_READ_LOG = "read_eval: %.3f s"
+_SERVE_LOG = "eval set %d: %d queries served in %.3f s"
+_CANDIDATE_LOG = ("MetricEvaluator: candidate %d/%d -> %s = %s (%.3f s: "
+                  "eval %.3f s, metrics %.3f s)")
 
 
 class CaptureLog(logging.Handler):
@@ -1099,10 +1158,74 @@ class CaptureLog(logging.Handler):
         self.records.append(record)
 
     def args(self, msg: str) -> tuple:
-        found = [r.args for r in self.records if r.msg == msg]
+        found = self.all(msg)
         if len(found) != 1:
             raise AssertionError(f"{len(found)} log records {msg!r}")
         return found[0]
+
+    def all(self, msg: str) -> list:
+        """The arguments of every record of ``msg``, in order."""
+        return [r.args for r in self.records if r.msg == msg]
+
+
+def trainer_form(report) -> str:
+    """What one ALS report says of the fused kernel's launches: the
+    resolved ``fused_gather``, the kernel's form (entry point, buckets
+    that split per side) and the bucket count per side."""
+    form = report["fused_form"]
+    return (f"fused_gather {report['fused_gather']!r}, form "
+            f"{form['kernel']} (split buckets {form['split_buckets']}), "
+            f"buckets {report['buckets']}")
+
+
+def _rss_gib() -> float:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+
+class PeakRss:
+    """This process's resident set while a block runs, sampled every
+    0.1 s by a thread: ``start_gib`` and ``peak_gib``."""
+
+    def __enter__(self):
+        self.start_gib = self.peak_gib = _rss_gib()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.1):
+            self.peak_gib = max(self.peak_gib, _rss_gib())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak_gib = max(self.peak_gib, _rss_gib())
+
+
+@contextlib.contextmanager
+def recording(cls, name: str, sink: list):
+    """While the block runs, every call of the method ``cls.name``
+    appends ``(self, result)`` to ``sink`` (the phase reads what the
+    console's run made: folds, models)."""
+    own = cls.__dict__.get(name)
+    orig = getattr(cls, name)
+
+    @functools.wraps(orig)
+    def kept(self, *args, **kw):
+        out = orig(self, *args, **kw)
+        sink.append((self, out))
+        return out
+
+    setattr(cls, name, kept)
+    try:
+        yield sink
+    finally:
+        if own is None:
+            delattr(cls, name)
+        else:
+            setattr(cls, name, own)
 
 
 def cli(argv: list, storage=None) -> str:
@@ -1359,8 +1482,9 @@ def phase_train(torch, data, solver: str, iterations: int):
                       u, i, v)
     halves = ", ".join(f"{s} {t * 1e3:.1f} ms" for s, t in rep["half_seconds"])
     log(f"phase train solver={solver}: {iterations} iteration(s), wall "
-        f"{wall:.1f} s, buckets {rep['buckets']}, staging ({rep['staging']}, "
-        f"native counting sort) "
+        f"{wall:.1f} s, "
+        f"{trainer_form(rep) if solver == 'fused' else rep['buckets']}, "
+        f"staging ({rep['staging']}, native counting sort) "
         f"{rep['staging_seconds']:.2f} s, halves [{halves}], sweep losses "
         f"{[round(x, 5) for x in rep['sweep_losses']]}, training RMSE "
         f"{train_rmse:.5f}, peak device memory "
@@ -1788,6 +1912,8 @@ def phase_pio(torch) -> dict:
             f"microbatch {status.get('microbatch')}); all 96 replies match "
             f"in-process predict ({trades} tied items traded places); "
             f"stopped")
+        # the evaluation sweep, sequential and parallel, on this store
+        eval_parallel(storage, home)
         return dict(launches=launches, resolved=resolved, ingest=ingest,
                     read_s=read_s[0], train_s=train_s, solo_ms=solo_ms,
                     conc_wall_ms=conc_wall, conc_ms=conc_ms)
@@ -1885,8 +2011,8 @@ def phase_cli(torch, store: StoreHome) -> dict:
     log(f"phase cli train: console train {train_s:.1f} s; read_training "
         f"{read_s:.2f} s (last_ratings_scan_path {read_path!r}: the scan "
         f"cache {'hit' if read_path == 'cache' else 'MISSED'}), staging "
-        f"{report['staging_seconds']:.2f} s, halves [{halves}], fused "
-        f"gather {report['fused_gather']!r}, model save {save_s:.2f} s; "
+        f"{report['staging_seconds']:.2f} s, halves [{halves}], "
+        f"{trainer_form(report)}, model save {save_s:.2f} s; "
         f"instance {iid} COMPLETED; launches {launches}")
     if launches["fused_als"] + launches["fused_als_dma"] <= 0:
         raise AssertionError("the console's train never launched the fused "
@@ -1958,6 +2084,218 @@ def phase_cli(torch, store: StoreHome) -> dict:
         f"after undeploy")
     return {"launches": launches, "train_s": train_s, "read_path": read_path,
             "boot_s": proc.boot_s, "edges": edges}
+
+
+def eval_record(storage, out: str):
+    """The console's two eval lines → the EvaluationInstance they name
+    and its parsed JSON result; raises unless the record is
+    EVALCOMPLETED and carries the printed one-liner, the HTML and the
+    JSON."""
+    one_liner, done = out.splitlines()
+    eid = done.rsplit(" ", 1)[1]
+    if done != f"Evaluation completed. Instance id: {eid}":
+        raise AssertionError(f"eval printed {out!r}")
+    rec = storage.get_metadata().evaluation_instance_get(eid)
+    if (rec is None or rec.status != "EVALCOMPLETED"
+            or rec.evaluator_results != one_liner
+            or not rec.evaluator_results_html.startswith("<html>")):
+        raise AssertionError(f"evaluation instance {eid}: {rec}")
+    return rec, json.loads(rec.evaluator_results_json)
+
+
+def phase_eval(torch, store: StoreHome, ratings) -> dict:
+    """``pio eval`` at ML-20M through the port's console, in this process
+    on the card, on the store phase store filled (its ratings in the scan
+    cache): ``eval --engine recommendation __main__.ML20MSweep
+    --scan-cache`` (:class:`ML20MSweep`: two candidates, 3 folds each;
+    FastEval reads and splits the store once and trains 6 models) from a
+    scratch working directory, where ``best.json`` lands.  The launch
+    counts are set to 0 just before it and read just after.  Checks:
+    the folds' held-out sizes add up to the ratings phase store read, and
+    each of a sample of 10,000 ratings is missing from exactly one fold's
+    training set, the one a numpy recomputation of the seeded
+    permutation gives, and stands at its place in that fold's held-out
+    (query, actual) list; each
+    candidate's RMSE is finite and beats the zero model's; the winner's
+    RMSE recomputed in float64 over its three models' host factors
+    agrees within 1e-6 relative; the best index is the argmin;
+    ``best.json`` reads back into the winner's params; the record is
+    EVALCOMPLETED.  Logs ``read_eval``, the host's peak RSS, and per
+    candidate and fold the trainer's form, staging, halves and serving
+    seconds."""
+    from pathlib import Path
+
+    from predictionio_tpu_torch.ops import _build, gather_probe
+    from predictionio_tpu_torch.templates.recommendation import (
+        RatingAlgorithm, RecommendationDataSource, recommendation_evaluation,
+    )
+
+    st = store.storage
+    work = Path(store.home) / "eval"
+    work.mkdir()
+    folds, models = [], []
+    # a `pio eval` is a process of its own: no probe order cached
+    gather_probe._ORDER_CACHE.clear()
+    cwd = os.getcwd()
+    os.chdir(work)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with CaptureLog() as records, PeakRss() as rss, \
+                recording(RecommendationDataSource, "read_eval", folds), \
+                recording(RatingAlgorithm, "train", models):
+            out = cli(["eval", "--engine", "recommendation",
+                       "__main__.ML20MSweep", "--scan-cache"], st)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    eval_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    rec, res = eval_record(st, out)
+    scores = [r["score"] for r in res["results"]]
+    best = res["bestIndex"]
+
+    # the folds: sizes, and a sample of ratings against numpy
+    ((_, sets),) = folds
+    n = len(ratings)
+    # each rating's fold as read_eval must assign it, by numpy alone
+    fold = np.empty(n, dtype=np.int64)
+    fold[np.random.default_rng(EVAL_SEED).permutation(n)] = (
+        np.arange(n) % EVAL_K)
+    keys = ratings.user_ix.astype(np.int64) * ratings.n_items + ratings.item_ix
+    sample = np.random.default_rng(1).choice(n, size=min(n, 10_000),
+                                             replace=False)
+    held, lacking = [], np.zeros(len(sample), np.int64)
+    for f, (td, ei, qa) in enumerate(sets):
+        train = np.sort(td.ratings.user_ix.astype(np.int64)
+                        * ratings.n_items + td.ratings.item_ix)
+        pos = np.minimum(np.searchsorted(train, keys[sample]), len(train) - 1)
+        out_f = train[pos] != keys[sample]
+        lacking += out_f
+        mine = np.flatnonzero(fold == f)
+        # the sample's held-out pairs, at their place in the fold's list
+        at = np.searchsorted(mine, sample[fold[sample] == f])
+        if (ei != {"fold": f} or len(qa) != n - len(train)
+                or len(mine) != len(qa)
+                or not np.array_equal(out_f, fold[sample] == f)
+                or any((qa[a][0].user, qa[a][1].item, qa[a][1].rating) != (
+                    ratings.users.id_of(ratings.user_ix[mine[a]]),
+                    ratings.items.id_of(ratings.item_ix[mine[a]]),
+                    float(ratings.rating[mine[a]])) for a in at)):
+            raise AssertionError(f"fold {f} differs from the numpy split")
+        held.append(len(qa))
+    if len(sets) != EVAL_K or sum(held) != n or (lacking != 1).any():
+        raise AssertionError(f"folds hold out {held} of {n:,} ratings")
+    del folds, sets
+
+    zero = float(np.sqrt(np.mean(ratings.rating.astype(np.float64) ** 2)))
+    if not all(math.isfinite(x) and x < zero for x in scores):
+        raise AssertionError(f"RMSEs {scores} against the zero model's "
+                             f"{zero}")
+    if best != int(np.argmin(scores)) or rec.evaluator_results != (
+            f"[{scores[best]}] RMSE"):
+        raise AssertionError(f"best index {best} of {scores}")
+    # the winner's score, recomputed in float64 over its models
+    won = [m for a, m in models if a.params.lam == SWEEP_LAMBDAS[best]]
+    if len(models) != EVAL_K * len(SWEEP_LAMBDAS) or len(won) != EVAL_K:
+        raise AssertionError(f"{len(models)} models trained")
+    sq = 0.0
+    for f, model in enumerate(won):
+        mine = np.flatnonzero(fold == f)
+        for c in range(0, len(mine), 1 << 20):
+            j = mine[c:c + (1 << 20)]
+            pred = np.einsum(
+                "nr,nr->n",
+                model.user_factors[ratings.user_ix[j]].astype(np.float64),
+                model.item_factors[ratings.item_ix[j]].astype(np.float64))
+            sq += float(((pred - ratings.rating[j]) ** 2).sum())
+    again = math.sqrt(sq / n)
+    if abs(again - scores[best]) > 1e-6 * scores[best]:
+        raise AssertionError(f"the winner's RMSE {scores[best]} against "
+                             f"{again} recomputed in float64")
+    engine = recommendation_evaluation().engine
+    back = engine.params_from_variant(
+        json.loads((work / "best.json").read_text()))
+    want = ML20MSweep().engine_params_list[best]
+    if (back.algorithms, back.data_source) != (want.algorithms,
+                                               want.data_source):
+        raise AssertionError("best.json does not name the winner")
+    check_s = time.perf_counter() - t0
+
+    (read_s,) = records.args(_EVAL_READ_LOG)
+    reports = records.all(_ALS_LOG)
+    served = records.all(_SERVE_LOG)
+    cands = records.all(_CANDIDATE_LOG)
+    log(f"phase eval ML-20M: console eval {eval_s:.1f} s in all; "
+        f"read_eval {read_s:.2f} s (the store read from the scan cache and "
+        f"the {EVAL_K}-fold split into {n:,} held-out (query, actual) "
+        f"pairs: {held}); host RSS {rss.start_gib:.2f} GiB before, peak "
+        f"{rss.peak_gib:.2f} GiB; launches {launches}")
+    for c, (_, _, _, _, cand_s, cand_eval_s, metric_s) in enumerate(cands):
+        log(f"phase eval candidate {c} (lambda {SWEEP_LAMBDAS[c]}): "
+            f"{cand_s:.1f} s (eval {cand_eval_s:.1f} s, RMSEMetric "
+            f"{metric_s:.2f} s), RMSE {scores[c]:.6f}")
+        for f in range(EVAL_K):
+            rep = reports[c * EVAL_K + f]  # one Mapping argument
+            halves = ", ".join(f"{s} {t * 1e3:.1f} ms"
+                               for s, t in rep["half_seconds"])
+            log(f"phase eval candidate {c} fold {f}: staging "
+                f"{rep['staging_seconds']:.2f} s, halves [{halves}], "
+                f"{trainer_form(rep)}; {served[c * EVAL_K + f][1]:,} "
+                f"queries served in {served[c * EVAL_K + f][2]:.1f} s")
+    log(f"phase eval checks ({check_s:.1f} s): the folds' sizes add up, "
+        f"and {len(sample):,} sampled ratings are held out once, by the "
+        f"fold and at the place a numpy split gives them; RMSEs {scores} "
+        f"all below the zero model's "
+        f"{zero:.6f}; best index {best} (the argmin), its RMSE recomputed "
+        f"in float64 {again:.9f}; best.json names the winner; instance "
+        f"{rec.id} EVALCOMPLETED")
+    if launches["fused_als"] + launches["fused_als_dma"] <= 0:
+        raise AssertionError("eval never launched the fused kernel")
+    return {"launches": launches, "eval_s": eval_s, "read_s": read_s,
+            "peak_rss_gib": rss.peak_gib, "scores": scores}
+
+
+def eval_parallel(storage, home) -> None:
+    """The sweep of :class:`ML1MSweep` through the console twice on
+    phase pio's store: sequentially (FastEval: one read, 6 models) and
+    with ``--parallelism 2`` (two threads training on the card at once,
+    each reading the store itself).  The two must give the same best
+    index and every RMSE within 1e-5 relative."""
+    from pathlib import Path
+
+    work = Path(home) / "eval"
+    work.mkdir()
+    cwd = os.getcwd()
+    os.chdir(work)
+    runs = {}
+    try:
+        for name, extra in (("sequential", []),
+                            ("parallel", ["--parallelism", "2"])):
+            t0 = time.perf_counter()
+            with CaptureLog() as records:
+                out = cli(["eval", "--engine", "recommendation",
+                           "__main__.ML1MSweep", *extra], storage)
+            secs = time.perf_counter() - t0
+            _, res = eval_record(storage, out)
+            forms = {rep["fused_gather"] for rep in records.all(_ALS_LOG)}
+            runs[name] = (res["bestIndex"],
+                          [r["score"] for r in res["results"]], secs, forms)
+    finally:
+        os.chdir(cwd)
+    (b_seq, s_seq, t_seq, f_seq), (b_par, s_par, t_par, f_par) = (
+        runs["sequential"], runs["parallel"])
+    if b_seq != b_par or any(abs(a - b) > 1e-5 * b
+                             for a, b in zip(s_par, s_seq)):
+        raise AssertionError(f"the parallel sweep ({b_par}, {s_par}) "
+                             f"differs from the sequential ({b_seq}, "
+                             f"{s_seq})")
+    log(f"phase pio eval ML-1M: sequential {t_seq:.1f} s (fused_gather "
+        f"{sorted(f_seq)}), --parallelism 2 {t_par:.1f} s (fused_gather "
+        f"{sorted(f_par)}); best index {b_seq} both, RMSEs {s_seq} and "
+        f"{s_par} (max relative difference "
+        f"{max(abs(a - b) / b for a, b in zip(s_par, s_seq)):.2e})")
 
 
 def phase_topk(torch, dev) -> None:
@@ -2242,6 +2580,10 @@ def main(argv: list[str]) -> int:
         torch.cuda.empty_cache()
         # the quickstart through the console (resets the counts itself)
         paths["cli"] = timed("cli", phase_cli, torch, store)["launches"]
+        torch.cuda.empty_cache()
+        # `pio eval` through the console on the same store (the same)
+        paths["eval"] = timed("eval", phase_eval, torch, store,
+                              ratings)["launches"]
     finally:
         store.close()
         for k, val in saved_env.items():
@@ -2267,6 +2609,7 @@ def main(argv: list[str]) -> int:
         "ml20m": ("gj_solve", "fused_als_reduce", "taa0_gather",
                   "dma_row_gather"),
         "cli": ("fused_als_reduce", "taa0_gather", "dma_row_gather"),
+        "eval": ("fused_als_reduce", "taa0_gather", "dma_row_gather"),
         "pio": ("fused_als", "fused_als_dma", "taa0_gather",
                 "dma_row_gather"),
         "probe_smoke": ("taa0_gather", "taa1_gather", "dma_row_gather"),
@@ -2275,7 +2618,7 @@ def main(argv: list[str]) -> int:
         for name in names:
             if paths[path][name] <= 0:
                 raise AssertionError(f"path {path} never launched {name}")
-    for path in ("ml20m", "cli"):
+    for path in ("ml20m", "cli", "eval"):
         if paths[path]["fused_als"] + paths[path]["fused_als_dma"] <= 0:
             raise AssertionError(f"path {path} never launched the fused "
                                  "kernel")

@@ -9,10 +9,10 @@ messages and exit codes.  Subcommands:
   accesskey new|list|delete
   engines list|describe
   template list|get
-  train | deploy | undeploy | eventserver
+  train | deploy | eval | undeploy | eventserver
   build | unregister | run | import | export | status | upgrade | version
 
-``eval``, ``foldin``, ``adminserver`` and ``dashboard``, and the options
+``foldin``, ``adminserver`` and ``dashboard``, and the options
 of subsystems the port does not have yet (the replica and ingest
 routers, the sharded store, tenancy, feedback, fold-in deltas,
 multi-process training and the observability stack) are refused before
@@ -22,8 +22,8 @@ any work with ``Error: ... is not ported to predictionio_tpu_torch yet
 port lacks and are accepted as no-ops.
 
 ``main(argv, storage, device)`` runs on the card unless the caller asks
-for ``device="cpu"`` (the tests do); ``train`` and ``deploy`` raise
-without one.  ``python -m predictionio_tpu_torch`` always takes the card.
+for ``device="cpu"`` (the tests do); ``train``, ``deploy`` and ``eval``
+raise without one.  ``python -m predictionio_tpu_torch`` always takes the card.
 
 There is no sbt: ``build`` validates the engine variant and registers an
 EngineManifest (RegisterEngine analogue), and engine factories are
@@ -171,7 +171,6 @@ def _is_set(v) -> bool:
 # (command, argument, refused when, what, ROADMAP Queue 1 item); an
 # argument of None refuses the command itself
 _REFUSED = (
-    ("eval", None, None, "eval", 6),
     ("foldin", None, None, "foldin", 5),
     ("adminserver", None, None, "adminserver", 9),
     ("dashboard", None, None, "dashboard", 9),
@@ -206,7 +205,7 @@ _REFUSED = (
     ("train", "process_id", _is_set, "train --process-id", 7),
 ) + tuple(
     (cmd, dest, _is_set, f"{flag} (observability)", 2)
-    for cmd in ("train", "deploy", "eventserver")
+    for cmd in ("train", "deploy", "eval", "eventserver")
     for dest, flag in _OBS_OPTIONS
 )
 
@@ -549,6 +548,59 @@ def cmd_deploy(args, storage: Storage, device: DeviceLike) -> int:
         # teardown (the batcher's dispatcher, the aux pool) before the
         # process exits
         server.stop()
+    return 0
+
+
+def cmd_eval(args, storage: Storage, device: DeviceLike) -> int:
+    from ..controller.base import WorkflowContext
+    from ..workflow.evaluate import NO_CANDIDATES, run_evaluation
+
+    if args.scan_cache:
+        os.environ["PIO_TPU_SCAN_CACHE"] = "1"
+    generator_path = args.engine_params_generator
+    if args.engine:
+        # `eval --engine NAME` dispatches the spec's declared evaluation
+        # — no dotted path to remember
+        from .. import engines
+
+        spec = engines.get_engine_spec(args.engine)
+        if spec.evaluation is None:
+            _out(f"Error: engine '{spec.name}' declares no evaluation; "
+                 "pass a dotted evaluation path instead.")
+            return 1
+        evaluation = spec.evaluation
+        eval_class = spec.evaluation_path
+        # with --engine the one positional names the generator (argparse
+        # fills the first positional slot, the evaluation's)
+        if args.evaluation and not generator_path:
+            generator_path = args.evaluation
+    elif args.evaluation:
+        evaluation = resolve_attr(args.evaluation)
+        eval_class = args.evaluation
+    else:
+        _out("Error: pass an evaluation dotted path or --engine NAME.")
+        return 1
+    if callable(evaluation) and not hasattr(evaluation, "engine"):
+        evaluation = evaluation()
+    params_list = None
+    if generator_path:
+        gen = resolve_attr(generator_path)
+        if callable(gen) and not hasattr(gen, "engine_params_list"):
+            gen = gen()
+        params_list = list(gen.engine_params_list)
+    elif getattr(evaluation, "engine_params_list", None) is None:
+        _out(f"Error: {NO_CANDIDATES}")
+        return 1
+    ctx = WorkflowContext(device=device, storage=storage, mode="Evaluation",
+                          batch=args.batch)
+    eval_id, result = run_evaluation(
+        evaluation, params_list, ctx=ctx,
+        evaluation_class=eval_class,
+        engine_params_generator_class=generator_path or "",
+        parallelism=args.parallelism,
+    )
+    _out(result.to_one_liner())
+    _out(f"Evaluation completed. Instance id: {eval_id}")
     return 0
 
 
@@ -996,15 +1048,24 @@ def build_parser() -> argparse.ArgumentParser:
     fi.add_argument("--max-cycles", type=int, default=None)
     fi.add_argument("--from-now", action="store_true")
 
-    e = sub.add_parser("eval", help="run an evaluation sweep (not ported: "
-                       "refused)")
+    e = sub.add_parser("eval", help="run an evaluation sweep")
     _add_obs_args(e)
-    e.add_argument("evaluation", nargs="?")
-    e.add_argument("--engine", metavar="NAME")
-    e.add_argument("engine_params_generator", nargs="?")
+    e.add_argument("evaluation", nargs="?",
+                   help="dotted path to an Evaluation (or factory); "
+                   "with --engine NAME, the one positional is the "
+                   "generator")
+    e.add_argument("--engine", metavar="NAME",
+                   help="run the evaluation a REGISTERED engine "
+                   "declares in its spec")
+    e.add_argument("engine_params_generator", nargs="?",
+                   help="dotted path to an EngineParamsGenerator")
     e.add_argument("--batch", default="")
-    e.add_argument("--parallelism", type=int, default=1)
-    e.add_argument("--scan-cache", action="store_true")
+    e.add_argument("--parallelism", type=int, default=1,
+                   help="candidates scored concurrently (>1 disables "
+                   "FastEval prefix caching)")
+    e.add_argument("--scan-cache", action="store_true",
+                   help="snapshot columnar event scans to npz keyed by a "
+                   "table write-version (storage/scan_cache.py)")
 
     ev = sub.add_parser("eventserver", help="run the event server")
     _add_obs_args(ev)
@@ -1141,6 +1202,7 @@ _DISPATCH = {
 _DEVICE_DISPATCH = {
     "train": cmd_train,
     "deploy": cmd_deploy,
+    "eval": cmd_eval,
 }
 
 

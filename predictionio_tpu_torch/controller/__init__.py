@@ -1,6 +1,6 @@
 """Controller DSL — the user-facing engine-building API (copy of
-``predictionio_tpu/controller``'s base, engine and params modules; the
-evaluation layer is not ported yet)."""
+``predictionio_tpu/controller``: base, engine, params, and the
+evaluation layer: metrics, evaluation and FastEval)."""
 
 from .base import (
     Algorithm,
@@ -19,6 +19,25 @@ from .base import (
     instantiate,
 )
 from .engine import Engine, EngineFactory, EngineParams, SimpleEngine
+from .evaluation import (
+    EngineParamsGenerator,
+    Evaluation,
+    MetricEvaluator,
+    MetricEvaluatorResult,
+)
+from .fast_eval import FastEvalEngine
+from .metrics import (
+    ActualItems,
+    AverageMetric,
+    MAPatK,
+    Metric,
+    OptionAverageMetric,
+    OptionStdevMetric,
+    QPAMetric,
+    StdevMetric,
+    SumMetric,
+    ZeroMetric,
+)
 from .params import EmptyParams, Params, ParamsError, extract_params, params_to_json
 
 __all__ = [
@@ -37,6 +56,21 @@ __all__ = [
     "WorkflowContext",
     "instantiate",
     "Engine",
+    "EngineParamsGenerator",
+    "Evaluation",
+    "MetricEvaluator",
+    "MetricEvaluatorResult",
+    "FastEvalEngine",
+    "ActualItems",
+    "AverageMetric",
+    "MAPatK",
+    "Metric",
+    "OptionAverageMetric",
+    "OptionStdevMetric",
+    "QPAMetric",
+    "StdevMetric",
+    "SumMetric",
+    "ZeroMetric",
     "EngineFactory",
     "EngineParams",
     "SimpleEngine",

@@ -229,12 +229,17 @@ class Engine(Generic[TD, EI, PD, Q, P, A]):
         return self._eval_with(ctx, data_source, preparator, algorithms, serving)
 
     def _eval_with(self, ctx, data_source, preparator, algorithms, serving):
+        t0 = time.perf_counter()
         eval_sets = data_source.read_eval(ctx)
+        logger.info("read_eval: %.3f s", time.perf_counter() - t0)
         results = []
-        for td, ei, qa in eval_sets:
+        for s, (td, ei, qa) in enumerate(eval_sets):
             pd = preparator.prepare(ctx, td)
             models = [algo.train(ctx, pd) for algo in algorithms]
+            t0 = time.perf_counter()
             results.append((ei, self._batch_serve(algorithms, models, serving, qa)))
+            logger.info("eval set %d: %d queries served in %.3f s", s,
+                        len(qa), time.perf_counter() - t0)
         return results
 
     @staticmethod

@@ -1,13 +1,13 @@
 """Engine specs: the one-file-engine registry.
 
 Port of ``predictionio_tpu/engines/spec.py``.  :class:`EngineSpec` is one
-declaration per engine (factory, engine.json-shaped default params and a
-query example), registered by decorator; the CLI's ``engines
-list/describe``, ``train/deploy --engine NAME`` and the template gallery
+declaration per engine (factory, engine.json-shaped default params, a
+query example and, optionally, the evaluation ``eval --engine NAME``
+runs), registered by decorator; the CLI's ``engines list/describe``,
+``train/deploy/eval --engine NAME`` and the template gallery
 (``tools/template_gallery.py``) all read it.  The reference's
-``evaluation`` and ``ConformanceFixture`` fields wait for the port of
-evaluation: every port spec describes itself with ``"evaluation": null``
-and ``"conformance": false``.
+``ConformanceFixture`` is not ported: every port spec describes itself
+with ``"conformance": false``.
 
 Registration is a side effect of import: decorating a zero-arg factory
 registers the spec, and :func:`~predictionio_tpu_torch.engines.discovery.
@@ -48,6 +48,10 @@ class EngineSpec:
     default_params: Mapping[str, Any] = field(default_factory=dict)
     query_example: Mapping[str, Any] = field(default_factory=dict)
     source: str = "builtin"
+    # optional zero-arg callable returning a controller Evaluation —
+    # `eval --engine NAME` dispatches through it
+    evaluation: Optional[Callable[[], Any]] = None
+    evaluation_path: Optional[str] = None
 
     def build(self):
         return self.factory()
@@ -75,7 +79,7 @@ class EngineSpec:
             "source": self.source,
             "defaultParams": _plain(self.default_params),
             "queryExample": _plain(self.query_example),
-            "evaluation": None,
+            "evaluation": self.evaluation_path,
             "conformance": False,
         }
 
@@ -117,6 +121,7 @@ def engine_spec(
     description: str = "",
     default_params: Optional[Mapping[str, Any]] = None,
     query_example: Optional[Mapping[str, Any]] = None,
+    evaluation: Optional[Callable[[], Any]] = None,
 ):
     """Decorator: register a zero-arg engine factory as an engine; the
     factory itself is returned unchanged."""
@@ -133,6 +138,11 @@ def engine_spec(
             default_params=dict(default_params or {}),
             query_example=dict(query_example or {}),
             source=_current_source,
+            evaluation=evaluation,
+            evaluation_path=(
+                f"{evaluation.__module__}.{evaluation.__qualname__}"
+                if evaluation is not None else None
+            ),
         ))
         return factory
 

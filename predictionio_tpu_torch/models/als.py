@@ -792,6 +792,31 @@ class ALSTrainer:
                          num_iterations)
         return U, V
 
+    def fused_form(self) -> Optional[dict]:
+        """What the fused kernel launches on the card (None for another
+        solver): its entry point (the gather form and the table width)
+        and, per side, how many buckets split their long rows across
+        blocks (a pass 2 each), at this device's SM count."""
+        if self.solver != "fused":
+            return None
+        from ..ops.fused_als import SMS, fused_tile_plan, sm_count
+
+        cfg = self.cfg
+        tb = 2 if cfg.gather_dtype == "bfloat16" else 4
+        sms = sm_count(self.device) if self.device.type == "cuda" else SMS
+        split = {}
+        for name, side, m in (("user", self._user_side, self.n_items),
+                              ("item", self._item_side, self.n_users)):
+            split[name] = sum(
+                fused_tile_plan(m, cfg.rank, k, tb, self.fused_gather,
+                                b=len(rows), sms=sms).segments > 1
+                for (rows, _, _), k in zip(side["buckets"], side["ks"])
+            )
+        form = "_dma" if self.fused_gather == "dma" else ""
+        width = "bf16" if tb == 2 else "f32"
+        return {"kernel": f"pio_fused_als{form}_{width}",
+                "split_buckets": split}
+
     def train(self, init=None) -> ALSFactors:
         """Full run from ``init = (U0, V0)`` (the reference's initial
         factors, say) or from :meth:`init_factors`."""
@@ -808,6 +833,7 @@ class ALSTrainer:
                 "staging_seconds": self.staging_seconds,
                 "buckets": {"user": len(self._user_side["ks"]),
                             "item": len(self._item_side["ks"])},
+                "fused_form": self.fused_form(),
                 "half_seconds": list(self.half_seconds),
                 "sweep_losses": list(self.sweep_losses),
             },

@@ -40,6 +40,7 @@ import os
 import shutil
 import struct
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -79,6 +80,11 @@ LAUNCHES: dict[str, int] = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+# the first use loads the library once, whichever thread comes first
+_load_lock = threading.Lock()
+# wrappers launch from several threads at once (a parallel evaluation
+# sweep): each count's read-modify-write takes this lock
+_count_lock = threading.Lock()
 # entry point name -> its ctypes function, filled when the library loads
 _ENTRY: dict = {}
 # torch._C's current-device and raw-stream readers, bound at load (a
@@ -225,16 +231,18 @@ def _declare(lib: ctypes.CDLL, names=None) -> dict:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call (one build and
+    load however many threads call at once)."""
     global _lib, _get_device, _raw_stream
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.pio_error_string.argtypes = [ctypes.c_int]
-        lib.pio_error_string.restype = ctypes.c_char_p
-        _ENTRY.update(_declare(lib))
-        _get_device = torch._C._cuda_getDevice
-        _raw_stream = torch._C._cuda_getCurrentRawStream
-        _lib = lib
+    with _load_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.pio_error_string.argtypes = [ctypes.c_int]
+            lib.pio_error_string.restype = ctypes.c_char_p
+            _ENTRY.update(_declare(lib))
+            _get_device = torch._C._cuda_getDevice
+            _raw_stream = torch._C._cuda_getCurrentRawStream
+            _lib = lib
     return _lib
 
 
@@ -256,7 +264,8 @@ def launch(entry: str, key: str, device, *args) -> None:
             rc = fn(pack(*args, _raw_stream(index)))
     if rc:
         check_launch(rc, key)
-    LAUNCHES[key] += 1
+    with _count_lock:
+        LAUNCHES[key] += 1
 
 
 def check_launch(rc: int, kernel: str) -> None:

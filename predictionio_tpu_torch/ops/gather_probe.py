@@ -43,6 +43,7 @@ cache.
 from __future__ import annotations
 
 import functools
+import threading
 import time
 from typing import NamedTuple, Optional
 
@@ -430,6 +431,10 @@ _STATIC_ORDER = ("taa", "dma")
 _ORDER_CACHE: dict[tuple, tuple] = {}
 # the same key -> each form's measured ns per row behind that order
 PROBE_NS: dict[tuple, dict] = {}
+# one measurement at a time: trainers built in several threads (a
+# parallel evaluation sweep) wait for the first one's order instead of
+# timing the probes against each other's kernels
+_ORDER_LOCK = threading.Lock()
 
 
 def preferred_order(r: int = 64, table_bytes: int = 4,
@@ -443,14 +448,23 @@ def preferred_order(r: int = 64, table_bytes: int = 4,
     table width), ranks the forms by the card's nanoseconds per row
     (:func:`_bench` keeps the host's launch path out of them), caches
     the order and keeps the numbers in :data:`PROBE_NS`.  A form with no
-    plan at that rank and width sorts last."""
+    plan at that rank and width sorts last.  Callers in several threads
+    get the one order the first of them measured."""
     dev = _probe_device(device)
     if dev.type != "cuda":
         return _STATIC_ORDER
     key = (torch.cuda.get_device_name(dev), int(r), int(table_bytes))
-    cached = _ORDER_CACHE.get(key)
-    if cached is not None:
-        return cached
+    with _ORDER_LOCK:
+        cached = _ORDER_CACHE.get(key)
+        if cached is None:
+            cached = _ORDER_CACHE[key] = _measure_order(
+                key, r, table_bytes, dev)
+    return cached
+
+
+def _measure_order(key: tuple, r: int, table_bytes: int, dev) -> tuple:
+    """Run the two probes and rank the forms (:func:`preferred_order`);
+    keeps the numbers in :data:`PROBE_NS`."""
     dtype = torch.bfloat16 if table_bytes == 2 else torch.float32
     n = 2048
     results = {
@@ -468,11 +482,9 @@ def preferred_order(r: int = 64, table_bytes: int = 4,
         rec = results[impl]
         return (not rec["ok"], rec.get("ns_per_row", float("inf")))
 
-    order = tuple(sorted(_STATIC_ORDER, key=rank_key))
-    _ORDER_CACHE[key] = order
     PROBE_NS[key] = {impl: rec.get("ns_per_row")
                      for impl, rec in results.items()}
-    return order
+    return tuple(sorted(_STATIC_ORDER, key=rank_key))
 
 
 def smoke(r: int = 16, device=None) -> list[dict]:

@@ -35,6 +35,7 @@ from .metadata import (
     Channel,
     EngineInstance,
     EngineManifest,
+    EvaluationInstance,
     MetadataStore,
     Model,
 )
@@ -72,6 +73,7 @@ __all__ = [
     "Channel",
     "EngineInstance",
     "EngineManifest",
+    "EvaluationInstance",
     "MetadataStore",
     "Model",
     "Storage",

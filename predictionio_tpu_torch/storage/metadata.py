@@ -1,5 +1,5 @@
-"""Metadata store: apps, access keys, channels, engine instances and
-model blobs.
+"""Metadata store: apps, access keys, channels, engine manifests,
+engine instances, evaluation instances and model blobs.
 
 Copy of ``predictionio_tpu/storage/metadata.py`` for the port, with the
 same SQLite schema, so a ``metadata.db`` written by either package is
@@ -9,9 +9,8 @@ EngineManifests,EngineInstances,EvaluationInstances,Models}.scala` with
 one embedded SQLite database; the ``ESSequences`` id generator becomes
 SQLite AUTOINCREMENT.  Model blobs (reference `Models.scala:30-48`) hold
 the model manifest JSON that ``workflow/model_io.py`` writes; engine
-manifests are what the CLI's ``build`` registers.  The schema keeps the
-reference's ``evaluation_instances`` table; its DAO waits for the port
-of evaluation (ROADMAP Queue 1).
+manifests are what the CLI's ``build`` registers; evaluation instances
+are what ``workflow/evaluate.py`` records for each sweep.
 """
 
 from __future__ import annotations
@@ -33,6 +32,7 @@ __all__ = [
     "Channel",
     "EngineInstance",
     "EngineManifest",
+    "EvaluationInstance",
     "Model",
     "MetadataStore",
     "CHANNEL_NAME_RE",
@@ -95,6 +95,26 @@ class EngineInstance:
     preparator_params: str = ""
     algorithms_params: str = ""
     serving_params: str = ""
+
+
+@dataclass
+class EvaluationInstance:
+    """One evaluation sweep (reference `EvaluationInstances.scala`).
+
+    Status lifecycle: INIT -> EVALUATING -> EVALCOMPLETED (or
+    EVALFAILED)."""
+
+    id: str
+    status: str
+    start_time: str
+    end_time: str
+    evaluation_class: str
+    engine_params_generator_class: str
+    batch: str = ""
+    env: dict[str, str] = field(default_factory=dict)
+    evaluator_results: str = ""
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
 
 
 @dataclass
@@ -426,6 +446,47 @@ class MetadataStore:
         with self._lock:
             self._conn.execute("DELETE FROM engine_instances WHERE id=?", (id,))
             self._conn.commit()
+
+    # ---------------- evaluation instances --------------------------------
+    def evaluation_instance_insert(self, ev: EvaluationInstance) -> str:
+        with self._lock:
+            self._conn.execute(
+                "INSERT OR REPLACE INTO evaluation_instances VALUES "
+                "(?,?,?,?,?,?,?,?,?,?,?)",
+                (ev.id, ev.status, ev.start_time, ev.end_time, ev.evaluation_class,
+                 ev.engine_params_generator_class, ev.batch, json.dumps(ev.env),
+                 ev.evaluator_results, ev.evaluator_results_html,
+                 ev.evaluator_results_json),
+            )
+            self._conn.commit()
+        return ev.id
+
+    @staticmethod
+    def _ev_from_row(r) -> EvaluationInstance:
+        return EvaluationInstance(
+            id=r[0], status=r[1], start_time=r[2], end_time=r[3],
+            evaluation_class=r[4], engine_params_generator_class=r[5], batch=r[6],
+            env=json.loads(r[7]), evaluator_results=r[8],
+            evaluator_results_html=r[9], evaluator_results_json=r[10],
+        )
+
+    def evaluation_instance_get(self, id: str) -> Optional[EvaluationInstance]:
+        r = self._conn.execute(
+            "SELECT * FROM evaluation_instances WHERE id=?", (id,)
+        ).fetchone()
+        return self._ev_from_row(r) if r else None
+
+    def evaluation_instance_get_completed(self) -> list[EvaluationInstance]:
+        return [
+            self._ev_from_row(r)
+            for r in self._conn.execute(
+                "SELECT * FROM evaluation_instances WHERE status='EVALCOMPLETED' "
+                "ORDER BY start_time DESC"
+            )
+        ]
+
+    def evaluation_instance_update(self, ev: EvaluationInstance) -> None:
+        self.evaluation_instance_insert(ev)
 
     # ---------------- model blobs (Models.scala) ---------------------------
     def model_insert(self, m: Model) -> None:

@@ -13,7 +13,12 @@ Wire format parity: query ``{"user": "u1", "num": 4, "categories": [...],
 
 The data source reads rate events and item properties from the event
 store of the ``WorkflowContext``'s storage, as the reference's does
-(single process; the multi-host COO exchange is not ported yet).
+(single process; the multi-host COO exchange is not ported yet), and
+splits them into k folds for evaluation (``read_eval``): an ALS whose
+predictions are point ratings (:class:`RatingAlgorithm`) is scored by
+:class:`RMSEMetric` over each fold's held-out ratings
+(:func:`recommendation_evaluation`, the sweep behind ``eval --engine
+recommendation``).
 """
 
 from __future__ import annotations
@@ -51,14 +56,19 @@ __all__ = [
     "ALSAlgorithm",
     "ALSAlgorithmParams",
     "ALSModel",
+    "ActualRating",
     "ItemScore",
     "PredictedResult",
     "Query",
     "DataSourceParams",
+    "RMSEMetric",
+    "RatingAlgorithm",
+    "RatingPrediction",
     "RecommendationDataSource",
     "RecommendationServing",
     "TrainingData",
     "recommendation_engine",
+    "recommendation_evaluation",
 ]
 
 
@@ -121,7 +131,7 @@ class DataSourceParams(Params):
     entity_type: str = "user"
     target_entity_type: str = "item"
     item_entity_type: str = "item"
-    eval_k: int = 0          # >0 asks for k-fold read_eval (not ported)
+    eval_k: int = 0          # >0 enables k-fold read_eval
     eval_seed: int = 3
     # "gathered": the process reads the full rating set.  "local" (each
     # process keeps its scan shard for a sharded trainer) needs the
@@ -129,11 +139,6 @@ class DataSourceParams(Params):
     coo: str = "gathered"
 
     def __post_init__(self) -> None:
-        if self.eval_k > 0:
-            raise NotImplementedError(
-                "evalK (the k-fold read_eval) waits for the port of "
-                "evaluation (ROADMAP Queue 1)"
-            )
         if self.coo not in ("gathered", "local"):
             raise ValueError(
                 f"coo must be 'gathered' or 'local', got {self.coo!r}"
@@ -210,7 +215,9 @@ class RecommendationDataSource(DataSource):
             ).items()
         }
 
-    def read_training(self, ctx: WorkflowContext) -> TrainingData:
+    def _read(self, ctx: WorkflowContext) -> tuple[Ratings, dict]:
+        """The ratings and the items' properties, the one read of
+        ``read_training`` and ``read_eval``."""
         p: DataSourceParams = self.params
         app_id = _resolve_app_id(ctx, p)
         es: EventStore = ctx.storage.get_event_store()
@@ -234,7 +241,56 @@ class RecommendationDataSource(DataSource):
                 float_property=p.rating_property,
                 minimal=True,   # only to_ratings fields are consumed
             ).to_ratings(rating_property=p.rating_property, dedup=dedup)
-        return TrainingData(ratings=ratings, items=self._read_items(es, app_id))
+        return ratings, self._read_items(es, app_id)
+
+    def read_training(self, ctx: WorkflowContext) -> TrainingData:
+        ratings, items = self._read(ctx)
+        return TrainingData(ratings=ratings, items=items)
+
+    def read_eval(self, ctx: WorkflowContext):
+        """k-fold split (e2 `CrossValidation.scala:33-63` semantics: fold i
+        holds out every k-th rating after a seeded shuffle, so folds are
+        deterministic and size-balanced).  The ratings are the training
+        read's: ``find_ratings`` gives the reference's
+        ``find_columnar -> to_ratings`` ratings bit for bit, in the same
+        order.  The held-out pairs keep the ratings' order; queries are
+        frozen, so one per user serves all of that user's held-out
+        ratings."""
+        p: DataSourceParams = self.params
+        if p.eval_k <= 0:
+            return []
+        ratings, items = self._read(ctx)
+        n = len(ratings)
+        perm = np.random.default_rng(p.eval_seed).permutation(n)
+        fold = np.empty(n, dtype=np.int64)
+        fold[perm] = np.arange(n) % p.eval_k
+        queries = [Query(user=u, num=0) for u in ratings.users.ids.tolist()]
+        out = []
+        for f in range(p.eval_k):
+            tr = fold != f
+            te = ~tr
+            train = Ratings(
+                user_ix=ratings.user_ix[tr],
+                item_ix=ratings.item_ix[tr],
+                rating=ratings.rating[tr],
+                users=ratings.users,
+                items=ratings.items,
+            )
+            qa = list(zip(
+                [queries[u] for u in ratings.user_ix[te].tolist()],
+                map(ActualRating,
+                    ratings.items.decode(ratings.item_ix[te]).tolist(),
+                    ratings.rating[te].tolist()),
+            ))
+            out.append(
+                (TrainingData(ratings=train, items=items), {"fold": f}, qa))
+        return out
+
+
+@dataclass(frozen=True, slots=True)
+class ActualRating:
+    item: str
+    rating: float
 
 
 # --------------------------------------------------------------------------
@@ -494,6 +550,83 @@ def recommendation_engine() -> Engine:
     )
 
 
+# --------------------------------------------------------------------------
+# Evaluation (k-fold MetricEvaluator over the recommendation engine)
+# --------------------------------------------------------------------------
+
+
+class RatingAlgorithm(ALSAlgorithm):
+    """ALS variant whose predictions are point rating estimates — used by the
+    RMSE evaluation where queries carry ``num=0`` and the actual is an
+    :class:`ActualRating`."""
+
+    def batch_predict(self, model: ALSModel, queries: Sequence[Query]):
+        # during eval the actuals carry the item; the prediction for (user,
+        # item) is the factor dot product.  We return the full user vector
+        # index per query; the metric resolves the item side.
+        return [RatingPrediction(model=model, user=q.user) for q in queries]
+
+    def predict(self, model: ALSModel, query: Query):
+        return RatingPrediction(model=model, user=query.user)
+
+
+@dataclass(slots=True)
+class RatingPrediction:
+    model: ALSModel
+    user: str
+
+
+class RMSEMetric:
+    """Root-mean-squared error over held-out ratings (lower is better).
+
+    Works with :class:`RatingAlgorithm` predictions + :class:`ActualRating`
+    actuals from ``read_eval``; the products are float32 over the model's
+    host factors, the errors float64, as in the reference."""
+
+    header = "RMSE"
+
+    def calculate(self, ctx, data) -> float:
+        sq, n = 0.0, 0
+        for _, qpa in data:
+            if not qpa:
+                continue
+            # one model per eval set: vectorize the gathers + dot products
+            model = qpa[0][1].model
+            u = model.users.encode([p.user for _, p, _ in qpa])
+            i = model.items.encode([a.item for _, _, a in qpa])
+            r = np.asarray([a.rating for _, _, a in qpa], dtype=np.float64)
+            ok = (u >= 0) & (i >= 0)
+            if not ok.any():
+                continue
+            pred = np.einsum(
+                "nr,nr->n",
+                model.user_factors[u[ok]],
+                model.item_factors[i[ok]],
+            )
+            sq += float(((pred - r[ok]) ** 2).sum())
+            n += int(ok.sum())
+        return float(np.sqrt(sq / n)) if n else float("nan")
+
+    def compare(self, a: float, b: float) -> int:
+        if a == b:
+            return 0
+        return 1 if a < b else -1  # lower RMSE wins
+
+
+def recommendation_evaluation():
+    """Evaluation binding for sweeps over ALS hyperparameters.  Fold count
+    comes from each candidate's ``DataSourceParams.eval_k``."""
+    from ..controller import Evaluation
+
+    engine = Engine(
+        RecommendationDataSource,
+        IdentityPreparator,
+        {"als": RatingAlgorithm, "": RatingAlgorithm},
+        RecommendationServing,
+    )
+    return Evaluation(engine, RMSEMetric())
+
+
 from ..engines import engine_spec  # noqa: E402
 
 recommendation_engine = engine_spec(
@@ -515,4 +648,5 @@ recommendation_engine = engine_spec(
         ],
     },
     query_example={"user": "1", "num": 4},
+    evaluation=recommendation_evaluation,
 )(recommendation_engine)

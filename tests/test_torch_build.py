@@ -1,12 +1,18 @@
 """The kernel builder's bookkeeping, on the host: with a stand-in ``nvcc``
 (a shell script that records its calls and writes its ``-o`` file),
 builds that start at once compile each source once and link once, and
-an up-to-date build is reused."""
+an up-to-date build is reused; launches from many threads at once are
+each counted (the entry point faked)."""
 
 import os
 import re
 import stat
+import struct
+import sys
 import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
 
 from predictionio_tpu_torch.ops import _build
 
@@ -99,3 +105,33 @@ def test_argument_blocks_match_the_c_structs():
     for entry, text in entries.items():
         # the file that defines the entry point reads its block
         assert f"load_args<{_build.ENTRY_ARGS[entry]}>" in text, entry
+
+
+def test_launches_from_many_threads_are_all_counted(monkeypatch):
+    """A parallel evaluation sweep launches kernels from several threads:
+    no count may be lost.  The library and the card are faked (an entry
+    point that returns success), and the interpreter switches threads as
+    often as it can."""
+    monkeypatch.setattr(_build, "_lib", object())
+    pack = struct.Struct(
+        _build.ARG_STRUCTS[_build.ENTRY_ARGS["pio_noop"]]).pack
+    monkeypatch.setitem(_build._ENTRY, "pio_noop", (lambda block: 0, pack))
+    monkeypatch.setattr(_build, "_get_device", lambda: 0)
+    monkeypatch.setattr(_build, "_raw_stream", lambda index: 0)
+    monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.LAUNCHES, 0))
+    dev = torch.device("cuda", 0)
+    workers, calls = 16, 5000
+
+    def run(_):
+        for _ in range(calls):
+            _build.launch("pio_noop", "taa0_gather", dev, 0, 0, 0, 1, 1, 1)
+
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            for f in [pool.submit(run, w) for w in range(workers)]:
+                f.result(timeout=120)
+    finally:
+        sys.setswitchinterval(prev)
+    assert _build.LAUNCHES["taa0_gather"] == workers * calls

@@ -238,7 +238,6 @@ def test_undeploy_of_nothing_equal(pair):
 
 
 REFUSED = [
-    (["eval"], 6),
     (["foldin"], 5),
     (["adminserver"], 9),
     (["dashboard"], 9),
@@ -252,6 +251,7 @@ REFUSED = [
     (["train", "--coordinator", "127.0.0.1:1234"], 7),
     (["train", "--num-processes", "2"], 7),
     (["train", "--telemetry-dir", "t"], 2),
+    (["eval", "--xray-sample-s", "1"], 2),
     (["deploy", "--xray-sample-s", "1"], 2),
     (["deploy", "--flight-capacity", "4"], 2),
     (["eventserver", "--slo-ms", "50"], 2),

@@ -139,7 +139,11 @@ def test_engines_list_and_describe(pair):
     assert port.keys() == ref.keys()
     for key in ("name", "source", "defaultParams", "queryExample"):
         assert port[key] == ref[key]
-    assert port["factory"] == ref["factory"]  # after the package mask
+    # after the package mask
+    assert port["factory"] == ref["factory"]
+    # the evaluation's dotted path (its name masked like a key)
+    assert port["evaluation"] == ref["evaluation"] == (
+        "predictionio_tpu.templates.recommendation.<KEY>")
     rc, out = pair.one("torch", "engines", "describe", "nope")
     assert rc == 1 and out.startswith(
         "Error: no engine named 'nope' is registered; known: recommendation")

@@ -95,6 +95,51 @@ def test_preferred_order_is_static_on_the_cpu():
             gp.probe_taa0(8, 4, torch.float32)
 
 
+def test_threads_share_one_measured_order(monkeypatch):
+    """Trainers built at once in several threads (a parallel evaluation
+    sweep) get the order of one measurement: the first caller probes
+    while the others wait, where each used to time the probes against
+    the others' kernels and cache its own order.  The card is faked:
+    each probe call takes a while and ranks the forms the other way
+    round from the call before."""
+    import threading
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    calls = {"taa": 0, "dma": 0}
+    lock = threading.Lock()
+
+    def fake_probe(form):
+        def probe(*args, **kw):
+            with lock:
+                calls[form] += 1
+                n = calls[form]
+            time.sleep(0.05)
+            fast = (form == "taa") == (n % 2 == 1)
+            return {"ok": True, "ns_per_row": 1.0 if fast else 2.0,
+                    "metric": form, "dtype": "float32"}
+        return probe
+
+    monkeypatch.setattr(gp, "_probe_device",
+                        lambda device: torch.device("cuda", 0))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d: "card")
+    monkeypatch.setattr(gp, "probe_taa0", fake_probe("taa"))
+    monkeypatch.setattr(gp, "probe_dma", fake_probe("dma"))
+    monkeypatch.setattr(gp, "_ORDER_CACHE", {})
+    monkeypatch.setattr(gp, "PROBE_NS", {})
+    start = threading.Barrier(4)
+
+    def resolve(_):
+        start.wait()
+        return gp.preferred_order(64, 4)
+
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        orders = list(pool.map(resolve, range(4)))
+    assert orders == [("taa", "dma")] * 4
+    assert calls == {"taa": 1, "dma": 1}
+    assert gp.PROBE_NS == {("card", 64, 4): {"taa": 1.0, "dma": 2.0}}
+
+
 def test_resolve_gather_impl_walks_the_order_to_a_plan(monkeypatch):
     assert resolve_gather_impl(512, 64, device="cpu") == "taa"
     assert resolve_gather_impl(512, 64, 2, requested="dma") == "dma"

@@ -37,7 +37,9 @@ def test_the_walk_sees_every_file():
     for mod in ("__main__.py", "cli/main.py", "engines/spec.py",
                 "engines/discovery.py", "server/eventloop.py",
                 "tools/template_gallery.py", "tools/trim.py",
-                "utils/logging.py"):
+                "utils/logging.py", "controller/metrics.py",
+                "controller/evaluation.py", "controller/fast_eval.py",
+                "workflow/evaluate.py", "workflow/fake.py"):
         assert f"predictionio_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names
     assert len(names) >= 20
