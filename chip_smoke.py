@@ -19,17 +19,22 @@ read just after it; a kernel its path did not launch fails the run:
 
 * ML-20M: ratings shaped like MovieLens-20M (138,493 users x 26,744
   items x 20,000,263 ratings, every (user, item) pair distinct, made
-  with numpy from a seed) imported as JSON lines into the SQLite event
-  store and read back by the native scan (``find_ratings``, held against
-  the synthetic triples) → the recommendation engine training at rank 64 with
-  ``solver="fused"`` (2 iterations) and ``solver="pallas"`` (1
-  iteration) → serving solo and batched top-K queries;
+  with numpy from a seed) imported as JSON lines into a 4-shard
+  ``sqlite-sharded`` event store, the items' ``$set`` events posted
+  through the ingest fleet (``eventserver --workers 4``: a router and
+  four shard-owner worker processes, put through the chaos checks of
+  ``tools/ingest_smoke.py`` on an app of their own), and read back by
+  the native scan of every shard at once (``find_ratings``, held
+  against the synthetic triples in the shards' order) → the
+  recommendation engine training at rank 64 with ``solver="fused"`` (2
+  iterations) and ``solver="pallas"`` (1 iteration) → serving solo and
+  batched top-K queries;
 * cli: the quickstart on that store through the port's console
   (``template get``, ``build``, ``train --scan-cache`` in process, a
   ``deploy`` process on the event-loop edge answering queries like an
   in-process ``predict``, ``undeploy``);
 * eval: ``pio eval`` on that store through the console, in process: a
-  sweep of two candidates over 3 folds (:class:`ML20MSweep`), its folds
+  sweep of two candidates over 2 folds (:class:`ML20MSweep`), its folds
   held against a numpy split and its winner's RMSE against a float64
   recomputation;
 * pio: MovieLens-1M-shaped events (6,040 x 3,706 x 1,000,209) into the
@@ -59,8 +64,9 @@ times that tree by the same method.
 
     python3 chip_smoke.py --store
 
-builds and runs only the ML-20M store phase (write, import, read,
-check) and the host sort's timing, with no result line.
+builds and runs only the ML-20M store phases (write and import, the
+ingest fleet, the sharded read and its check) and the host sort's
+timing, with no result line.
 """
 
 from __future__ import annotations
@@ -76,6 +82,7 @@ import subprocess
 import sys
 import threading
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -103,9 +110,18 @@ BIG_N = 1 << 20
 SWEEP_WAVES = (1, 2, 4, 6, 8, 12, 16)
 
 # phase eval's sweep: two candidates that differ only in lambda, k folds
+# (2, not the reference's 3: the whole script stays well inside its time)
 SWEEP_LAMBDAS = (0.01, 0.1)
-EVAL_K = 3
+EVAL_K = 2
 EVAL_SEED = 3
+
+# the ML-20M store: a sqlite-sharded source of the reference's default
+# count, behind an ingest fleet of as many worker processes
+STORE_SHARDS = 4
+FLEET_WORKERS = 4
+# phase fleet's chaos check: keep-alive clients, single rate events each
+CHAOS_CLIENTS = 8
+CHAOS_EVENTS = 60
 
 
 def sweep_variant(app: str, lam: float) -> dict:
@@ -1289,8 +1305,12 @@ class Console:
 
 
 class StoreHome:
-    """The ML-20M store of phase store: a ``$PIO_TPU_HOME`` with the app,
-    its access key and its ``Storage``; it lives until phase cli ends."""
+    """The ML-20M store of phase store: a ``$PIO_TPU_HOME`` whose event
+    data is a ``sqlite-sharded`` source of ``STORE_SHARDS`` files (the
+    variables of ``docs/TUTORIAL.md``; ``env``, which ``main`` also puts
+    in this process's environment for the console's processes), with
+    the app, its access key and its ``Storage``; it lives until phase
+    eval ends."""
 
     def __init__(self):
         import tempfile
@@ -1298,8 +1318,22 @@ class StoreHome:
         from predictionio_tpu_torch.storage import Storage
 
         self.home = tempfile.mkdtemp(prefix="pio_ml20m_")
-        self.storage = Storage({"PIO_TPU_HOME": self.home})
+        self.env = {
+            "PIO_TPU_HOME": self.home,
+            "PIO_STORAGE_SOURCES_ML20M_TYPE": "sqlite-sharded",
+            "PIO_STORAGE_SOURCES_ML20M_PATH": os.path.join(
+                self.home, "eventdata-shards"),
+            "PIO_STORAGE_SOURCES_ML20M_SHARDS": str(STORE_SHARDS),
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "ML20M",
+        }
+        self.storage = Storage(self.env)
         self.app_id = self.key = None
+
+    def shard_paths(self) -> list:
+        from pathlib import Path
+
+        d = Path(self.env["PIO_STORAGE_SOURCES_ML20M_PATH"])
+        return [d / f"shard-{k}.db" for k in range(STORE_SHARDS)]
 
     def close(self) -> None:
         import shutil
@@ -1308,53 +1342,53 @@ class StoreHome:
         shutil.rmtree(self.home, ignore_errors=True)
 
 
-def post_item_sets(store: StoreHome, n_items: int) -> dict:
-    """The items' ``$set`` category events through the REST event server
-    as a process of its own (``python -m predictionio_tpu_torch
-    eventserver --port 0``) on the store's home, as batches of 50 from
-    one keep-alive client; every status must be 201.  Returns the boot
-    and post seconds."""
-    sets = [{"event": "$set", "entityType": "item", "entityId": item_id(j),
-             "properties": {"categories": ["even" if j % 2 == 0 else "odd"]},
-             "eventTime": "2014-12-31T00:00:00.000Z"}
-            for j in range(n_items)]
-    srv = Console(store.home, ["eventserver", "--ip", "127.0.0.1", "--port",
-                               "0"], "eventserver")
-    try:
-        port = srv.wait_port()
-        t0 = time.perf_counter()
-        replies = _post_all(port, f"/batch/events.json?accessKey={store.key}",
-                            [sets[s:s + 50] for s in range(0, n_items, 50)],
-                            1)
-        post_s = time.perf_counter() - t0
-        if any(st != 200 or any(e["status"] != 201 for e in r)
-               for st, r in replies):
-            srv.fail("refused an item $set event")
-    finally:
-        srv.stop()
-    return {"boot_s": srv.boot_s, "post_s": post_s,
-            "events_per_s": n_items / post_s}
+def entity_shard(entity_type: str, entity_id: str) -> int:
+    """The shard an entity belongs to, by the store's documented rule
+    ``crc32(type \\0 id) % shards``, computed here on its own so that a
+    routing fault in the store cannot also move what it is checked
+    against."""
+    return zlib.crc32(f"{entity_type}\x00{entity_id}".encode(
+        "utf-8", "surrogatepass")) % STORE_SHARDS
 
 
-def phase_store(store: StoreHome, u, i, v):
-    """ML-20M through the event store, as a user loads it: ``app new``
-    through the port's console → the 20,000,263 synthetic ratings (event
-    time ``T0_MS`` + draw ms) written as one JSON-lines file in chunks →
-    the console's ``import`` into the SQLite store (the native scanner,
-    one bulk scope; the file deleted after) → the items' ``$set`` events
-    through the event server process (:func:`post_item_sets`) →
-    ``find_ratings`` as the template's data source calls it, with the
-    scan cache on (the snapshot phase cli's training read finds; must
-    take the native scan), held bit for bit against
-    :func:`expected_ratings`; the draws' pairs are distinct, so every
-    rating must come back.  Returns the store's ``Ratings``."""
+def shard_of_ids(ids, entity_type: str = "user") -> np.ndarray:
+    """:func:`entity_shard` of each id."""
+    return np.asarray([entity_shard(entity_type, e) for e in ids],
+                      dtype=np.int64)
+
+
+def expected_sharded(u, i, v, n_items: int):
+    """:func:`expected_ratings` in the sharded store's order: each
+    shard's ratings in the single store's (user, item) order, the shards
+    one after another; the id lists are the same sorted unions."""
+    from predictionio_tpu_torch.storage import Ratings
+
+    want = expected_ratings(u, i, v, n_items)
+    shard = shard_of_ids(list(want.users.ids))[want.user_ix]
+    order = np.argsort(shard, kind="stable")
+    return Ratings(
+        user_ix=np.ascontiguousarray(want.user_ix[order]),
+        item_ix=np.ascontiguousarray(want.item_ix[order]),
+        rating=np.ascontiguousarray(want.rating[order]),
+        users=want.users, items=want.items,
+    )
+
+
+def phase_store(store: StoreHome, u, i, v) -> dict:
+    """ML-20M into the sharded event store, as a user loads it: ``app
+    new`` through the port's console → the 20,000,263 synthetic ratings
+    (event time ``T0_MS`` + draw ms) written as one JSON-lines file in
+    chunks → the console's ``import`` (the native scanner; every row
+    routed to its user's shard; one bulk scope over the four files; the
+    file deleted after).  Logs the sqlite bytes and the rows of each
+    shard (the split of Zipf 0.8 users)."""
+    import sqlite3
     from pathlib import Path
 
     home = Path(store.home)
     out = cli(["app", "new", "ml20m"], store.storage)
     store.key = out.split("Access key: ")[1].split()[0]
     store.app_id = store.storage.get_metadata().app_get_by_name("ml20m").id
-    es = store.storage.get_event_store()
     src = home / "ratings.jsonl"
     t0 = time.perf_counter()
     with open(src, "wb") as f:
@@ -1370,47 +1404,438 @@ def phase_store(store: StoreHome, u, i, v):
     counts = records.args(_IMPORT_LOG)[1:]
     if out != f"Imported {len(v)} events.\n" or counts != (len(v), 0):
         raise AssertionError(f"{out!r}, (native, python) branches {counts}")
-    db_gb = sum(p.stat().st_size for p in home.glob("eventdata.db*")) / 1e9
-    sets = post_item_sets(store, N_ITEMS)
+    shard_gb, shard_rows = [], []
+    for path in store.shard_paths():
+        shard_gb.append(sum(q.stat().st_size
+                            for q in path.parent.glob(path.name + "*")) / 1e9)
+        with contextlib.closing(sqlite3.connect(path)) as conn:
+            shard_rows.append(conn.execute(
+                f"SELECT COUNT(*) FROM events_{store.app_id}").fetchone()[0])
+    if sum(shard_rows) != len(v):
+        raise AssertionError(f"the shards hold {shard_rows} rows")
+    log(f"phase store ML-20M: {len(v):,} rate events written as JSON "
+        f"lines ({file_gb:.2f} GB) in {write_s:.1f} s; console import "
+        f"into the {STORE_SHARDS}-shard store {import_s:.1f} s "
+        f"({len(v) / import_s:,.0f} events/s, all through the native "
+        f"scanner); rows per shard {shard_rows} (largest / mean "
+        f"{max(shard_rows) * STORE_SHARDS / len(v):.3f}); sqlite GB per "
+        f"shard {[round(g, 3) for g in shard_gb]} ({sum(shard_gb):.2f} GB)")
+    return {"import_s": import_s, "rows": shard_rows}
+
+
+def phase_read(store: StoreHome, u, i, v):
+    """The store's training read at ML-20M: ``find_ratings`` as the
+    template's data source calls it, with the scan cache on (the
+    snapshots phase cli's training read finds), after phase fleet posted
+    the items' ``$set`` events.  Every shard must take the native scan,
+    the four at once; the result is held bit for bit against
+    :func:`expected_sharded` (the draws' pairs are distinct, so every
+    rating must come back).  Logs the read's seconds, each shard's own
+    (its scan and encode on its thread) and the dictionary merge's.
+    Returns the store's ``Ratings``."""
+    es = store.storage.get_event_store()
     t0 = time.perf_counter()
     ratings = es.find_ratings(store.app_id, entity_type="user", cache=True)
     read_s = time.perf_counter() - t0
-    if es.last_ratings_scan_path != "native":
+    paths = [s.last_ratings_scan_path for s in es.shards]
+    if paths != ["native"] * STORE_SHARDS:
         raise AssertionError(
-            f"find_ratings took the {es.last_ratings_scan_path} branch "
-            f"({es.last_ratings_scan_reason})")
+            f"find_ratings took the branches {paths} "
+            f"({[s.last_ratings_scan_reason for s in es.shards]})")
     t0 = time.perf_counter()
-    same_ratings(ratings, expected_ratings(u, i, v, N_ITEMS),
-                 "ML-20M from the store")
+    same_ratings(ratings, expected_sharded(u, i, v, N_ITEMS),
+                 "ML-20M from the sharded store")
     if len(ratings.rating) != len(v):
         raise AssertionError(
             f"the store gave back {len(ratings.rating):,} of "
             f"{len(v):,} distinct ratings")
     check_s = time.perf_counter() - t0
-    log(f"phase store ML-20M: {len(v):,} rate events written as JSON "
-        f"lines ({file_gb:.2f} GB) in {write_s:.1f} s; console import "
-        f"{import_s:.1f} s ({len(v) / import_s:,.0f} events/s, all "
-        f"through the native scanner), sqlite files {db_gb:.2f} GB; "
-        f"event server process: boot {sets['boot_s']:.1f} s, {N_ITEMS:,} "
-        f"item $set events in {sets['post_s']:.2f} s "
-        f"({sets['events_per_s']:,.0f} events/s, every status 201); "
-        f"find_ratings {read_s:.1f} s with the scan cache on "
-        f"(last_ratings_scan_path {es.last_ratings_scan_path!r}): "
+    shard_s = es.last_ratings_shard_seconds
+    log(f"phase read ML-20M: find_ratings {read_s:.1f} s with the scan "
+        f"cache on, the {STORE_SHARDS} shards at once (each shard's "
+        f"last_ratings_scan_path 'native'): seconds per shard "
+        f"{[round(t, 1) for t in shard_s]} (slowest {max(shard_s):.1f} s), "
+        f"merge {es.last_ratings_merge_seconds:.2f} s; "
         f"{len(ratings.rating):,} ratings ({ratings.n_users:,} users x "
-        f"{ratings.n_items:,} items), equal to the synthetic triples "
-        f"({check_s:.1f} s)")
+        f"{ratings.n_items:,} items), equal to the synthetic triples in "
+        f"the shards' order ({check_s:.1f} s)")
     return ratings
 
 
-def phase_sort(ratings, u, i, v, turns: int = 3) -> None:
+def _call(conn, method: str, path: str, body=None) -> tuple:
+    """One request on a keep-alive ``http.client`` connection:
+    ``(status, JSON reply, Retry-After)``."""
+    conn.request(method, path, None if body is None else json.dumps(body),
+                 {"Content-Type": "application/json"})
+    r = conn.getresponse()
+    return r.status, json.loads(r.read()), r.getheader("Retry-After")
+
+
+def _pid_alive(pid: int) -> bool:
+    """True while ``pid`` runs (a zombie awaiting its parent counts as
+    dead)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def _pids_with(text: str) -> list:
+    """Every live process whose command line holds ``text``."""
+    out = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/cmdline", "rb") as f:
+                    cmd = f.read().decode(errors="replace")
+            except OSError:
+                continue
+            if text in cmd and _pid_alive(int(d)):
+                out.append(int(d))
+    return out
+
+
+def _stats_total(stats: dict) -> int:
+    cur = stats.get("currentHour") or {}
+    return sum(r["count"] for r in cur.get("statusCount", []))
+
+
+def _structured_503(answer, shard: int) -> bool:
+    status, body, retry = answer[:3]
+    return (status == 503 and body.get("error") == "ShardUnavailable"
+            and body.get("shard") == shard and bool(retry))
+
+
+def fleet_chaos(port: int, store: StoreHome, workers: list) -> dict:
+    """The five checks of ``tools/ingest_smoke.py`` on the fleet, on an
+    app of its own (``app new chaos``: the ML-20M app's tables are not
+    touched), with ``CHAOS_CLIENTS`` keep-alive clients posting single
+    rate events:
+
+    1. ``steady_all_acked``: a load with every worker up answers 201 for
+       every event, and every worker owned some of them;
+    2. ``healthy_zero_errors``: worker 1 is SIGKILLed when a third of a
+       second load has been answered; every event of the other workers'
+       shards still answers 201;
+    3. ``dead_structured_503``: the dead owner's events answer 201 or a
+       structured 503 (``ShardUnavailable``, the event's shard, a
+       ``Retry-After``), at least one 503; a mixed batch posted just
+       after the kill answers by position;
+    4. ``stats_monotone``: the federated ``/stats.json``, polled through
+       the load, reports all four workers and its total never goes down,
+       and it saw the worker down;
+    5. ``zero_acked_loss``: the supervisor respawns the worker on its
+       WAL directory; then every event id ever answered 201 reads back
+       through the router.
+
+    Returns the checks, the respawn seconds and the rows the respawned
+    worker replayed from its WAL."""
+    import http.client
+    import re
+    import signal
+
+    out = cli(["app", "new", "chaos"], store.storage)
+    key = out.split("Access key: ")[1].split()[0]
+    victim = workers[1]
+    vix, vpid = victim["index"], victim["pid"]
+
+    def shard(u: str) -> int:
+        return entity_shard("user", u)
+
+    def owner(u: str) -> int:
+        return shard(u) % FLEET_WORKERS
+
+    def rate(u: str) -> dict:
+        return {"event": "rate", "entityType": "user", "entityId": u,
+                "targetEntityType": "item", "targetEntityId": item_id(1),
+                "properties": {"rating": 4.0},
+                "eventTime": "2015-02-01T00:00:00.000Z"}
+
+    def load(users: list, at_a_third=None) -> list:
+        """Each user's event from CHAOS_CLIENTS clients in turn:
+        ``(status, reply, Retry-After, posted after at_a_third ran)``;
+        ``at_a_third`` runs once, when a third of the answers are in."""
+        lock = threading.Lock()
+        answered = [0]
+        started = threading.Event()
+        done = threading.Event()
+        results = [None] * len(users)
+
+        def run(c: int) -> None:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            try:
+                for k in range(c, len(users), CHAOS_CLIENTS):
+                    after = done.is_set()
+                    results[k] = (*_call(conn, "POST",
+                                         f"/events.json?accessKey={key}",
+                                         rate(users[k])), after)
+                    with lock:
+                        answered[0] += 1
+                        fire = (at_a_third is not None
+                                and answered[0] >= len(users) // 3
+                                and not started.is_set())
+                        if fire:
+                            started.set()
+                    if fire:
+                        at_a_third()
+                        done.set()
+            finally:
+                conn.close()
+
+        with ThreadPoolExecutor(max_workers=CHAOS_CLIENTS) as pool:
+            list(pool.map(run, range(CHAOS_CLIENTS)))
+        return results
+
+    checks, acked = {}, []
+    n = CHAOS_CLIENTS * CHAOS_EVENTS
+    steady_users = [f"s{k}" for k in range(n)]
+    steady = load(steady_users)
+    acked += [r[1]["eventId"] for r in steady if r[0] == 201]
+    checks["steady_all_acked"] = (
+        len(acked) == n
+        and {owner(u) for u in steady_users} == set(range(FLEET_WORKERS)))
+
+    samples = []
+    polling = threading.Event()
+
+    def poll_stats() -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            while not polling.is_set():
+                st, body, _ = _call(conn, "GET",
+                                    f"/stats.json?accessKey={key}")
+                if st != 200:
+                    samples.append((st, None, None, None))
+                else:
+                    w = body["workers"]
+                    samples.append((st, _stats_total(body), w["reporting"],
+                                    w["healthy"]))
+                time.sleep(0.05)
+        finally:
+            conn.close()
+
+    dead_users = [u for u in (f"m{k}" for k in range(200))
+                  if owner(u) == vix][:2]
+    live_users = [u for u in (f"m{k}" for k in range(200))
+                  if owner(u) != vix][:2]
+    mixed_users = [dead_users[0], live_users[0], dead_users[1],
+                   live_users[1]]
+    kill = {}
+
+    def sigkill() -> None:
+        os.kill(vpid, signal.SIGKILL)
+        kill["t"] = time.perf_counter()
+        while _pid_alive(vpid):
+            time.sleep(0.001)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            kill["batch"] = _call(conn, "POST",
+                                  f"/batch/events.json?accessKey={key}",
+                                  [rate(u) for u in mixed_users])
+        finally:
+            conn.close()
+
+    poller = threading.Thread(target=poll_stats, daemon=True)
+    poller.start()
+    time.sleep(0.2)
+    chaos_users = [f"k{k}" for k in range(n)]
+    chaos = load(chaos_users, at_a_third=sigkill)
+    time.sleep(0.2)
+    polling.set()
+    poller.join(timeout=60)
+
+    healthy = [r for u, r in zip(chaos_users, chaos) if owner(u) != vix]
+    dead = [(u, r) for u, r in zip(chaos_users, chaos) if owner(u) == vix]
+    acked += [r[1]["eventId"] for r in chaos if r[0] == 201]
+    checks["healthy_zero_errors"] = bool(healthy) and all(
+        r[0] == 201 for r in healthy)
+    st, body, retry = kill["batch"]
+    batch_ok = (
+        st == 200 and bool(retry)
+        and [r["status"] for r in body] == [503, 201, 503, 201]
+        and all(_structured_503((r["status"], r, retry), shard(u))
+                for u, r in zip(mixed_users, body) if r["status"] == 503))
+    acked += [r["eventId"] for r in body if r.get("status") == 201]
+    refused = [r for u, r in dead if r[0] != 201]
+    checks["dead_structured_503"] = (
+        batch_ok and bool(refused)
+        and all(_structured_503(r, shard(u)) for u, r in dead
+                if r[0] != 201)
+        and any(r[3] for r in refused))
+    totals = [t for st, t, _, _ in samples if st == 200]
+    checks["stats_monotone"] = (
+        len(totals) == len(samples) > 2
+        and all(b >= a for a, b in zip(totals, totals[1:]))
+        and all(rep == FLEET_WORKERS for _, _, rep, _ in samples)
+        and any(h == FLEET_WORKERS - 1 for _, _, _, h in samples))
+
+    # the supervisor respawns the worker on its WAL directory
+    deadline = time.monotonic() + 180
+    while True:
+        status = _http(port, "/")
+        if (status["supervisor"]["respawns"] >= 1
+                and status["workers"][vix]["healthy"]):
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"worker {vix} never came back: {status}")
+        time.sleep(0.05)
+    respawn_s = time.perf_counter() - kill["t"]
+    m = re.search(r"ingest WAL replay: (\d+) records",
+                  open(victim["log"]).read())
+    replayed = int(m.group(1)) if m else 0
+
+    def read_back(part: list) -> list:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        missing = []
+        try:
+            for eid in part:
+                for _ in range(50):
+                    # a read may land on a worker other than the owner:
+                    # allow it one group-commit drain
+                    conn.request("GET", f"/events/{eid}.json?accessKey={key}")
+                    r = conn.getresponse()
+                    r.read()
+                    if r.status == 200:
+                        break
+                    time.sleep(0.02)
+                else:
+                    missing.append(eid)
+        finally:
+            conn.close()
+        return missing
+
+    with ThreadPoolExecutor(max_workers=CHAOS_CLIENTS) as pool:
+        missing = sum(pool.map(read_back, [acked[c::CHAOS_CLIENTS]
+                                           for c in range(CHAOS_CLIENTS)]),
+                      [])
+    checks["zero_acked_loss"] = bool(acked) and not missing
+    return {"checks": checks, "respawn_s": respawn_s, "replayed": replayed,
+            "acked": len(acked), "missing": len(missing),
+            "refused": len(refused), "healthy": len(healthy),
+            "stats_samples": len(samples)}
+
+
+def phase_fleet(store: StoreHome) -> dict:
+    """The multi-process ingest fleet on the ML-20M store: ``python -m
+    predictionio_tpu_torch eventserver --workers 4 --wal-dir DIR --port
+    0`` (the ingest router in that process, four shard-owner worker
+    processes, one shard each, every worker with its WAL under DIR) →
+    the items' ``$set`` category events (26,744, in batches of 50 from
+    one keep-alive client) through the router, every status 201, then
+    an entity-scoped read per shard, which the owner answers after its
+    WAL barrier (every acknowledged row committed) → the chaos check on
+    an app of its own (:func:`fleet_chaos`) → ``POST /stop``: the fleet
+    process must exit with 0 and no worker may outlive it.  No worker
+    may hold the card (``nvidia-smi --query-compute-apps``)."""
+    import re
+    import sqlite3
+    from pathlib import Path
+
+    wal_dir = Path(store.home) / "fleet-wal"
+    fleet = Console(store.home, [
+        "eventserver", "--workers", str(FLEET_WORKERS), "--wal-dir",
+        str(wal_dir), "--ip", "127.0.0.1", "--port", "0"], "fleet")
+    try:
+        port = fleet.wait_port(timeout=300)
+        pattern = re.compile(
+            r"Ingest worker (\d+) \(pid (\d+)\) up on 127\.0\.0\.1:\d+ "
+            r"owning shards \[([\d, ]*)\] in ([\d.]+) s \(log: (.+)\)$")
+        workers = [{"index": int(m[1]), "pid": int(m[2]), "shards": m[3],
+                    "boot_s": float(m[4]), "log": m[5]}
+                   for m in map(pattern.match,
+                                fleet.log_path.read_text().splitlines())
+                   if m]
+        status = _http(port, "/")
+        if (len(workers) != FLEET_WORKERS
+                or status["healthyWorkers"] != FLEET_WORKERS
+                or status["nShards"] != STORE_SHARDS):
+            fleet.fail(f"booted workers {workers}, status {status}")
+        coord = str(Path(workers[0]["log"]).parent)
+        gpu_pids = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.split()
+        if {str(w["pid"]) for w in workers} & set(gpu_pids):
+            fleet.fail(f"a worker holds the card: {gpu_pids}")
+
+        sets = [{"event": "$set", "entityType": "item",
+                 "entityId": item_id(j),
+                 "properties": {"categories": ["even" if j % 2 == 0
+                                               else "odd"]},
+                 "eventTime": "2014-12-31T00:00:00.000Z"}
+                for j in range(N_ITEMS)]
+        t0 = time.perf_counter()
+        replies = _post_all(port, f"/batch/events.json?accessKey={store.key}",
+                            [sets[k:k + 50] for k in range(0, N_ITEMS, 50)],
+                            1)
+        post_s = time.perf_counter() - t0
+        if any(st != 200 or any(e["status"] != 201 for e in r)
+               for st, r in replies):
+            fleet.fail("refused an item $set event")
+        item_shard = shard_of_ids([item_id(j) for j in range(64)], "item")
+        for k in range(STORE_SHARDS):
+            j = int(np.flatnonzero(item_shard == k)[0])
+            _http(port, f"/events.json?accessKey={store.key}&entityType="
+                        f"item&entityId={item_id(j)}&limit=1")
+        n_sets = 0
+        for path in store.shard_paths():
+            with contextlib.closing(sqlite3.connect(path)) as conn:
+                n_sets += conn.execute(
+                    f"SELECT COUNT(*) FROM events_{store.app_id} "
+                    "WHERE event = '$set'").fetchone()[0]
+        if n_sets != N_ITEMS:
+            fleet.fail(f"the store holds {n_sets} of {N_ITEMS} $set events")
+
+        chaos = fleet_chaos(port, store, workers)
+        _http(port, "/stop", {})
+        try:
+            rc = fleet.proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            fleet.fail("did not stop after POST /stop")
+        if rc != 0:
+            fleet.fail("exited after POST /stop")
+        left = _pids_with(coord)
+        if left:
+            fleet.fail(f"left worker processes {left} running")
+        if Path(coord).exists():
+            fleet.fail(f"left its directory {coord} after a clean stop")
+    finally:
+        fleet.stop()
+    ok = all(chaos["checks"].values()) and len(chaos["checks"]) == 5
+    log(f"phase fleet: eventserver --workers {FLEET_WORKERS} (a router "
+        f"and {FLEET_WORKERS} shard-owner processes, shards "
+        f"{[w['shards'] for w in workers]}) booted in {fleet.boot_s:.1f} s "
+        f"(workers at {[w['boot_s'] for w in workers]} s; none on the "
+        f"card); {N_ITEMS:,} item $set events through the router in "
+        f"{post_s:.2f} s ({N_ITEMS / post_s:,.0f} events/s, every status "
+        f"201, all {n_sets:,} in the store); chaos on app 'chaos', "
+        f"{CHAOS_CLIENTS} keep-alive clients: checks {chaos['checks']}; "
+        f"worker 1 SIGKILLed, respawned and healthy in "
+        f"{chaos['respawn_s']:.2f} s, {chaos['replayed']} rows replayed "
+        f"from its WAL; {chaos['acked']} acknowledged event ids, "
+        f"{chaos['missing']} missing; {chaos['refused']} dead-shard "
+        f"events answered 503, {chaos['healthy']} healthy-shard events "
+        f"all 201; {chaos['stats_samples']} federated stats samples; the "
+        f"fleet exited 0 after POST /stop and left no worker and no "
+        f"directory")
+    if not ok:
+        raise AssertionError(f"phase fleet: a chaos check failed: "
+                             f"{chaos['checks']}")
+    return {"boot_s": fleet.boot_s, "sets_per_s": N_ITEMS / post_s,
+            **chaos}
+
+
+def phase_sort(ratings, u, i, v, turns: int = 1) -> None:
     """Staging's host sort at ML-20M: the native counting sort
     (``sort_coo_by_row``, by user, as ``_stage_device`` calls it) against
     its plain version, the stable NumPy argsort, on the store's
     ``Ratings`` (the main path's input: the store gives them in (user,
-    item) order) and on the same triples in draw order (the order the
-    trainers took them in from memory before they read the store).
-    Outputs equal bit for bit; host seconds, the median of ``turns``
-    turns in which each runs once, the order alternating."""
+    item) order within each shard) and on the same triples in draw order
+    (the order the trainers took them in from memory before they read
+    the store).  Outputs equal bit for bit; host seconds of one turn
+    (the median of ``turns`` turns in which each runs once, the order
+    alternating)."""
     from predictionio_tpu_torch.native import (
         sort_coo_by_row, sort_coo_by_row_numpy,
     )
@@ -1439,12 +1864,12 @@ def phase_sort(ratings, u, i, v, turns: int = 3) -> None:
             f"native counting sort {med['native']:.3f} s, NumPy stable "
             f"argsort {med['numpy']:.3f} s "
             f"({med['numpy'] / med['native']:.1f}x), bit for bit equal "
-            f"(median of {turns} turns)")
+            f"({'one turn' if turns == 1 else f'median of {turns} turns'})")
 
 
 def engine_over(ratings, items):
     """The recommendation engine's own components with a data source
-    that hands over the ratings phase store read from the event store
+    that hands over the ratings phase read took from the event store
     (``find_ratings``, the call the template's data source makes), so
     that the store is filled and read once for the three trainers."""
     from predictionio_tpu_torch.controller import Engine, IdentityPreparator
@@ -1952,10 +2377,11 @@ def pcts(ms: list) -> str:
 
 
 def phase_cli(torch, store: StoreHome) -> dict:
-    """The quickstart at ML-20M through the port's console, on the store
-    phase store filled (its app imported through ``import``, its items'
-    ``$set`` events through the event server process, its ratings read
-    once with the scan cache on): ``template get recommendation`` →
+    """The quickstart at ML-20M through the port's console, on the
+    sharded store phase store filled (its app imported through
+    ``import``, its items' ``$set`` events through the ingest fleet of
+    phase fleet, its ratings read once with the scan cache on by phase
+    read): ``template get recommendation`` →
     engine.json (rank 64, 2 iterations, lambda 0.01, ``solver="fused"``,
     ``fusedGather`` "auto") → ``build`` → ``train --scan-cache`` in this
     process on the card (the read must hit the scan cache; the launch
@@ -2105,19 +2531,20 @@ def eval_record(storage, out: str):
 
 def phase_eval(torch, store: StoreHome, ratings) -> dict:
     """``pio eval`` at ML-20M through the port's console, in this process
-    on the card, on the store phase store filled (its ratings in the scan
-    cache): ``eval --engine recommendation __main__.ML20MSweep
-    --scan-cache`` (:class:`ML20MSweep`: two candidates, 3 folds each;
-    FastEval reads and splits the store once and trains 6 models) from a
+    on the card, on the sharded store phase store filled (its ratings in
+    the scan cache since phase read): ``eval --engine recommendation __main__.ML20MSweep
+    --scan-cache`` (:class:`ML20MSweep`: two candidates, :data:`EVAL_K`
+    folds each; FastEval reads and splits the store once and trains a
+    model per candidate and fold) from a
     scratch working directory, where ``best.json`` lands.  The launch
     counts are set to 0 just before it and read just after.  Checks:
-    the folds' held-out sizes add up to the ratings phase store read, and
+    the folds' held-out sizes add up to the ratings phase read took, and
     each of a sample of 10,000 ratings is missing from exactly one fold's
     training set, the one a numpy recomputation of the seeded
     permutation gives, and stands at its place in that fold's held-out
     (query, actual) list; each
     candidate's RMSE is finite and beats the zero model's; the winner's
-    RMSE recomputed in float64 over its three models' host factors
+    RMSE recomputed in float64 over its models' host factors
     agrees within 1e-6 relative; the best index is the argmin;
     ``best.json`` reads back into the winner's params; the record is
     EVALCOMPLETED.  Logs ``read_eval``, the host's peak RSS, and per
@@ -2259,7 +2686,8 @@ def phase_eval(torch, store: StoreHome, ratings) -> dict:
 
 def eval_parallel(storage, home) -> None:
     """The sweep of :class:`ML1MSweep` through the console twice on
-    phase pio's store: sequentially (FastEval: one read, 6 models) and
+    phase pio's store: sequentially (FastEval: one read, a model per
+    candidate and fold) and
     with ``--parallelism 2`` (two threads training on the card at once,
     each reading the store itself).  The two must give the same best
     index and every RMSE within 1e-5 relative."""
@@ -2481,6 +2909,7 @@ def kernel_registers(build_log) -> dict:
 
 
 def main(argv: list[str]) -> int:
+    t_start = time.perf_counter()
     if argv not in ([], ["--breakdown"], ["--store"]):
         print("usage: chip_smoke.py [--breakdown | --store]", file=sys.stderr)
         return 2
@@ -2524,9 +2953,9 @@ def main(argv: list[str]) -> int:
     log(f"phase data: {len(v):,} ratings, {N_USERS:,} users, "
         f"{N_ITEMS:,} items in {t_data:.1f} s")
     if argv == ["--breakdown"]:
-        # the input phase store reads, made in memory (the full run holds
-        # the two equal)
-        phase_breakdown(torch, expected_ratings(u, i, v, N_ITEMS))
+        # the input phase read takes from the store, made in memory (the
+        # full run holds the two equal)
+        phase_breakdown(torch, expected_sharded(u, i, v, N_ITEMS))
         return 0
     # host seconds of each phase, logged before the kernels line
     secs = {}
@@ -2537,15 +2966,21 @@ def main(argv: list[str]) -> int:
         secs[name] = round(time.perf_counter() - t0, 1)
         return out
 
-    # the ML-20M store lives from phase store to phase cli; the scan
+    # the ML-20M store lives from phase store to phase eval; the scan
     # cache keeps its snapshots under $PIO_TPU_HOME, and the console's
-    # train --scan-cache turns the cache on for the whole process
+    # train --scan-cache turns the cache on for the whole process.  Its
+    # sharded source rides the environment, as for a user: the console's
+    # processes (the fleet, deploy) read the same store
     store = StoreHome()
     saved_env = {k: os.environ.get(k)
-                 for k in ("PIO_TPU_HOME", "PIO_TPU_SCAN_CACHE")}
-    os.environ["PIO_TPU_HOME"] = store.home
+                 for k in (*store.env, "PIO_TPU_SCAN_CACHE")}
+    os.environ.update(store.env)
     try:
-        ratings = timed("store", phase_store, store, u, i, v)
+        timed("store", phase_store, store, u, i, v)
+        # the items' $set events go in through the fleet before the read
+        # that fills the scan cache (a later write would outdate it)
+        timed("fleet", phase_fleet, store)
+        ratings = timed("read", phase_read, store, u, i, v)
         timed("sort", phase_sort, ratings, u, i, v)
         if argv == ["--store"]:
             return 0
@@ -2628,6 +3063,8 @@ def main(argv: list[str]) -> int:
 
     timed("breakdown", phase_breakdown, torch, ratings)
     log(f"phase seconds (host clock): {secs}")
+    log(f"script seconds (host clock, start to the kernels line): "
+        f"{time.perf_counter() - t_start:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,10 +12,12 @@ messages and exit codes.  Subcommands:
   train | deploy | eval | undeploy | eventserver
   build | unregister | run | import | export | status | upgrade | version
 
+``eventserver --workers N`` runs the ingest router in front of N
+shard-owner ``eventserver`` processes over the sharded store.
 ``foldin``, ``adminserver`` and ``dashboard``, and the options
-of subsystems the port does not have yet (the replica and ingest
-routers, the sharded store, tenancy, feedback, fold-in deltas,
-multi-process training and the observability stack) are refused before
+of subsystems the port does not have yet (the replica router, tenancy,
+feedback, fold-in deltas, multi-process training and the observability
+stack) are refused before
 any work with ``Error: ... is not ported to predictionio_tpu_torch yet
 (ROADMAP Queue 1 item N)`` and exit code 1 (:data:`_REFUSED`).
 ``--no-metrics`` and ``--no-profiler`` only switch off a subsystem the
@@ -38,6 +40,7 @@ import importlib
 import json
 import logging
 import os
+import subprocess
 import sys
 from pathlib import Path
 from typing import Any, Optional
@@ -192,14 +195,6 @@ _REFUSED = (
      "deploy --breaker-reset", 4),
     ("deploy", "push_foldin", _is_set, "deploy --push-foldin", 4),
     ("deploy", "foldin_poll", _is_set, "deploy --foldin-poll", 5),
-    ("eventserver", "workers", lambda v: v > 1,
-     "eventserver --workers > 1 (the ingest router)", 1),
-    ("eventserver", "owned_shards", _is_set,
-     "eventserver --owned-shards (the sharded event store)", 1),
-    ("eventserver", "worker_index", _is_set,
-     "eventserver --worker-index (the sharded event store)", 1),
-    ("eventserver", "compact_interval", _is_set,
-     "eventserver --compact-interval (shard compaction)", 1),
     ("train", "coordinator", _is_set, "train --coordinator", 7),
     ("train", "num_processes", _is_set, "train --num-processes", 7),
     ("train", "process_id", _is_set, "train --process-id", 7),
@@ -605,8 +600,21 @@ def cmd_eval(args, storage: Storage, device: DeviceLike) -> int:
 
 
 def cmd_eventserver(args, storage: Storage) -> int:
+    if args.workers > 1:
+        return _eventserver_fleet(args, storage)
     from ..server.event_server import EventServer, EventServerConfig
 
+    owned = None
+    if args.owned_shards:
+        owned = [int(s) for s in args.owned_shards.split(",") if s != ""]
+    elif args.worker_index is not None:
+        # shard-owner worker: stripe ownership by index
+        from ..server.ingest_router import shards_for_worker
+
+        owned = shards_for_worker(
+            args.worker_index, args.worker_count,
+            getattr(storage.get_event_store(), "n_shards", 1),
+        )
     server = EventServer(
         storage, EventServerConfig(
             host=args.ip, port=args.port,
@@ -615,15 +623,110 @@ def cmd_eventserver(args, storage: Storage) -> int:
             write_backoff_s=args.write_backoff,
             max_connections=args.max_connections,
             wal_dir=args.wal_dir,
+            owned_shards=owned,
             ttl_s=args.ttl,
+            compact_interval_s=args.compact_interval,
         )
     )
     if args.port_file:
-        # bind first so the announced port is real (--port 0 = ephemeral)
+        # bind first so the announced port is real (--port 0 =
+        # ephemeral); the fleet spawner reads this file.  The WAL has
+        # replayed by now: a respawned worker announces only after its
+        # acknowledged backlog is back in sqlite
         server._bind()
         _write_port_file(args.port_file, server.port)
-    _out(f"Event server running on {args.ip}:{server.port}")
+    role = f" (shard owner: {owned})" if owned is not None else ""
+    _out(f"Event server running on {args.ip}:{server.port}{role}")
     server.serve_forever()
+    return 0
+
+
+def _eventserver_fleet(args, storage: Storage) -> int:
+    """``eventserver --workers N``: spawn N shard-owner worker processes
+    (each owning ``shard % N == index`` of the sharded store, each with
+    its own ingest WAL under ``--wal-dir``) and run the ingest router in
+    THIS process on the requested port, until ``POST /stop``, SIGTERM
+    or SIGINT; the workers are stopped on the way out.  The fleet's
+    directory (port files, worker logs and, without ``--wal-dir``, the
+    WALs) is removed after a clean stop with ``--wal-dir``; otherwise it
+    stays, and its path is in the worker lines."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from ..server.ingest_router import IngestRouterConfig, boot_ingest_fleet
+
+    n_shards = getattr(storage.get_event_store(), "n_shards", 1)
+    if args.workers > n_shards:
+        _out(f"error: --workers {args.workers} exceeds the store's "
+             f"{n_shards} shards; extra workers would own nothing")
+        return 1
+    coord_dir = Path(tempfile.mkdtemp(prefix="pio-ingest-fleet-"))
+    extra = []
+    for flag, val in (
+        ("--write-retries", args.write_retries),
+        ("--write-backoff", args.write_backoff),
+        ("--max-connections", args.max_connections),
+        ("--ttl", args.ttl),
+        ("--compact-interval", args.compact_interval),
+    ):
+        if val is not None:
+            extra += [flag, str(val)]
+    router, spawned = boot_ingest_fleet(
+        args.workers, n_shards, coord_dir,
+        config=IngestRouterConfig(
+            host=args.ip, port=args.port,
+            max_connections=args.max_connections,
+        ),
+        wal_root=args.wal_dir, extra_args=extra,
+        respawn=not args.no_respawn,
+    )
+
+    def reap():
+        procs = [s["proc"] for s in spawned]
+        if router.supervisor is not None:
+            procs += router.supervisor.live_procs()
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+    on_main = threading.current_thread() is threading.main_thread()
+    if on_main:
+        # a SIGTERM to the router must stop its workers too: leave
+        # through the finally below instead of dying where it stands
+        prev_term = signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))
+    clean = False
+    try:
+        for w, s in zip(router.workers, spawned):
+            _out(f"Ingest worker {w.index} (pid {s['proc'].pid}) up on "
+                 f"127.0.0.1:{w.port} owning shards {w.shards} in "
+                 f"{s['boot_s']:.2f} s (log: {s['log_path']})")
+        router._bind()
+        _out(f"Ingest router fronting {args.workers} shard-owner workers "
+             f"({n_shards} shards) on {args.ip}:{router.port}")
+        # whoever reads the port file may read these lines next
+        sys.stdout.flush()
+        if args.port_file:
+            _write_port_file(args.port_file, router.port)
+        router.serve_forever()
+        clean = True
+    except SystemExit as e:
+        clean = e.code in (0, None)
+        raise
+    finally:
+        router.stop()
+        reap()
+        if on_main and prev_term is not None:
+            signal.signal(signal.SIGTERM, prev_term)
+        if clean and args.wal_dir:
+            shutil.rmtree(coord_dir, ignore_errors=True)
     return 0
 
 
@@ -809,8 +912,6 @@ def _build_state(build_dir: Path, lib_name: str, digest: str,
 
 def cmd_status(args, storage: Storage) -> int:
     """Sanity-check env + storage (console/Console.scala:1028-1085)."""
-    import subprocess
-
     import torch
 
     from .. import native
@@ -1084,8 +1185,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="concurrent-connection cap; attempts past it "
                     "get a structured 503 and are closed")
     ev.add_argument("--workers", type=int, default=0, metavar="N",
-                    help="shard-owner worker processes behind an ingest "
-                    "router (not ported: refused above 1)")
+                    help="boot N shard-owner worker processes (each "
+                    "owning shard %% N == index of the sharded store, "
+                    "each with its own ingest WAL) behind an ingest "
+                    "router in this process; 0/1 = single process")
     ev.add_argument("--wal-dir", metavar="DIR",
                     help="group-commit ingest WAL root: events are "
                     "fsynced here before the 2xx and drained to sqlite "
@@ -1097,16 +1200,22 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--ttl", type=float, metavar="SEC",
                     help="purge events older than SEC on a maintenance "
                     "timer (bounded live window)")
-    ev.add_argument("--compact-interval", type=float, metavar="SEC")
-    ev.add_argument("--owned-shards", metavar="CSV")
-    ev.add_argument("--worker-index", type=int, metavar="I")
-    ev.add_argument("--worker-count", type=int, default=1, metavar="N")
+    ev.add_argument("--compact-interval", type=float, metavar="SEC",
+                    help="VACUUM owned shard files every SEC (reclaims "
+                    "TTL-purged space; off by default)")
+    ev.add_argument("--owned-shards", metavar="CSV",
+                    help="restrict writes to these shard indexes "
+                    "(shard-owner worker mode; e.g. 0,2,4)")
+    ev.add_argument("--worker-index", type=int, metavar="I",
+                    help="this worker's index in a --workers fleet "
+                    "(stripes ownership: shard %% count == I)")
+    ev.add_argument("--worker-count", type=int, default=1, metavar="N",
+                    help="fleet size for --worker-index striping")
     ev.add_argument("--port-file", metavar="PATH",
                     help="write the bound port here after bind "
-                    "(--port 0 = ephemeral)")
+                    "(--port 0 = ephemeral; the fleet spawner reads it)")
     ev.add_argument("--no-respawn", action="store_true",
-                    help="with --workers: do not respawn dead workers "
-                    "(the port has no workers: a no-op)")
+                    help="with --workers: do not respawn dead workers")
     ev.add_argument("--slo-ms", type=float, default=None, metavar="MS")
 
     ad = sub.add_parser("adminserver", help="run the admin API server "

@@ -1,19 +1,34 @@
 """HTTP servers of the port: the REST event server with its stats and
 webhooks, the engine server on its two edges (the event loop and
-threads), its micro-batchers and the shared HTTP plumbing (ports of
+threads), its micro-batchers, the multi-process ingest router with its
+fleet helpers and the shared HTTP plumbing (ports of
 ``predictionio_tpu/server``'s ``event_server``, ``stats``, ``webhooks``,
-``serving``, ``eventloop``, ``microbatch`` and ``http_base``; the ingest
-and replica routers and the admin and dashboard servers are not ported
-yet)."""
+``serving``, ``eventloop``, ``microbatch``, ``ingest_router``,
+``router``'s helpers and ``http_base``; the replica router and the admin
+and dashboard servers are not ported yet)."""
 
 from .event_server import EventServer, EventServerConfig
 from .eventloop import EventLoopHTTPServer
+from .ingest_router import (
+    IngestRouterConfig,
+    IngestRouterServer,
+    IngestWorker,
+    boot_ingest_fleet,
+    shards_for_worker,
+    spawn_ingest_worker,
+)
 from .microbatch import (
     AdmissionRejected,
     MicroBatcher,
     SharedBatcher,
     SharedBatcherView,
     dispatchable_sizes,
+)
+from .router import (
+    Replica,
+    ReplicaSupervisor,
+    spawn_port_process,
+    wait_for_port_file,
 )
 from .serving import EngineServer, ServerConfig
 from .stats import StatsCollector
@@ -24,10 +39,20 @@ __all__ = [
     "EventLoopHTTPServer",
     "EventServer",
     "EventServerConfig",
+    "IngestRouterConfig",
+    "IngestRouterServer",
+    "IngestWorker",
     "MicroBatcher",
+    "Replica",
+    "ReplicaSupervisor",
     "ServerConfig",
     "SharedBatcher",
     "SharedBatcherView",
     "StatsCollector",
+    "boot_ingest_fleet",
     "dispatchable_sizes",
+    "shards_for_worker",
+    "spawn_ingest_worker",
+    "spawn_port_process",
+    "wait_for_port_file",
 ]

@@ -19,17 +19,22 @@ payloads, 404 on unknown ids/channels — matching the reference's
 rejection handler (`api/Common.scala`).
 
 Port of ``predictionio_tpu/server/event_server.py``: the same routes,
-statuses and bodies, write retries answering 503 + Retry-After, and the
-group-commit ingest WAL (``wal_dir``).  Not ported yet: the ``/metrics``
-and ``/debug`` mounts, the tracer, timeline and burn-rate hooks
-(``obs/``), the fault-injection points (``resilience/faults.py``) and
-the sharded store's shard-owner mode (``owned_shards``).
+statuses and bodies, write retries answering 503 + Retry-After, the
+group-commit ingest WAL (``wal_dir``), the TTL purge and compaction
+timers, and the shard-owner mode of an ingest fleet (``owned_shards``:
+writes to any other shard of the sharded store answer a structured 503
+``ShardUnavailable``).  Not ported yet (ROADMAP Queue 1 item 2): the
+``/metrics`` and ``/debug`` mounts (404), the tracer, timeline and
+burn-rate hooks (``obs/``) and the fault-injection points
+(``resilience/faults.py``): a server started with ``PIO_FAULT_PLAN`` in
+its environment raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import sqlite3
 import threading
 import time
@@ -62,13 +67,6 @@ logger = logging.getLogger(__name__)
 __all__ = ["EventServer", "EventServerConfig"]
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to predictionio_tpu_torch yet (ROADMAP "
-        "Queue 1)"
-    )
-
-
 class EventServerConfig:
     def __init__(self, host: str = "127.0.0.1", port: int = 7070,
                  stats: bool = True, write_retries: int = 3,
@@ -78,6 +76,7 @@ class EventServerConfig:
                  wal_dir: Optional[str] = None,
                  owned_shards: Optional[list[int]] = None,
                  ttl_s: Optional[float] = None,
+                 compact_interval_s: Optional[float] = None,
                  maintenance_interval_s: float = 30.0):
         self.host = host
         self.port = port
@@ -98,10 +97,11 @@ class EventServerConfig:
         # shard-owner worker mode: restrict writes (and WAL files) to a
         # fixed shard subset; None = own everything (single process)
         self.owned_shards = owned_shards
-        # bounded live window: purge events older than ttl_s every
-        # maintenance_interval_s (off by default; the maintenance thread
-        # only runs when it is set)
+        # bounded live window: purge events older than ttl_s, compact
+        # the owned shard files every compact_interval_s (both off by
+        # default; the maintenance thread only runs when one is set)
         self.ttl_s = ttl_s
+        self.compact_interval_s = compact_interval_s
         self.maintenance_interval_s = maintenance_interval_s
 
 
@@ -121,8 +121,12 @@ class EventServer(HTTPServerBase):
                  config: Optional[EventServerConfig] = None):
         self.storage = storage or get_storage()
         self.config = config or EventServerConfig()
-        if self.config.owned_shards is not None:
-            raise _not_ported("owned_shards (the sharded event store)")
+        if os.environ.get("PIO_FAULT_PLAN"):
+            raise NotImplementedError(
+                "PIO_FAULT_PLAN: the fault-injection points "
+                "(resilience/faults.py) are not ported to "
+                "predictionio_tpu_torch yet (ROADMAP Queue 1 item 2)"
+            )
         self.stats = StatsCollector() if self.config.stats else None
         self.write_retry = RetryPolicy(
             max_attempts=self.config.write_retries,
@@ -131,16 +135,22 @@ class EventServer(HTTPServerBase):
             seed=self.config.retry_seed,
         )
         es = self.storage.get_event_store()
+        if (self.config.owned_shards is not None
+                and hasattr(es, "set_owned_shards")):
+            es.set_owned_shards(self.config.owned_shards)
         self.wal: Optional[GroupCommitWAL] = None
         if self.config.wal_dir:
-            self.wal = GroupCommitWAL(es, self.config.wal_dir)
-        # channels this process has written — the TTL maintenance
-        # scope (a set mutated under the GIL only; readers
+            self.wal = GroupCommitWAL(
+                es, self.config.wal_dir,
+                owned_shards=self.config.owned_shards,
+            )
+        # channels this process has written — the TTL/compaction
+        # maintenance scope (a set mutated under the GIL only; readers
         # snapshot with list())
         self._seen_channels: set[tuple[int, int]] = set()
         self._maint_stop = threading.Event()
         self._maint_thread: Optional[threading.Thread] = None
-        if self.config.ttl_s:
+        if self.config.ttl_s or self.config.compact_interval_s:
             self._maint_thread = threading.Thread(
                 target=self._maintenance_loop,
                 name="events-maintenance", daemon=True,
@@ -172,24 +182,36 @@ class EventServer(HTTPServerBase):
             self.wal = None
 
     def _maintenance_loop(self) -> None:
-        """Time-windowed retention: purge events older than ttl_s from
-        every channel this process has written, each tick."""
+        """Time-windowed retention: TTL purge each tick, compaction on
+        its own (longer) cadence — both scoped to owned shards so a
+        worker never takes a sibling's writer lock."""
+        next_compact = time.monotonic() + (
+            self.config.compact_interval_s or float("inf")
+        )
         while not self._maint_stop.wait(self.config.maintenance_interval_s):
             es = self.storage.get_event_store()
-            if not hasattr(es, "purge_older_than"):
-                continue
-            cutoff = int((time.time() - self.config.ttl_s) * 1000)
             try:
-                for app_id, ch in list(self._seen_channels):
-                    n = es.purge_older_than(cutoff, app_id, ch)
-                    if n:
-                        logger.info(
-                            "TTL purge: %d events older than %ss "
-                            "(app %d, channel %d)",
-                            n, self.config.ttl_s, app_id, ch,
-                        )
-                        if self.stats is not None:
-                            self.stats.note("ttl.purged", n)
+                if self.config.ttl_s and hasattr(es, "purge_older_than"):
+                    cutoff = int((time.time() - self.config.ttl_s) * 1000)
+                    for app_id, ch in list(self._seen_channels):
+                        n = es.purge_older_than(cutoff, app_id, ch)
+                        if n:
+                            logger.info(
+                                "TTL purge: %d events older than %ss "
+                                "(app %d, channel %d)",
+                                n, self.config.ttl_s, app_id, ch,
+                            )
+                            if self.stats is not None:
+                                self.stats.note("ttl.purged", n)
+                if (self.config.compact_interval_s
+                        and time.monotonic() >= next_compact):
+                    next_compact = (time.monotonic()
+                                    + self.config.compact_interval_s)
+                    # drain first: VACUUM wants the writer lock the WAL
+                    # committer would otherwise be using
+                    self.barrier()
+                    es.compact()
+                    logger.info("compacted event store")
             except Exception:
                 # retention is advisory; a failed pass must not kill
                 # the thread (the next tick retries)
@@ -490,22 +512,32 @@ class EventServer(HTTPServerBase):
                 """Shard-isolated batch retry: submit per shard group
                 so a dead shard only fails ITS events.  Per-shard
                 all-or-nothing is preserved (each submit guards every
-                row first)."""
+                row first).  A shard-owner server without a WAL splits
+                the same way over the sharded store itself."""
                 wal = server.wal
+                es = server.storage.get_event_store()
+                route = wal.route if wal is not None else es.shard_of
                 groups: dict[int, list[tuple[int, Event]]] = {}
                 for k, e in valid:
-                    six = wal.route(e.entity_type, e.entity_id)
+                    six = route(e.entity_type, e.entity_id)
                     groups.setdefault(six, []).append((k, e))
                 down: list[int] = []
                 for six, group in sorted(groups.items()):
-                    fresh = iter(new_event_ids(len(group)))
-                    gids = [e.event_id or next(fresh) for _, e in group]
                     try:
-                        wal.submit(
-                            app_id, channel_id,
-                            [event_to_row(e, eid)
-                             for (_, e), eid in zip(group, gids)],
-                        )
+                        if wal is None:
+                            gids = es.insert_batch(
+                                [e for _, e in group], app_id,
+                                channel_id, validate=False,
+                            )
+                        else:
+                            fresh = iter(new_event_ids(len(group)))
+                            gids = [e.event_id or next(fresh)
+                                    for _, e in group]
+                            wal.submit(
+                                app_id, channel_id,
+                                [event_to_row(e, eid)
+                                 for (_, e), eid in zip(group, gids)],
+                            )
                     except ShardUnavailableError as e2:
                         down.append(six)
                         for k, _ in group:

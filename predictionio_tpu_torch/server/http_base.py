@@ -12,6 +12,7 @@ edge).
 from __future__ import annotations
 
 import json
+import socket
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
@@ -42,6 +43,11 @@ class CappedThreadingHTTPServer(ThreadingHTTPServer):
     The listen backlog is the connection cap, not socketserver's 5: with
     5, a burst of a few dozen new connections overflows the accept queue
     and the kernel resets some of them before the cap is ever consulted.
+
+    ``server_close`` also shuts the open connections: a keep-alive
+    connection's handler thread would otherwise go on answering its
+    client after the server stopped (a router's pooled connection to a
+    stopped worker would still read it healthy).
     """
 
     def __init__(self, server_address, handler_class,
@@ -49,23 +55,42 @@ class CappedThreadingHTTPServer(ThreadingHTTPServer):
         self.max_connections = max_connections
         self.request_queue_size = max_connections
         self._conn_sema = threading.BoundedSemaphore(max_connections)
+        self._open: set[socket.socket] = set()
+        self._open_lock = threading.Lock()
         super().__init__(server_address, handler_class)
 
     def process_request(self, request, client_address):
         if not self._conn_sema.acquire(blocking=False):
             self._refuse(request)
             return
+        with self._open_lock:
+            self._open.add(request)
         try:
             super().process_request(request, client_address)
         except BaseException:
-            self._conn_sema.release()
+            self._forget(request)
             raise
 
     def process_request_thread(self, request, client_address):
         try:
             super().process_request_thread(request, client_address)
         finally:
-            self._conn_sema.release()
+            self._forget(request)
+
+    def _forget(self, request) -> None:
+        with self._open_lock:
+            self._open.discard(request)
+        self._conn_sema.release()
+
+    def server_close(self) -> None:
+        super().server_close()
+        with self._open_lock:
+            open_now = list(self._open)
+        for request in open_now:
+            try:
+                request.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
 
     def _refuse(self, request) -> None:
         body = json.dumps({
@@ -98,6 +123,10 @@ class JsonRequestHandler(BaseHTTPRequestHandler):
         if self.server_logger is not None:
             self.server_logger.debug(fmt, *args)
 
+    def parse_request(self) -> bool:
+        self._body_read = False
+        return super().parse_request()
+
     def _reply(self, code: int, payload: Any,
                ctype: str = "application/json") -> None:
         body = (
@@ -105,6 +134,13 @@ class JsonRequestHandler(BaseHTTPRequestHandler):
             if isinstance(payload, (bytes, bytearray))
             else json.dumps(payload).encode()
         )
+        if not self._body_read:
+            # a reply before the handler read the request body (a 401
+            # from the access-key check, a 404 route) must still consume
+            # it: on a keep-alive connection the unread bytes would be
+            # parsed as the next request line (the ingest router pools
+            # its connections to the workers)
+            self._body()
         self.send_response(code)
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(body)))
@@ -115,6 +151,7 @@ class JsonRequestHandler(BaseHTTPRequestHandler):
 
     def _body(self) -> bytes:
         n = int(self.headers.get("Content-Length", 0))
+        self._body_read = True
         return self.rfile.read(n) if n else b""
 
 

@@ -6,7 +6,8 @@ nothing of the JAX package): embedded SQLite and in-memory backends with
 the reference's schemas and ``$PIO_TPU_HOME`` layout, a columnar
 batch read path (struct-of-arrays -> the ``Ratings`` COO the trainer
 stages onto the card; the native fused scan, with its snapshot cache),
-the group-commit ingest WAL (``wal``) and the engine-facing facades
+the entity-hash sharded SQLite store (``sharded_events``), the
+group-commit ingest WAL (``wal``) and the engine-facing facades
 (``store``; the deprecated ``views``).
 """
 
@@ -40,6 +41,7 @@ from .metadata import (
     Model,
 )
 from .registry import Storage, StorageError, get_storage, reset_storage
+from .sharded_events import ShardedSQLiteEventStore
 from .sqlite_events import SQLiteEventStore
 from .store import LEventStore, PEventStore, app_name_to_id
 
@@ -65,6 +67,7 @@ __all__ = [
     "MemoryEventStore",
     "ShardUnavailableError",
     "SQLiteEventStore",
+    "ShardedSQLiteEventStore",
     "LEventStore",
     "PEventStore",
     "app_name_to_id",

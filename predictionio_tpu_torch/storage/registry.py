@@ -8,10 +8,11 @@ package trains and serves in the other.  Parity with the reference
 ``PIO_STORAGE_SOURCES_<NAME>_TYPE`` (+ ``_PATH``) define named sources,
 and ``PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA,MODELDATA}_{NAME,
 SOURCE}`` map the three repositories onto them.  Builtin types are
-``sqlite``, ``memory`` and ``localfs`` (for model files).  The
-``sqlite-sharded`` event store, the ``jsonfs`` metadata store and
-third-party backends named by a dotted import path are not ported yet:
-the first two raise NotImplementedError, the last an unknown type.  Without env
+``sqlite``, ``sqlite-sharded`` (an event store of ``SHARDS`` files,
+default 4, under the directory ``PATH``), ``memory`` and ``localfs``
+(for model files).  The ``jsonfs`` metadata store and third-party
+backends named by a dotted import path are not ported yet: the first
+raises NotImplementedError, the second an unknown type.  Without env
 config everything is SQLite under ``$PIO_TPU_HOME`` (default
 ``~/.predictionio_tpu``).
 """
@@ -89,10 +90,22 @@ class Storage:
                         Path(path).parent.mkdir(parents=True, exist_ok=True)
                     self._event_store = SQLiteEventStore(path)
                 elif stype == "sqlite-sharded":
-                    raise NotImplementedError(
-                        "the sqlite-sharded event store is not ported to "
-                        "predictionio_tpu_torch yet (ROADMAP Queue 1)"
-                    )
+                    # entity-hash sharded writes (region-parallel HBase
+                    # analogue); PATH is a directory, SHARDS the count
+                    from .sharded_events import ShardedSQLiteEventStore
+
+                    try:
+                        self._event_store = ShardedSQLiteEventStore(
+                            conf.get("path")
+                            or str(_home(self.env) / "eventdata-shards"),
+                            n_shards=int(conf.get("shards", "4")),
+                        )
+                    except ValueError as e:
+                        # bad SHARDS value, count < 1, or a marker
+                        # mismatch — all config-class errors
+                        raise StorageError(
+                            f"sqlite-sharded source: {e}"
+                        ) from e
                 else:
                     raise StorageError(f"unknown event store type: {stype}")
             return self._event_store

@@ -143,8 +143,17 @@ def store(k: str, frame) -> None:
         logger.debug("scan cache write failed (%s)", e)
 
 
+def _mtime(p: Path) -> float:
+    # another thread's prune (the sharded store's shards publish at
+    # once) may have removed the file since the glob
+    try:
+        return p.stat().st_mtime
+    except FileNotFoundError:
+        return float("-inf")
+
+
 def _prune(d: Path) -> None:
-    snaps = sorted(d.glob("*.npz"), key=lambda p: p.stat().st_mtime)
+    snaps = sorted(d.glob("*.npz"), key=_mtime)
     for p in snaps[:-_KEEP]:
         try:
             p.unlink()

@@ -1,0 +1,499 @@
+"""Entity-hash-sharded SQLite event store: region-parallel writes.
+
+Port of ``predictionio_tpu/storage/sharded_events.py``, with the same
+routing, file layout and marker, so a sharded store written by either
+package is read by the other.
+
+The reference's HBase event table is written region-parallel — its
+bulk write path partitions by the md5-prefixed rowkey and each region
+server commits independently
+(`data/.../storage/hbase/HBPEvents.scala:180-199`, rowkey design
+`HBEventsUtil.scala:74-129`).  The single-file SQLite store serializes
+every write behind ONE writer lock + WAL.  This store shards the event
+table by a stable entity hash across N SQLite files: N independent
+writer locks and WAL commits, so concurrent writers (shard-owner event
+servers behind the ingest router) scale with shard count.
+
+Reads compose: entity-scoped queries route to exactly one shard (the
+rowkey-prefix locality property); full scans merge the per-shard
+time-ordered streams (``heapq.merge``) or concatenate columnar frames;
+the training read (:meth:`ShardedSQLiteEventStore.find_ratings`) scans
+every shard at once, one native scan per shard on its own thread.
+
+Routing is ``crc32(entity_type ++ entity_id) % n_shards`` — stable
+across processes and runs (NOT python ``hash()``, which is salted per
+process).  The shard count is fixed at creation and stamped in a marker
+file; opening with a different count refuses loudly instead of silently
+mis-routing entities.
+
+Known semantic drift from the single-file store: re-inserting an
+EXPLICIT ``event_id`` under a different entity lands in a different
+shard, so the cross-file OR-REPLACE upsert cannot collapse the two rows
+— both remain until deleted (``delete`` removes every copy).
+Auto-generated ids are unique, so only clients that reuse ids across
+entities can observe this; the reference's HBase rowkeys (entity-hash
+prefixed) cannot express that operation at all.
+
+Not ported yet: the per-shard ``obs`` histograms and the
+``store.shard_down`` fault hook (ROADMAP Queue 1 item 2), and the
+incremental scans with their shard-vector cursors (``find_rows_since``,
+``find_since``, ``max_rowid``, ``high_water_cursor``, ``cursor_lag``;
+item 5), which raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import datetime as _dt
+import heapq
+import itertools
+import json
+import os
+import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Iterable, Iterator, Optional, Sequence
+
+import numpy as np
+
+from .columnar import EventFrame, Ratings
+from .event import Event, validate_event
+from .levents import EventStore, ShardUnavailableError, TargetFilter
+from .sqlite_events import SQLiteEventStore
+
+__all__ = ["ShardedSQLiteEventStore"]
+
+_MARKER = "shards.json"
+
+
+def _shard_ix(entity_type: str, entity_id: str, n: int) -> int:
+    h = zlib.crc32(
+        f"{entity_type}\x00{entity_id}".encode("utf-8", "surrogatepass")
+    )
+    return h % n
+
+
+def _incremental_not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} (the sharded store's incremental scans and their "
+        "shard-vector cursors) is not ported to predictionio_tpu_torch "
+        "yet (ROADMAP Queue 1 item 5)"
+    )
+
+
+class ShardedSQLiteEventStore(EventStore):
+    """N SQLite event stores under one directory, routed by entity hash.
+
+    ``path`` is a DIRECTORY (created if absent) holding
+    ``shard-<i>.db`` files plus a ``shards.json`` marker recording the
+    count.  The registry builds it for the ``sqlite-sharded`` source type
+    (PATH, SHARDS).
+    """
+
+    def __init__(self, path: str | Path, n_shards: int = 4):
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        self._dir = Path(path)
+        self._dir.mkdir(parents=True, exist_ok=True)
+        marker = self._dir / _MARKER
+        try:
+            # atomic create: two first-time opens racing with DIFFERENT
+            # shard counts must not both succeed (each would route the
+            # same entity to a different file) — exactly one writes the
+            # marker, the loser falls through to the compare
+            with open(marker, "x") as f:
+                f.write(json.dumps({"n_shards": n_shards}) + "\n")
+                f.flush()
+                os.fsync(f.fileno())
+        except FileExistsError:
+            # the winner may still be between create and write; wait
+            # for content rather than crash on an empty read
+            txt = ""
+            for _ in range(200):
+                txt = marker.read_text()
+                if txt.strip():
+                    break
+                time.sleep(0.01)
+            else:
+                raise ValueError(
+                    f"shard marker {marker} exists but never gained "
+                    "content (crashed concurrent creator?); remove it "
+                    "to re-initialize"
+                )
+            stamped = json.loads(txt).get("n_shards")
+            if stamped != n_shards:
+                raise ValueError(
+                    f"event store at {self._dir} was created with "
+                    f"{stamped} shards; opening with {n_shards} would "
+                    "mis-route every entity — refusing"
+                )
+        self.n_shards = n_shards
+        self.shards = [
+            SQLiteEventStore(self._dir / f"shard-{i}.db")
+            for i in range(n_shards)
+        ]
+        # what the last find_ratings did: each shard's own seconds (its
+        # scan and encode, on its thread) and the dictionary merge's
+        self.last_ratings_shard_seconds: list[float] = []
+        self.last_ratings_merge_seconds: Optional[float] = None
+
+    # a shard-owner worker process restricts this to its fixed subset
+    # post-construction; None = every shard (the single-process
+    # default).  Ownership gates WRITES only — sqlite files accept
+    # cross-process READERS safely, and scans must see the whole
+    # keyspace regardless of who owns the writer lock.
+    owned_shards: Optional[frozenset[int]] = None
+
+    def set_owned_shards(self, shards: Optional[Iterable[int]]) -> None:
+        if shards is None:
+            self.owned_shards = None
+            return
+        owned = frozenset(int(s) for s in shards)
+        bad = sorted(s for s in owned if not 0 <= s < self.n_shards)
+        if bad:
+            raise ValueError(
+                f"owned shards {bad} out of range for "
+                f"{self.n_shards}-shard store"
+            )
+        self.owned_shards = owned
+
+    # -- routing ----------------------------------------------------------
+    def _shard(self, entity_type: str, entity_id: str) -> SQLiteEventStore:
+        return self.shards[_shard_ix(entity_type, entity_id,
+                                     self.n_shards)]
+
+    def shard_of(self, entity_type: str, entity_id: str) -> int:
+        """The shard index an entity routes to — the routing table the
+        ingest router shares with the store."""
+        return _shard_ix(entity_type, entity_id, self.n_shards)
+
+    def _check_writable(self, six: int) -> None:
+        if self.owned_shards is not None and six not in self.owned_shards:
+            raise ShardUnavailableError(
+                six,
+                "shard is not owned by this worker (router misroute or "
+                "stale routing table)",
+            )
+
+    def _owned(self) -> list[SQLiteEventStore]:
+        """The shards this process may write (maintenance scope: VACUUM
+        and the TTL purge take the writer lock, which belongs to the
+        owning worker in a fleet)."""
+        return [s for i, s in enumerate(self.shards)
+                if self.owned_shards is None or i in self.owned_shards]
+
+    # -- lifecycle --------------------------------------------------------
+    def init_channel(self, app_id: int, channel_id: int = 0) -> bool:
+        for s in self.shards:
+            s.init_channel(app_id, channel_id)
+        return True
+
+    def remove_channel(self, app_id: int, channel_id: int = 0) -> bool:
+        ok = True
+        for s in self.shards:
+            ok = s.remove_channel(app_id, channel_id) and ok
+        return ok
+
+    def close(self) -> None:
+        for s in self.shards:
+            s.close()
+
+    def compact(self) -> None:
+        for s in self._owned():
+            s.compact()
+
+    # -- writes -----------------------------------------------------------
+    def insert(self, event: Event, app_id: int, channel_id: int = 0,
+               validate: bool = True) -> str:
+        six = _shard_ix(event.entity_type, event.entity_id, self.n_shards)
+        self._check_writable(six)
+        return self.shards[six].insert(
+            event, app_id, channel_id, validate=validate
+        )
+
+    def insert_batch(
+        self, events, app_id: int, channel_id: int = 0,
+        validate: bool = True,
+    ) -> list[str]:
+        events = list(events)
+        if validate:
+            # validate EVERYTHING before any shard writes: the single
+            # store's all-or-nothing semantics must survive sharding
+            for e in events:
+                validate_event(e)
+        groups: dict[int, list[int]] = {}
+        for pos, e in enumerate(events):
+            groups.setdefault(
+                _shard_ix(e.entity_type, e.entity_id, self.n_shards), []
+            ).append(pos)
+        for six in groups:
+            # refuse BEFORE any shard writes: all-or-nothing semantics
+            # extend to a foreign shard in the batch
+            self._check_writable(six)
+        ids: list[Optional[str]] = [None] * len(events)
+        # one bulk scope spanning every touched shard: a sqlite error
+        # on a later group rolls back the earlier groups too.
+        # defer_indexes=False — this scope exists for per-REQUEST
+        # atomicity; whole-table index rebuilds per 50-event POST would
+        # be quadratic steady-state ingest.  An importer's own
+        # surrounding bulk() still defers (the outermost scope's flag
+        # wins).
+        with self.bulk(defer_indexes=False):
+            for six, positions in groups.items():
+                got = self.shards[six].insert_batch(
+                    [events[p] for p in positions], app_id, channel_id,
+                    validate=False,
+                )
+                for p, eid in zip(positions, got):
+                    ids[p] = eid
+        return ids  # aligned with the input order
+
+    def insert_raw_rows(self, rows, app_id: int,
+                        channel_id: int = 0) -> None:
+        """Native-importer and WAL-drain fast path, shard-routed: row
+        columns 2/3 are entity_type/entity_id (`sqlite_events._row`).
+        Each shard's rows keep their input order."""
+        rows = rows if isinstance(rows, list) else list(rows)
+        groups: list[list] = [[] for _ in range(self.n_shards)]
+        for row in rows:
+            groups[_shard_ix(row[2], row[3], self.n_shards)].append(row)
+        for six, grp in enumerate(groups):
+            if grp:
+                self._check_writable(six)
+        # cross-shard atomicity as in insert_batch (and same reasoning
+        # for defer_indexes=False: the importer's outer scope defers)
+        with self.bulk(defer_indexes=False):
+            for six, grp in enumerate(groups):
+                if grp:
+                    self.shards[six].insert_raw_rows(grp, app_id,
+                                                     channel_id)
+
+    def purge_older_than(self, cutoff_millis: int, app_id: int,
+                         channel_id: int = 0) -> int:
+        """TTL fan-out (`sqlite_events.purge_older_than`) over every
+        shard this process can write: in a worker fleet each owner trims
+        its own files."""
+        return sum(s.purge_older_than(cutoff_millis, app_id, channel_id)
+                   for s in self._owned())
+
+    @contextlib.contextmanager
+    def bulk(self, defer_indexes: bool = True):
+        with contextlib.ExitStack() as stack:
+            for s in self.shards:
+                stack.enter_context(s.bulk(defer_indexes=defer_indexes))
+            yield self
+
+    # -- point reads ------------------------------------------------------
+    def get(self, event_id: str, app_id: int,
+            channel_id: int = 0) -> Optional[Event]:
+        for s in self.shards:
+            ev = s.get(event_id, app_id, channel_id)
+            if ev is not None:
+                return ev
+        return None
+
+    def delete(self, event_id: str, app_id: int,
+               channel_id: int = 0) -> bool:
+        # NO short-circuit: a client that re-posted an explicit eventId
+        # under a DIFFERENT entity left copies in two shards; delete must
+        # remove every copy, not the first one found
+        removed = [
+            s.delete(event_id, app_id, channel_id) for s in self.shards
+        ]
+        return any(removed)
+
+    def delete_batch(
+        self, event_ids: Iterable[str], app_id: int, channel_id: int = 0
+    ) -> int:
+        ids = list(event_ids)
+        return sum(s.delete_batch(ids, app_id, channel_id)
+                   for s in self.shards)
+
+    # -- scans ------------------------------------------------------------
+    def find(
+        self,
+        app_id: int,
+        channel_id: int = 0,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        entity_type: Optional[str] = None,
+        entity_id: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+        target_entity_type: TargetFilter = None,
+        target_entity_id: TargetFilter = None,
+        limit: Optional[int] = None,
+        reversed: bool = False,
+    ) -> Iterator[Event]:
+        kw = dict(
+            app_id=app_id, channel_id=channel_id, start_time=start_time,
+            until_time=until_time, entity_type=entity_type,
+            entity_id=entity_id, event_names=event_names,
+            target_entity_type=target_entity_type,
+            target_entity_id=target_entity_id, reversed=reversed,
+        )
+        if entity_type is not None and entity_id is not None:
+            # rowkey-locality fast path: one shard holds the entity
+            yield from self._shard(entity_type, entity_id).find(
+                limit=limit, **kw
+            )
+            return
+        # k-way merge of per-shard time-ordered streams; each shard is
+        # given the limit too (a merged top-N needs at most N per shard)
+        streams = [s.find(limit=limit, **kw) for s in self.shards]
+        key = (
+            (lambda e: -e.event_time.timestamp()) if reversed
+            else (lambda e: e.event_time.timestamp())
+        )
+        merged = heapq.merge(*streams, key=key)
+        if limit is None or limit < 0:
+            yield from merged
+            return
+        yield from itertools.islice(merged, limit)
+
+    def find_ratings(
+        self,
+        app_id: int,
+        channel_id: int = 0,
+        event_names=("rate",),
+        rating_property="rating",
+        dedup: str = "last",
+        entity_type=None,
+        cache=None,
+    ) -> Ratings:
+        """Fused training read across shards: each shard runs its
+        native scan+encode (`sqlite_events.find_ratings`, with its own
+        scan-cache snapshot when ``cache`` is on), then the shard
+        dictionaries merge into one global id space.
+
+        Per-shard dedup is GLOBALLY exact here: routing is by entity,
+        so every event of a (user, item) pair lives in the user's one
+        shard — cross-shard duplicates of a pair cannot exist.
+
+        The shards are scanned CONCURRENTLY, one thread each: the native
+        scan releases the GIL (``ctypes``), so the read costs about the
+        slowest shard's, not the sum.  The output is the shards' ratings
+        concatenated in shard order, with global codes from the sorted
+        unions of the shards' ids: the reference's sharded read, bit for
+        bit (not the single-file store's order).
+        ``last_ratings_shard_seconds`` and ``last_ratings_merge_seconds``
+        keep the split of the last call."""
+        from .bimap import StringIndex
+
+        def scan(s: SQLiteEventStore):
+            t0 = time.perf_counter()
+            part = s.find_ratings(
+                app_id, channel_id, event_names=event_names,
+                rating_property=rating_property, dedup=dedup,
+                entity_type=entity_type, cache=cache,
+            )
+            return part, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(len(self.shards),
+                                thread_name_prefix="shard-scan") as ex:
+            done = list(ex.map(scan, self.shards))
+        t0 = time.perf_counter()
+        parts = [p for p, _ in done]
+        paths = {s.last_ratings_scan_path for s in self.shards}
+        self.last_ratings_scan_path = (
+            paths.pop() if len(paths) == 1 else "mixed"
+        )
+        reasons = [s.last_ratings_scan_reason for s in self.shards
+                   if s.last_ratings_scan_reason]
+        self.last_ratings_scan_reason = reasons[0] if reasons else None
+        # dictionaries merge from EVERY part — a shard whose rows all
+        # filtered out (e.g. propless ratings) still contributes its
+        # ids, exactly like the single store's global factorize would
+        users = StringIndex(sorted(set().union(
+            *(p.users.ids.tolist() for p in parts)
+        )))
+        items = StringIndex(sorted(set().union(
+            *(p.items.ids.tolist() for p in parts)
+        )))
+        u_out, i_out, v_out = [], [], []
+        for p in parts:
+            if not len(p):
+                continue
+            # shard-local code -> global code, one gather per side
+            umap = users.encode(p.users.ids)
+            imap = items.encode(p.items.ids)
+            u_out.append(umap[p.user_ix])
+            i_out.append(imap[p.item_ix])
+            v_out.append(p.rating)
+        if not u_out:
+            u_out = [np.empty(0, np.int32)]
+            i_out = [np.empty(0, np.int32)]
+            v_out = [np.empty(0, np.float32)]
+        out = Ratings(
+            user_ix=np.concatenate(u_out).astype(np.int32),
+            item_ix=np.concatenate(i_out).astype(np.int32),
+            rating=np.concatenate(v_out).astype(np.float32),
+            users=users,
+            items=items,
+        )
+        self.last_ratings_shard_seconds = [s for _, s in done]
+        self.last_ratings_merge_seconds = time.perf_counter() - t0
+        return out
+
+    def find_columnar(
+        self,
+        app_id: int,
+        channel_id: int = 0,
+        **kw,
+    ) -> EventFrame:
+        """Fan out the per-shard columnar scans, concatenate, and
+        restore the contract's time ordering (one stable argsort over
+        the merged time column)."""
+        if (
+            kw.get("entity_type") is not None
+            and kw.get("entity_id") is not None
+        ):
+            # rowkey-locality fast path, same as find(): one shard
+            # holds the entity — no fan-out, no re-sort needed
+            return self._shard(
+                kw["entity_type"], kw["entity_id"]
+            ).find_columnar(app_id, channel_id, **kw)
+        all_frames = [
+            s.find_columnar(app_id, channel_id, **kw)
+            for s in self.shards
+        ]
+        frames = [f for f in all_frames if len(f)]
+        if not frames:
+            return all_frames[0]
+
+        def cat(name):
+            cols = [getattr(f, name) for f in frames]
+            if any(c is None for c in cols):
+                return None
+            return np.concatenate(cols)
+
+        merged = EventFrame(
+            event=cat("event"),
+            entity_type=cat("entity_type"),
+            entity_id=cat("entity_id"),
+            target_entity_type=cat("target_entity_type"),
+            target_entity_id=cat("target_entity_id"),
+            event_time_ms=cat("event_time_ms"),
+            properties=cat("properties"),
+            value=cat("value"),
+        )
+        order = np.argsort(merged.event_time_ms, kind="stable")
+        if np.array_equal(order, np.arange(len(order))):
+            return merged
+        return merged.select(order)
+
+    # -- incremental scans (per-shard fold-in watermarks) -----------------
+    def find_rows_since(self, *args, **kw):
+        raise _incremental_not_ported("find_rows_since")
+
+    def find_since(self, *args, **kw):
+        raise _incremental_not_ported("find_since")
+
+    def max_rowid(self, *args, **kw):
+        raise _incremental_not_ported("max_rowid")
+
+    def high_water_cursor(self, *args, **kw):
+        raise _incremental_not_ported("high_water_cursor")
+
+    def cursor_lag(self, *args, **kw):
+        raise _incremental_not_ported("cursor_lag")

@@ -16,8 +16,9 @@ the scan and the string-id encode in one native pass
 (``native/sqlite_scan.cpp``) and takes the reference's Python branch,
 ``find_columnar(minimal=True) -> to_ratings``, only for the data reasons
 the reference does.  Both reads may be served from the scan snapshot
-cache (``scan_cache.py``).  The sharded store and the pio-live
-incremental scans are not ported yet (ROADMAP Queue 1).
+cache (``scan_cache.py``).  The sharded store (``sharded_events.py``)
+is N of these files.  The pio-live incremental scans are not ported yet
+(ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations

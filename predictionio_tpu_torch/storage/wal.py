@@ -1,11 +1,11 @@
 """Crash-safe group-commit write-ahead log for the ingest edge.
 
-Port of ``predictionio_tpu/storage/wal.py`` for the single-file store.
-The log format is the reference's, so either package replays the
-other's logs.  Not ported yet: the sharded store's routing (a store with
-more than one shard raises until ``storage/sharded_events.py`` is
-ported), the fault-injection points (``wal.torn``,
-``store.shard_down``) and the ``obs`` metrics.
+Port of ``predictionio_tpu/storage/wal.py``, for the single-file store
+and the sharded one (one log per owned shard, routed by the store's own
+entity hash).  The log format is the reference's, so either package
+replays the other's logs.  Not ported yet: the fault-injection points
+(``wal.torn``, ``store.shard_down``) and the ``obs`` metrics (ROADMAP
+Queue 1 item 2).
 
 The reference's HBase write path acknowledges a put only after the
 region server's WAL has the record (hflush), then folds memstore
@@ -262,11 +262,7 @@ class GroupCommitWAL:
         # needs no import of sharded_events (which stays WAL-free); the
         # single-file store routes everything to shard 0
         if shard_ix is None and self.n_shards > 1:
-            raise NotImplementedError(
-                "the sharded event store (storage/sharded_events.py) is "
-                "not ported to predictionio_tpu_torch yet (ROADMAP Queue "
-                "1): pass shard_ix to route a multi-shard store"
-            )
+            from .sharded_events import _shard_ix as shard_ix
         self._shard_ix = shard_ix
         self.replay_report = (
             replay_wal_dir(self.wal_dir, store, shards=self.owned)
@@ -418,10 +414,16 @@ class GroupCommitWAL:
                     self._cv.wait()
                 if self._closing and not self._commit_q:
                     return
-                if not self._commit_now and not self._closing:
-                    # accumulation window: let a few more groups land so
-                    # one transaction commits hundreds of rows, not 50
-                    self._cv.wait(self.commit_interval_s)
+                # accumulation window: let a few more groups land so one
+                # transaction commits hundreds of rows, not 50.  Every
+                # flush notifies, so the wait runs to its deadline (a
+                # barrier or close ends it early)
+                deadline = time.monotonic() + self.commit_interval_s
+                while not self._commit_now and not self._closing:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    self._cv.wait(left)
                 self._commit_now = False
                 batch = []
                 while self._commit_q and len(batch) < self.max_commit_rows:

@@ -246,8 +246,8 @@ REFUSED = [
     (["deploy", "--feedback"], 4),
     (["deploy", "--log-url", "http://127.0.0.1:1/log"], 4),
     (["deploy", "--foldin-poll", "5"], 5),
-    (["eventserver", "--workers", "2"], 1),
-    (["eventserver", "--owned-shards", "0,2"], 1),
+    (["deploy", "--replicas", "3"], 4),
+    (["deploy", "--push-foldin", "5"], 4),
     (["train", "--coordinator", "127.0.0.1:1234"], 7),
     (["train", "--num-processes", "2"], 7),
     (["train", "--telemetry-dir", "t"], 2),

@@ -313,10 +313,14 @@ def test_group_commit_server_reads_its_writes(pair):
         assert len(list(st.get_event_store().iter_raw_rows(1))) == 151
 
 
-def test_unported_options_raise(tmp_path):
+def test_unported_options_raise(tmp_path, monkeypatch):
+    # the fault-injection plan waits for resilience/faults.py (item 2);
+    # shard ownership is ported (tests/test_torch_wal_sharded.py)
     st = Storage({"PIO_TPU_HOME": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EventServer(st, EventServerConfig(port=0, owned_shards=[0]))
+    monkeypatch.setenv("PIO_FAULT_PLAN", "storage.write:nth=1")
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 2"):
+        EventServer(st, EventServerConfig(port=0))
 
 
 def test_ttl_maintenance_purges_old_events(pair):

@@ -1,8 +1,13 @@
 """The port stands alone: nothing in ``predictionio_tpu_torch/`` or
 ``chip_smoke.py`` imports JAX, jaxlib or the JAX package, at module level
-or inside a function (an AST walk over every import statement)."""
+or inside a function (an AST walk over every import statement), names a
+module of the JAX package in a string (what ``python -m`` or
+``import_module`` would run), and the ingest fleet's worker processes run
+``python -m predictionio_tpu_torch``."""
 
 import ast
+import re
+import sys
 from pathlib import Path
 
 import pytest
@@ -39,7 +44,9 @@ def test_the_walk_sees_every_file():
                 "tools/template_gallery.py", "tools/trim.py",
                 "utils/logging.py", "controller/metrics.py",
                 "controller/evaluation.py", "controller/fast_eval.py",
-                "workflow/evaluate.py", "workflow/fake.py"):
+                "workflow/evaluate.py", "workflow/fake.py",
+                "storage/sharded_events.py", "server/router.py",
+                "server/ingest_router.py"):
         assert f"predictionio_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names
     assert len(names) >= 20
@@ -61,13 +68,25 @@ def _group(path: Path) -> str:
 GROUPS = sorted({_group(p) for p in FILES})
 
 
+# a module path of the JAX package as a whole string
+_REFERENCE_MODULE = re.compile(r"^predictionio_tpu(\.\w+)*$")
+
+
+def _named_modules(path: Path) -> list[str]:
+    """String constants that name a module of the JAX package."""
+    return [node.value for node in ast.walk(ast.parse(path.read_text()))
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and _REFERENCE_MODULE.match(node.value)]
+
+
 @pytest.mark.parametrize("group", GROUPS)
 def test_no_jax_or_reference_imports(group):
     bad = {
         p.relative_to(ROOT).as_posix(): found
         for p in FILES if _group(p) == group
         for found in [[m for m in _imported_modules(p)
-                       if m.split(".")[0] in FORBIDDEN]]
+                       if m.split(".")[0] in FORBIDDEN]
+                      + _named_modules(p)]
         if found
     }
     assert not bad, bad
@@ -84,3 +103,28 @@ def test_the_walk_catches_a_forbidden_import(tmp_path):
     assert [m for m in _imported_modules(f)
             if m.split(".")[0] in FORBIDDEN] == [
         "predictionio_tpu.ops", "jax.numpy"]
+    f.write_text('cmd = ["python", "-m", "predictionio_tpu.cli.main"]\n'
+                 '"""predictionio_tpu/cli is the reference."""\n')
+    assert _named_modules(f) == ["predictionio_tpu.cli.main"]
+
+
+def test_fleet_workers_run_the_ports_console(tmp_path, monkeypatch):
+    from predictionio_tpu_torch.server import ingest_router, router
+
+    launched = []
+
+    class FakePopen:
+        def __init__(self, cmd, **kw):
+            launched.append((cmd, kw["env"]))
+
+    monkeypatch.setattr(router.subprocess, "Popen", FakePopen)
+    spawned = ingest_router.spawn_ingest_worker(1, 2, tmp_path)
+    (cmd, env), = launched
+    assert cmd[:4] == [sys.executable, "-m", "predictionio_tpu_torch",
+                       "eventserver"]
+    assert cmd[cmd.index("--worker-index") + 1] == "1"
+    assert cmd[cmd.index("--worker-count") + 1] == "2"
+    assert cmd[cmd.index("--wal-dir") + 1] == str(
+        tmp_path / "wal" / "worker-1")
+    assert cmd[-2:] == ["--port-file", str(spawned["port_file"])]
+    assert str(ROOT) in env["PYTHONPATH"].split(":")

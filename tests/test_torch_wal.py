@@ -3,7 +3,8 @@ CPU: acknowledged rows reach the store after ``barrier``; every group is
 fsynced before its ``submit`` returns (the ack); rows logged
 but never drained (``close(drain=False)``, the crash) replay into the
 reference's rows from either package's ``replay_wal_dir``; a torn tail is
-dropped; concurrent submitters all land; a broken log fails stop."""
+dropped; concurrent submitters all land; a broken log fails stop; a
+store of more than one shard is routed by the reference's entity hash."""
 
 import sys
 import threading
@@ -157,5 +158,13 @@ def test_broken_log_fails_stop_and_multi_shard_needs_routing(tmp_path):
     class TwoShards(SQLiteEventStore):
         n_shards = 2
 
-    with pytest.raises(NotImplementedError, match="sharded_events"):
-        GroupCommitWAL(TwoShards(tmp_path / "s.db"), tmp_path / "wal2")
+    # a store of more than one shard is routed by the sharded store's
+    # own entity hash, as in the reference
+    from predictionio_tpu.storage.sharded_events import _shard_ix
+
+    wal = GroupCommitWAL(TwoShards(tmp_path / "s.db"), tmp_path / "wal2")
+    users = [f"u{k}" for k in range(20)]
+    assert [wal.route("user", u) for u in users] == [
+        _shard_ix("user", u, 2) for u in users]
+    assert {wal.route("user", u) for u in users} == {0, 1}
+    wal.close()
