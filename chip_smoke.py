@@ -48,6 +48,21 @@ read just after it; a kernel its path did not launch fails the run:
 * probe smoke: ``gather_probe.smoke``, the probe module's own entry
   point.
 
+Inside those paths it holds the observability layer (``obs/``) and the
+fault plan (``resilience/faults.py``) to the invariants of the
+reference's ``tools/*_smoke.py``, each set printed as one ``{"obs":
+{check: bool}, "detail": ...}`` line (a false check fails the run): a
+``"pallas"`` iteration at ML-20M under ``PIO_TPU_TRACE_ALS=1`` (phase
+spans, the SPD solve launched in each traced half); the console
+``train``'s run manifest; the ``deploy`` process's ``/metrics``,
+``/status``, segments, flight recorder, device-memory gauges, burn
+rates and a 2 s ``torch.profiler`` capture, and the same load with
+``--no-metrics``; the fleet's ``/metrics`` federation through a worker's
+death, a traced write in its owner's journal and a ``store.shard_down``
+worker; at ML-1M the ``storage.write``, ``wal.torn``,
+``device.dispatch`` and ``reload.load_model`` faults, a traced query in
+the journal, and ``train.nan`` aborting a console ``train``.
+
 Prints the card's name and power limit (``nvidia-smi``), one line per
 phase, a ``{"kernels": [...]}`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
@@ -1259,17 +1274,19 @@ def cli(argv: list, storage=None) -> str:
 
 class Console:
     """``python -m predictionio_tpu_torch <argv>`` as a process on a
-    store's home, its output kept in a log file: started, waited for its
-    ``--port-file``, stopped.  A failure prints the log."""
+    store's home (``env`` adds to this process's environment), its
+    output kept in a log file: started, waited for its ``--port-file``,
+    stopped.  A failure prints the log."""
 
-    def __init__(self, home, argv: list, name: str):
+    def __init__(self, home, argv: list, name: str, env=None):
         from pathlib import Path
 
         self.log_path = Path(home) / f"{name}.log"
         self.port_file = Path(home) / f"{name}.port"
         self.port_file.unlink(missing_ok=True)
         root = str(Path(__file__).resolve().parent)
-        env = dict(os.environ, PIO_TPU_HOME=str(home), PYTHONPATH=root)
+        env = {**os.environ, "PIO_TPU_HOME": str(home),
+               "PYTHONPATH": root, **(env or {})}
         self.t0 = time.perf_counter()
         with open(self.log_path, "wb") as logf:
             self.proc = subprocess.Popen(
@@ -1596,10 +1613,14 @@ def fleet_chaos(port: int, store: StoreHome, workers: list) -> dict:
         len(acked) == n
         and {owner(u) for u in steady_users} == set(range(FLEET_WORKERS)))
 
-    samples = []
+    samples, msamples = [], []
     polling = threading.Event()
 
     def poll_stats() -> None:
+        from predictionio_tpu_torch.obs.fleet import (
+            parse_prometheus, state_counter_total,
+        )
+
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
         try:
             while not polling.is_set():
@@ -1611,6 +1632,16 @@ def fleet_chaos(port: int, store: StoreHome, workers: list) -> dict:
                     w = body["workers"]
                     samples.append((st, _stats_total(body), w["reporting"],
                                     w["healthy"]))
+                # the federated exposition through the death (fleet_smoke)
+                conn.request("GET", "/metrics")
+                r = conn.getresponse()
+                text = r.read().decode()
+                try:
+                    total = state_counter_total(parse_prometheus(text),
+                                                "pio_events_requests_total")
+                except ValueError:
+                    total = None
+                msamples.append((r.status, total))
                 time.sleep(0.05)
         finally:
             conn.close()
@@ -1710,7 +1741,25 @@ def fleet_chaos(port: int, store: StoreHome, workers: list) -> dict:
                                            for c in range(CHAOS_CLIENTS)]),
                       [])
     checks["zero_acked_loss"] = bool(acked) and not missing
-    return {"checks": checks, "respawn_s": respawn_s, "replayed": replayed,
+    from predictionio_tpu_torch.obs.fleet import (
+        parse_prometheus, state_counter_total,
+    )
+
+    mtotals = [t for st, t in msamples if st == 200 and t is not None]
+    scrape_errors = state_counter_total(
+        parse_prometheus(_raw(port, "/metrics")[1].decode()),
+        "pio_replica_scrape_errors_total")
+    obs = {
+        "federated_metrics_parse": len(mtotals) == len(msamples) > 2,
+        "federated_metrics_monotone": all(
+            b >= a for a, b in zip(mtotals, mtotals[1:])),
+        "replica_scrape_errors_booked": scrape_errors > 0,
+    }
+    return {"checks": checks, "obs": obs, "obs_detail": {
+                "metrics_samples": len(msamples),
+                "events_total": mtotals[-1] if mtotals else None,
+                "scrape_errors": scrape_errors},
+            "respawn_s": respawn_s, "replayed": replayed,
             "acked": len(acked), "missing": len(missing),
             "refused": len(refused), "healthy": len(healthy),
             "stats_samples": len(samples)}
@@ -1733,16 +1782,19 @@ def phase_fleet(store: StoreHome) -> dict:
     from pathlib import Path
 
     wal_dir = Path(store.home) / "fleet-wal"
+    # the router and every worker journal their spans here
+    journal = Path(store.home) / "fleet-telemetry"
     fleet = Console(store.home, [
         "eventserver", "--workers", str(FLEET_WORKERS), "--wal-dir",
-        str(wal_dir), "--ip", "127.0.0.1", "--port", "0"], "fleet")
+        str(wal_dir), "--ip", "127.0.0.1", "--port", "0"], "fleet",
+        env={"PIO_TPU_TELEMETRY_DIR": str(journal)})
     try:
         port = fleet.wait_port(timeout=300)
         pattern = re.compile(
-            r"Ingest worker (\d+) \(pid (\d+)\) up on 127\.0\.0\.1:\d+ "
+            r"Ingest worker (\d+) \(pid (\d+)\) up on 127\.0\.0\.1:(\d+) "
             r"owning shards \[([\d, ]*)\] in ([\d.]+) s \(log: (.+)\)$")
-        workers = [{"index": int(m[1]), "pid": int(m[2]), "shards": m[3],
-                    "boot_s": float(m[4]), "log": m[5]}
+        workers = [{"index": int(m[1]), "pid": int(m[2]), "port": int(m[3]),
+                    "shards": m[4], "boot_s": float(m[5]), "log": m[6]}
                    for m in map(pattern.match,
                                 fleet.log_path.read_text().splitlines())
                    if m]
@@ -1786,6 +1838,7 @@ def phase_fleet(store: StoreHome) -> dict:
                     "WHERE event = '$set'").fetchone()[0]
         if n_sets != N_ITEMS:
             fleet.fail(f"the store holds {n_sets} of {N_ITEMS} $set events")
+        federated = obs_fleet_federation(port, workers, journal, store)
 
         chaos = fleet_chaos(port, store, workers)
         _http(port, "/stop", {})
@@ -1802,6 +1855,7 @@ def phase_fleet(store: StoreHome) -> dict:
             fleet.fail(f"left its directory {coord} after a clean stop")
     finally:
         fleet.stop()
+    obs_report("fleet chaos", chaos["obs"], chaos["obs_detail"])
     ok = all(chaos["checks"].values()) and len(chaos["checks"]) == 5
     log(f"phase fleet: eventserver --workers {FLEET_WORKERS} (a router "
         f"and {FLEET_WORKERS} shard-owner processes, shards "
@@ -1822,8 +1876,9 @@ def phase_fleet(store: StoreHome) -> dict:
     if not ok:
         raise AssertionError(f"phase fleet: a chaos check failed: "
                              f"{chaos['checks']}")
+    down = obs_shard_down()
     return {"boot_s": fleet.boot_s, "sets_per_s": N_ITEMS / post_s,
-            **chaos}
+            "federated": federated, "shard_down": down, **chaos}
 
 
 def phase_sort(ratings, u, i, v, turns: int = 1) -> None:
@@ -2157,7 +2212,7 @@ def ingest_ml1m(storage, app_id: int, u, i, v) -> dict:
     return out
 
 
-def phase_pio(torch) -> dict:
+def phase_pio(torch, cli_views: dict) -> dict:
     """The event-store path, as a user runs it: a fresh ``$PIO_TPU_HOME``,
     an app, MovieLens-1M-shaped rate events (6,040 users x 3,706 items x
     1,000,209 ratings, seed 0) and a ``$set`` of categories for every
@@ -2325,6 +2380,8 @@ def phase_pio(torch) -> dict:
         status = _http(srv.port, "/")
         if status["requestCount"] != len(solo_q) + len(conc_q):
             raise AssertionError(f"server counted {status['requestCount']}")
+        # chaos and trace checks on this server and on event servers
+        obs_pio_chaos(storage, srv)
         _http(srv.port, "/stop", {})
         thread.join(timeout=30)
         if thread.is_alive():
@@ -2339,6 +2396,8 @@ def phase_pio(torch) -> dict:
             f"stopped")
         # the evaluation sweep, sequential and parallel, on this store
         eval_parallel(storage, home)
+        # the watchdog's abort through the console at ML-1M counts
+        obs_train_nan(storage, home, cli_views)
         return dict(launches=launches, resolved=resolved, ingest=ingest,
                     read_s=read_s[0], train_s=train_s, solo_ms=solo_ms,
                     conc_wall_ms=conc_wall, conc_ms=conc_ms)
@@ -2421,7 +2480,9 @@ def phase_cli(torch, store: StoreHome) -> dict:
     _build.reset_launches()
     t0 = time.perf_counter()
     with CaptureLog() as records:
-        out = cli(["train", "--scan-cache", "--engine-json", str(ej)], st)
+        out = cli(["train", "--scan-cache", "--engine-json", str(ej),
+                   "--telemetry-dir", str(Path(store.home) / "telemetry")],
+                  st)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
@@ -2443,6 +2504,8 @@ def phase_cli(torch, store: StoreHome) -> dict:
     if launches["fused_als"] + launches["fused_als_dma"] <= 0:
         raise AssertionError("the console's train never launched the fused "
                              "kernel")
+    views = {}
+    obs_cli_train(store, iid, views)
 
     engine, ep, _ = load_engine_from_variant(ej)
     algos, models, _ = prepare_deploy_components(
@@ -2459,8 +2522,16 @@ def phase_cli(torch, store: StoreHome) -> dict:
                    for q, g, w in zip(queries, replies, want))
 
     edges = {}
-    proc = Console(store.home, ["deploy", "--engine-json", str(ej), "--ip",
-                                "127.0.0.1", "--port", "0"], "deploy")
+    tdir = Path(store.home) / "telemetry-deploy"
+    # a flight recorder that holds every answered query's span tree:
+    # under 64 clients a whole batch shares the slowest latency bucket,
+    # whose exemplar must still resolve to a record (xray_smoke 4 runs
+    # light enough for 16 to do); both deploys keep the same capacity
+    flight = ["--flight-capacity", "2048"]
+    proc = Console(store.home, [
+        "deploy", "--engine-json", str(ej), "--ip", "127.0.0.1", "--port",
+        "0", "--telemetry-dir", str(tdir), "--slo-ms", "250",
+        "--xray-sample-s", "1", *flight], "deploy")
     try:
         port = proc.wait_port()
         try:
@@ -2474,6 +2545,8 @@ def phase_cli(torch, store: StoreHome) -> dict:
             proc.fail(f"counted {status['requestCount']} queries, batches "
                       f"{mb}")
         edges["eventloop"] = dict(load, batches=mb)
+        obs = obs_deploy(torch, port, len(queries), solo_q[0], tdir)
+        boot_s = proc.boot_s
         if "Undeployed" not in cli(["undeploy", "--port", str(port)], st):
             proc.fail("was not undeployed")
         try:
@@ -2482,6 +2555,28 @@ def phase_cli(torch, store: StoreHome) -> dict:
             proc.fail("did not stop after undeploy")
         if rc != 0:
             proc.fail("exited after undeploy")
+    finally:
+        proc.stop()
+
+    # the same load with --no-metrics: the mounts close, recording stays
+    proc = Console(store.home, [
+        "deploy", "--engine-json", str(ej), "--ip", "127.0.0.1", "--port",
+        "0", "--no-metrics", *flight], "deploy-no-metrics")
+    try:
+        port = proc.wait_port()
+        try:
+            load = http_load(port, solo_q, conc_q, 64)
+            load["trades"] = held(load["replies"], "deploy --no-metrics")
+            closed = _raw(port, "/metrics")[0]
+            status = _http(port, "/")
+        except Exception as e:
+            proc.fail(f"failed its queries: {e!r}")
+        if closed != 404:
+            proc.fail(f"answered GET /metrics with {closed}")
+        edges["eventloop --no-metrics"] = dict(load,
+                                               batches=status["microbatch"])
+        cli(["undeploy", "--port", str(port)], st)
+        proc.proc.wait(timeout=60)
     finally:
         proc.stop()
 
@@ -2504,12 +2599,13 @@ def phase_cli(torch, store: StoreHome) -> dict:
             f"{b['requests']} requests (largest {b['maxBatchSeen']}); all "
             f"{len(queries)} replies match in-process predict "
             f"({e['trades']} tied items traded places)")
-    log(f"phase cli deploy: the process booted in {proc.boot_s:.1f} s "
+    log(f"phase cli deploy: the process booted in {boot_s:.1f} s "
         f"(python -m predictionio_tpu_torch deploy to its port), answered "
         f"on the event-loop edge with the shared batcher, and exited 0 "
         f"after undeploy")
     return {"launches": launches, "train_s": train_s, "read_path": read_path,
-            "boot_s": proc.boot_s, "edges": edges}
+            "boot_s": boot_s, "edges": edges, "views": views,
+            "obs": obs}
 
 
 def eval_record(storage, out: str):
@@ -2724,6 +2820,559 @@ def eval_parallel(storage, home) -> None:
         f"{sorted(f_par)}); best index {b_seq} both, RMSEs {s_seq} and "
         f"{s_par} (max relative difference "
         f"{max(abs(a - b) / b for a, b in zip(s_par, s_seq)):.2e})")
+
+
+# ------------------------------------------------------------ obs checks --
+#
+# The invariants of the reference's tools/*_smoke.py (obs, pulse, xray,
+# fleet, train_obs, chaos), held on the port inside the phases that
+# already run: each check set prints one {"obs": {check: bool},
+# "detail": ...} line, and a false check fails the run.
+
+
+def obs_report(phase: str, checks: dict, detail: dict) -> None:
+    log(json.dumps({"obs": checks, "detail": {"phase": phase, **detail}},
+                   default=str))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"phase {phase}: obs checks failed: {bad}")
+
+
+def _raw(port: int, path: str, body=None, headers=None,
+         timeout: float = 120.0) -> tuple:
+    """``(status, body bytes, headers)``; an HTTP error status is an
+    answer, not an exception."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data,
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read(), r.headers
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), e.headers
+
+
+def _scrape(port: int) -> tuple:
+    """``(exposition text, parsed state)`` of ``GET /metrics``."""
+    from predictionio_tpu_torch.obs.fleet import parse_prometheus
+
+    status, text, _ = _raw(port, "/metrics")
+    if status != 200:
+        raise AssertionError(f"GET /metrics answered {status}")
+    text = text.decode()
+    return text, parse_prometheus(text)
+
+
+def _children(state: dict, name: str) -> dict:
+    """``{labels dict as a sorted tuple: child state}`` of a family."""
+    for fam in state["families"]:
+        if fam["name"] == name:
+            return {tuple(sorted(tuple(kv) for kv in c["labels"])): c
+                    for c in fam["children"]}
+    return {}
+
+
+def _journal(dirpath) -> list:
+    from pathlib import Path
+
+    out = []
+    for f in sorted(Path(dirpath).glob("spans-*.jsonl*")):
+        out += [json.loads(x) for x in f.read_text().splitlines() if x]
+    return out
+
+
+def obs_traced_iteration(torch, ratings) -> dict:
+    """ML-20M, rank 64: one fenced ``"pallas"`` iteration, then one under
+    ``PIO_TPU_TRACE_ALS=1`` from the same factors (the xray_smoke
+    split): each traced half must record ``als.gather``, ``als.gram``
+    and ``als.solve`` spans, and launch the SPD solve kernel inside its
+    full half.  Prints each phase's ms beside the untraced half's."""
+    from predictionio_tpu_torch.models.als import ALSConfig, ALSTrainer
+    from predictionio_tpu_torch.obs import get_tracer
+    from predictionio_tpu_torch.ops import _build
+
+    tr = ALSTrainer(ratings, cfg=ALSConfig(
+        rank=RANK, num_iterations=1, lam=0.01, seed=3, solver="pallas"))
+    U0, V0 = tr.init_factors()
+    tr.run(U0, V0, 1)  # warm: the first halves pay one-time set-up
+    tr.run(U0, V0, 1)
+    untraced = dict(tr.half_seconds)
+    full = tr._half
+    gj = []
+
+    def counted(upd, opp, side, lam=None):
+        n0 = _build.LAUNCHES["gj_solve"]
+        out = full(upd, opp, side, lam=lam)
+        torch.cuda.synchronize()
+        gj.append(_build.LAUNCHES["gj_solve"] - n0)
+        return out
+
+    tr._half = counted
+    tracer = get_tracer()
+    tracer.clear()
+    os.environ["PIO_TPU_TRACE_ALS"] = "1"
+    try:
+        tr.run(U0, V0, 1)
+    finally:
+        os.environ.pop("PIO_TPU_TRACE_ALS")
+    spans = {}
+    for s in tracer.spans():
+        if s.name.startswith("als."):
+            spans.setdefault(s.attrs["side"], {})[s.name] = (
+                s.duration_s * 1e3)
+    phases = ("als.gather", "als.gram", "als.solve")
+    del tr
+    torch.cuda.empty_cache()
+    ms = {side: {p.split(".")[1]: round(got.get(p, float("nan")), 2)
+                 for p in phases} | {
+              "untraced_half": round(untraced[side] * 1e3, 2)}
+          for side, got in spans.items()}
+    obs_report("train", {
+        "traced_halves_record_phase_spans": set(spans) == {"user", "item"}
+        and all(set(got) == set(phases) for got in spans.values()),
+        "gj_launches_in_each_traced_half": len(gj) == 2 and min(gj) > 0,
+    }, {"ms": ms, "gj_launches": gj})
+    return ms
+
+
+def obs_cli_train(store, iid: str, out_views: dict) -> None:
+    """The console ``train`` under its tower session (train_obs_smoke
+    1-2, 5): one sweep record per iteration with its phases, a
+    ``final`` record ``completed``; each sweep's phases sum to its wall
+    within 2%; setup + sweeps + tail reconcile with ``train.run`` within
+    2%; ``runlog.summarize`` reads it."""
+    from predictionio_tpu_torch.obs import runlog
+
+    view = runlog.read_manifest(runlog.runs_root() / iid
+                                / runlog.MANIFEST_NAME)
+    final = view["final"]
+    sweeps = view["sweeps"]
+    phase_err = [abs(sum(s["phases"].values()) - s["seconds"])
+                 / s["seconds"] for s in sweeps]
+    total = (final["setupSeconds"] + sum(s["seconds"] for s in sweeps)
+             + final["tailSeconds"])
+    recon = abs(total - final["trainRunSeconds"]) / final["trainRunSeconds"]
+    summary = runlog.summarize(view)
+    out_views["cli"] = view
+    obs_report("cli train", {
+        "manifest_sweep_per_iteration": len(sweeps) == 2
+        and all(s["phases"] for s in sweeps),
+        "manifest_final_completed": final["status"] == "completed",
+        "sweep_phases_sum_to_wall": max(phase_err) <= 0.02,
+        "setup_sweeps_tail_reconcile": recon <= 0.02,
+        "runlog_summarize": summary["status"] == "completed",
+    }, {"sweeps": [{"seconds": s["seconds"], "phases": s["phases"]}
+                   for s in sweeps],
+        "phase_sum_err": phase_err, "train_run_s": final["trainRunSeconds"],
+        "setup_s": final["setupSeconds"], "tail_s": final["tailSeconds"],
+        "reconcile_err": recon})
+
+
+def obs_deploy(torch, port: int, n_answered: int, query: dict,
+               telemetry_dir) -> dict:
+    """A ``deploy`` process after its load (obs_smoke 1, 3; pulse_smoke
+    1-5; xray_smoke 3-4): ``/metrics`` parses, the latency histogram
+    counts every answered query, its buckets are monotone and its p50 and
+    p99 agree with ``/status``; the seven serving segments have equal
+    counts and reconcile with the latency sum; the batch-size histogram
+    moved; a 2 s profile during live traffic writes a trace naming a CUDA
+    kernel; the worst flight record carries ``segmentsMs`` and a latency
+    exemplar's trace id joins a span tree on ``/debug/xray``; the card's
+    memory gauges hold; the burn-rate gauges exist."""
+    from predictionio_tpu_torch.obs.fleet import hist_quantile
+    from predictionio_tpu_torch.obs.timeline import SERVE_SEGMENTS
+
+    text, state = _scrape(port)
+    status = _http(port, "/")
+    (lat,) = _children(state, "pio_query_latency_seconds").values()
+    hist = lat["hist"]
+    cum = [int(float(x.rsplit(" ", 1)[1])) for x in text.splitlines()
+           if x.startswith("pio_query_latency_seconds_bucket")]
+    p50, p99 = hist_quantile(hist, 50), hist_quantile(hist, 99)
+    sp50, sp99 = status["p50ServingSec"], status["p99ServingSec"]
+    segs = {dict(k)["segment"]: c["hist"]
+            for k, c in _children(state, "pio_serve_segment_seconds").items()}
+    seg_counts = {s: segs[s]["count"] for s in SERVE_SEGMENTS}
+    seg_sum = sum(h["sum"] for h in segs.values())
+    extra_ms = (seg_sum - hist["sum"]) / max(hist["count"], 1) * 1e3
+    # pulse_smoke's overhead bound is per request at 4 clients: the
+    # handler window beyond the predict window (the socket write) over a
+    # light load, as deltas of the same histograms
+    light = [query] * 64
+    _post_timed(port, "/queries.json", light, 4)
+    _, after = _scrape(port)
+    (lat2,) = _children(after, "pio_query_latency_seconds").values()
+    seg2 = sum(c["hist"]["sum"] for c in _children(
+        after, "pio_serve_segment_seconds").values())
+    light_extra_ms = ((seg2 - seg_sum) - (lat2["hist"]["sum"] - hist["sum"])
+                      ) / len(light) * 1e3
+    (bs,) = _children(state, "pio_microbatch_batch_size").values()
+    mem = {dict(k)["stat"]: c["value"] for k, c in
+           _children(state, "pio_device_memory_bytes").items()
+           if dict(k)["device"] == "cuda:0"}
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    burn = {dict(k)["window"] for k in
+            _children(state, "pio_slo_burn_rate")}
+
+    # a 2 s capture while a thread keeps the server busy
+    stop = threading.Event()
+
+    def pepper():
+        while not stop.is_set():
+            _raw(port, "/queries.json", query)
+
+    t = threading.Thread(target=pepper, daemon=True)
+    t.start()
+    try:
+        code, prof, _ = _raw(port, "/debug/profile?seconds=2")
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    prof = json.loads(prof)
+
+    status = _http(port, "/")
+    worst = status["xray"]["flight"]["worst"]
+    xray = _http(port, "/debug/xray")
+    records = {r["traceId"]: r for r in xray["flight"]["worst"]}
+    joined = [e["traceId"] for e in xray["latencyExemplars"]
+              if e["traceId"] in records and any(
+                  s["name"] == "serve.query"
+                  for s in records[e["traceId"]]["spans"])]
+    journal = [s for s in _journal(telemetry_dir)
+               if s["name"] == "serve.query"]
+    checks = {
+        "metrics_parse": bool(state["families"]),
+        "latency_counts_every_query": hist["count"] == n_answered,
+        "latency_buckets_monotone": bool(cum) and all(
+            b >= a for a, b in zip(cum, cum[1:])) and cum[-1] == hist["count"],
+        "p50_p99_agree_with_status": abs(p50 - sp50) <= max(0.15 * sp50,
+                                                           1e-4)
+        and abs(p99 - sp99) <= max(0.15 * sp99, 1e-4),
+        "serve_segments_equal_counts": len(set(seg_counts.values())) == 1
+        and seg_counts["parse"] >= n_answered,
+        "segments_reconcile_with_latency": seg_sum >= 0.95 * hist["sum"]
+        and 0.0 <= light_extra_ms <= 3.0,
+        "batch_size_histogram_moved": bs["hist"]["count"] > 0
+        and bs["hist"]["sum"] > bs["hist"]["count"],
+        "profile_names_a_cuda_kernel": code == 200
+        and prof.get("totalBytes", 0) > 0 and bool(prof.get("cudaKernels")),
+        "flight_worst_has_segments": bool(worst)
+        and "segmentsMs" in worst[0].get("attrs", {}),
+        "exemplar_joins_a_span_tree": bool(joined),
+        "device_memory_gauges": 0 < mem.get("bytes_in_use", 0)
+        <= mem.get("peak_bytes_in_use", 0) <= total_mem
+        and 0 < mem.get("bytes_limit", 0),
+        "slo_burn_rate_windows": burn == {"1m", "5m", "1h"},
+        "serve_spans_journaled": len(journal) >= n_answered,
+    }
+    detail = {
+        "latency_count": hist["count"], "p50_s": [p50, sp50],
+        "p99_s": [p99, sp99], "segment_counts": seg_counts,
+        "segment_extra_ms": {"64 clients": extra_ms,
+                             "4 clients": light_extra_ms},
+        "batch_size_mean": bs["hist"]["sum"] / max(bs["hist"]["count"], 1),
+        "profile": {k: prof.get(k) for k in ("totalBytes", "files")}
+        | {"cudaKernels": len(prof.get("cudaKernels", [])),
+           "status": code},
+        "flight_worst_ms": [round(w["durationSec"] * 1e3, 2)
+                            for w in worst[:3]],
+        "device_memory": mem, "card_total_memory": total_mem,
+        "journal_spans": len(journal),
+    }
+    obs_report("cli deploy", checks, detail)
+    return detail
+
+
+def obs_train_nan(storage, home, cli_views: dict) -> dict:
+    """train_obs_smoke 3 at ML-1M counts: a console ``train`` under the
+    plan ``train.nan:nth=2,times=1`` (what ``PIO_FAULT_PLAN`` arms at
+    import) dies with ``ConvergenceError`` (``nan_factors``) with its
+    manifest ``aborted`` on sweep 2 and ``pio_train_aborts_total
+    {reason="nan_factors"}`` booked; ``diff_runs`` reads it beside the
+    console train of phase cli (train_obs_smoke 5)."""
+    from pathlib import Path
+
+    from predictionio_tpu_torch.obs import get_registry, runlog, tower
+    from predictionio_tpu_torch.resilience import faults
+
+    def aborts() -> float:
+        for key, c in _children(get_registry().dump_state(),
+                                "pio_train_aborts_total").items():
+            if dict(key).get("reason") == "nan_factors":
+                return c["value"]
+        return 0.0
+
+    eng = Path(home) / "nan-engine"
+    cli(["template", "get", "recommendation", str(eng)], storage)
+    ej = eng / "engine.json"
+    variant = json.loads(ej.read_text())
+    variant["datasource"] = {"params": {"appName": "ml1m"}}
+    variant["algorithms"] = [{"name": "als", "params": {
+        "rank": RANK, "numIterations": 4, "lambda": 0.01,
+        "solver": "fused"}}]
+    ej.write_text(json.dumps(variant))
+    before = aborts()
+    faults.arm("train.nan:nth=2,times=1")
+    err = None
+    try:
+        cli(["train", "--engine-json", str(ej)], storage)
+    except tower.ConvergenceError as e:
+        err = e
+    finally:
+        faults.disarm()
+    recs = storage.get_metadata().engine_instance_get_all()
+    rec = max(recs, key=lambda r: r.start_time)
+    view = runlog.read_manifest(runlog.runs_root() / rec.id
+                                / runlog.MANIFEST_NAME)
+    final = view["final"]
+    diff = runlog.diff_runs(cli_views["cli"], view)
+    checks = {
+        "convergence_error_nan_factors": err is not None
+        and err.reason == "nan_factors",
+        "instance_failed": rec.status == "FAILED",
+        "manifest_aborted_on_sweep_2": final["status"] == "aborted"
+        and final["sweeps"] == 2 and final.get("reason") == "nan_factors",
+        "aborts_total_booked": aborts() - before == 1,
+        "runlog_diff_parses": isinstance(diff, dict) and bool(diff),
+    }
+    detail = {"error": str(err), "final": {k: final.get(k) for k in (
+        "status", "sweeps", "reason")}, "diff_keys": sorted(diff)}
+    obs_report("pio train.nan", checks, detail)
+    return detail
+
+
+def obs_pio_chaos(storage, srv) -> dict:
+    """At ML-1M, in process (chaos_smoke 1 and 3, obs_smoke 2):
+    ``storage.write:nth=1,times=2,exc=operational`` is retried to a 201,
+    on exhaustion the event server answers 503 + Retry-After, recovers,
+    and ``/stats.json`` shows the rejections; ``wal.torn:times=1`` on a
+    WAL server loses exactly the torn tail on restart and keeps every
+    acknowledged event; on the engine server ``srv``,
+    ``device.dispatch:times=1`` fails one query and the next answers
+    200, ``reload.load_model`` makes ``/reload`` answer 500 while the old
+    model serves and ``lastReloadError`` surfaces and heals, and a query
+    sent with ``X-PIO-Trace`` has its ``serve.query`` span in the journal
+    under that id."""
+    import tempfile
+    from pathlib import Path
+
+    from predictionio_tpu_torch.obs import get_tracer
+    from predictionio_tpu_torch.obs.trace import collect_spans
+    from predictionio_tpu_torch.resilience import faults
+    from predictionio_tpu_torch.server import EventServer, EventServerConfig
+    from predictionio_tpu_torch.storage import AccessKey
+
+    # an app of its own: the ML-1M app's events stay as phase pio wrote
+    md = storage.get_metadata()
+    app = md.app_insert("chaos")
+    storage.get_event_store().init_channel(app.id)
+    key = md.access_key_insert(AccessKey(key="", appid=app.id))
+
+    def rate(k: int) -> dict:
+        return {"event": "rate", "entityType": "user",
+                "entityId": f"chaos{k}", "targetEntityType": "item",
+                "targetEntityId": item_id(k % 7),
+                "properties": {"rating": 3.0},
+                "eventTime": "2016-01-01T00:00:00.000Z"}
+
+    post = f"/events.json?accessKey={key}"
+    checks, detail = {}, {}
+    ev = EventServer(storage, EventServerConfig(host="127.0.0.1", port=0))
+    ev.start_background()
+    try:
+        faults.arm("storage.write:nth=1,times=2,exc=operational")
+        retried = _raw(ev.port, post, rate(0))[0]
+        faults.arm("storage.write:nth=1,times=3,exc=operational")
+        st, body, hdrs = _raw(ev.port, post, rate(1))
+        faults.disarm()
+        recovered = _raw(ev.port, post, rate(2))[0]
+        stats = _http(ev.port, f"/stats.json?accessKey={key}")
+    finally:
+        faults.disarm()
+        ev.stop()
+    statuses = {}
+    for s in stats["lifetime"]["statusCount"]:
+        statuses[s["status"]] = statuses.get(s["status"], 0) + s["count"]
+    checks["write_retried_to_201"] = retried == 201
+    checks["exhausted_write_503_retry_after"] = (
+        st == 503 and hdrs.get("Retry-After") is not None
+        and json.loads(body).get("error") == "StorageUnavailable")
+    checks["write_recovers"] = recovered == 201
+    checks["stats_book_rejections"] = statuses.get(503, 0) >= 1
+    detail["stats"] = {"statusCount": statuses,
+                       "resilience": stats.get("resilience")}
+
+    wal = Path(tempfile.mkdtemp(prefix="pio_torn_"))
+    try:
+        ev = EventServer(storage, EventServerConfig(
+            host="127.0.0.1", port=0, wal_dir=str(wal)))
+        ev.start_background()
+        try:
+            acked = [_raw(ev.port, post, rate(k)) for k in range(10, 14)]
+            faults.arm("wal.torn:times=1")
+            torn = _raw(ev.port, post, rate(14))[0]
+        finally:
+            faults.disarm()
+            ev.stop()
+        ev = EventServer(storage, EventServerConfig(
+            host="127.0.0.1", port=0, wal_dir=str(wal)))
+        ev.start_background()
+        try:
+            ev.barrier()
+            ids = [json.loads(b)["eventId"] for st, b, _ in acked
+                   if st == 201]
+            back = [_raw(ev.port, f"/events/{e}.json?accessKey={key}")[0]
+                    for e in ids]
+            tail = _raw(ev.port, f"/events.json?accessKey={key}"
+                                 f"&entityType=user&entityId=chaos14")
+        finally:
+            ev.stop()
+    finally:
+        import shutil
+
+        shutil.rmtree(wal, ignore_errors=True)
+    checks["torn_write_refused"] = torn == 503
+    checks["replay_keeps_every_acked_event"] = (
+        len(ids) == 4 and back == [200] * 4)
+    checks["replay_drops_the_torn_tail"] = (
+        tail[0] == 404 or json.loads(tail[1]) == [])
+
+    faults.arm("device.dispatch:times=1")
+    q = {"user": user_id(3), "num": 5}
+    try:
+        dispatch = [_raw(srv.port, "/queries.json", q)[0] for _ in range(2)]
+    finally:
+        faults.disarm()
+    checks["device_dispatch_fails_one_query"] = dispatch == [500, 200]
+    faults.arm("reload.load_model:times=1")
+    try:
+        reload_code = _raw(srv.port, "/reload")[0]
+        err = _http(srv.port, "/")["resilience"]["lastReloadError"]
+        serves = _raw(srv.port, "/queries.json", q)[0]
+    finally:
+        faults.disarm()
+    healed = _raw(srv.port, "/reload")[0]
+    err_after = _http(srv.port, "/")["resilience"]["lastReloadError"]
+    checks["reload_fault_500_old_model_serves"] = (
+        reload_code == 500 and serves == 200
+        and (err or "").startswith("InjectedFault"))
+    checks["reload_error_heals"] = healed == 200 and err_after is None
+
+    tracer = get_tracer()
+    jdir = Path(tempfile.mkdtemp(prefix="pio_journal_"))
+    tracer.configure(jdir)
+    try:
+        st, _, hdrs = _raw(srv.port, "/queries.json", q,
+                           headers={"X-PIO-Trace": "t-chip-smoke-pio"})
+        spans = collect_spans("t-chip-smoke-pio", jdir)
+    finally:
+        tracer.configure(None)
+        import shutil
+
+        shutil.rmtree(jdir, ignore_errors=True)
+    checks["trace_header_span_journaled"] = (
+        st == 200 and hdrs.get("X-PIO-Trace") == "t-chip-smoke-pio"
+        and [s["name"] for s in spans] == ["serve.query"])
+    detail.update(dispatch=dispatch, reload=[reload_code, err, healed],
+                  trace_spans=[s["name"] for s in spans])
+    obs_report("pio chaos", checks, detail)
+    return detail
+
+
+def obs_fleet_federation(port: int, workers: list, journal,
+                         store: StoreHome) -> dict:
+    """fleet_smoke on the quiet fleet: the router's ``GET /metrics``
+    parses and its ``pio_events_requests_total`` equals the sum of the
+    workers' own expositions; an item ``$set`` sent with ``X-PIO-Trace``
+    is an ``events.write`` span under that id in its owner's journal."""
+    from predictionio_tpu_torch.obs.fleet import state_counter_total
+    from predictionio_tpu_torch.obs.trace import collect_spans
+
+    trace = "t-chip-smoke-fleet"
+    st, _, hdrs = _raw(port, f"/events.json?accessKey={store.key}", {
+        "event": "$set", "entityType": "item", "entityId": item_id(0),
+        "properties": {"categories": ["even"]},
+        "eventTime": "2014-12-31T00:00:00.000Z"},
+        headers={"X-PIO-Trace": trace})
+    owner = entity_shard("item", item_id(0)) % FLEET_WORKERS
+    opid = next(w["pid"] for w in workers if w["index"] == owner)
+    # two health sweeps: the router holds every worker's newest snapshot
+    time.sleep(2.5)
+    own = sum(state_counter_total(_scrape(w["port"])[1],
+                                  "pio_events_requests_total")
+              for w in workers)
+    _, merged = _scrape(port)
+    fed = state_counter_total(merged, "pio_events_requests_total")
+    spans = collect_spans(trace, journal)
+    checks = {
+        "router_metrics_parse": bool(merged["families"]),
+        "router_events_equal_worker_sum": own > 0 and fed == own,
+        "trace_reaches_owner_journal": st == 201
+        and hdrs.get("X-PIO-Trace") == trace and any(
+            s["name"] == "events.write" and s["pid"] == opid
+            for s in spans),
+    }
+    detail = {"router_events_total": fed, "worker_sum": own,
+              "trace_spans": [(s["name"], s["pid"]) for s in spans],
+              "owner_pid": opid}
+    obs_report("fleet", checks, detail)
+    return detail
+
+
+def obs_shard_down() -> dict:
+    """A worker started with ``PIO_FAULT_PLAN="store.shard_down:shard=1"``
+    on a 4-shard store of its own answers the structured 503 for shard
+    1's entities and 201 for the others."""
+    import shutil
+    import tempfile
+
+    from predictionio_tpu_torch.storage import Storage
+
+    home = tempfile.mkdtemp(prefix="pio_down_")
+    env = {
+        "PIO_TPU_HOME": home,
+        "PIO_STORAGE_SOURCES_ML20M_PATH": os.path.join(home, "shards"),
+        "PIO_STORAGE_SOURCES_ML20M_TYPE": "sqlite-sharded",
+        "PIO_STORAGE_SOURCES_ML20M_SHARDS": str(STORE_SHARDS),
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "ML20M",
+    }
+    st = Storage(env)
+    out = cli(["app", "new", "down"], st)
+    key = out.split("Access key: ")[1].split()[0]
+    st.close()
+    proc = Console(home, ["eventserver", "--ip", "127.0.0.1", "--port", "0",
+                          "--wal-dir", os.path.join(home, "wal")],
+                   "down", env={**env,
+                                "PIO_FAULT_PLAN": "store.shard_down:shard=1"})
+    try:
+        port = proc.wait_port()
+        got = []
+        for k in range(24):
+            u = f"d{k}"
+            st_, body, hdrs = _raw(port, f"/events.json?accessKey={key}", {
+                "event": "rate", "entityType": "user", "entityId": u,
+                "targetEntityType": "item", "targetEntityId": item_id(0),
+                "properties": {"rating": 4.0}})
+            got.append((entity_shard("user", u), st_, json.loads(body),
+                        hdrs.get("Retry-After")))
+    finally:
+        proc.stop()
+        shutil.rmtree(home, ignore_errors=True)
+    down = [g for g in got if g[0] == 1]
+    up = [g for g in got if g[0] != 1]
+    checks = {
+        "shard_down_structured_503": bool(down) and all(
+            s == 503 and b.get("error") == "ShardUnavailable"
+            and b.get("shard") == 1 and retry for _, s, b, retry in down),
+        "other_shards_201": bool(up) and all(s == 201 for _, s, _, _ in up),
+    }
+    detail = {"shard_1": len(down), "others": len(up)}
+    obs_report("fleet shard_down", checks, detail)
+    return detail
 
 
 def phase_topk(torch, dev) -> None:
@@ -3008,13 +3657,17 @@ def main(argv: list[str]) -> int:
         torch.cuda.empty_cache()
         algo, model, _ = phase_train(torch, data, "pallas", 1)
         phase_serve(torch, algo, model)
+        del algo, model
+        torch.cuda.empty_cache()
+        obs_traced_iteration(torch, ratings)
         torch.cuda.synchronize()
         paths = {"ml20m": dict(_build.LAUNCHES)}
         secs["train and serve"] = round(time.perf_counter() - t0, 1)
-        del algo, model, data
+        del data
         torch.cuda.empty_cache()
         # the quickstart through the console (resets the counts itself)
-        paths["cli"] = timed("cli", phase_cli, torch, store)["launches"]
+        cli_out = timed("cli", phase_cli, torch, store)
+        paths["cli"] = cli_out["launches"]
         torch.cuda.empty_cache()
         # `pio eval` through the console on the same store (the same)
         paths["eval"] = timed("eval", phase_eval, torch, store,
@@ -3028,7 +3681,8 @@ def main(argv: list[str]) -> int:
                 os.environ[k] = val
     torch.cuda.empty_cache()
     # events -> run_train -> EngineServer (resets the counts itself)
-    paths["pio"] = timed("pio", phase_pio, torch)["launches"]
+    paths["pio"] = timed("pio", phase_pio, torch,
+                         cli_out["views"])["launches"]
     # the probe module's own entry point (the reference's
     # tools/probe_gather.py --smoke), the one path taa1 lies on
     from predictionio_tpu_torch.ops import gather_probe

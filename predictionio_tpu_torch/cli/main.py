@@ -16,12 +16,12 @@ messages and exit codes.  Subcommands:
 shard-owner ``eventserver`` processes over the sharded store.
 ``foldin``, ``adminserver`` and ``dashboard``, and the options
 of subsystems the port does not have yet (the replica router, tenancy,
-feedback, fold-in deltas, multi-process training and the observability
-stack) are refused before
+feedback, fold-in deltas and multi-process training) are refused before
 any work with ``Error: ... is not ported to predictionio_tpu_torch yet
-(ROADMAP Queue 1 item N)`` and exit code 1 (:data:`_REFUSED`).
-``--no-metrics`` and ``--no-profiler`` only switch off a subsystem the
-port lacks and are accepted as no-ops.
+(ROADMAP Queue 1 item N)`` and exit code 1 (:data:`_REFUSED`).  The
+observability options (``--telemetry-dir``, ``--no-metrics``,
+``--xray-sample-s``, ``--no-profiler``, ``--flight-capacity``,
+``--slo-ms``) work as the reference's (:func:`_apply_obs_flags`).
 
 ``main(argv, storage, device)`` runs on the card unless the caller asks
 for ``device="cpu"`` (the tests do); ``train``, ``deploy`` and ``eval``
@@ -139,33 +139,59 @@ def _out(msg: str) -> None:
     print(msg)
 
 
+def _apply_obs_flags(args) -> None:
+    """Wire the pio-obs/pio-xray knobs shared by the server/workflow
+    commands: ``--telemetry-dir`` (span JSONL journal location),
+    ``--no-metrics`` (404 the /metrics + /debug/xray mounts),
+    ``--xray-sample-s`` (device sampler cadence) and
+    ``--flight-capacity`` (slow-query flight recorder depth)."""
+    from ..obs import configure, get_flight_recorder, xray
+
+    configure(
+        journal_dir=getattr(args, "telemetry_dir", None),
+        metrics=(False if getattr(args, "no_metrics", False) else None),
+    )
+    sample_s = getattr(args, "xray_sample_s", None)
+    if sample_s is not None:
+        xray.set_sample_period(sample_s)
+    flight_n = getattr(args, "flight_capacity", None)
+    if flight_n is not None:
+        get_flight_recorder().set_capacity(flight_n)
+    if getattr(args, "no_profiler", False):
+        # pio-scope opt-out: the servers' ensure_started() becomes a
+        # no-op; the TimedLock contention lens keeps booking (its cost
+        # is per-contended-acquire, not per-sample)
+        from ..obs import scope
+
+        scope.set_enabled(False)
+
+
 def _add_obs_args(p) -> None:
     p.add_argument("--telemetry-dir", metavar="DIR",
-                   help="journal spans as JSON lines to DIR (not ported: "
-                   "refused)")
+                   help="journal pio-obs spans as JSON lines to "
+                   "DIR/spans-<pid>.jsonl (size-capped rotated "
+                   "segments; default: in-memory ring only; "
+                   "PIO_TPU_TELEMETRY=1 journals under "
+                   "$PIO_TPU_HOME/telemetry)")
     p.add_argument("--no-metrics", action="store_true",
-                   help="disable the /metrics and /debug mounts (the port "
-                   "has none yet: a no-op)")
+                   help="disable the GET /metrics Prometheus "
+                   "exposition and GET /debug/xray (recording still "
+                   "happens; only the endpoints answer 404)")
     p.add_argument("--xray-sample-s", type=float, default=None,
                    metavar="SEC",
-                   help="device-memory sampler period (not ported: "
-                   "refused)")
+                   help="pio-xray device-memory sampler period "
+                   "(default: $PIO_TPU_XRAY_SAMPLE_S or 10; <= 0 "
+                   "disables the sampler)")
     p.add_argument("--no-profiler", action="store_true",
-                   help="disable the sampling profiler (the port has none "
-                   "yet: a no-op)")
+                   help="disable the pio-scope always-on sampling "
+                   "profiler (GET /debug/pprof then answers an empty "
+                   "profile; the lock-contention lens stays on; "
+                   "PIO_TPU_SCOPE=0 is the env equivalent)")
 
 
 # --------------------------------------------------------------------------
 # what the port refuses, before any work
 # --------------------------------------------------------------------------
-
-_OBS_OPTIONS = (
-    ("telemetry_dir", "--telemetry-dir"),
-    ("xray_sample_s", "--xray-sample-s"),
-    ("flight_capacity", "--flight-capacity"),
-    ("slo_ms", "--slo-ms"),
-)
-
 
 def _is_set(v) -> bool:
     return v is not None and v is not False
@@ -198,10 +224,6 @@ _REFUSED = (
     ("train", "coordinator", _is_set, "train --coordinator", 7),
     ("train", "num_processes", _is_set, "train --num-processes", 7),
     ("train", "process_id", _is_set, "train --process-id", 7),
-) + tuple(
-    (cmd, dest, _is_set, f"{flag} (observability)", 2)
-    for cmd in ("train", "deploy", "eval", "eventserver")
-    for dest, flag in _OBS_OPTIONS
 )
 
 
@@ -514,6 +536,7 @@ def cmd_deploy(args, storage: Storage, device: DeviceLike) -> int:
             query_timeout_s=args.query_timeout,
             edge=args.edge,
             max_connections=args.max_connections,
+            slo_ms=args.slo_ms,
         ),
         engine_id=engine_id,
         engine_variant=variant_key,
@@ -626,6 +649,7 @@ def cmd_eventserver(args, storage: Storage) -> int:
             owned_shards=owned,
             ttl_s=args.ttl,
             compact_interval_s=args.compact_interval,
+            slo_ms=args.slo_ms,
         )
     )
     if args.port_file:
@@ -670,9 +694,14 @@ def _eventserver_fleet(args, storage: Storage) -> int:
         ("--max-connections", args.max_connections),
         ("--ttl", args.ttl),
         ("--compact-interval", args.compact_interval),
+        # each worker arms its own write-SLO burn gauges; the router's
+        # merged /metrics shows them per worker
+        ("--slo-ms", args.slo_ms),
     ):
         if val is not None:
             extra += [flag, str(val)]
+    if args.no_profiler:
+        extra.append("--no-profiler")
     router, spawned = boot_ingest_fleet(
         args.workers, n_shards, coord_dir,
         config=IngestRouterConfig(
@@ -1098,8 +1127,9 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="SEC")
     d.add_argument("--flight-capacity", type=int, default=None,
                    metavar="N",
-                   help="slow-query flight recorder depth (not ported: "
-                   "refused)")
+                   help="slow-query flight recorder keeps the N "
+                   "slowest requests' full span trees (default: "
+                   "$PIO_TPU_XRAY_FLIGHT_N or 16; see /debug/xray)")
     d.add_argument("--foldin-poll", type=float, default=None,
                    metavar="SEC",
                    help="poll for fold-in deltas (not ported: refused)")
@@ -1113,8 +1143,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "attempts past it get a structured 503 and are "
                    "closed (slow-loris guard)")
     d.add_argument("--slo-ms", type=float, default=None, metavar="MS",
-                   help="latency SLO burn-rate gauges (not ported: "
-                   "refused)")
+                   help="latency SLO in milliseconds: arms the "
+                   "pio_slo_burn_rate{window} error-budget gauges on "
+                   "this server's latency histogram")
     d.add_argument("--replicas", type=int, default=0, metavar="N",
                    help="replica fleet behind a router (not ported: "
                    "refused above 1)")
@@ -1216,7 +1247,11 @@ def build_parser() -> argparse.ArgumentParser:
                     "(--port 0 = ephemeral; the fleet spawner reads it)")
     ev.add_argument("--no-respawn", action="store_true",
                     help="with --workers: do not respawn dead workers")
-    ev.add_argument("--slo-ms", type=float, default=None, metavar="MS")
+    ev.add_argument("--slo-ms", type=float, default=None, metavar="MS",
+                    help="event-write latency SLO: arms the multi-"
+                    "window pio_slo_burn_rate gauges over the event-"
+                    "write histogram (with --workers, each shard owner "
+                    "arms its own)")
 
     ad = sub.add_parser("adminserver", help="run the admin API server "
                         "(not ported: refused)")
@@ -1333,6 +1368,7 @@ def main(argv: Optional[list[str]] = None,
     if refused is not None:
         _out(f"Error: {refused}")
         return 1
+    _apply_obs_flags(args)
     storage = storage or get_storage()
     try:
         if args.command in _DEVICE_DISPATCH:

@@ -1,9 +1,9 @@
 """Evaluation + hyperparameter sweep.
 
-Copy of ``predictionio_tpu/controller/evaluation.py`` for the port,
-without the reference's trace span and run-manifest record per scored
-candidate (the observability stack is not ported); the log line of each
-candidate carries its score and seconds.
+Copy of ``predictionio_tpu/controller/evaluation.py`` for the port: each
+scored candidate is an ``eval.sweep`` phase span and a ``candidate``
+record of the run manifest, and its log line carries its score and
+seconds.
 
 Re-expression of reference `controller/Evaluation.scala:32-96`,
 `controller/MetricEvaluator.scala:144-221` and
@@ -23,6 +23,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Optional, Sequence
 
+from ..obs import phase_span, tower
 from .base import WorkflowContext
 from .engine import Engine, EngineParams
 from .metrics import Metric
@@ -163,6 +164,15 @@ def _engine_params_json(ep: EngineParams) -> dict:
     }
 
 
+def _json_safe_score(score):
+    """Manifest records are JSON lines; scores are usually floats but
+    custom metrics may return anything comparable."""
+    try:
+        return float(score)
+    except (TypeError, ValueError):
+        return repr(score)
+
+
 class MetricEvaluator:
     """Scores every candidate, argmax by ``metric.compare``
     (reference `MetricEvaluator.scala:177-221`)."""
@@ -179,11 +189,20 @@ class MetricEvaluator:
 
     def _score_one(self, ctx, engine, ep, workflow_params, ix, total):
         t0 = time.perf_counter()
-        eval_out = engine.eval(ctx, ep, workflow_params)
-        t1 = time.perf_counter()
-        score = self.metric.calculate(ctx, eval_out)
-        other = [m.calculate(ctx, eval_out) for m in self.other_metrics]
+        with phase_span("eval.sweep", attrs={"candidate": ix}):
+            eval_out = engine.eval(ctx, ep, workflow_params)
+            t1 = time.perf_counter()
+            score = self.metric.calculate(ctx, eval_out)
+            other = [m.calculate(ctx, eval_out) for m in self.other_metrics]
         t2 = time.perf_counter()
+        # the eval run's manifest appends one candidate record per scored
+        # candidate: the sweep is replayable from disk
+        tower.record_candidate(
+            ix,
+            score=_json_safe_score(score),
+            metric=self.metric.header,
+            seconds=round(t2 - t0, 6),
+        )
         # streamed from here so the parallel sweep shows live progress too
         logger.info(
             "MetricEvaluator: candidate %d/%d -> %s = %s (%.3f s: eval "

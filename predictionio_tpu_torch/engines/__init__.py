@@ -14,6 +14,7 @@ from typing import Optional
 from .discovery import ENGINE_PATH_ENV, discover
 from .spec import (
     EngineSpec,
+    engine_label_of,
     engine_spec,
     get_engine_spec,
     list_engine_specs,
@@ -24,6 +25,7 @@ __all__ = [
     "EngineSpec",
     "ENGINE_PATH_ENV",
     "discover",
+    "engine_label_of",
     "engine_spec",
     "get_engine_spec",
     "list_engine_specs",

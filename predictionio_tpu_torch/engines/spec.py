@@ -54,7 +54,11 @@ class EngineSpec:
     evaluation_path: Optional[str] = None
 
     def build(self):
-        return self.factory()
+        """Factory call; the instance is stamped with the spec name, the
+        label serving metrics and run manifests read."""
+        engine = self.factory()
+        engine._engine_spec_name = self.name
+        return engine
 
     def default_variant(self) -> dict:
         """The synthetic engine.json of registry dispatch: ``engine``
@@ -123,17 +127,26 @@ def engine_spec(
     query_example: Optional[Mapping[str, Any]] = None,
     evaluation: Optional[Callable[[], Any]] = None,
 ):
-    """Decorator: register a zero-arg engine factory as an engine; the
-    factory itself is returned unchanged."""
+    """Decorator: register a zero-arg engine factory as an engine.  The
+    decorated function keeps working as a plain factory, and the engines
+    it returns are stamped with the spec name either way."""
 
     def wrap(factory: Callable[[], Any]):
+        import functools
+
+        @functools.wraps(factory)
+        def stamped():
+            engine = factory()
+            engine._engine_spec_name = name
+            return engine
+
         desc = description
         if not desc and factory.__doc__:
             desc = factory.__doc__.strip().splitlines()[0]
         register(EngineSpec(
             name=name,
             description=desc,
-            factory=factory,
+            factory=stamped,
             factory_path=f"{factory.__module__}.{factory.__qualname__}",
             default_params=dict(default_params or {}),
             query_example=dict(query_example or {}),
@@ -144,9 +157,16 @@ def engine_spec(
                 if evaluation is not None else None
             ),
         ))
-        return factory
+        return stamped
 
     return wrap
+
+
+def engine_label_of(engine: Any, fallback: str = "custom") -> str:
+    """The metrics label of an engine instance: its registered spec
+    name, else ``fallback``."""
+    name = getattr(engine, "_engine_spec_name", None)
+    return name if name is not None else fallback
 
 
 def get_engine_spec(name: str) -> EngineSpec:

@@ -28,6 +28,14 @@ Both regularization conventions are implemented: explicit least squares
 with ALS-WR weighted λ (λ·n_row·I, Spark MLlib 1.3) and implicit
 Hu-Koren-Volinsky confidence weighting c = 1 + α·r.
 
+Observability is the reference's: every fenced half books
+``pio_train_phase_seconds{phase="als.user_half"|"als.item_half"}``,
+every sweep reports to the pio-tower session (``obs/tower.py``: run
+manifest, convergence watchdog), and ``PIO_TPU_TRACE_ALS=1`` splits each
+half into ``als.gather`` / ``als.gram`` / ``als.solve`` spans by timing
+truncated halves (``_half_phase_probe``).  The ``train.nan`` fault point
+poisons the factors after a sweep.
+
 Not ported yet (the config raises): sharded factor placement, coded
 shards, the iALS++ subspace sweep, the grouped gather and approximate
 retrieval.
@@ -37,6 +45,7 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -46,6 +55,8 @@ import torch
 
 from ..device import DeviceLike, fence, matmul_precision, resolve_device
 from ..native import sort_coo_by_row
+from ..obs import TRAIN_PHASE_SECONDS, get_tracer, tower, xray
+from ..resilience import faults
 from ..storage.columnar import Ratings
 
 logger = logging.getLogger(__name__)
@@ -422,7 +433,8 @@ def _solve_buckets(
     solver: str,
     gather_dtype: str = "float32",
     fused_gather: str = "taa",
-) -> None:
+    stop_after: Optional[str] = None,
+) -> Optional[torch.Tensor]:
     """Solve every bucket of one side and write the rows into ``upd``.
 
     Per bucket: expand the ``[B, K]`` index/value block from the sorted
@@ -431,7 +443,13 @@ def _solve_buckets(
     of a short bucket across the card itself) or gather ``[B, K, R]`` +
     einsum Gram + ``_spd_solve``.  The Gram operands are the gathered
     rows widened to f32, so a bf16 gather table gives bf16 operands with
-    f32 accumulation, as in the reference."""
+    f32 accumulation, as in the reference.
+
+    ``stop_after`` ("gather" | "gram") truncates every bucket after that
+    phase for the phase probes: nothing is written, and the sum of the
+    truncated results comes back so the work cannot be skipped.  The
+    fused kernel has no such prefix, so a truncated fused half takes
+    the unfused path, as the reference does."""
     f32 = torch.float32
     dev = opp.device
     r = opp.shape[-1]
@@ -445,7 +463,8 @@ def _solve_buckets(
     ).contiguous()
     # _resolve_solver checked that a fused plan exists at this rank, and
     # the plan does not depend on K: no bucket leaves the kernel
-    fused_side = solver == "fused"
+    fused_side = solver == "fused" and stop_after is None
+    out = None
     for (rows, starts, counts), k in zip(buckets, ks):
         idx, val, valid, reg = _bucket_inputs(
             c_sorted, v_sorted, starts, counts, k, lam_t, weighted_lambda
@@ -460,6 +479,9 @@ def _solve_buckets(
         else:
             maskf = valid.to(f32)
             Vm = opp_g[idx].to(f32) * maskf[..., None]          # [B, K, R]
+            if stop_after == "gather":
+                out = Vm.sum() if out is None else out + Vm.sum()
+                continue
             if implicit:
                 cw = alpha_t * val * maskf                       # (c - 1)
                 A = gram + torch.einsum("bk,bkr,bks->brs", cw, Vm, Vm)
@@ -469,10 +491,16 @@ def _solve_buckets(
                 b = torch.einsum("bk,bkr->br", val * maskf, Vm)
             A = A + reg[:, None, None] * torch.eye(r, dtype=f32, device=dev)
             del Vm
+            if stop_after == "gram":
+                part = A.sum() + b.sum()
+                out = part if out is None else out + part
+                continue
             x = _spd_solve(A, b, solver)
         upd.index_copy_(0, rows, x.to(upd.dtype))
+    return out
 
 
+@xray.instrument("als.half_iteration")
 def _half_iteration(
     upd: torch.Tensor,
     opp: torch.Tensor,
@@ -499,6 +527,46 @@ def _half_iteration(
             fused_gather=fused_gather,
         )
     return upd
+
+
+@xray.instrument("als.phase_probe")
+def _half_phase_probe(
+    upd: torch.Tensor,
+    opp: torch.Tensor,
+    side: dict,
+    lam: float,
+    alpha: float,
+    *,
+    implicit: bool,
+    weighted_lambda: bool,
+    precision: str,
+    solver: str,
+    gather_dtype: str = "float32",
+    fused_gather: str = "taa",
+    stop_after: str = "gather",
+) -> torch.Tensor:
+    """Truncated half-iteration for the phase spans: the gather-only or
+    the gather+Gram prefix of every bucket, writing nothing (``upd`` is
+    untouched; the real half runs right after the probes)."""
+    with matmul_precision(precision):
+        return _solve_buckets(
+            upd, opp, side["c_sorted"], side["v_sorted"], side["buckets"],
+            side["ks"], lam, alpha,
+            implicit=implicit, weighted_lambda=weighted_lambda,
+            solver=solver, gather_dtype=gather_dtype,
+            fused_gather=fused_gather, stop_after=stop_after,
+        )
+
+
+def _als_phase_trace_enabled() -> bool:
+    """``PIO_TPU_TRACE_ALS=1`` arms per-phase span recording: opt-in,
+    because the probes re-run truncated halves."""
+    return os.environ.get("PIO_TPU_TRACE_ALS") == "1"
+
+
+def _finite_all(U: torch.Tensor, V: torch.Tensor) -> bool:
+    """The watchdog's NaN/Inf sentinel over both factor tables."""
+    return bool(torch.isfinite(U).all()) and bool(torch.isfinite(V).all())
 
 
 def _resolve_solver(
@@ -755,6 +823,56 @@ class ALSTrainer:
             fused_gather=self.fused_gather or "taa",
         )
 
+    def _traced_half(self, upd, opp, side, side_name: str, it: int,
+                     lam: Optional[float], collect: dict) -> float:
+        """One half-iteration with the phase spans (``als.gather`` /
+        ``als.gram`` / ``als.solve``), by fence-probe subtraction: time
+        the gather-only truncation, the gather+Gram truncation and the
+        full half, each fenced; the deltas are the phase times.  The
+        first iteration runs each probe once unmeasured first, as the
+        reference warms its compiles.  ``collect`` gathers the phase
+        times under side-qualified keys (``user.gather`` ...) for the
+        sweep record.  Returns the full half's seconds."""
+        tracer = get_tracer()
+        attrs = {"side": side_name, "iteration": it}
+        cfg = self.cfg
+
+        def probe(stop):
+            return _half_phase_probe(
+                upd, opp, side, cfg.lam if lam is None else lam, cfg.alpha,
+                implicit=cfg.implicit,
+                weighted_lambda=cfg.weighted_lambda,
+                precision=cfg.matmul_precision, solver=self.solver,
+                gather_dtype=cfg.gather_dtype,
+                fused_gather=self.fused_gather or "taa",
+                stop_after=stop,
+            )
+
+        def timed(fn, warm: bool) -> float:
+            if warm:
+                fn()
+                fence(self.device)
+            t0 = time.perf_counter()
+            fn()
+            fence(self.device)
+            return time.perf_counter() - t0
+
+        def emit(phase: str, dt: float) -> None:
+            tracer.record(phase, dt, attrs=attrs)
+            TRAIN_PHASE_SECONDS.labels(phase=phase).observe(dt)
+            key = f"{side_name}.{phase.rsplit('.', 1)[-1]}"
+            collect[key] = collect.get(key, 0.0) + dt
+
+        # the probes run BEFORE the real half: it writes ``upd``
+        warm = it == 0
+        t_gather = timed(lambda: probe("gather"), warm)
+        t_gram_cum = timed(lambda: probe("gram"), warm)
+        t_full = timed(lambda: self._half(upd, opp, side, lam=lam), False)
+        emit("als.gather", t_gather)
+        emit("als.gram", max(t_gram_cum - t_gather, 0.0))
+        emit("als.solve", max(t_full - t_gram_cum, 0.0))
+        return t_full
+
     def run(
         self,
         U,
@@ -767,7 +885,9 @@ class ALSTrainer:
         the copies in place).  Each half is fenced and its wall time
         appended to :attr:`half_seconds`; the sweep loss (every
         ``loss_every`` sweeps) to :attr:`sweep_losses`; both describe
-        the latest run.
+        the latest run.  Every sweep reports to ``tower.record_sweep``,
+        which may raise :class:`~..obs.tower.ConvergenceError` (the
+        watchdog's typed abort) with the run manifest finalized.
 
         ``lam`` overrides the config's regularization for this run."""
         dtype = getattr(torch, self.cfg.compute_dtype)
@@ -775,19 +895,51 @@ class ALSTrainer:
         self.sweep_losses = []
         U = torch.as_tensor(U).to(self.device, dtype).clone()
         V = torch.as_tensor(V).to(self.device, dtype).clone()
+        trace_phases = _als_phase_trace_enabled()
+        session = tower.active_session()
+        if session is not None:
+            # the workflow layer opened the session without knowing the
+            # algorithm's iteration budget; declare it for the ETA
+            session.set_sweeps_planned(self.cfg.num_iterations)
         for it in range(num_iterations):
+            t_sweep = time.perf_counter()
+            phases: dict[str, float] = {}
             for name, upd, opp, side in (
                 ("user", U, V, self._user_side),
                 ("item", V, U, self._item_side),
             ):
-                t0 = time.perf_counter()
-                self._half(upd, opp, side, lam=lam)
-                fence(self.device)
-                self.half_seconds.append((name, time.perf_counter() - t0))
+                if trace_phases:
+                    dt = self._traced_half(upd, opp, side, name, it, lam,
+                                           phases)
+                else:
+                    t0 = time.perf_counter()
+                    self._half(upd, opp, side, lam=lam)
+                    fence(self.device)
+                    dt = time.perf_counter() - t0
+                    phases[f"{name}_half"] = dt
+                    TRAIN_PHASE_SECONDS.labels(
+                        phase=f"als.{name}_half").observe(dt)
+                self.half_seconds.append((name, dt))
+            if faults.fired("train.nan"):
+                # poison the iterates the way an exploding sweep would;
+                # the watchdog must catch it this sweep
+                U.mul_(float("nan"))
+            loss = None
             if self.loss_every and (it + 1) % self.loss_every == 0:
+                t0 = time.perf_counter()
                 loss = self.sweep_loss(U, V)
                 if loss is not None:
                     self.sweep_losses.append(loss)
+                    phases["loss"] = time.perf_counter() - t0
+            finite = True
+            if session is not None and session.wants_finite_check():
+                t0 = time.perf_counter()
+                finite = _finite_all(U, V)
+                phases["check"] = time.perf_counter() - t0
+            tower.record_sweep(
+                time.perf_counter() - t_sweep, phases,
+                loss=loss, factors_finite=finite, source=id(self),
+            )
             logger.debug("ALS iteration %d/%d complete", it + 1,
                          num_iterations)
         return U, V

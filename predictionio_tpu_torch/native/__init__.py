@@ -29,10 +29,13 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from ..obs import xray
 
 __all__ = [
     "BUILD_DIR",
@@ -122,6 +125,7 @@ def _build_locked(force: bool) -> Path:
         and stamp.read_text() == digest
     ):
         return lib_path
+    t0 = time.perf_counter()
     tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
     cmd = [CXX, *CXXFLAGS, *(str(SRC_DIR / s) for s in SOURCES),
            "-o", str(tmp), *LDLIBS]
@@ -145,6 +149,8 @@ def _build_locked(force: bool) -> Path:
         stamp.write_text(digest)
     finally:
         tmp.unlink(missing_ok=True)
+    # a build that really ran: pio_jit_compiles_total / _seconds
+    xray.note_build(time.perf_counter() - t0)
     return lib_path
 
 

@@ -1,0 +1,563 @@
+"""pio-obs in the port: metrics, latency histograms, trace propagation.
+
+Port of ``predictionio_tpu/obs/``.  The observability layer every
+server, store, trainer and evaluation of the port reports into:
+
+* :mod:`.registry` — process-wide :class:`MetricsRegistry`
+  (thread-safe Counter / Gauge / Histogram under sharded locks) with
+  Prometheus text exposition; every port server mounts it at
+  ``GET /metrics`` via ``server/http_base.py``.
+* :mod:`.trace` — :class:`Tracer`: trace ids minted at the serving
+  edge (or taken from the ``X-PIO-Trace`` request header), spans
+  recorded into a bounded ring + optional JSONL journal under
+  ``$PIO_TPU_HOME/telemetry/``.
+
+This module owns the process-wide instances (``get_registry()`` /
+``get_tracer()``) and eagerly registers the reference's catalog of
+metric families, each with the reference's name, type, labels and
+help text, so a scrape of either package shows the same schema.
+
+Pure stdlib at import: importing ``obs`` never imports torch's CUDA
+side or touches a device (``xray`` and ``timeline`` load torch inside
+the calls that read the card).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from pathlib import Path
+from typing import Iterator, Optional
+
+from .registry import (
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    default_latency_buckets,
+    log_buckets,
+)
+from .trace import (
+    Span,
+    TRACE_HEADER,
+    Tracer,
+    current_trace_id,
+    new_trace_id,
+    trace_scope,
+)
+
+__all__ = [
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "Span",
+    "TRACE_HEADER",
+    "Tracer",
+    "configure",
+    "current_trace_id",
+    "default_latency_buckets",
+    "get_registry",
+    "get_tracer",
+    "log_buckets",
+    "metrics_enabled",
+    "new_trace_id",
+    "phase_span",
+    "render_prometheus",
+    "set_metrics_enabled",
+    "telemetry_home",
+    "trace_scope",
+]
+
+# breaker-state gauge encoding (pio_breaker_state)
+BREAKER_STATE_VALUES = {"closed": 0.0, "half-open": 1.0, "open": 2.0}
+
+
+def telemetry_home() -> Path:
+    home = os.environ.get("PIO_TPU_HOME") or os.path.expanduser(
+        "~/.predictionio_tpu"
+    )
+    return Path(home) / "telemetry"
+
+
+def _default_journal_dir() -> Optional[Path]:
+    explicit = os.environ.get("PIO_TPU_TELEMETRY_DIR")
+    if explicit:
+        return Path(explicit)
+    if os.environ.get("PIO_TPU_TELEMETRY") == "1":
+        return telemetry_home()
+    return None
+
+
+_registry = MetricsRegistry()
+_tracer = Tracer(journal_dir=_default_journal_dir())
+_metrics_enabled = True
+
+
+def get_registry() -> MetricsRegistry:
+    return _registry
+
+
+def get_tracer() -> Tracer:
+    return _tracer
+
+
+def metrics_enabled() -> bool:
+    return _metrics_enabled
+
+
+def set_metrics_enabled(enabled: bool) -> None:
+    """``/metrics`` answers 404 while disabled (``--no-metrics``);
+    recording keeps working — disabling exposition must not change
+    what the process measures."""
+    global _metrics_enabled
+    _metrics_enabled = bool(enabled)
+
+
+def configure(journal_dir: Optional[os.PathLike | str] = None,
+              metrics: Optional[bool] = None) -> None:
+    """CLI-facing knob bundle (``--telemetry-dir`` / ``--no-metrics``).
+    ``None`` leaves a setting unchanged."""
+    if journal_dir is not None:
+        _tracer.configure(journal_dir)
+    if metrics is not None:
+        set_metrics_enabled(metrics)
+
+
+_cluster_renderer = None
+
+
+def set_cluster_renderer(fn) -> None:
+    """Install (or clear, with ``None``) a callable that renders the
+    CLUSTER-merged exposition in place of the local registry's.  Set by
+    a pio-tower chief session during a multi-worker training run so
+    worker 0's ``/metrics`` shows cluster-wide sums while the run is
+    live; local recording is untouched."""
+    global _cluster_renderer
+    _cluster_renderer = fn
+
+
+def render_prometheus() -> str:
+    fn = _cluster_renderer
+    if fn is not None:
+        try:
+            return fn()
+        except Exception:
+            pass  # a broken merge must not 500 /metrics
+    return _registry.render_prometheus()
+
+
+# -- standard families (the metric name catalog) ---------------------------
+# Registered at import so every process's /metrics carries the full
+# schema (zero-valued until first use).  Servers/workflows fetch these
+# by the same names — idempotent registration returns the same family.
+
+QUERY_LATENCY = _registry.histogram(
+    "pio_query_latency_seconds",
+    "End-to-end /queries.json serving latency (decode -> predict -> "
+    "serve -> encode)",
+)
+QUERIES_TOTAL = _registry.counter(
+    "pio_queries_total",
+    "Serving queries by outcome",
+    labels=("status",),
+)
+ENGINE_QUERIES_TOTAL = _registry.counter(
+    "pio_engine_queries_total",
+    "Serving queries by registered engine (pio-forge spec name; "
+    "'custom' for engines built outside the registry) and outcome",
+    labels=("engine", "status"),
+)
+RELOADS_TOTAL = _registry.counter(
+    "pio_reloads_total",
+    "Hot model reloads by outcome",
+    labels=("result",),
+)
+BREAKER_STATE = _registry.gauge(
+    "pio_breaker_state",
+    "Circuit-breaker state per delivery queue "
+    "(0=closed, 1=half-open, 2=open)",
+    labels=("queue",),
+)
+DELIVERY_DEPTH = _registry.gauge(
+    "pio_delivery_queue_depth",
+    "Entries waiting in a bounded delivery queue",
+    labels=("queue",),
+)
+DELIVERY_TOTAL = _registry.counter(
+    "pio_delivery_total",
+    "Delivery-queue outcomes (submitted/delivered/dropped/retried)",
+    labels=("queue", "outcome"),
+)
+EVENTS_TOTAL = _registry.counter(
+    "pio_events_requests_total",
+    "Event-server bookkept requests by HTTP status",
+    labels=("status",),
+)
+EVENT_WRITE_LATENCY = _registry.histogram(
+    "pio_event_write_latency_seconds",
+    "Event-store write latency on the ingestion path",
+)
+RESILIENCE_TOTAL = _registry.counter(
+    "pio_resilience_events_total",
+    "Recovered-from trouble (retries etc.) by kind",
+    labels=("kind",),
+)
+TRAIN_PHASE_SECONDS = _registry.histogram(
+    "pio_train_phase_seconds",
+    "Workflow phase durations (train.run, eval.sweep, als.*)",
+    labels=("phase",),
+    buckets=log_buckets(1e-4, 10000.0, per_decade=4),
+)
+
+# pio-live (incremental fold-in) families: the daemon side books cycles
+# / scanned events / produced rows + per-phase timings; the serving side
+# books delta applies and keeps the freshness/lag gauges live.  Gauges
+# read 0 until pio-live runs — the fields stay absent from status JSON
+# when the subsystem is off, but the /metrics schema is always complete.
+FOLDIN_CYCLES_TOTAL = _registry.counter(
+    "pio_foldin_cycles_total",
+    "Fold-in daemon cycles by outcome (ok/empty/error)",
+    labels=("result",),
+)
+FOLDIN_EVENTS_TOTAL = _registry.counter(
+    "pio_foldin_events_total",
+    "Events consumed past the fold-in watermark",
+)
+FOLDIN_ROWS_TOTAL = _registry.counter(
+    "pio_foldin_rows_total",
+    "Factor rows produced by fold-in solves",
+    labels=("side", "kind"),  # side=user|item, kind=patched|appended
+)
+FOLDIN_PHASE_SECONDS = _registry.histogram(
+    "pio_foldin_phase_seconds",
+    "Fold-in phase durations (live.scan/solve/publish/apply)",
+    labels=("phase",),
+    buckets=log_buckets(1e-4, 1000.0, per_decade=4),
+)
+FOLDIN_APPLIES_TOTAL = _registry.counter(
+    "pio_foldin_applies_total",
+    "Serving-side delta applications by outcome",
+    labels=("result",),
+)
+MODEL_FRESHNESS_SECONDS = _registry.gauge(
+    "pio_model_freshness_seconds",
+    "Seconds since the serving model last advanced "
+    "(full load or applied fold-in delta)",
+)
+FOLDIN_WATERMARK_LAG = _registry.gauge(
+    "pio_foldin_watermark_lag",
+    "Event-store rows written past the last applied fold-in watermark",
+)
+
+# pio-armor (straggler-tolerant distributed) families: the coded-shard
+# orchestration books every parity serve / frozen write, and the
+# per-shard lag histogram captures how long the host waited on a shard
+# before degrading (the straggler evidence a pod operator reads first).
+SHARD_DEGRADED_TOTAL = _registry.counter(
+    "pio_shard_degraded_total",
+    "Half-iterations / top-k hops where a shard was served from parity "
+    "instead of its owner (straggler or dead worker)",
+    labels=("shard",),
+)
+SHARD_LAG_SECONDS = _registry.histogram(
+    "pio_shard_lag_seconds",
+    "Host-observed wait on a late shard before serving it from parity "
+    "(op = als.half | topk.ring)",
+    labels=("op",),
+    buckets=log_buckets(1e-4, 100.0, per_decade=4),
+)
+
+# pio-surge (event-loop serving edge + replica fleet) families: the
+# connection-cap guard books refusals per server edge, and the router
+# process keeps per-replica health/freshness gauges + forward counters
+# (each replica's own registry still exports the unlabeled
+# pio_model_freshness_seconds; the router's labeled view is what an
+# operator alerts on fleet-wide).
+HTTP_OPEN_CONNECTIONS = _registry.gauge(
+    "pio_http_open_connections",
+    "Open client connections per HTTP server edge",
+    labels=("server",),
+)
+HTTP_CONN_REJECTED = _registry.counter(
+    "pio_http_connections_rejected_total",
+    "Connections refused with a structured 503 because the per-server "
+    "concurrent-connection cap was reached (slow-loris guard)",
+    labels=("server",),
+)
+REPLICA_UP = _registry.gauge(
+    "pio_replica_up",
+    "Router view of replica health (1=healthy, 0=down)",
+    labels=("replica",),
+)
+REPLICA_MODEL_FRESHNESS = _registry.gauge(
+    "pio_replica_model_freshness_seconds",
+    "Router-observed per-replica model freshness (seconds since that "
+    "replica's model last advanced, read off its health-check status)",
+    labels=("replica",),
+)
+REPLICA_REQUESTS_TOTAL = _registry.counter(
+    "pio_replica_requests_total",
+    "Requests the router forwarded per replica by outcome "
+    "(ok/error/failover)",
+    labels=("replica", "outcome"),
+)
+ROUTER_ADMISSION_TOTAL = _registry.counter(
+    "pio_router_admission_total",
+    "Router-level deadline admission decisions (admitted / rejected = "
+    "a structured 503 answered WITHOUT burning a replica round trip)",
+    labels=("outcome",),
+)
+REPLICA_RESPAWNS_TOTAL = _registry.counter(
+    "pio_replica_respawns_total",
+    "Dead replica processes the router's supervisor respawned "
+    "(capped exponential backoff between attempts)",
+    labels=("replica",),
+)
+
+# pio-scout (two-stage quantized ANN retrieval) family: the retrieval
+# layer books per-stage device time so pulse timelines decompose the
+# new path — candidate = quantized shortlist scan (int8 flat or IVF),
+# rerank = exact f32 top-k over the gathered shortlist.  Without
+# PIO_TPU_TRACE_RETRIEVAL=1 the split is dispatch-attributed (stages
+# pipeline on the device queue); with it, each stage is fenced.
+RETRIEVAL_STAGE_SECONDS = _registry.histogram(
+    "pio_retrieval_stage_seconds",
+    "Two-stage ANN retrieval time per stage (candidate|rerank); fenced "
+    "per stage only under PIO_TPU_TRACE_RETRIEVAL=1",
+    labels=("stage",),
+    buckets=log_buckets(1e-5, 10.0, per_decade=4),
+)
+
+# pio-hive (multi-tenant serving + live A/B) families: the tenant
+# registry books residency/eviction under its device-memory budget, the
+# per-tenant serving path books outcomes and latency under (app,
+# variant) labels — the label set that makes one tenant's overload or
+# open breaker visible WITHOUT reading another tenant's lines — and the
+# online-eval aggregator keeps per-variant impression/conversion counts
+# + CTR-style rate fresh for /metrics and the pio-tower manifest.
+TENANT_RESIDENT_BYTES = _registry.gauge(
+    "pio_tenant_resident_bytes",
+    "Accounted host+device bytes of one resident tenant model "
+    "(factor tables + cached device arrays)",
+    labels=("app", "variant"),
+)
+TENANT_MEMORY_BUDGET = _registry.gauge(
+    "pio_tenant_memory_budget_bytes",
+    "Configured device-memory budget the tenant registry evicts "
+    "toward (0 = unbounded)",
+)
+TENANTS_RESIDENT = _registry.gauge(
+    "pio_tenants_resident",
+    "Tenant models currently resident in the registry",
+)
+TENANT_LOADS_TOTAL = _registry.counter(
+    "pio_tenant_loads_total",
+    "Tenant registry lifecycle events (kind=load|evict|overcommit)",
+    labels=("app", "variant", "kind"),
+)
+TENANT_QUERIES_TOTAL = _registry.counter(
+    "pio_tenant_queries_total",
+    "Per-tenant serving outcomes (the isolation evidence: one "
+    "tenant's errors live on its own labels)",
+    labels=("app", "variant", "status"),
+)
+TENANT_QUERY_LATENCY = _registry.histogram(
+    "pio_tenant_query_latency_seconds",
+    "Per-tenant end-to-end serving latency",
+    labels=("app", "variant"),
+)
+TENANT_QUOTA_REJECTED = _registry.counter(
+    "pio_tenant_quota_rejected_total",
+    "Queries shed by a tenant's token-bucket quota (structured 429)",
+    labels=("app", "variant"),
+)
+TENANT_PLACEMENT_BALANCE = _registry.gauge(
+    "pio_tenant_placement_balance",
+    "Jain fairness index over resident tenants' accounted bytes "
+    "(pio-confluence placement balance): 1.0 = perfectly even "
+    "tenant->memory placement, 1/N = one tenant holds everything, "
+    "0 = nothing resident.  Recomputed on every registry load/evict "
+    "so the fenced _mt sweep can judge balance beside throughput",
+)
+VARIANT_REQUESTS_TOTAL = _registry.counter(
+    "pio_variant_requests_total",
+    "Online-eval impressions: queries served per (app, variant)",
+    labels=("app", "variant"),
+)
+VARIANT_FEEDBACK_TOTAL = _registry.counter(
+    "pio_variant_feedback_total",
+    "Online-eval conversions: variant-attributed feedback events "
+    "scanned back out of the event store",
+    labels=("app", "variant"),
+)
+VARIANT_RATE = _registry.gauge(
+    "pio_variant_outcome_rate",
+    "Online-eval CTR-style rate per (app, variant): conversions / "
+    "impressions over the aggregation window",
+    labels=("app", "variant"),
+)
+
+# pio-lens satellite (ROADMAP item 3): per-shard event-store
+# instrumentation on ShardedSQLiteEventStore — write/scan latency and a
+# row-delta gauge per shard, so ingestion skew (one hot shard eating
+# the write path) is visible on /metrics before the partitioned
+# event-server ingestion work lands on top of it.
+STORE_SHARD_WRITE_SECONDS = _registry.histogram(
+    "pio_store_shard_write_seconds",
+    "Sharded event-store write latency per shard (insert / "
+    "insert_batch / insert_raw_rows group commits)",
+    labels=("shard",),
+    buckets=log_buckets(1e-5, 100.0, per_decade=4),
+)
+STORE_SHARD_SCAN_SECONDS = _registry.histogram(
+    "pio_store_shard_scan_seconds",
+    "Sharded event-store find_rows_since scan latency per shard "
+    "(serial and parallel=True fan-out)",
+    labels=("shard",),
+    buckets=log_buckets(1e-5, 100.0, per_decade=4),
+)
+STORE_SHARD_ROWS = _registry.gauge(
+    "pio_store_shard_rows",
+    "Rows written minus deleted per shard by THIS process since the "
+    "store opened — the write-skew indicator, not a table count",
+    labels=("shard",),
+)
+
+# pio-pilot (sessions + self-driving experiments) families: the
+# nextitem engine's transition store books every event folded through
+# the sessionizer and keeps the resident transition-pair count live,
+# the autopilot publishes its SPRT log-likelihood-ratio walk per
+# (app, variant-pair) plus a decision counter (ramp / veto / conclude /
+# hold), and the online-eval aggregator exposes how far its incremental
+# conversion cursor trails the store's high water mark.
+SESSION_EVENTS_TOTAL = _registry.counter(
+    "pio_session_events_total",
+    "Events folded through the gap-based sessionizer into a nextitem "
+    "transition store (per app id)",
+    labels=("app",),
+)
+SESSION_TRANSITIONS = _registry.gauge(
+    "pio_session_transitions",
+    "Distinct (prev-item, next-item) transition pairs resident in a "
+    "nextitem transition store (per app id)",
+    labels=("app",),
+)
+EXPERIMENT_LLR = _registry.gauge(
+    "pio_experiment_llr",
+    "Autopilot SPRT log-likelihood-ratio walk position for one app's "
+    "provisional leader vs the best challenger (crosses the upper "
+    "threshold = leader's lift is significant)",
+    labels=("app", "variant"),
+)
+EXPERIMENT_DECISIONS_TOTAL = _registry.counter(
+    "pio_experiment_decisions_total",
+    "Autopilot controller decisions per app "
+    "(decision=ramp|veto|conclude|hold)",
+    labels=("app", "decision"),
+)
+EXPERIMENT_STATE = _registry.gauge(
+    "pio_experiment_state",
+    "Autopilot experiment phase per app "
+    "(0=collecting, 1=ramping, 2=concluded, 3=frozen-by-guardrail)",
+    labels=("app",),
+)
+ONLINE_EVAL_CURSOR_LAG = _registry.gauge(
+    "pio_online_eval_cursor_lag",
+    "Event-store rows written past the online-eval conversion scan "
+    "cursor (per app) — how stale the variant outcome table is",
+    labels=("app",),
+)
+
+# pio-levee: the fault-isolated multi-process ingest edge — per-shard
+# group-commit WAL (append + fsync before 2xx, batched sqlite commits
+# off the request path) plus the router's worker-health view.
+WAL_FSYNC_SECONDS = _registry.histogram(
+    "pio_wal_fsync_seconds",
+    "Ingest WAL group-commit flush latency (serialize + append + "
+    "fsync for one leader's group, all touched shard logs)",
+    buckets=log_buckets(1e-5, 10.0, per_decade=4),
+)
+WAL_COMMIT_ROWS = _registry.histogram(
+    "pio_wal_commit_rows",
+    "Rows per batched sqlite commit drained from the ingest WAL "
+    "(bigger batches = the amortization the WAL exists for)",
+    buckets=(1, 10, 50, 100, 250, 500, 1000, 2500, 5000, 10000,
+             25000, 50000),
+)
+WAL_BACKLOG_ROWS = _registry.gauge(
+    "pio_wal_backlog_rows",
+    "Acknowledged (fsynced) rows not yet committed into sqlite — the "
+    "crash-replay exposure window, bounded by the commit interval",
+)
+WAL_REPLAYED_TOTAL = _registry.counter(
+    "pio_wal_replayed_total",
+    "WAL records replayed into sqlite at startup per shard "
+    "(at-least-once: INSERT OR REPLACE dedups by event id)",
+    labels=("shard",),
+)
+INGEST_WORKER_UP = _registry.gauge(
+    "pio_ingest_worker_up",
+    "Ingest-router view of one shard-owner worker (1 healthy, 0 down)",
+    labels=("worker",),
+)
+INGEST_FORWARD_SECONDS = _registry.histogram(
+    "pio_ingest_forward_seconds",
+    "Ingest-router forward round trip to a shard-owner worker",
+    buckets=log_buckets(1e-4, 60.0, per_decade=4),
+)
+INGEST_SHARD_UNAVAILABLE_TOTAL = _registry.counter(
+    "pio_ingest_shard_unavailable_total",
+    "Writes refused with a structured 503 because the owning shard "
+    "was down (per shard — the one-shard-down blast-radius meter)",
+    labels=("shard",),
+)
+
+# materialize the unlabeled children now: a histogram family without a
+# child renders no bucket ladder, and the schema contract is that every
+# process's first scrape already shows the full (zero-valued) shape
+QUERY_LATENCY.child()
+EVENT_WRITE_LATENCY.child()
+FOLDIN_EVENTS_TOTAL.child()
+MODEL_FRESHNESS_SECONDS.child()
+FOLDIN_WATERMARK_LAG.child()
+WAL_FSYNC_SECONDS.child()
+WAL_COMMIT_ROWS.child()
+TENANT_PLACEMENT_BALANCE.child()
+
+
+@contextlib.contextmanager
+def phase_span(name: str, attrs: Optional[dict] = None) -> Iterator[dict]:
+    """Record one workflow phase BOTH ways: a span in the tracer (trace
+    correlation) and an observation in ``pio_train_phase_seconds``
+    (run-over-run comparability — iALS++-style solver sweeps are only
+    comparable when every run emits the same metric schema)."""
+    t0 = time.perf_counter()
+    with _tracer.span(name, attrs) as a:
+        yield a
+    TRAIN_PHASE_SECONDS.labels(phase=name).observe(
+        time.perf_counter() - t0
+    )
+
+
+# pio-xray (build/device observability + slow-query flight recorder)
+# and pio-pulse (request-lifecycle timeline decomposition) import last:
+# these modules read this package's shared registry/tracer via
+# ``from . import ...`` and register their metric families at import,
+# so every process's first scrape carries the full schema.  None
+# imports torch at module level.
+from . import fleet, runlog, scope, timeline, tower, xray  # noqa: E402
+from .flight import FlightRecorder, get_flight_recorder  # noqa: E402
+
+__all__ += [
+    "FlightRecorder",
+    "fleet",
+    "get_flight_recorder",
+    "runlog",
+    "scope",
+    "set_cluster_renderer",
+    "timeline",
+    "tower",
+    "xray",
+]

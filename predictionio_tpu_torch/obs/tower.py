@@ -1,0 +1,645 @@
+"""pio-tower: cluster-aggregated training observability.
+
+The third leg of the observability stack (serving: pulse, compiler:
+xray, **training: tower**).  Training was the one distributed workload
+with no aggregation and no persistence — N worker processes each held
+an isolated metrics registry and the only record of a 135 s TPU train
+was the training log.  Port of ``predictionio_tpu/obs/tower.py``, the
+same manifests and watchdog.  This module owns:
+
+* **The run session** — :class:`TowerSession`: created by
+  ``workflow.train.run_train`` / ``workflow.evaluate.run_evaluation``
+  around one run, it writes the persistent run manifest
+  (:mod:`.runlog`), keeps the live progress snapshot that
+  ``GET /debug/train`` serves (sweep i/N, phase split, ETA, loss,
+  per-shard lag), and drives the convergence watchdog.  The ALS sweep
+  loop reports into whatever session is active via
+  :func:`record_sweep` — models/ code never imports workflow/ code.
+* **The convergence watchdog** — :class:`Watchdog`: NaN/Inf factors,
+  loss divergence over a sliding window, and a stalled-sweep
+  wall-clock limit each convert a doomed train into a LOUD typed
+  :class:`ConvergenceError` with the manifest finalized and
+  ``pio_train_aborts_total{reason}`` booked — instead of 20 more
+  sweeps of garbage followed by a confusing save.
+* **The cluster aggregator** — :class:`RegistryPublisher` /
+  :class:`ClusterAggregator`: in multi-process runs every worker
+  serializes its registry snapshot into the coordination dir each
+  sweep (atomic tmp+rename, the multihost-harness rendezvous
+  contract); worker 0 merges them — counters sum, gauges gain a
+  ``{worker}`` label, histograms add bucket-wise
+  (:func:`..registry.merge_states`) — into its own ``/metrics``
+  (via :func:`obs.set_cluster_renderer`) and into the manifest.  A
+  worker that dies mid-run leaves its last published snapshot
+  standing, so the aggregate stays consistent.
+
+Always-on sweep telemetry (``pio_train_sweeps_total``,
+``pio_train_last_sweep_seconds``, per-phase sweep-granularity times)
+is booked here too, session or not — a bare ``ALSTrainer.run`` in a
+notebook still shows up on ``/metrics``.
+
+Torch-free at module level (the pio-obs contract); device touches
+(memory high-water sampling through ``xray``) import lazily and never
+raise into the sweep loop.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+from . import get_registry, log_buckets, set_cluster_renderer
+from .registry import merge_states, render_state
+from .runlog import RunManifest, list_runs, summarize
+
+__all__ = [
+    "ClusterAggregator",
+    "ConvergenceError",
+    "RegistryPublisher",
+    "TowerSession",
+    "Watchdog",
+    "active_session",
+    "note_shard_event",
+    "record_candidate",
+    "record_sweep",
+    "train_payload",
+]
+
+_registry = get_registry()
+
+TRAIN_SWEEPS_TOTAL = _registry.counter(
+    "pio_train_sweeps_total",
+    "Completed ALS training sweeps (one user half + one item half)",
+)
+TRAIN_LAST_SWEEP_SECONDS = _registry.gauge(
+    "pio_train_last_sweep_seconds",
+    "Wall seconds of the most recent completed training sweep",
+)
+TRAIN_ABORTS_TOTAL = _registry.counter(
+    "pio_train_aborts_total",
+    "Training runs aborted by the convergence watchdog, by reason "
+    "(nan_factors/nan_loss/divergence/stalled_sweep)",
+    labels=("reason",),
+)
+TRAIN_LOSS = _registry.gauge(
+    "pio_train_loss",
+    "Most recent per-sweep training loss (RMSE over the staged COO)",
+)
+TOWER_PUBLISHES_TOTAL = _registry.counter(
+    "pio_tower_publishes_total",
+    "Per-sweep registry snapshots published into the coordination dir "
+    "(multi-worker runs)",
+)
+TRAIN_SWEEP_SECONDS = _registry.histogram(
+    "pio_train_sweep_seconds",
+    "Training sweep wall time (always-on, sweep granularity)",
+    buckets=log_buckets(1e-3, 10000.0, per_decade=4),
+)
+
+TRAIN_SWEEPS_TOTAL.child()
+TRAIN_LAST_SWEEP_SECONDS.child()
+TRAIN_LOSS.child()
+TRAIN_SWEEP_SECONDS.child()
+
+
+class ConvergenceError(RuntimeError):
+    """Typed watchdog abort.  ``reason`` is machine-readable (it labels
+    ``pio_train_aborts_total`` and the manifest's final record)."""
+
+    def __init__(self, reason: str, message: str):
+        super().__init__(message)
+        self.reason = reason
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+class Watchdog:
+    """Convergence checks the sweep loop runs after every sweep.
+
+    * ``nan_check`` — a non-finite factor table (or loss) aborts with
+      reason ``nan_factors`` / ``nan_loss``; the finiteness flag is
+      computed by the trainer (this module stays torch-free).
+    * ``divergence`` — loss strictly increasing across
+      ``divergence_window`` consecutive observations AND the window's
+      last/first ratio >= ``divergence_ratio`` aborts with reason
+      ``divergence`` (a λ too small blows up smoothly, not via NaN).
+    * ``stall`` — one sweep's wall time above ``stall_limit_s`` aborts
+      with reason ``stalled_sweep`` (default off; env
+      ``PIO_TPU_TOWER_STALL_S`` arms it fleet-wide).
+    """
+
+    def __init__(self, nan_check: bool = True,
+                 divergence_window: int = 5,
+                 divergence_ratio: float = 2.0,
+                 stall_limit_s: Optional[float] = None):
+        if divergence_window < 2:
+            raise ValueError("divergence_window must be >= 2")
+        self.nan_check = nan_check
+        self.divergence_window = divergence_window
+        self.divergence_ratio = divergence_ratio
+        self.stall_limit_s = (
+            stall_limit_s if stall_limit_s is not None
+            else _env_float("PIO_TPU_TOWER_STALL_S", 0.0)
+        )
+        self._losses: list[float] = []
+
+    def reset_losses(self) -> None:
+        """New model, new window — an eval session trains one model
+        per candidate, and losses across candidates must not form a
+        fake divergence ramp."""
+        self._losses = []
+
+    def check(self, sweep_index: int, seconds: float,
+              loss: Optional[float], factors_finite: bool) -> None:
+        if self.nan_check and not factors_finite:
+            raise ConvergenceError(
+                "nan_factors",
+                f"sweep {sweep_index}: factor tables contain NaN/Inf — "
+                "aborting instead of iterating on garbage",
+            )
+        if loss is not None:
+            if not math.isfinite(loss):
+                raise ConvergenceError(
+                    "nan_loss",
+                    f"sweep {sweep_index}: training loss is {loss}",
+                )
+            self._losses.append(float(loss))
+            w = self.divergence_window
+            if len(self._losses) >= w:
+                tail = self._losses[-w:]
+                increasing = all(
+                    b > a for a, b in zip(tail, tail[1:])
+                )
+                if increasing and tail[-1] >= tail[0] * self.divergence_ratio:
+                    raise ConvergenceError(
+                        "divergence",
+                        f"sweep {sweep_index}: loss rose "
+                        f"{w} sweeps in a row "
+                        f"({tail[0]:.4g} -> {tail[-1]:.4g}, "
+                        f">= {self.divergence_ratio}x) — diverging",
+                    )
+        if self.stall_limit_s and seconds > self.stall_limit_s:
+            raise ConvergenceError(
+                "stalled_sweep",
+                f"sweep {sweep_index} took {seconds:.1f}s "
+                f"(limit {self.stall_limit_s:.1f}s) — stalled",
+            )
+
+
+# -- cluster aggregation -----------------------------------------------------
+
+_SNAP_PREFIX = "tower-metrics-w"
+
+
+class RegistryPublisher:
+    """One worker's side of the aggregation: serialize the process
+    registry into the coordination dir, atomically (tmp + rename —
+    the same publish discipline the harness's coordinator rendezvous
+    and the sharded-COO exchange use), once per sweep."""
+
+    def __init__(self, coord_dir: os.PathLike | str, worker: int,
+                 registry=None):
+        self.dir = Path(coord_dir)
+        self.worker = int(worker)
+        self._registry = registry or get_registry()
+        self._seq = 0
+        self.path = self.dir / f"{_SNAP_PREFIX}{self.worker}.json"
+
+    def publish(self) -> None:
+        import json
+
+        self._seq += 1
+        doc = {
+            "worker": self.worker,
+            "seq": self._seq,
+            "at": time.time(),
+            "pid": os.getpid(),
+            "state": self._registry.dump_state(),
+        }
+        try:
+            self.dir.mkdir(parents=True, exist_ok=True)
+            tmp = self.path.with_suffix(f".tmp{os.getpid()}")
+            tmp.write_text(json.dumps(doc), encoding="utf-8")
+            tmp.rename(self.path)
+            TOWER_PUBLISHES_TOTAL.child().inc()
+        except OSError:
+            pass  # telemetry publish must never fail the sweep
+
+
+class ClusterAggregator:
+    """Worker 0's side: read every worker's newest snapshot and merge
+    it with the LIVE local registry (worker 0's own numbers are always
+    current; its published file exists only so an external merger could
+    read all N).  Snapshots are cumulative, so a worker that stops
+    publishing (died) contributes its last state — the aggregate never
+    goes backwards and never loses a dead worker's counts."""
+
+    def __init__(self, coord_dir: os.PathLike | str,
+                 local_worker: int = 0, registry=None):
+        self.dir = Path(coord_dir)
+        self.local_worker = int(local_worker)
+        self._registry = registry or get_registry()
+        self._cache: dict[int, dict] = {}
+
+    def _read_snapshots(self) -> dict[int, dict]:
+        import json
+
+        try:
+            files = sorted(self.dir.glob(f"{_SNAP_PREFIX}*.json"))
+        except OSError:
+            files = []
+        for f in files:
+            try:
+                w = int(f.stem[len(_SNAP_PREFIX):])
+            except ValueError:
+                continue
+            if w == self.local_worker:
+                continue
+            try:
+                doc = json.loads(f.read_text(encoding="utf-8"))
+                self._cache[w] = doc
+            except (OSError, ValueError):
+                continue  # torn/unreadable: keep the cached snapshot
+        return dict(self._cache)
+
+    def workers_seen(self) -> list:
+        snaps = self._read_snapshots()
+        return sorted({self.local_worker, *snaps})
+
+    def merged_state(self) -> dict:
+        snaps = self._read_snapshots()
+        tagged = [(self.local_worker, self._registry.dump_state())]
+        tagged += [
+            (w, snaps[w]["state"]) for w in sorted(snaps)
+        ]
+        return merge_states(tagged)
+
+    def render(self) -> str:
+        return render_state(self.merged_state())
+
+
+# -- the run session ---------------------------------------------------------
+
+_active_lock = threading.Lock()
+_active: Optional["TowerSession"] = None
+
+
+def active_session() -> Optional["TowerSession"]:
+    return _active
+
+
+def _set_active(session: Optional["TowerSession"]) -> None:
+    global _active
+    with _active_lock:
+        _active = session
+
+
+class TowerSession:
+    """Observability lifecycle of ONE training/evaluation run.
+
+    Chief (worker 0) owns the manifest; every worker of a multi-worker
+    run publishes registry snapshots; the chief additionally installs
+    the cluster renderer so its ``/metrics`` shows cluster-wide sums
+    while the run is live.  Use as::
+
+        session = TowerSession(iid, sweeps_planned=cfg.num_iterations)
+        session.start()
+        try:
+            ...   # sweep loop calls tower.record_sweep(...)
+            session.finalize("completed")
+        except BaseException as e:
+            session.finalize_error(e)
+            raise
+    """
+
+    def __init__(self, instance_id: str, kind: str = "train",
+                 meta: Optional[dict] = None,
+                 sweeps_planned: Optional[int] = None,
+                 worker: int = 0, n_workers: int = 1,
+                 coord_dir: Optional[os.PathLike | str] = None,
+                 watchdog: Optional[Watchdog] = None,
+                 manifest_root: Optional[os.PathLike | str] = None,
+                 loss_value=None):
+        self.instance_id = instance_id
+        self.kind = kind
+        self.worker = int(worker)
+        self.n_workers = int(n_workers)
+        self.chief = self.worker == 0
+        self.watchdog = watchdog if watchdog is not None else Watchdog()
+        self.sweeps_planned = sweeps_planned
+        self.loss_value = loss_value  # tests inspect the knob
+        self._lock = threading.Lock()
+        self._t0 = time.perf_counter()
+        self._start_wall = time.time()
+        self._sweep = 0
+        self._phase_totals: dict[str, float] = {}
+        self._sweep_seconds_total = 0.0
+        self._loss_history: list[tuple[int, float]] = []
+        self._pending_events: list[dict] = []
+        self._events_total = 0
+        self._last_sweep: Optional[dict] = None
+        self._watch_source = None
+        self._first_sweep_start: Optional[float] = None
+        self._last_sweep_end: Optional[float] = None
+        self._train_run_seconds: Optional[float] = None
+        self._train_run_end: Optional[float] = None
+        self._finalized = False
+        self._compile_base = _compile_total()
+        self.manifest: Optional[RunManifest] = None
+        if self.chief:
+            self.manifest = RunManifest(
+                instance_id, kind=kind, root=manifest_root,
+                meta={
+                    "sweepsPlanned": sweeps_planned,
+                    "workers": self.n_workers,
+                    **(meta or {}),
+                },
+            )
+        self._publisher: Optional[RegistryPublisher] = None
+        self._aggregator: Optional[ClusterAggregator] = None
+        if coord_dir is not None and self.n_workers > 1:
+            self._publisher = RegistryPublisher(coord_dir, self.worker)
+            if self.chief:
+                self._aggregator = ClusterAggregator(
+                    coord_dir, local_worker=self.worker,
+                )
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self) -> "TowerSession":
+        _set_active(self)
+        if self._aggregator is not None:
+            set_cluster_renderer(self._aggregator.render)
+        return self
+
+    def set_sweeps_planned(self, n: int) -> None:
+        """The trainer declares the sweep budget once it knows it (the
+        workflow layer can't — iteration counts are algorithm params).
+        The header was already written, so the plan lands as an event
+        record; readers fall back to it."""
+        with self._lock:
+            if self.sweeps_planned is not None:
+                return
+            self.sweeps_planned = int(n)
+        if self.manifest is not None:
+            self.manifest.event("plan", sweepsPlanned=int(n))
+
+    def wants_finite_check(self) -> bool:
+        return self.watchdog.nan_check
+
+    # -- per-sweep ---------------------------------------------------------
+    def record_sweep(self, seconds: float, phases: dict,
+                     loss: Optional[float] = None,
+                     factors_finite: bool = True,
+                     source=None) -> None:
+        """Book one completed sweep: manifest record, progress state,
+        cluster publish, then the watchdog verdict (raising
+        :class:`ConvergenceError` AFTER the evidence is persisted, so
+        an aborted run's manifest shows the sweep that killed it).
+
+        ``source`` identifies the trainer reporting (eval sessions see
+        many): a source change resets the watchdog's divergence window
+        — one trainer's chunked run() calls share a window, two
+        candidates' models never do."""
+        mark = time.perf_counter()
+        with self._lock:
+            if source is not None and source != self._watch_source:
+                self._watch_source = source
+                self.watchdog.reset_losses()
+            self._sweep += 1
+            i = self._sweep
+            if self._first_sweep_start is None:
+                self._first_sweep_start = mark - seconds
+            self._last_sweep_end = mark
+            self._sweep_seconds_total += seconds
+            for k, v in phases.items():
+                self._phase_totals[k] = self._phase_totals.get(k, 0.0) + v
+            if loss is not None and math.isfinite(loss):
+                self._loss_history.append((i, float(loss)))
+                del self._loss_history[:-256]
+            events, self._pending_events = self._pending_events, []
+            self._events_total += len(events)
+            extras = {}
+            hw = _device_high_water()
+            if hw is not None:
+                extras["deviceMemHighWater"] = hw
+            delta = _compile_total() - self._compile_base
+            self._compile_base += delta
+            extras["compileDelta"] = delta
+            if loss is not None:
+                extras["loss"] = loss
+            if events:
+                extras["shardEvents"] = events
+            self._last_sweep = {
+                "i": i, "seconds": seconds,
+                "phases": dict(phases), **extras,
+            }
+        if self.manifest is not None:
+            self.manifest.sweep(i, round(seconds, 6), phases, **extras)
+        if self._publisher is not None:
+            self._publisher.publish()
+        try:
+            self.watchdog.check(i, seconds, loss, factors_finite)
+        except ConvergenceError as e:
+            self._abort(e)
+            raise
+
+    def note_shard_event(self, event: dict) -> None:
+        """A degradation event from ``ShardHealth`` (parity serve,
+        sticky kill): queued onto the next sweep record AND appended
+        to the manifest immediately (a stalled run may never reach
+        its next sweep record)."""
+        with self._lock:
+            self._pending_events.append(dict(event))
+        if self.manifest is not None:
+            self.manifest.event("shard_degraded", **event)
+
+    def note_train_run(self, seconds: float) -> None:
+        """The workflow layer reports the ``train.run`` span's wall
+        time (read + prepare + staging + sweeps).  With the sweep
+        marks this decomposes the whole span in the final record:
+        setup (span start -> first sweep) + sweeps + tail (last sweep
+        -> span end) — the cross-layer reconciliation
+        ``tools/train_obs_smoke.py`` asserts to 2%."""
+        with self._lock:
+            self._train_run_seconds = float(seconds)
+            self._train_run_end = time.perf_counter()
+
+    # -- terminal ----------------------------------------------------------
+    def _abort(self, e: ConvergenceError) -> None:
+        TRAIN_ABORTS_TOTAL.labels(reason=e.reason).inc()
+        if self.manifest is not None:
+            self.manifest.event("watchdog_abort", reason=e.reason,
+                                message=str(e))
+        self.finalize("aborted", reason=e.reason, error=str(e))
+
+    def finalize_error(self, exc: BaseException) -> None:
+        """Terminal record for a run dying on an arbitrary exception.
+        A :class:`ConvergenceError` was already finalized by
+        :meth:`record_sweep`; anything else is ``failed``."""
+        if isinstance(exc, ConvergenceError):
+            self.finalize("aborted", reason=exc.reason, error=str(exc))
+        else:
+            self.finalize("failed", error=f"{type(exc).__name__}: {exc}")
+
+    def finalize(self, status: str = "completed", **fields) -> None:
+        with self._lock:
+            if self._finalized:
+                return
+            self._finalized = True
+            totals = dict(self._phase_totals)
+            sweeps = self._sweep
+            wall = time.perf_counter() - self._t0
+            if self._train_run_seconds is not None:
+                fields.setdefault(
+                    "trainRunSeconds", round(self._train_run_seconds, 6)
+                )
+            if self._first_sweep_start is not None:
+                fields.setdefault("setupSeconds", round(
+                    self._first_sweep_start - self._t0, 6))
+                end = self._train_run_end
+                if end is not None and self._last_sweep_end is not None:
+                    fields.setdefault("tailSeconds", round(
+                        max(end - self._last_sweep_end, 0.0), 6))
+            fields.setdefault(
+                "sweepSecondsTotal", round(self._sweep_seconds_total, 6)
+            )
+        if self._aggregator is not None and self.manifest is not None:
+            try:
+                self.manifest.metrics(
+                    self._aggregator.merged_state(),
+                    workers=self._aggregator.workers_seen(),
+                )
+            except ValueError:
+                pass  # schema drift across workers must not mask status
+        if self.manifest is not None:
+            self.manifest.finalize(
+                status,
+                sweeps=sweeps,
+                wallSeconds=round(wall, 6),
+                phaseTotals={k: round(v, 6) for k, v in totals.items()},
+                **fields,
+            )
+        if active_session() is self:
+            _set_active(None)
+        if self._aggregator is not None:
+            set_cluster_renderer(None)
+
+    # -- live view ---------------------------------------------------------
+    def snapshot(self) -> dict:
+        with self._lock:
+            sweeps = self._sweep
+            planned = self.sweeps_planned
+            mean = (
+                self._sweep_seconds_total / sweeps if sweeps else None
+            )
+            eta = (
+                mean * (planned - sweeps)
+                if mean is not None and planned and planned > sweeps
+                else None
+            )
+            return {
+                "instanceId": self.instance_id,
+                "runKind": self.kind,
+                "startedAt": self._start_wall,
+                "elapsedSeconds": round(
+                    time.perf_counter() - self._t0, 3),
+                "sweep": sweeps,
+                "sweepsPlanned": planned,
+                "etaSeconds": round(eta, 3) if eta is not None else None,
+                "lastSweep": self._last_sweep,
+                "meanSweepSeconds": (
+                    round(mean, 6) if mean is not None else None
+                ),
+                "phaseTotals": {
+                    k: round(v, 6)
+                    for k, v in sorted(self._phase_totals.items())
+                },
+                "lossHistory": self._loss_history[-32:],
+                "shardEvents": self._events_total,
+                "worker": self.worker,
+                "workers": self.n_workers,
+            }
+
+
+# -- module-level hooks (what models/als.py calls) ---------------------------
+
+
+def record_sweep(seconds: float, phases: dict,
+                 loss: Optional[float] = None,
+                 factors_finite: bool = True,
+                 source=None) -> None:
+    """The sweep loop's single reporting call.  Always-on metrics are
+    booked session-or-not; with an active session the sweep also lands
+    in the manifest / progress view / watchdog.  May raise
+    :class:`ConvergenceError` (the typed abort) — the trainer lets it
+    propagate."""
+    TRAIN_SWEEPS_TOTAL.child().inc()
+    TRAIN_LAST_SWEEP_SECONDS.child().set(seconds)
+    TRAIN_SWEEP_SECONDS.child().observe(seconds)
+    if loss is not None and math.isfinite(loss):
+        TRAIN_LOSS.child().set(loss)
+    session = active_session()
+    if session is not None:
+        session.record_sweep(
+            seconds, phases, loss=loss, factors_finite=factors_finite,
+            source=source,
+        )
+
+
+def note_shard_event(event: dict) -> None:
+    session = active_session()
+    if session is not None:
+        session.note_shard_event(event)
+
+
+def record_candidate(index: int, **fields) -> None:
+    """One evaluation candidate scored (eval-run manifests)."""
+    session = active_session()
+    if session is not None and session.manifest is not None:
+        session.manifest.candidate(index, **fields)
+
+
+def train_payload() -> dict:
+    """The ``GET /debug/train`` document: the in-process live session
+    (if this process is training) plus manifest history from disk —
+    including OTHER processes' live runs, whose manifests grow by one
+    line per sweep, so a dashboard next to a training job is live
+    without any extra port on the trainer."""
+    session = active_session()
+    runs = []
+    for view in list_runs(limit=20):
+        runs.append(summarize(view))
+    return {
+        "active": session.snapshot() if session is not None else None,
+        "runs": runs,
+    }
+
+
+# -- lazy device/compiler reads (never raise into the sweep loop) -----------
+
+
+def _compile_total() -> int:
+    try:
+        from .xray import total_backend_compiles
+
+        return total_backend_compiles()
+    except Exception:
+        return 0
+
+
+def _device_high_water() -> Optional[int]:
+    try:
+        from .xray import device_high_water, sample_devices_once
+
+        sample_devices_once()
+        return device_high_water()
+    except Exception:
+        return None

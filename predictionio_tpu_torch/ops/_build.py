@@ -41,10 +41,13 @@ import shutil
 import struct
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
 import torch
+
+from ..obs import xray
 
 __all__ = [
     "ARG_STRUCTS",
@@ -157,6 +160,7 @@ def _build_locked(force: bool) -> Path:
         and stamp.read_text() == digest
     ):
         return lib_path
+    t0 = time.perf_counter()
     nvcc = nvcc_path()
     procs = []
     for src in _sources():
@@ -188,6 +192,8 @@ def _build_locked(force: bool) -> Path:
             f"CUDA kernel build failed ({', '.join(failed)}):\n"
             + "\n".join(log)
         )
+    # a build that really ran: pio_jit_compiles_total / _seconds
+    xray.note_build(time.perf_counter() - t0)
     return lib_path
 
 

@@ -23,24 +23,33 @@ statuses and bodies, write retries answering 503 + Retry-After, the
 group-commit ingest WAL (``wal_dir``), the TTL purge and compaction
 timers, and the shard-owner mode of an ingest fleet (``owned_shards``:
 writes to any other shard of the sharded store answer a structured 503
-``ShardUnavailable``).  Not ported yet (ROADMAP Queue 1 item 2): the
-``/metrics`` and ``/debug`` mounts (404), the tracer, timeline and
-burn-rate hooks (``obs/``) and the fault-injection points
-(``resilience/faults.py``): a server started with ``PIO_FAULT_PLAN`` in
-its environment raises ``NotImplementedError``.
+``ShardUnavailable``), with the reference's observability (``/metrics``
+and ``/debug/*``, ``events.write`` spans carrying a propagated
+``X-PIO-Trace`` id, the ingest timeline, ``--slo-ms`` burn rates) and
+its fault-injection points ``storage.write`` and ``storage.read``
+(``PIO_FAULT_PLAN``).  The server never touches the card.
 """
 
 from __future__ import annotations
 
 import json
 import logging
-import os
 import sqlite3
 import threading
 import time
 import urllib.parse
 from typing import Any, Optional
 
+from ..obs import (
+    EVENT_WRITE_LATENCY,
+    INGEST_SHARD_UNAVAILABLE_TOTAL,
+    fleet,
+    get_tracer,
+    scope,
+    timeline,
+    trace_scope,
+)
+from ..resilience import faults
 from ..resilience.policy import RetryPolicy
 from ..storage.event import (
     Event,
@@ -77,7 +86,8 @@ class EventServerConfig:
                  owned_shards: Optional[list[int]] = None,
                  ttl_s: Optional[float] = None,
                  compact_interval_s: Optional[float] = None,
-                 maintenance_interval_s: float = 30.0):
+                 maintenance_interval_s: float = 30.0,
+                 slo_ms: Optional[float] = None):
         self.host = host
         self.port = port
         self.stats = stats
@@ -103,6 +113,10 @@ class EventServerConfig:
         self.ttl_s = ttl_s
         self.compact_interval_s = compact_interval_s
         self.maintenance_interval_s = maintenance_interval_s
+        # ingest write-latency SLO (ms): arms pio_slo_burn_rate{window}
+        # on the event-write histogram, the same multi-window burn
+        # gauges the serving edge carries (pio-sentry)
+        self.slo_ms = slo_ms
 
 
 class AuthError(Exception):
@@ -121,12 +135,6 @@ class EventServer(HTTPServerBase):
                  config: Optional[EventServerConfig] = None):
         self.storage = storage or get_storage()
         self.config = config or EventServerConfig()
-        if os.environ.get("PIO_FAULT_PLAN"):
-            raise NotImplementedError(
-                "PIO_FAULT_PLAN: the fault-injection points "
-                "(resilience/faults.py) are not ported to "
-                "predictionio_tpu_torch yet (ROADMAP Queue 1 item 2)"
-            )
         self.stats = StatsCollector() if self.config.stats else None
         self.write_retry = RetryPolicy(
             max_attempts=self.config.write_retries,
@@ -156,6 +164,14 @@ class EventServer(HTTPServerBase):
                 name="events-maintenance", daemon=True,
             )
             self._maint_thread.start()
+        # pio-sentry on the write edge: --slo-ms arms the multi-window
+        # burn-rate gauges over the event-write latency histogram
+        self._burn = None
+        if self.config.slo_ms:
+            self._burn = fleet.install_burn_rate(
+                EVENT_WRITE_LATENCY.child(), self.config.slo_ms / 1e3,
+            )
+        scope.ensure_started()
 
     def _note_retry(self, kind: str):
         def on_retry(attempt: int, exc: BaseException) -> None:
@@ -188,6 +204,7 @@ class EventServer(HTTPServerBase):
         next_compact = time.monotonic() + (
             self.config.compact_interval_s or float("inf")
         )
+        scope.register_thread_role("events_maintenance")
         while not self._maint_stop.wait(self.config.maintenance_interval_s):
             es = self.storage.get_event_store()
             try:
@@ -276,6 +293,7 @@ class EventServer(HTTPServerBase):
             # transient (sticky until restart/recovery) so the retry
             # policy passes it straight through to the 503 route.
             def put():
+                faults.check("storage.write")
                 eid = event.event_id or new_event_id()
                 self.wal.submit(
                     app_id, channel_id, [event_to_row(event, eid)]
@@ -283,12 +301,22 @@ class EventServer(HTTPServerBase):
                 return eid
         else:
             def put():
+                faults.check("storage.write")
                 return es.insert(event, app_id, channel_id)
 
-        return self.write_retry.call(
-            put, retry_on=TRANSIENT_STORAGE_ERRORS,
-            on_retry=self._note_retry("storage.write"),
-        )
+        # span + histogram cover the whole retried write: the client's
+        # view of how long ingestion held their request
+        t0 = time.perf_counter()
+        try:
+            return self.write_retry.call(
+                put, retry_on=TRANSIENT_STORAGE_ERRORS,
+                on_retry=self._note_retry("storage.write"),
+            )
+        finally:
+            dt = time.perf_counter() - t0
+            EVENT_WRITE_LATENCY.child().observe(dt)
+            get_tracer().record("events.write", dt,
+                                attrs={"event": event.event})
 
     @staticmethod
     def _find_kwargs(params: dict[str, list[str]]) -> dict[str, Any]:
@@ -347,9 +375,12 @@ class EventServer(HTTPServerBase):
                 })
 
             def _reply_503_shard(self, e: ShardUnavailableError):
-                """One shard is down (its ingest WAL broke): a
-                structured 503 naming the shard, with a Retry-After
-                sized for a restart rather than a lock blip."""
+                """One shard is down, the fleet is not: a structured
+                503 naming the shard, with a Retry-After sized for a
+                worker respawn rather than a lock blip."""
+                INGEST_SHARD_UNAVAILABLE_TOTAL.labels(
+                    shard=str(e.shard)
+                ).inc()
                 self.extra_headers = [("Retry-After", "2")]
                 self._reply(503, {
                     "message": str(e),
@@ -360,6 +391,13 @@ class EventServer(HTTPServerBase):
             # ---- POST ----
             def do_POST(self):
                 path = self._route()
+                # propagate (never mint) the trace id: ingestion is a
+                # downstream hop — ids are born at the serving edge or
+                # the client
+                with trace_scope(self._trace_id()):
+                    self._do_post(path)
+
+            def _do_post(self, path):
                 try:
                     if path == "/events.json":
                         self._post_event()
@@ -383,7 +421,11 @@ class EventServer(HTTPServerBase):
                     self._reply(500, {"message": str(e)})
 
             def _post_event(self):
+                # pulse ingest timeline (auth/parse/store_write/reply);
+                # only the 201 path observes
+                tl = timeline.Timeline("events")
                 app_id, channel_id, allowed = self._auth()
+                tl.mark("auth")
                 try:
                     event = Event.from_json(json.loads(self._body().decode()))
                 except (EventValidationError, json.JSONDecodeError,
@@ -391,6 +433,7 @@ class EventServer(HTTPServerBase):
                     self._book(app_id, 400)
                     self._reply(400, {"message": str(e)})
                     return
+                tl.mark("parse")
                 try:
                     eid = server.insert_event(event, app_id, channel_id, allowed)
                 except AuthError as e:
@@ -405,8 +448,11 @@ class EventServer(HTTPServerBase):
                     self._book(app_id, 503)
                     self._reply_503(e)
                     return
+                tl.mark("store_write")
                 self._book(app_id, 201, event)
                 self._reply(201, {"eventId": eid})
+                tl.mark("reply")
+                tl.finish()
 
             def _post_batch(self):
                 """Batch insert: per-event status
@@ -461,6 +507,7 @@ class EventServer(HTTPServerBase):
                     vids = [e.event_id or next(fresh) for _, e in valid]
 
                     def put_batch():
+                        faults.check("storage.write")
                         server.wal.submit(
                             app_id, channel_id,
                             [event_to_row(e, eid)
@@ -469,16 +516,28 @@ class EventServer(HTTPServerBase):
                         return vids
                 else:
                     def put_batch():
+                        faults.check("storage.write")
                         return es.insert_batch(
                             [e for _, e in valid], app_id, channel_id,
                             validate=False,
                         )
 
+                def timed_put_batch():
+                    t0 = time.perf_counter()
+                    try:
+                        return server.write_retry.call(
+                            put_batch, retry_on=TRANSIENT_STORAGE_ERRORS,
+                            on_retry=server._note_retry("storage.write"),
+                        )
+                    finally:
+                        dt = time.perf_counter() - t0
+                        EVENT_WRITE_LATENCY.child().observe(dt)
+                        get_tracer().record(
+                            "events.write", dt, attrs={"n": len(valid)}
+                        )
+
                 try:
-                    ids = server.write_retry.call(
-                        put_batch, retry_on=TRANSIENT_STORAGE_ERRORS,
-                        on_retry=server._note_retry("storage.write"),
-                    ) if valid else []
+                    ids = timed_put_batch() if valid else []
                 except ShardUnavailableError:
                     # one shard refused the whole-batch submit (which
                     # guards every row before logging any, so nothing
@@ -540,6 +599,9 @@ class EventServer(HTTPServerBase):
                             )
                     except ShardUnavailableError as e2:
                         down.append(six)
+                        INGEST_SHARD_UNAVAILABLE_TOTAL.labels(
+                            shard=str(six)
+                        ).inc(len(group))
                         for k, _ in group:
                             self._book(app_id, 503)
                             results[k] = {
@@ -590,6 +652,8 @@ class EventServer(HTTPServerBase):
 
             # ---- GET ----
             def do_GET(self):
+                if self._serve_metrics():
+                    return
                 path = self._route()
                 try:
                     if path == "/":
@@ -626,9 +690,10 @@ class EventServer(HTTPServerBase):
                     self._reply(500, {"message": str(e)})
 
             def _scan(self, app_id, fn):
-                """Run a storage read through the transient-error
-                retry policy."""
+                """Run a storage read through the injection point and
+                the transient-error retry policy."""
                 def read():
+                    faults.check("storage.read")
                     # read-your-writes under the WAL: a 201 means
                     # "fsynced", not "committed" — drain before scanning
                     # so this server's own GETs see their POSTs

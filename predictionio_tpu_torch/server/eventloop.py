@@ -18,9 +18,9 @@ The class exposes the ``server_address`` / ``serve_forever`` /
 so ``HTTPServerBase`` drives either edge through one lifecycle.
 
 Not supported: chunked transfer encoding (411), TLS and HTTP/2.  The
-reference's connection gauges (``HTTP_OPEN_CONNECTIONS``,
-``HTTP_CONN_REJECTED``) and the per-request timeline wait for the port
-of ``obs/``.
+edge books the reference's connection gauges (``HTTP_OPEN_CONNECTIONS``,
+``HTTP_CONN_REJECTED``) and finishes each request's pulse timeline once
+its response reached the socket.
 """
 
 from __future__ import annotations
@@ -32,6 +32,8 @@ import socket
 import threading
 import time
 from typing import Callable, Optional
+
+from ..obs import HTTP_CONN_REJECTED, HTTP_OPEN_CONNECTIONS
 
 __all__ = [
     "EventLoopHTTPServer",
@@ -82,7 +84,10 @@ class Responder:
     """One-shot response channel for a single request.
 
     ``respond()`` is thread-safe; a second call raises, since a handler
-    that answered twice has a logic bug worth surfacing."""
+    that answered twice has a logic bug worth surfacing.  ``tl`` (a pulse
+    Timeline) is optional; when given, the loop marks the ``write``
+    segment and finishes the timeline after the response bytes reach
+    the socket, so the segments still sum to the covered wall time."""
 
     __slots__ = ("_server", "_conn", "_done", "_lock")
 
@@ -94,7 +99,7 @@ class Responder:
 
     def __call__(self, code: int, payload,
                  ctype: str = "application/json",
-                 extra_headers=(), close: bool = False) -> None:
+                 extra_headers=(), tl=None, close: bool = False) -> None:
         with self._lock:
             if self._done:
                 raise RuntimeError("request already answered")
@@ -104,7 +109,7 @@ class Responder:
             else json.dumps(payload).encode()
         )
         data = self._server._render(code, body, ctype, extra_headers, close)
-        self._server._complete(self._conn, data, close)
+        self._server._complete(self._conn, data, tl, close)
 
 
 _REASONS = {
@@ -119,7 +124,7 @@ class _Conn:
     """Per-connection state: read buffer, parse state, write queue."""
 
     __slots__ = ("sock", "addr", "rbuf", "wbuf", "woff", "busy",
-                 "closing", "last_activity", "need", "registered")
+                 "closing", "tl", "last_activity", "need", "registered")
 
     def __init__(self, sock: socket.socket, addr):
         self.sock = sock
@@ -131,6 +136,7 @@ class _Conn:
         self.closing = False   # close once wbuf drains
         self.last_activity = time.monotonic()
         self.need = None       # (request head, content-length) mid-body
+        self.tl = None         # pulse timeline to finish after the write
         self.registered = selectors.EVENT_READ
 
 
@@ -163,13 +169,20 @@ class EventLoopHTTPServer:
         self._wake_r.setblocking(False)
         self._conns: set[_Conn] = set()
         self._pending_lock = threading.Lock()
-        self._pending: list[tuple[_Conn, bytes, bool]] = []
+        self._pending: list[tuple[_Conn, bytes, object, bool]] = []
         self._stop = threading.Event()
         self._stopped = threading.Event()
         self._loop_thread: Optional[threading.Thread] = None
+        self._m_open = HTTP_OPEN_CONNECTIONS.labels(server=name)
+        self._m_rejected = HTTP_CONN_REJECTED.labels(server=name)
 
     # -- BaseServer-compatible lifecycle -----------------------------------
     def serve_forever(self) -> None:
+        from ..obs import scope
+
+        # pio-scope: the loop thread's running share on /debug/pprof is
+        # the single-core ceiling evidence
+        scope.register_thread_role("eventloop")
         self._loop_thread = threading.current_thread()
         self._sel.register(self._lsock, selectors.EVENT_READ, "accept")
         self._sel.register(self._wake_r, selectors.EVENT_READ, "wake")
@@ -225,8 +238,9 @@ class EventLoopHTTPServer:
             pass
         with self._pending_lock:
             pending, self._pending = self._pending, []
-        for conn, data, close in pending:
+        for conn, data, tl, close in pending:
             if conn in self._conns:
+                conn.tl = tl
                 conn.closing = conn.closing or close
                 conn.wbuf.append(data)
                 self._writable(conn)
@@ -240,6 +254,7 @@ class EventLoopHTTPServer:
             if len(self._conns) >= self.max_connections:
                 # the structured overflow answer: a bounded edge sheds
                 # load visibly instead of queueing sockets to die
+                self._m_rejected.inc()
                 self._refuse(sock)
                 continue
             sock.setblocking(False)
@@ -249,6 +264,7 @@ class EventLoopHTTPServer:
                 pass
             conn = _Conn(sock, addr)
             self._conns.add(conn)
+            self._m_open.set(float(len(self._conns)))
             self._sel.register(sock, selectors.EVENT_READ, conn)
 
     def _refuse(self, sock: socket.socket) -> None:
@@ -281,6 +297,7 @@ class EventLoopHTTPServer:
         if conn not in self._conns:
             return
         self._conns.discard(conn)
+        self._m_open.set(float(len(self._conns)))
         try:
             self._sel.unregister(conn.sock)
         except (KeyError, ValueError, OSError):
@@ -409,17 +426,18 @@ class EventLoopHTTPServer:
         out.append("\r\n")
         return "".join(out).encode("iso-8859-1") + body
 
-    def _complete(self, conn: _Conn, data: bytes, close: bool) -> None:
+    def _complete(self, conn: _Conn, data: bytes, tl, close: bool) -> None:
         """Queue a rendered response; thread-safe (a Responder may fire
         from the batcher dispatcher or the aux pool)."""
         if threading.current_thread() is self._loop_thread:
             if conn in self._conns:
+                conn.tl = tl
                 conn.closing = conn.closing or close
                 conn.wbuf.append(data)
                 self._writable(conn)
             return
         with self._pending_lock:
-            self._pending.append((conn, data, close))
+            self._pending.append((conn, data, tl, close))
         self._wake()
 
     def _writable(self, conn: _Conn) -> None:
@@ -444,9 +462,14 @@ class EventLoopHTTPServer:
                 conn, selectors.EVENT_READ | selectors.EVENT_WRITE
             )
             return
-        # response fully flushed: either close the connection or look
-        # for the next pipelined request
+        # response fully flushed: close the request's timeline (the
+        # write segment ends at the last successful send) and either
+        # close the connection or look for the next pipelined request
         self._set_interest(conn, selectors.EVENT_READ)
+        if conn.tl is not None:
+            tl, conn.tl = conn.tl, None
+            tl.mark("write")
+            tl.finish()
         if conn.busy:
             conn.busy = False
             conn.last_activity = time.monotonic()

@@ -24,19 +24,24 @@ replay when its replacement boots).
   (sqlite files take cross-process readers freely — ownership gates
   writers).
 * **Health + respawn**: the router's health loop probes each worker's
-  ``GET /`` and feeds the `router.ReplicaSupervisor`, so a SIGKILLed
+  ``GET /``, scrapes its ``/metrics``, maintains
+  ``pio_ingest_worker_up{worker}`` and feeds the
+  `router.ReplicaSupervisor`, so a SIGKILLed
   worker respawns (same WAL dir → boot replay folds its acknowledged
   backlog into sqlite before the port announce).
-* **Federation**: ``GET /stats.json`` merges the workers' payloads via
-  `stats.merge_stats_payloads`, keeping a dead worker's last-good
-  payload standing so fleet counters are monotone through a death.
+* **Federation**: ``GET /metrics`` merges worker snapshots via
+  ``merge_states(gauge_label="worker")`` (counters and histograms sum
+  exactly, gauges gain ``{worker}``); ``GET /stats.json`` merges the
+  workers' payloads via `stats.merge_stats_payloads`.  Both keep a dead
+  worker's last-good snapshot standing, so fleet counters are monotone
+  through a death.
+* **Tracing**: every write carries an ``X-PIO-Trace`` id (the client's,
+  or one minted here) to its owner and back, and each routed write is
+  offered to the process flight recorder under its owner and shard.
 
 The router rides the event-loop edge: the loop thread parses and
 routes; every blocking upstream hop runs on a bounded pool.
 
-Not ported yet (ROADMAP Queue 1 item 2): the ``/metrics`` federation
-(``GET /metrics`` answers 404), the trace header, the flight recorder
-and the ``obs`` gauges.
 """
 
 from __future__ import annotations
@@ -52,7 +57,23 @@ from typing import Optional
 
 from ..storage.sharded_events import _shard_ix
 from .eventloop import EventLoopHTTPServer, callback_scope
-from .http_base import HTTPServerBase
+from ..obs import (
+    INGEST_FORWARD_SECONDS,
+    INGEST_SHARD_UNAVAILABLE_TOTAL,
+    INGEST_WORKER_UP,
+    TRACE_HEADER,
+    get_flight_recorder,
+    get_registry,
+    metrics_enabled,
+    new_trace_id,
+    scope,
+)
+from ..obs.registry import merge_states, render_state
+from .http_base import (
+    PROMETHEUS_CTYPE,
+    HTTPServerBase,
+    observability_response,
+)
 from .router import (
     Replica,
     ReplicaSupervisor,
@@ -112,6 +133,16 @@ class IngestWorker(Replica):
         # accessKey-scoped query string -> last good /stats.json body;
         # rebound whole per fetch, never mutated
         self.last_stats: dict[str, dict] = {}
+        self._m_worker_up = INGEST_WORKER_UP.labels(worker=name)
+        self._m_worker_up.set(1.0)
+
+    def mark_down(self, err: str) -> None:
+        super().mark_down(err)
+        self._m_worker_up.set(0.0)
+
+    def mark_up(self) -> None:
+        super().mark_up()
+        self._m_worker_up.set(1.0)
 
 
 class IngestRouterConfig:
@@ -160,6 +191,11 @@ class IngestRouterServer(HTTPServerBase):
         self.request_count = 0
         self.shard_unavailable = 0
         self._health_thread: Optional[threading.Thread] = None
+        self._m_forward = INGEST_FORWARD_SECONDS.child()
+        # the router has no serve.query traffic, so the process flight
+        # recorder is the ingest worst-N view (served by /debug/flight);
+        # offers carry the owning worker and shard
+        self.flight = get_flight_recorder()
 
     # -- lifecycle ---------------------------------------------------------
     @property
@@ -183,7 +219,10 @@ class IngestRouterServer(HTTPServerBase):
             self._pool = concurrent.futures.ThreadPoolExecutor(
                 max_workers=_POOL_THREADS,
                 thread_name_prefix="ingest-fwd",
+                initializer=scope.register_thread_role,
+                initargs=("ingest_worker",),
             )
+        scope.ensure_started()
         if self._health_thread is None:
             self._health_thread = threading.Thread(
                 target=self._health_loop, daemon=True,
@@ -227,9 +266,12 @@ class IngestRouterServer(HTTPServerBase):
             return False
 
     def _health_loop(self) -> None:
+        scope.register_thread_role("health_loop")
         while not self._stop_event.wait(_HEALTH_INTERVAL_S):
             for w in self.workers:
                 self.check_worker(w)
+            for w in self.workers:
+                w.scrape(_HEALTH_TIMEOUT_S)
             if self.supervisor is not None:
                 try:
                     self.supervisor.tick(self.workers)
@@ -265,19 +307,22 @@ class IngestRouterServer(HTTPServerBase):
     def _retry_hdr(self) -> list[tuple[str, str]]:
         return [("Retry-After", str(_RETRY_AFTER_S))]
 
-    def _book_unavailable(self, n: int = 1) -> None:
+    def _book_unavailable(self, six: int, n: int = 1) -> None:
         with self._lock:
             self.shard_unavailable += n
+        INGEST_SHARD_UNAVAILABLE_TOTAL.labels(shard=str(six)).inc(n)
 
     def _forward(self, w: IngestWorker, method: str, path_qs: str,
-                 body: Optional[bytes]) -> tuple[int, bytes, str]:
+                 body: Optional[bytes],
+                 trace_id: Optional[str] = None) -> tuple[int, bytes, str]:
         """One worker round trip; transport failure marks the worker
         down and re-raises (the caller answers ShardUnavailable — a
         write's owner is the ONLY process holding its shards, so there
         is no second candidate to try)."""
+        t0 = time.perf_counter()
         try:
             out = w.request(method, path_qs, body,
-                            timeout_s=_FORWARD_TIMEOUT_S)
+                            timeout_s=_FORWARD_TIMEOUT_S, trace_id=trace_id)
         except Exception as e:
             w.errors += 1
             w.mark_down(f"{type(e).__name__}: {e}")
@@ -285,18 +330,30 @@ class IngestRouterServer(HTTPServerBase):
         if not w.healthy:
             w.mark_up()
         w.forwarded += 1
+        self._m_forward.observe(time.perf_counter() - t0)
         return out
 
     def _answer_unavailable(self, respond, w: IngestWorker,
                             six: int) -> None:
-        self._book_unavailable()
+        self._book_unavailable(six)
         self._respond_quiet(
             respond, 503, self._unavailable_payload(w, six),
             extra_headers=self._retry_hdr(),
         )
 
     # -- write path (pool side) -------------------------------------------
-    def _post_event(self, path_qs: str, body: bytes, respond) -> None:
+    def _offer_flight(self, trace_id: Optional[str], t0: float,
+                      **attrs) -> None:
+        """Offer one finished ingest request to the worst-N recorder,
+        attributed to its shard owner."""
+        self.flight.offer(
+            trace_id, time.perf_counter() - t0, name="ingest.request",
+            attrs={k: v for k, v in attrs.items() if v is not None},
+        )
+
+    def _post_event(self, path_qs: str, body: bytes, respond,
+                    trace_id: Optional[str] = None) -> None:
+        t0 = time.perf_counter()
         try:
             payload = json.loads(body.decode())
             et = str(payload["entityType"])
@@ -310,15 +367,27 @@ class IngestRouterServer(HTTPServerBase):
         w = self.shard_owner[six]
         if not w.healthy:
             self._answer_unavailable(respond, w, six)
+            self._offer_flight(trace_id, t0, worker=w.name, shard=six,
+                               status=503, outcome="shard_unavailable")
             return
         try:
-            status, data, ctype = self._forward(w, "POST", path_qs, body)
+            status, data, ctype = self._forward(w, "POST", path_qs, body,
+                                                trace_id=trace_id)
         except Exception:
             self._answer_unavailable(respond, w, six)
+            self._offer_flight(trace_id, t0, worker=w.name, shard=six,
+                               status=503, outcome="forward_error")
             return
-        self._respond_quiet(respond, status, data, ctype=ctype)
+        self._respond_quiet(
+            respond, status, data, ctype=ctype,
+            extra_headers=[(TRACE_HEADER, trace_id)] if trace_id else (),
+        )
+        self._offer_flight(trace_id, t0, worker=w.name, shard=six,
+                           status=status, events=1)
 
-    def _post_batch(self, path_qs: str, body: bytes, respond) -> None:
+    def _post_batch(self, path_qs: str, body: bytes, respond,
+                    trace_id: Optional[str] = None) -> None:
+        t0 = time.perf_counter()
         try:
             items = json.loads(body.decode())
             if not isinstance(items, list):
@@ -361,7 +430,7 @@ class IngestRouterServer(HTTPServerBase):
                 try:
                     status, data, _ = self._forward(
                         w, "POST", f"/batch/events.json{suffix}",
-                        json.dumps(sub).encode(),
+                        json.dumps(sub).encode(), trace_id=trace_id,
                     )
                     if status == 200:
                         outcome = json.loads(data.decode())
@@ -381,8 +450,8 @@ class IngestRouterServer(HTTPServerBase):
                     outcome = None
             if outcome is None:
                 any_down = True
-                self._book_unavailable(len(positions))
                 for p in positions:
+                    self._book_unavailable(shard_of[p])
                     results[p] = dict(
                         self._unavailable_payload(w, shard_of[p]),
                         status=503,
@@ -391,10 +460,17 @@ class IngestRouterServer(HTTPServerBase):
             for p, r in zip(positions, outcome):
                 results[p] = r
         hdrs = self._retry_hdr() if any_down else []
+        if trace_id:
+            hdrs = hdrs + [(TRACE_HEADER, trace_id)]
         self._respond_quiet(respond, 200, results, extra_headers=hdrs)
+        self._offer_flight(
+            trace_id, t0, events=len(items),
+            workers=sorted(self._by_index[i].name for i in groups),
+            status=200, anyDown=any_down or None,
+        )
 
     def _post_webhook(self, path_qs: str, path: str, body: bytes,
-                      respond) -> None:
+                      respond, trace_id: Optional[str] = None) -> None:
         """Webhook ingestion under sharding: the CONNECTOR decides the
         entity, so the router must run it to learn the owner.  Convert
         here, then forward the derived event as a plain POST — the
@@ -426,6 +502,7 @@ class IngestRouterServer(HTTPServerBase):
         self._post_event(
             f"/events.json{suffix}",
             json.dumps(event.to_json()).encode(), respond,
+            trace_id=trace_id,
         )
 
     # -- read path (pool side) --------------------------------------------
@@ -513,6 +590,27 @@ class IngestRouterServer(HTTPServerBase):
         }
         self._respond_quiet(respond, 200, merged)
 
+    def render_fleet_metrics(self) -> bytes:
+        """``GET /metrics``: router-local state merged with every
+        worker's last scraped snapshot, gauges labeled ``{worker}`` —
+        one scrape answers for the whole ingest fleet, and a dead
+        worker's last-good snapshot keeps the merged counters
+        monotone."""
+        tagged = [("router", get_registry().dump_state())]
+        for w in self.workers:
+            if w.metrics_state is not None:
+                tagged.append((w.name, w.metrics_state))
+        try:
+            return render_state(
+                merge_states(tagged, gauge_label="worker")
+            ).encode()
+        except ValueError as e:
+            logger.warning(
+                "ingest fleet metrics merge failed (%s); serving the "
+                "router-local exposition", e,
+            )
+            return get_registry().render_prometheus().encode()
+
     # -- status ------------------------------------------------------------
     def status_json(self) -> dict:
         out = {
@@ -532,6 +630,9 @@ class IngestRouterServer(HTTPServerBase):
             "shardUnavailable": self.shard_unavailable,
             "startTime": self.start_time,
         }
+        fs = self.flight.summary()
+        out["flight"] = {k: fs[k]
+                         for k in ("capacity", "offers", "admissions")}
         if self.supervisor is not None:
             out["supervisor"] = self.supervisor.summary()
         return out
@@ -570,20 +671,26 @@ class IngestRouterServer(HTTPServerBase):
 
     @callback_scope
     def _el_handle(self, req, respond) -> None:
-        path = urllib.parse.urlparse(req.path).path
+        u = urllib.parse.urlparse(req.path)
+        path = u.path
         if req.method == "POST":
             self.request_count += 1  # loop-thread only: no lock needed
+            # mint a trace id when the client brought none, so every
+            # routed write is flight-recordable and stitchable across
+            # the router's and the shard owner's journals
+            tid = (req.header(TRACE_HEADER) or "").strip() \
+                or new_trace_id()
             if path == "/events.json":
                 self._submit(respond, self._post_event,
-                             req.path, req.body, respond)
+                             req.path, req.body, respond, tid)
                 return
             if path == "/batch/events.json":
                 self._submit(respond, self._post_batch,
-                             req.path, req.body, respond)
+                             req.path, req.body, respond, tid)
                 return
             if path.startswith("/webhooks/"):
                 self._submit(respond, self._post_webhook,
-                             req.path, path, req.body, respond)
+                             req.path, path, req.body, respond, tid)
                 return
             if path == "/stop":
                 respond(200, {"message": "stopping"})
@@ -592,6 +699,16 @@ class IngestRouterServer(HTTPServerBase):
             respond(404, {"message": "not found"})
             return
         if req.method == "GET":
+            if path == "/metrics":
+                if not metrics_enabled():
+                    respond(404, {"message":
+                                  "metrics disabled (--no-metrics)"})
+                    return
+                self._submit(respond, lambda: self._respond_quiet(
+                    respond, 200, self.render_fleet_metrics(),
+                    ctype=PROMETHEUS_CTYPE,
+                ))
+                return
             if path == "/stats.json":
                 self._submit(respond, self._get_stats, req.path, respond)
                 return
@@ -605,11 +722,20 @@ class IngestRouterServer(HTTPServerBase):
                 self._submit(respond, self._forward_read,
                              "GET", req.path, respond)
                 return
-            if path == "/metrics":
-                respond(404, {"message": (
-                    "the /metrics federation is not ported to "
-                    "predictionio_tpu_torch yet (ROADMAP Queue 1 item 2)"
-                )})
+            if path.startswith("/debug/"):
+                # the other observability mounts (a profile capture
+                # blocks for seconds) run on the pool, off the loop
+                def obs():
+                    ans = observability_response(path, u.query)
+                    if ans is None:
+                        self._respond_quiet(respond, 404,
+                                            {"message": "not found"})
+                        return
+                    code, payload, ctype = ans
+                    self._respond_quiet(respond, code, payload,
+                                        ctype=ctype or "application/json")
+
+                self._submit(respond, obs)
                 return
         if req.method == "DELETE" and path.startswith("/events/"):
             # deletes fan to every shard file inside the worker; any

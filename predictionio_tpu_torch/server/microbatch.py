@@ -30,8 +30,10 @@ claimed entry already past its deadline completes with
 lets the edge refuse up front, as :class:`AdmissionRejected`, a request
 that cannot make its deadline.
 
-The reference's batcher metrics and per-request timeline bookkeeping
-(``_book_timeline``) wait for the port of ``obs/``.
+Observability is the reference's: the saturation families
+(``pio_microbatch_*``), the ``microbatch`` timed condition, and each
+entry's enqueue/claim/run stamps credited to the request's pulse
+timeline (``_book_timeline``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,17 @@ import threading
 import time
 from typing import Any, Callable, Optional, Sequence
 
+from ..obs.scope import TimedCondition, register_thread_role
+from ..obs.timeline import (
+    MICROBATCH_ADMISSION_TOTAL,
+    MICROBATCH_BATCH_SIZE,
+    MICROBATCH_QUEUE_DEPTH,
+    MICROBATCH_ROLE_TOTAL,
+    MICROBATCH_TENANTS_PER_BATCH,
+    MICROBATCH_WAIT_SECONDS,
+    annotate,
+    current_timeline,
+)
 from ..resilience.policy import Deadline, DeadlineExceeded
 
 __all__ = [
@@ -53,6 +66,18 @@ __all__ = [
 ]
 
 logger = logging.getLogger(__name__)
+
+# pulse saturation metrics, children cached at import (labels() is too
+# hot for the per-submit path); process-wide like pio_query_latency
+_m_queue_depth = MICROBATCH_QUEUE_DEPTH.child()
+_m_batch_size = MICROBATCH_BATCH_SIZE.child()
+_m_batch_wait = MICROBATCH_WAIT_SECONDS.child()
+_m_leader = MICROBATCH_ROLE_TOTAL.labels(role="leader")
+_m_follower = MICROBATCH_ROLE_TOTAL.labels(role="follower")
+_m_dispatched = MICROBATCH_ROLE_TOTAL.labels(role="dispatched")
+_m_adm_rejected = MICROBATCH_ADMISSION_TOTAL.labels(outcome="rejected")
+_m_adm_expired = MICROBATCH_ADMISSION_TOTAL.labels(outcome="expired")
+_m_tenants_per_batch = MICROBATCH_TENANTS_PER_BATCH.child()
 
 # distinguishes "no result produced" from a legitimate None result
 _UNSET = object()
@@ -116,12 +141,16 @@ class _Entry:
     # (entries sharing a fn coalesce into ONE device call; None means the
     # owning batcher's own batch_fn).  An entry carries its fn for its
     # whole life, so in-flight queries complete on the model they
-    # snapshotted even across a reload.
-    __slots__ = ("item", "done", "value", "error", "deadline", "on_done",
-                 "tenant", "fn", "cb_fired", "t_enq")
+    # snapshotted even across a reload.  t_enq/t_claim/t_run0/t_run1
+    # are the pulse timeline stamps, set by whichever thread performs
+    # the transition and read after ``done`` (the condition variable or
+    # the dispatcher's post-batch callback orders the writes first).
+    __slots__ = ("item", "done", "value", "error", "deadline", "tl",
+                 "on_done", "tenant", "fn", "cb_fired",
+                 "t_enq", "t_claim", "t_run0", "t_run1")
 
     def __init__(self, item, deadline: Optional[Deadline] = None,
-                 on_done: Optional[Callable] = None,
+                 tl=None, on_done: Optional[Callable] = None,
                  tenant=None, fn: Optional[Callable] = None):
         self.item = item
         self.done = False
@@ -129,10 +158,14 @@ class _Entry:
         self.value = _UNSET
         self.error: Exception | None = None
         self.deadline = deadline
+        self.tl = tl
         self.on_done = on_done
         self.tenant = tenant
         self.fn = fn
         self.t_enq = time.perf_counter()
+        self.t_claim = None
+        self.t_run0 = None
+        self.t_run1 = None
 
 
 class MicroBatcher:
@@ -162,7 +195,9 @@ class MicroBatcher:
         # batch shapes.  Valid only when batch_fn is a pure per-item map,
         # which predicts are.
         self.pad_batches = pad_batches
-        self._cond = threading.Condition()
+        # pio-scope: the serving hot lock; its wait histogram is the
+        # direct queueing-for-the-batcher evidence
+        self._cond = TimedCondition("microbatch")
         self._pending: list[_Entry] = []
         self._running = False
         self._closed = False
@@ -222,12 +257,14 @@ class MicroBatcher:
             return
         remaining = deadline.remaining()
         if remaining <= 0.0:
+            _m_adm_rejected.inc()
             raise AdmissionRejected(
                 f"query deadline already exceeded its "
                 f"{deadline.budget_s:.3f}s budget at admission"
             )
         est = self.estimate_wait_s()
         if est > remaining:
+            _m_adm_rejected.inc()
             raise AdmissionRejected(
                 f"estimated queue+service time {est * 1e3:.1f}ms exceeds "
                 f"the {remaining * 1e3:.1f}ms remaining of the "
@@ -246,6 +283,7 @@ class MicroBatcher:
         led_own = False
         with self._cond:
             self._pending.append(entry)
+            _m_queue_depth.set(float(len(self._pending)))
             # wake a leader or dispatcher in its accumulation window
             self._cond.notify_all()
             while not entry.done:
@@ -264,21 +302,27 @@ class MicroBatcher:
                 self.leaders += 1
             else:
                 self.followers += 1
+        (_m_leader if led_own else _m_follower).inc()
+        # credit the caller's pulse timeline with what this entry
+        # actually experienced (error requests decompose too)
+        self._book_timeline(entry)
         if entry.error is not None:
             raise entry.error
         return entry.value if entry.value is not _UNSET else None
 
     def submit_nowait(self, item: Any, on_done: Callable[[_Entry], None],
                       deadline: Optional[Deadline] = None,
-                      tenant=None, fn: Optional[Callable] = None) -> None:
+                      timeline=None, tenant=None,
+                      fn: Optional[Callable] = None) -> None:
         """Continuous (callback) submit: the entry joins the pending
         queue at once and ``on_done(entry)`` fires on the dispatcher
-        thread once ``entry.value``/``entry.error`` is set.  The lazily
+        thread, after the entry's timeline is booked, once
+        ``entry.value``/``entry.error`` is set.  The lazily
         started dispatcher claims the next batch the moment the card is
         free, so arrivals ride the NEXT device call.  Raises
         ``RuntimeError`` once the batcher is closed."""
-        entry = _Entry(item, deadline=deadline, on_done=on_done,
-                       tenant=tenant, fn=fn)
+        entry = _Entry(item, deadline=deadline, tl=timeline,
+                       on_done=on_done, tenant=tenant, fn=fn)
         with self._cond:
             if self._closed:
                 raise RuntimeError("batcher is closed")
@@ -290,6 +334,7 @@ class MicroBatcher:
                 )
                 self._dispatcher.start()
             self._pending.append(entry)
+            _m_queue_depth.set(float(len(self._pending)))
             self._cond.notify_all()
 
     def close(self, timeout_s: float = 30.0) -> None:
@@ -311,12 +356,17 @@ class MicroBatcher:
     def _claim_locked(self) -> list[_Entry]:
         batch = self._pending[: self.max_batch]
         del self._pending[: len(batch)]
+        now = time.perf_counter()
+        for e in batch:
+            e.t_claim = now
+        _m_queue_depth.set(float(len(self._pending)))
         return batch
 
     def _dispatch_loop(self) -> None:
         """Standing leader of the continuous path: claims pending
         entries whenever the card is free.  Blocking submitters coalesce
         into its batches as followers."""
+        register_thread_role("microbatch_dispatcher")
         with self._cond:
             try:
                 while True:
@@ -341,6 +391,25 @@ class MicroBatcher:
                 self._dispatcher_alive = False
                 self._cond.notify_all()
 
+    def _book_timeline(self, entry: _Entry) -> None:
+        """Book queue_wait/batch_wait/device from the entry stamps onto
+        the entry's attached timeline (continuous path) or the calling
+        thread's current one (blocking path).  Residual time inside the
+        covered region (condition wake latency, a solo retry after a
+        failed batch) goes to ``device``, so the segments still sum to
+        the wall time."""
+        tl = entry.tl if entry.tl is not None else current_timeline()
+        if tl is None:
+            return
+        parts = []
+        if entry.t_claim is not None:
+            parts.append(("queue_wait", entry.t_claim - entry.t_enq))
+            if entry.t_run0 is not None:
+                parts.append(("batch_wait", entry.t_run0 - entry.t_claim))
+                if entry.t_run1 is not None:
+                    parts.append(("device", entry.t_run1 - entry.t_run0))
+        tl.add_block(parts, residual_to="device")
+
     def _lead(self, batch: list[_Entry]) -> None:
         """Run one claimed batch on the calling thread.  Called with the
         lock HELD; releases it around the device call (and around
@@ -362,6 +431,8 @@ class MicroBatcher:
                 n_expired += 1
             else:
                 live.append(e)
+        if n_expired:
+            _m_adm_expired.inc(n_expired)
         try:
             if self.max_wait_s > 0 and live and len(live) < self.max_batch:
                 # optional accumulation window (off by default): absorb
@@ -376,8 +447,13 @@ class MicroBatcher:
                     take = self.max_batch - len(live)
                     absorbed = self._pending[:take]
                     del self._pending[:take]
-                    live += absorbed
-                    batch += absorbed
+                    if absorbed:
+                        now = time.perf_counter()
+                        for e in absorbed:
+                            e.t_claim = now
+                        live += absorbed
+                        batch += absorbed
+                        _m_queue_depth.set(float(len(self._pending)))
             if live:
                 self._cond.release()
                 try:
@@ -401,7 +477,10 @@ class MicroBatcher:
                     self._turn_s = 0.0
             self.requests += len(batch)
             self.expired += n_expired
-            self.dispatched += sum(1 for e in batch if e.on_done is not None)
+            n_disp = sum(1 for e in batch if e.on_done is not None)
+            if n_disp:
+                self.dispatched += n_disp
+                _m_dispatched.inc(n_disp)
             self._cond.notify_all()
             # callbacks _run_batch did not fire: claim-time expiries and
             # whatever a BaseException tore past
@@ -447,6 +526,7 @@ class MicroBatcher:
             if e.on_done is None or e.cb_fired:
                 continue
             e.cb_fired = True
+            self._book_timeline(e)
             try:
                 e.on_done(e)
             except Exception:
@@ -460,7 +540,18 @@ class MicroBatcher:
             n = len(items)
             if self.pad_batches and n > 1:
                 items = items + [items[-1]] * (_pad_size(n) - n)
-            results = fn(items)
+            t0 = time.perf_counter()
+            for e in batch:
+                e.t_run0 = t0
+            if batch[0].t_claim is not None:
+                # accumulation-window cost: first claim -> dispatch
+                _m_batch_wait.observe(max(t0 - batch[0].t_claim, 0.0))
+            _m_batch_size.observe(float(n))
+            with annotate(f"pio.device.batch{len(items)}"):
+                results = fn(items)
+            t1 = time.perf_counter()
+            for e in batch:
+                e.t_run1 = t1
             if len(results) != len(items):
                 raise RuntimeError(
                     f"batch_fn returned {len(results)} results "
@@ -583,6 +674,7 @@ class SharedBatcher(MicroBatcher):
         if len(by_tenant) == 1:
             # one tenant pending: plain FIFO, no round-robin work
             batch = super()._claim_locked()
+            _m_tenants_per_batch.observe(1.0)
             t0 = batch[0].tenant
             self.tenant_claims[t0] = self.tenant_claims.get(t0, 0) + len(batch)
             return batch
@@ -616,15 +708,20 @@ class SharedBatcher(MicroBatcher):
                     break
         claimed = {id(e) for e in batch}
         self._pending = [e for e in pend if id(e) not in claimed]
+        now = time.perf_counter()
         tenants_seen = set()
         for e in batch:
+            e.t_claim = now
             tenants_seen.add(e.tenant)
             self.tenant_claims[e.tenant] = (
                 self.tenant_claims.get(e.tenant, 0) + 1
             )
         if len(tenants_seen) > 1:
             self.mixed_batches += 1
+        if batch:
+            _m_tenants_per_batch.observe(float(len(tenants_seen)))
         self._rr.append(self._rr.pop(0))
+        _m_queue_depth.set(float(len(self._pending)))
         return batch
 
     # -- stats ------------------------------------------------------------
@@ -699,13 +796,15 @@ class SharedBatcherView:
                                 tenant=self.tenant, fn=self.batch_fn)
 
     def submit_nowait(self, item: Any, on_done: Callable,
-                      deadline: Optional[Deadline] = None) -> None:
+                      deadline: Optional[Deadline] = None,
+                      timeline=None) -> None:
         # a closed view raises what a closed MicroBatcher raises: the
         # event-loop edge's reload retry keys on it
         if self._closed:
             raise RuntimeError("batcher is closed")
         self.core.submit_nowait(item, on_done, deadline=deadline,
-                                tenant=self.tenant, fn=self.batch_fn)
+                                timeline=timeline, tenant=self.tenant,
+                                fn=self.batch_fn)
 
     def close(self) -> None:
         if self._closed:

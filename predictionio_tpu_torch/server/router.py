@@ -8,9 +8,9 @@ ingest router (``server/ingest_router.py``) is built on: ``Replica``
 port-file protocol (``spawn_port_process``, ``wait_for_port_file``).
 Not ported yet: ``RouterServer``, the serving replica fleet behind
 ``deploy --replicas N``, with its ``spawn_replica`` (ROADMAP Queue 1
-item 4), with each replica's failover count and the model fields of
-its health, and each process's ``/metrics`` scrape and ``obs`` gauges
-(item 2).
+item 4), with each replica's failover count, the model fields of its
+health and the router's forward counters.  ``Replica.scrape`` pulls a
+process's ``/metrics`` for the ingest router's federation.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
+from ..obs import REPLICA_UP, TRACE_HEADER, fleet
 from ..resilience.policy import CircuitBreaker
 
 __all__ = [
@@ -69,6 +70,18 @@ class Replica:
         self.last_error: Optional[str] = None
         self.forwarded = 0
         self.errors = 0
+        # the process's last successfully scraped and parsed /metrics
+        # state (a dump_state()-shaped dict), rebound whole on every good
+        # scrape and never mutated: a process that dies keeps its last
+        # good snapshot standing, so merged counters stay monotone
+        self.metrics_state: Optional[dict] = None
+        self.scrape_errors = 0
+        self.last_scrape_at: Optional[float] = None
+        self.last_scrape_error: Optional[str] = None
+        self._m_scrape_err = fleet.REPLICA_SCRAPE_ERRORS.labels(
+            replica=name)
+        self._m_up = REPLICA_UP.labels(replica=name)
+        self._m_up.set(1.0)
 
     @property
     def url(self) -> str:
@@ -86,12 +99,13 @@ class Replica:
         return c
 
     def request(self, method: str, path: str, body: Optional[bytes],
-                timeout_s: float) -> tuple[int, bytes, str]:
-        """One upstream round trip on a pooled keep-alive connection.
-        Transport trouble raises OSError/http.client exceptions — the
-        router's signal that the process is gone; HTTP error statuses
-        return normally (an application 4xx/5xx is the process's answer,
-        not a death)."""
+                timeout_s: float,
+                trace_id: Optional[str] = None) -> tuple[int, bytes, str]:
+        """One upstream round trip on a pooled keep-alive connection,
+        forwarding ``trace_id`` as ``X-PIO-Trace``.  Transport trouble
+        raises OSError/http.client exceptions — the router's signal that
+        the process is gone; HTTP error statuses return normally (an
+        application 4xx/5xx is the process's answer, not a death)."""
         with self._lock:
             conn = self._pool.pop() if self._pool else None
         if conn is None:
@@ -99,8 +113,10 @@ class Replica:
         elif conn.sock is not None:
             conn.sock.settimeout(timeout_s)
         try:
-            conn.request(method, path, body,
-                         headers={"Content-Type": "application/json"})
+            hdrs = {"Content-Type": "application/json"}
+            if trace_id:
+                hdrs[TRACE_HEADER] = trace_id
+            conn.request(method, path, body, headers=hdrs)
             r = conn.getresponse()
             data = r.read()
             ctype = r.getheader("Content-Type",
@@ -126,6 +142,7 @@ class Replica:
         self.healthy = False
         self.last_error = err
         self.breaker.record_failure()
+        self._m_up.set(0.0)
         # drop pooled connections: they point at a corpse
         with self._lock:
             pool, self._pool = self._pool, []
@@ -139,6 +156,28 @@ class Replica:
         self.healthy = True
         self.last_error = None
         self.breaker.record_success()
+        self._m_up.set(1.0)
+
+    def scrape(self, timeout_s: float) -> bool:
+        """Pull and parse this process's ``/metrics`` into
+        :attr:`metrics_state`.  Any failure — transport, HTTP status,
+        exposition grammar — books a scrape error and leaves the previous
+        snapshot standing; health marking is the health check's job."""
+        try:
+            status, data, _ = self.request("GET", "/metrics", None,
+                                           timeout_s=timeout_s)
+            if status != 200:
+                raise RuntimeError(f"/metrics answered {status}")
+            state = fleet.parse_prometheus(data.decode())
+        except Exception as e:
+            self.scrape_errors += 1
+            self.last_scrape_error = f"{type(e).__name__}: {e}"
+            self._m_scrape_err.inc()
+            return False
+        self.metrics_state = state
+        self.last_scrape_at = time.time()
+        self.last_scrape_error = None
+        return True
 
     def snapshot(self) -> dict:
         out = {
@@ -149,6 +188,8 @@ class Replica:
             "forwarded": self.forwarded,
             "errors": self.errors,
         }
+        if self.scrape_errors:
+            out["scrapeErrors"] = self.scrape_errors
         if self.last_error:
             out["lastError"] = self.last_error
         return out

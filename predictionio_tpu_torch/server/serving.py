@@ -12,6 +12,8 @@ reference's `workflow/CreateServer.scala` (`ServerActor` routes
   every algorithm has a real ``batch_predict`` (``microbatch="auto"``)
 * ``GET  /reload``       — hot-swap to the latest COMPLETED engine instance
 * ``POST /stop``         — graceful shutdown
+* ``GET  /metrics`` and ``/debug/*`` — the observability mounts
+  (``server/http_base.py``)
 
 Two edges answer the port (``ServerConfig.edge``): ``"eventloop"`` (the
 default) is one selector thread (:mod:`.eventloop`) that parses every
@@ -25,15 +27,21 @@ Query/result JSON mapping: the engine's first algorithm may declare
 ``query_class`` (with ``from_json``) and results may expose ``to_json``.
 The server's device is its context's, which defaults to the card.
 
+Observability is the reference's: the query latency histogram (with
+trace-id exemplars) behind ``/status``'s percentiles, per-outcome
+counters, ``serve.query`` spans under the request's ``X-PIO-Trace`` id
+(echoed on the reply), the pulse timeline of each query, the flight
+recorder, ``slo_ms`` burn rates and the device-memory sampler; and the
+fault points ``reload.load_model`` and ``device.dispatch``.
+
 Not ported yet, and refused where a caller asks for them:
 feedback-loop event injection, remote error logs, fold-in deltas,
-tenancy and experiments, the HTML status page and the observability
-mounts; their routes answer 404.
+tenancy and experiments and the HTML status page; their routes answer
+404.
 """
 
 from __future__ import annotations
 
-import collections
 import concurrent.futures
 import json
 import logging
@@ -44,14 +52,37 @@ import urllib.parse
 from dataclasses import asdict, is_dataclass
 from typing import Any, Callable, Optional
 
-import numpy as np
-
 from ..controller.base import Algorithm, WorkflowContext
 from ..controller.engine import Engine, EngineParams
+from ..engines import engine_label_of
+from ..obs import (
+    ENGINE_QUERIES_TOTAL,
+    QUERIES_TOTAL,
+    QUERY_LATENCY,
+    RELOADS_TOTAL,
+    TRACE_HEADER,
+    Histogram,
+    current_trace_id,
+    fleet,
+    get_flight_recorder,
+    get_tracer,
+    new_trace_id,
+    scope,
+    timeline,
+    trace_scope,
+    xray,
+)
+from ..obs.timeline import SERVE_INFLIGHT, annotate
+from ..resilience import faults
 from ..resilience.policy import Deadline, DeadlineExceeded
 from ..workflow.train import prepare_deploy_components
 from .eventloop import EventLoopHTTPServer, callback_scope
-from .http_base import DEFAULT_MAX_CONNECTIONS, HTTPServerBase, JsonRequestHandler
+from .http_base import (
+    DEFAULT_MAX_CONNECTIONS,
+    HTTPServerBase,
+    JsonRequestHandler,
+    observability_response,
+)
 from .microbatch import (
     AdmissionRejected,
     MicroBatcher,
@@ -63,8 +94,10 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["EngineServer", "ServerConfig"]
 
-# recent query latencies kept for the status percentiles
-_LATENCY_WINDOW = 4096
+_m_inflight = SERVE_INFLIGHT.child()
+
+# query outcomes, the label values of pio_queries_total
+_STATUSES = ("ok", "bad_request", "timeout", "error", "rejected")
 
 
 class ServerConfig:
@@ -74,7 +107,8 @@ class ServerConfig:
                  query_timeout_s: Optional[float] = None,
                  edge: str = "eventloop",
                  max_connections: int = DEFAULT_MAX_CONNECTIONS,
-                 feedback: bool = False):
+                 feedback: bool = False,
+                 slo_ms: Optional[float] = None):
         self.host = host
         self.port = port
         # which HTTP front end answers the port: "eventloop" = one
@@ -109,6 +143,9 @@ class ServerConfig:
         # structured 503 instead of queueing device work for a client
         # that already gave up
         self.query_timeout_s = query_timeout_s
+        # end-to-end latency SLO (ms): arms the pio_slo_burn_rate{window}
+        # gauges on this server's latency histogram
+        self.slo_ms = slo_ms
 
 
 class _QueryCtx:
@@ -172,18 +209,20 @@ def _parse_query(body: bytes, query_str: str) -> tuple:
 
 
 def _error_reply(e: BaseException) -> tuple:
-    """``(code, payload, extra headers)`` answering a failed query, on
-    both edges."""
+    """``(outcome, code, payload, extra headers)`` answering a failed
+    query, on both edges; the outcome labels ``pio_queries_total``."""
     if isinstance(e, AdmissionRejected):
-        return (503, {"message": str(e), "error": "AdmissionRejected"},
+        return ("rejected", 503,
+                {"message": str(e), "error": "AdmissionRejected"},
                 [("Retry-After", "1")])
     if isinstance(e, DeadlineExceeded):
-        return (503, {"message": str(e), "error": "DeadlineExceeded"},
+        return ("timeout", 503,
+                {"message": str(e), "error": "DeadlineExceeded"},
                 [("Retry-After", "1")])
     if isinstance(e, (KeyError, ValueError, TypeError)):
-        return 400, {"message": f"bad query: {e}"}, []
+        return "bad_request", 400, {"message": f"bad query: {e}"}, []
     logger.error("query failed", exc_info=e)
-    return 500, {"message": str(e)}, []
+    return "error", 500, {"message": str(e)}, []
 
 
 def _warm_components(algorithms, models, warm_max: int) -> None:
@@ -241,19 +280,43 @@ class EngineServer(HTTPServerBase):
         self._shared_lock = threading.Lock()
         self._teardown_lock = threading.Lock()
         self._load(instance_id)
-        # serving stats (CreateServer.scala:396-398)
+        # serving stats (CreateServer.scala:396-398).  Latency is
+        # histogram-backed: this instance's private histogram drives the
+        # /status percentiles and average, and the same observations feed
+        # the process-wide pio_query_latency_seconds that /metrics shows
         self.request_count = 0
         self.last_serving_sec = 0.0
         self.start_time = time.time()  # wall clock: a TIMESTAMP, not a span
-        self._latency_sum = 0.0
-        self._latencies: collections.deque = collections.deque(
-            maxlen=_LATENCY_WINDOW
-        )
+        self._latency = Histogram()
+        self._m_latency = QUERY_LATENCY.child()
+        # per-outcome counters resolved once (labels() is too hot for the
+        # request path); shared by both edges
+        self._m_queries = {
+            s: QUERIES_TOTAL.labels(status=s) for s in _STATUSES
+        }
+        self.engine_name = engine_label_of(engine, fallback=engine_id)
+        self._m_engine_queries = {
+            s: ENGINE_QUERIES_TOTAL.labels(engine=self.engine_name,
+                                           status=s)
+            for s in _STATUSES
+        }
+        self._burn = None
+        if self.config.slo_ms:
+            self._burn = fleet.install_burn_rate(
+                self._m_latency, self.config.slo_ms / 1e3
+            )
+        # the device sampler keeps pio_device_memory_bytes fresh, and the
+        # always-on stack sampler rides every serving process
+        xray.install()
+        xray.start_sampler()
+        scope.ensure_started()
 
     # -- lifecycle --------------------------------------------------------
     def _load(self, instance_id: str) -> None:
         """Load an instance's components and swap them in atomically; a
-        failed (re)load leaves the previous components serving."""
+        failed (re)load leaves the previous components serving (the
+        ``reload.load_model`` injection point proves it)."""
+        faults.check("reload.load_model")
         # serve with the params the instance was trained with; the current
         # engine.json may have drifted (engineInstanceToEngineParams parity)
         with self._lock:
@@ -284,6 +347,9 @@ class EngineServer(HTTPServerBase):
             self.serving = serving
             self.instance_id = instance_id
             self.batcher = batcher
+            # when the serving model last advanced (a load): the
+            # freshness a flight record carries
+            self.model_advanced_mono = time.monotonic()
         # the old batcher's dispatcher (continuous path) drains and
         # exits; in-flight queries still holding it complete
         if old_batcher is not None and old_batcher is not batcher:
@@ -345,28 +411,36 @@ class EngineServer(HTTPServerBase):
         )
         if latest is None:
             raise LookupError("no completed engine instance found")
-        try:
-            self._load(latest.id)
-        except Exception as e:
-            with self._lock:
-                self.last_reload_error = f"{type(e).__name__}: {e}"
-            raise
+        with get_tracer().span("serve.reload",
+                               attrs={"instance": latest.id}):
+            try:
+                self._load(latest.id)
+            except Exception as e:
+                with self._lock:
+                    self.last_reload_error = f"{type(e).__name__}: {e}"
+                RELOADS_TOTAL.labels(result="error").inc()
+                raise
         with self._lock:
             self.last_reload_error = None
+        RELOADS_TOTAL.labels(result="ok").inc()
         return latest.id
 
     # -- query path -------------------------------------------------------
-    def _query_setup(self, query_json: dict,
-                     timeout_s: Optional[float]) -> _QueryCtx:
+    def _query_setup(self, query_json: dict, timeout_s: Optional[float],
+                     tl) -> _QueryCtx:
         """The front half of a query on either edge: budget, decode,
-        state snapshot, deadline-aware admission.  Never blocks."""
+        state snapshot, fault point, deadline-aware admission; marks the
+        ``parse`` and ``auth`` timeline boundaries.  Never blocks."""
         budget = (timeout_s if timeout_s is not None
                   else self.config.query_timeout_s)
         deadline = Deadline.after(budget) if budget is not None else None
         query = self.query_decoder(query_json)
+        tl.mark("parse")
         with self._lock:
             ctx = _QueryCtx(query, deadline, self.algorithms, self.models,
                             self.serving, self.batcher)
+        faults.check("device.dispatch")
+        tl.mark("auth")
         if deadline is not None:
             if ctx.batcher is not None:
                 ctx.batcher.check_admission(deadline)
@@ -374,19 +448,49 @@ class EngineServer(HTTPServerBase):
                 deadline.check("query admission")
         return ctx
 
-    def _query_finish(self, ctx: _QueryCtx, predictions, t0: float) -> Any:
-        """The back half: serve, encode and book the latency, on
-        whatever thread completed the device work."""
+    def _query_finish(self, ctx: _QueryCtx, predictions, tl,
+                      t0: float) -> Any:
+        """The back half: serve, encode, and book the latency, span and
+        flight record, on whatever thread completed the device work."""
         if ctx.deadline is not None:
             ctx.deadline.check("query serving")
         out = _result_to_json(ctx.serving.serve(ctx.query, predictions))
+        tl.mark("serialize")
         dt = time.perf_counter() - t0
         with self._lock:
             self.request_count += 1
             self.last_serving_sec = dt
-            self._latency_sum += dt
-            self._latencies.append(dt)
+            instance_id = self.instance_id
+            freshness = time.monotonic() - self.model_advanced_mono
+        # the trace id rides the histograms as a bucket exemplar and keys
+        # the flight record: /metrics names a trace, the flight recorder
+        # holds its span tree.  The segment split rides both the span and
+        # the flight record (write lands only in the histogram family:
+        # the record is taken before the socket write)
+        tid = current_trace_id()
+        self._latency.observe(dt, exemplar=tid)
+        self._m_latency.observe(dt, exemplar=tid)
+        self._m_engine_queries["ok"].inc()
+        attrs = {
+            "instance": instance_id,
+            "engine": self.engine_name,
+            "modelFreshnessSec": round(max(freshness, 0.0), 3),
+            "segmentsMs": tl.snapshot_ms(),
+        }
+        # back-dated to the request's start: the span covers its window
+        get_tracer().record("serve.query", dt, attrs=attrs,
+                            start=time.time() - dt)
+        get_flight_recorder().offer(tid, dt, name="serve.query",
+                                    attrs=attrs)
         return out
+
+    def _book_failure(self, e: BaseException) -> tuple:
+        """Book a failed query's outcome on both counters; returns
+        ``_error_reply(e)``."""
+        status, code, payload, headers = _error_reply(e)
+        self._m_queries[status].inc()
+        self._m_engine_queries[status].inc()
+        return code, payload, headers
 
     @staticmethod
     def _predict_direct(ctx: _QueryCtx) -> list:
@@ -399,30 +503,48 @@ class EngineServer(HTTPServerBase):
                      timeout_s: Optional[float] = None) -> Any:
         """Decode, predict (through the batcher when there is one),
         serve and encode one query; the blocking path of the threads
-        edge and of direct library callers."""
+        edge and of direct library callers.  Adopts the HTTP handler's
+        pulse timeline, or owns one for a direct caller."""
+        tl = timeline.current_timeline()
+        owned = tl is None
+        if owned:
+            tl = timeline.Timeline("serve")
         t0 = time.perf_counter()
-        ctx = self._query_setup(query_json, timeout_s)
-        if ctx.batcher is None:
-            predictions = self._predict_direct(ctx)
-        else:
-            if ctx.deadline is not None:
-                ctx.deadline.check("query device dispatch")
-            predictions = ctx.batcher.submit(ctx.query,
-                                             deadline=ctx.deadline)
-        return self._query_finish(ctx, predictions, t0)
+        _m_inflight.inc()
+        try:
+            with timeline.timeline_scope(tl), annotate("pio.serve.query"):
+                ctx = self._query_setup(query_json, timeout_s, tl)
+                if ctx.batcher is None:
+                    predictions = self._predict_direct(ctx)
+                    tl.mark("device")
+                else:
+                    if ctx.deadline is not None:
+                        ctx.deadline.check("query device dispatch")
+                    # the batcher books queue_wait/batch_wait/device
+                    predictions = ctx.batcher.submit(ctx.query,
+                                                     deadline=ctx.deadline)
+                out = self._query_finish(ctx, predictions, tl, t0)
+        finally:
+            _m_inflight.dec()
+        if owned:
+            tl.finish()
+        return out
 
     def latency_stats(self) -> dict:
-        """Average over every query served, percentiles over the most
-        recent ones (up to 4,096)."""
-        with self._lock:
-            n, total = self.request_count, self._latency_sum
-            recent = np.fromiter(self._latencies, dtype=np.float64)
-        if n == 0:
+        """Histogram-backed latency view for /status: the buckets
+        /metrics exposes, so a curl of /status and a scrape of /metrics
+        cannot disagree."""
+        snap = self._latency.snapshot()
+        if snap["count"] == 0:
             return {"count": 0, "avg": 0.0, "p50": 0.0, "p95": 0.0,
                     "p99": 0.0}
-        p50, p95, p99 = np.percentile(recent, [50, 95, 99])
-        return {"count": n, "avg": total / n, "p50": float(p50),
-                "p95": float(p95), "p99": float(p99)}
+        return {
+            "count": snap["count"],
+            "avg": snap["sum"] / snap["count"],
+            "p50": self._latency.percentile(50, snap),
+            "p95": self._latency.percentile(95, snap),
+            "p99": self._latency.percentile(99, snap),
+        }
 
     def status_json(self) -> dict:
         with self._lock:
@@ -453,6 +575,16 @@ class EngineServer(HTTPServerBase):
         }
         if batcher is not None:
             out["microbatch"] = batcher.stats()
+        # the worst-N flight records (span trees on /debug/xray) and the
+        # histogram's bucket exemplars: /status alone links a slow bucket
+        # to a trace id
+        out["xray"] = {
+            "flight": get_flight_recorder().summary(),
+            "latencyExemplars": [
+                {"le": le, "traceId": ex, "value": v}
+                for le, ex, v, _ts in self._latency.exemplar_items()
+            ],
+        }
         return out
 
     # -- event-loop edge ----------------------------------------------------
@@ -467,7 +599,8 @@ class EngineServer(HTTPServerBase):
             )
         return EventLoopHTTPServer(
             (self.host, self.port), self._el_handle,
-            max_connections=self.config.max_connections, name="serving",
+            max_connections=self.config.max_connections,
+            name=self.server_name,
         )
 
     def _aux_submit(self, respond, fn) -> None:
@@ -486,12 +619,12 @@ class EngineServer(HTTPServerBase):
             pass  # already answered
 
     def _aux(self, respond, fn, *args) -> None:
-        """Run ``fn(*args) -> (code, payload)`` on the aux pool and
-        answer from there."""
+        """Run ``fn(*args) -> (code, payload, ctype)`` on the aux pool
+        and answer from there."""
         def run():
             try:
-                code, payload = fn(*args)
-                respond(code, payload)
+                code, payload, ctype = fn(*args)
+                respond(code, payload, ctype=ctype)
             except Exception as e:
                 logger.exception("aux route failed")
                 try:
@@ -516,39 +649,54 @@ class EngineServer(HTTPServerBase):
                 respond(404, {"message": "not found"})
             return
         if req.method == "GET":
-            self._aux(respond, self._blocking_get, u.path)
+            # every GET (the observability mounts included: a profile
+            # capture blocks for seconds) runs on the aux pool
+            self._aux(respond, self._blocking_get, u.path, u.query)
             return
         respond(405, {"message": f"method {req.method} not allowed"})
 
-    def _blocking_get(self, path: str):
-        """``(code, payload)`` of a GET route, for both edges (on the
-        event-loop edge it runs on the aux pool)."""
+    def _blocking_get(self, path: str, query: str):
+        """``(code, payload, ctype)`` of a GET route, for both edges (on
+        the event-loop edge it runs on the aux pool)."""
+        ans = observability_response(path, query)
+        if ans is not None:
+            code, payload, ctype = ans
+            return code, payload, ctype or "application/json"
+        js = "application/json"
         if path == "/":
-            return 200, self.status_json()
+            return 200, self.status_json(), js
         if path == "/reload":
             try:
-                return 200, {"reloaded": self.reload()}
+                return 200, {"reloaded": self.reload()}, js
             except LookupError as e:
-                return 404, {"message": str(e)}
+                return 404, {"message": str(e)}, js
             except Exception as e:
                 logger.exception("reload failed")
-                return 500, {"message": f"reload failed: {e}"}
-        return 404, {"message": "not found"}
+                return 500, {"message": f"reload failed: {e}"}, js
+        return 404, {"message": "not found"}, js
 
     @callback_scope
     def _el_query(self, req, query_str: str, respond) -> None:
         """The continuous hot path: parse and admission on the loop
         thread, device work on the batcher's dispatcher, serve/encode in
-        its callback, the socket write back on the loop."""
-        t0 = time.perf_counter()
+        its callback, the socket write back on the loop (which finishes
+        the request's timeline).  The request's trace id (its
+        ``X-PIO-Trace``, or a new one) is echoed on every reply."""
+        tid = (req.header(TRACE_HEADER) or "").strip() or new_trace_id()
+        hdrs = [(TRACE_HEADER, tid)]
+        tl = timeline.Timeline("serve")
         query_json, timeout_s, bad = _parse_query(req.body, query_str)
         if bad is not None:
-            respond(400, {"message": bad})
+            self._m_queries["bad_request"].inc()
+            respond(400, {"message": bad}, extra_headers=hdrs)
             return
+        _m_inflight.inc()
         try:
-            ctx = self._query_setup(query_json, timeout_s)
+            with trace_scope(tid), timeline.timeline_scope(tl):
+                ctx = self._query_setup(query_json, timeout_s, tl)
         except Exception as e:
-            self._el_reply_error(e, respond)
+            _m_inflight.dec()
+            self._el_reply_error(e, respond, hdrs)
             return
 
         if ctx.batcher is None:
@@ -556,32 +704,45 @@ class EngineServer(HTTPServerBase):
             # work, so it goes to the aux pool, not the loop
             def run_direct():
                 try:
-                    out = self._query_finish(
-                        ctx, self._predict_direct(ctx), t0)
+                    with trace_scope(tid), timeline.timeline_scope(tl), \
+                            annotate("pio.serve.query"):
+                        predictions = self._predict_direct(ctx)
+                        tl.mark("device")
+                        out = self._query_finish(ctx, predictions, tl,
+                                                 tl.t0)
                 except Exception as e:
-                    self._el_reply_error(e, respond)
+                    _m_inflight.dec()
+                    self._el_reply_error(e, respond, hdrs)
                     return
-                respond(200, out)
+                _m_inflight.dec()
+                self._m_queries["ok"].inc()
+                respond(200, out, extra_headers=hdrs, tl=tl)
 
             self._aux_submit(respond, run_direct)
             return
 
         def done(entry):
             # on the dispatcher thread, once the entry has its result
+            # and its queue_wait/batch_wait/device segments are booked
             err = entry.error
             out = None
             if err is None:
                 try:
-                    out = self._query_finish(ctx, entry.value, t0)
+                    with trace_scope(tid):
+                        out = self._query_finish(ctx, entry.value, tl,
+                                                 tl.t0)
                 except Exception as e:
                     err = e
+            _m_inflight.dec()
             if err is not None:
-                self._el_reply_error(err, respond)
+                self._el_reply_error(err, respond, hdrs)
                 return
-            respond(200, out)
+            self._m_queries["ok"].inc()
+            respond(200, out, extra_headers=hdrs, tl=tl)
 
         try:
-            ctx.batcher.submit_nowait(ctx.query, done, deadline=ctx.deadline)
+            ctx.batcher.submit_nowait(ctx.query, done, deadline=ctx.deadline,
+                                      timeline=tl)
         except RuntimeError:
             # the snapshot raced a reload that closed this batcher: retry
             # once on the current one
@@ -589,17 +750,18 @@ class EngineServer(HTTPServerBase):
                 batcher = self.batcher
             if batcher is not None and batcher is not ctx.batcher:
                 ctx.batcher = batcher
-                batcher.submit_nowait(ctx.query, done, deadline=ctx.deadline)
+                batcher.submit_nowait(ctx.query, done,
+                                      deadline=ctx.deadline, timeline=tl)
             else:
+                _m_inflight.dec()
                 self._el_reply_error(
                     RuntimeError("batcher unavailable during reload"),
-                    respond)
+                    respond, hdrs)
 
-    @staticmethod
-    def _el_reply_error(e: BaseException, respond) -> None:
-        code, payload, headers = _error_reply(e)
+    def _el_reply_error(self, e: BaseException, respond, hdrs) -> None:
+        code, payload, headers = self._book_failure(e)
         try:
-            respond(code, payload, extra_headers=headers)
+            respond(code, payload, extra_headers=hdrs + headers)
         except RuntimeError:
             pass  # request already answered
 
@@ -647,32 +809,51 @@ class EngineServer(HTTPServerBase):
             server_logger = logger
 
             def do_GET(self):
-                self._reply(*server._blocking_get(
-                    urllib.parse.urlparse(self.path).path))
+                u = urllib.parse.urlparse(self.path)
+                code, payload, ctype = server._blocking_get(u.path, u.query)
+                self._reply(code, payload, ctype=ctype)
 
             def do_POST(self):
                 raw = self._body()  # read on every route: keep-alive
                 u = urllib.parse.urlparse(self.path)
                 if u.path == "/queries.json":
-                    self._post_query(raw, u.query)
+                    # honor the client's X-PIO-Trace or mint one; echoed
+                    # on the reply.  The handler owns the pulse timeline:
+                    # its t0 precedes the decode, and only it can time
+                    # the socket write
+                    tid = self._trace_id() or new_trace_id()
+                    self.extra_headers = [(TRACE_HEADER, tid)]
+                    tl = timeline.Timeline("serve")
+                    try:
+                        with trace_scope(tid), timeline.timeline_scope(tl):
+                            self._post_query(raw, u.query, tl)
+                    finally:
+                        self.extra_headers = []
                 elif u.path == "/stop":
                     self._reply(200, {"message": "stopping"})
                     threading.Thread(target=server.stop, daemon=True).start()
                 else:
                     self._reply(404, {"message": "not found"})
 
-            def _post_query(self, raw: bytes, query_str: str) -> None:
+            def _post_query(self, raw: bytes, query_str: str, tl) -> None:
                 query_json, timeout_s, bad = _parse_query(raw, query_str)
                 if bad is not None:
+                    server._m_queries["bad_request"].inc()
                     self._reply(400, {"message": bad})
                     return
                 try:
-                    self._reply(200, server.predict_json(
-                        query_json, timeout_s=timeout_s))
+                    out = server.predict_json(query_json,
+                                              timeout_s=timeout_s)
                 except Exception as e:
-                    code, payload, self.extra_headers = _error_reply(e)
+                    code, payload, headers = server._book_failure(e)
+                    self.extra_headers += headers
                     self._reply(code, payload)
-                finally:
-                    self.extra_headers = []
+                    return
+                self._reply(200, out)
+                # close the timeline on the success path only: error
+                # replies have no meaningful decomposition
+                tl.mark("write")
+                tl.finish()
+                server._m_queries["ok"].inc()
 
         return Handler

@@ -1,8 +1,8 @@
 """Event-server stats: lifetime + hourly counters
 (reference `data/api/StatsActor.scala:29-74`, `data/api/Stats.scala:27-79`).
 
-Port of ``predictionio_tpu/server/stats.py`` without the process-wide
-``obs`` counters, which wait for the port of ``obs/``.  Counters by
+Port of ``predictionio_tpu/server/stats.py``, mirrored into the
+process-wide ``obs`` counters as the reference does.  Counters by
 (appId, status-code) and (appId, event, entityType, targetEntityType);
 the actor model collapses to a lock-guarded aggregate fed
 fire-and-forget from the request handlers.
@@ -15,6 +15,8 @@ import time
 from collections import Counter
 from dataclasses import dataclass, field
 from typing import Optional
+
+from ..obs import EVENTS_TOTAL, RESILIENCE_TOTAL
 
 __all__ = ["Stats", "StatsCollector", "KindedEvent",
            "merge_stats_payloads"]
@@ -164,11 +166,15 @@ class StatsCollector:
             self._roll()
             self.lifetime.update(app_id, status, kinded)
             self.current.update(app_id, status, kinded)
+        # mirror into the process-wide registry: status alone keeps the
+        # label cardinality bounded; per-app counts stay in /stats.json
+        EVENTS_TOTAL.labels(status=str(status)).inc()
 
     def note(self, counter: str, n: int = 1) -> None:
         """Bump a named resilience counter (e.g. ``storage.write.retry``)."""
         with self._lock:
             self.resilience[counter] += n
+        RESILIENCE_TOTAL.labels(kind=counter).inc(n)
 
     def to_json(self, app_id: Optional[int] = None) -> dict:
         with self._lock:

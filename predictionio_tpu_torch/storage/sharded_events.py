@@ -34,8 +34,9 @@ Auto-generated ids are unique, so only clients that reuse ids across
 entities can observe this; the reference's HBase rowkeys (entity-hash
 prefixed) cannot express that operation at all.
 
-Not ported yet: the per-shard ``obs`` histograms and the
-``store.shard_down`` fault hook (ROADMAP Queue 1 item 2), and the
+Writes book the reference's per-shard ``obs`` families
+(``pio_store_shard_write_seconds``, ``pio_store_shard_rows``) and
+consult the ``store.shard_down`` fault point.  Not ported yet: the
 incremental scans with their shard-vector cursors (``find_rows_since``,
 ``find_since``, ``max_rowid``, ``high_water_cursor``, ``cursor_lag``;
 item 5), which raise ``NotImplementedError``.
@@ -57,6 +58,8 @@ from typing import Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
+from ..obs import STORE_SHARD_ROWS, STORE_SHARD_WRITE_SECONDS
+from ..resilience import faults
 from .columnar import EventFrame, Ratings
 from .event import Event, validate_event
 from .levents import EventStore, ShardUnavailableError, TargetFilter
@@ -129,9 +132,23 @@ class ShardedSQLiteEventStore(EventStore):
                     "mis-route every entity — refusing"
                 )
         self.n_shards = n_shards
+        # each shard's writer lock is named, so one hot shard's
+        # contention is attributable on pio_lock_wait_seconds{lock=}
         self.shards = [
-            SQLiteEventStore(self._dir / f"shard-{i}.db")
+            SQLiteEventStore(self._dir / f"shard-{i}.db",
+                             lock_name=f"store_shard_{i}")
             for i in range(n_shards)
+        ]
+        # per-shard instrumentation, children resolved once (labels()
+        # is too hot for the write path).  The row gauge tracks THIS
+        # process's write-minus-delete delta: the ingestion-skew
+        # signal, not a table count.
+        self._m_write = [
+            STORE_SHARD_WRITE_SECONDS.labels(shard=str(i))
+            for i in range(n_shards)
+        ]
+        self._m_rows = [
+            STORE_SHARD_ROWS.labels(shard=str(i)) for i in range(n_shards)
         ]
         # what the last find_ratings did: each shard's own seconds (its
         # scan and encode, on its thread) and the dictionary merge's
@@ -175,6 +192,18 @@ class ShardedSQLiteEventStore(EventStore):
                 "shard is not owned by this worker (router misroute or "
                 "stale routing table)",
             )
+        self._check_shard_up(six)
+
+    def _check_shard_up(self, six: int) -> None:
+        """``store.shard_down`` consultation (shard-scoped, see
+        `resilience.faults.check_shard`); any injected error surfaces
+        as the sticky `ShardUnavailableError`, never a transient."""
+        try:
+            faults.check_shard("store.shard_down", six)
+        except ShardUnavailableError:
+            raise
+        except BaseException as e:
+            raise ShardUnavailableError(six, str(e)) from e
 
     def _owned(self) -> list[SQLiteEventStore]:
         """The shards this process may write (maintenance scope: VACUUM
@@ -208,9 +237,13 @@ class ShardedSQLiteEventStore(EventStore):
                validate: bool = True) -> str:
         six = _shard_ix(event.entity_type, event.entity_id, self.n_shards)
         self._check_writable(six)
-        return self.shards[six].insert(
+        t0 = time.perf_counter()
+        eid = self.shards[six].insert(
             event, app_id, channel_id, validate=validate
         )
+        self._m_write[six].observe(time.perf_counter() - t0)
+        self._m_rows[six].inc()
+        return eid
 
     def insert_batch(
         self, events, app_id: int, channel_id: int = 0,
@@ -241,10 +274,13 @@ class ShardedSQLiteEventStore(EventStore):
         # wins).
         with self.bulk(defer_indexes=False):
             for six, positions in groups.items():
+                t0 = time.perf_counter()
                 got = self.shards[six].insert_batch(
                     [events[p] for p in positions], app_id, channel_id,
                     validate=False,
                 )
+                self._m_write[six].observe(time.perf_counter() - t0)
+                self._m_rows[six].inc(len(positions))
                 for p, eid in zip(positions, got):
                     ids[p] = eid
         return ids  # aligned with the input order
@@ -266,16 +302,26 @@ class ShardedSQLiteEventStore(EventStore):
         with self.bulk(defer_indexes=False):
             for six, grp in enumerate(groups):
                 if grp:
+                    t0 = time.perf_counter()
                     self.shards[six].insert_raw_rows(grp, app_id,
                                                      channel_id)
+                    self._m_write[six].observe(time.perf_counter() - t0)
+                    self._m_rows[six].inc(len(grp))
 
     def purge_older_than(self, cutoff_millis: int, app_id: int,
                          channel_id: int = 0) -> int:
         """TTL fan-out (`sqlite_events.purge_older_than`) over every
         shard this process can write: in a worker fleet each owner trims
         its own files."""
-        return sum(s.purge_older_than(cutoff_millis, app_id, channel_id)
-                   for s in self._owned())
+        total = 0
+        for i, s in enumerate(self.shards):
+            if self.owned_shards is not None and i not in self.owned_shards:
+                continue
+            n = s.purge_older_than(cutoff_millis, app_id, channel_id)
+            if n:
+                self._m_rows[i].dec(n)
+            total += n
+        return total
 
     @contextlib.contextmanager
     def bulk(self, defer_indexes: bool = True):
@@ -301,14 +347,22 @@ class ShardedSQLiteEventStore(EventStore):
         removed = [
             s.delete(event_id, app_id, channel_id) for s in self.shards
         ]
+        for i, ok in enumerate(removed):
+            if ok:
+                self._m_rows[i].dec()
         return any(removed)
 
     def delete_batch(
         self, event_ids: Iterable[str], app_id: int, channel_id: int = 0
     ) -> int:
         ids = list(event_ids)
-        return sum(s.delete_batch(ids, app_id, channel_id)
-                   for s in self.shards)
+        total = 0
+        for i, s in enumerate(self.shards):
+            n = s.delete_batch(ids, app_id, channel_id)
+            if n:
+                self._m_rows[i].dec(n)
+            total += n
+        return total
 
     # -- scans ------------------------------------------------------------
     def find(

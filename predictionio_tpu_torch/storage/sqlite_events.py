@@ -158,7 +158,8 @@ def _table_name(app_id: int, channel_id: int) -> str:
 
 
 class SQLiteEventStore(EventStore):
-    def __init__(self, path: str | Path = ":memory:"):
+    def __init__(self, path: str | Path = ":memory:",
+                 lock_name: Optional[str] = None):
         if not isinstance(path, (str, Path)):
             # str(dict) would silently become a garbage FILENAME
             raise TypeError(
@@ -166,7 +167,16 @@ class SQLiteEventStore(EventStore):
                 "(pass conf['path'], not the conf dict)"
             )
         self._path = str(path)
-        self._lock = threading.RLock()
+        # pio-scope opt-in (``lock_name``): the sharded store names
+        # each shard's writer lock so per-shard contention books under
+        # pio_lock_wait_seconds{lock="store_shard_<i>"}; the default
+        # single-file store keeps a plain RLock
+        if lock_name is not None:
+            from ..obs.scope import TimedLock
+
+            self._lock = TimedLock(lock_name, reentrant=True)
+        else:
+            self._lock = threading.RLock()
         self._local = threading.local()
         self._known_tables: set[str] = set()
         # :memory: must share one connection across threads; wrap it so

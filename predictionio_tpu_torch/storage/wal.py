@@ -3,9 +3,8 @@
 Port of ``predictionio_tpu/storage/wal.py``, for the single-file store
 and the sharded one (one log per owned shard, routed by the store's own
 entity hash).  The log format is the reference's, so either package
-replays the other's logs.  Not ported yet: the fault-injection points
-(``wal.torn``, ``store.shard_down``) and the ``obs`` metrics (ROADMAP
-Queue 1 item 2).
+replays the other's logs.  With the reference's fault-injection points
+(``wal.torn``, ``store.shard_down``), ``obs`` metrics and timed locks.
 
 The reference's HBase write path acknowledges a put only after the
 region server's WAL has the record (hflush), then folds memstore
@@ -38,8 +37,8 @@ File format, one log per shard (``shard-<i>.wal``): each record is
 `sqlite_events.event_to_row`.  Replay stops at the first short or
 crc-mismatched frame and truncates the file there.
 
-Failure discipline is fail-stop per shard: an append that errors marks
-that shard's log broken and
+Failure discipline is fail-stop per shard: an append that errors
+(including an injected ``wal.torn``) marks that shard's log broken and
 every later write to the shard answers `ShardUnavailableError` until a
 restart replays and truncates the log — a write path whose durability
 log is suspect must stop acknowledging, not guess.
@@ -59,6 +58,14 @@ import zlib
 from pathlib import Path
 from typing import Iterable, Optional
 
+from ..obs import (
+    WAL_BACKLOG_ROWS,
+    WAL_COMMIT_ROWS,
+    WAL_FSYNC_SECONDS,
+    WAL_REPLAYED_TOTAL,
+    scope,
+)
+from ..resilience import faults
 from .levents import ShardUnavailableError
 
 logger = logging.getLogger(__name__)
@@ -136,7 +143,9 @@ class EventWAL:
 
     def append_group(self, payloads: Iterable[bytes]) -> None:
         """Append framed records and fsync: the leader's one durable
-        write per group."""
+        write per group.  ``wal.torn`` (shard-scoped) tears the write
+        mid-record: half the buffer lands, no fsync, and the log is
+        marked broken — the simulated crash replay recovers from."""
         if self.broken is not None:
             raise ShardUnavailableError(
                 self.shard_ix, f"ingest WAL broken: {self.broken}"
@@ -144,6 +153,16 @@ class EventWAL:
         buf = b"".join(_frame(p) for p in payloads)
         if not buf:
             return
+        try:
+            faults.check_shard("wal.torn", self.shard_ix)
+        except BaseException as e:
+            torn = buf[: max(len(buf) // 2, _HEADER.size - 1)]
+            self._f.write(torn)
+            self._f.flush()
+            self.broken = f"{type(e).__name__}: {e}"
+            raise ShardUnavailableError(
+                self.shard_ix, f"ingest WAL torn: {e}"
+            ) from e
         try:
             self._f.write(buf)
             self._f.flush()
@@ -207,6 +226,7 @@ def replay_wal_dir(wal_dir, store, shards: Optional[Iterable[int]] = None,
                 store.init_channel(app_id, channel_id)
                 store.insert_raw_rows(rows, app_id, channel_id)
             replayed += len(records)
+            WAL_REPLAYED_TOTAL.labels(shard=str(six)).inc(len(records))
         if truncate and (records or torn):
             # replayed content is committed (insert_raw_rows commits);
             # only now is dropping the log safe
@@ -273,12 +293,13 @@ class GroupCommitWAL:
             six: EventWAL(self.wal_dir / f"shard-{six}.wal", six)
             for six in sorted(self.owned)
         }
-        # the two ingest hot locks: "_lock" is the bookkeeping monitor
-        # every submit and the committer share; "_flush_lock" serializes
-        # group leaders
-        self._lock = threading.Lock()
-        self._cv = threading.Condition(self._lock)
-        self._flush_lock = threading.Lock()
+        # pio-scope: the two ingest hot locks.  "wal_commit" is the
+        # bookkeeping monitor every submit and the committer share;
+        # "wal_flush" serializes group leaders — its wait histogram IS
+        # the follower-waiting-on-a-leader's-fsync distribution.
+        self._lock = scope.TimedLock("wal_commit")
+        self._cv = scope.TimedCondition("wal_commit", lock=self._lock)
+        self._flush_lock = scope.TimedLock("wal_flush")
         # (shard, payload bytes, (app, ch, row)) triples awaiting the
         # next leader's flush; commit queue holds flushed rows awaiting
         # the sqlite drain — both strictly FIFO so per-shard rowid
@@ -310,6 +331,12 @@ class GroupCommitWAL:
             raise ShardUnavailableError(
                 six, "not owned by this worker (router misroute?)"
             )
+        try:
+            faults.check_shard("store.shard_down", six)
+        except ShardUnavailableError:
+            raise
+        except BaseException as e:
+            raise ShardUnavailableError(six, str(e)) from e
         wal = self._wals[six]
         if wal.broken is not None:
             raise ShardUnavailableError(
@@ -337,6 +364,7 @@ class GroupCommitWAL:
             self._pending.extend(blobs)
             self._submitted += len(blobs)
             my_seq = self._submitted
+        t0 = time.perf_counter()
         with self._flush_lock:
             with self._lock:
                 covered = self._flushed >= my_seq
@@ -344,6 +372,7 @@ class GroupCommitWAL:
                     batch, self._pending = self._pending, []
             if not covered and batch:
                 self._flush_group(batch)
+        WAL_FSYNC_SECONDS.child().observe(time.perf_counter() - t0)
         with self._lock:
             lo = my_seq - len(blobs)
             for flo, fhi, err in self._failures:
@@ -378,6 +407,7 @@ class GroupCommitWAL:
         with self._lock:
             self._flushed += len(batch)
             self._commit_q.extend(item for _, _, item in batch)
+            WAL_BACKLOG_ROWS.child().set(float(len(self._commit_q)))
             self._cv.notify_all()
 
     # -- read-your-writes barrier ----------------------------------------
@@ -408,6 +438,7 @@ class GroupCommitWAL:
 
     # -- background sqlite drain -----------------------------------------
     def _commit_loop(self) -> None:
+        scope.register_thread_role("wal_committer")
         while True:
             with self._lock:
                 while (not self._commit_q and not self._closing):
@@ -428,6 +459,7 @@ class GroupCommitWAL:
                 batch = []
                 while self._commit_q and len(batch) < self.max_commit_rows:
                     batch.append(self._commit_q.popleft())
+                WAL_BACKLOG_ROWS.child().set(float(len(self._commit_q)))
             if not batch:
                 continue
             try:
@@ -440,6 +472,9 @@ class GroupCommitWAL:
                 logger.warning("WAL drain failed (%s); retrying", e)
                 with self._lock:
                     self._commit_q.extendleft(reversed(batch))
+                    WAL_BACKLOG_ROWS.child().set(
+                        float(len(self._commit_q))
+                    )
                 time.sleep(min(self.commit_interval_s * 5, 0.5))
                 continue
             with self._lock:
@@ -447,6 +482,7 @@ class GroupCommitWAL:
                 fully_drained = (not self._commit_q
                                  and self._committed >= self._flushed)
                 self._cv.notify_all()
+            WAL_COMMIT_ROWS.child().observe(len(batch))
             if fully_drained:
                 self._checkpoint()
 

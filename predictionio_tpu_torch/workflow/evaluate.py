@@ -5,8 +5,8 @@ Port of ``predictionio_tpu/workflow/evaluate.py``:
 (`core/src/main/scala/io/prediction/workflow/CoreWorkflow.scala:96-150`
 + `EvaluationWorkflow.scala:29-42`): insert an EvaluationInstance, run the
 sweep, record one-liner/HTML/JSON renderings for the dashboard, mark
-EVALCOMPLETED.  The reference's run manifest and trace spans have no
-counterpart here.
+EVALCOMPLETED.  The run is an ``eval.run`` phase span and a pio-tower
+session of kind ``eval``, whose manifest holds one record per candidate.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from ..controller.base import WorkflowContext
 from ..controller.engine import Engine, EngineParams
 from ..controller.evaluation import Evaluation, MetricEvaluatorResult
 from ..controller.fast_eval import FastEvalEngine
+from ..obs import phase_span, tower
 from ..storage.event import format_time, now_utc
 from ..storage.metadata import EvaluationInstance
 from .params import WorkflowParams
@@ -101,9 +102,26 @@ def run_evaluation(
                 engine, evaluation.metric, evaluation.metrics,
                 evaluation.output_path,
             )
-        result = evaluation.run(
-            ctx, engine_params_list, wp, parallelism=parallelism
-        )
+        session = tower.TowerSession(
+            eval_id,
+            kind="eval",
+            meta={
+                "evaluationClass": rec.evaluation_class,
+                "candidates": len(engine_params_list),
+                "batch": wp.batch,
+            },
+        ).start()
+        try:
+            with phase_span("eval.run", attrs={
+                "instance": eval_id, "candidates": len(engine_params_list),
+            }):
+                result = evaluation.run(
+                    ctx, engine_params_list, wp, parallelism=parallelism
+                )
+            session.finalize("completed")
+        except BaseException as e:
+            session.finalize_error(e)
+            raise
         rec.status = "EVALCOMPLETED"
         rec.end_time = format_time(now_utc())
         rec.evaluator_results = result.to_one_liner()

@@ -7,8 +7,11 @@ the EngineInstance (INIT) -> TRAINING -> train -> persist models ->
 COMPLETED; failures mark the record FAILED (or INTERRUPTED) and re-raise.
 ``prepare_deploy`` mirrors `Engine.prepareDeploy`
 (`controller/Engine.scala:173-243`), including the compat retrain of
-models that were not persisted.  The reference's run log, trace
-spans and multi-host instance-id broadcast have no counterpart here.
+models that were not persisted.  A run is observed as the reference
+observes it: a pio-tower session writes its run manifest (one record
+per sweep, a ``final`` record), ``train.run`` and ``train.save_models``
+phase spans, and the device-memory sampler.  The multi-host instance-id
+broadcast has no counterpart here.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from typing import Any, Optional
 from ..controller.base import TrainingInterrupted, WorkflowContext
 from ..controller.engine import Engine, EngineParams
 from ..controller.params import params_to_json
+from ..engines import engine_label_of
+from ..obs import phase_span, tower, xray
 from ..storage.event import format_time, now_utc
 from ..storage.metadata import EngineInstance
 from .model_io import NotPersisted, load_models, save_models
@@ -69,11 +74,28 @@ def run_train(
     engine_factory: str = "",
 ) -> str:
     """Run training end to end; returns the engine instance id.  The
-    context defaults to the card and the registry's storage."""
+    context defaults to the card and the registry's storage.  A
+    :class:`~..obs.tower.ConvergenceError` from the watchdog propagates
+    with the instance FAILED and the manifest finalized ``aborted``."""
+    # build and device observability for the whole run: the sampler
+    # keeps the memory gauges live while we train
+    xray.install()
+    xray.start_sampler()
     ctx = ctx or WorkflowContext(mode="Training")
     wp = workflow_params or WorkflowParams()
     md = ctx.storage.get_metadata()
     instance_id = new_instance_id()
+    session = tower.TowerSession(
+        instance_id,
+        kind="train",
+        meta={
+            "engineId": engine_id,
+            "engine": engine_label_of(engine, fallback=engine_id),
+            "engineVariant": engine_variant,
+            "batch": wp.batch,
+            "nDevices": 1,
+        },
+    ).start()
     ei = EngineInstance(
         id=instance_id,
         status="INIT",
@@ -93,27 +115,38 @@ def run_train(
         md.engine_instance_update(ei)
         # keep the trained instances: persistence hooks may rely on state
         # the algorithm built during train
-        algos, models = engine.train_components(ctx, engine_params, wp)
+        t_run = time.perf_counter()
+        with phase_span("train.run", attrs={"instance": instance_id}):
+            algos, models = engine.train_components(ctx, engine_params, wp)
+        session.note_train_run(time.perf_counter() - t_run)
         if wp.save_model:
             names = [n for n, _ in engine_params.algorithms]
             t0 = time.perf_counter()
-            save_models(ctx, instance_id, list(zip(names, algos, models)))
+            with phase_span("train.save_models",
+                            attrs={"instance": instance_id}):
+                save_models(ctx, instance_id,
+                            list(zip(names, algos, models)))
             logger.info("models of instance %s saved: %.3f s", instance_id,
                         time.perf_counter() - t0)
         ei.status = "COMPLETED"
         ei.end_time = format_time(now_utc())
         md.engine_instance_update(ei)
+        session.finalize("completed")
         logger.info("training finished: instance %s", instance_id)
         return instance_id
-    except TrainingInterrupted:
+    except TrainingInterrupted as e:
         ei.status = "INTERRUPTED"
         ei.end_time = format_time(now_utc())
         md.engine_instance_update(ei)
+        session.finalize("interrupted", error=str(e))
         raise
-    except Exception:
+    except Exception as e:
         ei.status = "FAILED"
         ei.end_time = format_time(now_utc())
         md.engine_instance_update(ei)
+        # a ConvergenceError was already finalized "aborted" by the
+        # watchdog (finalize is idempotent); anything else is "failed"
+        session.finalize_error(e)
         raise
 
 

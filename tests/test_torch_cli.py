@@ -250,11 +250,6 @@ REFUSED = [
     (["deploy", "--push-foldin", "5"], 4),
     (["train", "--coordinator", "127.0.0.1:1234"], 7),
     (["train", "--num-processes", "2"], 7),
-    (["train", "--telemetry-dir", "t"], 2),
-    (["eval", "--xray-sample-s", "1"], 2),
-    (["deploy", "--xray-sample-s", "1"], 2),
-    (["deploy", "--flight-capacity", "4"], 2),
-    (["eventserver", "--slo-ms", "50"], 2),
 ]
 
 

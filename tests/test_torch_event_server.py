@@ -23,6 +23,8 @@ from predictionio_tpu.storage import (
     AccessKey as JaxAccessKey,
     Storage as JaxStorage,
 )
+from predictionio_tpu.resilience import faults as jax_faults
+from predictionio_tpu_torch.resilience import faults as port_faults
 from predictionio_tpu_torch.server import EventServer, EventServerConfig
 from predictionio_tpu_torch.storage import AccessKey, Storage
 
@@ -313,14 +315,32 @@ def test_group_commit_server_reads_its_writes(pair):
         assert len(list(st.get_event_store().iter_raw_rows(1))) == 151
 
 
-def test_unported_options_raise(tmp_path, monkeypatch):
-    # the fault-injection plan waits for resilience/faults.py (item 2);
-    # shard ownership is ported (tests/test_torch_wal_sharded.py)
-    st = Storage({"PIO_TPU_HOME": str(tmp_path)})
-    monkeypatch.setenv("PIO_FAULT_PLAN", "storage.write:nth=1")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 2"):
-        EventServer(st, EventServerConfig(port=0))
+def test_unported_options_raise(pair):
+    # PIO_FAULT_PLAN is ported (it raised NotImplementedError before):
+    # under one plan both servers retry, answer 503 + Retry-After on
+    # exhaustion, recover, and book the same rejections in /stats.json
+    clients = pair()
+    plan = "storage.write:nth=1,times=4,exc=operational"
+
+    def script(c):
+        jax_faults.arm(plan)
+        port_faults.arm(plan)
+        try:
+            out = [c.call("POST", f"/events.json?accessKey={KEY}", _rate(k))
+                   for k in range(3)]
+            out.append(c.call("POST", f"/batch/events.json?accessKey={KEY}",
+                              [_rate(k) for k in range(3, 5)]))
+        finally:
+            jax_faults.disarm()
+            port_faults.disarm()
+        out.append(c.call("GET", f"/stats.json?accessKey={KEY}"))
+        return out
+
+    got = _same(script, clients)
+    assert [r[0] for r in got[:3]] == [503, 201, 201]
+    assert got[0][1] == "1" and "injected" in got[0][2]["message"]
+    assert [x["status"] for x in got[3][2]] == [201, 201]
+    assert got[4][0] == 200
 
 
 def test_ttl_maintenance_purges_old_events(pair):

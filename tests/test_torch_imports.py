@@ -6,7 +6,9 @@ module of the JAX package in a string (what ``python -m`` or
 ``python -m predictionio_tpu_torch``."""
 
 import ast
+import json
 import re
+import subprocess
 import sys
 from pathlib import Path
 
@@ -46,7 +48,10 @@ def test_the_walk_sees_every_file():
                 "controller/evaluation.py", "controller/fast_eval.py",
                 "workflow/evaluate.py", "workflow/fake.py",
                 "storage/sharded_events.py", "server/router.py",
-                "server/ingest_router.py"):
+                "server/ingest_router.py", "resilience/faults.py",
+                *(f"obs/{m}.py" for m in (
+                    "__init__", "registry", "trace", "flight", "scope",
+                    "timeline", "fleet", "xray", "runlog", "tower"))):
         assert f"predictionio_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names
     assert len(names) >= 20
@@ -128,3 +133,41 @@ def test_fleet_workers_run_the_ports_console(tmp_path, monkeypatch):
         tmp_path / "wal" / "worker-1")
     assert cmd[-2:] == ["--port-file", str(spawned["port_file"])]
     assert str(ROOT) in env["PYTHONPATH"].split(":")
+
+
+_OFF_THE_CARD = """
+import json, sys, tempfile, urllib.request
+import torch
+import predictionio_tpu_torch.obs
+from predictionio_tpu_torch.server import EventServer, EventServerConfig
+from predictionio_tpu_torch.storage import AccessKey, Storage
+st = Storage({"PIO_TPU_HOME": tempfile.mkdtemp()})
+md = st.get_metadata()
+md.access_key_insert(AccessKey(key="k", appid=md.app_insert("a").id))
+srv = EventServer(st, EventServerConfig(port=0))
+srv.start_background()
+base = f"http://127.0.0.1:{srv.config.port}"
+ev = {"event": "rate", "entityType": "user", "entityId": "u1",
+      "targetEntityType": "item", "targetEntityId": "i1",
+      "properties": {"rating": 4.0}}
+req = urllib.request.Request(base + "/events.json?accessKey=k",
+                             data=json.dumps(ev).encode())
+assert urllib.request.urlopen(req, timeout=30).status == 201
+metrics = urllib.request.urlopen(base + "/metrics", timeout=30).read()
+assert b'pio_events_requests_total{status="201"} 1' in metrics
+srv.stop()
+print(json.dumps({"cuda": torch.cuda.is_initialized(),
+                  "jax": any(m.split(".")[0] in ("jax", "predictionio_tpu")
+                             for m in sys.modules)}))
+"""
+
+
+def test_obs_and_an_event_server_stay_off_the_card():
+    """Importing ``obs``, serving events and a ``/metrics`` scrape
+    initialise no CUDA context and import nothing of JAX (a fresh
+    interpreter: the test process has both packages loaded)."""
+    p = subprocess.run([sys.executable, "-c", _OFF_THE_CARD], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stderr
+    assert json.loads(p.stdout.splitlines()[-1]) == {"cuda": False,
+                                                     "jax": False}

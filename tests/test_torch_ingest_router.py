@@ -37,6 +37,7 @@ from predictionio_tpu.server.ingest_router import (
 from predictionio_tpu.storage import AccessKey as JaxAccessKey
 from predictionio_tpu.storage.registry import Storage as JaxStorage
 from predictionio_tpu_torch.cli.main import main
+from predictionio_tpu_torch.obs.fleet import parse_prometheus
 from predictionio_tpu_torch.server import (
     EventServer,
     EventServerConfig,
@@ -335,8 +336,22 @@ def test_stats_federate_and_metrics_wait_for_their_item(fleets):
     got = _both(fleets, script)
     assert _total(got[1]) == 4
     assert got[1]["workers"] == {"total": 2, "healthy": 2, "reporting": 2}
-    status, body, _ = _req(fleets["port"].base + "/metrics")
-    assert status == 404 and "ROADMAP Queue 1 item 2" in body["message"]
+    # the /metrics federation is ported (it answered 404 before): after a
+    # scrape of each worker, both routers merge the same families, each
+    # gauge labeled by worker
+    merged = {}
+    for name, f in fleets.items():
+        assert all(w.scrape(5.0) for w in f.workers)
+        with urllib.request.urlopen(f.base + "/metrics", timeout=30) as r:
+            assert r.status == 200
+            merged[name] = parse_prometheus(r.read().decode())
+    names = [{fam["name"] for fam in m["families"]} for m in merged.values()]
+    assert names[0] == names[1]
+    up = next(fam for fam in merged["port"]["families"]
+              if fam["name"] == "pio_ingest_worker_up")
+    workers = {dict(map(tuple, c["labels"])).get("worker")
+               for c in up["children"]}
+    assert {"ingest-0", "ingest-1"} <= workers
 
 
 # -- one shard owner down ------------------------------------------------------
