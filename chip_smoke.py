@@ -33,6 +33,14 @@ read just after it; a kernel its path did not launch fails the run:
   (``template get``, ``build``, ``train --scan-cache`` in process, a
   ``deploy`` process on the event-loop edge answering queries like an
   in-process ``predict``, ``undeploy``);
+* router: ``deploy --replicas 2 --feedback`` on the instance that
+  ``train`` made (a router process and two replica processes, each its
+  own CUDA context), its feedback going to an event server on an app of
+  its own and its remote log to a sink in this script: replies like an
+  in-process ``predict``, one ``pio_pr`` event per answered query, the
+  trace id on the feedback write, one log POST for an invalid query,
+  ``/debug/fleet``, the HTML status page, and a replica SIGKILLed under
+  load with no query failing and its respawn booked;
 * eval: ``pio eval`` on that store through the console, in process: a
   sweep of two candidates over 2 folds (:class:`ML20MSweep`), its folds
   held against a numpy split and its winner's RMSE against a float64
@@ -43,8 +51,11 @@ read just after it; a kernel its path did not launch fails the run:
   ``run_train`` (``fused_gather="auto"``, which ranks the fused kernel's
   forms with the gather probe kernels) → ``EngineServer`` answering solo
   and concurrent ``POST /queries.json`` like an in-process ``predict``,
-  then the eval sweep on that store sequentially and with
-  ``--parallelism 2``, which must agree;
+  then (phase formats) the ``.npz`` and Parquet exports and imports
+  through the console and ``import_ratings_csv`` of a MovieLens file,
+  each new app's ratings held against the synthetic triples, then the
+  eval sweep on that store sequentially and with ``--parallelism 2``,
+  which must agree;
 * probe smoke: ``gather_probe.smoke``, the probe module's own entry
   point.
 
@@ -60,8 +71,9 @@ rates and a 2 s ``torch.profiler`` capture, and the same load with
 ``--no-metrics``; the fleet's ``/metrics`` federation through a worker's
 death, a traced write in its owner's journal and a ``store.shard_down``
 worker; at ML-1M the ``storage.write``, ``wal.torn``,
-``device.dispatch`` and ``reload.load_model`` faults, a traced query in
-the journal, and ``train.nan`` aborting a console ``train``.
+``device.dispatch``, ``reload.load_model``, ``http.feedback`` and
+``http.remote_log`` faults, a traced query in the journal, and
+``train.nan`` aborting a console ``train``.
 
 Prints the card's name and power limit (``nvidia-smi``), one line per
 phase, a ``{"kernels": [...]}`` JSON line, and as its last line
@@ -81,7 +93,16 @@ times that tree by the same method.
 
 builds and runs only the ML-20M store phases (write and import, the
 ingest fleet, the sharded read and its check) and the host sort's
-timing, with no result line.
+timing, then the same ratings written as a columnar ``.npz`` and
+imported into a fresh 4-shard store (timed beside the JSON lines), with
+no result line.
+
+    python3 chip_smoke.py --edge-ab
+
+trains the ML-20M ratings in process, deploys the instance twice (the
+default recording and ``--no-metrics``) and loads each from 64 clients
+in 5 alternating turns, printing each turn and each arm's median and
+spread, with no result line.
 """
 
 from __future__ import annotations
@@ -2120,7 +2141,7 @@ def ingest_ml1m(storage, app_id: int, u, i, v) -> dict:
     config) takes the 3,706 item ``$set`` events (32 as solo ``POST
     /events.json``, the rest as ``POST /batch/events.json`` of 50); a
     second event server on the same store, with the group-commit WAL,
-    takes the first 100,000 rate events as batches of 50 from 8
+    takes the first 50,000 rate events as batches of 50 from 8
     concurrent clients (every status must be 201; ``barrier()`` before
     the read); ``import_events`` loads the remaining rate events from a
     JSON-lines file.  Returns each entry point's seconds."""
@@ -2158,7 +2179,7 @@ def ingest_ml1m(storage, app_id: int, u, i, v) -> dict:
             for st, r in batched):
         raise AssertionError("the event server refused a $set event")
 
-    n_http = 100_000
+    n_http = 50_000
     wal_dir = Path(tempfile.mkdtemp(prefix="pio_wal_"))
     srv = EventServer(storage, EventServerConfig(
         host="127.0.0.1", port=0, wal_dir=str(wal_dir)))
@@ -2382,6 +2403,7 @@ def phase_pio(torch, cli_views: dict) -> dict:
             raise AssertionError(f"server counted {status['requestCount']}")
         # chaos and trace checks on this server and on event servers
         obs_pio_chaos(storage, srv)
+        obs_delivery_chaos(storage, engine, ep, iid)
         _http(srv.port, "/stop", {})
         thread.join(timeout=30)
         if thread.is_alive():
@@ -2394,13 +2416,19 @@ def phase_pio(torch, cli_views: dict) -> dict:
             f"microbatch {status.get('microbatch')}); all 96 replies match "
             f"in-process predict ({trades} tied items traded places); "
             f"stopped")
+        # the other import and export formats on this store (no kernel)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        formats = phase_formats(storage, app.id, u, i, v)
+        formats["launches"] = dict(_build.LAUNCHES)
+        formats["s"] = time.perf_counter() - t0
         # the evaluation sweep, sequential and parallel, on this store
         eval_parallel(storage, home)
         # the watchdog's abort through the console at ML-1M counts
         obs_train_nan(storage, home, cli_views)
         return dict(launches=launches, resolved=resolved, ingest=ingest,
                     read_s=read_s[0], train_s=train_s, solo_ms=solo_ms,
-                    conc_wall_ms=conc_wall, conc_ms=conc_ms)
+                    conc_wall_ms=conc_wall, conc_ms=conc_ms, formats=formats)
     finally:
         reset_storage(None)
         if old_home is None:
@@ -2446,11 +2474,11 @@ def phase_cli(torch, store: StoreHome) -> dict:
     process on the card (the read must hit the scan cache; the launch
     counts are set to 0 just before it and read just after) →
     ``deploy`` as a process of its own on the default event-loop edge
-    with the shared batcher, answering 32 solo and 1,024 queries from 64
+    with the shared batcher, answering 32 solo and 256 queries from 64
     client threads, each reply held against an in-process ``predict`` on
-    the same instance → the same load on an in-process threads-edge
-    ``EngineServer`` → ``undeploy``, after which the deploy process must
-    exit with 0."""
+    the same instance → a shorter load on an in-process threads-edge
+    ``EngineServer`` (96 queries, as on a ``--no-metrics`` deploy) →
+    ``undeploy``, after which the deploy process must exit with 0."""
     from pathlib import Path
 
     from predictionio_tpu_torch.cli.main import load_engine_from_variant
@@ -2510,7 +2538,7 @@ def phase_cli(torch, store: StoreHome) -> dict:
     engine, ep, _ = load_engine_from_variant(ej)
     algos, models, _ = prepare_deploy_components(
         engine, ep, iid, ctx=WorkflowContext(mode="Serving", storage=st))
-    queries = query_mix(32 + 1024, 17, N_USERS, N_ITEMS)
+    queries = query_mix(32 + 256, 17, N_USERS, N_ITEMS)
     solo_q, conc_q = queries[:32], queries[32:]
     want = [algos[0].predict(models[0], Query.from_json(q)).to_json()
             for q in queries]
@@ -2545,6 +2573,10 @@ def phase_cli(torch, store: StoreHome) -> dict:
             proc.fail(f"counted {status['requestCount']} queries, batches "
                       f"{mb}")
         edges["eventloop"] = dict(load, batches=mb)
+        # no router lives in a plain deploy's process
+        fleet_code = _raw(port, "/debug/fleet")[0]
+        if fleet_code != 404:
+            proc.fail(f"answered GET /debug/fleet with {fleet_code}")
         obs = obs_deploy(torch, port, len(queries), solo_q[0], tdir)
         boot_s = proc.boot_s
         if "Undeployed" not in cli(["undeploy", "--port", str(port)], st):
@@ -2558,14 +2590,16 @@ def phase_cli(torch, store: StoreHome) -> dict:
     finally:
         proc.stop()
 
-    # the same load with --no-metrics: the mounts close, recording stays
+    # a shorter load with --no-metrics: the mounts close, recording
+    # stays (--edge-ab times the two against each other, in turns)
+    short_q = conc_q[:64]
     proc = Console(store.home, [
         "deploy", "--engine-json", str(ej), "--ip", "127.0.0.1", "--port",
         "0", "--no-metrics", *flight], "deploy-no-metrics")
     try:
         port = proc.wait_port()
         try:
-            load = http_load(port, solo_q, conc_q, 64)
+            load = http_load(port, solo_q, short_q, 64)
             load["trades"] = held(load["replies"], "deploy --no-metrics")
             closed = _raw(port, "/metrics")[0]
             status = _http(port, "/")
@@ -2585,7 +2619,7 @@ def phase_cli(torch, store: StoreHome) -> dict:
         host="127.0.0.1", port=0, edge="threads"))
     thread = srv.start_background()
     try:
-        load = http_load(srv.port, solo_q, conc_q, 64)
+        load = http_load(srv.port, solo_q, short_q, 64)
         load["trades"] = held(load["replies"], "threads edge")
         edges["threads"] = dict(load, batches=srv.status_json()["microbatch"])
     finally:
@@ -2593,11 +2627,12 @@ def phase_cli(torch, store: StoreHome) -> dict:
         thread.join(timeout=30)
     for name, e in edges.items():
         b = e["batches"]
+        n = len(e["conc_ms"])
         log(f"phase cli serve {name} edge: 32 solo {pcts(e['solo_ms'])}; "
-            f"1,024 from 64 clients {pcts(e['conc_ms'])}, "
+            f"{n:,} from 64 clients {pcts(e['conc_ms'])}, "
             f"{e['qps']:,.0f} queries/s; batches {b['batches']} for "
             f"{b['requests']} requests (largest {b['maxBatchSeen']}); all "
-            f"{len(queries)} replies match in-process predict "
+            f"{32 + n} replies match in-process predict "
             f"({e['trades']} tied items traded places)")
     log(f"phase cli deploy: the process booted in {boot_s:.1f} s "
         f"(python -m predictionio_tpu_torch deploy to its port), answered "
@@ -2605,7 +2640,9 @@ def phase_cli(torch, store: StoreHome) -> dict:
         f"after undeploy")
     return {"launches": launches, "train_s": train_s, "read_path": read_path,
             "boot_s": boot_s, "edges": edges, "views": views,
-            "obs": obs}
+            "obs": obs, "engine_json": str(ej), "iid": iid,
+            "predict": lambda q: algos[0].predict(
+                models[0], Query.from_json(q)).to_json()}
 
 
 def eval_record(storage, out: str):
@@ -3002,7 +3039,7 @@ def obs_deploy(torch, port: int, n_answered: int, query: dict,
     # pulse_smoke's overhead bound is per request at 4 clients: the
     # handler window beyond the predict window (the socket write) over a
     # light load, as deltas of the same histograms
-    light = [query] * 64
+    light = [query] * 128
     _post_timed(port, "/queries.json", light, 4)
     _, after = _scrape(port)
     (lat2,) = _children(after, "pio_query_latency_seconds").values()
@@ -3375,6 +3412,582 @@ def obs_shard_down() -> dict:
     return detail
 
 
+class PostSink:
+    """A small HTTP collector in this process: keeps every POST's path,
+    body and ``X-PIO-Trace`` and answers 200 (the remote log's target)."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        sink = self
+        self.posts = []
+        self.lock = threading.Lock()
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                with sink.lock:
+                    sink.posts.append((self.path, body,
+                                       self.headers.get("X-PIO-Trace")))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/log"
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def bodies(self) -> list:
+        with self.lock:
+            return [b for _, b, _ in self.posts]
+
+    def stop(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(10)
+
+
+def _wait_for(pred, timeout: float, what: str, step: float = 0.1):
+    """Poll ``pred()`` until it returns a true value (returned), or fail
+    after ``timeout`` seconds naming ``what``."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = pred()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {timeout:.0f} s waiting "
+                                 f"for {what}")
+        time.sleep(step)
+
+
+def phase_formats(storage, app_id: int, u, i, v) -> dict:
+    """The other import and export formats at ML-1M, on the store of phase
+    pio (its ``ml1m`` app: 1,000,209 rate events and 3,706 item ``$set``
+    events): the console's ``export`` to ``.npz`` and to Parquet, each
+    file imported by the console's ``import`` into an app of its own, and
+    the deduplicated ratings written as a MovieLens ``::`` file and
+    imported by ``import_ratings_csv``; each new app's ``find_ratings``
+    is held bit for bit against the synthetic triples.  Without pyarrow
+    on this host the console's Parquet export must fail with the
+    reference's ``ImportError``.  Each export and import is timed."""
+    import tempfile
+    from pathlib import Path
+
+    from predictionio_tpu_torch.cli.main import main as cli_main
+    from predictionio_tpu_torch.tools import import_ratings_csv
+
+    try:
+        import pyarrow  # noqa: F401
+        have_pyarrow = True
+    except ImportError:
+        have_pyarrow = False
+    es = storage.get_event_store()
+    md = storage.get_metadata()
+    n_events = ML1M_RATINGS + ML1M_ITEMS
+    want = expected_ratings(u, i, v, ML1M_ITEMS)
+    tmp = Path(tempfile.mkdtemp(prefix="pio_formats_"))
+    secs, sizes = {}, {}
+    files = {"npz": tmp / "ml1m.npz", "parquet": tmp / "ml1m.parquet"}
+    try:
+        for fmt, path in files.items():
+            argv = ["export", "--appid", str(app_id), "--output", str(path)]
+            if fmt == "parquet" and not have_pyarrow:
+                try:
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        cli_main(argv, storage=storage)
+                except ImportError as e:
+                    if "pyarrow" not in str(e):
+                        raise
+                    log(f"phase formats: no pyarrow on this host; the "
+                        f"console's Parquet export raised {e!r}")
+                    continue
+                raise AssertionError("a Parquet export without pyarrow "
+                                     "did not raise ImportError")
+            t0 = time.perf_counter()
+            out = cli(argv, storage)
+            secs[f"export {fmt}"] = time.perf_counter() - t0
+            if out != f"Exported {n_events} events to {path}.\n":
+                raise AssertionError(f"export {fmt}: {out!r}")
+            sizes[fmt] = path.stat().st_size / 1e6
+            out = cli(["app", "new", f"ml1m-{fmt}"], storage)
+            new_id = md.app_get_by_name(f"ml1m-{fmt}").id
+            t0 = time.perf_counter()
+            out = cli(["import", "--appid", str(new_id), "--input",
+                       str(path)], storage)
+            secs[f"import {fmt}"] = time.perf_counter() - t0
+            if out != f"Imported {n_events} events.\n":
+                raise AssertionError(f"import {fmt}: {out!r}")
+            same_ratings(es.find_ratings(new_id), want,
+                         f"ML-1M through the {fmt} format")
+        # the ratings a user holds (one per pair), as MovieLens writes them
+        src = tmp / "ratings.dat"
+        uids = np.asarray(want.users.ids)[want.user_ix]
+        iids = np.asarray(want.items.ids)[want.item_ix]
+        with open(src, "w") as f:
+            for a, b, r in zip(uids.tolist(), iids.tolist(),
+                               want.rating.tolist()):
+                f.write(f"{a}::{b}::{r:.1f}::978300760\n")
+        cli(["app", "new", "ml1m-csv"], storage)
+        csv_id = md.app_get_by_name("ml1m-csv").id
+        t0 = time.perf_counter()
+        n = import_ratings_csv(src, es, csv_id)
+        secs["import csv"] = time.perf_counter() - t0
+        if n != len(want.rating):
+            raise AssertionError(f"import_ratings_csv imported {n}")
+        same_ratings(es.find_ratings(csv_id), want,
+                     "ML-1M through the MovieLens file")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows = {k: len(want.rating) if k == "import csv" else n_events
+            for k in secs}
+    log("phase formats ML-1M: " + "; ".join(
+        f"{k} {t:.2f} s ({rows[k] / t:,.0f} events/s)"
+        for k, t in secs.items())
+        + f"; files MB {({k: round(m, 1) for k, m in sizes.items()})}; "
+        f"pyarrow {'present' if have_pyarrow else 'absent'}; every "
+        f"imported app's find_ratings equals the synthetic triples")
+    return {"seconds": secs, "pyarrow": have_pyarrow}
+
+
+def obs_delivery_chaos(storage, engine, ep, iid) -> dict:
+    """At ML-1M, the fault points of the serving edge's delivery queues:
+    an ``EngineServer`` with feedback to an in-process event server (the
+    ``chaos`` app's key) and its remote log to a sink in this script,
+    under ``seed=5;http.feedback:prob=0.5`` for 16 queries and
+    ``seed=5;http.remote_log:prob=0.5`` for 4 invalid ones.  No query
+    fails, each queue's delivered plus dropped equals what it was given,
+    the fault fired, and the event server and the sink hold what was
+    delivered."""
+    from predictionio_tpu_torch.controller import WorkflowContext
+    from predictionio_tpu_torch.resilience import faults
+    from predictionio_tpu_torch.server import (
+        EngineServer, EventServer, EventServerConfig, ServerConfig,
+    )
+
+    md = storage.get_metadata()
+    app = md.app_get_by_name("chaos")
+    key = md.access_key_get_by_app(app.id)[0].key
+    es = storage.get_event_store()
+    before = sum(1 for _ in es.find(app_id=app.id, entity_type="pio_pr"))
+    sink = PostSink()
+    ev = EventServer(storage, EventServerConfig(host="127.0.0.1", port=0))
+    ev.start_background()
+    srv = EngineServer(engine, ep, iid, ctx=WorkflowContext(
+        mode="Serving"), config=ServerConfig(
+        host="127.0.0.1", port=0, feedback=True,
+        event_server_url=f"http://127.0.0.1:{ev.port}", access_key=key,
+        log_url=sink.url, breaker_reset_s=0.5))
+    thread = srv.start_background()
+    checks, detail = {}, {}
+    try:
+        queries = query_mix(16, 29, ML1M_USERS, ML1M_ITEMS)
+        faults.arm("seed=5;http.feedback:prob=0.5")
+        try:
+            codes = [_raw(srv.port, "/queries.json", q)[0] for q in queries]
+            drained = srv._feedback_queue.flush(120)
+        finally:
+            faults.disarm()
+        fb = srv.status_json()["resilience"]["feedback"]
+        stored = sum(1 for _ in es.find(app_id=app.id,
+                                        entity_type="pio_pr")) - before
+        checks["feedback_fault_fails_no_query"] = codes == [200] * 16
+        checks["feedback_delivered_plus_dropped"] = drained and (
+            fb["delivered"] + fb["dropped"] == fb["submitted"] == 16)
+        checks["feedback_fault_fired"] = fb["sendFailures"] > 0
+        checks["feedback_stored_as_delivered"] = stored == fb["delivered"]
+        faults.arm("seed=5;http.remote_log:prob=0.5")
+        try:
+            bad = [_raw(srv.port, "/queries.json", {"num": 3})[0]
+                   for _ in range(4)]
+            drained = srv._log_queue.flush(120)
+        finally:
+            faults.disarm()
+        rl = srv.status_json()["resilience"]["remoteLog"]
+        checks["remote_log_fault_answers_400s"] = bad == [400] * 4
+        checks["remote_log_delivered_plus_dropped"] = drained and (
+            rl["delivered"] + rl["dropped"] == rl["submitted"] == 4)
+        checks["remote_log_fault_fired"] = rl["sendFailures"] > 0
+        checks["remote_log_sink_holds_delivered"] = (
+            len(sink.bodies()) == rl["delivered"])
+        detail.update(feedback=fb, remoteLog=rl, stored=stored)
+    finally:
+        srv.stop()
+        thread.join(timeout=30)
+        ev.stop()
+        sink.stop()
+    obs_report("pio delivery chaos", checks, detail)
+    return detail
+
+
+def _replica_pids(log_path) -> dict:
+    """``{replica index: pid}`` from a fleet deploy's replica lines."""
+    out = {}
+    for line in log_path.read_text(errors="replace").splitlines():
+        if line.startswith("Replica ") and "(pid " in line:
+            out[int(line.split()[1])] = int(line.split("(pid ")[1]
+                                            .split(")")[0])
+    return out
+
+
+def phase_router(torch, store: StoreHome, cli_out: dict) -> dict:
+    """The replica router at ML-20M on the instance phase cli's console
+    ``train`` produced: ``deploy --replicas 2 --feedback`` as a process
+    (a router and two replica processes, each its own CUDA context on
+    the card), feedback to an in-process event server on an app of its
+    own in the same store (``app new feedback``; the ML-20M app stays as
+    phases read and eval check it), the remote log to a sink here.
+    512 queries from 64 clients (and one traced query) through the
+    router, each reply held against an in-process ``predict`` apart from
+    its ``prId``; both replicas forward; the event server holds exactly
+    one ``pio_pr`` ``predict`` event per answered query, named by its
+    reply's ``prId`` and carrying its query, and each replica's feedback
+    queue delivered all it was given; the traced query's id is on its
+    feedback write in the journal; one invalid query gives one POST to
+    the sink; ``/debug/fleet`` lists both replicas; a replica's ``GET /``
+    for ``text/html`` is the status page.  Then a replica is SIGKILLed
+    under a second load of 256 queries: none fails, and the router books
+    the failover and the supervisor's respawn.  ``undeploy`` stops the
+    router and every replica."""
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from predictionio_tpu_torch.obs import get_tracer
+    from predictionio_tpu_torch.obs.trace import collect_spans
+    from predictionio_tpu_torch.server import EventServer, EventServerConfig
+
+    st = store.storage
+    md = st.get_metadata()
+    es = st.get_event_store()
+    out = cli(["app", "new", "feedback"], st)
+    key = out.split("Access key: ")[1].split()[0]
+    fb_app = md.app_get_by_name("feedback").id
+    predict = cli_out["predict"]
+    sink = PostSink()
+    tracer = get_tracer()
+    jdir = Path(tempfile.mkdtemp(prefix="pio_router_journal_"))
+    tracer.configure(jdir)
+    ev = EventServer(st, EventServerConfig(host="127.0.0.1", port=0))
+    ev.start_background()
+    checks, detail = {}, {}
+    proc = Console(store.home, [
+        "deploy", "--engine-json", cli_out["engine_json"],
+        "--engine-instance-id", cli_out["iid"], "--ip", "127.0.0.1",
+        "--port", "0", "--replicas", "2", "--health-interval", "0.5",
+        "--feedback", "--event-server-url", f"http://127.0.0.1:{ev.port}",
+        "--accesskey", key, "--log-url", sink.url,
+        "--log-prefix", "pio-router "], "router")
+    try:
+        port = proc.wait_port(timeout=600)
+        boot_s = proc.boot_s
+        pids = _replica_pids(proc.log_path)
+        try:
+            traced_q = {"user": user_id(7), "num": 10}
+            st_tr, body, _ = _raw(port, "/queries.json", traced_q, headers={
+                "X-PIO-Trace": "t-chip-router-fb"})
+            queries = query_mix(512, 23, N_USERS, N_ITEMS)
+            load = http_load(port, [], queries, 64)
+        except Exception as e:
+            proc.fail(f"failed its queries: {e!r}")
+        replies = [json.loads(body)] + load["replies"]
+        asked = [traced_q] + queries
+        trades = sum(_same_reply(r, predict(q), f"router query {q}")
+                     for q, r in zip(asked, replies))
+        checks["replies_equal_predict"] = st_tr == 200
+        checks["every_reply_has_a_prId"] = all(
+            r.get("prId") for r in replies) and len(
+            {r["prId"] for r in replies}) == len(replies)
+        fleet = _http(port, "/debug/fleet")
+        reps = fleet["replicas"]
+        checks["debug_fleet_lists_both"] = [r["name"] for r in reps] == [
+            "replica-0", "replica-1"]
+        checks["both_replicas_forward"] = all(r["forwarded"] > 0
+                                              for r in reps)
+        urls = [r["url"] for r in reps]
+
+        def drained():
+            blocks = [_http(int(u.rsplit(":", 1)[1]), "/")["resilience"][
+                "feedback"] for u in urls]
+            ok = all(b["depth"] == 0 and b["delivered"] == b["submitted"]
+                     for b in blocks)
+            return blocks if ok else None
+
+        blocks = _wait_for(drained, 120, "the replicas' feedback queues")
+        checks["feedback_none_dropped"] = all(
+            b["dropped"] == 0 for b in blocks) and sum(
+            b["submitted"] for b in blocks) == len(replies)
+        events = list(es.find(app_id=fb_app, entity_type="pio_pr"))
+        by_pr = {e.entity_id: e for e in events}
+        checks["one_feedback_event_per_query"] = (
+            len(events) == len(replies) == len(by_pr)
+            and all(e.event == "predict" for e in events))
+        checks["feedback_named_by_prId_with_its_query"] = all(
+            r["prId"] in by_pr
+            and by_pr[r["prId"]].properties.to_json()["query"] == q
+            for q, r in zip(asked, replies))
+        spans = collect_spans("t-chip-router-fb", jdir)
+        checks["traced_feedback_write_journaled"] = "events.write" in [
+            s["name"] for s in spans]
+        bad = _raw(port, "/queries.json", {"num": 3})[0]
+        logs = _wait_for(lambda: sink.bodies(), 60, "the remote log")
+        time.sleep(1.0)  # a second POST would have landed by now
+        logs = sink.bodies()
+        msg = (json.loads(logs[0][len(b"pio-router "):])["message"]
+               if len(logs) == 1 and logs[0].startswith(b"pio-router {")
+               else "")
+        checks["invalid_query_one_remote_log"] = (
+            bad == 400 and msg.startswith("Query is invalid"))
+        html_st, html, hdrs = _raw(int(urls[0].rsplit(":", 1)[1]), "/",
+                                   headers={"Accept": "text/html"})
+        checks["replica_status_page_html"] = (
+            html_st == 200 and hdrs["Content-Type"].startswith("text/html")
+            and cli_out["iid"].encode() in html)
+
+        # failover: SIGKILL replica 0 once the router has taken 64
+        # queries of the second load
+        second = query_mix(256, 31, N_USERS, N_ITEMS)
+        start = _http(port, "/")["requestCount"]
+
+        def kill():
+            _wait_for(lambda: _http(port, "/")["requestCount"]
+                      >= start + 64, 120, "the second load", 0.01)
+            os.kill(pids[0], signal.SIGKILL)
+
+        killer = threading.Thread(target=kill)
+        killer.start()
+        try:
+            load2 = _post_timed(port, "/queries.json", second, 64)
+        finally:
+            killer.join()
+        codes = [s for s, _, _ in load2]
+        checks["no_query_fails_through_a_kill"] = codes == [200] * 256
+        seen = {}
+
+        def respawned():
+            f = seen["fleet"] = _http(port, "/debug/fleet")
+            r0 = f["replicas"][0]
+            return f if (r0["respawns"] >= 1 and r0["failovers"] >= 1
+                         and f["healthyReplicas"] == 2) else None
+
+        t0 = time.perf_counter()
+        try:
+            fleet2 = _wait_for(respawned, 300, "the respawn of replica 0",
+                               0.5)
+        except AssertionError as e:
+            proc.fail(f"{e}; /debug/fleet {seen.get('fleet')}")
+        respawn_s = time.perf_counter() - t0
+        checks["failover_and_respawn_booked"] = True
+        detail.update(fleet=[{k: r.get(k) for k in (
+            "name", "forwarded", "failovers", "respawns", "healthy",
+            "p50Ms", "p99Ms")} for r in fleet2["replicas"]],
+            feedback=blocks, trades=trades)
+        if "Undeployed" not in cli(["undeploy", "--port", str(port)], st):
+            proc.fail("was not undeployed")
+        try:
+            rc = proc.proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.fail("did not stop after undeploy")
+        checks["undeploy_stops_router_and_replicas"] = rc == 0 and not \
+            _pids_with("pio-serve-fleet-")
+    finally:
+        proc.stop()
+        ev.stop()
+        sink.stop()
+        tracer.configure(None)
+        import shutil
+
+        shutil.rmtree(jdir, ignore_errors=True)
+    obs_report("router", checks, detail)
+    single = cli_out["edges"]["eventloop"]
+    conc2 = [ms for _, _, ms in load2]
+    log(f"phase router ML-20M: deploy --replicas 2 up in {boot_s:.1f} s; "
+        f"512 queries from 64 clients {pcts(load['conc_ms'])}, "
+        f"{load['qps']:,.0f} queries/s (single deploy of phase cli: "
+        f"{pcts(single['conc_ms'])}, {single['qps']:,.0f} queries/s); "
+        f"forwarded {[r['forwarded'] for r in reps]}; {len(events)} "
+        f"feedback events, one per answered query; through a SIGKILL of "
+        f"replica 0: 256 queries {pcts(conc2)}, none failed, failovers "
+        f"{fleet2['replicas'][0]['failovers']}, respawned and healthy "
+        f"{respawn_s:.1f} s after the load")
+    return {"qps": load["qps"], "conc_ms": load["conc_ms"],
+            "boot_s": boot_s, "respawn_s": respawn_s}
+
+
+def edge_ab(torch, turns: int = 5) -> None:
+    """Recording on against ``--no-metrics`` at ML-20M from 64 clients, in
+    turns: the ML-20M ratings trained in process (rank 64, 2 fused
+    iterations) into an instance of a scratch ``$PIO_TPU_HOME``, two
+    ``deploy`` processes on it (one with the default recording, one with
+    ``--no-metrics``), a warm-up load on each, then ``turns`` loads of
+    1,024 queries on each in the order A B B A A B ...; every reply held
+    against an in-process ``predict``.  Prints each turn's queries/s and
+    p50/p99 and each arm's median and spread."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from predictionio_tpu_torch.controller import WorkflowContext
+    from predictionio_tpu_torch.storage import Storage
+    from predictionio_tpu_torch.templates.recommendation import Query
+    from predictionio_tpu_torch.workflow import (
+        prepare_deploy_components, run_train,
+    )
+
+    u, i, v = synth_ml20m(seed=0)
+    ratings = expected_ratings(u, i, v, N_ITEMS)
+    items = {item_id(j): {"categories": ["even" if j % 2 == 0 else "odd"]}
+             for j in range(N_ITEMS)}
+    home = Path(tempfile.mkdtemp(prefix="pio_edge_ab_"))
+    st = Storage({"PIO_TPU_HOME": str(home)})
+    procs = {}
+    try:
+        engine = engine_over(ratings, items)
+        variant = {"datasource": {"params": {"appName": "ml20m"}},
+                   "algorithms": [{"name": "als", "params": {
+                       "rank": RANK, "numIterations": 2, "lambda": 0.01,
+                       "solver": "fused"}}]}
+        ep = engine.params_from_variant(variant)
+        iid = run_train(engine, ep, ctx=WorkflowContext(storage=st))
+        eng = home / "engine"
+        cli(["template", "get", "recommendation", str(eng)], st)
+        ej = eng / "engine.json"
+        ej.write_text(json.dumps({**json.loads(ej.read_text()), **variant}))
+        algos, models, _ = prepare_deploy_components(
+            engine, ep, iid, ctx=WorkflowContext(mode="Serving", storage=st))
+        queries = query_mix(1024, 41, N_USERS, N_ITEMS)
+        want = [algos[0].predict(models[0], Query.from_json(q)).to_json()
+                for q in queries]
+        arms = {"recording": [], "no-metrics": ["--no-metrics"]}
+        ports = {}
+        for name, extra in arms.items():
+            procs[name] = Console(home, [
+                "deploy", "--engine-json", str(ej), "--engine-instance-id",
+                iid, "--ip", "127.0.0.1", "--port", "0", *extra],
+                f"deploy-{name}")
+            ports[name] = procs[name].wait_port()
+        for name in arms:
+            http_load(ports[name], [], queries[:256], 64)  # warm-up
+        results = {name: [] for name in arms}
+        order = []
+        for t in range(turns):
+            pair = ("recording", "no-metrics")
+            order += list(pair if t % 2 == 0 else pair[::-1])
+        for name in order:
+            load = http_load(ports[name], [], queries, 64)
+            for q, r, w in zip(queries, load["replies"], want):
+                _same_reply(r, w, f"{name} query {q}")
+            results[name].append(load)
+            p50, p99 = np.percentile(load["conc_ms"], [50, 99])
+            log(f"edge-ab turn {len(results[name])} {name}: "
+                f"{load['qps']:.1f} queries/s, p50 {p50:.1f} ms p99 "
+                f"{p99:.1f} ms")
+        for name, runs in results.items():
+            qps = sorted(r["qps"] for r in runs)
+            p50 = sorted(float(np.percentile(r["conc_ms"], 50))
+                         for r in runs)
+            log(f"edge-ab {name}: {turns} turns of 1,024 queries from 64 "
+                f"clients, queries/s median {np.median(qps):.1f} (min "
+                f"{qps[0]:.1f}, max {qps[-1]:.1f}, all {qps}); p50 ms "
+                f"median {np.median(p50):.1f} (min {p50[0]:.1f}, max "
+                f"{p50[-1]:.1f}); order {order}")
+        for name, p in procs.items():
+            cli(["undeploy", "--port", str(ports[name])], st)
+            p.proc.wait(timeout=60)
+    finally:
+        for p in procs.values():
+            p.stop()
+        st.close()
+        shutil.rmtree(home, ignore_errors=True)
+
+
+def write_rate_npz(path, u, i, v) -> None:
+    """The ratings ``(u, i, v)`` as the columnar ``.npz`` format, equal
+    to :func:`write_rate_lines`' events: the same entity ids, half-star
+    properties and event times (``T0_MS`` + draw ms), no event id and no
+    creation time (the import gives both, as it does for the JSON
+    lines); written uncompressed, each column built as one fixed-width
+    byte matrix."""
+    n = len(v)
+    if n > 86_400_000:
+        raise ValueError("the event times must fall within one day")
+
+    def text(m):
+        return m.view(f"S{m.shape[1]}").ravel().astype(f"<U{m.shape[1]}")
+
+    def ids(prefix: bytes, x, w: int):
+        m = np.empty((n, 1 + w), np.uint8)
+        m[:, 0] = prefix[0]
+        _digits(m, 1, x, w)
+        return text(m)
+
+    props = np.empty((n, 14), np.uint8)
+    props[:] = np.frombuffer(b'{"rating":0.0}', np.uint8)
+    twice = np.rint(v * 2).astype(np.int64)
+    props[:, 10] = 48 + twice // 2
+    props[:, 12] = 48 + 5 * (twice % 2)
+    times = np.empty((n, 24), np.uint8)
+    times[:] = np.frombuffer(b"2015-01-01T00:00:00.000Z", np.uint8)
+    ms = np.arange(n, dtype=np.int64)
+    for c, (unit, mod, digits) in zip(
+            (11, 14, 17, 20), ((3_600_000, 24, 2), (60_000, 60, 2),
+                               (1000, 60, 2), (1, 1000, 3))):
+        _digits(times, c, (ms // unit) % mod, digits)
+    empty = np.full(n, "", "<U1")
+    np.savez(path, event=np.full(n, "rate", "<U4"),
+             entityType=np.full(n, "user", "<U4"),
+             entityId=ids(b"u", u, 6), targetEntityType=np.full(
+                 n, "item", "<U4"), targetEntityId=ids(b"i", i, 5),
+             eventTime=text(times), eventId=empty, prId=empty,
+             creationTime=empty, properties=text(props))
+
+
+def phase_store_npz(u, i, v) -> dict:
+    """The ML-20M ratings as a columnar ``.npz`` (:func:`write_rate_npz`)
+    into a fresh 4-shard store through the console's ``import`` (the
+    reference's columnar import: validated batches of 5,000, no bulk
+    scope), then the sharded read held against the synthetic triples in
+    the shards' order, as phase read does.  Timed beside the JSON-lines
+    import of phase store."""
+    store = StoreHome()
+    try:
+        out = cli(["app", "new", "ml20m"], store.storage)
+        app_id = store.storage.get_metadata().app_get_by_name("ml20m").id
+        src = f"{store.home}/ratings.npz"
+        t0 = time.perf_counter()
+        write_rate_npz(src, u, i, v)
+        write_s = time.perf_counter() - t0
+        file_gb = os.path.getsize(src) / 1e9
+        t0 = time.perf_counter()
+        out = cli(["import", "--appid", str(app_id), "--input", src],
+                  store.storage)
+        import_s = time.perf_counter() - t0
+        os.unlink(src)
+        if out != f"Imported {len(v)} events.\n":
+            raise AssertionError(f"npz import: {out!r}")
+        es = store.storage.get_event_store()
+        t0 = time.perf_counter()
+        got = es.find_ratings(app_id, cache=False)
+        read_s = time.perf_counter() - t0
+        same_ratings(got, expected_sharded(u, i, v, N_ITEMS),
+                     "ML-20M through the .npz import")
+    finally:
+        store.close()
+    log(f"phase store npz ML-20M: {len(v):,} rate events written as an "
+        f"uncompressed .npz ({file_gb:.2f} GB) in {write_s:.1f} s; console "
+        f"import into a fresh {STORE_SHARDS}-shard store {import_s:.1f} s "
+        f"({len(v) / import_s:,.0f} events/s); find_ratings {read_s:.1f} "
+        f"s, equal to the synthetic triples in the shards' order")
+    return {"import_s": import_s, "write_s": write_s}
+
+
 def phase_topk(torch, dev) -> None:
     """The serving top-k (``torch.topk`` over a key with the exact tie
     order) against a full stable sort, which gives the same order, on
@@ -3559,8 +4172,9 @@ def kernel_registers(build_log) -> dict:
 
 def main(argv: list[str]) -> int:
     t_start = time.perf_counter()
-    if argv not in ([], ["--breakdown"], ["--store"]):
-        print("usage: chip_smoke.py [--breakdown | --store]", file=sys.stderr)
+    if argv not in ([], ["--breakdown"], ["--store"], ["--edge-ab"]):
+        print("usage: chip_smoke.py [--breakdown | --store | --edge-ab]",
+              file=sys.stderr)
         return 2
     import torch
 
@@ -3585,22 +4199,26 @@ def main(argv: list[str]) -> int:
 
     from predictionio_tpu_torch import native
 
-    # both builds at once: the CUDA kernels (nvcc) and the native host
-    # runtime (g++, build/native/)
+    # both builds at once, the CUDA kernels (nvcc) and the native host
+    # runtime (g++, build/native/), and the ML-20M data made meanwhile
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=2) as pool:
         host = pool.submit(native.build)
-        _build.library()
+        kernels_built = pool.submit(_build.library)
+        if argv != ["--edge-ab"]:
+            t1 = time.perf_counter()
+            u, i, v = synth_ml20m(seed=0)
+            t_data = time.perf_counter() - t1
+        kernels_built.result()
         host.result()
     log(f"phase build: {time.perf_counter() - t0:.1f} s (CUDA kernels and "
         f"{native.BUILD_DIR / native.LIB_NAME}); registers per thread "
         f"(ptxas): {kernel_registers(_build.BUILD_DIR / 'build.log')}")
-
-    t0 = time.perf_counter()
-    u, i, v = synth_ml20m(seed=0)
-    t_data = time.perf_counter() - t0
+    if argv == ["--edge-ab"]:
+        edge_ab(torch)
+        return 0
     log(f"phase data: {len(v):,} ratings, {N_USERS:,} users, "
-        f"{N_ITEMS:,} items in {t_data:.1f} s")
+        f"{N_ITEMS:,} items in {t_data:.1f} s (made while the builds ran)")
     if argv == ["--breakdown"]:
         # the input phase read takes from the store, made in memory (the
         # full run holds the two equal)
@@ -3632,6 +4250,10 @@ def main(argv: list[str]) -> int:
         ratings = timed("read", phase_read, store, u, i, v)
         timed("sort", phase_sort, ratings, u, i, v)
         if argv == ["--store"]:
+            # the same ratings through the columnar format, timed beside
+            # the JSON lines of phase store
+            timed("store npz", phase_store_npz, u, i, v)
+            log(f"phase seconds (host clock): {secs}")
             return 0
         kernels = [timed("gj", phase_gj, torch, dev, (
             ratings.user_ix, ratings.item_ix, ratings.rating))]
@@ -3669,6 +4291,12 @@ def main(argv: list[str]) -> int:
         cli_out = timed("cli", phase_cli, torch, store)
         paths["cli"] = cli_out["launches"]
         torch.cuda.empty_cache()
+        # the replica router on the instance the console trained; its
+        # replicas are processes of their own (no kernel in this one)
+        _build.reset_launches()
+        timed("router", phase_router, torch, store, cli_out)
+        paths["router"] = dict(_build.LAUNCHES)
+        del cli_out["predict"]
         # `pio eval` through the console on the same store (the same)
         paths["eval"] = timed("eval", phase_eval, torch, store,
                               ratings)["launches"]
@@ -3681,8 +4309,10 @@ def main(argv: list[str]) -> int:
                 os.environ[k] = val
     torch.cuda.empty_cache()
     # events -> run_train -> EngineServer (resets the counts itself)
-    paths["pio"] = timed("pio", phase_pio, torch,
-                         cli_out["views"])["launches"]
+    pio_out = timed("pio", phase_pio, torch, cli_out["views"])
+    paths["pio"] = pio_out["launches"]
+    paths["formats"] = pio_out["formats"]["launches"]
+    secs["formats (in pio)"] = round(pio_out["formats"]["s"], 1)
     # the probe module's own entry point (the reference's
     # tools/probe_gather.py --smoke), the one path taa1 lies on
     from predictionio_tpu_torch.ops import gather_probe

@@ -13,12 +13,13 @@ messages and exit codes.  Subcommands:
   build | unregister | run | import | export | status | upgrade | version
 
 ``eventserver --workers N`` runs the ingest router in front of N
-shard-owner ``eventserver`` processes over the sharded store.
-``foldin``, ``adminserver`` and ``dashboard``, and the options
-of subsystems the port does not have yet (the replica router, tenancy,
-feedback, fold-in deltas and multi-process training) are refused before
-any work with ``Error: ... is not ported to predictionio_tpu_torch yet
-(ROADMAP Queue 1 item N)`` and exit code 1 (:data:`_REFUSED`).  The
+shard-owner ``eventserver`` processes over the sharded store, and
+``deploy --replicas N`` the serving router in front of N ``deploy``
+processes.  ``foldin``, ``adminserver`` and ``dashboard``, and the
+options of subsystems the port does not have yet (tenancy, fold-in
+deltas and multi-process training) are refused before any work with
+``Error: ... is not ported to predictionio_tpu_torch yet (ROADMAP Queue 1
+item N)`` and exit code 1 (:data:`_REFUSED`).  The
 observability options (``--telemetry-dir``, ``--no-metrics``,
 ``--xray-sample-s``, ``--no-profiler``, ``--flight-capacity``,
 ``--slo-ms``) work as the reference's (:func:`_apply_obs_flags`).
@@ -203,23 +204,11 @@ _REFUSED = (
     ("foldin", None, None, "foldin", 5),
     ("adminserver", None, None, "adminserver", 9),
     ("dashboard", None, None, "dashboard", 9),
-    ("deploy", "replicas", lambda v: v > 1,
-     "deploy --replicas > 1 (the replica router)", 4),
     ("deploy", "multi", _is_set, "deploy --multi (tenancy)", 4),
     ("deploy", "memory_budget", _is_set, "deploy --memory-budget", 4),
     ("deploy", "autopilot", _is_set, "deploy --autopilot", 4),
-    ("deploy", "feedback", _is_set, "deploy --feedback", 4),
-    ("deploy", "event_server_url", _is_set, "deploy --event-server-url", 4),
-    ("deploy", "accesskey", _is_set, "deploy --accesskey", 4),
-    ("deploy", "log_url", _is_set, "deploy --log-url (remote error logs)", 4),
-    ("deploy", "log_prefix", bool, "deploy --log-prefix", 4),
-    ("deploy", "feedback_capacity", lambda v: v != 1024,
-     "deploy --feedback-capacity", 4),
-    ("deploy", "breaker_failures", lambda v: v != 5,
-     "deploy --breaker-failures", 4),
-    ("deploy", "breaker_reset", lambda v: v != 10.0,
-     "deploy --breaker-reset", 4),
-    ("deploy", "push_foldin", _is_set, "deploy --push-foldin", 4),
+    ("deploy", "push_foldin", _is_set,
+     "deploy --push-foldin (the rolling fold-in push)", 5),
     ("deploy", "foldin_poll", _is_set, "deploy --foldin-poll", 5),
     ("train", "coordinator", _is_set, "train --coordinator", 7),
     ("train", "num_processes", _is_set, "train --num-processes", 7),
@@ -515,6 +504,9 @@ def cmd_deploy(args, storage: Storage, device: DeviceLike) -> int:
     from ..controller.base import WorkflowContext
     from ..server.serving import EngineServer, ServerConfig
 
+    if args.replicas > 1:
+        # N replica processes and one router in this one
+        return _deploy_fleet(args, device)
     if args.scan_cache:
         os.environ["PIO_TPU_SCAN_CACHE"] = "1"
     engine, ep, variant, variant_key = _load_engine_for_args(args)
@@ -536,6 +528,14 @@ def cmd_deploy(args, storage: Storage, device: DeviceLike) -> int:
             query_timeout_s=args.query_timeout,
             edge=args.edge,
             max_connections=args.max_connections,
+            feedback=args.feedback,
+            event_server_url=args.event_server_url,
+            access_key=args.accesskey,
+            log_url=args.log_url,
+            log_prefix=args.log_prefix,
+            feedback_capacity=args.feedback_capacity,
+            breaker_failures=args.breaker_failures,
+            breaker_reset_s=args.breaker_reset,
             slo_ms=args.slo_ms,
         ),
         engine_id=engine_id,
@@ -566,6 +566,139 @@ def cmd_deploy(args, storage: Storage, device: DeviceLike) -> int:
         # teardown (the batcher's dispatcher, the aux pool) before the
         # process exits
         server.stop()
+    return 0
+
+
+def _deploy_fleet(args, device: DeviceLike) -> int:
+    """``deploy --replicas N``: spawn N single-replica ``deploy``
+    processes on ephemeral ports (on the card, or on the host when the
+    caller asked for the CPU), wait for each port file, supervise them
+    (unless ``--no-respawn``), then run the router in THIS process on
+    the requested port until ``POST /stop``, SIGTERM or SIGINT; the
+    replicas are stopped on the way out.  Every replica gets the deploy
+    options, the feedback and remote-log ones included.  The fleet's
+    directory (port files and replica logs) is removed after a clean
+    stop; after a failure it stays, and its path is in the replica
+    lines."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    import torch
+
+    from ..server.router import (
+        Replica,
+        ReplicaSupervisor,
+        RouterConfig,
+        RouterServer,
+        spawn_replica,
+        wait_for_port_file,
+    )
+
+    on_cpu = torch.device(device).type == "cpu"
+    coord_dir = Path(tempfile.mkdtemp(prefix="pio-serve-fleet-"))
+    engine_args = (["--engine", args.engine] if args.engine
+                   else ["--engine-json", str(args.engine_json)])
+    extra = []
+    for flag, val in (
+        ("--engine-factory", args.engine_factory),
+        ("--engine-instance-id", args.engine_instance_id),
+        ("--microbatch", args.microbatch),
+        ("--shared-batcher", args.shared_batcher),
+        ("--edge", args.edge),
+        ("--event-server-url", args.event_server_url),
+        ("--accesskey", args.accesskey),
+        ("--log-url", args.log_url),
+        ("--log-prefix", args.log_prefix),
+    ):
+        if val:
+            # one argument: a value may itself begin with a dash
+            extra.append(f"{flag}={val}")
+    for flag, val in (
+        ("--query-timeout", args.query_timeout),
+        ("--max-connections", args.max_connections),
+        ("--feedback-capacity", args.feedback_capacity),
+        ("--breaker-failures", args.breaker_failures),
+        ("--breaker-reset", args.breaker_reset),
+        # every replica arms its own burn-rate gauges too: the router's
+        # merged /metrics shows them per replica
+        ("--slo-ms", args.slo_ms),
+    ):
+        if val is not None:
+            extra += [flag, str(val)]
+    for flag, on in (("--feedback", args.feedback),
+                     ("--scan-cache", args.scan_cache),
+                     ("--no-profiler", args.no_profiler)):
+        if on:
+            extra.append(flag)
+
+    def spawner(i):
+        return spawn_replica(engine_args, i, coord_dir, extra_args=extra,
+                             on_cpu=on_cpu)
+
+    spawned = [spawner(i) for i in range(args.replicas)]
+    supervisor = None if args.no_respawn else ReplicaSupervisor(spawner)
+
+    def reap():
+        # respawns replace boot-time processes: reap what the supervisor
+        # tracks now, and the boot list (dead originals reap as no-ops)
+        procs = [s["proc"] for s in spawned]
+        if supervisor is not None:
+            procs += supervisor.live_procs()
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+    on_main = threading.current_thread() is threading.main_thread()
+    if on_main:
+        # a SIGTERM to the router must stop its replicas too: leave
+        # through the finally below instead of dying where it stands
+        prev_term = signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))
+    clean = False
+    router = None
+    try:
+        replicas = []
+        for s in spawned:
+            port = wait_for_port_file(s)
+            _out(f"Replica {s['index']} (pid {s['proc'].pid}) up on "
+                 f"127.0.0.1:{port} (log: {s['log_path']})")
+            replica = Replica(f"replica-{s['index']}", "127.0.0.1", port)
+            if supervisor is not None:
+                supervisor.attach(replica, s)
+            replicas.append(replica)
+        router = RouterServer(replicas, RouterConfig(
+            host=args.ip, port=args.port,
+            health_interval_s=args.health_interval,
+            max_connections=args.max_connections,
+            slo_ms=args.slo_ms,
+        ), supervisor=supervisor)
+        router._bind()
+        _out(f"Router fronting {len(replicas)} replicas on "
+             f"{args.ip}:{router.port}")
+        # whoever reads the port file may read these lines next
+        sys.stdout.flush()
+        if args.port_file:
+            _write_port_file(args.port_file, router.port)
+        router.serve_forever()
+        clean = True
+    except SystemExit as e:
+        clean = e.code in (0, None)
+        raise
+    finally:
+        if router is not None:
+            router.stop()
+        reap()
+        if on_main:
+            signal.signal(signal.SIGTERM, prev_term)
+        if clean:
+            shutil.rmtree(coord_dir, ignore_errors=True)
     return 0
 
 
@@ -764,24 +897,33 @@ def cmd_import(args, storage: Storage) -> int:
 
     es = storage.get_event_store()
     es.init_channel(args.appid, args.channel)
+    # import_events infers the format (extension or content magic) and
+    # routes to the JSON-lines, columnar or Parquet reader itself
     counts: dict = {}
     n = import_events(args.input, es, args.appid, args.channel,
                       counts=counts)
-    logger.info("import of %s: %d events by the native scanner, %d "
-                "parsed in Python", args.input, counts["native"],
-                counts["python"])
+    if counts:
+        logger.info("import of %s: %d events by the native scanner, %d "
+                    "parsed in Python", args.input, counts["native"],
+                    counts["python"])
     _out(f"Imported {n} events.")
     return 0
 
 
 def cmd_export(args, storage: Storage) -> int:
-    from ..tools.import_export import export_events
+    from ..tools.import_export import (
+        columnar_path,
+        export_events,
+        infer_format,
+    )
 
     es = storage.get_event_store()
     es.init_channel(args.appid, args.channel)
     n = export_events(args.output, es, args.appid, args.channel,
                       fmt=args.format)
-    _out(f"Exported {n} events to {args.output}.")
+    fmt = args.format or infer_format(args.output)
+    written = columnar_path(args.output) if fmt == "columnar" else args.output
+    _out(f"Exported {n} events to {written}.")
     return 0
 
 
@@ -1096,14 +1238,16 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--ip", default="0.0.0.0")
     d.add_argument("--port", type=int, default=8000)
     d.add_argument("--feedback", action="store_true",
-                   help="feedback-loop event injection (not ported: "
-                   "refused)")
+                   help="post every answered query back to the event "
+                   "server as a pio_pr event (needs --event-server-url "
+                   "and --accesskey); the reply carries its prId")
     d.add_argument("--event-server-url")
     d.add_argument("--accesskey")
     d.add_argument("--log-url",
-                   help="ship serving errors to this URL (not ported: "
-                   "refused)")
-    d.add_argument("--log-prefix", default="")
+                   help="ship serving errors to this URL via POST "
+                   "(reference CreateServer remoteLog)")
+    d.add_argument("--log-prefix", default="",
+                   help="string prepended to each shipped log payload")
     d.add_argument("--microbatch", choices=("auto", "on", "off"),
                    default="auto",
                    help="coalesce concurrent queries into one batched "
@@ -1121,10 +1265,18 @@ def build_parser() -> argparse.ArgumentParser:
                    "structured 503 + Retry-After instead of queueing "
                    "device work behind a client that gave up "
                    "(per-request override: /queries.json?timeout=SEC)")
-    d.add_argument("--feedback-capacity", type=int, default=1024)
-    d.add_argument("--breaker-failures", type=int, default=5)
+    d.add_argument("--feedback-capacity", type=int, default=1024,
+                   help="bounded feedback/remote-log delivery queue "
+                   "size; overflow drops the OLDEST entry and counts "
+                   "it in the status JSON")
+    d.add_argument("--breaker-failures", type=int, default=5,
+                   help="consecutive delivery failures that open the "
+                   "circuit breaker for a dead event server / log "
+                   "collector")
     d.add_argument("--breaker-reset", type=float, default=10.0,
-                   metavar="SEC")
+                   metavar="SEC",
+                   help="seconds an open delivery breaker waits before "
+                   "letting one probe through")
     d.add_argument("--flight-capacity", type=int, default=None,
                    metavar="N",
                    help="slow-query flight recorder keeps the N "
@@ -1147,19 +1299,24 @@ def build_parser() -> argparse.ArgumentParser:
                    "pio_slo_burn_rate{window} error-budget gauges on "
                    "this server's latency histogram")
     d.add_argument("--replicas", type=int, default=0, metavar="N",
-                   help="replica fleet behind a router (not ported: "
-                   "refused above 1)")
+                   help="fleet mode: spawn N replica processes on "
+                   "ephemeral ports and run a router on --port fanning "
+                   "out over them with health checks and failover")
     d.add_argument("--health-interval", type=float, default=1.0,
                    metavar="SEC",
                    help="fleet mode: router health-check period")
     d.add_argument("--push-foldin", type=float, default=None,
-                   metavar="SEC")
+                   metavar="SEC",
+                   help="fleet mode: rolling fold-in delta push (not "
+                   "ported: refused)")
     d.add_argument("--port-file", metavar="PATH",
                    help="announce the BOUND port (after --port 0 "
                    "resolution) by writing it to PATH")
     d.add_argument("--no-respawn", action="store_true",
-                   help="fleet mode: no replica respawns (the port has no "
-                   "fleet: a no-op)")
+                   help="fleet mode: disable the replica-respawn "
+                   "supervisor (default: a dead replica process is "
+                   "respawned with capped exponential backoff and "
+                   "booked in pio_replica_respawns_total)")
     d.add_argument("--multi", metavar="TENANTS_JSON",
                    help="host every tenant of a manifest (not ported: "
                    "refused)")
@@ -1266,8 +1423,8 @@ def build_parser() -> argparse.ArgumentParser:
     db.add_argument("--port", type=int, default=9000)
 
     im = sub.add_parser("import",
-                        help="import events (JSON lines; the .npz columnar "
-                        "and .parquet formats are refused)")
+                        help="import events (JSON lines, .npz columnar or "
+                        ".parquet, by extension or content)")
     im.add_argument("--appid", type=int, required=True)
     im.add_argument("--channel", type=int, default=0)
     im.add_argument("--input", required=True)
@@ -1277,8 +1434,8 @@ def build_parser() -> argparse.ArgumentParser:
     ex.add_argument("--channel", type=int, default=0)
     ex.add_argument("--output", required=True)
     ex.add_argument("--format", choices=["json", "columnar", "parquet"],
-                    help="default: json (columnar and parquet are "
-                    "refused)")
+                    help="default: json, or columnar/parquet for an "
+                    ".npz/.parquet output")
 
     tp = sub.add_parser("template", help="engine template gallery")
     tps = tp.add_subparsers(dest="template_command", required=True)

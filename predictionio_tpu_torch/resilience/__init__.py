@@ -1,9 +1,9 @@
 """Resilience primitives of the port: retries with jittered backoff,
-propagated deadlines and circuit breakers (``policy``), and the
-reference's deterministic fault-injection registry (``faults``: named
-points in the real code paths, armed programmatically or through
-``PIO_FAULT_PLAN``).  The reference's delivery queues are not ported
-yet (ROADMAP Queue 1 item 4)."""
+propagated deadlines and circuit breakers (``policy``), the reference's
+deterministic fault-injection registry (``faults``: named points in the
+real code paths, armed programmatically or through ``PIO_FAULT_PLAN``),
+and the bounded background delivery queue of the serving edge's
+feedback events and remote error logs (``delivery``)."""
 
 from .faults import (
     FaultPlan,
@@ -14,6 +14,7 @@ from .faults import (
     disarm,
     fired_shard,
 )
+from .delivery import DeliveryQueue
 from .policy import (
     CircuitBreaker,
     Deadline,
@@ -28,6 +29,7 @@ __all__ = [
     "CircuitBreaker",
     "Deadline",
     "DeadlineExceeded",
+    "DeliveryQueue",
     "FaultPlan",
     "InjectedFault",
     "RetryPolicy",

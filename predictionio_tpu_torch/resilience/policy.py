@@ -1,8 +1,10 @@
 """Retry, deadline, and circuit-breaker primitives.
 
-Copy of ``predictionio_tpu/resilience/policy.py`` for the port.  Pure
-stdlib, no package-internal imports: every other layer (server, storage,
-workflow) may depend on this module without cycles.
+Copy of ``predictionio_tpu/resilience/policy.py`` for the port, with
+``RetryPolicy.backoff``'s exponent capped (the reference's overflows
+after 646 attempts).  Pure stdlib, no package-internal imports: every
+other layer (server, storage, workflow) may depend on this module
+without cycles.
 """
 
 from __future__ import annotations
@@ -63,7 +65,10 @@ class RetryPolicy:
         attempt count (attempt 1 = first failure), for consumers like
         the delivery drain thread whose retries interleave across many
         queued entries."""
-        hi = min(self.cap_s, self.base_s * (3 ** max(0, attempt - 1)))
+        # the exponent is capped: 3**646 no longer converts to a float,
+        # and the delay is at its cap long before
+        hi = min(self.cap_s,
+                 self.base_s * (3 ** min(max(0, attempt - 1), 64)))
         with self._lock:
             return self._rng.uniform(self.base_s, max(self.base_s, hi))
 

@@ -1,11 +1,11 @@
 """HTTP servers of the port: the REST event server with its stats and
 webhooks, the engine server on its two edges (the event loop and
-threads), its micro-batchers, the multi-process ingest router with its
-fleet helpers and the shared HTTP plumbing (ports of
-``predictionio_tpu/server``'s ``event_server``, ``stats``, ``webhooks``,
-``serving``, ``eventloop``, ``microbatch``, ``ingest_router``,
-``router``'s helpers and ``http_base``; the replica router and the admin
-and dashboard servers are not ported yet)."""
+threads), its micro-batchers, the serving replica router and the
+multi-process ingest router with their fleet helpers, and the shared
+HTTP plumbing (ports of ``predictionio_tpu/server``'s ``event_server``,
+``stats``, ``webhooks``, ``serving``, ``eventloop``, ``microbatch``,
+``ingest_router``, ``router`` and ``http_base``; the admin and
+dashboard servers are not ported yet)."""
 
 from .event_server import EventServer, EventServerConfig
 from .eventloop import EventLoopHTTPServer
@@ -27,7 +27,10 @@ from .microbatch import (
 from .router import (
     Replica,
     ReplicaSupervisor,
+    RouterConfig,
+    RouterServer,
     spawn_port_process,
+    spawn_replica,
     wait_for_port_file,
 )
 from .serving import EngineServer, ServerConfig
@@ -45,6 +48,8 @@ __all__ = [
     "MicroBatcher",
     "Replica",
     "ReplicaSupervisor",
+    "RouterConfig",
+    "RouterServer",
     "ServerConfig",
     "SharedBatcher",
     "SharedBatcherView",
@@ -54,5 +59,6 @@ __all__ = [
     "shards_for_worker",
     "spawn_ingest_worker",
     "spawn_port_process",
+    "spawn_replica",
     "wait_for_port_file",
 ]

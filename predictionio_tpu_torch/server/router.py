@@ -1,21 +1,47 @@
-"""Fleet helpers: the router-side view of one server process, its
-respawn supervisor and the port-file spawn protocol.
+"""The serving replica fleet's router, and the fleet helpers it shares
+with the ingest router.
 
-Port of the helpers of ``predictionio_tpu/server/router.py`` that the
-ingest router (``server/ingest_router.py``) is built on: ``Replica``
-(pooled keep-alive connections, a circuit breaker, health fields),
-``ReplicaSupervisor`` (respawn-on-death with capped backoff) and the
-port-file protocol (``spawn_port_process``, ``wait_for_port_file``).
-Not ported yet: ``RouterServer``, the serving replica fleet behind
-``deploy --replicas N``, with its ``spawn_replica`` (ROADMAP Queue 1
-item 4), with each replica's failover count, the model fields of its
-health and the router's forward counters.  ``Replica.scrape`` pulls a
-process's ``/metrics`` for the ingest router's federation.
+Port of ``predictionio_tpu/server/router.py``.  ``deploy --replicas N``
+boots N single-replica ``deploy`` processes (each its own interpreter,
+its own CUDA context on the card, its own ``/metrics``) and ONE router
+process in front of them (:class:`RouterServer`, on the event-loop
+edge: the loop parses and routes, a bounded pool does the blocking
+upstream HTTP):
+
+* **Routing**: ``POST /queries.json`` round-robins over healthy
+  replicas on pooled keep-alive connections.  A transport failure
+  (replica killed, connection refused, read timeout) marks the replica
+  down, books a failover, and retries the SAME request on the next
+  replica: predicts are idempotent, so the client sees one 200.  Only
+  when every replica is unreachable does the router answer a structured
+  503.  A ``?timeout=`` budget the fleet's measured round trip already
+  exceeds is answered a structured 503 at the router (deadline
+  admission).
+* **Health**: a daemon thread polls each replica's ``GET /`` every
+  ``health_interval_s`` (health, breaker, ``pio_replica_up`` and the
+  model fields of its status), pulls its ``/metrics`` into the router's
+  merged exposition, and ticks the :class:`ReplicaSupervisor`, which
+  respawns a replica whose process died.
+* **Observability**: the forward histogram, ``router.forward`` and
+  ``router.request`` spans, the ``router`` timeline family
+  (admission/forward/replica/read/write), the router's own flight
+  recorder, and ``/debug/fleet`` (the per-replica tail table), which any
+  server in the router's process answers.
+
+:class:`Replica`, :class:`ReplicaSupervisor` and the port-file protocol
+(:func:`spawn_port_process`, :func:`wait_for_port_file`) also carry the
+ingest router (``server/ingest_router.py``).  Not ported yet: the
+rolling fold-in push (``POST /admin/push-foldin``, ROADMAP Queue 1 item
+5) and the tenancy broadcasts and fan-in (``/admin/tenants``,
+``/admin/tenants/weights``, ``/debug/tenants``, item 4); those routes
+answer 404 naming their item.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import http.client
+import json
 import logging
 import os
 import socket
@@ -23,16 +49,42 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.parse
 from pathlib import Path
 from typing import Optional
 
-from ..obs import REPLICA_UP, TRACE_HEADER, fleet
+from ..obs import (
+    REPLICA_MODEL_FRESHNESS,
+    REPLICA_REQUESTS_TOTAL,
+    REPLICA_RESPAWNS_TOTAL,
+    REPLICA_UP,
+    ROUTER_ADMISSION_TOTAL,
+    TRACE_HEADER,
+    FlightRecorder,
+    fleet,
+    get_registry,
+    get_tracer,
+    metrics_enabled,
+    new_trace_id,
+    scope,
+    timeline,
+)
 from ..resilience.policy import CircuitBreaker
+from .eventloop import EventLoopHTTPServer, callback_scope
+from .http_base import (
+    PROMETHEUS_CTYPE,
+    HTTPServerBase,
+    observability_response,
+)
+from .microbatch import EwmaEstimator
 
 __all__ = [
     "Replica",
     "ReplicaSupervisor",
+    "RouterConfig",
+    "RouterServer",
     "spawn_port_process",
+    "spawn_replica",
     "wait_for_port_file",
 ]
 
@@ -45,8 +97,22 @@ _BREAKER_RESET_S = 2.0
 # respawn backoff: base * 2^attempts, capped
 _BACKOFF_BASE_S = 0.5
 _BACKOFF_CAP_S = 30.0
-# spawn to port announcement; a fleet worker boots in about 8 s
-SPAWN_TIMEOUT_S = 60.0
+# spawn to port announcement; a fleet worker boots in about 8 s, a
+# serving replica loads its model and warms up on the card first
+SPAWN_TIMEOUT_S = 180.0
+# the router's health probe timeout, its forward timeout, and its pool
+# of threads doing the blocking upstream HTTP
+_HEALTH_TIMEOUT_S = 2.0
+_FORWARD_TIMEOUT_S = 30.0
+_FORWARD_THREADS = 16
+# the routes of subsystems the port does not have yet, by ROADMAP Queue 1
+# item: the rolling fold-in push and the tenancy broadcasts and fan-in
+_UNPORTED_ROUTES = {
+    ("POST", "/admin/push-foldin"): ("the rolling fold-in push", 5),
+    ("POST", "/admin/tenants/weights"): ("tenancy", 4),
+    ("POST", "/admin/tenants"): ("tenancy", 4),
+    ("GET", "/debug/tenants"): ("tenancy", 4),
+}
 
 
 class Replica:
@@ -67,9 +133,11 @@ class Replica:
         # first failed forward/health-check flips it (optimistic start
         # beats rejecting the first second of traffic)
         self.healthy = True
+        self.last_status: dict = {}
         self.last_error: Optional[str] = None
         self.forwarded = 0
         self.errors = 0
+        self.failovers = 0
         # the process's last successfully scraped and parsed /metrics
         # state (a dump_state()-shaped dict), rebound whole on every good
         # scrape and never mutated: a process that dies keeps its last
@@ -81,6 +149,13 @@ class Replica:
         self._m_scrape_err = fleet.REPLICA_SCRAPE_ERRORS.labels(
             replica=name)
         self._m_up = REPLICA_UP.labels(replica=name)
+        self._m_fresh = REPLICA_MODEL_FRESHNESS.labels(replica=name)
+        self._m_ok = REPLICA_REQUESTS_TOTAL.labels(
+            replica=name, outcome="ok")
+        self._m_err = REPLICA_REQUESTS_TOTAL.labels(
+            replica=name, outcome="error")
+        self._m_fail = REPLICA_REQUESTS_TOTAL.labels(
+            replica=name, outcome="failover")
         self._m_up.set(1.0)
 
     @property
@@ -99,13 +174,16 @@ class Replica:
         return c
 
     def request(self, method: str, path: str, body: Optional[bytes],
-                timeout_s: float,
-                trace_id: Optional[str] = None) -> tuple[int, bytes, str]:
+                timeout_s: float, trace_id: Optional[str] = None,
+                tl=None) -> tuple[int, bytes, str]:
         """One upstream round trip on a pooled keep-alive connection,
         forwarding ``trace_id`` as ``X-PIO-Trace``.  Transport trouble
         raises OSError/http.client exceptions — the router's signal that
         the process is gone; HTTP error statuses return normally (an
-        application 4xx/5xx is the process's answer, not a death)."""
+        application 4xx/5xx is the process's answer, not a death).
+        ``tl`` (a pulse Timeline) books the round trip's split:
+        ``forward`` (pool or connect, and the send), ``replica`` (waiting
+        for the response head) and ``read`` (the body)."""
         with self._lock:
             conn = self._pool.pop() if self._pool else None
         if conn is None:
@@ -117,8 +195,14 @@ class Replica:
             if trace_id:
                 hdrs[TRACE_HEADER] = trace_id
             conn.request(method, path, body, headers=hdrs)
+            if tl is not None:
+                tl.mark("forward")
             r = conn.getresponse()
+            if tl is not None:
+                tl.mark("replica")
             data = r.read()
+            if tl is not None:
+                tl.mark("read")
             ctype = r.getheader("Content-Type",
                                 "application/json") or "application/json"
             status = r.status
@@ -152,11 +236,18 @@ class Replica:
             except OSError:
                 pass
 
-    def mark_up(self) -> None:
+    def mark_up(self, status: Optional[dict] = None) -> None:
+        """Healthy again; ``status`` (its ``GET /`` document) becomes the
+        last seen status, and its model freshness the fleet gauge's."""
         self.healthy = True
         self.last_error = None
         self.breaker.record_success()
         self._m_up.set(1.0)
+        if status is not None:
+            self.last_status = status
+            fresh = status.get("modelFreshnessSec")
+            if fresh is not None:
+                self._m_fresh.set(float(fresh))
 
     def scrape(self, timeout_s: float) -> bool:
         """Pull and parse this process's ``/metrics`` into
@@ -187,11 +278,17 @@ class Replica:
             "breaker": self.breaker.state,
             "forwarded": self.forwarded,
             "errors": self.errors,
+            "failovers": self.failovers,
         }
         if self.scrape_errors:
             out["scrapeErrors"] = self.scrape_errors
         if self.last_error:
             out["lastError"] = self.last_error
+        st = self.last_status
+        for key in ("engineInstanceId", "requestCount", "modelFreshnessSec",
+                    "foldinDeltasApplied"):
+            if key in st:
+                out[key] = st[key]
         return out
 
 
@@ -282,6 +379,7 @@ class ReplicaSupervisor:
         # the next health tick flip it healthy
         replica.port = port
         replica.mark_down(f"respawned on port {port}; awaiting health")
+        REPLICA_RESPAWNS_TOTAL.labels(replica=name).inc()
         with self._lock:
             st["spawned"] = spawned
             self.respawns += 1
@@ -299,13 +397,20 @@ class ReplicaSupervisor:
             }
 
 
-def spawn_port_process(argv: list, coord_dir, name: str,
-                       index: int) -> dict:
+# the console on the host: `python -m predictionio_tpu_torch` always
+# takes the card, so a fleet deployed on the CPU starts its replicas so
+_CPU_CONSOLE = ("import sys; from predictionio_tpu_torch.cli.main import "
+                "main; sys.exit(main(sys.argv[1:], device='cpu'))")
+
+
+def spawn_port_process(argv: list, coord_dir, name: str, index: int,
+                       on_cpu: bool = False) -> dict:
     """Launch ``python -m predictionio_tpu_torch <argv> --port-file F``
-    as a subprocess that announces its bound port through the file
-    ``coord_dir/<name>.port`` (its output goes to ``<name>.log``
-    beside it).  Returns ``{"proc", "port_file", "log_path", "index"}``;
-    pair with :func:`wait_for_port_file`."""
+    (the console on the host with ``on_cpu``) as a subprocess that
+    announces its bound port through the file ``coord_dir/<name>.port``
+    (its output goes to ``<name>.log`` beside it).  Returns
+    ``{"proc", "port_file", "log_path", "index"}``; pair with
+    :func:`wait_for_port_file`."""
     coord_dir = Path(coord_dir)
     coord_dir.mkdir(parents=True, exist_ok=True)
     port_file = coord_dir / f"{name}.port"
@@ -317,8 +422,9 @@ def spawn_port_process(argv: list, coord_dir, name: str,
     pp = env.get("PYTHONPATH", "")
     if pkg_root not in pp.split(os.pathsep):
         env["PYTHONPATH"] = pkg_root + (os.pathsep + pp if pp else "")
-    cmd = [sys.executable, "-m", "predictionio_tpu_torch",
-           *argv, "--port-file", str(port_file)]
+    console = ["-c", _CPU_CONSOLE] if on_cpu else [
+        "-m", "predictionio_tpu_torch"]
+    cmd = [sys.executable, *console, *argv, "--port-file", str(port_file)]
     with open(log_path, "w") as log_f:
         proc = subprocess.Popen(
             cmd, stdout=log_f, stderr=subprocess.STDOUT, env=env,
@@ -355,3 +461,480 @@ def wait_for_port_file(spawned: dict,
         f"process {spawned['index']} did not announce a port within "
         f"{timeout_s}s"
     )
+
+
+def spawn_replica(engine_args: list, index: int, coord_dir,
+                  extra_args=(), on_cpu: bool = False) -> dict:
+    """Launch one serving replica: ``python -m predictionio_tpu_torch
+    deploy <engine_args> --ip 127.0.0.1 --port 0 --port-file F``
+    (``engine_args``: ``--engine NAME`` or ``--engine-json PATH``), its
+    log ``replica-<index>.log`` in ``coord_dir``; pair with
+    :func:`wait_for_port_file`."""
+    return spawn_port_process(
+        ["deploy", *engine_args, "--ip", "127.0.0.1", "--port", "0",
+         *extra_args],
+        coord_dir, f"replica-{index}", index, on_cpu=on_cpu,
+    )
+
+
+class RouterConfig:
+    def __init__(self, host: str = "127.0.0.1", port: int = 8000,
+                 health_interval_s: float = 1.0,
+                 max_connections: int = 1024,
+                 slo_ms: Optional[float] = None):
+        self.host = host
+        self.port = port
+        self.health_interval_s = health_interval_s
+        self.max_connections = max_connections
+        # arms the router-side pio_slo_burn_rate{window} gauges on the
+        # forward round-trip histogram
+        self.slo_ms = slo_ms
+
+
+class RouterServer(HTTPServerBase):
+    """The serving fleet's front door; see the module docstring."""
+
+    server_name = "router"
+
+    def __init__(self, replicas: list[Replica],
+                 config: Optional[RouterConfig] = None,
+                 supervisor: Optional[ReplicaSupervisor] = None):
+        if not replicas:
+            raise ValueError("router needs at least one replica")
+        self.replicas = replicas
+        self.config = config or RouterConfig()
+        self.supervisor = supervisor
+        self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        self._rr_lock = threading.Lock()
+        self._rr = 0
+        self._stop_event = threading.Event()
+        self.start_time = time.time()  # wall clock: a TIMESTAMP
+        self.request_count = 0
+        self.unroutable = 0
+        # deadline admission: an EWMA of the replicas' round trips (the
+        # micro-batcher's estimator); a ?timeout= budget it already
+        # exceeds is answered 503 here, without a doomed forward.
+        # Seeded 0: a cold router never sheds
+        self._ewma_forward = EwmaEstimator()
+        self._ewma_lock = threading.Lock()
+        self.admission_rejected = 0
+        self._m_adm_ok = ROUTER_ADMISSION_TOTAL.labels(outcome="admitted")
+        self._m_adm_rej = ROUTER_ADMISSION_TOTAL.labels(outcome="rejected")
+        # the router's own flight recorder: worst-N proxied requests with
+        # the replica that served each (the process recorder would mix
+        # in an in-process replica's serve.query offers)
+        self.flight = FlightRecorder()
+        self._m_forward = fleet.ROUTER_FORWARD_SECONDS.child()
+        self._burn = None
+        if self.config.slo_ms:
+            self._burn = fleet.install_burn_rate(
+                self._m_forward, self.config.slo_ms / 1e3
+            )
+        fleet.set_fleet_provider(self.fleet_payload)
+        self._health_thread: Optional[threading.Thread] = None
+
+    # -- lifecycle ---------------------------------------------------------
+    @property
+    def host(self) -> str:
+        return self.config.host
+
+    @property
+    def port(self) -> int:
+        return self.config.port
+
+    @port.setter
+    def port(self, v: int) -> None:
+        self.config.port = v
+
+    @property
+    def max_connections(self) -> int:
+        return self.config.max_connections
+
+    def _build_httpd(self):
+        if self._pool is None:
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=_FORWARD_THREADS,
+                thread_name_prefix="router-fwd",
+                initializer=scope.register_thread_role,
+                initargs=("router_fwd",),
+            )
+        if self._health_thread is None:
+            self._health_thread = threading.Thread(
+                target=self._health_loop, daemon=True, name="router-health"
+            )
+            self._health_thread.start()
+        # the router is the fleet's one event loop: always profile it
+        scope.ensure_started()
+        return EventLoopHTTPServer(
+            (self.host, self.port), self._el_handle,
+            max_connections=self.config.max_connections,
+            name="router",
+        )
+
+    def stop(self) -> None:
+        super().stop()
+        self._stop_event.set()
+        # clear the provider only if this router is still the installed
+        # one (a second router in the process may have replaced it)
+        if fleet._fleet_provider == self.fleet_payload:
+            fleet.set_fleet_provider(None)
+        if self._health_thread is not None:
+            self._health_thread.join(
+                timeout=self.config.health_interval_s
+                + 2 * _HEALTH_TIMEOUT_S * len(self.replicas)
+            )
+            self._health_thread = None
+        pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown(wait=False)
+
+    # -- health ------------------------------------------------------------
+    def check_replica(self, replica: Replica) -> bool:
+        try:
+            status, data, _ = replica.request(
+                "GET", "/", None, timeout_s=_HEALTH_TIMEOUT_S)
+            if status != 200:
+                replica.mark_down(f"status {status}")
+                return False
+            replica.mark_up(json.loads(data.decode()))
+            return True
+        except Exception as e:
+            replica.mark_down(f"{type(e).__name__}: {e}")
+            return False
+
+    def _health_loop(self) -> None:
+        scope.register_thread_role("health_loop")
+        while not self._stop_event.wait(self.config.health_interval_s):
+            for r in self.replicas:
+                self.check_replica(r)
+            # a dead replica's scrape fails fast and leaves its last good
+            # snapshot standing: the merged counters stay monotone
+            for r in self.replicas:
+                r.scrape(_HEALTH_TIMEOUT_S)
+            if self.supervisor is not None:
+                try:
+                    self.supervisor.tick(self.replicas)
+                except Exception:
+                    logger.exception("replica supervisor tick failed")
+
+    # -- forwarding --------------------------------------------------------
+    def _candidates(self) -> list[Replica]:
+        with self._rr_lock:
+            self._rr += 1
+            start = self._rr
+        n = len(self.replicas)
+        order = [self.replicas[(start + i) % n] for i in range(n)]
+        healthy = [r for r in order if r.healthy]
+        # last resort: unhealthy replicas whose breaker grants a probe
+        # (a recovered replica takes traffic before the next health tick)
+        probes = [r for r in order if not r.healthy and r.breaker.allow()]
+        return healthy + probes
+
+    def _forward_query(self, path_qs: str, body: bytes, trace_id: str,
+                       respond, tl, est_at_admission: float) -> None:
+        """The pool's half of the hot path: try the candidates in order
+        until one answers; a transport failure marks its replica down,
+        books a failover and goes on to the next.  The served request
+        feeds the admission estimator, the forward histogram (its trace
+        id the bucket exemplar), the ``router.forward`` and
+        ``router.request`` spans and the router's flight recorder, with
+        the serving replica's name and the replicas that failed it."""
+        hdrs_out = [(TRACE_HEADER, trace_id)]
+        last_err = "no replicas configured"
+        failed: list[str] = []
+        for i, replica in enumerate(self._candidates()):
+            t0 = time.perf_counter()
+            wall0 = time.time()
+            try:
+                status, data, ctype = replica.request(
+                    "POST", path_qs, body, timeout_s=_FORWARD_TIMEOUT_S,
+                    trace_id=trace_id, tl=tl,
+                )
+            except Exception as e:
+                last_err = f"{replica.name}: {type(e).__name__}: {e}"
+                replica.errors += 1
+                replica.failovers += 1
+                replica._m_fail.inc()
+                replica.mark_down(last_err)
+                failed.append(replica.name)
+                continue
+            if not replica.healthy:
+                replica.mark_up()
+            replica.forwarded += 1
+            rt = time.perf_counter() - t0
+            # success paths only: a failover's timeout would teach the
+            # estimator to shed everything
+            with self._ewma_lock:
+                self._ewma_forward.observe(rt)
+            self._m_forward.observe(rt, exemplar=trace_id)
+            (replica._m_ok if status < 500 else replica._m_err).inc()
+            tracer = get_tracer()
+            tracer.record("router.forward", rt, trace_id=trace_id,
+                          attrs={"replica": replica.name, "status": status},
+                          start=wall0)
+            total = tl.elapsed()
+            attrs = {
+                "replica": replica.name,
+                "status": status,
+                "ewmaAtAdmissionSec": round(est_at_admission, 6),
+                "roundTripSec": round(rt, 6),
+                "segmentsMs": tl.snapshot_ms(),
+            }
+            if failed:
+                # the replicas that ate the time before this one answered
+                attrs["failedReplicas"] = failed
+            if i:
+                attrs["failovers"] = i
+            tracer.record("router.request", total, trace_id=trace_id,
+                          attrs=attrs, start=time.time() - total)
+            # offered after the spans land, so a record's tree holds them
+            self.flight.offer(trace_id, total, name="router.request",
+                              attrs=attrs)
+            try:
+                respond(status, data, ctype=ctype, extra_headers=hdrs_out,
+                        tl=tl)
+            except RuntimeError:
+                pass
+            return
+        self.unroutable += 1
+        try:
+            respond(503, {
+                "message": f"no replica available ({last_err})",
+                "error": "NoReplicaAvailable",
+            }, extra_headers=hdrs_out + [("Retry-After", "1")])
+        except RuntimeError:
+            pass
+
+    # -- merged exposition and the fleet tail view -------------------------
+    def render_fleet_metrics(self) -> bytes:
+        """The router's ``GET /metrics``: its own registry merged with
+        every replica's last scraped snapshot (counters and histograms
+        sum, gauges gain a ``{replica}`` label).  A schema drift between
+        replicas falls back to the router's own exposition, logged."""
+        tagged = [("router", get_registry().dump_state())]
+        for r in self.replicas:
+            state = r.metrics_state
+            if state is not None:
+                tagged.append((r.name, state))
+        try:
+            return fleet.render_fleet(tagged).encode()
+        except ValueError as e:
+            logger.warning("fleet metrics merge failed (%s); serving the "
+                           "router-local exposition", e)
+            return get_registry().render_prometheus().encode()
+
+    def _replica_tail_entry(self, r: Replica) -> dict:
+        entry = r.snapshot()
+        entry["respawns"] = REPLICA_RESPAWNS_TOTAL.labels(
+            replica=r.name).value()
+        state = r.metrics_state
+        if state is not None:
+            hist = fleet.state_histogram(state, "pio_query_latency_seconds")
+            if hist and hist["count"]:
+                entry["p50Ms"] = round(fleet.hist_quantile(hist, 50) * 1e3, 3)
+                entry["p99Ms"] = round(fleet.hist_quantile(hist, 99) * 1e3, 3)
+                entry["latencyCount"] = hist["count"]
+            entry["queriesTotal"] = fleet.state_counter_total(
+                state, "pio_queries_total")
+            if r.last_scrape_at is not None:
+                entry["scrapeAgeSec"] = round(
+                    max(time.time() - r.last_scrape_at, 0.0), 3)
+        if r.last_scrape_error:
+            entry["lastScrapeError"] = r.last_scrape_error
+        return entry
+
+    def _enrich_worst(self, worst: list) -> list:
+        """Join each of the first worst-N records with the serving
+        replica's own record of that trace (``GET /debug/flight?trace=``:
+        its segment split beside the router's round trip), fetched once
+        and kept in the router's flight attrs."""
+        by_name = {r.name: r for r in self.replicas}
+        for w in worst[:8]:
+            attrs = w.get("attrs") or {}
+            if "replicaSegmentsMs" in attrs or "replica" not in attrs:
+                continue
+            replica = by_name.get(attrs["replica"])
+            if replica is None or not replica.healthy:
+                continue
+            try:
+                status, data, _ = replica.request(
+                    "GET",
+                    "/debug/flight?trace="
+                    + urllib.parse.quote(w["traceId"]),
+                    None, timeout_s=_HEALTH_TIMEOUT_S,
+                )
+                if status != 200:
+                    continue
+                rec = json.loads(data.decode()).get("record")
+            except Exception:
+                continue
+            if not rec:
+                continue
+            extra = {
+                "replicaDurationSec": rec.get("durationSec"),
+                "replicaSegmentsMs": (rec.get("attrs") or {}).get(
+                    "segmentsMs"),
+            }
+            self.flight.annotate(w["traceId"], extra)
+            attrs.update(extra)
+            w["attrs"] = attrs
+        return worst
+
+    def fleet_payload(self) -> dict:
+        """``GET /debug/fleet``: the per-replica tail table (p50/p99 from
+        the scrapes, breaker, failovers and respawns) and the router
+        flight recorder's worst-N with the serving replica's split."""
+        summary = self.flight.summary()
+        out = {
+            "role": "router",
+            "replicas": [self._replica_tail_entry(r) for r in self.replicas],
+            "healthyReplicas": sum(r.healthy for r in self.replicas),
+            "requestCount": self.request_count,
+            "unroutable": self.unroutable,
+            "admissionRejected": self.admission_rejected,
+            "ewmaForwardSec": self._ewma_forward.value,
+            "scrapeErrors": sum(r.scrape_errors for r in self.replicas),
+            "flight": {
+                "capacity": summary["capacity"],
+                "offers": summary["offers"],
+                "admissions": summary["admissions"],
+            },
+            "worst": self._enrich_worst(summary["worst"]),
+        }
+        if self.config.slo_ms:
+            out["sloMs"] = self.config.slo_ms
+            out["burnRate"] = {
+                name: round(self._burn.rate(secs), 4)
+                for name, secs in fleet.BURN_WINDOWS
+            }
+        if self.supervisor is not None:
+            out["supervisor"] = self.supervisor.summary()
+        return out
+
+    # -- http --------------------------------------------------------------
+    def status_json(self) -> dict:
+        out = {
+            "status": "alive",
+            "role": "router",
+            "replicas": [r.snapshot() for r in self.replicas],
+            "healthyReplicas": sum(r.healthy for r in self.replicas),
+            "requestCount": self.request_count,
+            "unroutable": self.unroutable,
+            "admissionRejected": self.admission_rejected,
+            "ewmaForwardSec": self._ewma_forward.value,
+            "startTime": self.start_time,
+            "maxConnections": self.config.max_connections,
+        }
+        if self.supervisor is not None:
+            out["supervisor"] = self.supervisor.summary()
+        return out
+
+    def _on_pool(self, respond, fn) -> None:
+        """Run ``fn() -> (code, payload, ctype)`` on the forward pool and
+        answer from there; 503 once the router is stopping."""
+        def run():
+            try:
+                code, payload, ctype = fn()
+            except Exception as e:
+                logger.exception("router route failed")
+                code, payload, ctype = 500, {"message": str(e)}, None
+            try:
+                respond(code, payload, ctype=ctype or "application/json")
+            except RuntimeError:
+                pass  # client hung up first
+
+        pool = self._pool
+        try:
+            if pool is None:
+                raise RuntimeError("no pool")
+            pool.submit(run)
+        except RuntimeError:
+            respond(503, {"message": "router is stopping"})
+
+    def _admit(self, query: str, tid: str, respond) -> Optional[float]:
+        """Deadline admission of a ``POST /queries.json``: the EWMA
+        estimate it was admitted at, or None once it was answered a
+        structured 503 (a ``?timeout=`` budget the fleet's round trip
+        already exceeds).  No timeout, or a cold estimator, admits."""
+        est = self._ewma_forward.value
+        tv = urllib.parse.parse_qs(query).get("timeout")
+        if not tv:
+            return est
+        try:
+            budget = float(tv[0])
+        except ValueError:
+            budget = None
+        if budget is not None and est > 0.0 and (budget <= 0.0
+                                                 or est > budget):
+            self.admission_rejected += 1  # loop thread only
+            self._m_adm_rej.inc()
+            respond(503, {
+                "message": (f"estimated fleet round-trip {est * 1e3:.1f}ms "
+                            f"exceeds the {budget * 1e3:.1f}ms request "
+                            "budget"),
+                "error": "AdmissionRejected",
+            }, extra_headers=[("Retry-After", "1"), (TRACE_HEADER, tid)])
+            return None
+        self._m_adm_ok.inc()
+        return est
+
+    @callback_scope
+    def _el_handle(self, req, respond) -> None:
+        u = urllib.parse.urlparse(req.path)
+        path = u.path
+        if req.method == "POST" and path == "/queries.json":
+            self.request_count += 1  # loop thread only: no lock needed
+            # a trace id minted when the client brought none: every
+            # proxied request is stitchable across the journals
+            tid = (req.header(TRACE_HEADER) or "").strip() or new_trace_id()
+            tl = timeline.Timeline("router")
+            est = self._admit(u.query, tid, respond)
+            if est is None:
+                return
+            tl.mark("admission")
+            pool = self._pool
+            try:
+                if pool is None:
+                    raise RuntimeError("no pool")
+                pool.submit(self._forward_query, req.path, req.body, tid,
+                            respond, tl, est)
+            except RuntimeError:
+                respond(503, {"message": "router is stopping"})
+            return
+        unported = _UNPORTED_ROUTES.get((req.method, path))
+        if unported is not None:
+            what, item = unported
+            respond(404, {"message": f"{what} is not ported to "
+                          "predictionio_tpu_torch yet (ROADMAP Queue 1 "
+                          f"item {item})"})
+            return
+        if req.method == "POST" and path == "/stop":
+            respond(200, {"message": "stopping"})
+            threading.Thread(target=self.stop, daemon=True).start()
+            return
+        if req.method == "GET" and path == "/metrics":
+            # the fleet's exposition, rendered on the pool
+            if not metrics_enabled():
+                respond(404, {"message": "metrics disabled (--no-metrics)"})
+                return
+            self._on_pool(respond, lambda: (
+                200, self.render_fleet_metrics(), PROMETHEUS_CTYPE))
+            return
+        if req.method == "GET" and path == "/":
+            respond(200, self.status_json())
+            return
+        if req.method == "GET" and path == "/debug/fleet":
+            # lazy replica /debug/flight fetches block: on the pool
+            self._on_pool(respond, lambda: (200, self.fleet_payload(), None))
+            return
+        if req.method == "GET" and path.startswith("/debug/"):
+            # /debug/profile captures for seconds: every mount runs on
+            # the pool
+            def obs():
+                ans = observability_response(path, u.query)
+                return ans if ans is not None else (
+                    404, {"message": "not found"}, None)
+
+            self._on_pool(respond, obs)
+            return
+        respond(404, {"message": "not found"})

@@ -5,7 +5,8 @@ reference's `workflow/CreateServer.scala` (`ServerActor` routes
 `:433-612`, `MasterActor` lifecycle `:255-377`).  Routes:
 
 * ``GET  /``             — status JSON: engine info, request count, latency
-  (``avgServingSec``/``lastServingSec`` parity, `CreateServer.scala:552-559`)
+  (``avgServingSec``/``lastServingSec`` parity, `CreateServer.scala:552-559`),
+  or the HTML status page for ``Accept: text/html``
 * ``POST /queries.json`` — score a query (the hot path); concurrent
   queries are coalesced into one batched device call by the
   micro-batcher (:mod:`predictionio_tpu_torch.server.microbatch`) when
@@ -27,17 +28,25 @@ Query/result JSON mapping: the engine's first algorithm may declare
 ``query_class`` (with ``from_json``) and results may expose ``to_json``.
 The server's device is its context's, which defaults to the card.
 
+With ``feedback`` and an ``event_server_url``, every answered query
+posts a ``pio_pr``/``predict`` event (the query and the prediction) to
+the event server and carries its ``prId`` in the reply; with a
+``log_url``, invalid and failed queries post ``log_prefix`` + a JSON
+record there (`CreateServer.scala:413-424,480-550`).  Both leave through
+bounded delivery queues (:class:`~..resilience.DeliveryQueue`) with
+retries behind a circuit breaker, so a dead collector never stalls
+serving; the feedback hop carries the query's ``X-PIO-Trace``.
+
 Observability is the reference's: the query latency histogram (with
 trace-id exemplars) behind ``/status``'s percentiles, per-outcome
 counters, ``serve.query`` spans under the request's ``X-PIO-Trace`` id
 (echoed on the reply), the pulse timeline of each query, the flight
 recorder, ``slo_ms`` burn rates and the device-memory sampler; and the
-fault points ``reload.load_model`` and ``device.dispatch``.
+fault points ``reload.load_model``, ``device.dispatch``,
+``http.feedback`` and ``http.remote_log``.
 
-Not ported yet, and refused where a caller asks for them:
-feedback-loop event injection, remote error logs, fold-in deltas,
-tenancy and experiments and the HTML status page; their routes answer
-404.
+Not ported yet: fold-in deltas, tenancy and experiments; their routes
+answer 404.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import sys
 import threading
 import time
 import urllib.parse
+import uuid
 from dataclasses import asdict, is_dataclass
 from typing import Any, Callable, Optional
 
@@ -73,8 +83,13 @@ from ..obs import (
     xray,
 )
 from ..obs.timeline import SERVE_INFLIGHT, annotate
-from ..resilience import faults
-from ..resilience.policy import Deadline, DeadlineExceeded
+from ..resilience import DeliveryQueue, faults
+from ..resilience.policy import (
+    CircuitBreaker,
+    Deadline,
+    DeadlineExceeded,
+    RetryPolicy,
+)
 from ..workflow.train import prepare_deploy_components
 from .eventloop import EventLoopHTTPServer, callback_scope
 from .http_base import (
@@ -99,6 +114,14 @@ _m_inflight = SERVE_INFLIGHT.child()
 # query outcomes, the label values of pio_queries_total
 _STATUSES = ("ok", "bad_request", "timeout", "error", "rejected")
 
+# the feedback and remote-log delivery queues' retries: attempts an
+# entry gets while the breaker lets it through, the backoff's base and
+# cap, and one POST's timeout (the reference's defaults)
+_DELIVERY_ATTEMPTS = 50
+_DELIVERY_BASE_S = 0.1
+_DELIVERY_CAP_S = 5.0
+_DELIVERY_TIMEOUT_S = 2.0
+
 
 class ServerConfig:
     def __init__(self, host: str = "127.0.0.1", port: int = 8000,
@@ -108,6 +131,12 @@ class ServerConfig:
                  edge: str = "eventloop",
                  max_connections: int = DEFAULT_MAX_CONNECTIONS,
                  feedback: bool = False,
+                 event_server_url: Optional[str] = None,
+                 access_key: Optional[str] = None,
+                 log_url: Optional[str] = None, log_prefix: str = "",
+                 feedback_capacity: int = 1024,
+                 breaker_failures: int = 5,
+                 breaker_reset_s: float = 10.0,
                  slo_ms: Optional[float] = None):
         self.host = host
         self.port = port
@@ -122,11 +151,20 @@ class ServerConfig:
         # concurrent-connection cap (both edges): connection attempts
         # past it are answered a structured 503 and closed
         self.max_connections = max_connections
-        if feedback:
-            raise NotImplementedError(
-                "feedback-loop event injection is not ported to "
-                "predictionio_tpu_torch yet (ROADMAP Queue 1 item 4)"
-            )
+        # feedback-loop event injection: answered queries go back to the
+        # event server at event_server_url as pio_pr events
+        self.feedback = feedback
+        self.event_server_url = event_server_url
+        self.access_key = access_key
+        # remote error-log shipping (CreateServer.scala:413-424): serving
+        # failures POST `log_prefix + json` to log_url, fire-and-forget
+        self.log_url = log_url
+        self.log_prefix = log_prefix
+        # the feedback/remote-log delivery queues' capacity, and their
+        # breakers' failure threshold and reset seconds
+        self.feedback_capacity = feedback_capacity
+        self.breaker_failures = breaker_failures
+        self.breaker_reset_s = breaker_reset_s
         # concurrent-query coalescing (server/microbatch.py): "auto"
         # batches when every algorithm provides a real batch_predict,
         # "on" forces it, "off" keeps per-request device calls
@@ -153,11 +191,12 @@ class _QueryCtx:
     the decoded query, its deadline and the components captured under
     the state lock."""
 
-    __slots__ = ("query", "deadline", "algorithms", "models", "serving",
-                 "batcher")
+    __slots__ = ("query_json", "query", "deadline", "algorithms", "models",
+                 "serving", "batcher")
 
-    def __init__(self, query, deadline, algorithms, models, serving,
-                 batcher):
+    def __init__(self, query_json, query, deadline, algorithms, models,
+                 serving, batcher):
+        self.query_json = query_json
         self.query = query
         self.deadline = deadline
         self.algorithms = algorithms
@@ -271,6 +310,13 @@ class EngineServer(HTTPServerBase):
         )
         self._lock = threading.RLock()
         self.last_reload_error: Optional[str] = None
+        # bounded background delivery (resilience/delivery.py); built
+        # even when feedback and log_url are off (the drain thread only
+        # starts on the first submit)
+        self._feedback_queue = self._delivery_queue("feedback",
+                                                    "http.feedback")
+        self._log_queue = self._delivery_queue("remote-log",
+                                               "http.remote_log")
         # aux pool for the event-loop edge's blocking routes (status,
         # reload, unbatched predicts); built at its first bind
         self._aux_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
@@ -310,6 +356,21 @@ class EngineServer(HTTPServerBase):
         xray.install()
         xray.start_sampler()
         scope.ensure_started()
+
+    def _delivery_queue(self, name: str, point: str) -> DeliveryQueue:
+        return DeliveryQueue(
+            name,
+            capacity=self.config.feedback_capacity,
+            retry=RetryPolicy(max_attempts=_DELIVERY_ATTEMPTS,
+                              base_s=_DELIVERY_BASE_S,
+                              cap_s=_DELIVERY_CAP_S),
+            breaker=CircuitBreaker(
+                failure_threshold=self.config.breaker_failures,
+                reset_timeout_s=self.config.breaker_reset_s,
+            ),
+            timeout_s=_DELIVERY_TIMEOUT_S,
+            fault_point=point,
+        )
 
     # -- lifecycle --------------------------------------------------------
     def _load(self, instance_id: str) -> None:
@@ -437,8 +498,8 @@ class EngineServer(HTTPServerBase):
         query = self.query_decoder(query_json)
         tl.mark("parse")
         with self._lock:
-            ctx = _QueryCtx(query, deadline, self.algorithms, self.models,
-                            self.serving, self.batcher)
+            ctx = _QueryCtx(query_json, query, deadline, self.algorithms,
+                            self.models, self.serving, self.batcher)
         faults.check("device.dispatch")
         tl.mark("auth")
         if deadline is not None:
@@ -482,7 +543,55 @@ class EngineServer(HTTPServerBase):
                             start=time.time() - dt)
         get_flight_recorder().offer(tid, dt, name="serve.query",
                                     attrs=attrs)
+        if self.config.feedback and self.config.event_server_url:
+            out = self._send_feedback(ctx.query_json, out)
         return out
+
+    def _send_feedback(self, query_json: dict, result_json: Any) -> Any:
+        """Queue a ``pio_pr``/``predict`` feedback event (the query and
+        the prediction) for the event server, under the query's trace
+        id, and return the reply with the event's ``prId`` in it (the
+        result's own ``prId``, or a new one).  The delivery queue retries
+        behind a circuit breaker, so a down event server neither stalls
+        serving nor loses events below the queue's capacity."""
+        pr_id = (
+            result_json.get("prId") if isinstance(result_json, dict) else None
+        ) or uuid.uuid4().hex
+        event = {
+            "event": "predict",
+            "entityType": "pio_pr",
+            "entityId": pr_id,
+            "properties": {"query": query_json, "prediction": result_json},
+        }
+        url = (f"{self.config.event_server_url}/events.json"
+               f"?accessKey={self.config.access_key or ''}")
+        tid = current_trace_id()
+        self._feedback_queue.submit(
+            url, event, headers={TRACE_HEADER: tid} if tid else None
+        )
+        if isinstance(result_json, dict):
+            result_json = {**result_json, "prId": pr_id}
+        return result_json
+
+    def remote_log(self, message: str) -> None:
+        """Ship a serving error to ``log_url`` (reference
+        `CreateServer.scala:413-424` ``remoteLog``): POST ``log_prefix +
+        json({engineInstance, message})`` through the delivery queue;
+        delivery failures are retried, then counted, never raised."""
+        if not self.config.log_url:
+            return
+        with self._lock:
+            instance_id = self.instance_id
+        payload = self.config.log_prefix + json.dumps({
+            "engineInstance": {
+                "id": instance_id,
+                "engineId": self.engine_id,
+                "engineVersion": self.engine_version,
+                "engineVariant": self.engine_variant,
+            },
+            "message": message,
+        })
+        self._log_queue.submit(self.config.log_url, payload.encode())
 
     def _book_failure(self, e: BaseException) -> tuple:
         """Book a failed query's outcome on both counters; returns
@@ -571,6 +680,8 @@ class EngineServer(HTTPServerBase):
             "resilience": {
                 "lastReloadError": last_reload_error,
                 "queryTimeoutSec": self.config.query_timeout_s,
+                "feedback": self._feedback_queue.stats(),
+                "remoteLog": self._log_queue.stats(),
             },
         }
         if batcher is not None:
@@ -586,6 +697,95 @@ class EngineServer(HTTPServerBase):
             ],
         }
         return out
+
+    def status_html(self) -> str:
+        """Browser view of the deployed engine (the reference's Twirl
+        status page, `core/src/main/twirl/io/prediction/workflow/
+        index.scala.html`): engine and server information and each
+        component's params; content-negotiated on ``/``."""
+        import html as _html
+
+        from ..controller.params import params_to_json
+
+        def esc(v) -> str:
+            return _html.escape(str(v))
+
+        def row(k, v) -> str:
+            return f"<tr><th>{esc(k)}</th><td>{esc(v)}</td></tr>"
+
+        def table(rows) -> str:
+            return ("<table border='1' cellpadding='4'>" + "".join(rows)
+                    + "</table>")
+
+        with self._lock:
+            instance_id = self.instance_id
+            request_count = self.request_count
+            last_serving_sec = self.last_serving_sec
+            ep = self.engine_params
+        lat = self.latency_stats()
+        rec = self.ctx.storage.get_metadata().engine_instance_get(
+            instance_id
+        )
+        engine_rows = [
+            row("Instance ID", instance_id),
+            row("Engine ID", self.engine_id),
+            row("Engine Version", self.engine_version),
+            row("Variant", self.engine_variant),
+        ]
+        if rec is not None:
+            engine_rows += [
+                row("Training Start Time", rec.start_time),
+                row("Training End Time", rec.end_time),
+            ]
+        started = time.strftime(
+            "%Y-%m-%d %H:%M:%S UTC", time.gmtime(self.start_time)
+        )
+        server_rows = [
+            row("Start Time", started),
+            row("Request Count", request_count),
+            row("Average Serving Time", f"{lat['avg']:.4f} s"),
+            row("Last Serving Time", f"{last_serving_sec:.4f} s"),
+            row("Serving Time p50 / p95 / p99",
+                f"{lat['p50']:.4f} / {lat['p95']:.4f} / "
+                f"{lat['p99']:.4f} s"),
+        ]
+        worst = get_flight_recorder().summary()["worst"]
+        if worst:
+            server_rows.append(row(
+                "Slowest Requests (flight recorder)",
+                "; ".join(
+                    f"{w['traceId']} {w['durationSec'] * 1e3:.1f} ms"
+                    for w in worst[:5]
+                ) + " — span trees at /debug/xray",
+            ))
+        comp_rows = [
+            row(f"Data Source [{ep.data_source[0] or 'default'}]",
+                json.dumps(params_to_json(ep.data_source[1]))),
+            row(f"Preparator [{ep.preparator[0] or 'default'}]",
+                json.dumps(params_to_json(ep.preparator[1]))),
+        ]
+        for name, p in ep.algorithms:
+            comp_rows.append(
+                row(f"Algorithm [{name or 'default'}]",
+                    json.dumps(params_to_json(p)))
+            )
+        comp_rows.append(
+            row(f"Serving [{ep.serving[0] or 'default'}]",
+                json.dumps(params_to_json(ep.serving[1])))
+        )
+        title = f"Engine Server at {self.config.host}:{self.config.port}"
+        return (
+            "<!DOCTYPE html><html><head>"
+            f"<title>{esc(title)}</title>"
+            "<style>body{font-family:sans-serif;margin:2em}"
+            "td{font-family:monospace}</style></head><body>"
+            f"<h1>{esc(title)}</h1>"
+            "<h2>Engine Information</h2>" + table(engine_rows) +
+            "<h2>Server Information</h2>" + table(server_rows) +
+            "<h2>Components</h2>" + table(comp_rows) +
+            "<p>POST queries to <code>/queries.json</code>.</p>"
+            "</body></html>"
+        )
 
     # -- event-loop edge ----------------------------------------------------
     def _build_httpd(self):
@@ -651,19 +851,24 @@ class EngineServer(HTTPServerBase):
         if req.method == "GET":
             # every GET (the observability mounts included: a profile
             # capture blocks for seconds) runs on the aux pool
-            self._aux(respond, self._blocking_get, u.path, u.query)
+            self._aux(respond, self._blocking_get, u.path, u.query,
+                      req.header("Accept") or "")
             return
         respond(405, {"message": f"method {req.method} not allowed"})
 
-    def _blocking_get(self, path: str, query: str):
+    def _blocking_get(self, path: str, query: str, accept: str = ""):
         """``(code, payload, ctype)`` of a GET route, for both edges (on
-        the event-loop edge it runs on the aux pool)."""
+        the event-loop edge it runs on the aux pool); ``/`` answers the
+        HTML status page to an ``Accept`` naming ``text/html``."""
         ans = observability_response(path, query)
         if ans is not None:
             code, payload, ctype = ans
             return code, payload, ctype or "application/json"
         js = "application/json"
         if path == "/":
+            if "text/html" in accept:
+                return (200, self.status_html().encode(),
+                        "text/html; charset=utf-8")
             return 200, self.status_json(), js
         if path == "/reload":
             try:
@@ -762,6 +967,10 @@ class EngineServer(HTTPServerBase):
         code, payload, headers = self._book_failure(e)
         try:
             respond(code, payload, extra_headers=hdrs + headers)
+            if code == 400:
+                self.remote_log(f"Query is invalid: {e}")
+            elif code == 500:
+                self.remote_log(f"Query failed: {e}")
         except RuntimeError:
             pass  # request already answered
 
@@ -786,6 +995,10 @@ class EngineServer(HTTPServerBase):
             pool, self._aux_pool = self._aux_pool, None
             if pool is not None:
                 pool.shutdown(wait=True)
+            # the delivery drain threads exit once their queues are
+            # empty (what is still queued is abandoned with the process)
+            self._feedback_queue.close()
+            self._log_queue.close()
 
     # -- http --------------------------------------------------------------
     @property
@@ -810,7 +1023,8 @@ class EngineServer(HTTPServerBase):
 
             def do_GET(self):
                 u = urllib.parse.urlparse(self.path)
-                code, payload, ctype = server._blocking_get(u.path, u.query)
+                code, payload, ctype = server._blocking_get(
+                    u.path, u.query, self.headers.get("Accept", ""))
                 self._reply(code, payload, ctype=ctype)
 
             def do_POST(self):
@@ -848,6 +1062,11 @@ class EngineServer(HTTPServerBase):
                     code, payload, headers = server._book_failure(e)
                     self.extra_headers += headers
                     self._reply(code, payload)
+                    what = {400: "is invalid", 500: "failed"}.get(code)
+                    if what is not None:
+                        server.remote_log(
+                            f"Query {raw.decode(errors='replace')} "
+                            f"{what}: {e}")
                     return
                 self._reply(200, out)
                 # close the timeline on the success path only: error

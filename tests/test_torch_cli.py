@@ -204,11 +204,27 @@ def test_import_export_roundtrip_equal(pair, tmp_path):
         exported[kind] = rows
     assert exported["torch"] == exported["jax"]
     assert [r["entityId"] for r in exported["torch"]] == ["u0", "u1", "u2"]
-    # the formats the port's library refuses stay refused, before a write
-    rc, out = pair.one("torch", "export", "--appid", "1", "--output",
-                       str(tmp_path / "x.npz"))
-    assert rc == 1 and "not ported" in out
-    assert not (tmp_path / "x.npz").exists()
+    # the columnar and Parquet formats: the written file is reported (an
+    # npz name gains its extension), and each file imports back
+    for argv, written in (
+            (["--output", "{home}/x.npz"], "x.npz"),
+            (["--format", "columnar", "--output", "{home}/y"], "y.npz"),
+            (["--format", "parquet", "--output", "{home}/z.pq"], "z.pq")):
+        assert pair.run("export", "--appid", "1", *argv) == (
+            0, f"Exported 3 events to <HOME>/{written}.\n")
+    for k, name in enumerate(("x.npz", "y.npz", "z.pq"), start=2):
+        pair.run("app", "new", f"back{k}")
+        assert pair.run("import", "--appid", str(k), "--input",
+                        "{home}/" + name) == (0, "Imported 3 events.\n")
+        # ids and creation times are each console's own import's
+        back = {kind: sorted(json.dumps(
+                    {**e.to_json(), "eventId": "", "creationTime": ""},
+                    sort_keys=True)
+                    for e in pair.storage[kind].get_event_store()
+                    .find(app_id=k))
+                for kind in pair.homes}
+        assert back["torch"] == back["jax"]
+        assert len(back["torch"]) == 3
 
 
 def test_status_version_help_and_upgrade(pair):
@@ -241,13 +257,12 @@ REFUSED = [
     (["foldin"], 5),
     (["adminserver"], 9),
     (["dashboard"], 9),
-    (["deploy", "--replicas", "2"], 4),
     (["deploy", "--multi", "tenants.json"], 4),
-    (["deploy", "--feedback"], 4),
-    (["deploy", "--log-url", "http://127.0.0.1:1/log"], 4),
+    (["deploy", "--memory-budget", "1e9"], 4),
+    (["deploy", "--autopilot", "on"], 4),
     (["deploy", "--foldin-poll", "5"], 5),
-    (["deploy", "--replicas", "3"], 4),
-    (["deploy", "--push-foldin", "5"], 4),
+    (["deploy", "--push-foldin", "5"], 5),
+    (["deploy", "--replicas", "2", "--push-foldin", "5"], 5),
     (["train", "--coordinator", "127.0.0.1:1234"], 7),
     (["train", "--num-processes", "2"], 7),
 ]

@@ -1,8 +1,9 @@
 """The port's console against the JAX package's on the engine commands:
 ``template list|get`` (and ``--from-archive``), ``engines``, ``build``,
 ``unregister`` and the template min-version gate, ``run``, ``train``
-to a COMPLETED instance, and ``deploy`` on the default event-loop edge
-answering like an in-process ``predict``, then ``undeploy``.
+to a COMPLETED instance, ``deploy`` on the default event-loop edge
+answering like an in-process ``predict``, then ``undeploy``, and
+``deploy --replicas 2`` answering through its router.
 
 Each console runs on its own scratch home with the same argv; stdout and
 exit codes are compared with access keys, instance ids, homes and the
@@ -12,6 +13,7 @@ parity is held in ``tests/test_torch_recommendation.py``.
 """
 
 import json
+import os
 import shutil
 import tarfile
 import threading
@@ -251,3 +253,72 @@ def test_deploy_on_the_event_loop_edge_then_undeploy(pair, tmp_path):
         f"Deploying engine instance <ID> on 127.0.0.1:{port}",
         f"Undeployed engine server at 127.0.0.1:{port}."]
     shutil.rmtree(tmp_path / "engine-torch")
+
+
+def test_deploy_replicas_answers_through_its_router(pair, tmp_path,
+                                                    monkeypatch):
+    """``deploy --replicas 2`` on the host: two replica processes (the
+    console on the CPU, on the same home) behind the router in this
+    process; the replies equal an in-process ``predict``, both replicas
+    serve, ``/debug/fleet`` lists them, and ``undeploy`` stops the
+    router and its replicas."""
+    import urllib.request
+
+    _rated_app(pair)
+    ej = _engine_json(pair, tmp_path).format(kind="torch")
+    assert pair.one("torch", "train", "--engine-json", ej)[0] == 0
+    st = pair.storage["torch"]
+    monkeypatch.setenv("PIO_TPU_HOME", str(pair.homes["torch"]))
+    pf = tmp_path / "router-port"
+    rcs = []
+    argv = ["deploy", "--engine-json", ej, "--ip", "127.0.0.1", "--port",
+            "0", "--port-file", str(pf), "--replicas", "2",
+            "--health-interval", "0.2"]
+    thread = threading.Thread(
+        target=lambda: rcs.append(main(argv, storage=st, device="cpu")),
+        daemon=True)
+    thread.start()
+    port = None
+    try:
+        port = _wait_port(pf, thread, timeout=180.0)
+        engine = recommendation_engine()
+        ep = engine.params_from_variant(json.loads(open(ej).read()))
+        (iid,) = [r.id for r in st.get_metadata().engine_instance_get_all()]
+        algos, models, _ = prepare_deploy_components(
+            engine, ep, iid, ctx=WorkflowContext(device="cpu", storage=st,
+                                                 mode="Serving"))
+        for u in range(8):
+            q = {"user": f"u{u}", "num": 4}
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/queries.json",
+                data=json.dumps(q).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                got = json.loads(r.read())
+            want = algos[0].predict(models[0], Query.from_json(q)).to_json()
+            assert [s["item"] for s in got["itemScores"]] == [
+                s["item"] for s in want["itemScores"]]
+            assert np.allclose([s["score"] for s in got["itemScores"]],
+                               [s["score"] for s in want["itemScores"]],
+                               rtol=1e-5, atol=1e-6)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/debug/fleet",
+                                    timeout=60) as r:
+            fleet = json.loads(r.read())
+        assert [r["name"] for r in fleet["replicas"]] == [
+            "replica-0", "replica-1"]
+        assert all(r["forwarded"] == 4 for r in fleet["replicas"])
+        assert fleet["healthyReplicas"] == 2
+    finally:
+        if port is not None:
+            rc, out = pair.one("torch", "undeploy", "--port", str(port))
+        thread.join(timeout=60)
+    assert not thread.is_alive() and rcs == [0]
+    assert rc == 0
+    lines = out.splitlines()
+    assert f"Router fronting 2 replicas on 127.0.0.1:{port}" in lines
+    pids = [int(ln.split("(pid ")[1].split(")")[0]) for ln in lines
+            if ln.startswith("Replica ")]
+    assert len(pids) == 2
+    for pid in pids:
+        with pytest.raises(ProcessLookupError):
+            os.kill(pid, 0)

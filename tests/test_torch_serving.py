@@ -220,12 +220,15 @@ def test_status_reload_and_stop(deployed, server):
 
 def test_unported_edges_are_refused():
     # the reference's default edge and batcher are the port's too; the
-    # threads edge stays selectable, an unknown edge and feedback raise
+    # threads edge stays selectable, an unknown edge raises; feedback is
+    # taken with the reference's delivery defaults
     assert ServerConfig().edge == "eventloop"
     assert ServerConfig().shared_batcher is True
     assert ServerConfig(edge="threads").edge == "threads"
-    with pytest.raises(NotImplementedError, match="feedback"):
-        ServerConfig(feedback=True)
+    cfg = ServerConfig(feedback=True, event_server_url="http://h:7070")
+    assert (cfg.feedback, cfg.event_server_url, cfg.feedback_capacity,
+            cfg.breaker_failures, cfg.breaker_reset_s) == (
+        True, "http://h:7070", 1024, 5, 10.0)
     with pytest.raises(ValueError, match="edge"):
         ServerConfig(edge="asyncio")
 
