@@ -13,17 +13,18 @@ float64 solve), both forms of the fused ALS kernel ("taa" and "dma")
 with the second pass of a split bucket, and the three gather probes,
 whose launch path it takes apart step by step at the probe shape.
 It builds the native host runtime (``build/native/``, ``g++``) beside
-the kernels.  Then it drives five main paths through the entry points a
+the kernels.  Then it drives six main paths through the entry points a
 user calls, each with every launch counter set to 0 just before it and
 read just after it; a kernel its path did not launch fails the run:
 
 * ML-20M: ratings shaped like MovieLens-20M (138,493 users x 26,744
   items x 20,000,263 ratings, every (user, item) pair distinct, made
   with numpy from a seed) imported as JSON lines into a 4-shard
-  ``sqlite-sharded`` event store, the items' ``$set`` events posted
-  through the ingest fleet (``eventserver --workers 4``: a router and
-  four shard-owner worker processes, put through the chaos checks of
-  ``tools/ingest_smoke.py`` on an app of their own), and read back by
+  ``sqlite-sharded`` event store (a worker process a shard file), the
+  items' ``$set`` events posted through the ingest fleet
+  (``eventserver --workers 4``: a router and four shard-owner worker
+  processes, put through the chaos checks of ``tools/ingest_smoke.py``
+  on an app of their own), and read back by
   the native scan of every shard at once (``find_ratings``, held
   against the synthetic triples in the shards' order) → the
   recommendation engine training at rank 64 with ``solver="fused"`` (2
@@ -45,6 +46,16 @@ read just after it; a kernel its path did not launch fails the run:
   sweep of two candidates over 2 folds (:class:`ML20MSweep`), its folds
   held against a numpy split and its winner's RMSE against a float64
   recomputation;
+* foldin: on that store after eval, a ``"pallas"`` console ``train``,
+  ``deploy --replicas 2 --push-foldin 1``, ``foldin --from-now`` (which
+  must find nothing to fold), then a ``FoldInRunner`` on the card over
+  three windows written through ``import`` (1,000 cold-start users,
+  1,000 existing users with new ratings and 20 new items; twice 100
+  cold-start users): the SPD solve kernel solves the rows, the first
+  cycle is held against a float64 solve of the same window, every
+  replica's reply for folded users against an in-process ``predict`` on
+  the model and the chain, and the freshness from an import to the
+  first fresh reply through the router is timed;
 * pio: MovieLens-1M-shaped events (6,040 x 3,706 x 1,000,209) into the
   SQLite event store of a fresh ``$PIO_TPU_HOME`` through the REST event
   server (one with the group-commit WAL) and ``import_events`` →
@@ -93,9 +104,16 @@ times that tree by the same method.
 
 builds and runs only the ML-20M store phases (write and import, the
 ingest fleet, the sharded read and its check) and the host sort's
-timing, then the same ratings written as a columnar ``.npz`` and
-imported into a fresh 4-shard store (timed beside the JSON lines), with
-no result line.
+timing, with the import's writers timed between the import and the
+fleet: one writer, a thread a shard and a process a shard, the same
+file into fresh 4-shard stores, each held against phase store's rows
+rowid for rowid, with no result line.
+
+    python3 chip_smoke.py --store-npz
+
+runs the same store phases, then the same ratings written as a columnar
+``.npz`` and imported into a fresh 4-shard store (timed beside the JSON
+lines), with no result line.
 
     python3 chip_smoke.py --edge-ab
 
@@ -1412,14 +1430,15 @@ def expected_sharded(u, i, v, n_items: int):
     )
 
 
-def phase_store(store: StoreHome, u, i, v) -> dict:
+def phase_store(store: StoreHome, u, i, v, keep_src: bool = False) -> dict:
     """ML-20M into the sharded event store, as a user loads it: ``app
     new`` through the port's console → the 20,000,263 synthetic ratings
     (event time ``T0_MS`` + draw ms) written as one JSON-lines file in
-    chunks → the console's ``import`` (the native scanner; every row
-    routed to its user's shard; one bulk scope over the four files; the
-    file deleted after).  Logs the sqlite bytes and the rows of each
-    shard (the split of Zipf 0.8 users)."""
+    chunks → the console's ``import`` (the native scanner; every line
+    routed to its user's shard and written by that shard's worker
+    process, one transaction a shard file; the file deleted after unless
+    ``keep_src``).  Logs the sqlite bytes and the rows of each shard
+    (the split of Zipf 0.8 users)."""
     import sqlite3
     from pathlib import Path
 
@@ -1438,7 +1457,8 @@ def phase_store(store: StoreHome, u, i, v) -> dict:
         out = cli(["import", "--appid", str(store.app_id), "--input",
                    str(src)], store.storage)
     import_s = time.perf_counter() - t0
-    src.unlink()
+    if not keep_src:
+        src.unlink()
     counts = records.args(_IMPORT_LOG)[1:]
     if out != f"Imported {len(v)} events.\n" or counts != (len(v), 0):
         raise AssertionError(f"{out!r}, (native, python) branches {counts}")
@@ -1458,7 +1478,79 @@ def phase_store(store: StoreHome, u, i, v) -> dict:
         f"scanner); rows per shard {shard_rows} (largest / mean "
         f"{max(shard_rows) * STORE_SHARDS / len(v):.3f}); sqlite GB per "
         f"shard {[round(g, 3) for g in shard_gb]} ({sum(shard_gb):.2f} GB)")
-    return {"import_s": import_s, "rows": shard_rows}
+    return {"import_s": import_s, "rows": shard_rows, "src": src}
+
+
+def _same_shard_rows(a, b, app_id: int) -> int:
+    """Rows of shard file ``a`` that equal shard file ``b``'s row of the
+    same rowid in every column but the event id and the creation time
+    (each import draws its own); raises unless that is every row of
+    both files."""
+    import sqlite3
+
+    t = f"events_{app_id}"
+    cols = ("event", "entity_type", "entity_id", "target_entity_type",
+            "target_entity_id", "properties", "event_time", "tags",
+            "pr_id")
+    same = " AND ".join(f"x.{c} IS y.{c}" for c in cols)
+    with contextlib.closing(sqlite3.connect(a)) as conn:
+        conn.execute("ATTACH DATABASE ? AS other", (str(b),))
+        n_a = conn.execute(f"SELECT COUNT(*) FROM main.{t}").fetchone()[0]
+        n_b = conn.execute(f"SELECT COUNT(*) FROM other.{t}").fetchone()[0]
+        n = conn.execute(
+            f"SELECT COUNT(*) FROM main.{t} x JOIN other.{t} y "
+            f"ON x.rowid = y.rowid WHERE {same}").fetchone()[0]
+    if not n == n_a == n_b:
+        raise AssertionError(f"shard {a} against {b}: {n} equal rows of "
+                             f"{n_a} and {n_b}")
+    return n
+
+
+def store_writer_ab(store: StoreHome, src, n_events: int,
+                    console_s: float) -> dict:
+    """The JSON-lines import's writers on the file phase store imported
+    (``console_s`` its time through the console: a worker process a
+    shard): the same file through ``import_events`` into a fresh 4-shard
+    store with ``writers`` "one" (every shard in turn on this thread),
+    "threads" (a writer thread a shard) and "processes" (a worker
+    process a shard), one store at a time.  Each arm's shards must hold
+    the rows of phase store's, rowid for rowid (every column but the
+    event id and the creation time); each store is removed after its
+    turn."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from predictionio_tpu_torch.storage import ShardedSQLiteEventStore
+    from predictionio_tpu_torch.tools.import_export import import_events
+
+    secs = {"processes (phase store, console)": console_s}
+    for writers in ("one", "threads", "processes"):
+        d = Path(tempfile.mkdtemp(prefix="pio_writer_ab_"))
+        es = ShardedSQLiteEventStore(d, STORE_SHARDS)
+        es.writers = writers
+        try:
+            t0 = time.perf_counter()
+            counts = {}
+            n = import_events(src, es, store.app_id, counts=counts)
+            secs[writers] = time.perf_counter() - t0
+            if n != n_events or counts["python"]:
+                raise AssertionError(f"{writers}: {n} events, {counts}")
+            es.close()
+            with ThreadPoolExecutor(STORE_SHARDS) as ex:
+                same = list(ex.map(
+                    lambda k: _same_shard_rows(
+                        d / f"shard-{k}.db", store.shard_paths()[k],
+                        store.app_id),
+                    range(STORE_SHARDS)))
+        finally:
+            es.close()
+            shutil.rmtree(d, ignore_errors=True)
+    log(f"phase store writers ML-20M: JSON-lines import of {n_events:,} "
+        f"events into a fresh {STORE_SHARDS}-shard store, seconds "
+        f"{ {k: round(t, 1) for k, t in secs.items()} }; every arm's "
+        f"shards equal phase store's rowid for rowid ({same} rows)")
+    return secs
 
 
 def phase_read(store: StoreHome, u, i, v):
@@ -3821,6 +3913,376 @@ def phase_router(torch, store: StoreHome, cli_out: dict) -> dict:
             "boot_s": boot_s, "respawn_s": respawn_s}
 
 
+# the fold-in windows of phase foldin: cold-start users with their
+# ratings of existing items, existing users with new ratings, brand-new
+# items rated by some of those users, then two same-shaped windows
+FOLDIN_COLD, FOLDIN_COLD_K = 1_000, 20
+FOLDIN_WARM, FOLDIN_WARM_K = 1_000, 5
+FOLDIN_NEW_ITEMS, FOLDIN_NEW_ITEM_K = 20, 50
+FOLDIN_SMALL = 100
+FOLDIN_FRESH = 5
+
+
+def foldin_window(rng, cold, warm=(), new_items=0) -> list:
+    """A fold-in window as the events a user posts: each id of ``cold``
+    rates ``FOLDIN_COLD_K`` existing items (Zipf 1.0, distinct), each
+    existing user index of ``warm`` rates ``FOLDIN_WARM_K`` items, and
+    ``new_items`` new items each get ``FOLDIN_NEW_ITEM_K`` ratings from
+    users of ``warm``.  No event time: the import stamps them now, after
+    every rating the model was trained on."""
+    w = 1.0 / np.arange(1, N_ITEMS + 1)
+    w /= w.sum()
+    out = []
+
+    def rate(user, item, r):
+        out.append({"event": "rate", "entityType": "user",
+                    "entityId": user, "targetEntityType": "item",
+                    "targetEntityId": item,
+                    "properties": {"rating": float(r)}})
+
+    for u in cold:
+        for j in rng.choice(N_ITEMS, FOLDIN_COLD_K, replace=False, p=w):
+            rate(u, item_id(j), rng.integers(1, 11) * 0.5)
+    for u in warm:
+        for j in rng.choice(N_ITEMS, FOLDIN_WARM_K, replace=False, p=w):
+            rate(user_id(u), item_id(j), rng.integers(1, 11) * 0.5)
+    for k in range(new_items):
+        for u in rng.choice(list(warm), FOLDIN_NEW_ITEM_K, replace=False):
+            rate(user_id(u), f"new{k:03d}", rng.integers(1, 11) * 0.5)
+    return out
+
+
+class Float64Solve:
+    """``FoldInSolver.solve`` in float64 on the host, one row at a
+    time: the same (B, K) rung and the same truncation to a row's most
+    recent K ratings, the ALS-WR normal equations built and solved by
+    numpy (explicit ratings only)."""
+
+    def __init__(self, solver):
+        if solver.cfg.implicit:
+            raise ValueError("the float64 solve takes explicit ratings")
+        self.s = solver
+
+    def solve(self, opp, row_ratings, lam=None):
+        cfg = self.s.cfg
+        lam = cfg.lam if lam is None else lam
+        out = np.zeros((len(row_ratings), opp.shape[1]))
+        if not row_ratings:
+            return out
+        _, k = self.s.padded_shape(len(row_ratings),
+                                   max(len(v) for _, v in row_ratings))
+        table = np.asarray(opp, np.float64)
+        for j, (ixs, vals) in enumerate(row_ratings):
+            ixs, vals = np.asarray(ixs)[-k:], np.asarray(vals, np.float64)[-k:]
+            y = table[ixs]
+            reg = lam * max(len(ixs), 1) if cfg.weighted_lambda else lam
+            out[j] = np.linalg.solve(y.T @ y + reg * np.eye(len(table[0])),
+                                     y.T @ vals)
+        return out
+
+
+def import_lines(store: StoreHome, events: list, name: str) -> float:
+    """``events`` through the console's ``import`` as a JSON-lines file;
+    the seconds to its return."""
+    from pathlib import Path
+
+    src = Path(store.home) / f"{name}.jsonl"
+    src.write_text("".join(json.dumps(e) + "\n" for e in events))
+    t0 = time.perf_counter()
+    out = cli(["import", "--appid", str(store.app_id), "--input", str(src)],
+              store.storage)
+    dt = time.perf_counter() - t0
+    src.unlink()
+    if out != f"Imported {len(events)} events.\n":
+        raise AssertionError(f"import of {name}: {out!r}")
+    return dt
+
+
+def _reloads(port: int) -> float:
+    """``pio_reloads_total`` of a server, all outcomes."""
+    from predictionio_tpu_torch.obs import fleet
+
+    state = fleet.parse_prometheus(_raw(port, "/metrics")[1].decode())
+    return sum(c["value"] for c in state.get(
+        "pio_reloads_total", {}).get("children", []))
+
+
+def phase_foldin(torch, store: StoreHome, cli_out: dict) -> dict:
+    """Fold-in at ML-20M on the 4-shard store, after phase eval (its
+    writes outdate the scan cache: nothing reads the store after it).
+    Console ``train`` of a ``"pallas"`` variant of phase cli's
+    engine.json (rank 64) → ``deploy --replicas 2 --push-foldin 1`` as a
+    process on the event-loop edge → ``foldin --from-now`` in process,
+    which must find nothing past the high-water mark (cursor 0 would
+    re-solve every user) → the launch counts set to 0 → a
+    ``FoldInRunner`` from now, in process on the card → a window through
+    the console's ``import`` (``FOLDIN_COLD`` cold-start users, existing
+    users with new ratings, brand-new items) and one cycle, held against
+    the same ``compute_foldin`` solved in float64 on the host (1e-3 of
+    the factors' scale) → two same-shaped windows of ``FOLDIN_SMALL``
+    cold-start users, a cycle each → the reference smoke's invariants
+    (``tools/foldin_smoke.py``) as an ``obs`` line, every replica's
+    reply for folded users held against an in-process ``predict`` on
+    the model and the chain → freshness: ``FOLDIN_FRESH`` cold-start
+    users imported one at a time with ``FoldInRunner.watch(interval_s=
+    0.2)`` in a thread, from the import's return to the first
+    non-fallback reply through the router → ``undeploy``.  Then the SPD
+    solve kernel is timed on the systems the cycles gave it (recorded
+    on the way, one batch a rung) beside the library's Cholesky, its
+    bound and its host microseconds a call."""
+    from pathlib import Path
+
+    from predictionio_tpu_torch.cli.main import load_engine_from_variant
+    from predictionio_tpu_torch.controller import WorkflowContext
+    from predictionio_tpu_torch.live import (
+        FoldInRunner, FoldInSolver, compute_foldin, scan_new_ratings,
+    )
+    from predictionio_tpu_torch.obs import get_tracer
+    from predictionio_tpu_torch.ops import _build
+    from predictionio_tpu_torch.ops import solve as solve_mod
+    from predictionio_tpu_torch.storage.bimap import StringIndex
+    from predictionio_tpu_torch.templates.recommendation import Query
+    from predictionio_tpu_torch.workflow.model_io import load_model_delta
+
+    st = store.storage
+    es = st.get_event_store()
+    rng = np.random.default_rng(41)
+    t_phase = time.perf_counter()
+    ej = Path(cli_out["engine_json"]).with_name("engine-pallas.json")
+    variant = json.loads(Path(cli_out["engine_json"]).read_text())
+    variant["algorithms"][0]["params"]["solver"] = "pallas"
+    ej.write_text(json.dumps(variant, indent=2))
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    iid = cli(["train", "--scan-cache", "--engine-json", str(ej)],
+              st).split()[-1]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = dict(_build.LAUNCHES)
+    if train_launches["gj_solve"] <= 0:
+        raise AssertionError("the pallas train never launched gj_solve")
+    proc = Console(store.home, [
+        "deploy", "--engine-json", str(ej), "--engine-instance-id", iid,
+        "--ip", "127.0.0.1", "--port", "0", "--replicas", "2",
+        "--health-interval", "0.5", "--push-foldin", "1"], "foldin-fleet")
+    checks, detail = {}, {}
+    try:
+        out = cli(["foldin", "--engine-json", str(ej), "--from-now"], st)
+        hw = es.high_water_cursor(store.app_id)
+        checks["from_now_starts_at_the_high_water_mark"] = (
+            f"No new events past watermark rowid {hw}; nothing to fold "
+            "in." in out)
+        engine, ep, _ = load_engine_from_variant(ej)
+        # the systems the kernel solves, kept for its timing below (the
+        # launches stay the path's own)
+        systems = {}
+        solve_fn = solve_mod.spd_solve_batched
+
+        def keep(A, b):
+            systems.setdefault(A.shape[0], (A, b))
+            return solve_fn(A, b)
+
+        solve_mod.spd_solve_batched = keep
+        rungs = []
+        _build.reset_launches()
+        runner = FoldInRunner(st, engine, ep, iid, ctx=WorkflowContext(
+            mode="Serving", storage=st), from_now=True)
+        shape = runner.solver.padded_shape
+        runner.solver.padded_shape = lambda n, k: rungs.append(
+            shape(n, k)) or shape(n, k)
+        cold = [f"cold{k:05d}" for k in range(FOLDIN_COLD)]
+        warm = rng.choice(N_USERS, FOLDIN_WARM, replace=False)
+        window = foldin_window(rng, cold, warm, FOLDIN_NEW_ITEMS)
+        port = proc.wait_port(timeout=600)
+        boot_s = proc.boot_s
+        checks["cold_start_is_fallback"] = _http(port, "/queries.json", {
+            "user": cold[0], "num": 10}) == {"itemScores": []}
+        cycles = []
+        m0 = runner.model
+        before = (m0.user_factors, m0.item_factors,
+                  StringIndex(m0.users.ids.tolist()),
+                  StringIndex(m0.items.ids.tolist()), runner.cursor)
+        tracer = get_tracer()
+
+        def cycle(events, name):
+            imp_s = import_lines(store, events, name)
+            n0 = len(rungs)
+            t0 = time.perf_counter()
+            stats = runner.cycle()
+            torch.cuda.synchronize()
+            stats["wallSec"] = time.perf_counter() - t0
+            stats["importSec"] = imp_s
+            stats["spans"] = {s.name: round(s.duration_s, 4)
+                              for s in tracer.spans()[-8:]
+                              if s.name.startswith("live.")}
+            stats["rungs"] = rungs[n0:]
+            stats["deltaBytes"] = os.path.getsize(stats["delta"])
+            stats["signatures"] = FoldInSolver.cache_size()
+            cycles.append(stats)
+            return stats
+
+        s1 = cycle(window, "foldin-1")
+        checks["foldin_produces_delta"] = (
+            s1["appendedUsers"] == FOLDIN_COLD
+            and s1["patchedUsers"] == FOLDIN_WARM
+            and s1["appendedItems"] == FOLDIN_NEW_ITEMS)
+        # the first cycle's rows against a float64 solve of the same
+        # window, read the same way
+        scan = scan_new_ratings(
+            es, store.app_id, cursor=before[4],
+            event_names=runner.event_names,
+            rating_property=runner.rating_property,
+            entity_type=runner.entity_type, tolerate_unavailable=True)
+        plan = compute_foldin(
+            Float64Solve(runner.solver), *before[:4], scan,
+            runner._history(dict.fromkeys(scan.user_ids)))
+        delta = load_model_delta(Path(s1["delta"]))
+        if not (delta.user_rows_ix.tolist() == plan.user_rows_ix.tolist()
+                and list(delta.new_user_ids) == plan.new_user_ids
+                and list(delta.new_item_ids) == plan.new_item_ids):
+            raise AssertionError("cycle 1's rows are not the float64 plan's")
+        err64 = max(max_err(torch.from_numpy(getattr(delta, f)),
+                            torch.from_numpy(getattr(plan, f)), 1e-3,
+                            f"fold-in cycle 1 {f} against float64")
+                    for f in ("user_rows", "new_user_rows", "new_item_rows"))
+        for k in (2, 3):
+            cycle(foldin_window(rng, [f"small{k}-{j:03d}"
+                                      for j in range(FOLDIN_SMALL)]),
+                  f"foldin-{k}")
+        checks["solver_signature_stable"] = (
+            cycles[2]["signatures"] == cycles[1]["signatures"]
+            and cycles[1]["rungs"] == cycles[2]["rungs"])
+        launches = dict(_build.LAUNCHES)
+
+        # every replica applies the chain (the router pushes each second)
+        reps = _http(port, "/debug/fleet")["replicas"]
+        rports = [int(r["url"].rsplit(":", 1)[1]) for r in reps]
+
+        def applied():
+            got = [_http(p, "/") for p in rports]
+            return got if all(g.get("foldinDeltasApplied") == 3
+                              for g in got) else None
+
+        statuses = _wait_for(applied, 60, "the replicas' applies", 0.2)
+        folded = ([cold[0], cold[-1], user_id(int(warm[0])),
+                   user_id(int(warm[-1])), "small3-007"])
+        algo = runner.algo
+        trades = 0
+        for u in folded:
+            want = algo.predict(runner.model, Query(user=u, num=10)).to_json()
+            for p in rports:
+                trades += _same_reply(_http(p, "/queries.json", {
+                    "user": u, "num": 10}), want, f"replica {p} user {u}")
+        checks["serving_applies_without_reload"] = (
+            sum(_reloads(p) for p in rports) == 0 and all(s["engineInstanceId"] == iid
+                                  for s in statuses))
+        metrics = _raw(rports[0], "/metrics")[1].decode()
+        checks["status_reports_freshness"] = all(
+            "modelFreshnessSec" in s and s["foldinWatermarkLag"] == 0
+            for s in statuses) and all(f in metrics for f in (
+                "pio_model_freshness_seconds", "pio_foldin_watermark_lag",
+                "pio_foldin_applies_total"))
+
+        # freshness through the router, the daemon watching every 0.2 s
+        stop = threading.Event()
+        watcher = threading.Thread(target=runner.watch, kwargs=dict(
+            interval_s=0.2, stop=stop))
+        watcher.start()
+        fresh_s = []
+        try:
+            for k in range(FOLDIN_FRESH):
+                user = f"fresh{k}"
+                import_lines(store, foldin_window(rng, [user]),
+                             f"fresh-{k}")
+                t0 = time.perf_counter()
+                _wait_for(lambda: _http(port, "/queries.json", {
+                    "user": user, "num": 10})["itemScores"], 60,
+                    f"a fresh reply for {user}", 0.02)
+                fresh_s.append(time.perf_counter() - t0)
+        finally:
+            stop.set()
+            watcher.join()
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        solve_mod.spd_solve_batched = solve_fn
+        if "Undeployed" not in cli(["undeploy", "--port", str(port)], st):
+            proc.fail("was not undeployed")
+        try:
+            rc = proc.proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.fail("did not stop after undeploy")
+        checks["undeploy_stops_router_and_replicas"] = rc == 0
+    finally:
+        solve_mod.spd_solve_batched = solve_fn
+        proc.stop()
+    phase_s = time.perf_counter() - t_phase
+    detail.update(cycles=[{k: c[k] for k in (
+        "seq", "events", "ratings", "patchedUsers", "appendedUsers",
+        "appendedItems", "cycleSec", "wallSec", "importSec", "spans",
+        "rungs", "deltaBytes", "signatures")} for c in cycles],
+        freshness_s=fresh_s, trades=trades, err64=err64)
+    obs_report("foldin", checks, detail)
+    gj = foldin_gj_shapes(torch, systems)
+    log(f"phase foldin ML-20M: console train (pallas) {train_s:.1f} s "
+        f"(launches {train_launches}); deploy --replicas 2 --push-foldin 1 "
+        f"up in {boot_s:.1f} s; cycles (s, live.* spans, (B, K) rungs, "
+        f"rows, delta bytes): "
+        + "; ".join(
+            f"{c['seq']}: {c['cycleSec']:.3f} s {c['spans']} {c['rungs']} "
+            f"patched {c['patchedUsers']} appended {c['appendedUsers']} "
+            f"users {c['appendedItems']} items, {c['deltaBytes']:,} B"
+            for c in cycles)
+        + f"; cycle 1 against float64 {err64:.3e} (tol 1e-3 x scale); "
+        f"freshness through the router {[round(x, 3) for x in fresh_s]} s, "
+        f"median {float(np.median(fresh_s)):.3f} s; fold-in launches "
+        f"{launches}; phase {phase_s:.1f} s")
+    return {"launches": launches, "gj": gj, "phase_s": phase_s,
+            "train_launches": train_launches}
+
+
+def foldin_gj_shapes(torch, systems: dict) -> list:
+    """The SPD solve kernel on the systems phase foldin's cycles gave it
+    (one batch a B): kernel, plain version and the library's Cholesky
+    (``cholesky_ex`` + ``cholesky_solve``) in turns, the bound, and the
+    host microseconds a call of the kernel and of the library (after the
+    profiler captures of earlier phases, which make every PyTorch call
+    dearer on the host)."""
+    from predictionio_tpu_torch.ops.solve import (
+        spd_solve_batched, spd_solve_reference,
+    )
+
+    out = []
+    for B in sorted(systems):
+        A, b = systems[B]
+        R = b.shape[1]
+        err = max_err(spd_solve_batched(A, b), spd_solve_reference(A, b),
+                      1e-4, f"gj fold-in B={B}")
+
+        def library():
+            L, _ = torch.linalg.cholesky_ex(A)
+            return torch.cholesky_solve(b[..., None], L)
+
+        t = interleaved_ms({
+            "kernel": (lambda: spd_solve_batched(A, b), 50),
+            "plain": (lambda: spd_solve_reference(A, b), 3),
+            "library": (library, 20)})
+        host = host_us(torch, {"kernel": lambda: spd_solve_batched(A, b),
+                               "library": library})
+        bound_ms, bound_by = bound(spd_bytes(B, R), B * spd_solve_flops(R))
+        rec = dict(shape=f"A[{B},{R},{R}] f32", ms=t["kernel"],
+                   plain_ms=t["plain"], library_ms=t["library"],
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   host_us=host["kernel"], library_host_us=host["library"],
+                   max_abs_err=err)
+        out.append(rec)
+        log(f"phase foldin gj A[{B},{R},{R}] (the cycles' systems): kernel "
+            f"{t['kernel']:.4f} ms, plain {t['plain']:.3f} ms, library "
+            f"{t['library']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"host {host['kernel']:.2f} us a call (library "
+            f"{host['library']:.2f}); max_abs_err {err:.3e}")
+    return out
+
+
 def edge_ab(torch, turns: int = 5) -> None:
     """Recording on against ``--no-metrics`` at ML-20M from 64 clients, in
     turns: the ML-20M ratings trained in process (rank 64, 2 fused
@@ -4172,9 +4634,10 @@ def kernel_registers(build_log) -> dict:
 
 def main(argv: list[str]) -> int:
     t_start = time.perf_counter()
-    if argv not in ([], ["--breakdown"], ["--store"], ["--edge-ab"]):
-        print("usage: chip_smoke.py [--breakdown | --store | --edge-ab]",
-              file=sys.stderr)
+    if argv not in ([], ["--breakdown"], ["--store"], ["--store-npz"],
+                    ["--edge-ab"]):
+        print("usage: chip_smoke.py [--breakdown | --store | --store-npz "
+              "| --edge-ab]", file=sys.stderr)
         return 2
     import torch
 
@@ -4243,16 +4706,24 @@ def main(argv: list[str]) -> int:
                  for k in (*store.env, "PIO_TPU_SCAN_CACHE")}
     os.environ.update(store.env)
     try:
-        timed("store", phase_store, store, u, i, v)
+        stored = timed("store", phase_store, store, u, i, v,
+                       argv == ["--store"])
+        if argv == ["--store"]:
+            # the import's writer threads, one against four, on the file
+            # phase store imported
+            timed("store writers", store_writer_ab, store, stored["src"],
+                  len(v), stored["import_s"])
+            stored["src"].unlink()
         # the items' $set events go in through the fleet before the read
         # that fills the scan cache (a later write would outdate it)
         timed("fleet", phase_fleet, store)
         ratings = timed("read", phase_read, store, u, i, v)
         timed("sort", phase_sort, ratings, u, i, v)
-        if argv == ["--store"]:
-            # the same ratings through the columnar format, timed beside
-            # the JSON lines of phase store
-            timed("store npz", phase_store_npz, u, i, v)
+        if argv in (["--store"], ["--store-npz"]):
+            if argv == ["--store-npz"]:
+                # the same ratings through the columnar format, timed
+                # beside the JSON lines of phase store
+                timed("store npz", phase_store_npz, u, i, v)
             log(f"phase seconds (host clock): {secs}")
             return 0
         kernels = [timed("gj", phase_gj, torch, dev, (
@@ -4300,6 +4771,11 @@ def main(argv: list[str]) -> int:
         # `pio eval` through the console on the same store (the same)
         paths["eval"] = timed("eval", phase_eval, torch, store,
                               ratings)["launches"]
+        torch.cuda.empty_cache()
+        # fold-in on the same store, last: its writes outdate the scan
+        # cache (it sets the counts to 0 itself, after its train)
+        foldin_out = timed("foldin", phase_foldin, torch, store, cli_out)
+        paths["foldin"] = foldin_out["launches"]
     finally:
         store.close()
         for k, val in saved_env.items():
@@ -4332,6 +4808,7 @@ def main(argv: list[str]) -> int:
         "pio": ("fused_als", "fused_als_dma", "taa0_gather",
                 "dma_row_gather"),
         "probe_smoke": ("taa0_gather", "taa1_gather", "dma_row_gather"),
+        "foldin": ("gj_solve",),
     }
     for path, names in expected.items():
         for name in names:
@@ -4344,6 +4821,9 @@ def main(argv: list[str]) -> int:
     for k in kernels:
         k["launches"] = sum(p[k["name"]] for p in paths.values())
         k["launches_by_path"] = {n: p[k["name"]] for n, p in paths.items()}
+        if k["name"] == "gj_solve":
+            # the systems fold-in's cycles gave the kernel
+            k["foldin_shapes"] = foldin_out["gj"]
 
     timed("breakdown", phase_breakdown, torch, ratings)
     log(f"phase seconds (host clock): {secs}")

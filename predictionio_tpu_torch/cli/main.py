@@ -9,15 +9,18 @@ messages and exit codes.  Subcommands:
   accesskey new|list|delete
   engines list|describe
   template list|get
-  train | deploy | eval | undeploy | eventserver
+  train | deploy | foldin | eval | undeploy | eventserver
   build | unregister | run | import | export | status | upgrade | version
 
 ``eventserver --workers N`` runs the ingest router in front of N
 shard-owner ``eventserver`` processes over the sharded store, and
 ``deploy --replicas N`` the serving router in front of N ``deploy``
-processes.  ``foldin``, ``adminserver`` and ``dashboard``, and the
-options of subsystems the port does not have yet (tenancy, fold-in
-deltas and multi-process training) are refused before any work with
+processes.  ``foldin`` folds the events past the watermark into the
+deployed model as a delta link (``--watch`` keeps polling), which
+``deploy --foldin-poll SEC`` applies in place and ``deploy --replicas N
+--push-foldin SEC`` pushes to every replica in turn.  ``adminserver``
+and ``dashboard``, and the options of subsystems the port does not have
+yet (tenancy and multi-process training) are refused before any work with
 ``Error: ... is not ported to predictionio_tpu_torch yet (ROADMAP Queue 1
 item N)`` and exit code 1 (:data:`_REFUSED`).  The
 observability options (``--telemetry-dir``, ``--no-metrics``,
@@ -25,8 +28,8 @@ observability options (``--telemetry-dir``, ``--no-metrics``,
 ``--slo-ms``) work as the reference's (:func:`_apply_obs_flags`).
 
 ``main(argv, storage, device)`` runs on the card unless the caller asks
-for ``device="cpu"`` (the tests do); ``train``, ``deploy`` and ``eval``
-raise without one.  ``python -m predictionio_tpu_torch`` always takes the card.
+for ``device="cpu"`` (the tests do); ``train``, ``deploy``, ``foldin``
+and ``eval`` raise without one.  ``python -m predictionio_tpu_torch`` always takes the card.
 
 There is no sbt: ``build`` validates the engine variant and registers an
 EngineManifest (RegisterEngine analogue), and engine factories are
@@ -201,15 +204,11 @@ def _is_set(v) -> bool:
 # (command, argument, refused when, what, ROADMAP Queue 1 item); an
 # argument of None refuses the command itself
 _REFUSED = (
-    ("foldin", None, None, "foldin", 5),
     ("adminserver", None, None, "adminserver", 9),
     ("dashboard", None, None, "dashboard", 9),
     ("deploy", "multi", _is_set, "deploy --multi (tenancy)", 4),
     ("deploy", "memory_budget", _is_set, "deploy --memory-budget", 4),
     ("deploy", "autopilot", _is_set, "deploy --autopilot", 4),
-    ("deploy", "push_foldin", _is_set,
-     "deploy --push-foldin (the rolling fold-in push)", 5),
-    ("deploy", "foldin_poll", _is_set, "deploy --foldin-poll", 5),
     ("train", "coordinator", _is_set, "train --coordinator", 7),
     ("train", "num_processes", _is_set, "train --num-processes", 7),
     ("train", "process_id", _is_set, "train --process-id", 7),
@@ -536,6 +535,7 @@ def cmd_deploy(args, storage: Storage, device: DeviceLike) -> int:
             feedback_capacity=args.feedback_capacity,
             breaker_failures=args.breaker_failures,
             breaker_reset_s=args.breaker_reset,
+            foldin_poll_s=args.foldin_poll,
             slo_ms=args.slo_ms,
         ),
         engine_id=engine_id,
@@ -576,7 +576,9 @@ def _deploy_fleet(args, device: DeviceLike) -> int:
     (unless ``--no-respawn``), then run the router in THIS process on
     the requested port until ``POST /stop``, SIGTERM or SIGINT; the
     replicas are stopped on the way out.  Every replica gets the deploy
-    options, the feedback and remote-log ones included.  The fleet's
+    options, the feedback, remote-log and ``--foldin-poll`` ones
+    included; ``--push-foldin SEC`` runs the router's rolling fold-in
+    push every SEC seconds.  The fleet's
     directory (port files and replica logs) is removed after a clean
     stop; after a failure it stays, and its path is in the replica
     lines."""
@@ -621,6 +623,7 @@ def _deploy_fleet(args, device: DeviceLike) -> int:
         ("--feedback-capacity", args.feedback_capacity),
         ("--breaker-failures", args.breaker_failures),
         ("--breaker-reset", args.breaker_reset),
+        ("--foldin-poll", args.foldin_poll),
         # every replica arms its own burn-rate gauges too: the router's
         # merged /metrics shows them per replica
         ("--slo-ms", args.slo_ms),
@@ -677,6 +680,7 @@ def _deploy_fleet(args, device: DeviceLike) -> int:
             host=args.ip, port=args.port,
             health_interval_s=args.health_interval,
             max_connections=args.max_connections,
+            push_foldin_s=args.push_foldin,
             slo_ms=args.slo_ms,
         ), supervisor=supervisor)
         router._bind()
@@ -699,6 +703,59 @@ def _deploy_fleet(args, device: DeviceLike) -> int:
             signal.signal(signal.SIGTERM, prev_term)
         if clean:
             shutil.rmtree(coord_dir, ignore_errors=True)
+    return 0
+
+
+def cmd_foldin(args, storage: Storage, device: DeviceLike) -> int:
+    """pio-live: incremental ALS fold-in (one cycle, or ``--watch``).
+
+    Scans the event store past the per-(app, channel) watermark, solves
+    the touched and new factor rows against the frozen opposite table
+    on ``device``, and publishes delta links that a deployed engine
+    server (``deploy --foldin-poll``, ``POST /foldin/apply``) patches in
+    live: fresh events become fresh predictions without ``train`` or
+    ``/reload``."""
+    from ..controller.base import WorkflowContext
+    from ..live import FoldInRunner
+
+    engine, ep, variant, variant_key = _load_engine_for_args(args)
+    md = storage.get_metadata()
+    engine_id = variant.get("id", "default")
+    iid, err = _resolve_instance_id(
+        md, engine_id, variant_key, args.engine_instance_id
+    )
+    if err:
+        _out(f"Error: {err}")
+        return 1
+    ctx = WorkflowContext(device=device, storage=storage, mode="Serving")
+    try:
+        runner = FoldInRunner(
+            storage, engine, ep, iid, channel_id=args.channel, ctx=ctx,
+            from_now=args.from_now,
+        )
+    except ValueError as e:
+        _out(f"Error: {e}")
+        return 1
+    _out(f"Fold-in on instance {iid} (app {runner.app_id}, "
+         f"watermark rowid {runner.cursor}, chain seq {runner.seq})")
+    if args.watch:
+        _out(f"Watching for events every {args.interval}s "
+             "(Ctrl-C to stop)...")
+        try:
+            runner.watch(
+                interval_s=args.interval,
+                max_cycles=args.max_cycles,
+                on_cycle=lambda st: _out(json.dumps(st)),
+            )
+        except KeyboardInterrupt:
+            _out("Stopped.")
+        return 0
+    stats = runner.cycle()
+    if stats is None:
+        _out(f"No new events past watermark rowid {runner.cursor}; "
+             "nothing to fold in.")
+    else:
+        _out(json.dumps(stats))
     return 0
 
 
@@ -1284,7 +1341,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "$PIO_TPU_XRAY_FLIGHT_N or 16; see /debug/xray)")
     d.add_argument("--foldin-poll", type=float, default=None,
                    metavar="SEC",
-                   help="poll for fold-in deltas (not ported: refused)")
+                   help="pio-live: poll the model dir every SEC seconds "
+                   "for fold-in delta links and patch them into the "
+                   "serving model in place (no reload); pair with a "
+                   "`foldin --watch` daemon")
     d.add_argument("--edge", choices=("eventloop", "threads"),
                    default="eventloop",
                    help="serving front end: eventloop = one selector "
@@ -1307,8 +1367,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fleet mode: router health-check period")
     d.add_argument("--push-foldin", type=float, default=None,
                    metavar="SEC",
-                   help="fleet mode: rolling fold-in delta push (not "
-                   "ported: refused)")
+                   help="fleet mode: every SEC seconds the router walks "
+                   "the replicas one at a time, POSTing /foldin/apply "
+                   "so each applies the pending fold-in delta links "
+                   "(POST /admin/push-foldin does it on demand)")
     d.add_argument("--port-file", metavar="PATH",
                    help="announce the BOUND port (after --port 0 "
                    "resolution) by writing it to PATH")
@@ -1324,18 +1386,34 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="BYTES")
     d.add_argument("--autopilot", metavar="ON|JSON")
 
-    fi = sub.add_parser("foldin", help="fold new events into the deployed "
-                        "model (not ported: refused)")
+    fi = sub.add_parser(
+        "foldin",
+        help="pio-live: fold new events into the deployed model "
+        "incrementally (no full retrain)",
+    )
     _add_obs_args(fi)
     fi.add_argument("--engine-json", default="engine.json")
-    fi.add_argument("--engine", metavar="NAME")
+    fi.add_argument("--engine", metavar="NAME",
+                    help="fold into a REGISTERED engine by name")
     fi.add_argument("--engine-factory")
-    fi.add_argument("--engine-instance-id")
+    fi.add_argument("--engine-instance-id",
+                    help="fold into this instance (default: latest "
+                    "completed)")
     fi.add_argument("--channel", type=int, default=0)
-    fi.add_argument("--watch", action="store_true")
-    fi.add_argument("--interval", type=float, default=5.0, metavar="SEC")
-    fi.add_argument("--max-cycles", type=int, default=None)
-    fi.add_argument("--from-now", action="store_true")
+    fi.add_argument("--watch", action="store_true",
+                    help="keep running: poll the event-store watermark "
+                    "and fold in whenever it advances")
+    fi.add_argument("--interval", type=float, default=5.0,
+                    metavar="SEC",
+                    help="watch-mode poll period (default 5s)")
+    fi.add_argument("--max-cycles", type=int, default=None,
+                    help="stop --watch after N non-empty fold-in "
+                    "cycles (smoke/bench harnesses)")
+    fi.add_argument("--from-now", action="store_true",
+                    help="on the FIRST run (no watermark, no chain): "
+                    "start the cursor at the store's current high-water "
+                    "mark instead of re-folding the history the full "
+                    "train already saw")
 
     e = sub.add_parser("eval", help="run an evaluation sweep")
     _add_obs_args(e)
@@ -1503,6 +1581,7 @@ _DISPATCH = {
 _DEVICE_DISPATCH = {
     "train": cmd_train,
     "deploy": cmd_deploy,
+    "foldin": cmd_foldin,
     "eval": cmd_eval,
 }
 

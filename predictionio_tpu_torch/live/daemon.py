@@ -1,0 +1,399 @@
+"""Fold-in daemon: watermark scan -> row solves -> delta publish.
+
+Port of ``predictionio_tpu/live/daemon.py``.  One
+:class:`FoldInRunner` owns one engine instance's live-update loop: it
+keeps the trained model in memory (applying its own deltas so
+consecutive cycles compose), advances the per-(app, channel) watermark
+cursor, and publishes delta links the serving layer picks up without a
+stop-the-world reload.  Run it via ``python -m predictionio_tpu_torch
+foldin`` (one-shot or ``--watch``) next to a deployed engine server.  Its solves run on the
+context's device: the card unless the caller asks for the CPU.
+
+Event -> fresh prediction path: POST /events.json -> sqlite rowid
+advances past the watermark -> ``cycle()`` scans, solves the touched
+rows, writes ``<key>-delta-<seq>.npz`` -> the engine server's delta
+poll applies it in place -> the next /queries.json scores through the
+patched rows.  Each cycle books the ``pio_foldin_*`` families and the
+``live.scan`` / ``live.solve`` / ``live.publish`` / ``live.apply``
+spans.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import logging
+import time
+from typing import Optional
+
+import numpy as np
+
+from ..models.als import ALSConfig
+from ..obs import (
+    FOLDIN_CYCLES_TOTAL,
+    FOLDIN_EVENTS_TOTAL,
+    FOLDIN_PHASE_SECONDS,
+    FOLDIN_ROWS_TOTAL,
+    FOLDIN_WATERMARK_LAG,
+    get_tracer,
+)
+from ..workflow.model_io import (
+    ModelDelta,
+    load_model_delta_chain,
+    model_key,
+    save_model_delta,
+)
+from .apply import apply_model_delta, model_supports_deltas
+from .foldin import FoldInSolver, compute_foldin
+from .watermark import (
+    WATERMARK_FILE,
+    Watermark,
+    WatermarkStore,
+    cursor_is_zero,
+    merge_cursors,
+    scan_new_ratings,
+)
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["FoldInRunner"]
+
+
+@contextlib.contextmanager
+def _phase(name: str, attrs: Optional[dict] = None):
+    """Span + pio_foldin_phase_seconds in one shot (the live.* span
+    taxonomy: live.scan / live.solve / live.publish / live.apply)."""
+    t0 = time.perf_counter()
+    with get_tracer().span(name, attrs):
+        yield
+    FOLDIN_PHASE_SECONDS.labels(phase=name).observe(
+        time.perf_counter() - t0
+    )
+
+
+def _aggregate_history(
+    events, rating_property: Optional[str]
+) -> tuple[list[str], np.ndarray]:
+    """(item_ids, values) from one user's time-ordered events, matching
+    the training read: explicit keeps the LAST rating per item,
+    implicit sums 1.0 per event."""
+    agg: dict[str, float] = {}
+    for e in events:
+        target = e.target_entity_id
+        if target is None:
+            continue
+        if rating_property is None:
+            agg[target] = agg.get(target, 0.0) + 1.0
+        else:
+            # DataMap.get raises on missing; get_opt is the tolerant one
+            v = e.properties.get_opt(rating_property) \
+                if hasattr(e.properties, "get_opt") \
+                else e.properties.get(rating_property)
+            if v is None:
+                continue
+            agg[target] = float(v)
+    return list(agg.keys()), np.asarray(list(agg.values()), np.float32)
+
+
+class FoldInRunner:
+    """Incremental fold-in over one trained engine instance.
+
+    Construction loads the instance's persisted model, replays any
+    existing delta chain (so a restarted daemon composes with what it
+    already published), and positions the watermark at
+    ``max(watermark file, last chain link)`` — the crash-safe resume
+    point (`live/watermark.py` ordering contract).  The solves run on
+    ``ctx.device`` (a serving context on the card by default).
+    """
+
+    def __init__(
+        self,
+        storage,
+        engine,
+        engine_params,
+        instance_id: str,
+        channel_id: int = 0,
+        ctx=None,
+        from_now: bool = False,
+    ):
+        from ..controller.base import WorkflowContext
+        from ..workflow.model_io import load_models
+
+        self.storage = storage
+        self.engine = engine
+        self.engine_params = engine_params
+        self.instance_id = instance_id
+        self.channel_id = int(channel_id)
+        self.ctx = ctx or WorkflowContext(storage=storage, mode="Serving")
+
+        ds = engine_params.data_source[1]
+        self.event_names = tuple(
+            getattr(ds, "event_names", None) or ("rate",)
+        )
+        self.rating_property = getattr(ds, "rating_property", "rating")
+        self.entity_type = getattr(ds, "entity_type", "user") or None
+        self.app_id = self._resolve_app_id(ds)
+
+        es = storage.get_event_store()
+        if not hasattr(es, "find_rows_since"):
+            raise ValueError(
+                f"event store {type(es).__name__} has no incremental "
+                "cursor scan (find_rows_since); pio-live needs a "
+                "SQLite-backed store (single-file or sharded)"
+            )
+        self.es = es
+        # pio-levee: under a sharded store, one dead shard owner must
+        # stall ONLY its vector-cursor component — the scan tolerates
+        # the unavailable shard and the fold-in keeps advancing on the
+        # healthy ones, resuming the frozen component without loss when
+        # the owner returns
+        self.tolerate_unavailable = hasattr(es, "shards")
+
+        algos = engine._algorithms(engine_params)
+        names = [n for n, _ in engine_params.algorithms]
+        models = load_models(
+            self.ctx, instance_id, list(zip(names, algos))
+        )
+        self.algo_ix = next(
+            (
+                i for i, m in enumerate(models)
+                if model_supports_deltas(m)
+            ),
+            None,
+        )
+        if self.algo_ix is None:
+            raise ValueError(
+                "no algorithm of this engine produced a fold-in-capable "
+                "model (needs user_factors/item_factors/users/items)"
+            )
+        self.model = models[self.algo_ix]
+        self.algo = algos[self.algo_ix]
+        self.key = model_key(
+            instance_id, self.algo_ix, names[self.algo_ix]
+        )
+        cfg = None
+        config_of = getattr(self.algo, "_config", None)
+        if config_of is not None:
+            try:
+                cfg = config_of()
+            except Exception:
+                cfg = None
+        self.cfg = cfg or ALSConfig(
+            rank=int(self.model.user_factors.shape[1])
+        )
+        self.solver = FoldInSolver(self.cfg, device=self.ctx.device)
+
+        self.base_dir = storage.model_data_dir() / instance_id
+        self.watermarks = WatermarkStore(self.base_dir / WATERMARK_FILE)
+
+        # replay what's already on disk: the in-memory model must equal
+        # full-model + chain before producing link seq N+1
+        chain, err = load_model_delta_chain(self.base_dir, self.key)
+        if err:
+            logger.warning("fold-in chain replay truncated: %s", err)
+        self.seq = 0
+        chain_rowid = 0
+        for d in chain:
+            apply_model_delta(self.model, d)
+            self.seq = d.seq
+            wmk = d.watermark or {}
+            # cursors may be int rowids (single-file store) or the
+            # sharded store's per-shard vector strings; merge_cursors
+            # is the component-wise max either way
+            chain_rowid = merge_cursors(chain_rowid, wmk.get("rowid", 0))
+        wm = self.watermarks.get(self.app_id, self.channel_id)
+        self.cursor = merge_cursors(wm.rowid, chain_rowid)
+        if from_now and cursor_is_zero(self.cursor) and not chain:
+            # first-ever daemon start on an already-trained deployment:
+            # skip the history the full train already saw instead of
+            # re-folding every user once (safe only because nothing was
+            # ever folded from this store — a persisted cursor/chain
+            # always wins over the flag)
+            self.cursor = (
+                es.high_water_cursor(self.app_id, self.channel_id)
+                if hasattr(es, "high_water_cursor")
+                else es.max_rowid(self.app_id, self.channel_id)
+            )
+        self.cycles = 0
+
+    def _resolve_app_id(self, ds) -> int:
+        app_id = int(getattr(ds, "app_id", -1) or -1)
+        if app_id >= 0:
+            return app_id
+        name = getattr(ds, "app_name", "") or ""
+        app = self.storage.get_metadata().app_get_by_name(name)
+        if app is None:
+            raise ValueError(f"app {name!r} not found")
+        return app.id
+
+    def watermark_lag(self) -> int:
+        """Event-store rows past the cursor (the freshness debt);
+        ``cursor_lag`` sums per shard on the sharded store."""
+        if hasattr(self.es, "cursor_lag"):
+            return self.es.cursor_lag(
+                self.app_id, self.channel_id, self.cursor
+            )
+        return max(
+            self.es.max_rowid(self.app_id, self.channel_id)
+            - int(self.cursor),
+            0,
+        )
+
+    def _history(self, user_ids) -> dict:
+        """Full rating history per touched user via the entity-scoped
+        index — O(rows of that user), not a table scan."""
+        out = {}
+        for uid in user_ids:
+            events = self.es.find(
+                self.app_id,
+                self.channel_id,
+                entity_type=self.entity_type,
+                entity_id=uid,
+                event_names=list(self.event_names),
+            )
+            out[uid] = _aggregate_history(events, self.rating_property)
+        return out
+
+    def cycle(self, limit: Optional[int] = None) -> Optional[dict]:
+        """One fold-in cycle; returns a stats dict, or None when the
+        watermark was already at the high-water mark (nothing new)."""
+        t_start = time.perf_counter()
+        try:
+            stats = self._cycle(limit)
+        except Exception:
+            FOLDIN_CYCLES_TOTAL.labels(result="error").inc()
+            raise
+        FOLDIN_CYCLES_TOTAL.labels(
+            result="ok" if stats else "empty"
+        ).inc()
+        if stats:
+            stats["cycleSec"] = time.perf_counter() - t_start
+            self.cycles += 1
+        FOLDIN_WATERMARK_LAG.child().set(self.watermark_lag())
+        return stats
+
+    def _cycle(self, limit: Optional[int]) -> Optional[dict]:
+        with _phase("live.scan", {"app": self.app_id}):
+            scan = scan_new_ratings(
+                self.es,
+                self.app_id,
+                self.channel_id,
+                cursor=self.cursor,
+                event_names=self.event_names,
+                rating_property=self.rating_property,
+                entity_type=self.entity_type,
+                limit=limit,
+                tolerate_unavailable=self.tolerate_unavailable,
+            )
+        if scan.n_events == 0:
+            return None
+        FOLDIN_EVENTS_TOTAL.child().inc(scan.n_events)
+        if not scan.user_ids:
+            # window had events but none were foldable ratings (e.g.
+            # $set property events): just advance the cursor
+            self.cursor = scan.new_cursor
+            self.watermarks.advance(Watermark(
+                self.app_id, self.channel_id, self.cursor, self.seq,
+            ))
+            return None
+
+        with _phase("live.solve"):
+            plan = compute_foldin(
+                self.solver,
+                self.model.user_factors,
+                self.model.item_factors,
+                self.model.users,
+                self.model.items,
+                scan,
+                self._history(dict.fromkeys(scan.user_ids)),
+            )
+        counts = plan.counts()
+        for side, kind in (
+            ("user", "patched"), ("user", "appended"),
+            ("item", "patched"), ("item", "appended"),
+        ):
+            n = counts[f"{kind}{side.capitalize()}s"]
+            if n:
+                FOLDIN_ROWS_TOTAL.labels(side=side, kind=kind).inc(n)
+
+        seq = self.seq + 1
+        delta = ModelDelta(
+            seq=seq,
+            meta={
+                "instance": self.instance_id,
+                "key": self.key,
+                "baseUsers": plan.base_n_users,
+                "baseItems": plan.base_n_items,
+                "watermark": {
+                    "appId": self.app_id,
+                    "channelId": self.channel_id,
+                    "rowid": scan.new_cursor,
+                },
+                "events": scan.n_events,
+                "createdAt": time.strftime(
+                    "%Y-%m-%dT%H:%M:%SZ", time.gmtime()
+                ),
+            },
+            user_rows_ix=plan.user_rows_ix,
+            user_rows=plan.user_rows,
+            new_user_ids=np.asarray(plan.new_user_ids, dtype=np.str_),
+            new_user_rows=plan.new_user_rows,
+            item_rows_ix=plan.item_rows_ix,
+            item_rows=plan.item_rows,
+            new_item_ids=np.asarray(plan.new_item_ids, dtype=np.str_),
+            new_item_rows=plan.new_item_rows,
+        )
+        with _phase("live.publish", {"seq": seq}):
+            path = save_model_delta(self.base_dir, self.key, delta)
+        # compose: the daemon's own model advances past the link it just
+        # published, THEN the watermark commits (crash between the two
+        # replays the window idempotently — watermark.py contract)
+        with _phase("live.apply", {"seq": seq}):
+            apply_model_delta(self.model, delta)
+        self.seq = seq
+        self.cursor = scan.new_cursor
+        self.watermarks.advance(Watermark(
+            self.app_id, self.channel_id, self.cursor, self.seq,
+        ))
+        return {
+            "seq": seq,
+            "delta": str(path),
+            "events": scan.n_events,
+            "ratings": int(len(scan.values)),
+            "watermark": self.cursor,
+            **counts,
+        }
+
+    def watch(
+        self,
+        interval_s: float = 5.0,
+        max_cycles: Optional[int] = None,
+        stop=None,
+        on_cycle=None,
+    ) -> int:
+        """Poll the watermark and fold in on advance; returns the number
+        of non-empty cycles run.  ``max_cycles`` bounds the non-empty
+        cycles (tests/benches); ``stop`` is an optional
+        ``threading.Event`` checked each tick."""
+        done = 0
+        while True:
+            if stop is not None and stop.is_set():
+                return done
+            stats = self.cycle()
+            if stats:
+                done += 1
+                if on_cycle is not None:
+                    on_cycle(stats)
+                logger.info(
+                    "fold-in cycle %s: %s", stats["seq"],
+                    json.dumps({
+                        k: v for k, v in stats.items() if k != "delta"
+                    }),
+                )
+                if max_cycles is not None and done >= max_cycles:
+                    return done
+            if stop is not None:
+                if stop.wait(interval_s):
+                    return done
+            else:
+                time.sleep(interval_s)

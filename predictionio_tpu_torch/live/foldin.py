@@ -1,0 +1,350 @@
+"""Incremental ALS fold-in solver (pio-live).
+
+Port of ``predictionio_tpu/live/foldin.py``.  It solves just the
+touched and new rows of one factor table against the frozen opposite
+table: the per-row normal equations that `models/als.py` sweeps every
+half-iteration, applied to a handful of rows.  With the opposite table
+Y frozen, the least-squares row for user u is
+
+    x_u = (Yᵀ C_u Y + λ_u I)⁻¹ Yᵀ C_u r_u
+
+which is exactly one bucket of ``_solve_buckets``: the gather and Gram
+products in torch, then the solver's SPD solve.  ``solver="pallas"``
+solves through ``ops/solve.py`` ``spd_solve_batched``, the hand-written
+kernel on a CUDA tensor (``csrc/gj_solve.cu``), which launches or
+raises; ``"xla"`` and ``"fused"`` solve by Cholesky (the fused kernel is
+a whole-table training pass, the reference routes fold-in off it too).
+
+Shapes stay on the reference's ladder: the row batch B and the per-row
+rating width K are padded to powers of two (``_MIN_BATCH``, ``_MAX_K``,
+``cfg.min_bucket_k``) and the opposite table to a multiple of
+``TABLE_PAD_ROWS`` rows, so the port solves the same padded systems.
+There is no compiled executable to reuse on the card; the signature
+count ``xray.instrument("live.foldin_solve")`` keeps (``/debug/xray``,
+:meth:`FoldInSolver.cache_size`) is the same number the reference's
+compile cache gives: one per (B, K) rung a steady daemon dispatches.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, matmul_precision, resolve_device
+from ..models.als import ALSConfig, _resolve_solver, _solve_buckets
+from ..obs import xray
+from ..ops.topk import pow2_ceil
+from .watermark import ScanBatch
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["FoldInSolver", "FoldInPlan", "compute_foldin"]
+
+# opposite-table row capacity granularity: the table operand's shape is
+# its row count padded UP to a multiple of this, so appending items/users
+# between cycles changes the signature only when a boundary is crossed
+TABLE_PAD_ROWS = 1024
+
+# per-row rating width cap: rows with more ratings than this are solved
+# on their most recent _MAX_K ratings (the fold-in analogue of
+# ALSConfig.max_ratings_per_row; the next full retrain sees everything)
+_MAX_K = 4096
+
+_MIN_BATCH = 8
+
+_FOLDIN_SOLVE = "live.foldin_solve"
+
+
+@xray.instrument(_FOLDIN_SOLVE)
+def _foldin_solve(opp: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor,
+                  counts: torch.Tensor, lam: float, alpha: float, *, k: int,
+                  implicit: bool, weighted_lambda: bool, precision: str,
+                  solver: str) -> torch.Tensor:
+    """One fixed ``[B, K]`` bucket through the same math as a training
+    half-iteration, solved into a fresh ``[B, R]`` table."""
+    b = ids.shape[0]
+    rows = torch.arange(b, dtype=torch.int64, device=opp.device)
+    upd = torch.zeros((b, opp.shape[1]), dtype=torch.float32,
+                      device=opp.device)
+    with matmul_precision(precision):
+        _solve_buckets(
+            upd, opp, ids.reshape(-1), vals.reshape(-1),
+            ((rows, rows * k, counts),), (k,), lam, alpha,
+            implicit=implicit, weighted_lambda=weighted_lambda,
+            solver=solver,
+        )
+    return upd
+
+
+class FoldInSolver:
+    """Fixed-capacity row solver over a frozen opposite table, on
+    ``device`` (the card unless the caller asks for the CPU).
+
+    The solver is resolved once, as ``ALSTrainer`` resolves it:
+    ``"pallas"`` keeps the SPD solve kernel (which launches or raises),
+    ``"fused"`` becomes the Cholesky path.
+    """
+
+    def __init__(self, cfg: ALSConfig, max_k: int = _MAX_K,
+                 device: DeviceLike = "cuda"):
+        self.cfg = cfg
+        self.max_k = max_k
+        self.device = resolve_device(device)
+        solver, _ = _resolve_solver(
+            cfg if cfg.solver != "fused"
+            # the fused kernel is a whole-table training pass; fold-in
+            # solves a handful of rows — route its config to the plain
+            # solver instead
+            else ALSConfig(rank=cfg.rank, solver="xla"),
+            device=self.device,
+        )
+        self.solver = "xla" if solver == "fused" else solver
+
+    def padded_shape(
+        self, n_rows: int, max_count: int
+    ) -> tuple[int, int]:
+        """The (B, K) rung a solve of this size dispatches."""
+        k = min(
+            max(pow2_ceil(max(max_count, 1)), self.cfg.min_bucket_k),
+            self.max_k,
+        )
+        b = max(pow2_ceil(max(n_rows, 1)), _MIN_BATCH)
+        return b, k
+
+    def solve(
+        self,
+        opp: np.ndarray,
+        row_ratings: Sequence[tuple[np.ndarray, np.ndarray]],
+        lam: Optional[float] = None,
+    ) -> np.ndarray:
+        """Solve one row per ``(opposite_ixs, values)`` pair against the
+        frozen ``opp`` table; returns host ``[n, R]`` float32 rows.
+
+        Rows longer than ``max_k`` keep their most RECENT ratings (the
+        pairs arrive time-ordered).  Every opposite index must address
+        a real row of ``opp``: callers filter out ratings whose
+        opposite row does not exist yet (pass structure of
+        :func:`compute_foldin`), since the gather would otherwise read a
+        padding row or fail.
+        """
+        cfg = self.cfg
+        n = len(row_ratings)
+        if n == 0:
+            return np.zeros((0, opp.shape[1]), np.float32)
+        max_count = max(len(v) for _, v in row_ratings)
+        b, k = self.padded_shape(n, max_count)
+        ids = np.zeros((b, k), np.int32)
+        vals = np.zeros((b, k), np.float32)
+        counts = np.zeros(b, np.int64)
+        for j, (ixs, vs) in enumerate(row_ratings):
+            ixs = np.asarray(ixs, np.int32)
+            vs = np.asarray(vs, np.float32)
+            if len(ixs) > k:
+                ixs, vs = ixs[-k:], vs[-k:]
+            ids[j, : len(ixs)] = ixs
+            vals[j, : len(vs)] = vs
+            counts[j] = len(ixs)
+        n_pad = -(-opp.shape[0] // TABLE_PAD_ROWS) * TABLE_PAD_ROWS
+        dev = self.device
+        opp_dev = torch.zeros((n_pad, opp.shape[1]), dtype=torch.float32,
+                              device=dev)
+        opp_dev[: opp.shape[0]] = torch.as_tensor(
+            np.asarray(opp, np.float32), device=dev)
+        out = _foldin_solve(
+            opp_dev,
+            torch.as_tensor(ids, device=dev),
+            torch.as_tensor(vals, device=dev),
+            torch.as_tensor(counts, device=dev),
+            float(cfg.lam if lam is None else lam),
+            float(cfg.alpha),
+            k=k,
+            implicit=cfg.implicit,
+            weighted_lambda=cfg.weighted_lambda,
+            precision=cfg.matmul_precision,
+            solver=self.solver,
+        )
+        return out[:n].cpu().numpy().astype(np.float32)
+
+    @staticmethod
+    def cache_size() -> int:
+        """Distinct call signatures of the fold-in solve that
+        ``/debug/xray`` has seen in this process: one per (B, K) rung
+        and padded table shape (the number the cache-stability check
+        pins)."""
+        return int(xray.jit_stats().get(_FOLDIN_SOLVE, {})
+                   .get("signatures", 0))
+
+
+@dataclass
+class FoldInPlan:
+    """The computed delta of one fold-in cycle, in model-table terms.
+
+    Indices address the tables AS OF before this cycle (appended rows
+    land at ``base_n_*`` onward) — the exact layout
+    ``workflow/model_io.ModelDelta`` persists.
+    """
+
+    base_n_users: int
+    base_n_items: int
+    user_rows_ix: np.ndarray
+    user_rows: np.ndarray
+    new_user_ids: list[str] = field(default_factory=list)
+    new_user_rows: np.ndarray = field(
+        default_factory=lambda: np.zeros((0, 0), np.float32)
+    )
+    item_rows_ix: np.ndarray = field(
+        default_factory=lambda: np.zeros(0, np.int32)
+    )
+    item_rows: np.ndarray = field(
+        default_factory=lambda: np.zeros((0, 0), np.float32)
+    )
+    new_item_ids: list[str] = field(default_factory=list)
+    new_item_rows: np.ndarray = field(
+        default_factory=lambda: np.zeros((0, 0), np.float32)
+    )
+
+    def counts(self) -> dict:
+        return {
+            "patchedUsers": int(len(self.user_rows_ix)),
+            "appendedUsers": int(len(self.new_user_ids)),
+            "patchedItems": int(len(self.item_rows_ix)),
+            "appendedItems": int(len(self.new_item_ids)),
+        }
+
+
+def compute_foldin(
+    solver: FoldInSolver,
+    user_factors: np.ndarray,
+    item_factors: np.ndarray,
+    users,                      # StringIndex (NOT mutated here)
+    items,                      # StringIndex (NOT mutated here)
+    scan: ScanBatch,
+    history: dict[str, tuple[list[str], np.ndarray]],
+    lam: Optional[float] = None,
+) -> FoldInPlan:
+    """One fold-in cycle's row solves -> a :class:`FoldInPlan`.
+
+    ``history`` maps each touched user id to its FULL rating history
+    ``(item_ids, values)`` in time order (the daemon reads it through
+    the event store's per-entity index): an existing user's row is
+    re-solved from everything they ever rated, not just the new window
+    — solving on the window alone would erase their history from the
+    factors.
+
+    Three passes, mirroring one targeted block sweep:
+
+    1. touched user rows against the frozen item table — ratings of
+       brand-new items gather zero rows and drop out of the normal
+       equations;
+    2. brand-new item rows against the pass-1 user rows (a new item's
+       entire history is inside the window by construction — its first
+       event is past the watermark);
+    3. when pass 2 produced rows, touched users are re-solved once more
+       so their factors see the new items (one extra sweep, still the
+       same executables).
+
+    Existing item rows stay FROZEN: a window carries only a partial
+    slice of an old item's ratings, and re-solving from a slice would
+    corrupt the row.  Item drift belongs to the next full retrain —
+    the consistency story docs/ARCHITECTURE.md spells out.
+    """
+    rank = user_factors.shape[1]
+    touched_users: list[str] = list(dict.fromkeys(scan.user_ids))
+    new_item_ids: list[str] = list(dict.fromkeys(
+        i for i in scan.item_ids if i not in items
+    ))
+    base_n_users = len(users)
+    base_n_items = len(items)
+    # local (non-mutating) ix resolution: appended ids get provisional
+    # indices past the current table ends
+    item_ix = {s: base_n_items + j for j, s in enumerate(new_item_ids)}
+    user_ix = {}
+    new_user_ids = [u for u in touched_users if u not in users]
+    for j, u in enumerate(new_user_ids):
+        user_ix[u] = base_n_users + j
+
+    def items_of(
+        uid: str, n_table: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        iids, vals = history.get(uid, ([], np.empty(0, np.float32)))
+        ixs = np.asarray(
+            [
+                item_ix.get(i, items.get(i, -1))
+                for i in iids
+            ],
+            np.int32,
+        )
+        # indices past n_table are rows that don't exist in the table
+        # this pass solves against (brand-new items in pass 1): their
+        # ratings drop out of the normal equations AND the weighted-λ
+        # count until pass 3 re-solves with the grown table
+        ok = (ixs >= 0) & (ixs < n_table)
+        return ixs[ok], np.asarray(vals, np.float32)[ok]
+
+    user_rows_list = [items_of(u, base_n_items) for u in touched_users]
+    solved_users = solver.solve(item_factors, user_rows_list, lam=lam)
+
+    new_item_rows = np.zeros((0, rank), np.float32)
+    if new_item_ids:
+        # pass 2: new items against the updated user rows — build a
+        # user table view with the pass-1 rows patched/appended
+        u_ix_of = {
+            u: (users.get(u) if u in users else user_ix[u])
+            for u in touched_users
+        }
+        n_users_now = base_n_users + len(new_user_ids)
+        user_view = np.zeros((n_users_now, rank), np.float32)
+        user_view[:base_n_users] = user_factors
+        for u, row in zip(touched_users, solved_users):
+            user_view[u_ix_of[u]] = row
+        per_item: dict[str, tuple[list[int], list[float]]] = {
+            i: ([], []) for i in new_item_ids
+        }
+        for u, i, v in zip(scan.user_ids, scan.item_ids, scan.values):
+            if i in per_item:
+                uix = u_ix_of.get(u, users.get(u, -1))
+                if uix >= 0:
+                    per_item[i][0].append(uix)
+                    per_item[i][1].append(float(v))
+        item_rows_list = [
+            (
+                np.asarray(per_item[i][0], np.int32),
+                np.asarray(per_item[i][1], np.float32),
+            )
+            for i in new_item_ids
+        ]
+        new_item_rows = solver.solve(user_view, item_rows_list, lam=lam)
+        # pass 3: let the touched users see the new item rows
+        item_view = np.concatenate(
+            [np.asarray(item_factors, np.float32), new_item_rows], axis=0
+        )
+        user_rows_full = [
+            items_of(u, len(item_view)) for u in touched_users
+        ]
+        solved_users = solver.solve(item_view, user_rows_full, lam=lam)
+
+    patched_mask = np.asarray(
+        [u in users for u in touched_users], bool
+    )
+    patched_ix = np.asarray(
+        [users.get(u) for u, m in zip(touched_users, patched_mask) if m],
+        np.int32,
+    )
+    return FoldInPlan(
+        base_n_users=base_n_users,
+        base_n_items=base_n_items,
+        user_rows_ix=patched_ix,
+        user_rows=solved_users[patched_mask].astype(np.float32)
+        if len(touched_users) else np.zeros((0, rank), np.float32),
+        new_user_ids=new_user_ids,
+        new_user_rows=solved_users[~patched_mask].astype(np.float32)
+        if len(touched_users) else np.zeros((0, rank), np.float32),
+        item_rows_ix=np.zeros(0, np.int32),
+        item_rows=np.zeros((0, rank), np.float32),
+        new_item_ids=new_item_ids,
+        new_item_rows=new_item_rows,
+    )

@@ -22,6 +22,12 @@ upstream HTTP):
   model fields of its status), pulls its ``/metrics`` into the router's
   merged exposition, and ticks the :class:`ReplicaSupervisor`, which
   respawns a replica whose process died.
+* **Rolling fold-in push**: ``POST /admin/push-foldin`` walks the
+  replicas ONE AT A TIME, POSTing ``/foldin/apply`` so each patches the
+  fold-in delta links published for its instance; at most one replica
+  is applying at any moment, so the fleet never drops below N-1
+  serving.  ``push_foldin_s`` (``deploy --replicas N --push-foldin
+  SEC``) runs the same walk on a timer.
 * **Observability**: the forward histogram, ``router.forward`` and
   ``router.request`` spans, the ``router`` timeline family
   (admission/forward/replica/read/write), the router's own flight
@@ -31,10 +37,9 @@ upstream HTTP):
 :class:`Replica`, :class:`ReplicaSupervisor` and the port-file protocol
 (:func:`spawn_port_process`, :func:`wait_for_port_file`) also carry the
 ingest router (``server/ingest_router.py``).  Not ported yet: the
-rolling fold-in push (``POST /admin/push-foldin``, ROADMAP Queue 1 item
-5) and the tenancy broadcasts and fan-in (``/admin/tenants``,
-``/admin/tenants/weights``, ``/debug/tenants``, item 4); those routes
-answer 404 naming their item.
+tenancy broadcasts and fan-in (``/admin/tenants``,
+``/admin/tenants/weights``, ``/debug/tenants``, ROADMAP Queue 1 item
+4); those routes answer 404 naming their item.
 """
 
 from __future__ import annotations
@@ -106,9 +111,8 @@ _HEALTH_TIMEOUT_S = 2.0
 _FORWARD_TIMEOUT_S = 30.0
 _FORWARD_THREADS = 16
 # the routes of subsystems the port does not have yet, by ROADMAP Queue 1
-# item: the rolling fold-in push and the tenancy broadcasts and fan-in
+# item: the tenancy broadcasts and fan-in
 _UNPORTED_ROUTES = {
-    ("POST", "/admin/push-foldin"): ("the rolling fold-in push", 5),
     ("POST", "/admin/tenants/weights"): ("tenancy", 4),
     ("POST", "/admin/tenants"): ("tenancy", 4),
     ("GET", "/debug/tenants"): ("tenancy", 4),
@@ -481,11 +485,15 @@ class RouterConfig:
     def __init__(self, host: str = "127.0.0.1", port: int = 8000,
                  health_interval_s: float = 1.0,
                  max_connections: int = 1024,
+                 push_foldin_s: Optional[float] = None,
                  slo_ms: Optional[float] = None):
         self.host = host
         self.port = port
         self.health_interval_s = health_interval_s
         self.max_connections = max_connections
+        # the rolling fold-in push's period (None: only on demand,
+        # through POST /admin/push-foldin)
+        self.push_foldin_s = push_foldin_s
         # arms the router-side pio_slo_burn_rate{window} gauges on the
         # forward round-trip histogram
         self.slo_ms = slo_ms
@@ -532,6 +540,8 @@ class RouterServer(HTTPServerBase):
             )
         fleet.set_fleet_provider(self.fleet_payload)
         self._health_thread: Optional[threading.Thread] = None
+        self._push_thread: Optional[threading.Thread] = None
+        self._push_lock = threading.Lock()  # one rolling push at a time
 
     # -- lifecycle ---------------------------------------------------------
     @property
@@ -563,6 +573,11 @@ class RouterServer(HTTPServerBase):
                 target=self._health_loop, daemon=True, name="router-health"
             )
             self._health_thread.start()
+        if self.config.push_foldin_s and self._push_thread is None:
+            self._push_thread = threading.Thread(
+                target=self._push_loop, daemon=True, name="router-push"
+            )
+            self._push_thread.start()
         # the router is the fleet's one event loop: always profile it
         scope.ensure_started()
         return EventLoopHTTPServer(
@@ -616,6 +631,54 @@ class RouterServer(HTTPServerBase):
                     self.supervisor.tick(self.replicas)
                 except Exception:
                     logger.exception("replica supervisor tick failed")
+
+    # -- rolling fold-in push ---------------------------------------------
+    def push_foldin(self) -> dict:
+        """Walk the fleet ONE replica at a time, telling each to apply
+        its pending fold-in delta links now (``POST /foldin/apply``).
+        Sequential by construction: mid-push at most the one replica
+        applying is busy (and its apply is in place), so availability
+        never drops below N-1.  A replica that cannot be reached is
+        marked down; an unhealthy one is skipped."""
+        results = []
+        with self._push_lock:
+            for r in self.replicas:
+                if not r.healthy:
+                    results.append({"replica": r.name,
+                                    "skipped": "unhealthy"})
+                    continue
+                try:
+                    status, data, _ = r.request(
+                        "POST", "/foldin/apply", b"{}",
+                        timeout_s=_FORWARD_TIMEOUT_S,
+                    )
+                    body = json.loads(data.decode())
+                    entry = {"replica": r.name, "status": status}
+                    entry.update({
+                        k: body[k] for k in
+                        ("applied", "modelFreshnessSec",
+                         "foldinDeltasApplied")
+                        if k in body
+                    })
+                    results.append(entry)
+                    fresh = body.get("modelFreshnessSec")
+                    if fresh is not None:
+                        r._m_fresh.set(float(fresh))
+                except Exception as e:
+                    r.mark_down(f"{type(e).__name__}: {e}")
+                    results.append({
+                        "replica": r.name,
+                        "error": f"{type(e).__name__}: {e}",
+                    })
+        return {"pushed": results}
+
+    def _push_loop(self) -> None:
+        scope.register_thread_role("push_loop")
+        while not self._stop_event.wait(self.config.push_foldin_s):
+            try:
+                self.push_foldin()
+            except Exception:
+                logger.exception("rolling fold-in push failed")
 
     # -- forwarding --------------------------------------------------------
     def _candidates(self) -> list[Replica]:
@@ -907,6 +970,10 @@ class RouterServer(HTTPServerBase):
             respond(404, {"message": f"{what} is not ported to "
                           "predictionio_tpu_torch yet (ROADMAP Queue 1 "
                           f"item {item})"})
+            return
+        if req.method == "POST" and path == "/admin/push-foldin":
+            # blocking upstream round trips: on the pool
+            self._on_pool(respond, lambda: (200, self.push_foldin(), None))
             return
         if req.method == "POST" and path == "/stop":
             respond(200, {"message": "stopping"})

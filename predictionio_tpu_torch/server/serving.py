@@ -12,6 +12,8 @@ reference's `workflow/CreateServer.scala` (`ServerActor` routes
   micro-batcher (:mod:`predictionio_tpu_torch.server.microbatch`) when
   every algorithm has a real ``batch_predict`` (``microbatch="auto"``)
 * ``GET  /reload``       — hot-swap to the latest COMPLETED engine instance
+* ``POST /foldin/apply`` — apply the fold-in delta links published for
+  the serving instance now (the replica router's rolling push)
 * ``POST /stop``         — graceful shutdown
 * ``GET  /metrics`` and ``/debug/*`` — the observability mounts
   (``server/http_base.py``)
@@ -45,8 +47,16 @@ recorder, ``slo_ms`` burn rates and the device-memory sampler; and the
 fault points ``reload.load_model``, ``device.dispatch``,
 ``http.feedback`` and ``http.remote_log``.
 
-Not ported yet: fold-in deltas, tenancy and experiments; their routes
-answer 404.
+Fold-in (``live/``): a load, every ``foldin_poll_s`` seconds (``deploy
+--foldin-poll``) and ``POST /foldin/apply`` apply the instance's delta
+links past the last one applied, in place under the state lock (factor
+rows and the cached device tables patched row-wise; no reload, no
+warm-up), behind a circuit breaker that pauses the poll while applies
+keep failing.  Status JSON then carries ``modelFreshnessSec``,
+``foldinWatermarkLag``, ``foldinDeltasApplied`` and
+``foldinBreakerState``, and a query's span ``foldinSeq``.
+
+Not ported yet: tenancy and experiments; their routes answer 404.
 """
 
 from __future__ import annotations
@@ -67,6 +77,10 @@ from ..controller.engine import Engine, EngineParams
 from ..engines import engine_label_of
 from ..obs import (
     ENGINE_QUERIES_TOTAL,
+    FOLDIN_APPLIES_TOTAL,
+    FOLDIN_PHASE_SECONDS,
+    FOLDIN_WATERMARK_LAG,
+    MODEL_FRESHNESS_SECONDS,
     QUERIES_TOTAL,
     QUERY_LATENCY,
     RELOADS_TOTAL,
@@ -89,6 +103,7 @@ from ..resilience.policy import (
     Deadline,
     DeadlineExceeded,
     RetryPolicy,
+    deadline_scope,
 )
 from ..workflow.train import prepare_deploy_components
 from .eventloop import EventLoopHTTPServer, callback_scope
@@ -137,6 +152,7 @@ class ServerConfig:
                  feedback_capacity: int = 1024,
                  breaker_failures: int = 5,
                  breaker_reset_s: float = 10.0,
+                 foldin_poll_s: Optional[float] = None,
                  slo_ms: Optional[float] = None):
         self.host = host
         self.port = port
@@ -181,6 +197,11 @@ class ServerConfig:
         # structured 503 instead of queueing device work for a client
         # that already gave up
         self.query_timeout_s = query_timeout_s
+        # pio-live: poll the model dir for fold-in delta links every N
+        # seconds and patch them into the serving model in place (no
+        # reload).  None = off; links already on disk at (re)load time
+        # are still caught up once.
+        self.foldin_poll_s = foldin_poll_s
         # end-to-end latency SLO (ms): arms the pio_slo_burn_rate{window}
         # gauges on this server's latency histogram
         self.slo_ms = slo_ms
@@ -325,7 +346,18 @@ class EngineServer(HTTPServerBase):
         self._shared_core: Optional[SharedBatcher] = None
         self._shared_lock = threading.Lock()
         self._teardown_lock = threading.Lock()
+        # the delta poll's breaker, built before the first _load (which
+        # catches up on a chain already on disk): repeated apply
+        # failures open it, the poll pauses and the stale model serves
+        self._foldin_breaker = CircuitBreaker(
+            failure_threshold=self.config.breaker_failures,
+            reset_timeout_s=self.config.breaker_reset_s,
+        )
+        self._foldin_stop = threading.Event()
         self._load(instance_id)
+        if self.config.foldin_poll_s:
+            threading.Thread(target=self._foldin_poll_loop, daemon=True,
+                             name="foldin-poll").start()
         # serving stats (CreateServer.scala:396-398).  Latency is
         # histogram-backed: this instance's private histogram drives the
         # /status percentiles and average, and the same observations feed
@@ -408,13 +440,22 @@ class EngineServer(HTTPServerBase):
             self.serving = serving
             self.instance_id = instance_id
             self.batcher = batcher
-            # when the serving model last advanced (a load): the
-            # freshness a flight record carries
+            # when the serving model last advanced (a load or an applied
+            # delta): the freshness a flight record carries.  The
+            # fold-in bookkeeping restarts with every load: the delta
+            # chain is per instance
             self.model_advanced_mono = time.monotonic()
+            self.foldin_applied_seq = {}
+            self.foldin_watermark = None
+            self.foldin_deltas_applied = 0
+            self.last_foldin_error = None
         # the old batcher's dispatcher (continuous path) drains and
         # exits; in-flight queries still holding it complete
         if old_batcher is not None and old_batcher is not batcher:
             old_batcher.close()
+        # catch up on the delta links already published for this
+        # instance: a (re)load must not serve staler than the chain
+        self._apply_available_deltas()
 
     def _make_batcher(self, algorithms, models):
         """The query micro-batcher for this (algorithms, models) snapshot
@@ -486,6 +527,137 @@ class EngineServer(HTTPServerBase):
         RELOADS_TOTAL.labels(result="ok").inc()
         return latest.id
 
+    # -- pio-live delta apply ---------------------------------------------
+    def _apply_available_deltas(self) -> int:
+        """Apply the fold-in delta links newer than what this server
+        holds, IN PLACE under the state lock: factor rows and the cached
+        device tables are patched row-wise, queries in flight keep the
+        tables they snapshotted, the next query sees the folded-in rows.
+        No reload, no warm-up, no batcher rebuild.
+
+        A torn or gapped chain truncates cleanly
+        (``load_model_delta_chain``): the good prefix applies, the rest
+        waits.  Returns the number of links applied."""
+        from ..live.apply import apply_model_delta, model_supports_deltas
+        from ..workflow.model_io import load_model_delta_chain, model_key
+
+        with self._lock:
+            iid = self.instance_id
+            models = self.models
+            ep = self.engine_params
+            applied_seq = dict(self.foldin_applied_seq)
+        base_dir = self.ctx.storage.model_data_dir() / iid
+        names = [n for n, _ in ep.algorithms]
+        n_applied = 0
+        for ax, (name, model) in enumerate(zip(names, models)):
+            if not model_supports_deltas(model):
+                continue
+            key = model_key(iid, ax, name)
+            chain, err = load_model_delta_chain(
+                base_dir, key, after_seq=applied_seq.get(key, 0)
+            )
+            if err:
+                with self._lock:
+                    self.last_foldin_error = err
+                logger.warning("fold-in chain for %s: %s", key, err)
+            for d in chain:
+                t0 = time.perf_counter()
+                with self._lock:
+                    if self.instance_id != iid:
+                        # a reload swapped instances mid-walk; the new
+                        # instance's own catch-up already ran
+                        return n_applied
+                    if self.foldin_applied_seq.get(key, 0) >= d.seq:
+                        # a concurrent walk (the poll, a push) applied it
+                        continue
+                    apply_model_delta(model, d)
+                    self.foldin_applied_seq[key] = d.seq
+                    self.foldin_watermark = d.watermark
+                    self.foldin_deltas_applied += 1
+                    self.model_advanced_mono = time.monotonic()
+                    self.last_foldin_error = None
+                dt = time.perf_counter() - t0
+                FOLDIN_APPLIES_TOTAL.labels(result="ok").inc()
+                FOLDIN_PHASE_SECONDS.labels(phase="live.apply").observe(dt)
+                get_tracer().record("live.apply", dt,
+                                    attrs={"instance": iid, "seq": d.seq})
+                n_applied += 1
+        return n_applied
+
+    def _foldin_poll_loop(self) -> None:
+        """The delta poll (``foldin_poll_s``): breaker-guarded and
+        deadline-scoped, so a sick storage volume pauses the poll and
+        leaves the stale model serving, never a wedged thread."""
+        scope.register_thread_role("foldin_runner")
+        interval = float(self.config.foldin_poll_s)
+        while not self._foldin_stop.wait(interval):
+            if not self._foldin_breaker.allow():
+                continue
+            try:
+                with deadline_scope(Deadline.after(max(interval, 1.0))):
+                    self._apply_available_deltas()
+            except Exception as e:
+                logger.exception("fold-in delta apply failed; serving "
+                                 "keeps the stale model")
+                with self._lock:
+                    self.last_foldin_error = f"{type(e).__name__}: {e}"
+                FOLDIN_APPLIES_TOTAL.labels(result="error").inc()
+                self._foldin_breaker.record_failure()
+            else:
+                self._foldin_breaker.record_success()
+            self._foldin_status()  # refreshes the gauges
+
+    def _foldin_status(self) -> dict:
+        """The pio-live status fields, or {} while fold-in is off (no
+        poll configured, no delta ever applied and no chain error), so
+        the status JSON of a deployment that never folds in is
+        unchanged.  Computing them also sets the freshness and lag
+        gauges."""
+        with self._lock:
+            active = (
+                self.config.foldin_poll_s is not None
+                or self.foldin_deltas_applied > 0
+                or self.last_foldin_error is not None
+            )
+            if not active:
+                return {}
+            advanced_mono = self.model_advanced_mono
+            wm = self.foldin_watermark
+            err = self.last_foldin_error
+            applied = self.foldin_deltas_applied
+        freshness = max(time.monotonic() - advanced_mono, 0.0)
+        lag = 0
+        if wm:
+            try:
+                # both cursor kinds (an int rowid, the sharded store's
+                # shard vector) are the store's own business
+                lag = max(self.ctx.storage.get_event_store().cursor_lag(
+                    int(wm.get("appId", -1)), int(wm.get("channelId", 0)),
+                    wm.get("rowid", 0),
+                ), 0)
+            except Exception:
+                lag = 0
+        out = {
+            "modelFreshnessSec": freshness,
+            "foldinWatermarkLag": lag,
+            "foldinDeltasApplied": applied,
+            "foldinBreakerState": self._foldin_breaker.state,
+        }
+        if err:
+            out["lastFoldinError"] = err
+        MODEL_FRESHNESS_SECONDS.child().set(freshness)
+        FOLDIN_WATERMARK_LAG.child().set(float(lag))
+        return out
+
+    def _blocking_foldin_apply(self):
+        """``POST /foldin/apply``: apply the pending delta links now
+        (the router's rolling push calls this on each replica in turn);
+        ``(code, payload, ctype)`` with the applied count and the
+        status fields."""
+        out = {"applied": self._apply_available_deltas()}
+        out.update(self._foldin_status())
+        return 200, out, "application/json"
+
     # -- query path -------------------------------------------------------
     def _query_setup(self, query_json: dict, timeout_s: Optional[float],
                      tl) -> _QueryCtx:
@@ -523,6 +695,7 @@ class EngineServer(HTTPServerBase):
             self.last_serving_sec = dt
             instance_id = self.instance_id
             freshness = time.monotonic() - self.model_advanced_mono
+            foldin_seq = max(self.foldin_applied_seq.values(), default=0)
         # the trace id rides the histograms as a bucket exemplar and keys
         # the flight record: /metrics names a trace, the flight recorder
         # holds its span tree.  The segment split rides both the span and
@@ -538,6 +711,8 @@ class EngineServer(HTTPServerBase):
             "modelFreshnessSec": round(max(freshness, 0.0), 3),
             "segmentsMs": tl.snapshot_ms(),
         }
+        if foldin_seq:
+            attrs["foldinSeq"] = foldin_seq
         # back-dated to the request's start: the span covers its window
         get_tracer().record("serve.query", dt, attrs=attrs,
                             start=time.time() - dt)
@@ -686,6 +861,8 @@ class EngineServer(HTTPServerBase):
         }
         if batcher is not None:
             out["microbatch"] = batcher.stats()
+        # pio-live: model freshness and watermark lag (absent when off)
+        out.update(self._foldin_status())
         # the worst-N flight records (span trees on /debug/xray) and the
         # histogram's bucket exemplars: /status alone links a slow bucket
         # to a trace id
@@ -749,6 +926,14 @@ class EngineServer(HTTPServerBase):
                 f"{lat['p50']:.4f} / {lat['p95']:.4f} / "
                 f"{lat['p99']:.4f} s"),
         ]
+        live = self._foldin_status()
+        if live:
+            server_rows.append(row(
+                "Model Freshness (fold-in)",
+                f"{live['modelFreshnessSec']:.1f} s since last advance; "
+                f"watermark lag {live['foldinWatermarkLag']} rows; "
+                f"{live['foldinDeltasApplied']} deltas applied",
+            ))
         worst = get_flight_recorder().summary()["worst"]
         if worst:
             server_rows.append(row(
@@ -845,6 +1030,8 @@ class EngineServer(HTTPServerBase):
             elif u.path == "/stop":
                 respond(200, {"message": "stopping"})
                 threading.Thread(target=self.stop, daemon=True).start()
+            elif u.path == "/foldin/apply":
+                self._aux(respond, self._blocking_foldin_apply)
             else:
                 respond(404, {"message": "not found"})
             return
@@ -965,12 +1152,14 @@ class EngineServer(HTTPServerBase):
 
     def _el_reply_error(self, e: BaseException, respond, hdrs) -> None:
         code, payload, headers = self._book_failure(e)
+        # queued before the reply: a client that reads its 400 or 500
+        # finds the log entry already submitted
+        if code == 400:
+            self.remote_log(f"Query is invalid: {e}")
+        elif code == 500:
+            self.remote_log(f"Query failed: {e}")
         try:
             respond(code, payload, extra_headers=hdrs + headers)
-            if code == 400:
-                self.remote_log(f"Query is invalid: {e}")
-            elif code == 500:
-                self.remote_log(f"Query failed: {e}")
         except RuntimeError:
             pass  # request already answered
 
@@ -980,6 +1169,7 @@ class EngineServer(HTTPServerBase):
         # the first has finished
         with self._teardown_lock:
             super().stop()
+            self._foldin_stop.set()  # the delta poll exits
             # release the batcher's dispatcher and the aux pool, waiting
             # for their threads (pending entries drain first)
             with self._lock:
@@ -1046,6 +1236,13 @@ class EngineServer(HTTPServerBase):
                 elif u.path == "/stop":
                     self._reply(200, {"message": "stopping"})
                     threading.Thread(target=server.stop, daemon=True).start()
+                elif u.path == "/foldin/apply":
+                    try:
+                        code, payload, _ = server._blocking_foldin_apply()
+                    except Exception as e:
+                        logger.exception("fold-in apply failed")
+                        code, payload = 500, {"message": str(e)}
+                    self._reply(code, payload)
                 else:
                     self._reply(404, {"message": "not found"})
 
@@ -1061,12 +1258,13 @@ class EngineServer(HTTPServerBase):
                 except Exception as e:
                     code, payload, headers = server._book_failure(e)
                     self.extra_headers += headers
-                    self._reply(code, payload)
+                    # queued before the reply, as on the event-loop edge
                     what = {400: "is invalid", 500: "failed"}.get(code)
                     if what is not None:
                         server.remote_log(
                             f"Query {raw.decode(errors='replace')} "
                             f"{what}: {e}")
+                    self._reply(code, payload)
                     return
                 self._reply(200, out)
                 # close the timeline on the success path only: error

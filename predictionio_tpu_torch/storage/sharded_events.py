@@ -34,31 +34,53 @@ Auto-generated ids are unique, so only clients that reuse ids across
 entities can observe this; the reference's HBase rowkeys (entity-hash
 prefixed) cannot express that operation at all.
 
-Writes book the reference's per-shard ``obs`` families
-(``pio_store_shard_write_seconds``, ``pio_store_shard_rows``) and
-consult the ``store.shard_down`` fault point.  Not ported yet: the
-incremental scans with their shard-vector cursors (``find_rows_since``,
-``find_since``, ``max_rowid``, ``high_water_cursor``, ``cursor_lag``;
-item 5), which raise ``NotImplementedError``.
+An importer's bulk scope (``bulk()`` with its default
+``defer_indexes=True``) gives every shard file a writer thread of its
+own for the scope's length (:class:`_ShardWriters`): the thread opens
+the shard's transaction, takes every write routed to that shard in the
+order the caller made it, and commits or rolls back at the scope's end.
+sqlite releases the GIL while it steps, so the four files are written
+at once while the caller scans and routes the next chunk; each shard
+stores the same rows under the same rowids as with one writer.  The
+rows are built in Python under the GIL, so the JSON-lines import goes
+further (:meth:`ShardedSQLiteEventStore.import_shard_files`): one worker
+process a shard file scans the whole file and writes its own shard's
+rows, in file order (``tools/shard_import.py``).
+
+The incremental scans (``find_rows_since``, ``find_since``,
+``max_rowid``, ``high_water_cursor``, ``cursor_lag``) page each shard
+past its own rowid; their cursor is the JSON shard vector the fold-in
+(``live/``) carries opaquely.
+
+Writes and scans book the reference's per-shard ``obs`` families
+(``pio_store_shard_write_seconds``, ``pio_store_shard_scan_seconds``,
+``pio_store_shard_rows``) and consult the ``store.shard_down`` fault
+point.
 """
 
 from __future__ import annotations
 
 import contextlib
 import datetime as _dt
+import functools
 import heapq
 import itertools
 import json
 import os
+import threading
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Iterable, Iterator, Optional, Sequence
+from typing import Callable, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
-from ..obs import STORE_SHARD_ROWS, STORE_SHARD_WRITE_SECONDS
+from ..obs import (
+    STORE_SHARD_ROWS,
+    STORE_SHARD_SCAN_SECONDS,
+    STORE_SHARD_WRITE_SECONDS,
+)
 from ..resilience import faults
 from .columnar import EventFrame, Ratings
 from .event import Event, validate_event
@@ -77,12 +99,92 @@ def _shard_ix(entity_type: str, entity_id: str, n: int) -> int:
     return h % n
 
 
-def _incremental_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} (the sharded store's incremental scans and their "
-        "shard-vector cursors) is not ported to predictionio_tpu_torch "
-        "yet (ROADMAP Queue 1 item 5)"
-    )
+class _Abort(Exception):
+    """Thrown into a shard's bulk scope to roll it back."""
+
+
+def _first_error(futures) -> Optional[BaseException]:
+    """Wait for every future; the first one's exception, in order."""
+    err = None
+    for f in futures:
+        e = f.exception()
+        if err is None:
+            err = e
+    return err
+
+
+class _ShardWriters:
+    """One writer thread per shard file for an importer's bulk scope.
+
+    A shard's connection and its ``bulk()`` scope belong to one thread
+    (``SQLiteEventStore`` keeps both per thread), so each writer thread
+    opens its shard's scope, runs every write routed to that shard in
+    the order the caller queued it, and ends the scope at :meth:`close`:
+    a commit when the caller's scope ended cleanly and no write failed,
+    a rollback otherwise.  No connection is shared between threads.
+    Writes are queued, not waited for: the caller routes the next chunk
+    while the shards write this one."""
+
+    def __init__(self, shards: list, defer_indexes: bool):
+        self._shards = shards
+        self._pools = [
+            ThreadPoolExecutor(1, thread_name_prefix=f"shard-writer-{i}")
+            for i in range(len(shards))
+        ]
+        self._scopes: list = [None] * len(shards)
+        self._pending: list = []
+        err = _first_error([
+            pool.submit(self._enter, i, defer_indexes)
+            for i, pool in enumerate(self._pools)
+        ])
+        if err is not None:
+            self.close(err)
+            raise err
+
+    def _enter(self, i: int, defer_indexes: bool) -> None:
+        scope = self._shards[i].bulk(defer_indexes=defer_indexes)
+        scope.__enter__()
+        self._scopes[i] = scope
+
+    def submit(self, i: int, fn: Callable):
+        """Queue ``fn()`` on shard ``i``'s writer; its future."""
+        fut = self._pools[i].submit(fn)
+        self._pending.append(fut)
+        return fut
+
+    def drain(self) -> None:
+        """Wait for every queued write; raise the first failure."""
+        pending, self._pending = self._pending, []
+        err = _first_error(pending)
+        if err is not None:
+            raise err
+
+    def _exit(self, i: int, commit: bool) -> None:
+        scope = self._scopes[i]
+        try:
+            if scope is not None:
+                if commit:
+                    scope.__exit__(None, None, None)
+                else:
+                    scope.__exit__(_Abort, _Abort(), None)
+        finally:
+            self._shards[i].close()  # this thread's connection
+
+    def close(self, exc: Optional[BaseException]) -> Optional[BaseException]:
+        """End every shard's scope on its own thread and stop the
+        threads: commit when ``exc`` is None and every queued write
+        succeeded, else roll back.  Returns the failure the caller did
+        not already have (a write's or a commit's), or None."""
+        pending, self._pending = self._pending, []
+        err = _first_error(pending)
+        commit = exc is None and err is None
+        ended = _first_error([
+            pool.submit(self._exit, i, commit)
+            for i, pool in enumerate(self._pools)
+        ])
+        for pool in self._pools:
+            pool.shutdown(wait=True)
+        return None if exc is not None else (err or ended)
 
 
 class ShardedSQLiteEventStore(EventStore):
@@ -132,6 +234,8 @@ class ShardedSQLiteEventStore(EventStore):
                     "mis-route every entity — refusing"
                 )
         self.n_shards = n_shards
+        # the calling thread's importer scope (its _ShardWriters)
+        self._local = threading.local()
         # each shard's writer lock is named, so one hot shard's
         # contention is attributable on pio_lock_wait_seconds{lock=}
         self.shards = [
@@ -147,6 +251,10 @@ class ShardedSQLiteEventStore(EventStore):
             STORE_SHARD_WRITE_SECONDS.labels(shard=str(i))
             for i in range(n_shards)
         ]
+        self._m_scan = [
+            STORE_SHARD_SCAN_SECONDS.labels(shard=str(i))
+            for i in range(n_shards)
+        ]
         self._m_rows = [
             STORE_SHARD_ROWS.labels(shard=str(i)) for i in range(n_shards)
         ]
@@ -154,6 +262,13 @@ class ShardedSQLiteEventStore(EventStore):
         # scan and encode, on its thread) and the dictionary merge's
         self.last_ratings_shard_seconds: list[float] = []
         self.last_ratings_merge_seconds: Optional[float] = None
+
+    # how an importer writes the shard files: "processes" — the
+    # JSON-lines import runs one worker process a shard file
+    # (tools/shard_import.py), every other importer's bulk scope one
+    # writer thread a shard; "threads" — writer threads only; "one" —
+    # every write on the calling thread
+    writers: str = "processes"
 
     # a shard-owner worker process restricts this to its fixed subset
     # post-construction; None = every shard (the single-process
@@ -238,9 +353,9 @@ class ShardedSQLiteEventStore(EventStore):
         six = _shard_ix(event.entity_type, event.entity_id, self.n_shards)
         self._check_writable(six)
         t0 = time.perf_counter()
-        eid = self.shards[six].insert(
+        eid = self._on_shard(six, lambda: self.shards[six].insert(
             event, app_id, channel_id, validate=validate
-        )
+        ))
         self._m_write[six].observe(time.perf_counter() - t0)
         self._m_rows[six].inc()
         return eid
@@ -275,10 +390,12 @@ class ShardedSQLiteEventStore(EventStore):
         with self.bulk(defer_indexes=False):
             for six, positions in groups.items():
                 t0 = time.perf_counter()
-                got = self.shards[six].insert_batch(
-                    [events[p] for p in positions], app_id, channel_id,
-                    validate=False,
-                )
+                batch = [events[p] for p in positions]
+                got = self._on_shard(
+                    six, functools.partial(
+                        self.shards[six].insert_batch, batch, app_id,
+                        channel_id, validate=False,
+                    ))
                 self._m_write[six].observe(time.perf_counter() - t0)
                 self._m_rows[six].inc(len(positions))
                 for p, eid in zip(positions, got):
@@ -289,7 +406,9 @@ class ShardedSQLiteEventStore(EventStore):
                         channel_id: int = 0) -> None:
         """Native-importer and WAL-drain fast path, shard-routed: row
         columns 2/3 are entity_type/entity_id (`sqlite_events._row`).
-        Each shard's rows keep their input order."""
+        Each shard's rows keep their input order.  Inside an importer's
+        scope the groups are queued on the shards' writer threads once
+        the previous call's groups are written (one chunk in flight)."""
         rows = rows if isinstance(rows, list) else list(rows)
         groups: list[list] = [[] for _ in range(self.n_shards)]
         for row in rows:
@@ -297,16 +416,36 @@ class ShardedSQLiteEventStore(EventStore):
         for six, grp in enumerate(groups):
             if grp:
                 self._check_writable(six)
+        writers = getattr(self._local, "writers", None)
+        if writers is not None:
+            writers.drain()
+            for six, grp in enumerate(groups):
+                if grp:
+                    writers.submit(six, functools.partial(
+                        self._write_rows, six, grp, app_id, channel_id))
+            return
         # cross-shard atomicity as in insert_batch (and same reasoning
         # for defer_indexes=False: the importer's outer scope defers)
         with self.bulk(defer_indexes=False):
             for six, grp in enumerate(groups):
                 if grp:
-                    t0 = time.perf_counter()
-                    self.shards[six].insert_raw_rows(grp, app_id,
-                                                     channel_id)
-                    self._m_write[six].observe(time.perf_counter() - t0)
-                    self._m_rows[six].inc(len(grp))
+                    self._write_rows(six, grp, app_id, channel_id)
+
+    def _write_rows(self, six: int, grp: list, app_id: int,
+                    channel_id: int) -> None:
+        t0 = time.perf_counter()
+        self.shards[six].insert_raw_rows(grp, app_id, channel_id)
+        self._m_write[six].observe(time.perf_counter() - t0)
+        self._m_rows[six].inc(len(grp))
+
+    def _on_shard(self, six: int, fn: Callable):
+        """``fn()``, a write to shard ``six``: on that shard's writer
+        thread (waited for) inside this thread's importer scope, here
+        otherwise."""
+        writers = getattr(self._local, "writers", None)
+        if writers is None:
+            return fn()
+        return writers.submit(six, fn).result()
 
     def purge_older_than(self, cutoff_millis: int, app_id: int,
                          channel_id: int = 0) -> int:
@@ -317,7 +456,8 @@ class ShardedSQLiteEventStore(EventStore):
         for i, s in enumerate(self.shards):
             if self.owned_shards is not None and i not in self.owned_shards:
                 continue
-            n = s.purge_older_than(cutoff_millis, app_id, channel_id)
+            n = self._on_shard(i, functools.partial(
+                s.purge_older_than, cutoff_millis, app_id, channel_id))
             if n:
                 self._m_rows[i].dec(n)
             total += n
@@ -325,10 +465,63 @@ class ShardedSQLiteEventStore(EventStore):
 
     @contextlib.contextmanager
     def bulk(self, defer_indexes: bool = True):
+        """One transaction a shard for the scope (`SQLiteEventStore.
+        bulk`), committed at its end or rolled back on an error.
+
+        An importer's scope (``defer_indexes=True``, the outermost on
+        this thread) runs each shard's transaction on a writer thread
+        of its own (:class:`_ShardWriters`; ``writers = "one"`` keeps
+        them here): every write inside it goes to its shard's
+        thread, in the order it was made, so each shard stores the rows
+        and rowids one writer would.  Reads on the calling thread see
+        none of the scope's rows before its end.  A short atomicity
+        scope (``defer_indexes=False``: one request's groups) stays on
+        the calling thread, and so does any scope nested in one."""
+        if getattr(self._local, "writers", None) is not None:
+            yield self  # nested in this thread's importer scope
+            return
+        if (defer_indexes and self.writers != "one" and self.n_shards > 1
+                and not any(s._bulk_depth for s in self.shards)):
+            writers = _ShardWriters(self.shards, defer_indexes)
+            self._local.writers = writers
+            err: Optional[BaseException] = None
+            try:
+                yield self
+            except BaseException as e:
+                err = e
+                raise
+            finally:
+                self._local.writers = None
+                failure = writers.close(err)
+                if failure is not None:
+                    raise failure
+            return
         with contextlib.ExitStack() as stack:
             for s in self.shards:
                 stack.enter_context(s.bulk(defer_indexes=defer_indexes))
             yield self
+
+    def import_shard_files(self) -> Optional[list[Path]]:
+        """The shard files a JSON-lines import may hand to one worker
+        process each (``writers = "processes"``), or None when it must
+        write here: one shard, a worker that owns only some shards, or
+        a bulk scope already open on this thread.  Raises
+        ``ShardUnavailableError`` for a shard that cannot be written,
+        as a write would."""
+        if (self.writers != "processes" or self.n_shards < 2
+                or self.owned_shards is not None
+                or getattr(self._local, "writers", None) is not None
+                or any(s._bulk_depth for s in self.shards)):
+            return None
+        for six in range(self.n_shards):
+            self._check_writable(six)
+        return [Path(s._path) for s in self.shards]
+
+    def book_import(self, six: int, rows: int, seconds: float) -> None:
+        """Book a shard's rows and write seconds that another process
+        wrote for this store (the per-shard write families)."""
+        self._m_write[six].observe(seconds)
+        self._m_rows[six].inc(rows)
 
     # -- point reads ------------------------------------------------------
     def get(self, event_id: str, app_id: int,
@@ -345,7 +538,9 @@ class ShardedSQLiteEventStore(EventStore):
         # under a DIFFERENT entity left copies in two shards; delete must
         # remove every copy, not the first one found
         removed = [
-            s.delete(event_id, app_id, channel_id) for s in self.shards
+            self._on_shard(i, functools.partial(
+                s.delete, event_id, app_id, channel_id))
+            for i, s in enumerate(self.shards)
         ]
         for i, ok in enumerate(removed):
             if ok:
@@ -358,7 +553,8 @@ class ShardedSQLiteEventStore(EventStore):
         ids = list(event_ids)
         total = 0
         for i, s in enumerate(self.shards):
-            n = s.delete_batch(ids, app_id, channel_id)
+            n = self._on_shard(i, functools.partial(
+                s.delete_batch, ids, app_id, channel_id))
             if n:
                 self._m_rows[i].dec(n)
             total += n
@@ -537,17 +733,180 @@ class ShardedSQLiteEventStore(EventStore):
         return merged.select(order)
 
     # -- incremental scans (per-shard fold-in watermarks) -----------------
-    def find_rows_since(self, *args, **kw):
-        raise _incremental_not_ported("find_rows_since")
+    #
+    # The single-file store's watermark cursor is one rowid; a sharded
+    # store has N independent rowid sequences, so its cursor is a
+    # VECTOR — JSON-encoded ``{"0": rowid, "1": rowid, ...}`` — carried
+    # opaquely by every consumer (pio-live watermark files, delta-link
+    # metadata, online-eval cursors).  Integer 0 still means "from the
+    # beginning" so single-file call sites work unchanged; any other
+    # integer is refused loudly (it cannot name a position in N
+    # sequences).
 
-    def find_since(self, *args, **kw):
-        raise _incremental_not_ported("find_since")
+    def _decode_cursor(self, cursor) -> list[int]:
+        if isinstance(cursor, str):
+            try:
+                d = json.loads(cursor)
+            except json.JSONDecodeError as e:
+                raise ValueError(
+                    f"bad shard cursor {cursor!r}: {e}"
+                ) from None
+            if not isinstance(d, dict):
+                raise ValueError(
+                    f"shard cursor must be a JSON object, got {cursor!r}"
+                )
+            return [int(d.get(str(i), 0)) for i in range(self.n_shards)]
+        c = int(cursor or 0)
+        if c == 0:
+            return [0] * self.n_shards
+        raise ValueError(
+            f"sharded event-store cursors are JSON shard-vector "
+            f"strings; a nonzero integer ({c}) cannot address "
+            f"{self.n_shards} independent rowid sequences"
+        )
 
-    def max_rowid(self, *args, **kw):
-        raise _incremental_not_ported("max_rowid")
+    def _encode_cursor(self, per_shard) -> str:
+        return json.dumps(
+            {str(i): int(v) for i, v in enumerate(per_shard)},
+            sort_keys=True, separators=(",", ":"),
+        )
 
-    def high_water_cursor(self, *args, **kw):
-        raise _incremental_not_ported("high_water_cursor")
+    # advertised capability: callers that can exploit a concurrent
+    # shard scan (the trending engine's full-backlog aggregation) probe
+    # this instead of sniffing types
+    supports_parallel_scan = True
 
-    def cursor_lag(self, *args, **kw):
-        raise _incremental_not_ported("cursor_lag")
+    def find_rows_since(
+        self,
+        app_id: int,
+        channel_id: int = 0,
+        cursor=0,
+        limit: Optional[int] = None,
+        event_names: Optional[Sequence[str]] = None,
+        newest_first: bool = False,
+        parallel: bool = False,
+        tolerate_unavailable: bool = False,
+    ) -> tuple[list[tuple], str]:
+        """Rows written after a shard-vector watermark; returns
+        ``(rows, new_cursor)`` with ``new_cursor`` the JSON-encoded
+        per-shard vector (see above).  Rows are the same
+        ``(rowid, <11 columns>)`` tuples the single store yields —
+        NOTE the rowid is shard-LOCAL (display/debug only; the cursor
+        is the paging contract, never arithmetic on row ids).
+
+        Ordering is per-shard rowid-ascending, shards concatenated in
+        index order.  Per-ENTITY ordering — the property fold-in
+        correctness rests on ("last rating wins" within a window) — is
+        exact, because routing pins an entity to one shard.  ``limit``
+        bounds the merged page: shards are consumed in order and the
+        cursor only advances for rows actually returned, so paging
+        with the returned cursor walks the full backlog without
+        skipping or repeating.
+
+        ``parallel=True`` scans every shard concurrently — the
+        region-parallel read analogue (ROADMAP item 3's scan half) for
+        unbounded scans: N independent B-tree range scans on N
+        connections instead of one serialized walk.  Results are
+        concatenated in shard-index order, so the output is BITWISE the
+        sequential scan's.  Ignored when ``limit`` is set (a bounded
+        page consumes shards in order — scanning all of them would read
+        rows the page must then discard) or when there is one shard.
+
+        ``tolerate_unavailable=True`` is the pio-levee degradation mode
+        for incremental consumers (fold-in, online eval): a shard that
+        answers `ShardUnavailableError` contributes NO rows and its
+        cursor COMPONENT does not advance — the vector stalls on
+        exactly that shard while healthy components keep moving, so
+        resuming from the returned cursor after recovery replays the
+        dead shard's backlog from where it stalled, losing nothing.
+        When False (default) the error propagates — one-shot readers
+        must see the outage loudly, not a silently partial scan."""
+        per_shard = self._decode_cursor(cursor)
+
+        def scan_one(i, lim):
+            """(rows, new_component) for shard i — stalled on outage
+            when tolerated (component pinned at the input cursor)."""
+            try:
+                self._check_shard_up(i)
+                t0 = time.perf_counter()
+                rows, nc = self.shards[i].find_rows_since(
+                    app_id, channel_id, cursor=per_shard[i],
+                    limit=lim, event_names=event_names,
+                    newest_first=newest_first,
+                )
+                self._m_scan[i].observe(time.perf_counter() - t0)
+                return rows, int(nc)
+            except ShardUnavailableError:
+                if not tolerate_unavailable:
+                    raise
+                return [], int(per_shard[i])
+
+        if parallel and limit is None and self.n_shards > 1:
+            with ThreadPoolExecutor(
+                max_workers=min(self.n_shards, 8),
+                thread_name_prefix="shard-scan",
+            ) as ex:
+                results = list(ex.map(
+                    lambda i: scan_one(i, None), range(self.n_shards)
+                ))
+            out_rows = [r for rows, _ in results for r in rows]
+            return out_rows, self._encode_cursor(
+                [nc for _, nc in results]
+            )
+        out_rows: list[tuple] = []
+        new_cursor = list(per_shard)
+        remaining = limit
+        for i in range(self.n_shards):
+            if remaining is not None and remaining <= 0:
+                break
+            rows, nc = scan_one(i, remaining)
+            out_rows.extend(rows)
+            new_cursor[i] = nc
+            if remaining is not None:
+                remaining -= len(rows)
+        return out_rows, self._encode_cursor(new_cursor)
+
+    def find_since(
+        self,
+        app_id: int,
+        channel_id: int = 0,
+        cursor=0,
+        limit: Optional[int] = None,
+        event_names: Optional[Sequence[str]] = None,
+        newest_first: bool = False,
+    ) -> tuple[list[tuple[int, Event]], str]:
+        """:meth:`find_rows_since` decoded to ``(rowid, Event)`` pairs
+        (shard-local rowids; the dashboard's recent-events view)."""
+        rows, new_cursor = self.find_rows_since(
+            app_id, channel_id, cursor, limit, event_names, newest_first
+        )
+        return (
+            [(int(r[0]), SQLiteEventStore._event_from_row(r[1:]))
+             for r in rows],
+            new_cursor,
+        )
+
+    def max_rowid(self, app_id: int, channel_id: int = 0) -> int:
+        """SUM of the per-shard high-water rowids: a scalar volume
+        indicator (dashboards, coarse lag display), NOT a cursor —
+        cursors are vectors (:meth:`high_water_cursor`)."""
+        return sum(
+            s.max_rowid(app_id, channel_id) for s in self.shards
+        )
+
+    def high_water_cursor(self, app_id: int, channel_id: int = 0) -> str:
+        """The encoded shard-vector cursor at the current high-water
+        mark (``foldin --from-now`` starts here)."""
+        return self._encode_cursor([
+            s.max_rowid(app_id, channel_id) for s in self.shards
+        ])
+
+    def cursor_lag(self, app_id: int, channel_id: int = 0,
+                   cursor=0) -> int:
+        """Rows written past ``cursor`` summed over shards — the
+        freshness debt the watermark gauges report."""
+        per_shard = self._decode_cursor(cursor)
+        return sum(
+            max(s.max_rowid(app_id, channel_id) - per_shard[i], 0)
+            for i, s in enumerate(self.shards)
+        )

@@ -17,14 +17,17 @@ the scan and the string-id encode in one native pass
 ``find_columnar(minimal=True) -> to_ratings``, only for the data reasons
 the reference does.  Both reads may be served from the scan snapshot
 cache (``scan_cache.py``).  The sharded store (``sharded_events.py``)
-is N of these files.  The pio-live incremental scans are not ported yet
-(ROADMAP Queue 1 item 5).
+is N of these files.  The incremental scans (:meth:`SQLiteEventStore.
+find_rows_since` and its cursor helpers) page the rows written past a
+rowid watermark for the fold-in (``live/``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import datetime as _dt
+import functools
+import itertools
 import json
 import logging
 import os
@@ -155,6 +158,19 @@ CREATE TABLE IF NOT EXISTS _scan_versions (
 def _table_name(app_id: int, channel_id: int) -> str:
     # mirrors events_<appId>[_<channelId>] (HBEventsUtil.scala:51-57)
     return f"events_{app_id}" if channel_id == 0 else f"events_{app_id}_{channel_id}"
+
+
+# rows one INSERT of insert_raw_rows binds: 90 x 11 columns stays within
+# the 999 host parameters of sqlite's most conservative build
+_ROWS_PER_INSERT = 90
+
+
+@functools.lru_cache(maxsize=64)
+def _multi_insert(table: str, n_rows: int) -> str:
+    """``INSERT OR REPLACE`` of ``n_rows`` 11-column rows into ``table``
+    in one statement."""
+    return (f"INSERT OR REPLACE INTO {table} VALUES "
+            + ",".join(["(?,?,?,?,?,?,?,?,?,?,?)"] * n_rows))
 
 
 class SQLiteEventStore(EventStore):
@@ -406,13 +422,22 @@ class SQLiteEventStore(EventStore):
         feature-test with ``hasattr``.
         """
         t = self._ensure_table(app_id, channel_id)
+        rows = rows if isinstance(rows, list) else list(rows)
         with self._lock:
             if self._bulk_depth:
                 self._maybe_defer_indexes(t)
-            self._conn.executemany(
-                f"INSERT OR REPLACE INTO {t} VALUES (?,?,?,?,?,?,?,?,?,?,?)",
-                rows,
-            )
+            # _ROWS_PER_INSERT rows a statement, in order: the rows and
+            # rowids of executemany, with one hand-off of the GIL to
+            # sqlite a statement instead of one a row (a row at a time,
+            # the sharded store's writer threads would queue on the GIL)
+            full = _multi_insert(t, _ROWS_PER_INSERT)
+            for a in range(0, len(rows), _ROWS_PER_INSERT):
+                part = rows[a:a + _ROWS_PER_INSERT]
+                self._conn.execute(
+                    full if len(part) == _ROWS_PER_INSERT
+                    else _multi_insert(t, len(part)),
+                    list(itertools.chain.from_iterable(part)),
+                )
             self._bump_version(t)
             if not self._bulk_depth:
                 self._conn.commit()
@@ -875,6 +900,100 @@ class SQLiteEventStore(EventStore):
         ):
             scan_cache.store_ratings(cache_key, out)
         return out
+
+    # -- incremental scans (pio-live watermark cursor) --------------------
+    def max_rowid(self, app_id: int, channel_id: int = 0) -> int:
+        """Largest rowid of the (app, channel) table (0 when empty): the
+        event store's high-water mark.  ``MAX(rowid)`` is answered off
+        the table B-tree root, not a scan."""
+        t = self._ensure_table(app_id, channel_id)
+        row = self._conn.execute(f"SELECT MAX(rowid) FROM {t}").fetchone()
+        return int(row[0]) if row and row[0] is not None else 0
+
+    def high_water_cursor(self, app_id: int, channel_id: int = 0) -> int:
+        """The cursor at the current high-water mark (same shape the
+        sharded store exposes; here a cursor IS a rowid)."""
+        return self.max_rowid(app_id, channel_id)
+
+    def cursor_lag(self, app_id: int, channel_id: int = 0,
+                   cursor: int = 0) -> int:
+        """Rows written past ``cursor`` — the freshness debt the
+        watermark gauges report (the sharded store sums per shard)."""
+        return max(self.max_rowid(app_id, channel_id) - int(cursor), 0)
+
+    def find_rows_since(
+        self,
+        app_id: int,
+        channel_id: int = 0,
+        cursor: int = 0,
+        limit: Optional[int] = None,
+        event_names: Optional[Sequence[str]] = None,
+        newest_first: bool = False,
+    ) -> tuple[list[tuple], int]:
+        """Raw rows written after a rowid watermark, in insertion order.
+
+        Returns ``(rows, new_cursor)`` where each row is ``(rowid,
+        <the 11 storage columns of _row>)`` with ``rowid > cursor``,
+        rowid-ascending, and ``new_cursor`` is the largest rowid
+        returned (== ``cursor`` when nothing is new).  The rowid is the
+        table's B-tree key, so this is an INDEXED range scan — the
+        incremental primitive the pio-live fold-in watermark and the
+        dashboard's recent-events view share, instead of re-scanning
+        the whole table per poll.
+
+        Semantics callers rely on:
+
+        * rowids are assigned monotonically by sqlite while the table's
+          max row is never deleted; ``INSERT OR REPLACE`` of an
+          existing event_id assigns a FRESH rowid, so updated events
+          re-enter the scan window (a fold-in wants exactly that).
+        * ``limit`` bounds one page; advancing ``cursor`` to the
+          returned ``new_cursor`` and calling again pages through a
+          backlog without skipping or repeating rows.
+        * ``newest_first=True`` reverses the order (dashboard view);
+          the cursor contract is unchanged (``new_cursor`` is still the
+          max rowid seen).
+        """
+        t = self._ensure_table(app_id, channel_id)
+        where = ["rowid > ?"]
+        params: list = [int(cursor)]
+        if event_names is not None:
+            qs = ",".join("?" * len(event_names))
+            # "+event": no index on this term, so sqlite walks the rowid
+            # range; with it, the (event, event_time) index wins and the
+            # scan reads every row of the named events, then sorts
+            where.append(f"+event IN ({qs})")
+            params.extend(event_names)
+        sql = (
+            f"SELECT rowid, * FROM {t} WHERE {' AND '.join(where)} "
+            f"ORDER BY rowid {'DESC' if newest_first else 'ASC'}"
+        )
+        if limit is not None and limit >= 0:
+            sql += " LIMIT ?"
+            params.append(limit)
+        rows = self._conn.execute(sql, params).fetchall()
+        new_cursor = int(cursor)
+        if rows:
+            new_cursor = max(int(r[0]) for r in rows)
+        return rows, new_cursor
+
+    def find_since(
+        self,
+        app_id: int,
+        channel_id: int = 0,
+        cursor: int = 0,
+        limit: Optional[int] = None,
+        event_names: Optional[Sequence[str]] = None,
+        newest_first: bool = False,
+    ) -> tuple[list[tuple[int, Event]], int]:
+        """:meth:`find_rows_since` decoded to ``(rowid, Event)`` pairs."""
+        rows, new_cursor = self.find_rows_since(
+            app_id, channel_id, cursor, limit, event_names, newest_first
+        )
+        return (
+            [(int(r[0]), self._event_from_row(r[1:])) for r in rows],
+            new_cursor,
+        )
 
     # -- columnar batch read (PEvents analogue) ---------------------------
     def find_columnar(

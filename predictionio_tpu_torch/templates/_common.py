@@ -1,6 +1,6 @@
 """Shared template helpers (port of ``predictionio_tpu/templates/_common.py``:
-the device table caches, the query filter mask, the batch ladder and the
-batched scorer warm-up)."""
+the device table caches and their fold-in patch, the query filter mask,
+the batch ladder and the batched scorer warm-up)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,14 @@ import torch
 
 __all__ = ["DeviceTableMixin", "filter_bias_mask", "pow2_ladder",
            "warm_batched_topk"]
+
+
+def _as_table(rows: np.ndarray, like: torch.Tensor,
+              axis: int) -> torch.Tensor:
+    """Host ``[n, R]`` rows on ``like``'s device and dtype, as columns
+    (``[R, n]``) when ``axis`` is 1."""
+    t = torch.as_tensor(rows, device=like.device).to(like.dtype)
+    return t.T.contiguous() if axis else t
 
 
 class DeviceTableMixin:
@@ -39,6 +47,43 @@ class DeviceTableMixin:
         return self._cached_device(
             f"_dev_item_factors_{dtype or 'native'}", make
         )
+
+    def patch_device_item_rows(
+        self, ixs, rows, appended: Optional[np.ndarray] = None
+    ) -> None:
+        """pio-live delta apply: patch every CACHED device item table
+        (row writes and appends) instead of dropping the caches and
+        re-uploading the whole table on the next query.
+
+        The device tables are the serve-time top-k index (every query's
+        score product reads them), so this is what makes a fold-in
+        visible to predictions without a reload.  The transposed
+        ``[R, M]`` serving layout gets its patched rows as column writes
+        and its appended rows as appended columns.  Each table is built
+        anew on its device and swapped in with one attribute rebind, so
+        a concurrent reader sees the old table or the new one, never a
+        torn row; caches that do not exist yet are left absent (they are
+        built from the already-patched host table on first use)."""
+        if len(ixs) == 0 and (appended is None or len(appended) == 0):
+            return
+        rows_np = np.asarray(rows, np.float32)
+        app_np = (
+            np.asarray(appended, np.float32)
+            if appended is not None and len(appended) else None
+        )
+        for attr in list(vars(self)):
+            dev = getattr(self, attr)
+            if not attr.startswith("_dev_item_factors_") or dev is None:
+                continue
+            # the [R, M] layout takes rows as columns
+            axis = 1 if attr.startswith("_dev_item_factors_t_") else 0
+            new = (torch.cat([dev, _as_table(app_np, dev, axis)], dim=axis)
+                   if app_np is not None else dev.clone())
+            if len(rows_np):
+                ix = torch.as_tensor(np.asarray(ixs, np.int64),
+                                     device=dev.device)
+                new.index_copy_(axis, ix, _as_table(rows_np, dev, axis))
+            setattr(self, attr, new)
 
     def device_item_factors_t(self, dtype: Optional[str] = None):
         """The item table pre-transposed to ``[R, M]`` (contiguous), the

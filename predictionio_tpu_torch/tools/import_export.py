@@ -25,6 +25,7 @@ two entry points:
 from __future__ import annotations
 
 import json
+import os
 from itertools import islice, repeat
 from pathlib import Path
 from typing import Optional
@@ -68,6 +69,10 @@ _BATCH = 5000
 # chunk size for the native import scan; bounds peak host memory at
 # roughly chunk + its per-line offset arrays regardless of file size
 _NATIVE_CHUNK = 64 << 20
+# a JSON-lines file at least this big goes to a sharded store through
+# one worker process a shard (tools/shard_import.py); a smaller one is
+# not worth the workers' start (a few seconds each)
+_PROCESS_MIN_BYTES = _NATIVE_CHUNK
 
 
 def infer_format(path: str | Path, default: str = "json") -> str:
@@ -159,35 +164,55 @@ def _import_events_native(path, store, app_id, channel_id, tally) -> int:
     the portable importer.  Events without an eventTime get one shared
     import-time default.  The file is read in ``_NATIVE_CHUNK`` blocks
     split at line boundaries, so peak memory stays flat at any file
-    size; all chunks flush inside one ``store.bulk()`` scope."""
+    size; all chunks flush inside one ``store.bulk()`` scope.  A sharded
+    store that writes from worker processes (:mod:`.shard_import`) hands
+    each shard's lines to a process of its own instead, for a file of
+    ``_PROCESS_MIN_BYTES`` or more."""
     now_ms = time_millis(now_utc())
-    imported = 0
+    files = (getattr(store, "import_shard_files", lambda: None)()
+             if os.path.getsize(path) >= _PROCESS_MIN_BYTES else None)
+    if files is not None:
+        from .shard_import import import_by_shard
+
+        return import_by_shard(path, store, files, app_id, channel_id,
+                               now_ms, tally)
     with open(path, "rb") as fh, store.bulk():
-        leftover = b""
-        while True:
-            block = fh.read(_NATIVE_CHUNK)
-            if not block:
-                data, leftover = leftover, b""
-            else:
-                data = leftover + block
-                nl = data.rfind(b"\n")
-                if nl < 0:
-                    # no complete line in the buffer yet (a single line
-                    # longer than the chunk): keep reading
-                    leftover = data
-                    continue
-                # the scanner would treat a truncated trailing line as a
-                # whole line; split at the last newline and carry the rest
-                leftover = data[nl + 1:]
-                data = data[: nl + 1]
-            if data:
-                imported += _flush_scanned(
-                    data, scan_events_jsonl(data), store, app_id,
-                    channel_id, now_ms, tally,
-                )
-            if not block:
-                break
-    return imported
+        return insert_jsonl(_line_blocks(fh), store, app_id, channel_id,
+                            now_ms, tally)
+
+
+def _line_blocks(fh):
+    """The file's bytes in ``_NATIVE_CHUNK`` blocks, each ending at a
+    line boundary (the scanner would take a truncated trailing line for
+    a whole one, so the rest is carried into the next block)."""
+    leftover = b""
+    while True:
+        block = fh.read(_NATIVE_CHUNK)
+        if not block:
+            if leftover:
+                yield leftover
+            return
+        data = leftover + block
+        nl = data.rfind(b"\n")
+        if nl < 0:
+            # no complete line in the buffer yet (a single line longer
+            # than the chunk): keep reading
+            leftover = data
+            continue
+        leftover = data[nl + 1:]
+        yield data[: nl + 1]
+
+
+def insert_jsonl(blocks, store, app_id: int, channel_id: int, now_ms: int,
+                 tally: dict) -> int:
+    """Every event of ``blocks`` (JSON lines, each block ending at a line
+    boundary) into ``store``, the caller holding the bulk scope; the
+    number of events."""
+    return sum(
+        _flush_scanned(data, scan_events_jsonl(data), store, app_id,
+                       channel_id, now_ms, tally)
+        for data in blocks if data
+    )
 
 
 def _column(text, data: bytes, off: np.ndarray, ln: np.ndarray) -> list:

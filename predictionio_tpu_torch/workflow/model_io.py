@@ -17,26 +17,47 @@ replaces the reference's Kryo-blob path (`workflow/CoreWorkflow.scala:
 
 The metadata ``models`` table stores the manifest JSON keyed by
 ``<instance_id>-<algo_ix>-<algo_name>`` (:func:`model_key`, the reference's
-scheme, `controller/Engine.scala:260-278`).  The reference's sharded
-``.npz`` format for ``DEVICE_SHARDED`` models and its fold-in delta chains
-are not ported yet: the port writes the ``pickle`` kind for every
-persisted model and refuses to load a ``sharded`` manifest.
+scheme, `controller/Engine.scala:260-278`).
+
+A factor model's fold-in deltas (``live/``) are a chain of ``.npz``
+links next to the model (:class:`ModelDelta`, :func:`save_model_delta`,
+:func:`load_model_delta_chain`) in the reference's format and meta
+version, so a chain written by either package loads in the other.  The
+reference's sharded ``.npz`` format for ``DEVICE_SHARDED`` models is not
+ported yet: the port writes the ``pickle`` kind for every persisted
+model and refuses to load a ``sharded`` manifest.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pickle
+import re
 from pathlib import Path
-from typing import Any
+from typing import Any, Optional
+
+import numpy as np
 
 import torch
 
 from ..controller.base import Algorithm, WorkflowContext
 from ..storage.metadata import Model
 
-__all__ = ["NotPersisted", "load_models", "model_key", "save_models"]
+__all__ = [
+    "DELTA_VERSION",
+    "ModelDelta",
+    "NotPersisted",
+    "delta_file_name",
+    "list_model_deltas",
+    "load_model_delta",
+    "load_model_delta_chain",
+    "load_models",
+    "model_key",
+    "save_model_delta",
+    "save_models",
+]
 
 
 class NotPersisted:
@@ -74,6 +95,184 @@ def _place(model: Any, device: torch.device) -> Any:
             f.name == "device" for f in dataclasses.fields(model)):
         return dataclasses.replace(model, device=device)
     return model
+
+
+# --------------------------------------------------------------------------
+# Delta model format (pio-live): a versioned chain of row-level patches
+# against the last FULL checkpoint of a factor model.  Each delta is one
+# atomically-written .npz holding patched factor rows, appended rows with
+# their new entity ids, and a JSON meta blob carrying the chain links
+# (seq, prev seq, instance, watermark).  The serving layer applies deltas
+# in sequence without a stop-the-world reload; a torn or missing link
+# truncates the chain at the last good delta — falling back toward the
+# full model, never past it (the same contract as StepCheckpointer's
+# torn-newest-step fallback).
+# --------------------------------------------------------------------------
+
+DELTA_VERSION = 1
+
+_DELTA_RE = re.compile(r"-delta-(\d{8})\.npz$")
+
+
+@dataclasses.dataclass
+class ModelDelta:
+    """One link of a delta chain.
+
+    Row indices address the table AS OF the previous link (the full
+    model for seq 1): appended rows land at ``base_n_*`` onward, so a
+    chain is only applicable in contiguous seq order.
+    """
+
+    seq: int
+    meta: dict
+    user_rows_ix: np.ndarray   # int32 [p] rows patched in the user table
+    user_rows: np.ndarray      # f32 [p, R]
+    new_user_ids: np.ndarray   # unicode [a] appended user ids
+    new_user_rows: np.ndarray  # f32 [a, R]
+    item_rows_ix: np.ndarray   # int32 [q] rows patched in the item table
+    item_rows: np.ndarray      # f32 [q, R]
+    new_item_ids: np.ndarray   # unicode [b] appended item ids
+    new_item_rows: np.ndarray  # f32 [b, R]
+
+    @property
+    def watermark(self) -> Optional[dict]:
+        return self.meta.get("watermark")
+
+    def counts(self) -> dict:
+        return {
+            "patchedUsers": int(len(self.user_rows_ix)),
+            "appendedUsers": int(len(self.new_user_ids)),
+            "patchedItems": int(len(self.item_rows_ix)),
+            "appendedItems": int(len(self.new_item_ids)),
+        }
+
+
+def delta_file_name(key: str, seq: int) -> str:
+    return f"{key}-delta-{seq:08d}.npz"
+
+
+def save_model_delta(
+    base_dir: Path, key: str, delta: ModelDelta
+) -> Path:
+    """Write one delta link atomically (tmp + rename): a reader either
+    sees the previous chain or the complete new link, never a torn
+    file — a crash mid-write leaves only a ``.tmp`` orphan that the
+    chain loader ignores."""
+    base_dir = Path(base_dir)
+    base_dir.mkdir(parents=True, exist_ok=True)
+    meta = dict(delta.meta)
+    meta.setdefault("version", DELTA_VERSION)
+    meta["seq"] = int(delta.seq)
+    path = base_dir / delta_file_name(key, delta.seq)
+    tmp = path.with_suffix(".npz.tmp")
+    rank_arrays = {
+        "user_rows_ix": np.asarray(delta.user_rows_ix, np.int32),
+        "user_rows": np.asarray(delta.user_rows, np.float32),
+        "new_user_rows": np.asarray(delta.new_user_rows, np.float32),
+        "item_rows_ix": np.asarray(delta.item_rows_ix, np.int32),
+        "item_rows": np.asarray(delta.item_rows, np.float32),
+        "new_item_rows": np.asarray(delta.new_item_rows, np.float32),
+        # unicode ('U') arrays round-trip under allow_pickle=False;
+        # object arrays would not
+        "new_user_ids": np.asarray(
+            [str(s) for s in delta.new_user_ids], dtype=np.str_
+        ),
+        "new_item_ids": np.asarray(
+            [str(s) for s in delta.new_item_ids], dtype=np.str_
+        ),
+        "meta_json": np.asarray(
+            json.dumps(meta, separators=(",", ":"))
+        ),
+    }
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, **rank_arrays)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    return path
+
+
+def load_model_delta(path: Path) -> ModelDelta:
+    """Load one delta link; raises on a torn/truncated/foreign file
+    (the chain loader turns that into a clean truncation)."""
+    with np.load(path, allow_pickle=False) as data:
+        meta = json.loads(str(data["meta_json"]))
+        if int(meta.get("version", -1)) > DELTA_VERSION:
+            raise ValueError(
+                f"delta {path.name} has version {meta.get('version')}, "
+                f"newer than this framework's {DELTA_VERSION}"
+            )
+        return ModelDelta(
+            seq=int(meta["seq"]),
+            meta=meta,
+            user_rows_ix=data["user_rows_ix"],
+            user_rows=data["user_rows"],
+            new_user_ids=data["new_user_ids"],
+            new_user_rows=data["new_user_rows"],
+            item_rows_ix=data["item_rows_ix"],
+            item_rows=data["item_rows"],
+            new_item_ids=data["new_item_ids"],
+            new_item_rows=data["new_item_rows"],
+        )
+
+
+def list_model_deltas(base_dir: Path, key: str) -> list[tuple[int, Path]]:
+    """(seq, path) pairs of the on-disk chain for ``key``, seq-sorted.
+    ``.tmp`` orphans from crashed writes never match."""
+    base_dir = Path(base_dir)
+    if not base_dir.is_dir():
+        return []
+    out = []
+    prefix = f"{key}-delta-"
+    for p in base_dir.iterdir():
+        if not p.name.startswith(prefix):
+            continue
+        m = _DELTA_RE.search(p.name)
+        if m:
+            out.append((int(m.group(1)), p))
+    out.sort()
+    return out
+
+
+def load_model_delta_chain(
+    base_dir: Path, key: str, after_seq: int = 0
+) -> tuple[list["ModelDelta"], Optional[str]]:
+    """Load the applicable chain suffix: every delta with ``seq >
+    after_seq``, in order, stopping at the first gap or unreadable
+    link.
+
+    Returns ``(deltas, error)``.  ``error`` is None for a clean chain;
+    otherwise a human-readable reason for the truncation.  A truncated
+    chain is NOT a failure mode for the caller — applying the good
+    prefix (possibly empty) falls back toward the last full model,
+    which is the stale-model-beats-no-model contract serving already
+    has for failed reloads.  Appended-row indices make out-of-order or
+    gapped application corrupting, so a gap truncates just like a torn
+    file.
+    """
+    out: list[ModelDelta] = []
+    err: Optional[str] = None
+    expect = int(after_seq) + 1
+    for seq, path in list_model_deltas(base_dir, key):
+        if seq <= after_seq:
+            continue
+        if seq != expect:
+            err = (
+                f"delta chain gap: expected seq {expect}, found "
+                f"{path.name}; applying only the contiguous prefix"
+            )
+            break
+        try:
+            out.append(load_model_delta(path))
+        except Exception as e:
+            err = (
+                f"delta {path.name} is unreadable "
+                f"({type(e).__name__}: {e}); falling back to the "
+                f"chain before it"
+            )
+            break
+        expect += 1
+    return out, err
 
 
 def save_models(

@@ -254,15 +254,11 @@ def test_undeploy_of_nothing_equal(pair):
 
 
 REFUSED = [
-    (["foldin"], 5),
     (["adminserver"], 9),
     (["dashboard"], 9),
     (["deploy", "--multi", "tenants.json"], 4),
     (["deploy", "--memory-budget", "1e9"], 4),
     (["deploy", "--autopilot", "on"], 4),
-    (["deploy", "--foldin-poll", "5"], 5),
-    (["deploy", "--push-foldin", "5"], 5),
-    (["deploy", "--replicas", "2", "--push-foldin", "5"], 5),
     (["train", "--coordinator", "127.0.0.1:1234"], 7),
     (["train", "--num-processes", "2"], 7),
 ]

@@ -51,7 +51,9 @@ def test_the_walk_sees_every_file():
                 "server/ingest_router.py", "resilience/faults.py",
                 *(f"obs/{m}.py" for m in (
                     "__init__", "registry", "trace", "flight", "scope",
-                    "timeline", "fleet", "xray", "runlog", "tower"))):
+                    "timeline", "fleet", "xray", "runlog", "tower")),
+                *(f"live/{m}.py" for m in (
+                    "__init__", "watermark", "foldin", "apply", "daemon"))):
         assert f"predictionio_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names
     assert len(names) >= 20

@@ -400,8 +400,7 @@ def test_supervisor_failed_respawn_backs_off(monkeypatch):
 
 def test_unported_routes_name_their_item(fleets):
     f = fleets("port")
-    for method, path, item in (("POST", "/admin/push-foldin", 5),
-                               ("POST", "/admin/tenants/weights", 4),
+    for method, path, item in (("POST", "/admin/tenants/weights", 4),
                                ("POST", "/admin/tenants", 4),
                                ("GET", "/debug/tenants", 4)):
         if method == "POST":

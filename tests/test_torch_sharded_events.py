@@ -360,9 +360,48 @@ def test_maintenance_is_scoped_to_owned_shards(tmp_path, monkeypatch):
 
 
 def test_incremental_scans_wait_for_their_item(tmp_path):
-    port = ShardedSQLiteEventStore(tmp_path / "s", 2)
-    for method in ("find_rows_since", "find_since", "max_rowid",
-                   "high_water_cursor", "cursor_lag"):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP Queue 1 item 5"):
-            getattr(port, method)(1)
+    """The incremental scans, once a wait for their ROADMAP item, now
+    answer like the reference's on the same store: rows, shard-vector
+    cursors, the high-water mark and the lag."""
+    port, jax = _pair(tmp_path, _event_specs(6, 300))
+    for cursor in (0, port.high_water_cursor(1)):
+        for method in ("find_rows_since", "find_since"):
+            got = getattr(port, method)(1, cursor=cursor)
+            want = getattr(jax, method)(1, cursor=cursor)
+            # every column but the creation time, which is each insert's
+            if method == "find_since":
+                got = ([(r, {**e.to_json(), "creationTime": None})
+                        for r, e in got[0]], got[1])
+                want = ([(r, {**e.to_json(), "creationTime": None})
+                         for r, e in want[0]], want[1])
+            else:
+                got = ([r[:-1] for r in got[0]], got[1])
+                want = ([r[:-1] for r in want[0]], want[1])
+            assert got == want
+        assert port.cursor_lag(1, cursor=cursor) == jax.cursor_lag(
+            1, cursor=cursor)
+    assert port.max_rowid(1) == jax.max_rowid(1) > 0
+    assert port.high_water_cursor(1) == jax.high_water_cursor(1)
+
+
+def test_a_worker_that_fails_rolls_the_import_back(tmp_path, monkeypatch):
+    """The JSON-lines import by worker processes: a shard file a worker
+    cannot open fails the import with that shard named, and the other
+    shards keep no row."""
+    from predictionio_tpu_torch.tools import import_export
+
+    monkeypatch.setattr(import_export, "_PROCESS_MIN_BYTES", 0)
+    specs = _event_specs(7, 200)
+    src = tmp_path / "events.jsonl"
+    with open(src, "w", encoding="utf-8") as f:
+        for s in specs:
+            f.write(json.dumps(Event(**s).to_json()) + "\n")
+    port = ShardedSQLiteEventStore(tmp_path / "port", N_SHARDS)
+    port.init_channel(1)
+    for f in (tmp_path / "port").glob("shard-1.db*"):
+        f.unlink()
+    (tmp_path / "port" / "shard-1.db").mkdir()
+    with pytest.raises(RuntimeError, match="the import of shard 1 failed"):
+        import_events(src, port, 1)
+    for k in (0, 2):
+        assert port.shards[k].max_rowid(1) == 0
