@@ -105,9 +105,10 @@ times that tree by the same method.
 builds and runs only the ML-20M store phases (write and import, the
 ingest fleet, the sharded read and its check) and the host sort's
 timing, with the import's writers timed between the import and the
-fleet: one writer, a thread a shard and a process a shard, the same
-file into fresh 4-shard stores, each held against phase store's rows
-rowid for rowid, with no result line.
+fleet: one writer against a process a shard, the same file into fresh
+4-shard stores, each held against phase store's rows rowid for rowid,
+and the same two on heads of the file (4 to 256 MiB), held against each
+other, with no result line.
 
     python3 chip_smoke.py --store-npz
 
@@ -1506,51 +1507,112 @@ def _same_shard_rows(a, b, app_id: int) -> int:
     return n
 
 
+# the sizes of the file's heads the writer A/B also imports both ways:
+# they place the cutoff below which the JSON-lines import stays in one
+# process (``tools/import_export.py`` ``_PROCESS_MIN_BYTES``)
+AB_HEAD_MIB = (4, 16, 32, 64, 128, 256)
+
+
+def _import_fresh(src, d, app_id: int, processes: bool):
+    """``src`` through ``import_events`` into a fresh 4-shard store at
+    ``d``: by a worker process a shard at any size (``processes``), or
+    every shard on this thread (the store then offers no shard files to
+    the workers).  Returns (seconds, events, the import's counts)."""
+    from unittest import mock
+
+    from predictionio_tpu_torch.storage import ShardedSQLiteEventStore
+    from predictionio_tpu_torch.tools import import_export
+
+    es = ShardedSQLiteEventStore(d, STORE_SHARDS)
+    try:
+        if not processes:
+            es.import_shard_files = lambda: None
+        counts = {}
+        with mock.patch.object(import_export, "_PROCESS_MIN_BYTES", 0):
+            t0 = time.perf_counter()
+            n = import_export.import_events(src, es, app_id, counts=counts)
+            secs = time.perf_counter() - t0
+    finally:
+        es.close()
+    return secs, n, counts
+
+
+def _same_stores(a, b, app_id: int) -> list:
+    """Every shard of the store directory ``a`` holds shard file ``b[k]``'s
+    rows, rowid for rowid (:func:`_same_shard_rows`); the rows a shard."""
+    from pathlib import Path
+
+    with ThreadPoolExecutor(STORE_SHARDS) as ex:
+        return list(ex.map(
+            lambda k: _same_shard_rows(Path(a) / f"shard-{k}.db", b[k],
+                                       app_id),
+            range(STORE_SHARDS)))
+
+
 def store_writer_ab(store: StoreHome, src, n_events: int,
                     console_s: float) -> dict:
-    """The JSON-lines import's writers on the file phase store imported
-    (``console_s`` its time through the console: a worker process a
-    shard): the same file through ``import_events`` into a fresh 4-shard
-    store with ``writers`` "one" (every shard in turn on this thread),
-    "threads" (a writer thread a shard) and "processes" (a worker
-    process a shard), one store at a time.  Each arm's shards must hold
-    the rows of phase store's, rowid for rowid (every column but the
-    event id and the creation time); each store is removed after its
-    turn."""
+    """The JSON-lines import by one writer against a worker process a
+    shard, on the file phase store imported (``console_s`` its time
+    through the console, by the workers), each into a fresh 4-shard
+    store, one store at a time: the whole file, whose every arm's shards
+    must hold phase store's rows rowid for rowid (every column but the
+    event id and the creation time), and heads of ``AB_HEAD_MIB``,
+    where the two arms' shards must hold the same rows.  Each store is
+    removed after its turn."""
     import shutil
     import tempfile
     from pathlib import Path
 
-    from predictionio_tpu_torch.storage import ShardedSQLiteEventStore
-    from predictionio_tpu_torch.tools.import_export import import_events
-
-    secs = {"processes (phase store, console)": console_s}
-    for writers in ("one", "threads", "processes"):
+    def arm(path, processes: bool, want: int | None, like):
         d = Path(tempfile.mkdtemp(prefix="pio_writer_ab_"))
-        es = ShardedSQLiteEventStore(d, STORE_SHARDS)
-        es.writers = writers
         try:
-            t0 = time.perf_counter()
-            counts = {}
-            n = import_events(src, es, store.app_id, counts=counts)
-            secs[writers] = time.perf_counter() - t0
-            if n != n_events or counts["python"]:
-                raise AssertionError(f"{writers}: {n} events, {counts}")
-            es.close()
-            with ThreadPoolExecutor(STORE_SHARDS) as ex:
-                same = list(ex.map(
-                    lambda k: _same_shard_rows(
-                        d / f"shard-{k}.db", store.shard_paths()[k],
-                        store.app_id),
-                    range(STORE_SHARDS)))
-        finally:
-            es.close()
+            secs, n, counts = _import_fresh(path, d, store.app_id,
+                                            processes)
+            if (want is not None and n != want) or counts["python"]:
+                raise AssertionError(f"{path} by "
+                                     f"{'processes' if processes else 'one'}"
+                                     f": {n} events, {counts}")
+            if like is None:
+                return secs, n, d
+            _same_stores(d, like, store.app_id)
             shutil.rmtree(d, ignore_errors=True)
+            return secs, n, None
+        except BaseException:
+            shutil.rmtree(d, ignore_errors=True)
+            raise
+
+    heads = {}
+    tmp = Path(tempfile.mkdtemp(prefix="pio_writer_heads_"))
+    try:
+        with open(src, "rb") as fh:
+            whole = fh.read((AB_HEAD_MIB[-1] << 20) + (1 << 20))
+        for mib in AB_HEAD_MIB:
+            cut = whole.rindex(b"\n", 0, mib << 20) + 1
+            head = tmp / f"head-{mib}.jsonl"
+            head.write_bytes(whole[:cut])
+            one_s, n, one_dir = arm(head, False, None, None)
+            try:
+                proc_s, _, _ = arm(head, True, n, [
+                    one_dir / f"shard-{k}.db" for k in range(STORE_SHARDS)])
+            finally:
+                shutil.rmtree(one_dir, ignore_errors=True)
+            heads[mib] = {"events": n, "one": round(one_s, 3),
+                          "processes": round(proc_s, 3)}
+            log(f"phase store writers head {mib} MiB ({n:,} events): one "
+                f"writer {one_s:.3f} s, a process a shard {proc_s:.3f} s; "
+                "the same rows rowid for rowid")
+        del whole
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = {"processes (phase store, console)": console_s}
+    for name, processes in (("one", False), ("processes", True)):
+        secs[name], _, _ = arm(src, processes, n_events,
+                               store.shard_paths())
     log(f"phase store writers ML-20M: JSON-lines import of {n_events:,} "
         f"events into a fresh {STORE_SHARDS}-shard store, seconds "
         f"{ {k: round(t, 1) for k, t in secs.items()} }; every arm's "
-        f"shards equal phase store's rowid for rowid ({same} rows)")
-    return secs
+        f"shards equal phase store's rowid for rowid")
+    return {"whole": secs, "heads": heads}
 
 
 def phase_read(store: StoreHome, u, i, v):
@@ -3921,6 +3983,8 @@ FOLDIN_WARM, FOLDIN_WARM_K = 1_000, 5
 FOLDIN_NEW_ITEMS, FOLDIN_NEW_ITEM_K = 20, 50
 FOLDIN_SMALL = 100
 FOLDIN_FRESH = 5
+# phase foldin's own limit, the GJ timing at the cycles' rungs included
+FOLDIN_PHASE_LIMIT_S = 75.0
 
 
 def foldin_window(rng, cold, warm=(), new_items=0) -> list:
@@ -4029,7 +4093,8 @@ def phase_foldin(torch, store: StoreHome, cli_out: dict) -> dict:
     non-fallback reply through the router → ``undeploy``.  Then the SPD
     solve kernel is timed on the systems the cycles gave it (recorded
     on the way, one batch a rung) beside the library's Cholesky, its
-    bound and its host microseconds a call."""
+    bound and its host microseconds a call.  The phase fails past
+    ``FOLDIN_PHASE_LIMIT_S``."""
     from pathlib import Path
 
     from predictionio_tpu_torch.cli.main import load_engine_from_variant
@@ -4215,14 +4280,15 @@ def phase_foldin(torch, store: StoreHome, cli_out: dict) -> dict:
     finally:
         solve_mod.spd_solve_batched = solve_fn
         proc.stop()
+    gj = foldin_gj_shapes(torch, systems)
     phase_s = time.perf_counter() - t_phase
+    checks["phase_within_its_limit"] = phase_s <= FOLDIN_PHASE_LIMIT_S
     detail.update(cycles=[{k: c[k] for k in (
         "seq", "events", "ratings", "patchedUsers", "appendedUsers",
         "appendedItems", "cycleSec", "wallSec", "importSec", "spans",
         "rungs", "deltaBytes", "signatures")} for c in cycles],
-        freshness_s=fresh_s, trades=trades, err64=err64)
+        freshness_s=fresh_s, trades=trades, err64=err64, phase_s=phase_s)
     obs_report("foldin", checks, detail)
-    gj = foldin_gj_shapes(torch, systems)
     log(f"phase foldin ML-20M: console train (pallas) {train_s:.1f} s "
         f"(launches {train_launches}); deploy --replicas 2 --push-foldin 1 "
         f"up in {boot_s:.1f} s; cycles (s, live.* spans, (B, K) rungs, "
@@ -4709,8 +4775,8 @@ def main(argv: list[str]) -> int:
         stored = timed("store", phase_store, store, u, i, v,
                        argv == ["--store"])
         if argv == ["--store"]:
-            # the import's writer threads, one against four, on the file
-            # phase store imported
+            # the import by one writer against four processes, on the
+            # file phase store imported
             timed("store writers", store_writer_ab, store, stored["src"],
                   len(v), stored["import_s"])
             stored["src"].unlink()

@@ -34,18 +34,11 @@ Auto-generated ids are unique, so only clients that reuse ids across
 entities can observe this; the reference's HBase rowkeys (entity-hash
 prefixed) cannot express that operation at all.
 
-An importer's bulk scope (``bulk()`` with its default
-``defer_indexes=True``) gives every shard file a writer thread of its
-own for the scope's length (:class:`_ShardWriters`): the thread opens
-the shard's transaction, takes every write routed to that shard in the
-order the caller made it, and commits or rolls back at the scope's end.
-sqlite releases the GIL while it steps, so the four files are written
-at once while the caller scans and routes the next chunk; each shard
-stores the same rows under the same rowids as with one writer.  The
-rows are built in Python under the GIL, so the JSON-lines import goes
-further (:meth:`ShardedSQLiteEventStore.import_shard_files`): one worker
-process a shard file scans the whole file and writes its own shard's
-rows, in file order (``tools/shard_import.py``).
+The JSON-lines import of a large file
+(:meth:`ShardedSQLiteEventStore.import_shard_files`) writes each shard
+file from a worker process of its own, in file order
+(``tools/shard_import.py``); every other write runs on the calling
+thread.
 
 The incremental scans (``find_rows_since``, ``find_since``,
 ``max_rowid``, ``high_water_cursor``, ``cursor_lag``) page each shard
@@ -62,17 +55,15 @@ from __future__ import annotations
 
 import contextlib
 import datetime as _dt
-import functools
 import heapq
 import itertools
 import json
 import os
-import threading
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Callable, Iterable, Iterator, Optional, Sequence
+from typing import Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -97,94 +88,6 @@ def _shard_ix(entity_type: str, entity_id: str, n: int) -> int:
         f"{entity_type}\x00{entity_id}".encode("utf-8", "surrogatepass")
     )
     return h % n
-
-
-class _Abort(Exception):
-    """Thrown into a shard's bulk scope to roll it back."""
-
-
-def _first_error(futures) -> Optional[BaseException]:
-    """Wait for every future; the first one's exception, in order."""
-    err = None
-    for f in futures:
-        e = f.exception()
-        if err is None:
-            err = e
-    return err
-
-
-class _ShardWriters:
-    """One writer thread per shard file for an importer's bulk scope.
-
-    A shard's connection and its ``bulk()`` scope belong to one thread
-    (``SQLiteEventStore`` keeps both per thread), so each writer thread
-    opens its shard's scope, runs every write routed to that shard in
-    the order the caller queued it, and ends the scope at :meth:`close`:
-    a commit when the caller's scope ended cleanly and no write failed,
-    a rollback otherwise.  No connection is shared between threads.
-    Writes are queued, not waited for: the caller routes the next chunk
-    while the shards write this one."""
-
-    def __init__(self, shards: list, defer_indexes: bool):
-        self._shards = shards
-        self._pools = [
-            ThreadPoolExecutor(1, thread_name_prefix=f"shard-writer-{i}")
-            for i in range(len(shards))
-        ]
-        self._scopes: list = [None] * len(shards)
-        self._pending: list = []
-        err = _first_error([
-            pool.submit(self._enter, i, defer_indexes)
-            for i, pool in enumerate(self._pools)
-        ])
-        if err is not None:
-            self.close(err)
-            raise err
-
-    def _enter(self, i: int, defer_indexes: bool) -> None:
-        scope = self._shards[i].bulk(defer_indexes=defer_indexes)
-        scope.__enter__()
-        self._scopes[i] = scope
-
-    def submit(self, i: int, fn: Callable):
-        """Queue ``fn()`` on shard ``i``'s writer; its future."""
-        fut = self._pools[i].submit(fn)
-        self._pending.append(fut)
-        return fut
-
-    def drain(self) -> None:
-        """Wait for every queued write; raise the first failure."""
-        pending, self._pending = self._pending, []
-        err = _first_error(pending)
-        if err is not None:
-            raise err
-
-    def _exit(self, i: int, commit: bool) -> None:
-        scope = self._scopes[i]
-        try:
-            if scope is not None:
-                if commit:
-                    scope.__exit__(None, None, None)
-                else:
-                    scope.__exit__(_Abort, _Abort(), None)
-        finally:
-            self._shards[i].close()  # this thread's connection
-
-    def close(self, exc: Optional[BaseException]) -> Optional[BaseException]:
-        """End every shard's scope on its own thread and stop the
-        threads: commit when ``exc`` is None and every queued write
-        succeeded, else roll back.  Returns the failure the caller did
-        not already have (a write's or a commit's), or None."""
-        pending, self._pending = self._pending, []
-        err = _first_error(pending)
-        commit = exc is None and err is None
-        ended = _first_error([
-            pool.submit(self._exit, i, commit)
-            for i, pool in enumerate(self._pools)
-        ])
-        for pool in self._pools:
-            pool.shutdown(wait=True)
-        return None if exc is not None else (err or ended)
 
 
 class ShardedSQLiteEventStore(EventStore):
@@ -234,8 +137,6 @@ class ShardedSQLiteEventStore(EventStore):
                     "mis-route every entity — refusing"
                 )
         self.n_shards = n_shards
-        # the calling thread's importer scope (its _ShardWriters)
-        self._local = threading.local()
         # each shard's writer lock is named, so one hot shard's
         # contention is attributable on pio_lock_wait_seconds{lock=}
         self.shards = [
@@ -262,13 +163,6 @@ class ShardedSQLiteEventStore(EventStore):
         # scan and encode, on its thread) and the dictionary merge's
         self.last_ratings_shard_seconds: list[float] = []
         self.last_ratings_merge_seconds: Optional[float] = None
-
-    # how an importer writes the shard files: "processes" — the
-    # JSON-lines import runs one worker process a shard file
-    # (tools/shard_import.py), every other importer's bulk scope one
-    # writer thread a shard; "threads" — writer threads only; "one" —
-    # every write on the calling thread
-    writers: str = "processes"
 
     # a shard-owner worker process restricts this to its fixed subset
     # post-construction; None = every shard (the single-process
@@ -353,9 +247,9 @@ class ShardedSQLiteEventStore(EventStore):
         six = _shard_ix(event.entity_type, event.entity_id, self.n_shards)
         self._check_writable(six)
         t0 = time.perf_counter()
-        eid = self._on_shard(six, lambda: self.shards[six].insert(
+        eid = self.shards[six].insert(
             event, app_id, channel_id, validate=validate
-        ))
+        )
         self._m_write[six].observe(time.perf_counter() - t0)
         self._m_rows[six].inc()
         return eid
@@ -390,12 +284,10 @@ class ShardedSQLiteEventStore(EventStore):
         with self.bulk(defer_indexes=False):
             for six, positions in groups.items():
                 t0 = time.perf_counter()
-                batch = [events[p] for p in positions]
-                got = self._on_shard(
-                    six, functools.partial(
-                        self.shards[six].insert_batch, batch, app_id,
-                        channel_id, validate=False,
-                    ))
+                got = self.shards[six].insert_batch(
+                    [events[p] for p in positions], app_id, channel_id,
+                    validate=False,
+                )
                 self._m_write[six].observe(time.perf_counter() - t0)
                 self._m_rows[six].inc(len(positions))
                 for p, eid in zip(positions, got):
@@ -406,9 +298,7 @@ class ShardedSQLiteEventStore(EventStore):
                         channel_id: int = 0) -> None:
         """Native-importer and WAL-drain fast path, shard-routed: row
         columns 2/3 are entity_type/entity_id (`sqlite_events._row`).
-        Each shard's rows keep their input order.  Inside an importer's
-        scope the groups are queued on the shards' writer threads once
-        the previous call's groups are written (one chunk in flight)."""
+        Each shard's rows keep their input order."""
         rows = rows if isinstance(rows, list) else list(rows)
         groups: list[list] = [[] for _ in range(self.n_shards)]
         for row in rows:
@@ -416,36 +306,16 @@ class ShardedSQLiteEventStore(EventStore):
         for six, grp in enumerate(groups):
             if grp:
                 self._check_writable(six)
-        writers = getattr(self._local, "writers", None)
-        if writers is not None:
-            writers.drain()
-            for six, grp in enumerate(groups):
-                if grp:
-                    writers.submit(six, functools.partial(
-                        self._write_rows, six, grp, app_id, channel_id))
-            return
         # cross-shard atomicity as in insert_batch (and same reasoning
         # for defer_indexes=False: the importer's outer scope defers)
         with self.bulk(defer_indexes=False):
             for six, grp in enumerate(groups):
                 if grp:
-                    self._write_rows(six, grp, app_id, channel_id)
-
-    def _write_rows(self, six: int, grp: list, app_id: int,
-                    channel_id: int) -> None:
-        t0 = time.perf_counter()
-        self.shards[six].insert_raw_rows(grp, app_id, channel_id)
-        self._m_write[six].observe(time.perf_counter() - t0)
-        self._m_rows[six].inc(len(grp))
-
-    def _on_shard(self, six: int, fn: Callable):
-        """``fn()``, a write to shard ``six``: on that shard's writer
-        thread (waited for) inside this thread's importer scope, here
-        otherwise."""
-        writers = getattr(self._local, "writers", None)
-        if writers is None:
-            return fn()
-        return writers.submit(six, fn).result()
+                    t0 = time.perf_counter()
+                    self.shards[six].insert_raw_rows(grp, app_id,
+                                                     channel_id)
+                    self._m_write[six].observe(time.perf_counter() - t0)
+                    self._m_rows[six].inc(len(grp))
 
     def purge_older_than(self, cutoff_millis: int, app_id: int,
                          channel_id: int = 0) -> int:
@@ -456,8 +326,7 @@ class ShardedSQLiteEventStore(EventStore):
         for i, s in enumerate(self.shards):
             if self.owned_shards is not None and i not in self.owned_shards:
                 continue
-            n = self._on_shard(i, functools.partial(
-                s.purge_older_than, cutoff_millis, app_id, channel_id))
+            n = s.purge_older_than(cutoff_millis, app_id, channel_id)
             if n:
                 self._m_rows[i].dec(n)
             total += n
@@ -465,37 +334,6 @@ class ShardedSQLiteEventStore(EventStore):
 
     @contextlib.contextmanager
     def bulk(self, defer_indexes: bool = True):
-        """One transaction a shard for the scope (`SQLiteEventStore.
-        bulk`), committed at its end or rolled back on an error.
-
-        An importer's scope (``defer_indexes=True``, the outermost on
-        this thread) runs each shard's transaction on a writer thread
-        of its own (:class:`_ShardWriters`; ``writers = "one"`` keeps
-        them here): every write inside it goes to its shard's
-        thread, in the order it was made, so each shard stores the rows
-        and rowids one writer would.  Reads on the calling thread see
-        none of the scope's rows before its end.  A short atomicity
-        scope (``defer_indexes=False``: one request's groups) stays on
-        the calling thread, and so does any scope nested in one."""
-        if getattr(self._local, "writers", None) is not None:
-            yield self  # nested in this thread's importer scope
-            return
-        if (defer_indexes and self.writers != "one" and self.n_shards > 1
-                and not any(s._bulk_depth for s in self.shards)):
-            writers = _ShardWriters(self.shards, defer_indexes)
-            self._local.writers = writers
-            err: Optional[BaseException] = None
-            try:
-                yield self
-            except BaseException as e:
-                err = e
-                raise
-            finally:
-                self._local.writers = None
-                failure = writers.close(err)
-                if failure is not None:
-                    raise failure
-            return
         with contextlib.ExitStack() as stack:
             for s in self.shards:
                 stack.enter_context(s.bulk(defer_indexes=defer_indexes))
@@ -503,14 +341,11 @@ class ShardedSQLiteEventStore(EventStore):
 
     def import_shard_files(self) -> Optional[list[Path]]:
         """The shard files a JSON-lines import may hand to one worker
-        process each (``writers = "processes"``), or None when it must
-        write here: one shard, a worker that owns only some shards, or
-        a bulk scope already open on this thread.  Raises
-        ``ShardUnavailableError`` for a shard that cannot be written,
-        as a write would."""
-        if (self.writers != "processes" or self.n_shards < 2
-                or self.owned_shards is not None
-                or getattr(self._local, "writers", None) is not None
+        process each, or None when it must write here: one shard, a
+        worker that owns only some shards, or a bulk scope already open
+        on this thread.  Raises ``ShardUnavailableError`` for a shard
+        that cannot be written, as a write would."""
+        if (self.n_shards < 2 or self.owned_shards is not None
                 or any(s._bulk_depth for s in self.shards)):
             return None
         for six in range(self.n_shards):
@@ -538,9 +373,7 @@ class ShardedSQLiteEventStore(EventStore):
         # under a DIFFERENT entity left copies in two shards; delete must
         # remove every copy, not the first one found
         removed = [
-            self._on_shard(i, functools.partial(
-                s.delete, event_id, app_id, channel_id))
-            for i, s in enumerate(self.shards)
+            s.delete(event_id, app_id, channel_id) for s in self.shards
         ]
         for i, ok in enumerate(removed):
             if ok:
@@ -553,8 +386,7 @@ class ShardedSQLiteEventStore(EventStore):
         ids = list(event_ids)
         total = 0
         for i, s in enumerate(self.shards):
-            n = self._on_shard(i, functools.partial(
-                s.delete_batch, ids, app_id, channel_id))
+            n = s.delete_batch(ids, app_id, channel_id)
             if n:
                 self._m_rows[i].dec(n)
             total += n

@@ -427,9 +427,8 @@ class SQLiteEventStore(EventStore):
             if self._bulk_depth:
                 self._maybe_defer_indexes(t)
             # _ROWS_PER_INSERT rows a statement, in order: the rows and
-            # rowids of executemany, with one hand-off of the GIL to
-            # sqlite a statement instead of one a row (a row at a time,
-            # the sharded store's writer threads would queue on the GIL)
+            # rowids of executemany, with one statement step for
+            # _ROWS_PER_INSERT rows instead of one a row
             full = _multi_insert(t, _ROWS_PER_INSERT)
             for a in range(0, len(rows), _ROWS_PER_INSERT):
                 part = rows[a:a + _ROWS_PER_INSERT]

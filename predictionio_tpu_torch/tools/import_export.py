@@ -70,9 +70,12 @@ _BATCH = 5000
 # roughly chunk + its per-line offset arrays regardless of file size
 _NATIVE_CHUNK = 64 << 20
 # a JSON-lines file at least this big goes to a sharded store through
-# one worker process a shard (tools/shard_import.py); a smaller one is
-# not worth the workers' start (a few seconds each)
-_PROCESS_MIN_BYTES = _NATIVE_CHUNK
+# one worker process a shard (tools/shard_import.py).  The workers cost
+# 8-9 s to start; one writer wins below the crossover, which fell
+# between heads of 128 MiB (12.1 against 14.4 s) and 256 MiB (25.0
+# against 15.8 s) of the ML-20M file on an H100 host (chip_smoke.py
+# --store), about 150 MiB by interpolation
+_PROCESS_MIN_BYTES = 150 << 20
 
 
 def infer_format(path: str | Path, default: str = "json") -> str:

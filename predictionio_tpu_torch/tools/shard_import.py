@@ -1,11 +1,11 @@
 """The JSON-lines import of a sharded event store, one process a shard.
 
-Building each event's storage row is Python work under the GIL, so
-writer threads alone leave the import bound by one core.  Here the
-importer scans the file natively, routes every line by the store's
-rule (``crc32(entity type \\0 entity id) % shards``, over the scanned
-bytes of every line at once; a line the scanner flags is parsed to be
-routed) and streams each shard's lines, in file order, to a worker
+Building each event's storage row is Python work under the GIL, so an
+import in one process is bound by one core.  Here the importer scans
+the file natively, routes every line by the store's rule
+(``crc32(entity type \\0 entity id) % shards``, over the scanned bytes
+of every line at once; a line the scanner flags is parsed to be routed)
+and streams each shard's lines, in file order, to a worker
 process of its own (``python -m predictionio_tpu_torch.tools.
 shard_import``).  The worker imports them into its shard file as the
 one-process import does, inside one transaction, so a shard stores the

@@ -17,8 +17,18 @@ same-shaped cycles add no solve signature
 (``solver_signature_stable``).  ``deploy --replicas 2 --push-foldin``
 and the router's ``POST /admin/push-foldin`` take a link to every
 replica.  Every server and thread is stopped in ``finally``.
+
+Against the reference, on both edges: the JAX package trains an
+instance on seeded events, the port gets the same events and the same
+instance (its model through ``convert.model_from_jax``), and each
+package's ``FoldInRunner`` folds in the same new events from now.  The
+cycles' counts and watermarks are equal, as are the router's
+``/admin/push-foldin`` reply, ``POST /foldin/apply``'s reply and the
+status JSON's fold-in fields (the freshness seconds apart), and every
+reply through the routers agrees within 1e-4 of its scale.
 """
 
+import dataclasses
 import io
 import json
 import os
@@ -30,12 +40,34 @@ from contextlib import redirect_stdout
 import numpy as np
 import pytest
 
+from predictionio_tpu.controller.base import (
+    WorkflowContext as JaxWorkflowContext,
+)
+from predictionio_tpu.live import FoldInRunner as JaxFoldInRunner
+from predictionio_tpu.server import router as jax_router
+from predictionio_tpu.server.serving import (
+    EngineServer as JaxEngineServer,
+    ServerConfig as JaxServerConfig,
+)
+from predictionio_tpu.storage import Event as JaxEvent
+from predictionio_tpu.storage.registry import Storage as JaxStorage
+from predictionio_tpu.templates.recommendation import (
+    recommendation_engine as jax_recommendation_engine,
+)
+from predictionio_tpu.workflow.train import (
+    prepare_deploy as jax_prepare_deploy,
+    run_train as jax_run_train,
+)
 from predictionio_tpu_torch.cli.main import main
 from predictionio_tpu_torch.controller import WorkflowContext
+from predictionio_tpu_torch.convert import model_from_jax
 from predictionio_tpu_torch.live import FoldInRunner, FoldInSolver
 from predictionio_tpu_torch.live.apply import apply_model_delta
 from predictionio_tpu_torch.obs import fleet
+from predictionio_tpu_torch.server import EngineServer, ServerConfig
+from predictionio_tpu_torch.server import router as port_router
 from predictionio_tpu_torch.storage import Event, Storage
+from predictionio_tpu_torch.storage.metadata import EngineInstance
 from predictionio_tpu_torch.templates.recommendation import (
     Query,
     recommendation_engine,
@@ -45,6 +77,7 @@ from predictionio_tpu_torch.workflow.model_io import (
     delta_file_name,
     load_model_delta_chain,
     model_key,
+    save_models,
 )
 
 FACTORY = "predictionio_tpu_torch.templates.recommendation.recommendation_engine"
@@ -290,3 +323,174 @@ def test_the_router_pushes_links_to_every_replica(tmp_path, monkeypatch):
             home.run("undeploy", "--port", str(port))
         deploy.join(timeout=60)
     assert not deploy.is_alive()
+
+
+VARIANT = {
+    "datasource": {"params": {"appName": "shop"}},
+    "algorithms": [{"name": "als", "params": {
+        "rank": 4, "numIterations": 2, "lambda": 0.05, "seed": 1}}],
+}
+# the status fields of the fold-in, compared by value (the freshness
+# seconds only by presence)
+FOLDIN_FIELDS = ("foldinWatermarkLag", "foldinDeltasApplied",
+                 "foldinBreakerState", "lastFoldinError")
+
+
+class Pair:
+    """Per package (``"jax"``, ``"port"``): a home holding the same
+    seeded ratings and one instance the JAX package trained (the port's
+    model carried by ``model_from_jax``), an engine server on ``edge``,
+    a router in front of it and a ``FoldInRunner`` from now."""
+
+    def __init__(self, tmp_path, edge: str):
+        self.storage = {
+            "jax": JaxStorage({"PIO_TPU_HOME": str(tmp_path / "jax")}),
+            "port": Storage({"PIO_TPU_HOME": str(tmp_path / "port")}),
+        }
+        self.servers, self.routers = {}, {}
+        rng = np.random.default_rng(3)
+        u, i = np.nonzero(rng.random((N_USERS, N_ITEMS)) < 0.5)
+        for name, st in self.storage.items():
+            app = st.get_metadata().app_insert("shop")
+            st.get_event_store().init_channel(app.id)
+        self.rate([(f"u{a}", f"i{b}", float(rng.integers(1, 11) * 0.5))
+                   for a, b in zip(u.tolist(), i.tolist())])
+        jst = self.storage["jax"]
+        jengine = jax_recommendation_engine()
+        self.iid = jax_run_train(jengine, jengine.params_from_variant(VARIANT),
+                                 ctx=JaxWorkflowContext(storage=jst))
+        rec = jst.get_metadata().engine_instance_get(self.iid)
+        (jmodel,) = jax_prepare_deploy(
+            jengine, jengine.params_from_instance(rec), self.iid,
+            JaxWorkflowContext(storage=jst, mode="Serving"))
+        pst = self.storage["port"]
+        pst.get_metadata().engine_instance_insert(
+            EngineInstance(**dataclasses.asdict(rec)))
+        engine = recommendation_engine()
+        (algo,) = engine._algorithms(engine.params_from_instance(rec))
+        save_models(WorkflowContext(device="cpu", storage=pst), self.iid,
+                    [("als", algo, model_from_jax(jmodel, "cpu"))])
+        engines = {"jax": jengine, "port": engine}
+        ctxs = {
+            "jax": JaxWorkflowContext(storage=jst, mode="Serving"),
+            "port": WorkflowContext(device="cpu", storage=pst,
+                                    mode="Serving"),
+        }
+        servers = {"jax": (JaxEngineServer, JaxServerConfig),
+                   "port": (EngineServer, ServerConfig)}
+        routers = {"jax": jax_router, "port": port_router}
+        runners = {"jax": JaxFoldInRunner, "port": FoldInRunner}
+        self.runners = {}
+        for name, st in self.storage.items():
+            ep = engines[name].params_from_instance(rec)
+            server, config = servers[name]
+            srv = server(engines[name], ep, self.iid, ctx=ctxs[name],
+                         config=config(port=0, edge=edge))
+            srv.start_background()
+            self.servers[name] = srv
+            mod = routers[name]
+            router = mod.RouterServer(
+                [mod.Replica("replica-0", "127.0.0.1", srv.port)],
+                mod.RouterConfig(host="127.0.0.1", port=0,
+                                 health_interval_s=0.1))
+            router.start_background()
+            self.routers[name] = router
+            self.runners[name] = runners[name](
+                st, engines[name], ep, self.iid, ctx=ctxs[name],
+                from_now=True)
+
+    def rate(self, triples) -> None:
+        """The same rate events, in the same order, into both homes."""
+        for name, event in (("jax", JaxEvent), ("port", Event)):
+            self.storage[name].get_event_store().insert_batch([
+                event(event="rate", entity_type="user", entity_id=u,
+                      target_entity_type="item", target_entity_id=i,
+                      properties={"rating": r}) for u, i, r in triples], 1)
+
+    def each(self, fn) -> dict:
+        return {name: fn(name) for name in self.storage}
+
+    def close(self) -> None:
+        for r in self.routers.values():
+            r.stop()
+        for s in self.servers.values():
+            s.stop()
+        for st in self.storage.values():
+            st.close()
+
+
+def _cycle_counts(stats: dict) -> dict:
+    """A cycle's stats without the delta file's path (each home's) and
+    its seconds."""
+    return {k: v for k, v in stats.items()
+            if k not in ("delta", "cycleSec")}
+
+
+def _foldin_fields(out: dict) -> dict:
+    assert out["modelFreshnessSec"] >= 0
+    return {k: out.get(k) for k in FOLDIN_FIELDS}
+
+
+def _close_replies(got: dict, want: dict) -> None:
+    assert [s["item"] for s in got["itemScores"]] == [
+        s["item"] for s in want["itemScores"]]
+    g = np.array([s["score"] for s in got["itemScores"]], np.float64)
+    w = np.array([s["score"] for s in want["itemScores"]], np.float64)
+    scale = max(1.0, float(np.abs(w).max(initial=0.0)))
+    np.testing.assert_allclose(g, w, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("edge", ["eventloop", "threads"])
+def test_foldin_apply_push_and_status_equal_the_references(tmp_path, edge):
+    pair = Pair(tmp_path, edge)
+    try:
+        routers = pair.each(lambda n: pair.routers[n].port)
+        servers = pair.each(lambda n: pair.servers[n].port)
+        ask = ("fresh", "u0", "u1")
+
+        def replies(name):
+            return [_post(routers[name], "/queries.json",
+                          {"user": u, "num": 4}) for u in ask]
+
+        before = pair.each(replies)
+        assert before["port"][0] == before["jax"][0] == {"itemScores": []}
+        assert "modelFreshnessSec" not in _get(servers["port"], "/")
+        # a cold-start user, new ratings of known users, a new item
+        pair.rate([("fresh", f"i{k}", 4.5) for k in (1, 3, 5, 7)]
+                  + [("u0", "i2", 1.0), ("u0", "inew", 5.0),
+                     ("u1", "inew", 4.0)])
+        stats = pair.each(lambda n: pair.runners[n].cycle())
+        assert _cycle_counts(stats["port"]) == _cycle_counts(stats["jax"])
+        assert stats["port"]["appendedUsers"] == 1
+        assert stats["port"]["appendedItems"] == 1
+        pushed = pair.each(lambda n: _post(routers[n], "/admin/push-foldin",
+                                           {})["pushed"])
+        for p in pushed["port"] + pushed["jax"]:
+            assert p.pop("modelFreshnessSec") >= 0
+        assert pushed["port"] == pushed["jax"] == [{
+            "replica": "replica-0", "status": 200, "applied": 1,
+            "foldinDeltasApplied": 1}]
+        after = pair.each(replies)
+        assert after["port"][0]["itemScores"]
+        for got, want in zip(after["port"], after["jax"]):
+            _close_replies(got, want)
+        status = pair.each(lambda n: _get(servers[n], "/"))
+        assert _foldin_fields(status["port"]) == _foldin_fields(
+            status["jax"])
+        assert status["port"]["foldinWatermarkLag"] == 0
+        # the library's watch loop, then the engine server's own apply
+        pair.rate([("fresh2", f"i{k}", 3.0) for k in (0, 2, 4)])
+        assert pair.each(lambda n: pair.runners[n].watch(
+            interval_s=0.05, max_cycles=1)) == {"jax": 1, "port": 1}
+        applied = pair.each(lambda n: _post(servers[n], "/foldin/apply",
+                                            {}))
+        assert applied["port"]["applied"] == applied["jax"]["applied"] == 1
+        assert _foldin_fields(applied["port"]) == _foldin_fields(
+            applied["jax"])
+        assert sorted(applied["port"]) == sorted(applied["jax"])
+        fresh2 = pair.each(lambda n: _post(routers[n], "/queries.json",
+                                           {"user": "fresh2", "num": 4}))
+        assert fresh2["port"]["itemScores"]
+        _close_replies(fresh2["port"], fresh2["jax"])
+    finally:
+        pair.close()

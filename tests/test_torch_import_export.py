@@ -165,6 +165,36 @@ def test_each_package_imports_the_others_files(filled, ext):
     assert got["port"] == want
 
 
+def test_only_a_file_at_the_cutoff_goes_to_the_workers(tmp_path,
+                                                      monkeypatch):
+    """A JSON-lines file smaller than ``_PROCESS_MIN_BYTES`` goes into
+    the 4-shard store in this process, one of that size through a worker
+    process a shard; both stores give the reference's events."""
+    from predictionio_tpu_torch.tools import shard_import
+
+    src = tmp_path / "events.jsonl"
+    src.write_text("".join(json.dumps(d) + "\n" for d in _event_lines()),
+                   encoding="utf-8")
+    jax = STORES["sharded"]["jax"](tmp_path / "jax")
+    jax_ie.import_events(src, jax, APP)
+    want = _events(jax)
+    jax.close()
+    sent = []
+    real = shard_import.import_by_shard
+    monkeypatch.setattr(shard_import, "import_by_shard",
+                        lambda *a, **kw: sent.append(a[0]) or real(*a, **kw))
+    size = src.stat().st_size
+    for name, cutoff in (("below", size + 1), ("at", size)):
+        monkeypatch.setattr(port_ie, "_PROCESS_MIN_BYTES", cutoff)
+        store = STORES["sharded"]["port"](tmp_path / name)
+        try:
+            assert port_ie.import_events(src, store, APP) == 900
+            assert _events(store) == want
+        finally:
+            store.close()
+    assert sent == [src]
+
+
 def _odd_npz(path) -> None:
     """Rows the column-wise path leaves to ``Event.from_json``: a time
     with an offset, missing times and ids, a target type without its

@@ -1,5 +1,5 @@
 """The event stores' incremental scans against the JAX package's, on the
-CPU, and the sharded import's writer threads.
+CPU, and the sharded import's worker processes.
 
 The same seeded events go into the port's and the reference's
 single-file and 4-shard stores.  ``find_rows_since`` / ``find_since``
@@ -9,8 +9,8 @@ vector): paged by ``limit`` with nothing skipped or repeated, with an
 parallel shard scan and a shard that is down under
 ``tolerate_unavailable``; ``max_rowid``, ``high_water_cursor`` and
 ``cursor_lag`` agree, and so does ``scan_new_ratings``.  The sharded
-store's JSON-lines import through four writer threads or four worker
-processes stores the rows and rowids one writer stores; a failed
+store's JSON-lines import through four worker processes stores the
+rows and rowids one writer stores; a failed
 import, by scope or by worker, rolls every shard back.
 """
 
@@ -207,33 +207,44 @@ def test_scan_new_ratings_equals_the_references(tmp_path, kind):
         assert a.values.tobytes() == b.values.tobytes()
 
 
-def _import(tmp_path, writers: str, src):
-    store = ShardedSQLiteEventStore(tmp_path / writers, 4)
-    store.writers = writers
+def _import(tmp_path, name: str, src, processes: bool):
+    """``src`` into a fresh 4-shard store by a worker process a shard,
+    or by one writer (the store then offers the workers no files)."""
+    store = ShardedSQLiteEventStore(tmp_path / name, 4)
+    if not processes:
+        store.import_shard_files = lambda: None
     counts = {}
     assert import_events(src, store, 1, counts=counts) == 600
     return store, counts
 
 
-@pytest.mark.parametrize("writers", ["threads", "processes"])
-def test_parallel_writers_store_what_one_writer_stores(tmp_path, writers,
-                                                      monkeypatch):
-    """The JSON-lines import (native rows and re-parsed lines mixed)
-    through four writer threads, or four worker processes, and through
-    one writer: every shard holds the same rows under the same rowids,
-    and the branch counts agree."""
-    monkeypatch.setattr(import_export, "_PROCESS_MIN_BYTES", 0)
-    specs = _specs(8, 600)
+def _events_file(tmp_path, seed: int):
+    """600 events as JSON lines, every 7th with an escape that sends it
+    through ``Event.from_json``."""
     src = tmp_path / "events.jsonl"
     with open(src, "w", encoding="utf-8") as f:
-        for k, x in enumerate(specs):
+        for k, x in enumerate(_specs(seed, 600)):
             line = json.dumps(Event(**x).to_json())
-            if k % 7 == 0:  # an escape: this line takes Event.from_json
+            if k % 7 == 0:
                 line = line.replace('"entityId": "', '"entityId": "\\u0075', 1)
             f.write(line + "\n")
-    parallel, counts = _import(tmp_path, writers, src)
+    return src
+
+
+@pytest.mark.parametrize("chunk", ["processes", "processes-4kib-blocks"])
+def test_parallel_writers_store_what_one_writer_stores(tmp_path, chunk,
+                                                      monkeypatch):
+    """The JSON-lines import (native rows and re-parsed lines mixed)
+    through four worker processes, fed the file in one block or in 4 KiB
+    blocks, and through one writer: every shard holds the same rows
+    under the same rowids, and the branch counts agree."""
+    monkeypatch.setattr(import_export, "_PROCESS_MIN_BYTES", 0)
+    if chunk.endswith("blocks"):
+        monkeypatch.setattr(import_export, "_NATIVE_CHUNK", 4096)
+    src = _events_file(tmp_path, 8)
+    parallel, counts = _import(tmp_path, "parallel", src, True)
     assert counts["python"] > 0 and counts["native"] > 0
-    one, one_counts = _import(tmp_path, "one", src)
+    one, one_counts = _import(tmp_path, "one", src, False)
     assert counts == one_counts
     for a, b in zip(parallel.shards, one.shards):
         rows_a, _ = a.find_rows_since(1)
@@ -253,7 +264,7 @@ def test_a_failed_worker_import_rolls_back_every_shard(tmp_path,
     with pytest.raises(EventValidationError):
         import_events(src, store, 1)
     one = ShardedSQLiteEventStore(tmp_path / "one", 4)
-    one.writers = "one"
+    one.import_shard_files = lambda: None
     with pytest.raises(EventValidationError):
         import_events(src, one, 1)
     assert store.max_rowid(1) == one.max_rowid(1) == 0
