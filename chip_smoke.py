@@ -13,7 +13,7 @@ float64 solve), both forms of the fused ALS kernel ("taa" and "dma")
 with the second pass of a split bucket, and the three gather probes,
 whose launch path it takes apart step by step at the probe shape.
 It builds the native host runtime (``build/native/``, ``g++``) beside
-the kernels.  Then it drives six main paths through the entry points a
+the kernels.  Then it drives seven main paths through the entry points a
 user calls, each with every launch counter set to 0 just before it and
 read just after it; a kernel its path did not launch fails the run:
 
@@ -56,15 +56,29 @@ read just after it; a kernel its path did not launch fails the run:
   replica's reply for folded users against an in-process ``predict`` on
   the model and the chain, and the freshness from an import to the
   first fresh reply through the router is timed;
+* hive: on that store after foldin, a second app (``beta``, at
+  MovieLens-100K's counts) imported and trained twice through the
+  console (``"fused"``, rank 64: the path's kernels), then four tenants
+  (phase cli's instance as the anchor, phase foldin's with its delta
+  chain, beta's two) in one ``EngineServer`` with a ``TenantRegistry``:
+  sticky routing by the hash rule, the fold-in tenant answering as
+  phase foldin did, the shared batcher mixing tenants, fair sharing
+  under a flood, breaker and quota isolation, LRU eviction under a
+  memory budget with ``torch.cuda.memory_allocated`` falling by the
+  evicted tenant's device tables and its reload with the chain applied,
+  per-variant attribution and online eval, and the SPRT autopilot
+  concluding beta's experiment through ``POST /tenants/weights``; then
+  ``deploy --multi --memory-budget --autopilot on`` as a process;
 * pio: MovieLens-1M-shaped events (6,040 x 3,706 x 1,000,209) into the
   SQLite event store of a fresh ``$PIO_TPU_HOME`` through the REST event
   server (one with the group-commit WAL) and ``import_events`` →
   ``run_train`` (``fused_gather="auto"``, which ranks the fused kernel's
   forms with the gather probe kernels) → ``EngineServer`` answering solo
   and concurrent ``POST /queries.json`` like an in-process ``predict``,
-  then (phase formats) the ``.npz`` and Parquet exports and imports
-  through the console and ``import_ratings_csv`` of a MovieLens file,
-  each new app's ratings held against the synthetic triples, then the
+  then (phase formats, on the first 200,000 of those ratings) the
+  ``.npz`` and Parquet exports and imports through the console and
+  ``import_ratings_csv`` of a MovieLens file, each new app's ratings
+  held against the synthetic triples, then the
   eval sweep on that store sequentially and with ``--parallelism 2``,
   which must agree;
 * probe smoke: ``gather_probe.smoke``, the probe module's own entry
@@ -121,7 +135,8 @@ lines), with no result line.
 trains the ML-20M ratings in process, deploys the instance twice (the
 default recording and ``--no-metrics``) and loads each from 64 clients
 in 5 alternating turns, printing each turn and each arm's median and
-spread, with no result line.
+spread, then the recording arm's time beyond the predict window at 4
+clients in 5 light loads, with no result line.
 """
 
 from __future__ import annotations
@@ -2573,7 +2588,7 @@ def phase_pio(torch, cli_views: dict) -> dict:
         # the other import and export formats on this store (no kernel)
         _build.reset_launches()
         t0 = time.perf_counter()
-        formats = phase_formats(storage, app.id, u, i, v)
+        formats = phase_formats(storage, u, i, v)
         formats["launches"] = dict(_build.LAUNCHES)
         formats["s"] = time.perf_counter() - t0
         # the evaluation sweep, sequential and parallel, on this store
@@ -3163,6 +3178,27 @@ def obs_cli_train(store, iid: str, out_views: dict) -> None:
         "reconcile_err": recon})
 
 
+def light_segment_extra_ms(port: int, query: dict, state=None) -> float:
+    """pulse_smoke's overhead bound is per request at 4 clients: the
+    handler window beyond the predict window (the reply's bookkeeping
+    and socket write) over a light load of 128 queries, as deltas of the
+    serving segments' and the latency histogram's sums (``state``: the
+    ``/metrics`` before the load, scraped here when not given)."""
+    if state is None:
+        state = _scrape(port)[1]
+
+    def sums(st):
+        (lat,) = _children(st, "pio_query_latency_seconds").values()
+        return lat["hist"]["sum"], sum(c["hist"]["sum"] for c in _children(
+            st, "pio_serve_segment_seconds").values())
+
+    lat0, seg0 = sums(state)
+    light = [query] * 128
+    _post_timed(port, "/queries.json", light, 4)
+    lat1, seg1 = sums(_scrape(port)[1])
+    return ((seg1 - seg0) - (lat1 - lat0)) / len(light) * 1e3
+
+
 def obs_deploy(torch, port: int, n_answered: int, query: dict,
                telemetry_dir) -> dict:
     """A ``deploy`` process after its load (obs_smoke 1, 3; pulse_smoke
@@ -3190,17 +3226,7 @@ def obs_deploy(torch, port: int, n_answered: int, query: dict,
     seg_counts = {s: segs[s]["count"] for s in SERVE_SEGMENTS}
     seg_sum = sum(h["sum"] for h in segs.values())
     extra_ms = (seg_sum - hist["sum"]) / max(hist["count"], 1) * 1e3
-    # pulse_smoke's overhead bound is per request at 4 clients: the
-    # handler window beyond the predict window (the socket write) over a
-    # light load, as deltas of the same histograms
-    light = [query] * 128
-    _post_timed(port, "/queries.json", light, 4)
-    _, after = _scrape(port)
-    (lat2,) = _children(after, "pio_query_latency_seconds").values()
-    seg2 = sum(c["hist"]["sum"] for c in _children(
-        after, "pio_serve_segment_seconds").values())
-    light_extra_ms = ((seg2 - seg_sum) - (lat2["hist"]["sum"] - hist["sum"])
-                      ) / len(light) * 1e3
+    light_extra_ms = light_segment_extra_ms(port, query, state)
     (bs,) = _children(state, "pio_microbatch_batch_size").values()
     mem = {dict(k)["stat"]: c["value"] for k, c in
            _children(state, "pio_device_memory_bytes").items()
@@ -3620,16 +3646,22 @@ def _wait_for(pred, timeout: float, what: str, step: float = 0.1):
         time.sleep(step)
 
 
-def phase_formats(storage, app_id: int, u, i, v) -> dict:
-    """The other import and export formats at ML-1M, on the store of phase
-    pio (its ``ml1m`` app: 1,000,209 rate events and 3,706 item ``$set``
-    events): the console's ``export`` to ``.npz`` and to Parquet, each
-    file imported by the console's ``import`` into an app of its own, and
-    the deduplicated ratings written as a MovieLens ``::`` file and
-    imported by ``import_ratings_csv``; each new app's ``find_ratings``
-    is held bit for bit against the synthetic triples.  Without pyarrow
-    on this host the console's Parquet export must fail with the
-    reference's ``ImportError``.  Each export and import is timed."""
+# phase formats' depth: the first ratings of the ML-1M draw
+FORMATS_RATINGS = 200_000
+
+
+def phase_formats(storage, u, i, v) -> dict:
+    """The other import and export formats on the store of phase pio, at
+    a cut depth: the first ``FORMATS_RATINGS`` of its ML-1M ratings, as
+    JSON lines through the console's ``import`` into an app of their own
+    (``ml1m-head``) → the console's ``export`` to ``.npz`` and to
+    Parquet, each file imported by the console's ``import`` into an app
+    of its own, and the deduplicated ratings written as a MovieLens
+    ``::`` file and imported by ``import_ratings_csv``; each new app's
+    ``find_ratings`` is held bit for bit against the synthetic triples.
+    Without pyarrow on this host the console's Parquet export must fail
+    with the reference's ``ImportError``.  Each export and import is
+    timed."""
     import tempfile
     from pathlib import Path
 
@@ -3643,12 +3675,24 @@ def phase_formats(storage, app_id: int, u, i, v) -> dict:
         have_pyarrow = False
     es = storage.get_event_store()
     md = storage.get_metadata()
-    n_events = ML1M_RATINGS + ML1M_ITEMS
+    n_events = FORMATS_RATINGS
+    u, i, v = u[:n_events], i[:n_events], v[:n_events]
     want = expected_ratings(u, i, v, ML1M_ITEMS)
     tmp = Path(tempfile.mkdtemp(prefix="pio_formats_"))
     secs, sizes = {}, {}
     files = {"npz": tmp / "ml1m.npz", "parquet": tmp / "ml1m.parquet"}
     try:
+        src = tmp / "head.jsonl"
+        with open(src, "wb") as f:
+            write_rate_lines(f, u, i, v, 0)
+        cli(["app", "new", "ml1m-head"], storage)
+        app_id = md.app_get_by_name("ml1m-head").id
+        out = cli(["import", "--appid", str(app_id), "--input", str(src)],
+                  storage)
+        if out != f"Imported {n_events} events.\n":
+            raise AssertionError(f"import of the head: {out!r}")
+        same_ratings(es.find_ratings(app_id), want,
+                     "the head of ML-1M through JSON lines")
         for fmt, path in files.items():
             argv = ["export", "--appid", str(app_id), "--output", str(path)]
             if fmt == "parquet" and not have_pyarrow:
@@ -3702,9 +3746,9 @@ def phase_formats(storage, app_id: int, u, i, v) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     rows = {k: len(want.rating) if k == "import csv" else n_events
             for k in secs}
-    log("phase formats ML-1M: " + "; ".join(
-        f"{k} {t:.2f} s ({rows[k] / t:,.0f} events/s)"
-        for k, t in secs.items())
+    log(f"phase formats (the first {n_events:,} ML-1M ratings): "
+        + "; ".join(f"{k} {t:.2f} s ({rows[k] / t:,.0f} events/s)"
+                    for k, t in secs.items())
         + f"; files MB {({k: round(m, 1) for k, m in sizes.items()})}; "
         f"pyarrow {'present' if have_pyarrow else 'absent'}; every "
         f"imported app's find_ratings equals the synthetic triples")
@@ -4270,6 +4314,12 @@ def phase_foldin(torch, store: StoreHome, cli_out: dict) -> dict:
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
         solve_mod.spd_solve_batched = solve_fn
+        # what phase hive's tenant of this instance must answer: the
+        # model and every link the runner published
+        replies = {u: algo.predict(runner.model, Query(user=u, num=10))
+                   .to_json() for u in folded + [f"fresh{k}" for k in
+                                                 range(FOLDIN_FRESH)]}
+        links = runner.seq
         if "Undeployed" not in cli(["undeploy", "--port", str(port)], st):
             proc.fail("was not undeployed")
         try:
@@ -4303,7 +4353,8 @@ def phase_foldin(torch, store: StoreHome, cli_out: dict) -> dict:
         f"median {float(np.median(fresh_s)):.3f} s; fold-in launches "
         f"{launches}; phase {phase_s:.1f} s")
     return {"launches": launches, "gj": gj, "phase_s": phase_s,
-            "train_launches": train_launches}
+            "train_launches": train_launches, "iid": iid,
+            "engine_json": str(ej), "replies": replies, "links": links}
 
 
 def foldin_gj_shapes(torch, systems: dict) -> list:
@@ -4349,6 +4400,589 @@ def foldin_gj_shapes(torch, systems: dict) -> list:
     return out
 
 
+# phase hive: tenancy and experiments at ML-20M width, after phase foldin
+# (it writes to the store).  The second app has MovieLens-100K's counts
+HIVE_USERS, HIVE_ITEMS, HIVE_RATINGS = 943, 1_682, 100_000
+HIVE_LAMBDAS = {"control": 0.01, "treatment": 0.1}
+HIVE_SALT = "hive-chip"
+# the fold-in tenant's quota (the quota stage's 429s) and the breaker of
+# every tenant (3 failures open it, 1 s before it lets a probe through)
+HIVE_QUOTA_QPS, HIVE_QUOTA_BURST = 20.0, 40.0
+HIVE_BREAKER = dict(breaker_failures=3, breaker_reset_s=1.0)
+# the reference smoke's bound on the sibling's p99 under the flood
+HIVE_FLOOD_P99_MS = 1500.0
+# the autopilot's knobs, and the conversion rates its gap is seeded at
+HIVE_PILOT = dict(min_samples=60, max_step=0.10, min_weight=0.05,
+                  min_lift=0.20)
+HIVE_PILOT_RATES = {"control": 0.1, "treatment": 0.5}
+# phase hive's own limit
+HIVE_PHASE_LIMIT_S = 90.0
+
+
+def plain_variant(salt: str, app: str, user: str, weights: dict) -> str:
+    """A user's variant by the documented rule, computed here on its
+    own: the first 8 bytes of SHA-256 of ``salt \\0 app \\0 user`` as a
+    big-endian fraction of 2^64, placed on the cumulative weights of the
+    variants in name order."""
+    import hashlib
+
+    r = int.from_bytes(hashlib.sha256(
+        f"{salt}\x00{app}\x00{user}".encode()).digest()[:8], "big") / 2 ** 64
+    total, acc = sum(weights.values()), 0.0
+    for name in sorted(weights):
+        acc += weights[name] / total
+        if r < acc:
+            return name
+    return sorted(weights)[-1]
+
+
+def _same_items(got: dict, want: dict, what: str) -> None:
+    """A tenant's reply against an in-process ``predict``: the same items
+    in the same order, scores within 1e-4 of their scale."""
+    g, w = got["itemScores"], want["itemScores"]
+    scale = max([abs(s["score"]) for s in w] + [1.0])
+    if [s["item"] for s in g] != [s["item"] for s in w] or any(
+            abs(a["score"] - b["score"]) > 1e-4 * scale
+            for a, b in zip(g, w)):
+        raise AssertionError(f"{what}: {g} where predict gives {w}")
+
+
+def _cuda_bytes(models) -> int:
+    """Bytes of the CUDA tensors the models hold (their device tables)."""
+    import torch
+
+    return sum(t.nbytes for m in models for t in vars(m).values()
+               if isinstance(t, torch.Tensor) and t.is_cuda)
+
+
+def phase_hive(torch, store: StoreHome, cli_out: dict,
+               foldin_out: dict) -> dict:
+    """Tenancy and experiments at ML-20M width on the 4-shard store,
+    after phase foldin (it writes to the store).  A second app, ``beta``,
+    gets MovieLens-100K's counts (``HIVE_USERS`` x ``HIVE_ITEMS`` x
+    ``HIVE_RATINGS`` from ``synth_ratings``, seed 1) through the
+    console's ``import`` and two console ``train``s at rank 64 (lambda
+    0.01 and 0.1, ``"fused"``: the launch counts are set to 0 just before
+    them).  Four tenants in one tenants.json: ``ml20m/control`` (phase
+    cli's instance, the anchor), ``ml20m/treatment`` (phase foldin's
+    instance with its delta chain; under a quota), ``beta/control`` and
+    ``beta/treatment``.  An ``EngineServer`` in this process hosts them
+    (registry from the console's ``_build_tenant_registry``, feedback to
+    an event server, online eval every 0.5 s) and the stages of the
+    reference's ``tools/hive_smoke.py`` and ``tools/pilot_smoke.py``
+    run against it, each set of checks one ``obs`` line: routing
+    (sticky, and the plain hash rule's variant), the fold-in tenant
+    answering phase foldin's users as that phase did, the shared
+    batcher mixing tenants, fair sharing under an 8-worker flood, breaker
+    and quota isolation, eviction on the card (LRU order, an eviction
+    under traffic with no failed request, ``torch.cuda.memory_allocated``
+    falling by 90% of the evicted tenant's device bytes, its reload with
+    the chain applied), attribution and online eval, and the autopilot
+    concluding beta's experiment through real ``POST /tenants/weights``
+    steps.  Last, ``deploy --multi tenants.json --memory-budget B
+    --autopilot on`` as a process: one query a tenant, ``/debug/tenants``
+    and ``/debug/experiments``, ``undeploy``.  The phase fails past
+    ``HIVE_PHASE_LIMIT_S``."""
+    import argparse
+    import weakref
+    from pathlib import Path
+
+    from predictionio_tpu_torch.cli.main import (
+        _build_tenant_registry, load_engine_from_variant,
+    )
+    from predictionio_tpu_torch.controller import WorkflowContext
+    from predictionio_tpu_torch.obs.runlog import read_manifest, runs_root
+    from predictionio_tpu_torch.ops import _build, gather_probe
+    from predictionio_tpu_torch.resilience import faults
+    from predictionio_tpu_torch.server import EngineServer, ServerConfig
+    from predictionio_tpu_torch.server.event_server import (
+        EventServer, EventServerConfig,
+    )
+    from predictionio_tpu_torch.tenancy.autopilot import (
+        STATE_CONCLUDED, AutopilotConfig,
+    )
+
+    t_phase = time.perf_counter()
+    st = store.storage
+    es = st.get_event_store()
+    md = st.get_metadata()
+    home = Path(store.home)
+    cli(["app", "new", "beta"], st)
+    beta_id = md.app_get_by_name("beta").id
+    beta_key = md.access_key_get_by_app(beta_id)[0].key
+    u, i, v = synth_ratings(HIVE_USERS, HIVE_ITEMS, HIVE_RATINGS, seed=1,
+                            distinct=True)
+    src = home / "beta.jsonl"
+    with open(src, "wb") as f:
+        write_rate_lines(f, u, i, v, 0)
+    t0 = time.perf_counter()
+    out = cli(["import", "--appid", str(beta_id), "--input", str(src)], st)
+    import_s = time.perf_counter() - t0
+    mib = src.stat().st_size / 2 ** 20
+    src.unlink()
+    if out != f"Imported {HIVE_RATINGS} events.\n":
+        raise AssertionError(f"import of beta: {out!r}")
+    # the tenants' engine.json: phase cli's with beta's app and lambda
+    engines = {("ml20m", "control"): cli_out["engine_json"],
+               ("ml20m", "treatment"): foldin_out["engine_json"]}
+    base = json.loads(Path(cli_out["engine_json"]).read_text())
+    gather_probe._ORDER_CACHE.clear()  # a train is a process of its own
+    _build.reset_launches()
+    train_s = {}
+    for variant, lam in HIVE_LAMBDAS.items():
+        doc = json.loads(json.dumps(base))
+        doc["datasource"]["params"]["appName"] = "beta"
+        doc["algorithms"][0]["params"]["lambda"] = lam
+        ej = Path(cli_out["engine_json"]).with_name(f"engine-beta-{variant}"
+                                                    ".json")
+        ej.write_text(json.dumps(doc, indent=2))
+        t0 = time.perf_counter()
+        cli(["train", "--scan-cache", "--engine-json", str(ej)], st)
+        torch.cuda.synchronize()
+        train_s[variant] = time.perf_counter() - t0
+        engines[("beta", variant)] = str(ej)
+    launches = dict(_build.LAUNCHES)
+    iids = {("ml20m", "control"): cli_out["iid"],
+            ("ml20m", "treatment"): foldin_out["iid"]}
+    tenants = []
+    for (app, variant), ej in engines.items():
+        t = {"app": app, "variant": variant, "engineJson": ej, "weight": 0.5}
+        if (app, variant) in iids:
+            t["engineInstanceId"] = iids[app, variant]
+        if (app, variant) == ("ml20m", "treatment"):
+            t.update(quotaQps=HIVE_QUOTA_QPS, quotaBurst=HIVE_QUOTA_BURST)
+        tenants.append(t)
+    manifest = home / "tenants.json"
+    manifest.write_text(json.dumps({"experimentSalt": HIVE_SALT,
+                                    "evalIntervalSec": 0.5,
+                                    "tenants": tenants}, indent=2))
+    A, T = ("ml20m", "control"), ("ml20m", "treatment")
+    C, B = ("beta", "control"), ("beta", "treatment")
+
+    reg = _build_tenant_registry(argparse.Namespace(
+        multi=str(manifest), memory_budget=0, autopilot=None), st)
+    ev = EventServer(st, EventServerConfig(host="127.0.0.1", port=0))
+    ev.start_background()
+    engine, ep, variant = load_engine_from_variant(cli_out["engine_json"])
+    srv = EngineServer(
+        engine, ep, cli_out["iid"],
+        ctx=WorkflowContext(mode="Serving", storage=st),
+        config=ServerConfig(host="127.0.0.1", port=0, feedback=True,
+                            event_server_url=f"http://127.0.0.1:{ev.port}",
+                            access_key=store.key, **HIVE_BREAKER),
+        engine_id=variant.get("id", "default"),
+        engine_variant=cli_out["engine_json"], tenants=reg)
+    srv.start_background()
+    port = srv.port
+    stages, checks, detail = {}, {}, {
+        "beta": {"importSec": import_s, "importMiB": mib,
+                 "trainSec": train_s}}
+
+    def q(app, user, variant=None, num=10):
+        body = {"app": app, "user": user, "num": num}
+        if variant is not None:
+            body["variant"] = variant
+        code, raw, _ = _raw(port, "/queries.json", body, timeout=60)
+        return code, json.loads(raw)
+
+    def drive(app, n, variant=None, users=None):
+        codes, lats = [], []
+        for k in range(n):
+            t0 = time.perf_counter()
+            codes.append(q(app, (users or beta_users)[k % 8],
+                           variant)[0])
+            lats.append(time.perf_counter() - t0)
+        return codes, lats
+
+    beta_users = [user_id(k) for k in range(8)]
+    # 30 users: the fold-in tenant's share of them and phase foldin's
+    # users stay inside its quota's burst
+    ml_users = [user_id(k) for k in range(0, 300, 10)]
+    stage_t = [time.perf_counter()]
+
+    def stage(name):
+        now = time.perf_counter()
+        stages[name] = round(now - stage_t[0], 3)
+        stage_t[0] = now
+
+    try:
+        # routing: sticky, both variants, the documented hash rule
+        assigned = {}
+        for user in ml_users:
+            code, body = q("ml20m", user)
+            if code != 200:
+                raise AssertionError(f"ml20m query: {code} {body}")
+            assigned[user] = body["variant"]
+        weights = {"control": 0.5, "treatment": 0.5}
+        checks["variant_routing_sticky"] = (
+            all(q("ml20m", user)[1]["variant"] == var
+                for user, var in list(assigned.items())[:10])
+            and set(assigned.values()) == {"control", "treatment"})
+        checks["assignment_is_the_hash_rule"] = all(
+            plain_variant(HIVE_SALT, "ml20m", user, weights) == var
+            for user, var in assigned.items())
+        detail["assignmentSplit"] = {
+            x: sum(1 for y in assigned.values() if y == x)
+            for x in ("control", "treatment")}
+        # the fold-in tenant answers phase foldin's users as it did
+        for user, want in foldin_out["replies"].items():
+            code, got = q("ml20m", user, "treatment")
+            if code != 200 or not got["itemScores"]:
+                raise AssertionError(f"fold-in tenant, user {user}: {code}"
+                                     f" {got}")
+            _same_items(got, want, f"fold-in tenant, user {user}")
+        rt = reg.get_runtime(T)
+        checks["foldin_tenant_serves_its_chain"] = (
+            rt.foldin_deltas_applied == foldin_out["links"] >= 3)
+        del rt
+        codes, base_lats = drive("beta", 40)
+        if any(c != 200 for c in codes):
+            raise AssertionError(f"beta queries: {codes}")
+        detail["betaBaselineP50Ms"] = float(np.percentile(base_lats, 50)
+                                            * 1e3)
+        stage("routing")
+
+        # the shared batcher: a claim that mixes tenants
+        core = srv._shared_core
+        mixed0, rounds = core.stats()["mixedBatches"], 0
+        while rounds < 8 and core.stats()["mixedBatches"] <= mixed0:
+            rounds += 1
+            with ThreadPoolExecutor(max_workers=4) as pool:
+                list(pool.map(lambda a: drive(a, 25, users=(
+                    ml_users if a == "ml20m" else beta_users)),
+                    ("ml20m", "beta", "ml20m", "beta")))
+        cs = core.stats()
+        checks["mixed_tenant_batch_observed"] = cs["mixedBatches"] > mixed0
+        detail["sharedBatcher"] = {k: cs[k] for k in (
+            "mixedBatches", "tenantsRegistered", "tenantClaims")}
+        detail["sharedBatcher"]["roundsToMix"] = rounds
+        stage("shared batcher")
+
+        # fair sharing: an 8-worker flood on the anchor, beta sequential
+        stop = threading.Event()
+        flood_codes = []
+
+        def flood():
+            while not stop.is_set():
+                flood_codes.append(q("ml20m", ml_users[3], "control")[0])
+
+        floods = [threading.Thread(target=flood) for _ in range(8)]
+        for t in floods:
+            t.start()
+        time.sleep(0.2)
+        try:
+            b_codes, b_lats = drive("beta", 30)
+        finally:
+            stop.set()
+            for t in floods:
+                t.join(timeout=60)
+        p99 = float(np.percentile(b_lats, 99) * 1e3)
+        checks["sibling_zero_errors_under_flood"] = all(
+            c == 200 for c in b_codes)
+        checks["sibling_p99_bounded_under_flood"] = p99 < HIVE_FLOOD_P99_MS
+        detail["fairSharing"] = {"floodRequests": len(flood_codes),
+                                 "floodCodes": sorted(set(flood_codes)),
+                                 "betaP99Ms": p99}
+        stage("fair sharing")
+
+        # breaker isolation: a fault plan on beta/treatment's dispatch
+        faults.arm("tenant.dispatch:tenant=beta/treatment,exc=fault")
+        try:
+            bt_codes, _ = drive("beta", 12, "treatment")
+            ml_codes = []
+            for k in range(40):
+                bt_codes.append(q("beta", beta_users[k % 8],
+                                  "treatment")[0])
+                ml_codes.append(q("ml20m", ml_users[k % 30])[0])
+        finally:
+            faults.disarm()
+        checks["breaker_opens_and_sheds"] = (
+            bt_codes.count(500) >= 3 and bt_codes.count(503) >= 1
+            and set(bt_codes) <= {500, 503})
+        checks["sibling_unaffected_by_breaker"] = all(
+            c == 200 for c in ml_codes)
+        time.sleep(HIVE_BREAKER["breaker_reset_s"] * 1.2)
+        rec = [q("beta", beta_users[0], "treatment")[0] for _ in range(3)]
+        checks["breaker_recovers_after_reset"] = rec[-1] == 200
+        detail["breaker"] = {"codes": {c: bt_codes.count(c)
+                                       for c in set(bt_codes)},
+                             "recovery": rec}
+        stage("breaker isolation")
+
+        # quota isolation: the fold-in tenant over its quota, its sibling
+        # in the same app clean
+        t_codes, _ = drive("ml20m", 100, "treatment", ml_users)
+        c_codes, _ = drive("ml20m", 20, "control", ml_users)
+        checks["quota_sheds_429"] = 429 in t_codes
+        checks["sibling_unaffected_by_quota"] = all(c == 200
+                                                    for c in c_codes)
+        detail["quota"] = {c: t_codes.count(c) for c in set(t_codes)}
+        stage("quota isolation")
+
+        # eviction on the card
+        for key in (A, T, C, B):
+            reg.get_runtime(key)  # every tenant resident
+        sizes = {k: reg.get_runtime(k).resident_bytes for k in (A, T, C, B)}
+        for key in (B, T, C):
+            reg.get_runtime(key)  # recency: beta/treatment the oldest
+        ev1 = reg.set_memory_budget(sizes[A] + sizes[T]
+                                    + max(sizes[C], sizes[B]) + 1)
+        held = set(reg.resident_keys())
+        reg.get_runtime(T)  # now beta/control is the oldest
+        lru = min((r for k, r in reg._runtimes.items() if k != A),
+                  key=lambda r: r.last_used).key
+        n_ev = reg.evictions
+        code, _ = q("beta", beta_users[1], "treatment")
+        checks["budget_holds_anchor_foldin_and_one_beta"] = (
+            ev1 == [B] and held == {A, T, C})
+        checks["load_evicts_the_lru_non_anchor"] = (
+            code == 200 and lru == C and reg.evictions == n_ev + 1
+            and set(reg.resident_keys()) == {A, T, B})
+        rt = reg.get_runtime(T)
+        dev_bytes, accounted = _cuda_bytes(rt.models), rt.resident_bytes
+        model_ref = weakref.ref(rt.models[0])
+        del rt
+        sizes[B] = reg.get_runtime(B).resident_bytes
+        failures, stop = [], threading.Event()
+
+        def background():
+            k = 0
+            while not stop.is_set():
+                c = q("beta", beta_users[k % 8], "treatment")[0]
+                k += 1
+                if c != 200:
+                    failures.append(c)
+
+        bg = threading.Thread(target=background)
+        bg.start()
+        try:
+            time.sleep(0.2)
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated()
+            ev2 = reg.set_memory_budget(sizes[A] + sizes[B] + 1)
+            torch.cuda.synchronize()
+            m1 = torch.cuda.memory_allocated()
+            freed_at_once = model_ref() is None
+            time.sleep(0.3)
+        finally:
+            stop.set()
+            bg.join(timeout=60)
+        checks["shrink_evicts_the_foldin_tenant"] = ev2 == [T]
+        checks["eviction_zero_failed_requests"] = not failures
+        checks["evicted_model_freed_without_gc"] = freed_at_once
+        checks["cuda_memory_falls_by_90pct_of_device_bytes"] = (
+            m0 - m1 >= 0.9 * dev_bytes > 0)
+        reg.set_memory_budget(0)
+        t0 = time.perf_counter()
+        for user, want in foldin_out["replies"].items():
+            code, got = q("ml20m", user, "treatment")
+            if code != 200:
+                raise AssertionError(f"reloaded fold-in tenant: {code}")
+            _same_items(got, want, f"reloaded fold-in tenant, user {user}")
+        reload_s = time.perf_counter() - t0
+        rt = reg.get_runtime(T)
+        checks["evicted_tenant_reloads_with_its_chain"] = (
+            rt.foldin_deltas_applied == foldin_out["links"])
+        del rt
+        detail["eviction"] = {
+            "residentBytes": {"/".join(k): b for k, b in sizes.items()},
+            "evicted": ["/".join(k) for k in ev1 + ev2],
+            "lru": "/".join(lru), "deviceBytes": dev_bytes,
+            "accountedBytes": accounted, "allocatedBefore": m0,
+            "allocatedAfter": m1, "freed": m0 - m1,
+            "backgroundFailures": failures, "reloadAndQueriesSec": reload_s,
+            "summary": reg.summary()}
+        stage("eviction")
+
+        # attribution and online eval on beta
+        conversions = {"control": 5, "treatment": 3}
+        for var, n in conversions.items():
+            for k in range(n):
+                code = _raw(ev.port, f"/events.json?accessKey={beta_key}", {
+                    "event": "click", "entityType": "user",
+                    "entityId": beta_users[k], "targetEntityType": "item",
+                    "targetEntityId": item_id(1),
+                    "properties": {"variant": var}})[0]
+                if code != 201:
+                    raise AssertionError(f"conversion write: {code}")
+
+        def tagged():
+            got = [e for e in es.find(beta_id, entity_type="pio_pr",
+                                      limit=50)
+                   if e.properties.to_json().get("variant")]
+            return got if len(got) >= 5 else None
+
+        fb = _wait_for(tagged, 30, "variant-tagged feedback events")
+
+        def counted():
+            snap = reg.refresh_online_eval(es)
+            return snap if all(
+                snap.get(f"beta/{var}", {}).get("conversions") == n
+                for var, n in conversions.items()) else None
+
+        snap = _wait_for(counted, 60, "beta's conversions in online eval",
+                         0.0)
+        checks["feedback_events_variant_tagged"] = {
+            e.properties.to_json()["variant"] for e in fb} <= {
+            "control", "treatment"}
+        checks["online_eval_counts_conversions"] = (
+            snap["beta/control"]["impressions"] > 0
+            and 0.0 < snap["beta/control"]["rate"] <= 1.0)
+        metrics = _raw(port, "/metrics")[1].decode()
+        checks["metrics_export_variant_families"] = all(f in metrics for f in (
+            'pio_variant_requests_total{app="beta"',
+            'pio_variant_feedback_total{app="beta"',
+            'pio_variant_outcome_rate{app="beta"',
+            'pio_tenant_queries_total{app="ml20m"',
+            "pio_tenant_resident_bytes",
+            "pio_microbatch_tenants_per_batch_bucket"))
+
+        def bucket(le):
+            for ln in metrics.splitlines():
+                if ln.startswith("pio_microbatch_tenants_per_batch_bucket"
+                                 f'{{le="{le}"}}'):
+                    return float(ln.rsplit(" ", 1)[1])
+            return None
+
+        checks["tenants_per_batch_histogram_mixed"] = (
+            bucket("+Inf") or 0.0) > (bucket("1") or 0.0)
+        view = read_manifest(runs_root() / reg.online.manifest_id)
+        checks["tower_manifest_has_variants"] = bool(view and any(
+            c.get("app") == "beta" and c.get("variant") and "rate" in c
+            for c in view["candidates"]))
+        dbg = _http(port, "/debug/tenants")
+        checks["debug_tenants_mounted"] = (
+            dbg["tenants"] == 4 and "experiments" in dbg
+            and "onlineEval" in dbg and bool(dbg.get("deviceMemory")))
+        detail["onlineEval"] = {k: c for k, c in snap.items()
+                                if k.startswith("beta/")}
+        stage("attribution")
+
+        # the autopilot concludes beta's experiment through real POSTs
+        for var in ("control", "treatment"):
+            drive("beta", 80, var)
+        imp = reg.online.snapshot()
+        seed = {}
+        for var, rate in HIVE_PILOT_RATES.items():
+            n = int(rate * imp[f"beta/{var}"]["impressions"]) - \
+                conversions[var]
+            seed[var] = n
+            # one POST an event, as a client reports its conversions
+            # (batches beside the feedback's single writes stall the
+            # sharded store: ROADMAP Queue 3)
+            for k in range(n):
+                code = _raw(ev.port, f"/events.json?accessKey={beta_key}", {
+                    "event": "click", "entityType": "user",
+                    "entityId": beta_users[k % 8],
+                    "targetEntityType": "item",
+                    "targetEntityId": item_id(k % HIVE_ITEMS),
+                    "properties": {"variant": var}})[0]
+                if code != 201:
+                    raise AssertionError(f"seeding conversions: {code}")
+        applies = []
+
+        def apply_over_http(app, w):
+            code, raw, _ = _raw(port, "/tenants/weights",
+                                {"app": app, "weights": w})
+            applies.append({"app": app, "weights": dict(w),
+                            "status": code})
+            if code != 200:
+                raise RuntimeError(f"weights POST answered {code}")
+            return json.loads(raw)
+
+        cfg = AutopilotConfig(**HIVE_PILOT)
+        pilot = reg.enable_autopilot(
+            config=cfg, apply_weights=apply_over_http,
+            manifest_id=f"hive-pilot-{os.getpid()}")
+        concluded = _wait_for(lambda: pilot.payload()["apps"].get(
+            "beta", {}).get("state") == STATE_CONCLUDED, 60,
+            "the autopilot to conclude beta's experiment", 0.1)
+        trail = [0.5] + [a["weights"]["treatment"] for a in applies
+                         if a["app"] == "beta"]
+        served = _http(port, "/debug/tenants")["experiments"]["beta"][
+            "weights"]
+        last = [a for a in applies if a["app"] == "beta"][-1]["weights"]
+        checks["sprt_concludes_experiment"] = concluded
+        checks["ramp_steps_bounded"] = all(
+            abs(b - a) <= cfg.max_step + 1e-6
+            for a, b in zip(trail, trail[1:]))
+        checks["loser_on_min_weight_floor"] = (
+            abs(served["control"] - cfg.min_weight) < 1e-6)
+        checks["weights_applied_via_http"] = (
+            len(trail) >= 4 and served == last
+            and all(a["status"] == 200 for a in applies))
+        exp = _http(port, "/debug/experiments")
+        checks["debug_experiments_mounted"] = (
+            exp["enabled"] is True
+            and exp["apps"]["beta"]["stateName"] == "concluded")
+        decisions = [e for e in read_manifest(
+            runs_root() / pilot.manifest_id)["events"]
+            if e.get("event") == "decision" and e.get("app") == "beta"]
+        checks["tower_manifest_decisions"] = (
+            sum(e["decision"] == "ramp" for e in decisions)
+            == len(trail) - 1 and any(e["decision"] == "conclude"
+                                      for e in decisions))
+        detail["autopilot"] = {"seededConversions": seed,
+                               "treatmentTrail": trail, "ticks":
+                               pilot.payload()["ticks"],
+                               "last": exp["apps"]["beta"]["last"]}
+        stage("autopilot")
+    finally:
+        faults.disarm()
+        srv.stop()
+        ev.stop()
+
+    # the console: one deploy --multi process on the card
+    budget = sizes[A] + sizes[T] + max(sizes[C], sizes[B]) + 1
+    proc = Console(store.home, [
+        "deploy", "--multi", str(manifest), "--memory-budget", str(budget),
+        "--autopilot", "on", "--ip", "127.0.0.1", "--port", "0"],
+        "hive-deploy")
+    try:
+        cport = proc.wait_port()
+        try:
+            codes = [_raw(cport, "/queries.json", {
+                "app": a, "variant": var, "user": beta_users[0] if a == "beta"
+                else ml_users[0], "num": 10})[0] for a, var in (A, T, C, B)]
+            dbg_code, dbg_raw, _ = _raw(cport, "/debug/tenants")
+            exp_code, exp_raw, _ = _raw(cport, "/debug/experiments")
+        except Exception as e:
+            proc.fail(f"failed its queries: {e!r}")
+        boot_s = proc.boot_s
+        if "Undeployed" not in cli(["undeploy", "--port", str(cport)], st):
+            proc.fail("was not undeployed")
+        try:
+            rc = proc.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.fail("did not stop after undeploy")
+    finally:
+        proc.stop()
+    cdbg = json.loads(dbg_raw)
+    checks["console_multi_serves_every_tenant"] = codes == [200] * 4
+    checks["console_debug_routes_answer"] = (
+        dbg_code == exp_code == 200 and cdbg["tenants"] == 4
+        and cdbg["memoryBudgetBytes"] == budget
+        and json.loads(exp_raw)["enabled"] is True)
+    checks["console_undeploy_exits_0"] = rc == 0
+    detail["console"] = {"bootSec": boot_s, "resident": cdbg["resident"],
+                         "evictions": cdbg["evictions"]}
+    stage("console")
+    phase_s = time.perf_counter() - t_phase
+    checks["phase_within_its_limit"] = phase_s <= HIVE_PHASE_LIMIT_S
+    detail.update(stages=stages, phase_s=phase_s,
+                  dropped="dashboard_renders_experiments (the dashboard is "
+                  "ROADMAP Queue 1 item 9)")
+    obs_report("hive", checks, detail)
+    trains = {k: round(x, 2) for k, x in train_s.items()}
+    log(f"phase hive ML-20M + ML-100K: beta import {import_s:.2f} s "
+        f"({mib:.1f} MiB), trains {trains} s; "
+        f"stages {stages} s; evicted ml20m/treatment: allocated "
+        f"{m0:,} -> {m1:,} B (freed {m0 - m1:,} B of its {dev_bytes:,} B "
+        f"on the card, {accounted:,} B accounted); autopilot trail "
+        f"{trail}; launches {launches}; phase {phase_s:.1f} s")
+    return {"launches": launches, "phase_s": phase_s}
+
+
 def edge_ab(torch, turns: int = 5) -> None:
     """Recording on against ``--no-metrics`` at ML-20M from 64 clients, in
     turns: the ML-20M ratings trained in process (rank 64, 2 fused
@@ -4357,7 +4991,9 @@ def edge_ab(torch, turns: int = 5) -> None:
     ``--no-metrics``), a warm-up load on each, then ``turns`` loads of
     1,024 queries on each in the order A B B A A B ...; every reply held
     against an in-process ``predict``.  Prints each turn's queries/s and
-    p50/p99 and each arm's median and spread."""
+    p50/p99 and each arm's median and spread, and the recording arm's
+    time beyond the predict window at 4 clients in ``turns`` light
+    loads."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -4417,6 +5053,14 @@ def edge_ab(torch, turns: int = 5) -> None:
             log(f"edge-ab turn {len(results[name])} {name}: "
                 f"{load['qps']:.1f} queries/s, p50 {p50:.1f} ms p99 "
                 f"{p99:.1f} ms")
+        # the recording arm's per-request time beyond the predict window
+        # at 4 clients (phase cli's segments_reconcile_with_latency bound)
+        extra = [light_segment_extra_ms(ports["recording"], queries[0])
+                 for _ in range(turns)]
+        log(f"edge-ab recording: {turns} light loads of 128 queries from 4 "
+            f"clients, ms beyond the predict window per query: median "
+            f"{np.median(extra):.3f} (min {min(extra):.3f}, max "
+            f"{max(extra):.3f}, all {extra})")
         for name, runs in results.items():
             qps = sorted(r["qps"] for r in runs)
             p50 = sorted(float(np.percentile(r["conc_ms"], 50))
@@ -4842,6 +5486,11 @@ def main(argv: list[str]) -> int:
         # cache (it sets the counts to 0 itself, after its train)
         foldin_out = timed("foldin", phase_foldin, torch, store, cli_out)
         paths["foldin"] = foldin_out["launches"]
+        torch.cuda.empty_cache()
+        # tenancy and experiments on the same store, after fold-in: both
+        # write to it (it sets the counts to 0 itself, before its trains)
+        paths["hive"] = timed("hive", phase_hive, torch, store, cli_out,
+                              foldin_out)["launches"]
     finally:
         store.close()
         for k, val in saved_env.items():
@@ -4875,12 +5524,13 @@ def main(argv: list[str]) -> int:
                 "dma_row_gather"),
         "probe_smoke": ("taa0_gather", "taa1_gather", "dma_row_gather"),
         "foldin": ("gj_solve",),
+        "hive": ("fused_als_reduce", "taa0_gather", "dma_row_gather"),
     }
     for path, names in expected.items():
         for name in names:
             if paths[path][name] <= 0:
                 raise AssertionError(f"path {path} never launched {name}")
-    for path in ("ml20m", "cli", "eval"):
+    for path in ("ml20m", "cli", "eval", "hive"):
         if paths[path]["fused_als"] + paths[path]["fused_als_dma"] <= 0:
             raise AssertionError(f"path {path} never launched the fused "
                                  "kernel")

@@ -18,9 +18,12 @@ shard-owner ``eventserver`` processes over the sharded store, and
 processes.  ``foldin`` folds the events past the watermark into the
 deployed model as a delta link (``--watch`` keeps polling), which
 ``deploy --foldin-poll SEC`` applies in place and ``deploy --replicas N
---push-foldin SEC`` pushes to every replica in turn.  ``adminserver``
-and ``dashboard``, and the options of subsystems the port does not have
-yet (tenancy and multi-process training) are refused before any work with
+--push-foldin SEC`` pushes to every replica in turn.  ``deploy --multi
+TENANTS_JSON`` hosts every tenant of a manifest in one server (tenant 0
+the anchor; ``--memory-budget BYTES`` overrides its budget,
+``--autopilot on|JSON`` runs the SPRT autopilot; with ``--replicas N``
+every replica hosts them all).  ``adminserver`` and ``dashboard``, and
+the options of multi-process training, are refused before any work with
 ``Error: ... is not ported to predictionio_tpu_torch yet (ROADMAP Queue 1
 item N)`` and exit code 1 (:data:`_REFUSED`).  The
 observability options (``--telemetry-dir``, ``--no-metrics``,
@@ -206,9 +209,6 @@ def _is_set(v) -> bool:
 _REFUSED = (
     ("adminserver", None, None, "adminserver", 9),
     ("dashboard", None, None, "dashboard", 9),
-    ("deploy", "multi", _is_set, "deploy --multi (tenancy)", 4),
-    ("deploy", "memory_budget", _is_set, "deploy --memory-budget", 4),
-    ("deploy", "autopilot", _is_set, "deploy --autopilot", 4),
     ("train", "coordinator", _is_set, "train --coordinator", 7),
     ("train", "num_processes", _is_set, "train --num-processes", 7),
     ("train", "process_id", _is_set, "train --process-id", 7),
@@ -508,6 +508,20 @@ def cmd_deploy(args, storage: Storage, device: DeviceLike) -> int:
         return _deploy_fleet(args, device)
     if args.scan_cache:
         os.environ["PIO_TPU_SCAN_CACHE"] = "1"
+    # `deploy --multi tenants.json`: ONE server hosts every tenant of
+    # the manifest.  Tenant 0 is the anchor (loaded now as the server's
+    # own components, pinned); the rest load on their first query under
+    # the registry's memory budget
+    tenants = None
+    if args.multi:
+        tenants = _build_tenant_registry(args, storage)
+        anchor = tenants.spec(tenants.anchor_key)
+        if anchor.engine_name:
+            args.engine = anchor.engine_name
+        else:
+            args.engine_json = anchor.engine_json
+        if anchor.instance_id and not args.engine_instance_id:
+            args.engine_instance_id = anchor.instance_id
     engine, ep, variant, variant_key = _load_engine_for_args(args)
     md = storage.get_metadata()
     engine_id = variant.get("id", "default")
@@ -540,6 +554,7 @@ def cmd_deploy(args, storage: Storage, device: DeviceLike) -> int:
         ),
         engine_id=engine_id,
         engine_variant=variant_key,
+        tenants=tenants,
     )
     # undeploy a stale server holding the port (CreateServer.scala:266-288)
     stale_host = "127.0.0.1" if args.ip == "0.0.0.0" else args.ip
@@ -569,6 +584,49 @@ def cmd_deploy(args, storage: Storage, device: DeviceLike) -> int:
     return 0
 
 
+def _build_tenant_registry(args, storage: Storage):
+    """``--multi`` tenants.json as a ``TenantRegistry``, each tenant's
+    app id and access key resolved from the metadata (the feedback's
+    attribution and accessKey routing need them; a tenant whose app is
+    missing loses both, with a warning).  ``--memory-budget`` overrides
+    the manifest's budget, ``--autopilot`` its ``"autopilot"`` block
+    (``on`` for the defaults, else a JSON object of knobs)."""
+    from ..tenancy import TenantRegistry, load_tenant_manifest
+
+    specs, opts = load_tenant_manifest(args.multi)
+    for spec in specs:
+        if spec.engine_json is None and spec.engine_name is None:
+            _out(f"Error: tenant {spec.key_str} has no engineJson or "
+                 "engine name.")
+            raise SystemExit(1)
+    if args.memory_budget is not None:
+        opts["memory_budget_bytes"] = args.memory_budget
+    if args.autopilot:
+        if args.autopilot.strip().lower() in ("1", "on", "true"):
+            opts["autopilot"] = {}
+        else:
+            try:
+                opts["autopilot"] = json.loads(args.autopilot)
+            except json.JSONDecodeError as e:
+                _out(f"Error: --autopilot is neither 'on' nor valid "
+                     f"JSON: {e}")
+                raise SystemExit(1)
+    md = storage.get_metadata()
+    for spec in specs:
+        app = md.app_get_by_name(spec.app)
+        if app is None:
+            _out(f"Warning: tenant app '{spec.app}' not found in "
+                 "metadata; accessKey routing and online-eval "
+                 "conversion scanning are off for it.")
+            continue
+        spec.app_id = app.id
+        if spec.access_key is None:
+            keys = md.access_key_get_by_app(app.id)
+            if keys:
+                spec.access_key = keys[0].key
+    return TenantRegistry(specs, **opts)
+
+
 def _deploy_fleet(args, device: DeviceLike) -> int:
     """``deploy --replicas N``: spawn N single-replica ``deploy``
     processes on ephemeral ports (on the card, or on the host when the
@@ -578,7 +636,8 @@ def _deploy_fleet(args, device: DeviceLike) -> int:
     replicas are stopped on the way out.  Every replica gets the deploy
     options, the feedback, remote-log and ``--foldin-poll`` ones
     included; ``--push-foldin SEC`` runs the router's rolling fold-in
-    push every SEC seconds.  The fleet's
+    push every SEC seconds, and ``--multi``, ``--memory-budget`` and
+    ``--autopilot`` give every replica the same tenants.  The fleet's
     directory (port files and replica logs) is removed after a clean
     stop; after a failure it stays, and its path is in the replica
     lines."""
@@ -613,6 +672,9 @@ def _deploy_fleet(args, device: DeviceLike) -> int:
         ("--accesskey", args.accesskey),
         ("--log-url", args.log_url),
         ("--log-prefix", args.log_prefix),
+        # every replica hosts the same tenants
+        ("--multi", args.multi),
+        ("--autopilot", args.autopilot),
     ):
         if val:
             # one argument: a value may itself begin with a dash
@@ -624,6 +686,7 @@ def _deploy_fleet(args, device: DeviceLike) -> int:
         ("--breaker-failures", args.breaker_failures),
         ("--breaker-reset", args.breaker_reset),
         ("--foldin-poll", args.foldin_poll),
+        ("--memory-budget", args.memory_budget),
         # every replica arms its own burn-rate gauges too: the router's
         # merged /metrics shows them per replica
         ("--slo-ms", args.slo_ms),
@@ -1380,11 +1443,24 @@ def build_parser() -> argparse.ArgumentParser:
                    "respawned with capped exponential backoff and "
                    "booked in pio_replica_respawns_total)")
     d.add_argument("--multi", metavar="TENANTS_JSON",
-                   help="host every tenant of a manifest (not ported: "
-                   "refused)")
+                   help="host EVERY tenant of this manifest in one "
+                   "process (or one fleet with --replicas): lazy load "
+                   "and LRU eviction under a memory budget, per-tenant "
+                   "breakers, quotas and metrics, and weighted sticky "
+                   "A/B variant routing; tenant 0 is the pinned anchor")
     d.add_argument("--memory-budget", type=float, default=None,
-                   metavar="BYTES")
-    d.add_argument("--autopilot", metavar="ON|JSON")
+                   metavar="BYTES",
+                   help="override the manifest's memoryBudgetBytes "
+                   "(0 = unbounded): resident tenant models are "
+                   "LRU-evicted to stay under it; pinned and in-flight "
+                   "tenants are never evicted")
+    d.add_argument("--autopilot", metavar="ON|JSON",
+                   help="run the SPRT auto-weight controller on the "
+                   "registry's experiments ('on' for the defaults, or "
+                   "a JSON object of knobs: alpha/beta/minLift/"
+                   "minSamples/maxStep/minWeight/burnThreshold; needs "
+                   "--multi); every decision lands in a run manifest "
+                   "and at GET /debug/experiments")
 
     fi = sub.add_parser(
         "foldin",

@@ -10,8 +10,11 @@ pool; :func:`callback_scope` marks the functions that run on the loop).
 
 Responses may complete on any thread: :class:`Responder` is handed to
 the handler and may be called exactly once from wherever the work
-finished; off-loop completions enqueue the rendered bytes and wake the
-selector through a self-pipe.
+finished.  An off-loop completion writes the rendered bytes to the
+socket itself when nothing else is queued on the connection, so a reply
+does not wait for the loop thread to take the interpreter lock; what
+the socket does not take, and the connection's bookkeeping (the next
+pipelined request, a close), go to the loop through a self-pipe.
 
 The class exposes the ``server_address`` / ``serve_forever`` /
 ``shutdown`` / ``server_close`` surface of ``socketserver.BaseServer``,
@@ -124,7 +127,8 @@ class _Conn:
     """Per-connection state: read buffer, parse state, write queue."""
 
     __slots__ = ("sock", "addr", "rbuf", "wbuf", "woff", "busy",
-                 "closing", "tl", "last_activity", "need", "registered")
+                 "closing", "tl", "last_activity", "need", "registered",
+                 "wlock", "closed")
 
     def __init__(self, sock: socket.socket, addr):
         self.sock = sock
@@ -138,6 +142,10 @@ class _Conn:
         self.need = None       # (request head, content-length) mid-body
         self.tl = None         # pulse timeline to finish after the write
         self.registered = selectors.EVENT_READ
+        # held around every send and the close: an off-loop writer never
+        # sends on a socket the loop closed (or on a reused descriptor)
+        self.wlock = threading.Lock()
+        self.closed = False
 
 
 class EventLoopHTTPServer:
@@ -242,7 +250,8 @@ class EventLoopHTTPServer:
             if conn in self._conns:
                 conn.tl = tl
                 conn.closing = conn.closing or close
-                conn.wbuf.append(data)
+                if data:
+                    conn.wbuf.append(data)
                 self._writable(conn)
 
     def _accept(self) -> None:
@@ -302,10 +311,12 @@ class EventLoopHTTPServer:
             self._sel.unregister(conn.sock)
         except (KeyError, ValueError, OSError):
             pass
-        try:
-            conn.sock.close()
-        except OSError:
-            pass
+        with conn.wlock:
+            conn.closed = True
+            try:
+                conn.sock.close()
+            except OSError:
+                pass
 
     def _set_interest(self, conn: _Conn, events: int) -> None:
         if conn.registered == events or conn not in self._conns:
@@ -427,8 +438,11 @@ class EventLoopHTTPServer:
         return "".join(out).encode("iso-8859-1") + body
 
     def _complete(self, conn: _Conn, data: bytes, tl, close: bool) -> None:
-        """Queue a rendered response; thread-safe (a Responder may fire
-        from the batcher dispatcher or the aux pool)."""
+        """Send or queue a rendered response; thread-safe (a Responder
+        may fire from the batcher dispatcher or the aux pool).  Off the
+        loop, the calling thread writes what the socket takes at once
+        and finishes the timeline when that was all of it; the loop gets
+        the rest and the connection's bookkeeping."""
         if threading.current_thread() is self._loop_thread:
             if conn in self._conns:
                 conn.tl = tl
@@ -436,25 +450,52 @@ class EventLoopHTTPServer:
                 conn.wbuf.append(data)
                 self._writable(conn)
             return
+        sent = self._send_now(conn, data)
+        if sent == len(data):
+            data = b""
+            if tl is not None:
+                tl.mark("write")
+                tl.finish()
+                tl = None
+        elif sent:
+            data = data[sent:]
         with self._pending_lock:
             self._pending.append((conn, data, tl, close))
         self._wake()
 
+    @staticmethod
+    def _send_now(conn: _Conn, data: bytes) -> int:
+        """Bytes of ``data`` written from the calling thread: none when
+        the connection is closed, closing or has bytes queued (they go
+        first), or when the socket fails (the loop then finds the
+        fault)."""
+        with conn.wlock:
+            if conn.closed or conn.closing or conn.wbuf:
+                return 0
+            try:
+                return conn.sock.send(data)
+            except OSError:  # BlockingIOError included
+                return 0
+
     def _writable(self, conn: _Conn) -> None:
-        try:
-            while conn.wbuf:
-                buf = conn.wbuf[0]
-                n = conn.sock.send(
-                    memoryview(buf)[conn.woff:] if conn.woff else buf
-                )
-                conn.woff += n
-                if conn.woff < len(buf):
-                    break
-                conn.wbuf.pop(0)
-                conn.woff = 0
-        except (BlockingIOError, InterruptedError):
-            pass
-        except OSError:
+        failed = False
+        with conn.wlock:
+            try:
+                while conn.wbuf and not conn.closed:
+                    buf = conn.wbuf[0]
+                    n = conn.sock.send(
+                        memoryview(buf)[conn.woff:] if conn.woff else buf
+                    )
+                    conn.woff += n
+                    if conn.woff < len(buf):
+                        break
+                    conn.wbuf.pop(0)
+                    conn.woff = 0
+            except (BlockingIOError, InterruptedError):
+                pass
+            except OSError:
+                failed = True
+        if failed:
             self._close_conn(conn)
             return
         if conn.wbuf:

@@ -387,6 +387,10 @@ class MicroBatcher:
                         # the dispatcher itself must survive (a dead one
                         # would wedge every later submit)
                         logger.exception("microbatch dispatcher error")
+                    # the entries carry their tenant's batch_fn (and so
+                    # its model): holding them while idle would keep an
+                    # evicted tenant's tensors alive until the next claim
+                    del batch
             finally:
                 self._dispatcher_alive = False
                 self._cond.notify_all()

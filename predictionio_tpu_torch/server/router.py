@@ -28,6 +28,12 @@ upstream HTTP):
   is applying at any moment, so the fleet never drops below N-1
   serving.  ``push_foldin_s`` (``deploy --replicas N --push-foldin
   SEC``) runs the same walk on a timer.
+* **Tenancy**: ``POST /admin/tenants/weights`` and ``POST
+  /admin/tenants`` are broadcast to every healthy replica (as
+  ``/tenants/weights`` and ``/admin/tenants``), so every replica of a
+  ``deploy --replicas N --multi`` fleet holds the same registry state
+  and assigns every user the same variant; ``GET /debug/tenants``
+  gathers each replica's registry document under its name.
 * **Observability**: the forward histogram, ``router.forward`` and
   ``router.request`` spans, the ``router`` timeline family
   (admission/forward/replica/read/write), the router's own flight
@@ -36,10 +42,7 @@ upstream HTTP):
 
 :class:`Replica`, :class:`ReplicaSupervisor` and the port-file protocol
 (:func:`spawn_port_process`, :func:`wait_for_port_file`) also carry the
-ingest router (``server/ingest_router.py``).  Not ported yet: the
-tenancy broadcasts and fan-in (``/admin/tenants``,
-``/admin/tenants/weights``, ``/debug/tenants``, ROADMAP Queue 1 item
-4); those routes answer 404 naming their item.
+ingest router (``server/ingest_router.py``).
 """
 
 from __future__ import annotations
@@ -110,12 +113,11 @@ SPAWN_TIMEOUT_S = 180.0
 _HEALTH_TIMEOUT_S = 2.0
 _FORWARD_TIMEOUT_S = 30.0
 _FORWARD_THREADS = 16
-# the routes of subsystems the port does not have yet, by ROADMAP Queue 1
-# item: the tenancy broadcasts and fan-in
-_UNPORTED_ROUTES = {
-    ("POST", "/admin/tenants/weights"): ("tenancy", 4),
-    ("POST", "/admin/tenants"): ("tenancy", 4),
-    ("GET", "/debug/tenants"): ("tenancy", 4),
+# the tenancy admin routes the router broadcasts, and each replica's
+# route it posts to
+_BROADCASTS = {
+    "/admin/tenants/weights": "/tenants/weights",
+    "/admin/tenants": "/admin/tenants",
 }
 
 
@@ -672,6 +674,45 @@ class RouterServer(HTTPServerBase):
                     })
         return {"pushed": results}
 
+    def broadcast_post(self, target: str, body: bytes) -> dict:
+        """POST ``body`` to ``target`` on every healthy replica in turn:
+        ``{"pushed": [...]}``, each entry the replica's name and status
+        with its reply's fields, ``skipped`` for an unhealthy one, or
+        the transport error that marked it down."""
+        results = []
+        for r in self.replicas:
+            if not r.healthy:
+                results.append({"replica": r.name, "skipped": "unhealthy"})
+                continue
+            try:
+                status, data, _ = r.request("POST", target, body,
+                                            timeout_s=_FORWARD_TIMEOUT_S)
+                entry = {"replica": r.name, "status": status}
+                try:
+                    entry.update(json.loads(data.decode()))
+                except (json.JSONDecodeError, UnicodeDecodeError):
+                    pass
+                results.append(entry)
+            except Exception as e:
+                r.mark_down(f"{type(e).__name__}: {e}")
+                results.append({"replica": r.name,
+                                 "error": f"{type(e).__name__}: {e}"})
+        return {"pushed": results}
+
+    def gather_tenants(self) -> dict:
+        """Every replica's ``GET /debug/tenants`` document under its
+        name (its status, or its transport error, when it gave none)."""
+        out = {}
+        for r in self.replicas:
+            try:
+                status, data, _ = r.request("GET", "/debug/tenants", None,
+                                            timeout_s=_HEALTH_TIMEOUT_S)
+                out[r.name] = (json.loads(data.decode()) if status == 200
+                               else {"status": status})
+            except Exception as e:
+                out[r.name] = {"error": f"{type(e).__name__}: {e}"}
+        return {"replicas": out}
+
     def _push_loop(self) -> None:
         scope.register_thread_role("push_loop")
         while not self._stop_event.wait(self.config.push_foldin_s):
@@ -964,12 +1005,17 @@ class RouterServer(HTTPServerBase):
             except RuntimeError:
                 respond(503, {"message": "router is stopping"})
             return
-        unported = _UNPORTED_ROUTES.get((req.method, path))
-        if unported is not None:
-            what, item = unported
-            respond(404, {"message": f"{what} is not ported to "
-                          "predictionio_tpu_torch yet (ROADMAP Queue 1 "
-                          f"item {item})"})
+        if req.method == "POST" and path in _BROADCASTS:
+            # a weight update or a tenant's add/remove goes to every
+            # replica: the same registry everywhere assigns every user
+            # the same variant everywhere
+            target, body = _BROADCASTS[path], req.body
+            self._on_pool(respond, lambda: (
+                200, self.broadcast_post(target, body), None))
+            return
+        if req.method == "GET" and path == "/debug/tenants":
+            self._on_pool(respond, lambda: (200, self.gather_tenants(),
+                                            None))
             return
         if req.method == "POST" and path == "/admin/push-foldin":
             # blocking upstream round trips: on the pool

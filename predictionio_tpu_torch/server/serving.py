@@ -17,6 +17,9 @@ reference's `workflow/CreateServer.scala` (`ServerActor` routes
 * ``POST /stop``         — graceful shutdown
 * ``GET  /metrics`` and ``/debug/*`` — the observability mounts
   (``server/http_base.py``)
+* with a tenant registry (``deploy --multi``): ``POST /tenants/weights``
+  and ``POST /admin/tenants`` (the weights and the tenants, live),
+  ``GET /debug/tenants`` and ``GET /debug/experiments``
 
 Two edges answer the port (``ServerConfig.edge``): ``"eventloop"`` (the
 default) is one selector thread (:mod:`.eventloop`) that parses every
@@ -56,7 +59,19 @@ keep failing.  Status JSON then carries ``modelFreshnessSec``,
 ``foldinWatermarkLag``, ``foldinDeltasApplied`` and
 ``foldinBreakerState``, and a query's span ``foldinSeq``.
 
-Not ported yet: tenancy and experiments; their routes answer 404.
+Tenancy (``tenants=``, a :class:`~..tenancy.TenantRegistry`): the
+server's own components are the anchor tenant's; a query naming an
+``app``/``appId``/``accessKey`` (and a ``variant``, or one assigned from
+its ``user``) is routed to its tenant's components, loaded lazily under
+the memory budget, before its decode.  The tenant's quota answers 429
+(``QuotaExceeded``) and its breaker or a failed load 503
+(``TenantUnavailable``); the fault point ``tenant.dispatch`` is scoped
+to a tenant.  Every tenant's batcher is a view on the one shared
+batcher, weighted by its variant's share; the reply carries the
+variant, the feedback event its app and variant, and an online-eval
+thread folds the variant-tagged conversions back out of the store every
+``eval_interval_s`` and ticks the autopilot.  Without a registry those
+routes answer 404.
 """
 
 from __future__ import annotations
@@ -105,6 +120,7 @@ from ..resilience.policy import (
     RetryPolicy,
     deadline_scope,
 )
+from ..tenancy.errors import QuotaExceeded, TenantUnavailable
 from ..workflow.train import prepare_deploy_components
 from .eventloop import EventLoopHTTPServer, callback_scope
 from .http_base import (
@@ -128,6 +144,10 @@ _m_inflight = SERVE_INFLIGHT.child()
 
 # query outcomes, the label values of pio_queries_total
 _STATUSES = ("ok", "bad_request", "timeout", "error", "rejected")
+# pio_engine_queries_total adds the tenant sheds, which
+# pio_queries_total books as "rejected"
+_ENGINE_STATUSES = _STATUSES + ("quota", "shed")
+_TENANT_SHEDS = ("quota", "shed")
 
 # the feedback and remote-log delivery queues' retries: attempts an
 # entry gets while the breaker lets it through, the backoff's base and
@@ -209,14 +229,14 @@ class ServerConfig:
 
 class _QueryCtx:
     """Per-query snapshot shared by the blocking and event-loop paths:
-    the decoded query, its deadline and the components captured under
-    the state lock."""
+    the decoded query, its deadline, the components captured under the
+    state lock (or its tenant's), and the tenant lease it holds."""
 
     __slots__ = ("query_json", "query", "deadline", "algorithms", "models",
-                 "serving", "batcher")
+                 "serving", "batcher", "lease")
 
     def __init__(self, query_json, query, deadline, algorithms, models,
-                 serving, batcher):
+                 serving, batcher, lease=None):
         self.query_json = query_json
         self.query = query
         self.deadline = deadline
@@ -224,6 +244,7 @@ class _QueryCtx:
         self.models = models
         self.serving = serving
         self.batcher = batcher
+        self.lease = lease
 
 
 def _default_query_decoder(engine: Engine, engine_params: EngineParams):
@@ -268,21 +289,46 @@ def _parse_query(body: bytes, query_str: str) -> tuple:
         return None, None, f"bad timeout: {tv[0]!r}"
 
 
+def _outcome(e: BaseException) -> str:
+    """A failed query's outcome: the label of its tenant's and its
+    engine's counters (``pio_queries_total`` books a tenant shed as
+    ``rejected``)."""
+    if isinstance(e, QuotaExceeded):
+        return "quota"
+    if isinstance(e, TenantUnavailable):
+        return "shed"
+    if isinstance(e, AdmissionRejected):
+        return "rejected"
+    if isinstance(e, DeadlineExceeded):
+        return "timeout"
+    if isinstance(e, (KeyError, ValueError, TypeError)):
+        return "bad_request"
+    return "error"
+
+
+# the structured replies of the sheds: (status code, error name)
+_SHED_REPLIES = {
+    # the client is over its tenant's rate, not the server over
+    # capacity: 429, not 503
+    "quota": (429, "QuotaExceeded"),
+    "shed": (503, "TenantUnavailable"),
+    "rejected": (503, "AdmissionRejected"),
+    "timeout": (503, "DeadlineExceeded"),
+}
+
+
 def _error_reply(e: BaseException) -> tuple:
     """``(outcome, code, payload, extra headers)`` answering a failed
-    query, on both edges; the outcome labels ``pio_queries_total``."""
-    if isinstance(e, AdmissionRejected):
-        return ("rejected", 503,
-                {"message": str(e), "error": "AdmissionRejected"},
+    query, on both edges."""
+    status = _outcome(e)
+    if status in _SHED_REPLIES:
+        code, name = _SHED_REPLIES[status]
+        return (status, code, {"message": str(e), "error": name},
                 [("Retry-After", "1")])
-    if isinstance(e, DeadlineExceeded):
-        return ("timeout", 503,
-                {"message": str(e), "error": "DeadlineExceeded"},
-                [("Retry-After", "1")])
-    if isinstance(e, (KeyError, ValueError, TypeError)):
-        return "bad_request", 400, {"message": f"bad query: {e}"}, []
+    if status == "bad_request":
+        return status, 400, {"message": f"bad query: {e}"}, []
     logger.error("query failed", exc_info=e)
-    return "error", 500, {"message": str(e)}, []
+    return status, 500, {"message": str(e)}, []
 
 
 def _warm_components(algorithms, models, warm_max: int) -> None:
@@ -303,8 +349,33 @@ def _warm_components(algorithms, models, warm_max: int) -> None:
                         time.perf_counter() - t0)
 
 
+def _experiments_response(tenants) -> tuple:
+    """``GET /debug/experiments``: the autopilot's live document, a
+    disabled stub when tenancy runs without an autopilot, 404 when there
+    is no tenancy (unless this process installed an autopilot
+    elsewhere).  Returns ``(code, payload)``."""
+    if tenants is None:
+        from ..tenancy.autopilot import autopilot_payload
+
+        doc = autopilot_payload()
+        if doc is not None:
+            return 200, doc
+        return 404, {"message": "tenancy is not enabled (deploy --multi)"}
+    pilot = tenants.autopilot
+    if pilot is not None:
+        return 200, pilot.payload()
+    return 200, {
+        "enabled": False,
+        "weights": {app: tenants.experiment(app).weights()
+                    for app in tenants.apps()},
+        "onlineEval": tenants.online.snapshot(),
+    }
+
+
 class EngineServer(HTTPServerBase):
-    """One deployed engine instance behind an HTTP server."""
+    """One deployed engine instance behind an HTTP server; with
+    ``tenants`` (a :class:`~..tenancy.TenantRegistry`) the host of every
+    tenant of the registry, the instance being the anchor tenant's."""
 
     def __init__(
         self,
@@ -317,6 +388,7 @@ class EngineServer(HTTPServerBase):
         engine_id: str = "default",
         engine_version: str = "1",
         engine_variant: str = "engine.json",
+        tenants=None,
     ):
         self.engine = engine
         self.engine_params = engine_params
@@ -326,6 +398,11 @@ class EngineServer(HTTPServerBase):
         self.engine_id = engine_id
         self.engine_version = engine_version
         self.engine_variant = engine_variant
+        # the registry gets this server's component loader unless the
+        # caller injected its own (prebuilt models in tests)
+        self.tenants = tenants
+        if tenants is not None and tenants.loader is None:
+            tenants.loader = self._tenant_loader
         self.query_decoder = query_decoder or _default_query_decoder(
             engine, engine_params
         )
@@ -358,6 +435,12 @@ class EngineServer(HTTPServerBase):
         if self.config.foldin_poll_s:
             threading.Thread(target=self._foldin_poll_loop, daemon=True,
                              name="foldin-poll").start()
+        # the online eval folds the variant-tagged conversions back out
+        # of the event store on the registry's cadence
+        self._eval_stop = threading.Event()
+        if self.tenants is not None:
+            threading.Thread(target=self._online_eval_loop, daemon=True,
+                             name="hive-eval").start()
         # serving stats (CreateServer.scala:396-398).  Latency is
         # histogram-backed: this instance's private histogram drives the
         # /status percentiles and average, and the same observations feed
@@ -376,7 +459,7 @@ class EngineServer(HTTPServerBase):
         self._m_engine_queries = {
             s: ENGINE_QUERIES_TOTAL.labels(engine=self.engine_name,
                                            status=s)
-            for s in _STATUSES
+            for s in _ENGINE_STATUSES
         }
         self._burn = None
         if self.config.slo_ms:
@@ -456,13 +539,126 @@ class EngineServer(HTTPServerBase):
         # catch up on the delta links already published for this
         # instance: a (re)load must not serve staler than the chain
         self._apply_available_deltas()
+        # the loaded components are the anchor tenant's too (one copy
+        # serves the tenant-less path and the anchor's queries; a reload
+        # advances both)
+        if getattr(self, "tenants", None) is not None:
+            self._adopt_anchor_runtime()
 
-    def _make_batcher(self, algorithms, models):
+    # -- tenants ------------------------------------------------------------
+    def _tenant_breaker(self) -> CircuitBreaker:
+        return CircuitBreaker(
+            failure_threshold=self.config.breaker_failures,
+            reset_timeout_s=self.config.breaker_reset_s,
+        )
+
+    @staticmethod
+    def _tenant_quota(spec):
+        from ..tenancy.quota import TokenBucket
+
+        if spec.quota_qps is None:
+            return None
+        return TokenBucket(spec.quota_qps, spec.quota_burst)
+
+    def _adopt_anchor_runtime(self) -> None:
+        from ..tenancy.registry import TenantRuntime
+
+        spec = self.tenants.spec(self.tenants.anchor_key)
+        with self._lock:
+            rt = TenantRuntime(
+                spec, self.engine, self.engine_params, self.instance_id,
+                self.algorithms, self.models, self.serving, self.batcher,
+                self.query_decoder, self.ctx,
+                breaker=self._tenant_breaker(),
+                quota=self._tenant_quota(spec),
+            )
+        self.tenants.adopt_anchor(rt)
+
+    def _resolve_tenant_components(self, spec):
+        """``(engine, engine_params, instance_id, ctx)`` of a spec:
+        prebuilt objects win, then a registered engine name, else the
+        engine.json is loaded; the latest COMPLETED instance resolves as
+        ``deploy`` resolves it."""
+        ctx = spec.ctx or self.ctx
+        if spec.engine is not None:
+            if spec.instance_id is None:
+                raise ValueError(
+                    f"tenant {spec.key_str}: a prebuilt engine needs an "
+                    "instance_id"
+                )
+            return spec.engine, spec.engine_params, spec.instance_id, ctx
+        if spec.engine_name:
+            from .. import engines
+
+            engine, ep, variant = engines.resolve(spec.engine_name)
+            variant_key = engines.get_engine_spec(
+                spec.engine_name).instance_variant_key()
+        else:
+            from ..cli.main import load_engine_from_variant
+
+            engine, ep, variant = load_engine_from_variant(spec.engine_json)
+            variant_key = str(spec.engine_json)
+        iid = spec.instance_id
+        if iid is None:
+            latest = ctx.storage.get_metadata(
+            ).engine_instance_get_latest_completed(
+                variant.get("id", "default"), "1", variant_key)
+            if latest is None:
+                raise LookupError(
+                    f"tenant {spec.key_str}: no completed engine "
+                    f"instance for {variant_key}; train it first"
+                )
+            iid = latest.id
+        return engine, ep, iid, ctx
+
+    def _tenant_loader(self, spec):
+        """One tenant's serving runtime, built as ``_load`` builds the
+        anchor's (components, batcher view, warm-up, decoder, and the
+        links of its delta chain applied) plus its own breaker and
+        quota.  The runtime counts its bytes after the warm-up, so the
+        device tables the warm-up makes are in them."""
+        from ..tenancy.registry import TenantRuntime
+
+        engine, ep, iid, ctx = self._resolve_tenant_components(spec)
+        algorithms, models, serving = prepare_deploy_components(
+            engine, ep, iid, ctx=ctx)
+        batcher = self._make_batcher(algorithms, models, tenant=spec.key)
+        warm_max = self.config.microbatch_max if batcher is not None else 0
+        _warm_components(algorithms, models, warm_max)
+        rt = TenantRuntime(
+            spec, engine, ep, iid, algorithms, models, serving, batcher,
+            _default_query_decoder(engine, ep), ctx,
+            breaker=self._tenant_breaker(),
+            quota=self._tenant_quota(spec),
+        )
+        self.tenants.catch_up(rt)
+        return rt
+
+    def _online_eval_loop(self) -> None:
+        """Every ``eval_interval_s`` (at least 0.5 s): fold the new
+        conversions into the online-eval table, then one autopilot tick
+        (a no-op without an autopilot; it never raises)."""
+        scope.register_thread_role("hive_eval")
+        interval = max(float(self.tenants.eval_interval_s), 0.5)
+        while not self._eval_stop.wait(interval):
+            try:
+                self.tenants.refresh_online_eval(
+                    self.ctx.storage.get_event_store())
+            except Exception:
+                logger.exception("online-eval refresh failed")
+            try:
+                self.tenants.autopilot_tick()
+            except Exception:
+                logger.exception("autopilot tick failed")
+
+    def _make_batcher(self, algorithms, models, tenant=None):
         """The query micro-batcher for this (algorithms, models) snapshot
         (a view on the server's SharedBatcher, or a private
         MicroBatcher), or None when batching cannot help: ``"auto"``
         batches only when every algorithm overrides ``batch_predict``
-        (the base class just maps ``predict``)."""
+        (the base class just maps ``predict``).  A tenant's view claims
+        by its variant's share of its app's weights, read at claim time
+        (a ``POST /tenants/weights`` reshapes the next claim)."""
         mode = self.config.microbatch
         if mode == "off":
             return None
@@ -501,7 +697,16 @@ class EngineServer(HTTPServerBase):
                     max_batch=self.config.microbatch_max, pad_batches=True,
                 )
             core = self._shared_core
-        return SharedBatcherView(core, "__anchor__", batch_fn)
+        tenants = getattr(self, "tenants", None)
+        if tenant is None:
+            tenant = (tenants.anchor_key if tenants is not None
+                      else "__anchor__")
+        weight_fn = None
+        if tenants is not None:
+            def weight_fn(key=tenant):
+                return tenants.deficit_weight(key)
+
+        return SharedBatcherView(core, tenant, batch_fn, weight_fn=weight_fn)
 
     def reload(self) -> str:
         """Swap in the latest COMPLETED instance (GET /reload).  A failed
@@ -596,6 +801,11 @@ class EngineServer(HTTPServerBase):
             try:
                 with deadline_scope(Deadline.after(max(interval, 1.0))):
                     self._apply_available_deltas()
+                    if self.tenants is not None:
+                        # every resident tenant's chain; one tenant's
+                        # error is booked on that tenant and never pauses
+                        # the others
+                        self.tenants.apply_available_deltas()
             except Exception as e:
                 logger.exception("fold-in delta apply failed; serving "
                                  "keeps the stale model")
@@ -651,35 +861,153 @@ class EngineServer(HTTPServerBase):
 
     def _blocking_foldin_apply(self):
         """``POST /foldin/apply``: apply the pending delta links now
-        (the router's rolling push calls this on each replica in turn);
-        ``(code, payload, ctype)`` with the applied count and the
-        status fields."""
-        out = {"applied": self._apply_available_deltas()}
+        (the router's rolling push calls this on each replica in turn),
+        every resident tenant's too; ``(code, payload, ctype)`` with the
+        applied count and the status fields."""
+        n = self._apply_available_deltas()
+        if self.tenants is not None:
+            n += self.tenants.apply_available_deltas()
+        out = {"applied": n}
         out.update(self._foldin_status())
         return 200, out, "application/json"
+
+    def _blocking_set_weights(self, raw: bytes):
+        """``POST /tenants/weights``: hot-update an app's variant
+        weights, ``{"app": ..., "weights": {"variant": w, ...}}`` (the
+        router broadcasts it to every replica)."""
+        js = "application/json"
+        if self.tenants is None:
+            return 404, {"message": "tenancy is not enabled"}, js
+        try:
+            doc = json.loads(raw.decode() or "{}")
+        except (json.JSONDecodeError, UnicodeDecodeError) as e:
+            return 400, {"message": f"invalid JSON: {e}"}, js
+        app = doc.get("app")
+        weights = doc.get("weights")
+        if not app or not isinstance(weights, dict) or not weights:
+            return 400, {"message": "body needs app + weights{}"}, js
+        try:
+            snap = self.tenants.set_weights(str(app), weights)
+        except KeyError as e:
+            return 404, {"message": str(e)}, js
+        except (TypeError, ValueError) as e:
+            return 400, {"message": str(e)}, js
+        return 200, {"updated": snap}, js
+
+    def _blocking_admin_tenants(self, raw: bytes):
+        """``POST /admin/tenants``: ``{"action": "add", "tenant":
+        {...a manifest entry...}}`` registers a tenant without a
+        redeploy (its model loads on its first query, under the budget);
+        ``{"action": "remove", "app": ..., "variant": ...}`` stops new
+        queries at once, drains the ones in flight and unloads.  404
+        without tenancy; the anchor is never removable; a malformed spec
+        answers 400.  The router broadcasts it to every replica."""
+        from ..tenancy import TenantSpec
+
+        js = "application/json"
+        if self.tenants is None:
+            return 404, {"message": "tenancy is not enabled"}, js
+        try:
+            doc = json.loads(raw.decode() or "{}")
+        except (json.JSONDecodeError, UnicodeDecodeError) as e:
+            return 400, {"message": f"invalid JSON: {e}"}, js
+        action = doc.get("action")
+        if action == "add":
+            t = doc.get("tenant")
+            if not isinstance(t, dict):
+                return 400, {"message": "body needs a tenant{} object"}, js
+            try:
+                spec = TenantSpec(
+                    app=t.get("app", ""),
+                    variant=t.get("variant", "default"),
+                    engine_json=t.get("engineJson"),
+                    engine_name=t.get("engine"),
+                    instance_id=t.get("engineInstanceId"),
+                    access_key=t.get("accessKey"),
+                    weight=float(t.get("weight", 1.0)),
+                    pinned=bool(t.get("pinned", False)),
+                    quota_qps=t.get("quotaQps"),
+                    quota_burst=t.get("quotaBurst"),
+                )
+            except (TypeError, ValueError) as e:
+                return 400, {"message": str(e)}, js
+            # the app id and default access key, as deploy --multi
+            # resolves them at boot
+            try:
+                md = self.ctx.storage.get_metadata()
+                app_rec = md.app_get_by_name(spec.app)
+                if app_rec is not None:
+                    spec.app_id = app_rec.id
+                    if spec.access_key is None:
+                        keys = md.access_key_get_by_app(app_rec.id)
+                        if keys:
+                            spec.access_key = keys[0].key
+            except Exception:
+                logger.exception("tenant add: the metadata lookup failed; "
+                                 "accessKey routing is off for %s",
+                                 spec.key_str)
+            try:
+                return 200, self.tenants.add_tenant(spec), js
+            except ValueError as e:
+                return 400, {"message": str(e)}, js
+        if action == "remove":
+            app = doc.get("app")
+            if not app:
+                return 400, {"message": "remove needs an app"}, js
+            try:
+                out = self.tenants.remove_tenant(
+                    (str(app), str(doc.get("variant", "default"))),
+                    drain_timeout_s=float(doc.get("drainTimeoutSec", 10.0)),
+                )
+            except KeyError as e:  # UnknownTenant is a KeyError
+                return 404, {"message": str(e)}, js
+            except ValueError as e:
+                return 400, {"message": str(e)}, js
+            return 200, out, js
+        return 400, {"message": "action must be 'add' or 'remove'"}, js
 
     # -- query path -------------------------------------------------------
     def _query_setup(self, query_json: dict, timeout_s: Optional[float],
                      tl) -> _QueryCtx:
-        """The front half of a query on either edge: budget, decode,
-        state snapshot, fault point, deadline-aware admission; marks the
-        ``parse`` and ``auth`` timeline boundaries.  Never blocks."""
+        """The front half of a query on either edge: budget, tenant,
+        decode, state snapshot, fault points, deadline-aware admission;
+        marks the ``parse`` and ``auth`` timeline boundaries.  Blocks
+        only while a tenant loads.  With tenancy the query resolves to
+        its tenant first (its quota and breaker shed inside ``resolve``,
+        before any decode), and a failure here completes the lease."""
         budget = (timeout_s if timeout_s is not None
                   else self.config.query_timeout_s)
         deadline = Deadline.after(budget) if budget is not None else None
-        query = self.query_decoder(query_json)
-        tl.mark("parse")
-        with self._lock:
-            ctx = _QueryCtx(query_json, query, deadline, self.algorithms,
-                            self.models, self.serving, self.batcher)
-        faults.check("device.dispatch")
-        tl.mark("auth")
-        if deadline is not None:
-            if ctx.batcher is not None:
-                ctx.batcher.check_admission(deadline)
+        lease = (self.tenants.resolve(query_json)
+                 if self.tenants is not None else None)
+        try:
+            if lease is not None:
+                rt = lease.runtime
+                ctx = _QueryCtx(query_json, rt.query_decoder(query_json),
+                                deadline, rt.algorithms, rt.models,
+                                rt.serving, rt.batcher, lease)
+                tl.mark("parse")
             else:
-                deadline.check("query admission")
-        return ctx
+                query = self.query_decoder(query_json)
+                tl.mark("parse")
+                with self._lock:
+                    ctx = _QueryCtx(query_json, query, deadline,
+                                    self.algorithms, self.models,
+                                    self.serving, self.batcher)
+            faults.check("device.dispatch")
+            if lease is not None:
+                faults.check_tenant("tenant.dispatch", lease.key_str)
+            tl.mark("auth")
+            if deadline is not None:
+                if ctx.batcher is not None:
+                    ctx.batcher.check_admission(deadline)
+                else:
+                    deadline.check("query admission")
+            return ctx
+        except BaseException as e:
+            if lease is not None:
+                lease.complete(_outcome(e))
+            raise
 
     def _query_finish(self, ctx: _QueryCtx, predictions, tl,
                       t0: float) -> Any:
@@ -688,14 +1016,20 @@ class EngineServer(HTTPServerBase):
         if ctx.deadline is not None:
             ctx.deadline.check("query serving")
         out = _result_to_json(ctx.serving.serve(ctx.query, predictions))
+        lease = ctx.lease
+        if lease is not None and isinstance(out, dict):
+            # the assigned variant rides the reply, so clients can echo
+            # it on their conversion events (what online eval counts)
+            out = {**out, "variant": lease.variant}
         tl.mark("serialize")
         dt = time.perf_counter() - t0
         with self._lock:
             self.request_count += 1
             self.last_serving_sec = dt
             instance_id = self.instance_id
-            freshness = time.monotonic() - self.model_advanced_mono
-            foldin_seq = max(self.foldin_applied_seq.values(), default=0)
+            model = self if lease is None else lease.runtime
+            freshness = time.monotonic() - model.model_advanced_mono
+            foldin_seq = max(model.foldin_applied_seq.values(), default=0)
         # the trace id rides the histograms as a bucket exemplar and keys
         # the flight record: /metrics names a trace, the flight recorder
         # holds its span tree.  The segment split rides both the span and
@@ -713,33 +1047,53 @@ class EngineServer(HTTPServerBase):
         }
         if foldin_seq:
             attrs["foldinSeq"] = foldin_seq
+        if lease is not None:
+            # the tenant's latency histogram, the online-eval
+            # impression, and the tenant and variant on the span
+            attrs["tenant"] = lease.key_str
+            attrs["variant"] = lease.variant
+            lease.observe_latency(dt, exemplar=tid)
+            self.tenants.online.impression(lease.runtime.spec.app,
+                                           lease.variant)
         # back-dated to the request's start: the span covers its window
         get_tracer().record("serve.query", dt, attrs=attrs,
                             start=time.time() - dt)
         get_flight_recorder().offer(tid, dt, name="serve.query",
                                     attrs=attrs)
         if self.config.feedback and self.config.event_server_url:
-            out = self._send_feedback(ctx.query_json, out)
+            out = self._send_feedback(ctx.query_json, out, lease)
+        if lease is not None:
+            lease.complete("ok")
         return out
 
-    def _send_feedback(self, query_json: dict, result_json: Any) -> Any:
+    def _send_feedback(self, query_json: dict, result_json: Any,
+                       lease=None) -> Any:
         """Queue a ``pio_pr``/``predict`` feedback event (the query and
         the prediction) for the event server, under the query's trace
         id, and return the reply with the event's ``prId`` in it (the
-        result's own ``prId``, or a new one).  The delivery queue retries
-        behind a circuit breaker, so a down event server neither stalls
-        serving nor loses events below the queue's capacity."""
+        result's own ``prId``, or a new one).  A tenant's event carries
+        its app and variant (the attribution online eval reads) and goes
+        under its access key.  The delivery queue retries behind a
+        circuit breaker, so a down event server neither stalls serving
+        nor loses events below the queue's capacity."""
         pr_id = (
             result_json.get("prId") if isinstance(result_json, dict) else None
         ) or uuid.uuid4().hex
+        props = {"query": query_json, "prediction": result_json}
+        access_key = self.config.access_key
+        if lease is not None:
+            props["variant"] = lease.variant
+            props["app"] = lease.runtime.spec.app
+            if lease.runtime.spec.access_key:
+                access_key = lease.runtime.spec.access_key
         event = {
             "event": "predict",
             "entityType": "pio_pr",
             "entityId": pr_id,
-            "properties": {"query": query_json, "prediction": result_json},
+            "properties": props,
         }
         url = (f"{self.config.event_server_url}/events.json"
-               f"?accessKey={self.config.access_key or ''}")
+               f"?accessKey={access_key or ''}")
         tid = current_trace_id()
         self._feedback_queue.submit(
             url, event, headers={TRACE_HEADER: tid} if tid else None
@@ -768,11 +1122,15 @@ class EngineServer(HTTPServerBase):
         })
         self._log_queue.submit(self.config.log_url, payload.encode())
 
-    def _book_failure(self, e: BaseException) -> tuple:
-        """Book a failed query's outcome on both counters; returns
-        ``_error_reply(e)``."""
+    def _book_failure(self, e: BaseException, lease=None) -> tuple:
+        """Book a failed query's outcome on the counters (and on its
+        tenant's lease: completing a lease twice is a no-op); returns
+        ``_error_reply(e)``'s code, payload and headers."""
         status, code, payload, headers = _error_reply(e)
-        self._m_queries[status].inc()
+        if lease is not None:
+            lease.complete(status)
+        self._m_queries[
+            "rejected" if status in _TENANT_SHEDS else status].inc()
         self._m_engine_queries[status].inc()
         return code, payload, headers
 
@@ -795,6 +1153,7 @@ class EngineServer(HTTPServerBase):
             tl = timeline.Timeline("serve")
         t0 = time.perf_counter()
         _m_inflight.inc()
+        ctx = None
         try:
             with timeline.timeline_scope(tl), annotate("pio.serve.query"):
                 ctx = self._query_setup(query_json, timeout_s, tl)
@@ -808,6 +1167,12 @@ class EngineServer(HTTPServerBase):
                     predictions = ctx.batcher.submit(ctx.query,
                                                      deadline=ctx.deadline)
                 out = self._query_finish(ctx, predictions, tl, t0)
+        except BaseException as e:
+            # a setup failure completed its own lease; this books the
+            # later ones (device, serve, deadline) on the tenant
+            if ctx is not None and ctx.lease is not None:
+                ctx.lease.complete(_outcome(e))
+            raise
         finally:
             _m_inflight.dec()
         if owned:
@@ -863,6 +1228,10 @@ class EngineServer(HTTPServerBase):
             out["microbatch"] = batcher.stats()
         # pio-live: model freshness and watermark lag (absent when off)
         out.update(self._foldin_status())
+        # the registry's residency and budget counters (each tenant's
+        # detail is on /debug/tenants)
+        if self.tenants is not None:
+            out["tenancy"] = self.tenants.summary()
         # the worst-N flight records (span trees on /debug/xray) and the
         # histogram's bucket exemplars: /status alone links a slow bucket
         # to a trace id
@@ -1032,6 +1401,10 @@ class EngineServer(HTTPServerBase):
                 threading.Thread(target=self.stop, daemon=True).start()
             elif u.path == "/foldin/apply":
                 self._aux(respond, self._blocking_foldin_apply)
+            elif u.path == "/tenants/weights":
+                self._aux(respond, self._blocking_set_weights, req.body)
+            elif u.path == "/admin/tenants":
+                self._aux(respond, self._blocking_admin_tenants, req.body)
             else:
                 respond(404, {"message": "not found"})
             return
@@ -1052,6 +1425,13 @@ class EngineServer(HTTPServerBase):
             code, payload, ctype = ans
             return code, payload, ctype or "application/json"
         js = "application/json"
+        if path == "/debug/tenants":
+            if self.tenants is None:
+                return (404, {"message": "tenancy is not enabled "
+                              "(deploy --multi)"}, js)
+            return 200, self.tenants.debug_payload(), js
+        if path == "/debug/experiments":
+            return (*_experiments_response(self.tenants), js)
         if path == "/":
             if "text/html" in accept:
                 return (200, self.status_html().encode(),
@@ -1104,7 +1484,7 @@ class EngineServer(HTTPServerBase):
                                                  tl.t0)
                 except Exception as e:
                     _m_inflight.dec()
-                    self._el_reply_error(e, respond, hdrs)
+                    self._el_reply_error(e, respond, hdrs, ctx.lease)
                     return
                 _m_inflight.dec()
                 self._m_queries["ok"].inc()
@@ -1127,7 +1507,7 @@ class EngineServer(HTTPServerBase):
                     err = e
             _m_inflight.dec()
             if err is not None:
-                self._el_reply_error(err, respond, hdrs)
+                self._el_reply_error(err, respond, hdrs, ctx.lease)
                 return
             self._m_queries["ok"].inc()
             respond(200, out, extra_headers=hdrs, tl=tl)
@@ -1137,10 +1517,12 @@ class EngineServer(HTTPServerBase):
                                       timeline=tl)
         except RuntimeError:
             # the snapshot raced a reload that closed this batcher: retry
-            # once on the current one
+            # once on the current one (the anchor's path only: a
+            # tenant's batcher goes only with its own runtime)
             with self._lock:
                 batcher = self.batcher
-            if batcher is not None and batcher is not ctx.batcher:
+            if (ctx.lease is None and batcher is not None
+                    and batcher is not ctx.batcher):
                 ctx.batcher = batcher
                 batcher.submit_nowait(ctx.query, done,
                                       deadline=ctx.deadline, timeline=tl)
@@ -1148,10 +1530,11 @@ class EngineServer(HTTPServerBase):
                 _m_inflight.dec()
                 self._el_reply_error(
                     RuntimeError("batcher unavailable during reload"),
-                    respond, hdrs)
+                    respond, hdrs, ctx.lease)
 
-    def _el_reply_error(self, e: BaseException, respond, hdrs) -> None:
-        code, payload, headers = self._book_failure(e)
+    def _el_reply_error(self, e: BaseException, respond, hdrs,
+                        lease=None) -> None:
+        code, payload, headers = self._book_failure(e, lease)
         # queued before the reply: a client that reads its 400 or 500
         # finds the log entry already submitted
         if code == 400:
@@ -1170,6 +1553,9 @@ class EngineServer(HTTPServerBase):
         with self._teardown_lock:
             super().stop()
             self._foldin_stop.set()  # the delta poll exits
+            self._eval_stop.set()  # and the online-eval loop
+            if self.tenants is not None:
+                self.tenants.close()
             # release the batcher's dispatcher and the aux pool, waiting
             # for their threads (pending entries drain first)
             with self._lock:
@@ -1208,6 +1594,13 @@ class EngineServer(HTTPServerBase):
         return self.config.max_connections
 
     def _make_handler(server: "EngineServer"):
+        # the blocking POST routes, each a function of the body
+        routes = {
+            "/foldin/apply": lambda raw: server._blocking_foldin_apply(),
+            "/tenants/weights": server._blocking_set_weights,
+            "/admin/tenants": server._blocking_admin_tenants,
+        }
+
         class Handler(JsonRequestHandler):
             server_logger = logger
 
@@ -1236,11 +1629,11 @@ class EngineServer(HTTPServerBase):
                 elif u.path == "/stop":
                     self._reply(200, {"message": "stopping"})
                     threading.Thread(target=server.stop, daemon=True).start()
-                elif u.path == "/foldin/apply":
+                elif u.path in routes:
                     try:
-                        code, payload, _ = server._blocking_foldin_apply()
+                        code, payload, _ = routes[u.path](raw)
                     except Exception as e:
-                        logger.exception("fold-in apply failed")
+                        logger.exception("%s failed", u.path)
                         code, payload = 500, {"message": str(e)}
                     self._reply(code, payload)
                 else:

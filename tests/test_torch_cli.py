@@ -256,9 +256,6 @@ def test_undeploy_of_nothing_equal(pair):
 REFUSED = [
     (["adminserver"], 9),
     (["dashboard"], 9),
-    (["deploy", "--multi", "tenants.json"], 4),
-    (["deploy", "--memory-budget", "1e9"], 4),
-    (["deploy", "--autopilot", "on"], 4),
     (["train", "--coordinator", "127.0.0.1:1234"], 7),
     (["train", "--num-processes", "2"], 7),
 ]
@@ -282,6 +279,88 @@ def test_every_unported_command_and_option_is_refused_first(capsys):
     assert main(["eventserver", "--no-wal-fsync"], storage=_Untouchable(),
                 device="cpu") == 1
     assert "fsyncs" in capsys.readouterr().out
+
+
+TENANT_FACTORY = ("predictionio_tpu_torch.templates.recommendation."
+                  "recommendation_engine")
+
+
+def test_deploy_multi_serves_every_tenant(pair, tmp_path):
+    """``deploy --multi tenants.json --memory-budget B --autopilot on``
+    in a thread on the CPU: each of three tenants (two variants of one
+    app and a second app, each trained through ``train``) answers its
+    query over HTTP, ``/debug/tenants`` shows the budget and the
+    autopilot, ``/debug/experiments`` the controller, and ``undeploy``
+    stops the server."""
+    import threading
+    import urllib.request
+
+    st = pair.storage["torch"]
+    tenants = []
+    for app, variant, lam in (("shop", "control", 0.05),
+                              ("shop", "treatment", 0.3),
+                              ("news", "main", 0.1)):
+        if st.get_metadata().app_get_by_name(app) is None:
+            assert pair.one("torch", "app", "new", app)[0] == 0
+            app_id = st.get_metadata().app_get_by_name(app).id
+            st.get_event_store().insert_batch([
+                Event(event="rate", entity_type="user", entity_id=f"u{u}",
+                      target_entity_type="item", target_entity_id=f"i{i}",
+                      properties={"rating": float((u * i) % 5 + 1)})
+                for u in range(8) for i in range(6) if (u + i) % 3], app_id)
+        ej = tmp_path / f"{app}-{variant}.json"
+        ej.write_text(json.dumps({
+            "id": "multi", "engineFactory": TENANT_FACTORY,
+            "datasource": {"params": {"appName": app}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": 4, "numIterations": 2, "lambda": lam}}]}))
+        rc, out = pair.one("torch", "train", "--engine-json", str(ej))
+        assert rc == 0, out
+        tenants.append({"app": app, "variant": variant,
+                        "engineJson": str(ej)})
+    manifest = tmp_path / "tenants.json"
+    manifest.write_text(json.dumps({"tenants": tenants}))
+    pf = tmp_path / "multi.port"
+    deploy = threading.Thread(target=main, args=([
+        "deploy", "--multi", str(manifest), "--memory-budget", "1e9",
+        "--autopilot", "on", "--ip", "127.0.0.1", "--port", "0",
+        "--port-file", str(pf)],), kwargs=dict(storage=st, device="cpu"),
+        daemon=True)
+    deploy.start()
+    port = None
+    try:
+        deadline = time.monotonic() + 60
+        while not (pf.exists() and pf.read_text().endswith("\n")):
+            assert time.monotonic() < deadline, "no port file"
+            time.sleep(0.05)
+        port = int(pf.read_text())
+
+        def call(path, body=None):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}{path}",
+                data=None if body is None else json.dumps(body).encode())
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.loads(r.read())
+
+        for t in tenants:
+            code, reply = call("/queries.json", {
+                "user": "u1", "num": 3, "app": t["app"],
+                "variant": t["variant"]})
+            assert code == 200 and reply["variant"] == t["variant"]
+            assert len(reply["itemScores"]) == 3
+        code, dbg = call("/debug/tenants")
+        assert code == 200 and dbg["tenants"] == 3 and dbg["resident"] == 3
+        assert dbg["memoryBudgetBytes"] == 10 ** 9
+        assert dbg["autopilot"] is not None
+        code, exp = call("/debug/experiments")
+        assert code == 200 and exp["enabled"] is True
+        assert sorted(exp["weights"]) == ["news", "shop"]
+    finally:
+        if port is not None:
+            rc, out = pair.one("torch", "undeploy", "--port", str(port))
+            assert rc == 0, out
+        deploy.join(timeout=30)
+    assert not deploy.is_alive()
 
 
 def _env(home):

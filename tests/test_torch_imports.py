@@ -53,7 +53,10 @@ def test_the_walk_sees_every_file():
                     "__init__", "registry", "trace", "flight", "scope",
                     "timeline", "fleet", "xray", "runlog", "tower")),
                 *(f"live/{m}.py" for m in (
-                    "__init__", "watermark", "foldin", "apply", "daemon"))):
+                    "__init__", "watermark", "foldin", "apply", "daemon")),
+                *(f"tenancy/{m}.py" for m in (
+                    "__init__", "errors", "quota", "experiment",
+                    "online_eval", "autopilot", "registry"))):
         assert f"predictionio_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names
     assert len(names) >= 20

@@ -399,14 +399,25 @@ def test_supervisor_failed_respawn_backs_off(monkeypatch):
 
 
 def test_unported_routes_name_their_item(fleets):
+    """No route of the reference's router is left unported: the tenancy
+    routes reach the replicas (tests/test_torch_tenancy_router.py holds
+    them against the reference), and only an unknown route answers a
+    plain 404."""
     f = fleets("port")
-    for method, path, item in (("POST", "/admin/tenants/weights", 4),
-                               ("POST", "/admin/tenants", 4),
-                               ("GET", "/debug/tenants", 4)):
+    status, body = _post(f.router.port, "/admin/tenants/weights",
+                         b'{"app": "shop", "weights": {"a": 1}}')
+    assert status == 200 and [p["replica"] for p in body["pushed"]] == [
+        "r0", "r1"]
+    status, body = _post(f.router.port, "/admin/tenants",
+                         b'{"action": "remove", "app": "shop"}')
+    assert status == 200 and len(body["pushed"]) == 2
+    status, text = _get(f.router.port, "/debug/tenants")
+    assert status == 200 and sorted(json.loads(text)["replicas"]) == [
+        "r0", "r1"]
+    for method, path in (("POST", "/admin/nothing"), ("GET", "/nothing")):
         if method == "POST":
             status, body = _post(f.router.port, path)
         else:
             status, text = _get(f.router.port, path)
             body = json.loads(text)
-        assert status == 404
-        assert body["message"].endswith(f"(ROADMAP Queue 1 item {item})")
+        assert (status, body) == (404, {"message": "not found"})
