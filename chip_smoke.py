@@ -13,9 +13,10 @@ float64 solve), both forms of the fused ALS kernel ("taa" and "dma")
 with the second pass of a split bucket, and the three gather probes,
 whose launch path it takes apart step by step at the probe shape.
 It builds the native host runtime (``build/native/``, ``g++``) beside
-the kernels.  Then it drives seven main paths through the entry points a
-user calls, each with every launch counter set to 0 just before it and
-read just after it; a kernel its path did not launch fails the run:
+the kernels.  Then it drives eight main paths and phase scout through
+the entry points a user calls, each path with every launch counter set
+to 0 just before it and read just after it; a kernel its path did not
+launch fails the run:
 
 * ML-20M: ratings shaped like MovieLens-20M (138,493 users x 26,744
   items x 20,000,263 ratings, every (user, item) pair distinct, made
@@ -30,6 +31,14 @@ read just after it; a kernel its path did not launch fails the run:
   recommendation engine training at rank 64 with ``solver="fused"`` (2
   iterations) and ``solver="pallas"`` (1 iteration) → serving solo and
   batched top-K queries;
+* subspace: the rest of the trainer at ML-20M width: ``solver="pallas"``
+  with ``solver_mode="subspace"`` (the SPD solve kernel on the iALS++
+  sweep's 16 x 16 block systems, rows of the largest bucket held
+  against a float64 block sweep), ``gather_mode="grouped"`` (accepted,
+  and the row gather's factors bit for bit), a checkpointed ``train`` resumed by a new
+  trainer (equal to the uninterrupted run bit for bit) and
+  ``sweep_train_als`` at ML-1M counts (each lambda against a sequential
+  train);
 * cli: the quickstart on that store through the port's console
   (``template get``, ``build``, ``train --scan-cache`` in process, a
   ``deploy`` process on the event-loop edge answering queries like an
@@ -46,6 +55,13 @@ read just after it; a kernel its path did not launch fails the run:
   sweep of two candidates over 2 folds (:class:`ML20MSweep`), its folds
   held against a numpy split and its winner's RMSE against a float64
   recomputation;
+* scout (no kernel on its path): two-stage retrieval on that store
+  after eval: the int8 and ivf retrievers of the ML-20M ``"pallas"``
+  model (build seconds, recall@10 against the exact scan over 1,024
+  users, a 64-query ``batch_predict``), the reference ANN smoke's
+  invariants, and a console ``train`` with ``"retrieval": "ivf"``
+  deployed and loaded from 64 clients, every reply held against the
+  in-process two-stage ``predict``;
 * foldin: on that store after eval, a ``"pallas"`` console ``train``,
   ``deploy --replicas 2 --push-foldin 1``, ``foldin --from-now`` (which
   must find nothing to fold), then a ``FoldInRunner`` on the card over
@@ -4359,7 +4375,14 @@ def phase_foldin(torch, store: StoreHome, cli_out: dict) -> dict:
 
 def foldin_gj_shapes(torch, systems: dict) -> list:
     """The SPD solve kernel on the systems phase foldin's cycles gave it
-    (one batch a B): kernel, plain version and the library's Cholesky
+    (one batch a B), by :func:`gj_at_shapes`."""
+    return gj_at_shapes(torch, "phase foldin gj", "the cycles' systems",
+                        [systems[B] for B in sorted(systems)])
+
+
+def gj_at_shapes(torch, phase: str, what: str, systems: list) -> list:
+    """The SPD solve kernel on a main path's own systems (``(A, b)``
+    pairs): kernel, plain version and the library's Cholesky
     (``cholesky_ex`` + ``cholesky_solve``) in turns, the bound, and the
     host microseconds a call of the kernel and of the library (after the
     profiler captures of earlier phases, which make every PyTorch call
@@ -4369,11 +4392,10 @@ def foldin_gj_shapes(torch, systems: dict) -> list:
     )
 
     out = []
-    for B in sorted(systems):
-        A, b = systems[B]
-        R = b.shape[1]
+    for A, b in systems:
+        B, R = b.shape
         err = max_err(spd_solve_batched(A, b), spd_solve_reference(A, b),
-                      1e-4, f"gj fold-in B={B}")
+                      1e-4, f"{phase} A[{B},{R},{R}]")
 
         def library():
             L, _ = torch.linalg.cholesky_ex(A)
@@ -4392,11 +4414,560 @@ def foldin_gj_shapes(torch, systems: dict) -> list:
                    host_us=host["kernel"], library_host_us=host["library"],
                    max_abs_err=err)
         out.append(rec)
-        log(f"phase foldin gj A[{B},{R},{R}] (the cycles' systems): kernel "
+        log(f"{phase} A[{B},{R},{R}] ({what}): kernel "
             f"{t['kernel']:.4f} ms, plain {t['plain']:.3f} ms, library "
             f"{t['library']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
             f"host {host['kernel']:.2f} us a call (library "
             f"{host['library']:.2f}); max_abs_err {err:.3e}")
+    return out
+
+
+# path subspace: the iALS++ block width, the rows of the largest user
+# bucket held against a float64 block sweep, and the λ of the sweep at
+# ML-1M counts
+SUBSPACE_B = 16
+SUBSPACE_CHECK_ROWS = 256
+SUBSPACE_SWEEP_LAMBDAS = (0.01, 0.05, 0.1)
+# the swept models against sequential trains: the batched product of a
+# single-row bucket (the heaviest user and item rate 41,379 and 113,465
+# items at ML-1M counts) rounds its long sum otherwise than the
+# unbatched one, by about 1e-5 of the row, and two iterations carry
+# that to 0.9-1.8e-4 of the factors' scale (a 1e-7 perturbation of a
+# sequential train's start moves it by 7.7e-5 of the scale): so 1e-3
+SWEEP_FACTOR_TOL = 1e-3
+
+
+def block_sweep_float64(Vm, val, x0, reg, block: int) -> np.ndarray:
+    """The explicit iALS++ rank-block sweep in float64 numpy: per block
+    S, ``H_S d = -g_S`` against the residual ``e = Vm x - val``, with
+    ``H_S = VsᵀVs + reg I`` and ``g_S = Vsᵀe + reg x_S``."""
+    x = np.array(x0, np.float64)
+    e = np.einsum("bkr,br->bk", Vm, x) - val
+    r = Vm.shape[-1]
+    for s in range(0, r, block):
+        w = min(block, r - s)
+        Vs = Vm[:, :, s:s + w]
+        H = np.einsum("bks,bkt->bst", Vs, Vs) + reg[:, None, None] * \
+            np.eye(w)
+        g = np.einsum("bk,bks->bs", e, Vs) + reg[:, None] * x[:, s:s + w]
+        d = -np.linalg.solve(H, g[..., None])[..., 0]
+        x[:, s:s + w] += d
+        e += np.einsum("bks,bs->bk", Vs, d)
+    return x
+
+
+def path_subspace(torch, data, row_model) -> dict:
+    """The rest of the trainer at ML-20M width (138,493 x 26,744 x
+    20,000,263, rank 64, ALS-WR, lambda 0.01), its launch counts set to 0
+    before it and read after it:
+
+    * ``solver="pallas"``, ``solver_mode="subspace"``, ``subspace_size``
+      16, 1 iteration from the initial factors of phase train's
+      ``"pallas"`` train: the SPD solve kernel on 16 x 16 block systems;
+      each half's fenced seconds, the kernel's launches and shapes, the
+      RMSE (it must beat the zero model), and the first 256 rows of the
+      largest user bucket held against a float64 block sweep from the
+      same start (1e-3 of the factors' scale);
+    * ``gather_mode="grouped"``, 1 iteration: the option is accepted
+      and gathers rows, so its factors must equal phase train's row
+      gather (``row_model``) bit for bit;
+    * a checkpointed ``train``: 2 iterations saving every one, then a
+      new trainer resuming from a checkpointer that holds step 1 only;
+      its factors must equal the uninterrupted run's bit for bit;
+    * ``sweep_train_als`` at ML-1M counts, lambda 0.01, 0.05 and 0.1, 2
+      iterations in one batched run; each model's training RMSE within
+      1e-6 of a sequential ``"xla"`` train's from the same start, and
+      its factors within ``SWEEP_FACTOR_TOL`` of their scale (f32
+      rounding alone moves them by about 1e-4 of it: see there).
+
+    Returns the launches, the seconds of each part and the subspace
+    systems the kernel is then timed on (:func:`gj_at_shapes`)."""
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    import predictionio_tpu_torch.ops.solve as solve_mod
+    from predictionio_tpu_torch.models.als import (
+        ALSConfig, ALSTrainer, _bucket_inputs, rmse, sweep_train_als,
+    )
+    from predictionio_tpu_torch.ops import _build
+    from predictionio_tpu_torch.workflow.checkpoint import StepCheckpointer
+
+    ratings, _, (u, i, v) = data
+    base = dict(rank=RANK, num_iterations=1, lam=0.01, seed=3,
+                solver="pallas")
+    out = {"s": {}}
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    # the shapes the kernel is given, by a shim around its wrapper
+    shapes = Counter()
+    kernel = solve_mod.spd_solve_batched
+
+    def shaped(A, b):
+        shapes[tuple(A.shape[1:])] += 1
+        return kernel(A, b)
+
+    solve_mod.spd_solve_batched = shaped
+    try:
+        tr = ALSTrainer(ratings, cfg=ALSConfig(
+            **base, solver_mode="subspace", subspace_size=SUBSPACE_B))
+        U0, V0 = tr.init_factors()
+        fac = tr.train(init=(U0, V0))
+        torch.cuda.synchronize()
+    finally:
+        solve_mod.spd_solve_batched = kernel
+    train_rmse = rmse(fac, u, i, v)
+    zero_rmse = float(np.sqrt(np.mean(v.astype(np.float64) ** 2)))
+    halves = ", ".join(f"{n} {t * 1e3:.1f} ms"
+                       for n, t in fac.report["half_seconds"])
+    # the largest user bucket: its rows' sweep against float64
+    side = tr._user_side
+    j = max(range(len(side["ks"])), key=lambda b: len(side["buckets"][b][0]))
+    rows, starts, counts = (t.cpu().numpy() for t in side["buckets"][j])
+    n_big = len(rows)
+    rows, starts, counts = (a[:SUBSPACE_CHECK_ROWS]
+                            for a in (rows, starts, counts))
+    k = side["ks"][j]
+    c_sorted = side["c_sorted"].cpu().numpy()
+    v_sorted = side["v_sorted"].cpu().numpy()
+    V0h = V0.double().cpu().numpy()
+    pos = starts[:, None] + np.arange(k)[None, :]
+    ok = np.arange(k)[None, :] < counts[:, None]
+    pos = np.minimum(pos, len(c_sorted) - 1)
+    Vm = V0h[np.where(ok, c_sorted[pos], 0)] * ok[..., None]
+    val = np.where(ok, v_sorted[pos], 0.0).astype(np.float64)
+    reg = 0.01 * np.maximum(counts, 1).astype(np.float64)
+    want = block_sweep_float64(Vm, val, U0.double().cpu().numpy()[rows],
+                               reg, SUBSPACE_B)
+    got = fac.user_factors[rows].astype(np.float64)
+    sweep_err = float(np.abs(got - want).max())
+    sweep_scale = max(float(np.abs(want).max()), 1.0)
+    log(f"path subspace train: solver pallas, subspace_size {SUBSPACE_B}, "
+        f"1 iteration, staging {fac.report['staging_seconds']:.2f} s, "
+        f"halves [{halves}]; SPD solve shapes {dict(shapes)} "
+        f"(calls {sum(shapes.values())}), launches "
+        f"{_build.LAUNCHES['gj_solve']}; training RMSE {train_rmse:.5f} "
+        f"(zero model {zero_rmse:.5f}); {len(rows)} rows of the largest "
+        f"user bucket ({n_big:,} rows, K={k}) against a float64 block "
+        f"sweep: max |err| {sweep_err:.3e} (tol 1e-3 x {sweep_scale:.3f})")
+    if not (math.isfinite(train_rmse) and train_rmse < zero_rmse):
+        raise AssertionError(f"subspace RMSE {train_rmse} does not beat the "
+                             f"zero model ({zero_rmse})")
+    if not sweep_err <= 1e-3 * sweep_scale:
+        raise AssertionError(f"subspace sweep off float64 by {sweep_err}")
+    if set(shapes) != {(SUBSPACE_B, SUBSPACE_B)}:
+        raise AssertionError(f"subspace solved shapes {dict(shapes)}")
+    # the kernel's systems at this path's shapes: the first block of the
+    # largest user bucket, and a narrower tail block (rank 64 has none:
+    # a rank of 60 would end in a block of 12)
+    rows_big = side["buckets"][j][0]
+    lam_t = torch.tensor(0.01, device=V0.device)
+    idx, vals, valid, regb = _bucket_inputs(
+        side["c_sorted"], side["v_sorted"], side["buckets"][j][1],
+        side["buckets"][j][2], k, lam_t, True)
+    Vs = V0[idx.long()] * valid[..., None]
+    xb = U0[rows_big]
+    e = torch.einsum("bkr,br->bk", Vs, xb) - vals
+    systems = []
+    for w in (SUBSPACE_B, 12):
+        Vw = Vs[:, :, :w]
+        A = (torch.einsum("bks,bkt->bst", Vw, Vw) + regb[:, None, None]
+             * torch.eye(w, device=V0.device)).contiguous()
+        b = (torch.einsum("bk,bks->bs", e, Vw) + regb[:, None] *
+             xb[:, :w]).contiguous()
+        systems.append((A, b))
+    del Vs, e, idx, vals, valid
+    out["systems"] = systems
+    out["s"]["subspace"] = time.perf_counter() - t0
+    out["subspace"] = dict(rmse=train_rmse, half_seconds=fac.report[
+        "half_seconds"], shapes={f"{a}x{b}": n for (a, b), n in
+                                 shapes.items()},
+        largest_bucket=[n_big, k], sweep_err=sweep_err)
+    del tr, fac
+    torch.cuda.empty_cache()
+
+    # the grouped gather: the row gather's factors, bit for bit
+    t0 = time.perf_counter()
+    grouped = ALSTrainer(ratings, cfg=ALSConfig(
+        **base, gather_mode="grouped")).train()
+    torch.cuda.synchronize()
+    same = (np.array_equal(grouped.user_factors, row_model.user_factors)
+            and np.array_equal(grouped.item_factors, row_model.item_factors))
+    ghalves = ", ".join(f"{n} {t * 1e3:.1f} ms"
+                        for n, t in grouped.report["half_seconds"])
+    log(f"path subspace grouped: gather_mode grouped (a row gather), 1 "
+        f"iteration, halves [{ghalves}]; factors equal phase train's row "
+        f"gather bit for bit: {same}")
+    if not same:
+        du = np.abs(grouped.user_factors - row_model.user_factors).max()
+        raise AssertionError(f"grouped factors differ from the row "
+                             f"gather's (max |d| user {du})")
+    out["s"]["grouped"] = time.perf_counter() - t0
+    del grouped
+    torch.cuda.empty_cache()
+
+    # a checkpointed train, and a new trainer resuming from step 1
+    t0 = time.perf_counter()
+    cfg2 = ALSConfig(**{**base, "num_iterations": 2})
+    with tempfile.TemporaryDirectory() as d:
+        ck = StepCheckpointer(os.path.join(d, "all"))
+        whole = ALSTrainer(ratings, cfg=cfg2).train(checkpointer=ck,
+                                                    checkpoint_every=1)
+        steps = ck.all_steps()
+        one = StepCheckpointer(os.path.join(d, "one"))
+        shutil.copy(ck.path(1), one.path(1))
+        resumed = ALSTrainer(ratings, cfg=cfg2).train(checkpointer=one,
+                                                      checkpoint_every=1)
+        torch.cuda.synchronize()
+    same = (one.last_restored_step == 1
+            and np.array_equal(resumed.user_factors, whole.user_factors)
+            and np.array_equal(resumed.item_factors, whole.item_factors))
+    log(f"path subspace checkpoint: 2 iterations saving steps {steps}; a "
+        f"new trainer resumed from step {one.last_restored_step} and ran "
+        f"{len(resumed.report['half_seconds']) // 2} iteration: factors "
+        f"equal the uninterrupted run's bit for bit: {same}")
+    if not same:
+        raise AssertionError("the resumed train differs from the "
+                             "uninterrupted one")
+    out["s"]["checkpoint"] = time.perf_counter() - t0
+    del whole, resumed
+    torch.cuda.empty_cache()
+
+    # the λ sweep at ML-1M counts, against sequential "xla" trains
+    t0 = time.perf_counter()
+    u1, i1, v1 = synth_ratings(ML1M_USERS, ML1M_ITEMS, ML1M_RATINGS, seed=0)
+    cfg_x = ALSConfig(rank=RANK, num_iterations=2, seed=3, solver="xla")
+    t1 = time.perf_counter()
+    swept = sweep_train_als((u1, i1, v1), ML1M_USERS, ML1M_ITEMS, cfg_x,
+                            SUBSPACE_SWEEP_LAMBDAS)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t1
+    rel, rmse_gap = [], []
+    t1 = time.perf_counter()
+    for lam, got in zip(SUBSPACE_SWEEP_LAMBDAS, swept):
+        seq = ALSTrainer((u1, i1, v1), ML1M_USERS, ML1M_ITEMS, ALSConfig(
+            rank=RANK, num_iterations=2, seed=3, solver="xla",
+            lam=lam)).train()
+        for a, b in ((got.user_factors, seq.user_factors),
+                     (got.item_factors, seq.item_factors)):
+            rel.append(float(np.abs(a - b).max())
+                       / max(float(np.abs(b).max()), 1.0))
+        rmse_gap.append(abs(rmse(got, u1, i1, v1) - rmse(seq, u1, i1, v1)))
+        if not (rel[-1] <= SWEEP_FACTOR_TOL and rel[-2] <= SWEEP_FACTOR_TOL
+                and rmse_gap[-1] <= 1e-6):
+            raise AssertionError(
+                f"sweep lambda {lam}: factors {rel[-2]:.3e}, {rel[-1]:.3e} "
+                f"of the scale and RMSE {rmse_gap[-1]:.3e} off the "
+                "sequential train")
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t1
+    log(f"path subspace sweep: sweep_train_als at ML-1M counts, lambda "
+        f"{SUBSPACE_SWEEP_LAMBDAS}, 2 iterations: {sweep_s:.2f} s batched "
+        f"(3 sequential xla trains {seq_s:.2f} s with their RMSE); factors "
+        f"off them by {[round(x, 7) for x in rel]} of the scale (user, "
+        f"item a lambda; tol {SWEEP_FACTOR_TOL:g}), training RMSE by "
+        f"{[float(f'{x:.3g}') for x in rmse_gap]} (tol 1e-6)")
+    out["s"]["sweep"] = time.perf_counter() - t0
+    out["sweep"] = dict(batched_s=sweep_s, sequential_s=seq_s,
+                        factor_rel=rel, rmse_gap=rmse_gap)
+    out["launches"] = dict(_build.LAUNCHES)
+    log(f"path subspace seconds (host clock) "
+        f"{ {k: round(t, 2) for k, t in out['s'].items()} }; launches "
+        f"{out['launches']}")
+    return out
+
+
+# phase scout: two-stage retrieval at ML-20M width, before phase foldin
+SCOUT_PHASE_LIMIT_S = 60.0
+SCOUT_RECALL_USERS = 1024
+SCOUT_QUERIES = 256
+SCOUT_CLIENTS = 64
+
+
+def scout_invariants(model, users: list) -> tuple[dict, dict]:
+    """The reference ANN smoke's invariants (``tools/ann_smoke.py``) on
+    ``model``, a recommendation ``ALSModel`` (it is patched: give it a
+    copy), through the template's ``predict``/``batch_predict`` with
+    ``retrieval`` int8 and ivf at a covering shortlist (every item, and
+    every cluster for ivf) against the exact scan, for 8 of ``users``;
+    the last 2 must be users with no other part to play.  Returns
+    ``(checks, detail)``."""
+    from predictionio_tpu_torch.live.apply import apply_model_delta
+    from predictionio_tpu_torch.obs import RETRIEVAL_STAGE_SECONDS
+    from predictionio_tpu_torch.templates.recommendation import (
+        ALSAlgorithm, Query,
+    )
+    from predictionio_tpu_torch.workflow.model_io import ModelDelta
+
+    m, rank = model.item_factors.shape
+    checks, detail = {}, {}
+    exact = ALSAlgorithm()
+    exact.params = exact.params_class()
+    queries = [Query(user=u, num=10) for u in users[:8]]
+    exact_res = exact.batch_predict(model, queries)
+    exact_ids = [[s.item for s in r.item_scores] for r in exact_res]
+    exact_scores = [[s.score for s in r.item_scores] for r in exact_res]
+
+    def covering(mode):
+        algo = ALSAlgorithm()
+        algo.params = algo.params_class(
+            retrieval=mode, candidate_factor=m, nprobe=10 ** 6)
+        return algo
+
+    stage = {n: RETRIEVAL_STAGE_SECONDS.labels(stage=n)
+             for n in ("candidate", "rerank")}
+    searches = 0
+    booked = {n: 0 for n in stage}
+    for mode in ("int8", "ivf"):
+        algo = covering(mode)
+        algo.warmup(model, max_batch=8)
+        before = {n: c.snapshot()["count"] for n, c in stage.items()}
+        res = algo.batch_predict(model, queries)
+        solo = algo.predict(model, queries[0])
+        searches += 2
+        for n, c in stage.items():
+            booked[n] += c.snapshot()["count"] - before[n]
+        ids = [[s.item for s in r.item_scores] for r in res]
+        scores = [[s.score for s in r.item_scores] for r in res]
+        recall = float(np.mean([len(set(e) & set(a)) / 10.0
+                                for e, a in zip(exact_ids, ids)]))
+        gap = max(abs(a - b) for ea, aa in zip(exact_scores, scores)
+                  for a, b in zip(sorted(ea), sorted(aa)))
+        checks[f"{mode}_covering_recall_is_1"] = recall == 1.0
+        checks[f"{mode}_rerank_scores_exact"] = gap < 1e-4
+        checks[f"{mode}_solo_matches_exact"] = (
+            [s.item for s in solo.item_scores] == exact_ids[0])
+        detail[mode] = {"recall": recall, "maxScoreGap": gap}
+    checks["stage_metrics_booked"] = (
+        booked["candidate"] == booked["rerank"] == searches)
+    detail["stages"] = dict(booked, searches=searches)
+
+    # a fold-in delta patches the same retriever in place, no rebuild:
+    # an appended item becomes the 7th user's ideal one, item 3 the 8th's
+    algo = covering("ivf")
+    cfg = algo._retrieval_config()
+    idx = model.device_ann_index(cfg)
+    patches = idx.patches
+    uf = model.user_factors
+    u5, u6 = (model.users.get(u) for u in users[6:8])
+    target5 = (uf[u5] / np.linalg.norm(uf[u5]) * 25).astype(np.float32)
+    target6 = (uf[u6] / np.linalg.norm(uf[u6]) * 25).astype(np.float32)
+    z = np.zeros((0, rank), np.float32)
+    delta = ModelDelta(
+        seq=1, meta={"baseUsers": len(model.users), "baseItems": m},
+        user_rows_ix=np.zeros(0, np.int32), user_rows=z,
+        new_user_ids=np.array([], dtype=str), new_user_rows=z,
+        item_rows_ix=np.array([3], np.int32), item_rows=target6[None, :],
+        new_item_ids=np.array(["i-new"]), new_item_rows=target5[None, :])
+    counts = apply_model_delta(model, delta)
+    same_idx = model.device_ann_index(cfg)
+    checks["patch_in_place_no_rebuild"] = (
+        same_idx is idx and idx.patches == patches + 1
+        and counts.get("annIndexesPatched", 0) >= 1)
+    r5 = algo.predict(model, Query(user=users[6], num=5))
+    checks["appended_item_served"] = bool(
+        r5.item_scores and r5.item_scores[0].item == "i-new")
+    r6 = algo.predict(model, Query(user=users[7], num=5))
+    item3 = model.items.decode(np.array([3]))[0]
+    new_score = float(uf[u6].astype(np.float64) @ target6)
+    checks["patched_row_served"] = bool(
+        r6.item_scores and r6.item_scores[0].item == str(item3)
+        and abs(r6.item_scores[0].score - new_score)
+        <= 1e-4 * max(abs(new_score), 1.0))
+    r6_exact = exact.predict(model, Query(user=users[7], num=5))
+    checks["patched_ann_matches_exact"] = (
+        [s.item for s in r6.item_scores]
+        == [s.item for s in r6_exact.item_scores])
+    detail["delta"] = {"counts": counts,
+                       "top5": [s.item for s in r5.item_scores[:3]],
+                       "top6": [s.item for s in r6.item_scores[:3]]}
+    return checks, detail
+
+
+def phase_scout(torch, store: StoreHome, row_model, cli_out: dict) -> dict:
+    """Two-stage retrieval (``retrieval`` int8 and ivf) at ML-20M width,
+    after phase eval and before phase foldin (whose writes would outdate
+    the scan cache its console ``train`` reads):
+
+    * in process, on phase train's ``"pallas"`` model: each retriever's
+      build seconds (256 clusters for ivf by ``resolve_clusters``, the
+      26,744 x 64 int8 table), recall@10 of each mode at the defaults
+      (``candidateFactor`` 10, ``nprobe`` 8) against the exact scan over
+      1,024 users, and the ms of a 64-query ``batch_predict``, two-stage
+      against exact;
+    * the reference ANN smoke's invariants (:func:`scout_invariants`) on
+      a copy of that model, one ``{"obs": ...}`` line;
+    * through the console: ``train`` with an engine.json whose algorithm
+      sets ``"retrieval": "ivf"``, ``deploy``, 256 queries from 64
+      clients, every reply held against the in-process two-stage
+      ``predict``, p50/p99 and queries/s beside phase cli's exact scan,
+      then ``undeploy`` with exit code 0.
+
+    The phase fails past ``SCOUT_PHASE_LIMIT_S``."""
+    from pathlib import Path
+
+    from predictionio_tpu_torch.cli.main import load_engine_from_variant
+    from predictionio_tpu_torch.controller import WorkflowContext
+    from predictionio_tpu_torch.retrieval import (
+        RetrievalConfig, TwoStageRetriever,
+    )
+    from predictionio_tpu_torch.storage import StringIndex
+    from predictionio_tpu_torch.templates.recommendation import (
+        ALSAlgorithm, ALSModel, Query,
+    )
+    from predictionio_tpu_torch.workflow import prepare_deploy_components
+
+    import dataclasses
+
+    t_phase = time.perf_counter()
+    out = {}
+    # in process: builds, recall and batch ms on the pallas model
+    builds = {}
+    for mode in ("int8", "ivf"):
+        cfg = RetrievalConfig(mode=mode)
+        t0 = time.perf_counter()
+        idx = TwoStageRetriever.build(row_model.item_factors, cfg,
+                                      device=row_model.device)
+        torch.cuda.synchronize()
+        builds[mode] = dict(s=time.perf_counter() - t0, **idx.summary())
+        del idx
+    rng = np.random.default_rng(23)
+    known = row_model.users.ids
+    users = [str(known[k]) for k in rng.choice(
+        len(known), SCOUT_RECALL_USERS, replace=False)]
+    algos = {"exact": ALSAlgorithm()}
+    algos["exact"].params = algos["exact"].params_class()
+    for mode in ("int8", "ivf"):
+        a = ALSAlgorithm()
+        a.params = a.params_class(retrieval=mode)
+        a.warmup(row_model, max_batch=64)
+        algos[mode] = a
+    got = {}
+    for name, a in algos.items():
+        ids = []
+        for c in range(0, len(users), 64):
+            res = a.batch_predict(row_model, [Query(user=u, num=10)
+                                              for u in users[c:c + 64]])
+            ids.extend([s.item for s in r.item_scores] for r in res)
+        got[name] = ids
+    # recall@10 as ops.ann.recall_at_k counts it; a two-stage answer may
+    # hold fewer than 10 items (an ivf shortlist short of them)
+    recall = {m: float(np.mean([len(set(e) & set(a)) / len(e)
+                                for e, a in zip(got["exact"], got[m])]))
+              for m in ("int8", "ivf")}
+    short = {m: sum(len(a) < 10 for a in got[m]) for m in ("int8", "ivf")}
+    # ivf's recall against nprobe: the same clusters, more of them probed
+    ivf = row_model.device_ann_index(algos["ivf"]._retrieval_config())
+    uix = torch.as_tensor(np.asarray(
+        [row_model.users.get(u) for u in users]), device=row_model.device)
+    uvecs = torch.as_tensor(row_model.user_factors,
+                            device=row_model.device)[uix]
+    table = row_model.device_item_factors()
+    exact_ix = [set(row_model.items.get(x) for x in e) for e in got["exact"]]
+    by_nprobe = {}
+    for nprobe in (8, 32, 128):
+        probe = TwoStageRetriever(dataclasses.replace(ivf.cfg, nprobe=nprobe),
+                                  ivf.n_items, ivf.rank, ivf._state,
+                                  ivf.device)
+        # 64 queries a search: a probe's slabs are [64, nprobe, L, R]
+        parts = [probe.search(uvecs[c:c + 64], 16, table)
+                 for c in range(0, len(users), 64)]
+        vals = torch.cat([p[0] for p in parts])[:, :10].cpu().numpy()
+        ixs = torch.cat([p[1] for p in parts])[:, :10].cpu().numpy()
+        by_nprobe[nprobe] = float(np.mean([
+            len(e & set(x[np.isfinite(v)].tolist())) / len(e)
+            for e, x, v in zip(exact_ix, ixs, vals)]))
+    batch = [Query(user=u, num=10) for u in users[:64]]
+    ms = {}
+    for name, a in algos.items():
+        times = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a.batch_predict(row_model, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = float(np.median(times[2:]))
+    log(f"phase scout in process: builds {builds}; recall@10 over "
+        f"{len(users):,} users (candidateFactor 10, nprobe 8) {recall} "
+        f"(answers short of 10 items {short}); ivf recall@10 by nprobe "
+        f"of its {ivf.summary()['clusters']} clusters {by_nprobe}; "
+        f"64-query batch_predict ms (median of 5 after 2) {ms}")
+    out.update(builds=builds, recall=recall, short=short, batch_ms=ms,
+               ivf_recall_by_nprobe=by_nprobe)
+
+    # the reference smoke's invariants, on a copy of the model
+    copy = ALSModel(
+        user_factors=row_model.user_factors.copy(),
+        item_factors=row_model.item_factors.copy(),
+        users=StringIndex(list(row_model.users.ids)),
+        items=StringIndex(list(row_model.items.ids)),
+        item_props={}, device=row_model.device)
+    t0 = time.perf_counter()
+    checks, detail = scout_invariants(copy, users[:8])
+    detail["seconds"] = time.perf_counter() - t0
+    del copy
+    torch.cuda.empty_cache()
+
+    # the console: train with retrieval ivf, deploy, query, undeploy
+    st = store.storage
+    ej = Path(store.home) / "engine" / "engine-scout.json"
+    variant = json.loads(Path(cli_out["engine_json"]).read_text())
+    variant["algorithms"][0]["params"] = {
+        **variant["algorithms"][0]["params"], "numIterations": 1,
+        "retrieval": "ivf"}
+    ej.write_text(json.dumps(variant, indent=2))
+    t0 = time.perf_counter()
+    iid = cli(["train", "--scan-cache", "--engine-json", str(ej)],
+              st).split()[-1]
+    train_s = time.perf_counter() - t0
+    engine, ep, _ = load_engine_from_variant(ej)
+    dalgos, dmodels, _ = prepare_deploy_components(
+        engine, ep, iid, ctx=WorkflowContext(mode="Serving", storage=st))
+    queries = [{"user": str(known[k]), "num": 16}
+               for k in rng.integers(0, len(known), SCOUT_QUERIES)]
+    want = [dalgos[0].predict(dmodels[0], Query.from_json(q)).to_json()
+            for q in queries]
+    proc = Console(store.home, [
+        "deploy", "--engine-json", str(ej), "--ip", "127.0.0.1", "--port",
+        "0"], "deploy-scout")
+    try:
+        port = proc.wait_port()
+        try:
+            load = http_load(port, queries[:8], queries, SCOUT_CLIENTS)
+            trades = sum(_same_reply(g, w, f"scout query {q}") for q, g, w
+                         in zip(queries, load["replies"][8:], want))
+        except Exception as e:
+            proc.fail(f"failed its queries: {e!r}")
+        boot_s = proc.boot_s
+        if "Undeployed" not in cli(["undeploy", "--port", str(port)], st):
+            proc.fail("was not undeployed")
+        try:
+            rc = proc.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.fail("did not stop after undeploy")
+        if rc != 0:
+            proc.fail("exited after undeploy")
+    finally:
+        proc.stop()
+    cli_conc = cli_out["edges"]["eventloop"]
+    p50, p99 = np.percentile(load["conc_ms"], [50, 99])
+    e50, e99 = np.percentile(cli_conc["conc_ms"], [50, 99])
+    log(f"phase scout console: train (retrieval ivf) {train_s:.1f} s, "
+        f"deploy booted in {boot_s:.1f} s; {SCOUT_QUERIES} queries from "
+        f"{SCOUT_CLIENTS} clients p50 {p50:.3f} ms p99 {p99:.3f} ms, "
+        f"{load['qps']:,.0f} queries/s (phase cli's exact scan: p50 "
+        f"{e50:.3f} ms p99 {e99:.3f} ms, {cli_conc['qps']:,.0f} queries/s, "
+        f"with filtered queries in its mix); every reply equals in-process "
+        f"two-stage predict ({trades} tied items traded places); "
+        f"undeploy exit 0")
+    out.update(console=dict(train_s=train_s, boot_s=boot_s, p50=p50,
+                            p99=p99, qps=load["qps"]))
+    total = time.perf_counter() - t_phase
+    checks["phase_within_limit"] = total <= SCOUT_PHASE_LIMIT_S
+    detail["phaseSeconds"] = total
+    obs_report("scout", checks, detail)
+    out["s"] = total
     return out
 
 
@@ -4863,22 +5434,30 @@ def phase_hive(torch, store: StoreHome, cli_out: dict,
             drive("beta", 80, var)
         imp = reg.online.snapshot()
         seed = {}
+        batch_post_s: list[float] = []
         for var, rate in HIVE_PILOT_RATES.items():
             n = int(rate * imp[f"beta/{var}"]["impressions"]) - \
                 conversions[var]
             seed[var] = n
-            # one POST an event, as a client reports its conversions
-            # (batches beside the feedback's single writes stall the
-            # sharded store: ROADMAP Queue 3)
-            for k in range(n):
-                code = _raw(ev.port, f"/events.json?accessKey={beta_key}", {
-                    "event": "click", "entityType": "user",
-                    "entityId": beta_users[k % 8],
-                    "targetEntityType": "item",
-                    "targetEntityId": item_id(k % HIVE_ITEMS),
-                    "properties": {"variant": var}})[0]
-                if code != 201:
-                    raise AssertionError(f"seeding conversions: {code}")
+            # batches of 50, as a client reports its conversions, beside
+            # the deploy's single feedback writes into the same shards
+            events = [{
+                "event": "click", "entityType": "user",
+                "entityId": beta_users[k % 8], "targetEntityType": "item",
+                "targetEntityId": item_id(k % HIVE_ITEMS),
+                "properties": {"variant": var}} for k in range(n)]
+            for a in range(0, n, 50):
+                t_post = time.perf_counter()
+                code, raw, _ = _raw(
+                    ev.port, f"/batch/events.json?accessKey={beta_key}",
+                    events[a:a + 50])
+                post_s = time.perf_counter() - t_post
+                statuses = ([r["status"] for r in json.loads(raw)]
+                            if code == 200 else [])
+                batch_post_s.append(post_s)
+                if statuses != [201] * len(events[a:a + 50]):
+                    raise AssertionError(
+                        f"seeding conversions: {code} {raw[:300]!r}")
         applies = []
 
         def apply_over_http(app, w):
@@ -4922,7 +5501,12 @@ def phase_hive(torch, store: StoreHome, cli_out: dict,
             sum(e["decision"] == "ramp" for e in decisions)
             == len(trail) - 1 and any(e["decision"] == "conclude"
                                       for e in decisions))
+        # the sharded store's batch and single writers no longer stall
+        # each other for its 10 s busy timeout
+        checks["batch_conversions_never_stall"] = max(batch_post_s) < 1.0
         detail["autopilot"] = {"seededConversions": seed,
+                               "batchPostSec": [round(x, 4)
+                                                for x in batch_post_s],
                                "treatmentTrail": trail, "ticks":
                                pilot.payload()["ticks"],
                                "last": exp["apps"]["beta"]["last"]}
@@ -5460,12 +6044,22 @@ def main(argv: list[str]) -> int:
         torch.cuda.empty_cache()
         algo, model, _ = phase_train(torch, data, "pallas", 1)
         phase_serve(torch, algo, model)
+        # the "pallas" model serves path subspace's row gather and
+        # phase scout
+        row_model = model
         del algo, model
         torch.cuda.empty_cache()
         obs_traced_iteration(torch, ratings)
         torch.cuda.synchronize()
         paths = {"ml20m": dict(_build.LAUNCHES)}
         secs["train and serve"] = round(time.perf_counter() - t0, 1)
+        # the rest of the trainer (resets the counts itself), then the
+        # SPD solve kernel timed on its block systems
+        sub = timed("subspace", path_subspace, torch, data, row_model)
+        paths["subspace"] = sub["launches"]
+        gj_sub = gj_at_shapes(torch, "path subspace gj",
+                              "the sweep's block systems",
+                              sub.pop("systems"))
         del data
         torch.cuda.empty_cache()
         # the quickstart through the console (resets the counts itself)
@@ -5481,6 +6075,11 @@ def main(argv: list[str]) -> int:
         # `pio eval` through the console on the same store (the same)
         paths["eval"] = timed("eval", phase_eval, torch, store,
                               ratings)["launches"]
+        torch.cuda.empty_cache()
+        # two-stage retrieval, before fold-in's writes outdate the scan
+        # cache its console train reads (no kernel on its path)
+        timed("scout", phase_scout, torch, store, row_model, cli_out)
+        del row_model
         torch.cuda.empty_cache()
         # fold-in on the same store, last: its writes outdate the scan
         # cache (it sets the counts to 0 itself, after its train)
@@ -5524,6 +6123,7 @@ def main(argv: list[str]) -> int:
                 "dma_row_gather"),
         "probe_smoke": ("taa0_gather", "taa1_gather", "dma_row_gather"),
         "foldin": ("gj_solve",),
+        "subspace": ("gj_solve",),
         "hive": ("fused_als_reduce", "taa0_gather", "dma_row_gather"),
     }
     for path, names in expected.items():
@@ -5540,6 +6140,8 @@ def main(argv: list[str]) -> int:
         if k["name"] == "gj_solve":
             # the systems fold-in's cycles gave the kernel
             k["foldin_shapes"] = foldin_out["gj"]
+            # and the systems of path subspace's block sweep
+            k["subspace_shapes"] = gj_sub
 
     timed("breakdown", phase_breakdown, torch, ratings)
     log(f"phase seconds (host clock): {secs}")

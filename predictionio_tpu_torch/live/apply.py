@@ -12,9 +12,10 @@ the old table or the new one — mixed reads are safe because new rows
 are strictly additive and patched rows are newer values of the same
 row.  The cached device tables (the serve-time top-k index) are patched
 row-wise through ``DeviceTableMixin.patch_device_item_rows`` instead of
-being dropped, so the first post-delta query pays no full re-upload.
-The reference's patch of its quantized ANN indexes waits for the port
-of approximate retrieval (ROADMAP Queue 1 item 6).
+being dropped, so the first post-delta query pays no full re-upload,
+and so are the two-stage retrievers' quantized indexes
+(``DeviceTableMixin.patch_ann_indexes``: the touched rows re-quantized,
+new items appended to their nearest coarse cluster, no rebuild).
 """
 
 from __future__ import annotations
@@ -92,7 +93,15 @@ def apply_model_delta(model, delta: ModelDelta) -> dict:
     item_ixs = np.asarray(delta.item_rows_ix, np.int32)
     if patch is not None:
         patch(item_ixs, delta.item_rows, delta.new_item_rows)
+    # the quantized retrieval indexes are serve-time state like the
+    # device tables: re-quantize only the delta's rows and append new
+    # items to their nearest coarse cluster, in place
+    patch_ann = getattr(model, "patch_ann_indexes", None)
     counts = delta.counts()
+    if patch_ann is not None:
+        counts["annIndexesPatched"] = patch_ann(
+            item_ixs, delta.item_rows, delta.new_item_rows
+        )
     model.users.append([str(s) for s in delta.new_user_ids])
     model.items.append([str(s) for s in delta.new_item_ids])
     return counts

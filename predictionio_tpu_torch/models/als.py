@@ -36,9 +36,13 @@ half into ``als.gather`` / ``als.gram`` / ``als.solve`` spans by timing
 truncated halves (``_half_phase_probe``).  The ``train.nan`` fault point
 poisons the factors after a sweep.
 
-Not ported yet (the config raises): sharded factor placement, coded
-shards, the iALS++ subspace sweep, the grouped gather and approximate
-retrieval.
+``solver_mode="subspace"`` sweeps the rank in blocks (iALS++,
+:func:`_subspace_sweep`), :meth:`ALSTrainer.train` takes a step
+checkpointer (``workflow/checkpoint.py``) and :func:`sweep_train_als`
+trains one model a λ in one batched run.
+
+Not ported yet (the config raises): sharded factor placement and coded
+shards.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ import math
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -69,6 +73,7 @@ __all__ = [
     "BucketLayout",
     "build_bucket_layout",
     "rmse",
+    "sweep_train_als",
     "train_als",
 ]
 
@@ -118,6 +123,8 @@ class ALSConfig:
     # dtype the opposite factor table is gathered in: "float32" or
     # "bfloat16" (half the gathered bytes; solves and sums stay f32)
     gather_dtype: str = "float32"
+    # the reference's memory-tile slab gather ("grouped") takes the same
+    # rows as the row gather, so both values gather rows here
     gather_mode: str = "row"
     retrieval: str = "exact"
     candidate_factor: int = 10
@@ -199,12 +206,19 @@ class ALSConfig:
             )
         if self.nprobe < 1:
             raise ValueError(f"nprobe must be >= 1, got {self.nprobe}")
-        if self.coded_shards and self.factor_placement != "sharded":
-            raise ValueError(
-                "coded_shards=True requires "
-                "factor_placement='sharded' (parity is a property "
-                "of the sharded table layout)"
-            )
+        if self.coded_shards:
+            if self.factor_placement != "sharded":
+                raise ValueError(
+                    "coded_shards=True requires "
+                    "factor_placement='sharded' (parity is a property "
+                    "of the sharded table layout)"
+                )
+            if self.solver_mode == "subspace":
+                raise ValueError(
+                    "coded_shards=True does not compose with "
+                    "solver_mode='subspace' (the warm-start gather of "
+                    "the updating table is not parity-protected)"
+                )
         if self.matmul_precision not in ("highest", "high", "default"):
             raise ValueError(
                 f"matmul_precision must be 'highest', 'high' or "
@@ -221,12 +235,6 @@ class ALSConfig:
             raise _not_ported("factor_placement='sharded'")
         if self.coded_shards:
             raise _not_ported("coded_shards=True")
-        if self.solver_mode == "subspace":
-            raise _not_ported("solver_mode='subspace'")
-        if self.gather_mode == "grouped":
-            raise _not_ported("gather_mode='grouped'")
-        if self.retrieval != "exact":
-            raise _not_ported(f"retrieval={self.retrieval!r}")
 
 
 @dataclass
@@ -425,15 +433,18 @@ def _solve_buckets(
     v_sorted: torch.Tensor,   # [nnz] f32
     buckets: tuple,           # per bucket (rows, starts, counts)
     ks: tuple,                # pad width per bucket
-    lam: float,
+    lam,                      # float, or a 0-d tensor (the λ sweep)
     alpha: float,
     *,
     implicit: bool,
     weighted_lambda: bool,
     solver: str,
     gather_dtype: str = "float32",
+    solver_mode: str = "full",
+    subspace_size: int = 0,
     fused_gather: str = "taa",
     stop_after: Optional[str] = None,
+    vmapped: bool = False,
 ) -> Optional[torch.Tensor]:
     """Solve every bucket of one side and write the rows into ``upd``.
 
@@ -443,7 +454,17 @@ def _solve_buckets(
     of a short bucket across the card itself) or gather ``[B, K, R]`` +
     einsum Gram + ``_spd_solve``.  The Gram operands are the gathered
     rows widened to f32, so a bf16 gather table gives bf16 operands with
-    f32 accumulation, as in the reference.
+    f32 accumulation, as in the reference.  The solved rows go into
+    ``upd`` by ``index_copy_``; under ``torch.func.vmap`` (``vmapped``,
+    the λ sweep) by an ``index_put_``, which vmap batches.
+
+    ``solver_mode="subspace"`` (iALS++, arXiv 2110.14044) replaces each
+    row's full R×R solve by a sweep over rank blocks of width
+    ``subspace_size`` (:func:`_subspace_sweep`), warm-started from the
+    rows' current values in ``upd``; the B×B block systems go through
+    ``_spd_solve`` like the full ones (the SPD solve kernel under
+    ``"pallas"``).  ``subspace_size >= R`` takes the full-solve code
+    unchanged, so it is bitwise ``solver_mode="full"``.
 
     ``stop_after`` ("gather" | "gram") truncates every bucket after that
     phase for the phase probes: nothing is written, and the sum of the
@@ -453,7 +474,9 @@ def _solve_buckets(
     f32 = torch.float32
     dev = opp.device
     r = opp.shape[-1]
-    lam_t = torch.tensor(lam, dtype=f32, device=dev)
+    sub = solver_mode == "subspace" and 0 < subspace_size < r
+    lam_t = (lam.to(f32) if torch.is_tensor(lam)
+             else torch.tensor(lam, dtype=f32, device=dev))
     alpha_t = torch.tensor(alpha, dtype=f32, device=dev)
     gram = (opp.T @ opp).to(f32) if implicit else None
     opp_g = (
@@ -482,6 +505,18 @@ def _solve_buckets(
             if stop_after == "gather":
                 out = Vm.sum() if out is None else out + Vm.sum()
                 continue
+            if sub:
+                cw = alpha_t * val * maskf if implicit else None
+                res = _subspace_sweep(
+                    Vm, val, maskf, upd[rows].to(f32), reg, cw, gram,
+                    solver, subspace_size, gram_probe=stop_after == "gram",
+                )
+                del Vm
+                if stop_after == "gram":
+                    out = res if out is None else out + res
+                    continue
+                _write_rows(upd, rows, res, vmapped)
+                continue
             if implicit:
                 cw = alpha_t * val * maskf                       # (c - 1)
                 A = gram + torch.einsum("bk,bkr,bks->brs", cw, Vm, Vm)
@@ -496,8 +531,87 @@ def _solve_buckets(
                 out = part if out is None else out + part
                 continue
             x = _spd_solve(A, b, solver)
-        upd.index_copy_(0, rows, x.to(upd.dtype))
+        _write_rows(upd, rows, x, vmapped)
     return out
+
+
+def _write_rows(upd: torch.Tensor, rows: torch.Tensor, x: torch.Tensor,
+                vmapped: bool) -> None:
+    if vmapped:
+        upd[rows] = x.to(upd.dtype)
+    else:
+        upd.index_copy_(0, rows, x.to(upd.dtype))
+
+
+def _subspace_sweep(
+    Vm: torch.Tensor,          # [B, K, R] gathered, masked rows, f32
+    val: torch.Tensor,         # [B, K] masked ratings, f32
+    maskf: torch.Tensor,       # [B, K] validity mask, f32
+    x0: torch.Tensor,          # [B, R] current factor rows, f32
+    reg: torch.Tensor,         # [B] ridge (λ or λ·n_row)
+    cw: Optional[torch.Tensor],    # [B, K] implicit (c - 1), or None
+    gram: Optional[torch.Tensor],  # [R, R] YᵀY (implicit), f32
+    solver: str,
+    block: int,
+    *,
+    gram_probe: bool = False,
+) -> torch.Tensor:
+    """One iALS++ rank-block sweep over a bucket's rows (arXiv
+    2110.14044 Alg. 2, batched over rows), as the reference's.
+
+    Each block S takes an exact Newton step ``H_S δ = -g_S`` on the
+    block's coordinates of the quadratic per-row objective, against
+    caches kept with rank-B work:
+
+    * explicit: the residual ``e = Vm·x - val``; ``g_S = Vsᵀe +
+      reg·x_S``, ``H_S = VsᵀVs + reg·I``;
+    * implicit: the prediction ``p = Vm·x`` and ``q = x·YᵀY``;
+      ``g_S = q_S + Vsᵀ((c-1)p - c) + reg·x_S``,
+      ``H_S = YᵀY[S,S] + Vsᵀdiag(c-1)Vs + reg·I``.
+
+    A tail block narrower than ``block`` goes through the same solve.
+    ``gram_probe=True`` forms every block's (H, g) without solving or
+    updating the caches and returns their sum (the ``stop_after="gram"``
+    probe)."""
+    r = Vm.shape[-1]
+    x = x0.clone()
+    pred = torch.einsum("bkr,br->bk", Vm, x)
+    e = q = None
+    if cw is None:
+        e = pred - val
+    else:
+        q = x @ gram
+    acc = None
+    for s in range(0, r, block):
+        w = min(block, r - s)
+        Vs = Vm[:, :, s:s + w]                             # [B, K, w]
+        xs = x[:, s:s + w]
+        if cw is None:
+            H = torch.einsum("bks,bkt->bst", Vs, Vs)
+            g = torch.einsum("bk,bks->bs", e, Vs)
+        else:
+            H = gram[s:s + w, s:s + w] + torch.einsum(
+                "bk,bks,bkt->bst", cw, Vs, Vs)
+            # (c-1)·p - c on rated items: cw is masked, so c·mask is
+            # maskf + cw
+            coef = cw * pred - maskf - cw
+            g = q[:, s:s + w] + torch.einsum("bk,bks->bs", coef, Vs)
+        H = H + reg[:, None, None] * torch.eye(w, dtype=H.dtype,
+                                               device=H.device)
+        g = g + reg[:, None] * xs
+        if gram_probe:
+            part = H.sum() + g.sum()
+            acc = part if acc is None else acc + part
+            continue
+        d = -_spd_solve(H, g, solver)                       # [B, w]
+        x[:, s:s + w] = xs + d
+        dp = torch.einsum("bks,bs->bk", Vs, d)
+        if cw is None:
+            e = e + dp
+        else:
+            pred = pred + dp
+            q = q + d @ gram[s:s + w, :]
+    return acc if gram_probe else x
 
 
 @xray.instrument("als.half_iteration")
@@ -513,7 +627,10 @@ def _half_iteration(
     precision: str,
     solver: str,
     gather_dtype: str = "float32",
+    solver_mode: str = "full",
+    subspace_size: int = 0,
     fused_gather: str = "taa",
+    vmapped: bool = False,
 ) -> torch.Tensor:
     """One half-iteration: solve every bucket of ``side`` against
     ``opp`` and write the rows into ``upd`` in place (returned), with
@@ -524,7 +641,8 @@ def _half_iteration(
             side["ks"], lam, alpha,
             implicit=implicit, weighted_lambda=weighted_lambda,
             solver=solver, gather_dtype=gather_dtype,
-            fused_gather=fused_gather,
+            solver_mode=solver_mode, subspace_size=subspace_size,
+            fused_gather=fused_gather, vmapped=vmapped,
         )
     return upd
 
@@ -542,6 +660,8 @@ def _half_phase_probe(
     precision: str,
     solver: str,
     gather_dtype: str = "float32",
+    solver_mode: str = "full",
+    subspace_size: int = 0,
     fused_gather: str = "taa",
     stop_after: str = "gather",
 ) -> torch.Tensor:
@@ -554,6 +674,7 @@ def _half_phase_probe(
             side["ks"], lam, alpha,
             implicit=implicit, weighted_lambda=weighted_lambda,
             solver=solver, gather_dtype=gather_dtype,
+            solver_mode=solver_mode, subspace_size=subspace_size,
             fused_gather=fused_gather, stop_after=stop_after,
         )
 
@@ -811,16 +932,25 @@ class ALSTrainer:
         V = torch.randn((self.n_items, cfg.rank), generator=g) * scale
         return U.to(self.device, dtype), V.to(self.device, dtype)
 
-    def _half(self, upd, opp, side, lam: Optional[float] = None):
+    def _half_options(self) -> dict:
+        """The keyword options of every half this trainer runs."""
         cfg = self.cfg
-        return _half_iteration(
-            upd, opp, side, cfg.lam if lam is None else lam, cfg.alpha,
+        return dict(
             implicit=cfg.implicit,
             weighted_lambda=cfg.weighted_lambda,
             precision=cfg.matmul_precision,
             solver=self.solver,
             gather_dtype=cfg.gather_dtype,
+            solver_mode=cfg.solver_mode,
+            subspace_size=cfg.subspace_size,
             fused_gather=self.fused_gather or "taa",
+        )
+
+    def _half(self, upd, opp, side, lam: Optional[float] = None):
+        cfg = self.cfg
+        return _half_iteration(
+            upd, opp, side, cfg.lam if lam is None else lam, cfg.alpha,
+            **self._half_options(),
         )
 
     def _traced_half(self, upd, opp, side, side_name: str, it: int,
@@ -840,12 +970,7 @@ class ALSTrainer:
         def probe(stop):
             return _half_phase_probe(
                 upd, opp, side, cfg.lam if lam is None else lam, cfg.alpha,
-                implicit=cfg.implicit,
-                weighted_lambda=cfg.weighted_lambda,
-                precision=cfg.matmul_precision, solver=self.solver,
-                gather_dtype=cfg.gather_dtype,
-                fused_gather=self.fused_gather or "taa",
-                stop_after=stop,
+                stop_after=stop, **self._half_options(),
             )
 
         def timed(fn, warm: bool) -> float:
@@ -969,11 +1094,48 @@ class ALSTrainer:
         return {"kernel": f"pio_fused_als{form}_{width}",
                 "split_buckets": split}
 
-    def train(self, init=None) -> ALSFactors:
+    def train(
+        self,
+        checkpointer=None,
+        checkpoint_every: int = 5,
+        resume: bool = True,
+        init=None,
+    ) -> ALSFactors:
         """Full run from ``init = (U0, V0)`` (the reference's initial
-        factors, say) or from :meth:`init_factors`."""
+        factors, say) or from :meth:`init_factors`.  With a
+        :class:`~predictionio_tpu_torch.workflow.checkpoint.
+        StepCheckpointer` the factors are saved every
+        ``checkpoint_every`` iterations, and with ``resume`` a run
+        starts from the latest saved step."""
+        if checkpointer is not None and checkpoint_every <= 0:
+            raise ValueError("checkpoint_every must be positive")
         U, V = self.init_factors() if init is None else init
-        U, V = self.run(U, V, self.cfg.num_iterations)
+        if checkpointer is None:
+            U, V = self.run(U, V, self.cfg.num_iterations)
+            return self._factors(U, V)
+        start = 0
+        if resume:
+            if checkpointer.latest_step() is not None:
+                # no explicit step: a torn newest step falls back to
+                # the one before it
+                state = checkpointer.restore(like={"U": U, "V": V})
+                U, V = state["U"], state["V"]
+                start = checkpointer.last_restored_step
+                logger.info("resuming ALS from iteration %d", start)
+        it = start
+        half_seconds, losses = [], []
+        while it < self.cfg.num_iterations:
+            chunk = min(checkpoint_every, self.cfg.num_iterations - it)
+            U, V = self.run(U, V, chunk)
+            half_seconds += self.half_seconds
+            losses += self.sweep_losses
+            it += chunk
+            checkpointer.save(it, {"U": U, "V": V})
+        self.half_seconds, self.sweep_losses = half_seconds, losses
+        return self._factors(U, V)
+
+    def _factors(self, U, V) -> ALSFactors:
+        """Host factor arrays and the run's report."""
         return ALSFactors(
             user_factors=U.float().cpu().numpy(),
             item_factors=V.float().cpu().numpy(),
@@ -1004,6 +1166,62 @@ def train_als(
     return ALSTrainer(
         ratings, n_users, n_items, cfg, device=device
     ).train(init=init)
+
+
+def sweep_train_als(
+    ratings: Ratings | tuple[np.ndarray, np.ndarray, np.ndarray],
+    n_users: Optional[int] = None,
+    n_items: Optional[int] = None,
+    cfg: ALSConfig = ALSConfig(),
+    lams: Sequence[float] = (),
+    device: DeviceLike = "cuda",
+    init=None,
+) -> list[ALSFactors]:
+    """Train one model per λ candidate in one batched run.
+
+    The reference's answer to the evaluation sweep: every candidate's
+    half-iteration runs as one program with a leading λ dimension
+    (``torch.func.vmap`` over the half, as the reference vmaps its
+    jitted half), and staging is paid once for the whole sweep.  Memory
+    scales with the number of candidates, so this fits
+    evaluation-scale problems, not the full ML-20M train.  The batched
+    form needs the ``"xla"`` solver (the kernels take no batch
+    dimension); sharded placement is not ported.  ``init = (U0, V0)``
+    starts every candidate there (the reference's initial factors, in
+    the parity tests), else at :meth:`ALSTrainer.init_factors`."""
+    if not lams:
+        return []
+    if cfg.solver != "xla":
+        raise ValueError(
+            "sweep_train_als (vmapped form) requires solver='xla'"
+        )
+    trainer = ALSTrainer(ratings, n_users, n_items, cfg, device=device)
+    opts = trainer._half_options()
+    n = len(lams)
+    lam_t = torch.tensor([float(x) for x in lams], dtype=torch.float32,
+                         device=trainer.device)
+
+    def make_half(side):
+        def one(upd, opp, lam):
+            # the half writes its rows in place: into its own copy
+            return _half_iteration(upd.clone(), opp, side, lam, cfg.alpha,
+                                   **opts, vmapped=True)
+
+        return xray.instrument("als.sweep_half")(torch.func.vmap(one))
+
+    half_u = make_half(trainer._user_side)
+    half_i = make_half(trainer._item_side)
+    U0, V0 = trainer.init_factors() if init is None else init
+    dtype = getattr(torch, cfg.compute_dtype)
+    U = torch.as_tensor(U0).to(trainer.device, dtype).expand(n, -1, -1)
+    V = torch.as_tensor(V0).to(trainer.device, dtype).expand(n, -1, -1)
+    for _ in range(cfg.num_iterations):
+        U = half_u(U, V, lam_t)
+        V = half_i(V, U, lam_t)
+    Uh, Vh = U.float().cpu().numpy(), V.float().cpu().numpy()
+    return [
+        ALSFactors(user_factors=Uh[k], item_factors=Vh[k]) for k in range(n)
+    ]
 
 
 # --------------------------------------------------------------------------

@@ -271,14 +271,16 @@ class ScopeProfiler:
         Public for tests and for one-shot CLI probes."""
         t0 = time.perf_counter()
         frames = sys._current_frames()
-        me = threading.get_ident()
+        # the sampler profiling itself is pure noise; and its own frame
+        # in the dict would close a cycle (the frame's locals hold the
+        # dict) that keeps every sampled frame, with the locals of each
+        # thread's calls, alive until the cyclic collector runs
+        frames.pop(threading.get_ident(), None)
         main_ident = threading.main_thread().ident
         with _roles_lock:
             roles = dict(_roles)
         items: list[tuple[str, str, str]] = []
         for ident, frame in frames.items():
-            if ident == me:
-                continue  # the sampler profiling itself is pure noise
             role = roles.get(ident)
             if role is None:
                 role = "main" if ident == main_ident else "other"

@@ -20,7 +20,7 @@ import torch
 from ..device import matmul_precision
 
 __all__ = ["topk_scores", "batch_topk_scores", "batch_topk_scores_t",
-           "pow2_ceil"]
+           "cosine_topk", "pow2_ceil", "rerank_topk"]
 
 
 def pow2_ceil(x: int) -> int:
@@ -79,4 +79,36 @@ def batch_topk_scores_t(query_vecs: torch.Tensor, table_t: torch.Tensor,
     scores = scores.to(torch.float32)
     if mask is not None:
         scores = scores + mask
+    return _top_k(scores, k)
+
+
+def rerank_topk(query_vecs: torch.Tensor, table: torch.Tensor,
+                cand_ix: torch.Tensor, k: int):
+    """Exact rerank stage of two-stage retrieval: gather the ``[B, P]``
+    candidate rows from the unquantized serving table and top-k them
+    with the full-precision dot products the exact scan computes, so
+    the candidate stage can only lose recall, never corrupt a kept
+    candidate's score or rank.  ``cand_ix`` entries of ``-1`` (IVF
+    padding, a candidate shortfall) score ``-inf``, which the template
+    decode drops; so does an id past ``table``'s rows (an item that a
+    fold-in appended to the index after the caller took its table),
+    which is never gathered.  Returns ``([B, k] values, [B, k] int32
+    ids)``."""
+    held = (cand_ix >= 0) & (cand_ix < table.shape[0])
+    rows = table[torch.where(held, cand_ix, 0).long()].to(torch.float32)
+    with matmul_precision("highest"):
+        scores = torch.einsum("bpr,br->bp", rows,               # [B, P]
+                              query_vecs.to(torch.float32))
+    scores = torch.where(held, scores, float("-inf"))
+    vals, pos = _top_k(scores, k)
+    return vals, torch.gather(cand_ix, 1, pos)
+
+
+def cosine_topk(query_vec: torch.Tensor, table: torch.Tensor, k: int):
+    """Cosine similarity top-k (the similar-product scoring)."""
+    qn = query_vec / (torch.linalg.vector_norm(query_vec) + 1e-9)
+    tn = table / (torch.linalg.vector_norm(table, dim=-1, keepdim=True)
+                  + 1e-9)
+    with matmul_precision("highest"):
+        scores = tn @ qn
     return _top_k(scores, k)

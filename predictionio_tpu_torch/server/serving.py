@@ -968,17 +968,19 @@ class EngineServer(HTTPServerBase):
 
     # -- query path -------------------------------------------------------
     def _query_setup(self, query_json: dict, timeout_s: Optional[float],
-                     tl) -> _QueryCtx:
+                     tl, route=None) -> _QueryCtx:
         """The front half of a query on either edge: budget, tenant,
         decode, state snapshot, fault points, deadline-aware admission;
         marks the ``parse`` and ``auth`` timeline boundaries.  Blocks
         only while a tenant loads.  With tenancy the query resolves to
         its tenant first (its quota and breaker shed inside ``resolve``,
-        before any decode), and a failure here completes the lease."""
+        before any decode), and a failure here completes the lease.
+        ``route`` is the query's tenant route where the edge has taken
+        it already."""
         budget = (timeout_s if timeout_s is not None
                   else self.config.query_timeout_s)
         deadline = Deadline.after(budget) if budget is not None else None
-        lease = (self.tenants.resolve(query_json)
+        lease = (self.tenants.resolve(query_json, route)
                  if self.tenants is not None else None)
         try:
             if lease is not None:
@@ -1453,7 +1455,9 @@ class EngineServer(HTTPServerBase):
         thread, device work on the batcher's dispatcher, serve/encode in
         its callback, the socket write back on the loop (which finishes
         the request's timeline).  The request's trace id (its
-        ``X-PIO-Trace``, or a new one) is echoed on every reply."""
+        ``X-PIO-Trace``, or a new one) is echoed on every reply.  A
+        query whose tenant must load first is set up on the aux pool, so
+        the loop goes on answering the resident tenants meanwhile."""
         tid = (req.header(TRACE_HEADER) or "").strip() or new_trace_id()
         hdrs = [(TRACE_HEADER, tid)]
         tl = timeline.Timeline("serve")
@@ -1462,10 +1466,29 @@ class EngineServer(HTTPServerBase):
             self._m_queries["bad_request"].inc()
             respond(400, {"message": bad}, extra_headers=hdrs)
             return
+        route = None
+        if self.tenants is not None:
+            try:
+                route = self.tenants.route(query_json)
+            except Exception as e:  # UnknownTenant, or not a JSON object
+                self._el_reply_error(e, respond, hdrs)
+                return
+            if not self.tenants.is_resident(route[0]):
+                self._aux_submit(respond, lambda: self._el_dispatch(
+                    query_json, timeout_s, tid, hdrs, tl, respond, route))
+                return
+        self._el_dispatch(query_json, timeout_s, tid, hdrs, tl, respond,
+                          route)
+
+    def _el_dispatch(self, query_json, timeout_s, tid, hdrs, tl,
+                     respond, route=None) -> None:
+        """The query's setup and hand-off to the device, on the loop
+        thread or, while its tenant loads, on the aux pool."""
         _m_inflight.inc()
         try:
             with trace_scope(tid), timeline.timeline_scope(tl):
-                ctx = self._query_setup(query_json, timeout_s, tl)
+                ctx = self._query_setup(query_json, timeout_s, tl,
+                                        route)
         except Exception as e:
             _m_inflight.dec()
             self._el_reply_error(e, respond, hdrs)

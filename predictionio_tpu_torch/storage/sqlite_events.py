@@ -540,6 +540,16 @@ class SQLiteEventStore(EventStore):
         an open transaction).  Other threads' writes keep their normal
         commit-per-call behavior while a bulk scope is active here.
 
+        The outermost scope holds the store's writer lock from its start
+        to its commit or rollback.  The scope's sqlite write transaction
+        is open that whole time, so a writer on another thread could not
+        write before the commit anyway; holding the lock makes it wait
+        for the lock instead of waiting inside sqlite while holding the
+        lock that the commit needs (the two stalled each other for the
+        10 s busy timeout, and the single write then failed with
+        "database is locked").  Readers never take the lock: a long
+        import does not block them.
+
         A failed scope ROLLS BACK instead of committing: the single
         transaction makes a crashed import atomic — no half-persisted
         file with no marker of how far it got.  Every write path on this
@@ -566,8 +576,11 @@ class SQLiteEventStore(EventStore):
         steady-state ingest.  The flag is consulted only when THIS
         call opens the outermost scope; nested scopes inherit it.
         """
+        outer = self._bulk_depth == 0
+        if outer:
+            self._lock.acquire()
         self._local.bulk_depth = self._bulk_depth + 1
-        if self._local.bulk_depth == 1:
+        if outer:
             self._local.bulk_dropped = set()
             self._local.bulk_kept = set()
             self._local.bulk_defer = defer_indexes
@@ -575,25 +588,25 @@ class SQLiteEventStore(EventStore):
             yield self
         except BaseException:
             self._local.bulk_depth -= 1
-            if self._local.bulk_depth == 0:
-                with self._lock:
-                    self._conn.rollback()
-                    # normally the rollback restores the dropped
-                    # indexes, but interleaved DDL (_ensure_table for a
-                    # NEW app/channel) implicitly COMMITs mid-scope,
-                    # making the drop durable — rebuild idempotently
-                    # (IF NOT EXISTS: a no-op when rollback sufficed)
-                    # so a failed import can't strand an index-less
-                    # table across restarts
-                    self._rebuild_dropped_indexes()
-                    self._conn.commit()
+            if outer:
+                self._conn.rollback()
+                # normally the rollback restores the dropped indexes,
+                # but interleaved DDL (_ensure_table for a NEW
+                # app/channel) implicitly COMMITs mid-scope, making the
+                # drop durable — rebuild idempotently (IF NOT EXISTS: a
+                # no-op when rollback sufficed) so a failed import can't
+                # strand an index-less table across restarts
+                self._rebuild_dropped_indexes()
+                self._conn.commit()
             raise
         else:
             self._local.bulk_depth -= 1
-            if self._local.bulk_depth == 0:
-                with self._lock:
-                    self._rebuild_dropped_indexes()
-                    self._conn.commit()
+            if outer:
+                self._rebuild_dropped_indexes()
+                self._conn.commit()
+        finally:
+            if outer:
+                self._lock.release()
 
     def _rebuild_dropped_indexes(self) -> None:
         """Recreate (IF NOT EXISTS) the secondary indexes of every

@@ -1,6 +1,7 @@
 """Shared template helpers (port of ``predictionio_tpu/templates/_common.py``:
-the device table caches and their fold-in patch, the query filter mask,
-the batch ladder and the batched scorer warm-up)."""
+the device table caches and their fold-in patch, the two-stage
+retrievers cached beside them, the query filter mask, the batch ladder
+and the batched scorer warm-up)."""
 
 from __future__ import annotations
 
@@ -63,7 +64,9 @@ class DeviceTableMixin:
         anew on its device and swapped in with one attribute rebind, so
         a concurrent reader sees the old table or the new one, never a
         torn row; caches that do not exist yet are left absent (they are
-        built from the already-patched host table on first use)."""
+        built from the already-patched host table on first use).
+        Normalized tables get their rows normalized in f32 first, as
+        :meth:`device_item_factors_normalized` builds them."""
         if len(ixs) == 0 and (appended is None or len(appended) == 0):
             return
         rows_np = np.asarray(rows, np.float32)
@@ -71,18 +74,25 @@ class DeviceTableMixin:
             np.asarray(appended, np.float32)
             if appended is not None and len(appended) else None
         )
+        def norm(a: np.ndarray) -> np.ndarray:
+            return a / (np.linalg.norm(a, axis=-1, keepdims=True) + 1e-9)
+
         for attr in list(vars(self)):
             dev = getattr(self, attr)
             if not attr.startswith("_dev_item_factors_") or dev is None:
                 continue
+            normed = attr.startswith("_dev_item_factors_norm_")
+            src_rows = norm(rows_np) if normed else rows_np
+            src_app = (norm(app_np) if normed and app_np is not None
+                       else app_np)
             # the [R, M] layout takes rows as columns
             axis = 1 if attr.startswith("_dev_item_factors_t_") else 0
-            new = (torch.cat([dev, _as_table(app_np, dev, axis)], dim=axis)
-                   if app_np is not None else dev.clone())
+            new = (torch.cat([dev, _as_table(src_app, dev, axis)], dim=axis)
+                   if src_app is not None else dev.clone())
             if len(rows_np):
                 ix = torch.as_tensor(np.asarray(ixs, np.int64),
                                      device=dev.device)
-                new.index_copy_(axis, ix, _as_table(rows_np, dev, axis))
+                new.index_copy_(axis, ix, _as_table(src_rows, dev, axis))
             setattr(self, attr, new)
 
     def device_item_factors_t(self, dtype: Optional[str] = None):
@@ -95,6 +105,49 @@ class DeviceTableMixin:
 
         return self._cached_device(
             f"_dev_item_factors_t_{dtype or 'native'}", make
+        )
+
+    def device_ann_index(self, cfg):
+        """The two-stage retriever for ``cfg`` (a
+        ``retrieval.RetrievalConfig``), built once per model (re)load on
+        the model's device and cached per config like the device
+        tables; fold-in deltas patch it in place
+        (:meth:`patch_ann_indexes`)."""
+        from ..retrieval import TwoStageRetriever
+
+        key = f"_ann_index_{cfg.cache_key()}"
+        idx = getattr(self, key, None)
+        if idx is None:
+            idx = TwoStageRetriever.build(self.item_factors, cfg,
+                                          device=self.device)
+            setattr(self, key, idx)
+        return idx
+
+    def patch_ann_indexes(self, ixs, rows, appended=None) -> int:
+        """Fold-in delta apply: fold the touched and appended item rows
+        into every cached retriever in place (re-quantize those rows,
+        append new items to their nearest coarse cluster), so
+        two-stage predictions advance with the exact ones.  Returns the
+        number of indexes patched."""
+        n = 0
+        for attr in list(vars(self)):
+            if attr.startswith("_ann_index_"):
+                getattr(self, attr).patch(ixs, rows, appended)
+                n += 1
+        return n
+
+    def device_item_factors_normalized(self, dtype: Optional[str] = None):
+        """Row-normalized table for cosine scoring, normalized once (in
+        f32, then cast), not per request."""
+
+        def make():
+            table = self.device_item_factors()
+            dev = table / (torch.linalg.vector_norm(
+                table, dim=-1, keepdim=True) + 1e-9)
+            return dev.to(getattr(torch, dtype)) if dtype else dev
+
+        return self._cached_device(
+            f"_dev_item_factors_norm_{dtype or 'native'}", make
         )
 
 

@@ -47,6 +47,7 @@ from ..storage.levents import EventStore
 from ._common import (
     DeviceTableMixin,
     filter_bias_mask,
+    pow2_ladder,
     warm_batched_topk,
 )
 
@@ -414,6 +415,21 @@ class ALSAlgorithm(Algorithm):
         dt = self.params.serving_dtype
         return None if dt == "float32" else dt
 
+    def _retrieval_config(self):
+        """The two-stage retrieval config, or None when this algorithm
+        serves the exact scan (the default)."""
+        p = self.params
+        if p.retrieval == "exact":
+            return None
+        from ..retrieval import RetrievalConfig
+
+        return RetrievalConfig(
+            mode=p.retrieval,
+            candidate_factor=p.candidate_factor,
+            nprobe=p.nprobe,
+            clusters=p.ann_clusters,
+        )
+
     def train(self, ctx: WorkflowContext, data: TrainingData) -> ALSModel:
         factors = train_als(data.ratings, cfg=self._config(),
                             device=ctx.device)
@@ -456,6 +472,16 @@ class ALSAlgorithm(Algorithm):
             model.device_item_factors_t(self._serve_dtype()), rank, n,
             unmasked_too=True, max_batch=max_batch,
         )
+        rcfg = self._retrieval_config()
+        if rcfg is not None:
+            # the two-stage path joins the warm-up ladder: every pow2
+            # batch the batcher can dispatch at the default num, and
+            # the small-k solo shapes
+            idx = model.device_ann_index(rcfg)
+            k_default = min(pow2_ceil(10), n)
+            idx.warm(k_default, pow2_ladder(max_batch) + [1], table)
+            for k in {min(pow2_ceil(kk), n) for kk in (1, 4)}:
+                idx.warm(k, [1], table)
 
     def predict(self, model: ALSModel, query: Query) -> PredictedResult:
         uix = model.users.get(query.user)
@@ -468,6 +494,17 @@ class ALSAlgorithm(Algorithm):
             np.asarray(model.user_factors[uix], np.float32),
             device=model.device,
         )
+        rcfg = self._retrieval_config()
+        if mask is None and rcfg is not None:
+            # quantized candidate shortlist -> exact f32 rerank; a
+            # filtered query stays on the exact scorer (a -inf mask
+            # over a shortlist could starve it below num)
+            vals2, ixs2 = model.device_ann_index(rcfg).search(
+                uvec[None, :], k, table)
+            return PredictedResult(
+                item_scores=decode_item_scores(model.items, vals2[0],
+                                               ixs2[0])
+            )
         bias = (None if mask is None
                 else torch.as_tensor(mask, device=model.device))
         vals, ixs = topk_scores(uvec, table, k, bias=bias)
@@ -511,10 +548,18 @@ class ALSAlgorithm(Algorithm):
                 np.stack([zero if m is None else m for m in masks]),
                 device=model.device,
             )
-        vals, ixs = batch_topk_scores_t(
-            uvecs, model.device_item_factors_t(self._serve_dtype()),
-            k, mask=mask,
-        )
+        rcfg = self._retrieval_config()
+        if mask is None and rcfg is not None:
+            # two-stage: a quantized shortlist scan and an exact rerank
+            # of candidate_factor*k rows instead of the O(M*R) product
+            vals, ixs = model.device_ann_index(rcfg).search(
+                uvecs, k, model.device_item_factors(self._serve_dtype())
+            )
+        else:
+            vals, ixs = batch_topk_scores_t(
+                uvecs, model.device_item_factors_t(self._serve_dtype()),
+                k, mask=mask,
+            )
         decoded = decode_batch_item_scores(
             model.items, vals, ixs, [q.num for q in queries], valid, k
         )

@@ -521,14 +521,52 @@ class TenantRegistry:
                 "wasResident": rt is not None}
 
     # -- resolution (the per-query hot path) ------------------------------
-    def resolve(self, query_json: dict) -> TenantLease:
+    def resolve(self, query_json: dict,
+                route: Optional[tuple[tuple[str, str], str, bool]] = None,
+                ) -> TenantLease:
         """Route one query to its tenant: explicit ``app``/``appId`` +
         ``variant`` fields win, an ``accessKey`` field maps to its app,
         anything else lands on the anchor tenant; a missing variant is
         assigned by the app's experiment from the ``user`` field
         (sticky weighted A/B).  Applies quota THEN breaker admission,
         loads the model lazily, and returns a lease pinning the tenant
-        for the query's duration."""
+        for the query's duration.  ``route`` is the query's
+        :meth:`route`, where the caller has taken it already."""
+        key, variant, assigned = (route if route is not None
+                                  else self.route(query_json))
+        rt = self.get_runtime(key)
+        # quota before the breaker: allow() may claim the single
+        # half-open probe slot, which a quota shed would then strand
+        if rt.quota is not None and not rt.quota.try_acquire():
+            rt.m_queries["quota"].inc()
+            rt.m_quota.inc()
+            raise QuotaExceeded(
+                f"tenant {rt.key_str} is over its "
+                f"{rt.quota.rate_qps:g} QPS quota"
+            )
+        if not rt.breaker.allow():
+            rt.m_queries["shed"].inc()
+            raise TenantUnavailable(
+                f"tenant {rt.key_str} breaker is open "
+                "(shedding after repeated failures)"
+            )
+        with self._lock:
+            self._tick += 1
+            rt.last_used = self._tick
+            rt.inflight += 1
+            rt.requests += 1
+        return TenantLease(self, rt, variant, assigned)
+
+    def is_resident(self, key: tuple[str, str]) -> bool:
+        """Whether the tenant ``key`` is loaded, so that :meth:`resolve`
+        takes it without a load (an event-loop edge resolves a query
+        whose tenant must load off its loop)."""
+        with self._lock:
+            return key in self._runtimes
+
+    def route(self, query_json: dict) -> tuple[tuple[str, str], str, bool]:
+        """The query's tenant key, its variant and whether the variant
+        was assigned; raises :class:`UnknownTenant`."""
         with self._lock:
             # one snapshot of the routing tables: tenant add/remove
             # mutates them live, and a query's app->experiment->spec
@@ -563,28 +601,7 @@ class TenantRegistry:
             raise UnknownTenant(
                 f"unknown variant {variant!r} for app {app!r}"
             )
-        rt = self.get_runtime(key)
-        # quota before the breaker: allow() may claim the single
-        # half-open probe slot, which a quota shed would then strand
-        if rt.quota is not None and not rt.quota.try_acquire():
-            rt.m_queries["quota"].inc()
-            rt.m_quota.inc()
-            raise QuotaExceeded(
-                f"tenant {rt.key_str} is over its "
-                f"{rt.quota.rate_qps:g} QPS quota"
-            )
-        if not rt.breaker.allow():
-            rt.m_queries["shed"].inc()
-            raise TenantUnavailable(
-                f"tenant {rt.key_str} breaker is open "
-                "(shedding after repeated failures)"
-            )
-        with self._lock:
-            self._tick += 1
-            rt.last_used = self._tick
-            rt.inflight += 1
-            rt.requests += 1
-        return TenantLease(self, rt, str(variant), assigned)
+        return key, str(variant), assigned
 
     def _release(self, rt: TenantRuntime) -> None:
         with self._lock:

@@ -2,6 +2,8 @@
 as the JAX package's ``ALSConfig``, a clear error for options whose code
 is not ported yet, and entry points that default to the card."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,11 +20,17 @@ from predictionio_tpu_torch.models.als import (
 @pytest.mark.parametrize("kw,match", [
     (dict(factor_placement="sharded"), "not yet ported"),
     (dict(factor_placement="sharded", coded_shards=True), "not yet ported"),
-    (dict(solver_mode="subspace"), "not yet ported"),
-    (dict(gather_mode="grouped"), "not yet ported"),
-    (dict(retrieval="ivf"), "not yet ported"),
+    # ported: these build the reference's config, field for field
+    (dict(solver_mode="subspace", solver="pallas"), None),
+    (dict(gather_mode="grouped"), None),
+    (dict(retrieval="ivf", nprobe=4), None),
 ])
 def test_unported_options_raise(kw, match):
+    if match is None:
+        got = dataclasses.asdict(ALSConfig(**kw))
+        want = dataclasses.asdict(JaxALSConfig(**kw))
+        assert got == want
+        return
     with pytest.raises(NotImplementedError, match=match):
         ALSConfig(**kw)
 

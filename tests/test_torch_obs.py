@@ -301,3 +301,42 @@ def test_spans_stitch_across_journals_as_tracecat(tmp_path):
 
     assert shape(build_tree(got)) == shape(tracecat.build_tree(want))
     assert all(len(r["children"]) == 1 for r in build_tree(got))
+
+
+def test_a_stack_sample_keeps_no_frame_alive():
+    """A sample of a thread's stack must not outlive the sample: the
+    locals of the calls it saw (a tenant's model, say) are freed when
+    those calls return, without waiting for the cyclic collector (the
+    reference's ``sample_once`` keeps its own frame in the frames dict
+    it holds, a cycle that keeps every sampled frame alive)."""
+    import gc
+    import threading
+    import weakref
+
+    from predictionio_tpu_torch.obs.scope import ScopeProfiler
+
+    class Payload:
+        pass
+
+    ready, go = threading.Event(), threading.Event()
+    refs = []
+
+    def work():
+        payload = Payload()
+        refs.append(weakref.ref(payload))
+        ready.set()
+        go.wait(10)
+
+    prof = ScopeProfiler(hz=67)
+    gc.disable()
+    try:
+        t = threading.Thread(target=work)
+        t.start()
+        assert ready.wait(10)
+        assert prof.sample_once() >= 1
+        go.set()
+        t.join(10)
+        assert not t.is_alive()
+        assert refs[0]() is None
+    finally:
+        gc.enable()

@@ -18,12 +18,17 @@ loader), on the event-loop edge and the threads edge.  Over HTTP:
 * a quota answers the same 429s and a ``tenant.dispatch`` fault plan the
   same 500s then 503s, the sibling serving throughout;
 * ``OnlineEval`` over the same impressions and conversion events gives
-  equal snapshots.
+  equal snapshots;
+* on the event-loop edge, a resident tenant is answered in under 200 ms
+  while another tenant loads for a second, and the loading tenant's
+  query gets the reference's reply.
 """
 
 import argparse
 import dataclasses
 import json
+import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -403,3 +408,50 @@ def test_online_eval_refresh_equal(servers, homes):
         homes.storage[n].get_event_store()))
     assert again["port"] == again["jax"] == {
         k: v for k, v in snaps["port"].items()}
+
+
+def _post_port(servers, doc) -> tuple:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{servers.servers['port'].port}/queries.json",
+        data=json.dumps(doc).encode(), method="POST",
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, json.loads(r.read())
+
+
+def test_a_lazy_load_leaves_the_loop_answering(homes, monkeypatch):
+    servers = Servers(homes, "eventloop")
+    try:
+        reg = servers.regs["port"]
+        loader = reg.loader
+
+        def slow(spec):
+            time.sleep(1.0)
+            return loader(spec)
+
+        monkeypatch.setattr(reg, "loader", slow)
+        resident = {"user": "u1", "num": 4, "app": "alpha",
+                    "variant": "control"}
+        assert _post_port(servers, resident)[0] == 200
+        lazy = {"user": "u2", "num": 4, "app": "beta", "variant": "control"}
+        got = {}
+        loading = threading.Thread(
+            target=lambda: got.update(port=_post_port(servers, lazy)))
+        loading.start()
+        time.sleep(0.2)
+        waits = []
+        for u in range(5):
+            t0 = time.perf_counter()
+            code, _ = _post_port(servers, {**resident, "user": f"u{u}"})
+            waits.append(time.perf_counter() - t0)
+            assert code == 200
+        still_loading = loading.is_alive()
+        loading.join(30)
+        assert not loading.is_alive()
+        assert max(waits) < 0.2, waits
+        assert still_loading
+        want = servers.call("POST", "/queries.json", lazy)["jax"]
+        assert got["port"][0] == want[0] == 200
+        _close_replies(got["port"][1], want[1])
+    finally:
+        servers.close()
