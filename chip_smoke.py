@@ -13,7 +13,7 @@ float64 solve), both forms of the fused ALS kernel ("taa" and "dma")
 with the second pass of a split bucket, and the three gather probes,
 whose launch path it takes apart step by step at the probe shape.
 It builds the native host runtime (``build/native/``, ``g++``) beside
-the kernels.  Then it drives eight main paths and phase scout through
+the kernels.  Then it drives nine main paths and phase scout through
 the entry points a user calls, each path with every launch counter set
 to 0 just before it and read just after it; a kernel its path did not
 launch fails the run:
@@ -51,8 +51,9 @@ launch fails the run:
   trace id on the feedback write, one log POST for an invalid query,
   ``/debug/fleet``, the HTML status page, and a replica SIGKILLed under
   load with no query failing and its respawn booked;
-* eval: ``pio eval`` on that store through the console, in process: a
-  sweep of two candidates over 2 folds (:class:`ML20MSweep`), its folds
+* eval: ``pio eval`` on that store through the console, in process: one
+  candidate over 2 folds (:class:`ML20MSweep`; the two-candidate
+  sweep runs at ML-1M counts in phase pio), its folds
   held against a numpy split and its winner's RMSE against a float64
   recomputation;
 * scout (no kernel on its path): two-stage retrieval on that store
@@ -62,6 +63,16 @@ launch fails the run:
   invariants, and a console ``train`` with ``"retrieval": "ivf"``
   deployed and loaded from 64 clients, every reply held against the
   in-process two-stage ``predict``;
+* engines: on that store after scout, the model-backed engines through
+  the console: similarproduct (implicit ALS, ``"fused"``, its implicit
+  counts held against a numpy recount of a shard), itemsimilarity
+  (``"pallas"``, served by the ivf retriever, recall@10 against the
+  exact scan), ecommerce (``"fused"``, served with the seen-items and
+  unavailable-items reads of the store) and classification (an app of
+  200,000 users imported as JSON lines; naive Bayes, logistic and a
+  random forest, each held against its CPU counterpart); four
+  ``deploy`` processes answering like an in-process ``predict``, each
+  ALS train's float64 health check;
 * foldin: on that store after eval, a ``"pallas"`` console ``train``,
   ``deploy --replicas 2 --push-foldin 1``, ``foldin --from-now`` (which
   must find nothing to fold), then a ``FoldInRunner`` on the card over
@@ -195,9 +206,14 @@ BIG_N = 1 << 20
 # split targets (waves of blocks over the SMs) that phase breakdown times
 SWEEP_WAVES = (1, 2, 4, 6, 8, 12, 16)
 
-# phase eval's sweep: two candidates that differ only in lambda, k folds
-# (2, not the reference's 3: the whole script stays well inside its time)
+# the ML-1M sweep of phase pio: two candidates that differ only in
+# lambda, k folds (2, not the reference's 3: the whole script stays well
+# inside its time)
 SWEEP_LAMBDAS = (0.01, 0.1)
+# phase eval at ML-20M scores one of them, the winner of every earlier
+# run: a depth cut that keeps the script near its target
+# with phase engines; the two-candidate sweep runs at ML-1M in phase pio
+ML20M_EVAL_LAMBDAS = (0.1,)
 EVAL_K = 2
 EVAL_SEED = 3
 
@@ -226,10 +242,11 @@ def sweep_variant(app: str, lam: float) -> dict:
 class ML20MSweep:
     """The ``EngineParamsGenerator`` phase eval names on the console
     (``eval --engine recommendation __main__.ML20MSweep``): one candidate
-    per :data:`SWEEP_LAMBDAS` over the ML-20M store's app.  The console
+    per λ of ``LAMBDAS`` over the ML-20M store's app.  The console
     instantiates the class, so the port is imported only then."""
 
     APP = "ml20m"
+    LAMBDAS = ML20M_EVAL_LAMBDAS
 
     def __init__(self):
         from predictionio_tpu_torch.templates.recommendation import (
@@ -239,13 +256,15 @@ class ML20MSweep:
         engine = recommendation_evaluation().engine
         self.engine_params_list = [
             engine.params_from_variant(sweep_variant(self.APP, lam))
-            for lam in SWEEP_LAMBDAS]
+            for lam in self.LAMBDAS]
 
 
 class ML1MSweep(ML20MSweep):
-    """The same sweep over phase pio's ML-1M app."""
+    """The sweep of both :data:`SWEEP_LAMBDAS` over phase pio's ML-1M
+    app."""
 
     APP = "ml1m"
+    LAMBDAS = SWEEP_LAMBDAS
 
 
 def synth_ratings(n_users: int, n_items: int, n_ratings: int, seed: int = 0,
@@ -2031,6 +2050,14 @@ def phase_fleet(store: StoreHome) -> dict:
         if any(st != 200 or any(e["status"] != 201 for e in r)
                for st, r in replies):
             fleet.fail("refused an item $set event")
+        # phase engines' unavailable-items constraint goes in now, before
+        # phase read stores the ratings' scan-cache snapshots: written
+        # later, it would outdate its shard's snapshots, and every train
+        # after it would scan that shard again
+        status = _raw(port, f"/events.json?accessKey={store.key}",
+                      unavailable_set())[0]
+        if status != 201:
+            fleet.fail(f"answered the constraint $set with {status}")
         item_shard = shard_of_ids([item_id(j) for j in range(64)], "item")
         for k in range(STORE_SHARDS):
             j = int(np.flatnonzero(item_shard == k)[0])
@@ -2041,7 +2068,8 @@ def phase_fleet(store: StoreHome) -> dict:
             with contextlib.closing(sqlite3.connect(path)) as conn:
                 n_sets += conn.execute(
                     f"SELECT COUNT(*) FROM events_{store.app_id} "
-                    "WHERE event = '$set'").fetchone()[0]
+                    "WHERE event = '$set' AND entity_type = 'item'"
+                ).fetchone()[0]
         if n_sets != N_ITEMS:
             fleet.fail(f"the store holds {n_sets} of {N_ITEMS} $set events")
         federated = obs_fleet_federation(port, workers, journal, store)
@@ -2851,7 +2879,7 @@ def phase_eval(torch, store: StoreHome, ratings) -> dict:
     """``pio eval`` at ML-20M through the port's console, in this process
     on the card, on the sharded store phase store filled (its ratings in
     the scan cache since phase read): ``eval --engine recommendation __main__.ML20MSweep
-    --scan-cache`` (:class:`ML20MSweep`: two candidates, :data:`EVAL_K`
+    --scan-cache`` (:class:`ML20MSweep`: its candidates, :data:`EVAL_K`
     folds each; FastEval reads and splits the store once and trains a
     model per candidate and fold) from a
     scratch working directory, where ``best.json`` lands.  The launch
@@ -2942,8 +2970,9 @@ def phase_eval(torch, store: StoreHome, ratings) -> dict:
             f"[{scores[best]}] RMSE"):
         raise AssertionError(f"best index {best} of {scores}")
     # the winner's score, recomputed in float64 over its models
-    won = [m for a, m in models if a.params.lam == SWEEP_LAMBDAS[best]]
-    if len(models) != EVAL_K * len(SWEEP_LAMBDAS) or len(won) != EVAL_K:
+    lams = ML20MSweep.LAMBDAS
+    won = [m for a, m in models if a.params.lam == lams[best]]
+    if len(models) != EVAL_K * len(lams) or len(won) != EVAL_K:
         raise AssertionError(f"{len(models)} models trained")
     sq = 0.0
     for f, model in enumerate(won):
@@ -2978,7 +3007,7 @@ def phase_eval(torch, store: StoreHome, ratings) -> dict:
         f"pairs: {held}); host RSS {rss.start_gib:.2f} GiB before, peak "
         f"{rss.peak_gib:.2f} GiB; launches {launches}")
     for c, (_, _, _, _, cand_s, cand_eval_s, metric_s) in enumerate(cands):
-        log(f"phase eval candidate {c} (lambda {SWEEP_LAMBDAS[c]}): "
+        log(f"phase eval candidate {c} (lambda {lams[c]}): "
             f"{cand_s:.1f} s (eval {cand_eval_s:.1f} s, RMSEMetric "
             f"{metric_s:.2f} s), RMSE {scores[c]:.6f}")
         for f in range(EVAL_K):
@@ -4971,6 +5000,519 @@ def phase_scout(torch, store: StoreHome, row_model, cli_out: dict) -> dict:
     return out
 
 
+# phase engines: the model-backed engines through the console at ML-20M
+# width, after phase scout and before phase foldin (whose writes would
+# outdate the scan cache their trains read)
+ENGINES_PHASE_LIMIT_S = 150.0
+ENGINES_SOLO = 32
+ENGINES_QUERIES = 256
+ENGINES_CLIENTS = 64
+ENGINES_RECALL_ITEMS = 1024
+ENGINES_HEALTH_ROWS = 256
+# the constraint/unavailableItems $set phase fleet posts: the most
+# popular items of the generator (Zipf: the lowest indexes)
+UNAVAILABLE_ITEMS = 100
+# app "classify": users with a $set of three non-negative attributes
+# drawn from a per-class mixture and a label of 4 classes
+CLASSIFY_USERS = 200_000
+CLASSIFY_HELD_OUT = 10_000
+CLASSIFY_PRIORS = (0.4, 0.3, 0.2, 0.1)
+CLASSIFY_CENTERS = ((4.0, 1.0, 0.5), (1.0, 4.0, 0.5), (0.5, 1.0, 4.0),
+                    (3.0, 3.0, 3.0))
+
+
+def unavailable_set() -> dict:
+    """The ``constraint``/``unavailableItems`` ``$set`` event (ecommerce's
+    predict-time filter) of the :data:`UNAVAILABLE_ITEMS` most popular
+    items."""
+    return {"event": "$set", "entityType": "constraint",
+            "entityId": "unavailableItems",
+            "properties": {"items": [item_id(j) for j in
+                                     range(UNAVAILABLE_ITEMS)]},
+            "eventTime": "2014-12-31T00:00:01.000Z"}
+
+
+def classify_data(n: int, seed: int):
+    """``n`` rows of the classification app: non-negative attributes of
+    a per-class mixture (multinomial naive Bayes applies) and labels
+    ``l0``..``l3`` drawn with :data:`CLASSIFY_PRIORS`."""
+    rng = np.random.default_rng(seed)
+    y = rng.choice(len(CLASSIFY_PRIORS), size=n, p=CLASSIFY_PRIORS)
+    x = np.abs(np.asarray(CLASSIFY_CENTERS)[y]
+               + rng.normal(size=(n, 3))).astype(np.float32)
+    return x, np.asarray([f"l{k}" for k in range(4)], dtype=object)[y]
+
+
+def _engine_ok(text: str, engine: str) -> float:
+    """``pio_engine_queries_total{engine=..., status="ok"}`` of an
+    exposition."""
+    for line in text.splitlines():
+        if (line.startswith("pio_engine_queries_total{")
+                and f'engine="{engine}"' in line
+                and 'status="ok"' in line):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def implicit_health(U, V, ratings, lam: float, alpha: float,
+                    seed: int) -> float:
+    """The RMSE-free health check of an implicit train: the item half
+    was solved last, from the final user factors, so a float64 solve of
+    :data:`ENGINES_HEALTH_ROWS` item rows from ``U`` (``UᵀU + Σ α r u uᵀ
+    + λ max(n, 1) I``, rhs ``Σ (1 + α r) u``, the ALS-WR ridge the
+    engines train with) must give ``V``'s rows.  Returns the largest
+    difference over ``V``'s scale."""
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(V.shape[0], ENGINES_HEALTH_ROWS, replace=False)
+    sel = np.flatnonzero(np.isin(ratings.item_ix, rows))
+    order = sel[np.argsort(ratings.item_ix[sel], kind="stable")]
+    cuts = np.searchsorted(ratings.item_ix[order], np.sort(rows))
+    U64 = U.astype(np.float64)
+    G = U64.T @ U64
+    err = 0.0
+    for j, lo, hi in zip(np.sort(rows), cuts,
+                         list(cuts[1:]) + [len(order)]):
+        part = order[lo:hi]
+        uu = U64[ratings.user_ix[part]]
+        c = alpha * ratings.rating[part].astype(np.float64)
+        A = G + (uu * c[:, None]).T @ uu + lam * max(len(part), 1) * \
+            np.eye(U.shape[1])
+        x = np.linalg.solve(A, ((1.0 + c)[:, None] * uu).sum(axis=0))
+        err = max(err, float(np.abs(x - V[j]).max()))
+    return err / float(np.abs(V).max())
+
+
+def engine_scaffold(st, home, name: str, ds: dict, algorithms: list):
+    """``template get NAME`` into the store's home, its engine.json set
+    to the data source params ``ds`` and ``algorithms``, then ``build``;
+    returns the engine.json path."""
+    from pathlib import Path
+
+    d = Path(home) / f"engine-{name}"
+    cli(["template", "get", name, str(d)], st)
+    ej = d / "engine.json"
+    variant = json.loads(ej.read_text())
+    variant["datasource"] = {"params": ds}
+    variant["algorithms"] = algorithms
+    ej.write_text(json.dumps(variant, indent=2))
+    cli(["build", "--engine-json", str(ej)], st)
+    return ej
+
+
+def import_classify(store: StoreHome) -> dict:
+    """Phase engines' app ``classify`` into the ML-20M store: ``app new``
+    through the console, :data:`CLASSIFY_USERS` users' ``$set`` events
+    written as JSON lines and imported by the console's ``import``.  It
+    runs before phase read: a write to a shard file changes the file's
+    ctime, which keys every scan-cache snapshot of that shard, so an
+    import after phase read would send fold-in's train back to the
+    native scan of every shard."""
+    from pathlib import Path
+
+    x, y = classify_data(CLASSIFY_USERS, seed=62)
+    st = store.storage
+    t0 = time.perf_counter()
+    cli(["app", "new", "classify"], st)
+    app_id = st.get_metadata().app_get_by_name("classify").id
+    src = Path(store.home) / "classify.jsonl"
+    with open(src, "w") as f:
+        for n in range(CLASSIFY_USERS):
+            f.write(json.dumps({
+                "event": "$set", "entityType": "user",
+                "entityId": f"c{n:06d}",
+                "properties": {"attr0": float(x[n, 0]),
+                               "attr1": float(x[n, 1]),
+                               "attr2": float(x[n, 2]),
+                               "label": str(y[n])},
+                "eventTime": "2015-02-01T00:00:00.000Z"}) + "\n")
+    out = cli(["import", "--appid", str(app_id), "--input", str(src)], st)
+    import_s = time.perf_counter() - t0
+    src.unlink()
+    if out != f"Imported {CLASSIFY_USERS} events.\n":
+        raise AssertionError(f"the classify import printed {out!r}")
+    log(f"phase classify import: {CLASSIFY_USERS:,} users' $set events "
+        f"through the console's import into app classify in "
+        f"{import_s:.1f} s")
+    return {"x": x, "y": y, "import_s": import_s}
+
+
+def console_train(torch, st, es, ej, factors_sink=None) -> dict:
+    """``train --scan-cache --engine-json EJ`` in this process on the
+    card, the launch counts set to 0 just before it and read just after;
+    the ALS factors the train made go to ``factors_sink``."""
+    from predictionio_tpu_torch.models.als import ALSTrainer
+    from predictionio_tpu_torch.ops import _build, gather_probe
+
+    # a `train` is a process of its own: no probe order cached
+    gather_probe._ORDER_CACHE.clear()
+    es.last_ratings_scan_path = None
+    for s in getattr(es, "shards", ()):
+        s.last_ratings_scan_path = None
+    _build.reset_launches()
+    sink = [] if factors_sink is None else factors_sink
+    t0 = time.perf_counter()
+    with CaptureLog() as records, recording(ALSTrainer, "train", sink):
+        out = cli(["train", "--scan-cache", "--engine-json", str(ej)], st)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    iid = out.split()[-1]
+    if st.get_metadata().engine_instance_get(iid).status != "COMPLETED":
+        raise AssertionError(f"instance {iid} did not complete: {out}")
+    (read_s,) = records.args("read_training: %.3f s")
+    return {"iid": iid, "train_s": train_s, "read_s": read_s,
+            "launches": {k: n for k, n in _build.LAUNCHES.items() if n},
+            "read_path": es.last_ratings_scan_path,
+            "shard_paths": [s.last_ratings_scan_path
+                            for s in getattr(es, "shards", ())]}
+
+
+def phase_engines(torch, store: StoreHome, ratings, u, i,
+                  classify: dict) -> dict:
+    """The model-backed engines at ML-20M width through the port's
+    console, as a user drives them, on the 4-shard store (after phase
+    scout, before phase foldin): for each, ``template get`` → engine.json
+    → ``build`` → ``train --scan-cache`` in this process on the card
+    (the launch counts set to 0 just before it and read just after) →
+    a ``deploy`` process on the event-loop edge (the four boot at once)
+    → 32 solo queries and 256 from 64 clients, every HTTP reply held
+    against an in-process ``predict`` on the same instance (the same
+    items in the same order, scores within 1e-5 of their scale; labels
+    equal), ``pio_engine_queries_total{engine=NAME,status="ok"}`` moved
+    by the number of queries → ``undeploy`` with exit code 0.
+
+    * similarproduct: ``viewEvents ["rate"]`` (the implicit read, every
+      count 1: the generator's pairs are distinct; its counts held
+      against a numpy recount of one shard), rank 64, 2 iterations,
+      λ 0.01, α 1, ``"fused"``; queries ``{"items": [i], "num": 10}``
+      over popular and tail items.
+    * itemsimilarity: the same data source (its read must hit the
+      snapshot similarproduct's train stored), ``"pallas"``, served by
+      ``retrieval "ivf"``; recall@10 of ivf against an in-process exact
+      scan of the same model at nprobe 8 and 32 over 1,024 items.
+    * ecommerce: ``ratingProperty "rating"`` (the explicit snapshot of
+      phase read), ``"fused"``, served with ``unseenOnly`` and
+      ``seenEvents ["rate"]`` and the unavailable-items constraint
+      phase fleet posted; no reply may hold a seen or unavailable item.
+    * classification: the app ``classify`` of 200,000 users
+      (:func:`import_classify`, before phase read), one train of
+      ``naive``, ``logistic`` and ``randomforest`` (16 trees, depth 6);
+      each model held in process against its CPU counterpart (naive
+      Bayes within 1e-5, logistic weights within 1e-3 of their scale and
+      the same label on 99.9% of 10,000 held-out rows, the forest walk's
+      labels and votes equal), and each algorithm's held-out accuracy
+      above the majority class's share.
+
+    The ALS trains must launch the fused kernel or GJ, their factors be
+    finite and a float64 solve of 256 item rows agree within 1e-3 of the
+    factors' scale (:func:`implicit_health`).  The phase writes nothing
+    to the shard files (their ctimes, which key the scan-cache
+    snapshots, are the same at its end), so fold-in's train still reads
+    phase read's snapshot.  Checks go on one
+    ``{"engines": ...}`` line; a false one, or the phase past
+    ``ENGINES_PHASE_LIMIT_S``, fails the run."""
+    import dataclasses
+    from pathlib import Path
+
+    from predictionio_tpu_torch.cli.main import load_engine_from_variant
+    from predictionio_tpu_torch.controller import WorkflowContext
+    from predictionio_tpu_torch.models.forest import forest_predict
+    from predictionio_tpu_torch.models.logistic import train_logistic
+    from predictionio_tpu_torch.models.naive_bayes import train_naive_bayes
+    from predictionio_tpu_torch.ops import _build
+    from predictionio_tpu_torch.templates import (
+        classification, itemsimilarity, recommendation, similarproduct,
+    )
+    from predictionio_tpu_torch.workflow import prepare_deploy_components
+
+    t_phase = time.perf_counter()
+    st = store.storage
+    es = st.get_event_store()
+    home = Path(store.home)
+    rng = np.random.default_rng(61)
+    ctimes = [os.stat(p).st_ctime_ns for p in store.shard_paths()]
+    checks = {}
+    als = {"rank": RANK, "numIterations": 2, "lambda": 0.01, "alpha": 1.0,
+           "seed": 3}
+    view = {"appName": "ml20m", "viewEvents": ["rate"]}
+
+    # -- similarproduct: the implicit read, cold, then the fused train
+    factors = {}
+    ej_sim = engine_scaffold(st, home, "similarproduct", view, [
+        {"name": "als", "params": {**als, "solver": "fused"}}])
+    sink = []
+    tr = {"similarproduct": console_train(torch, st, es, ej_sim, sink)}
+    factors["similarproduct"] = sink[-1][1]
+    # the implicit counts against a numpy recount of one shard
+    t0 = time.perf_counter()
+    imp = es.find_ratings(store.app_id, event_names=("rate",),
+                          rating_property=None, dedup="sum",
+                          entity_type="user", cache=True)
+    imp_path = es.last_ratings_scan_path
+    uid = np.asarray([int(s[1:]) for s in imp.users.ids], np.int64)
+    iid_ = np.asarray([int(s[1:]) for s in imp.items.ids], np.int64)
+    mine = shard_of_ids(imp.users.ids.tolist(), "user")[imp.user_ix] == 0
+    got = np.sort(uid[imp.user_ix[mine]] * N_ITEMS + iid_[imp.item_ix[mine]])
+    ushard = shard_of_ids([user_id(k) for k in range(N_USERS)], "user")
+    keys, counts = np.unique(
+        u[ushard[u] == 0].astype(np.int64) * N_ITEMS + i[ushard[u] == 0],
+        return_counts=True)
+    checks["implicit_counts_equal_a_numpy_recount_of_shard_0"] = bool(
+        len(imp) == len(u) and np.array_equal(got, keys)
+        and np.array_equal(np.sort(imp.rating[mine]),
+                           np.sort(counts.astype(np.float32))))
+    recount_s = time.perf_counter() - t0
+
+    # -- itemsimilarity: the same read, which must hit the snapshot
+    ej_cos = engine_scaffold(st, home, "itemsimilarity", view, [
+        {"name": "cosine", "params": {**als, "solver": "pallas"}}])
+    sink = []
+    tr["itemsimilarity"] = console_train(torch, st, es, ej_cos, sink)
+    factors["itemsimilarity"] = sink[-1][1]
+
+    # -- ecommerce: the explicit snapshot of phase read
+    ej_ecom = engine_scaffold(
+        st, home, "ecommercerecommendation",
+        {**view, "ratingProperty": "rating"},
+        [{"name": "ecomm", "params": {**als, "solver": "fused",
+                                      "unseenOnly": True,
+                                      "seenEvents": ["rate"]}}])
+    sink = []
+    tr["ecommercerecommendation"] = console_train(torch, st, es, ej_ecom,
+                                                  sink)
+    factors["ecommercerecommendation"] = sink[-1][1]
+    pm = es.aggregate_properties_single_entity(
+        store.app_id, "constraint", "unavailableItems")
+    unavailable = set(pm.get_string_list("items")) if pm else set()
+    checks["the_constraint_is_in_the_store"] = unavailable == {
+        item_id(j) for j in range(UNAVAILABLE_ITEMS)}
+
+    # -- classification: one train of three on the imported app
+    x, y, import_s = classify["x"], classify["y"], classify["import_s"]
+    ej_cls = engine_scaffold(
+        st, home, "classification", {"appName": "classify"},
+        [{"name": "naive", "params": {"lambda": 1.0}},
+         {"name": "logistic", "params": {}},
+         {"name": "randomforest", "params": {"numTrees": 16,
+                                             "maxDepth": 6}}])
+    tr["classification"] = console_train(torch, st, es, ej_cls)
+    tr["classification"]["import_s"] = import_s
+    log(f"phase engines trains: {tr}; implicit read "
+        f"{len(imp):,} pairs (again from {imp_path!r}), recount "
+        f"{recount_s:.1f} s")
+
+    # -- the four deploys boot at once
+    procs = {}
+    ejs = {"similarproduct": ej_sim, "itemsimilarity": ej_cos,
+           "ecommercerecommendation": ej_ecom, "classification": ej_cls}
+    try:
+        for name, ej in ejs.items():
+            procs[name] = Console(store.home, [
+                "deploy", "--engine-json", str(ej), "--ip", "127.0.0.1",
+                "--port", "0"], f"deploy-{name}")
+
+        # meanwhile, in process: each instance's serving components
+        serving = WorkflowContext(mode="Serving", storage=st)
+        comp = {}
+        for name, ej in ejs.items():
+            engine, ep, _ = load_engine_from_variant(ej)
+            algos, models, _ = prepare_deploy_components(
+                engine, ep, tr[name]["iid"], ctx=serving)
+            comp[name] = (algos, models)
+
+        # the ALS engines' health
+        health = {}
+        for name, rated in (("similarproduct", imp),
+                            ("itemsimilarity", imp),
+                            ("ecommercerecommendation", ratings)):
+            f = factors[name]
+            finite = bool(np.isfinite(f.user_factors).all()
+                          and np.isfinite(f.item_factors).all())
+            health[name] = implicit_health(
+                f.user_factors, f.item_factors, rated, als["lambda"],
+                als["alpha"], seed=len(health))
+            checks[f"{name}_factors_finite"] = finite
+            checks[f"{name}_float64_solve_within_1e-3"] = (
+                health[name] <= 1e-3)
+            launched = tr[name]["launches"]
+            checks[f"{name}_train_launched_a_kernel"] = (
+                launched.get("fused_als", 0) + launched.get("fused_als_dma", 0)
+                + launched.get("gj_solve", 0)) > 0
+        ecom_model = comp["ecommercerecommendation"][1][0]
+        checks["ecommerce_ids_are_phase_reads"] = (
+            ecom_model.users.ids.tolist() == ratings.users.ids.tolist()
+            and ecom_model.items.ids.tolist() == ratings.items.ids.tolist())
+        checks["itemsimilarity_read_hit_the_implicit_snapshot"] = (
+            tr["itemsimilarity"]["read_path"] == "cache")
+        checks["ecommerce_read_hit_phase_reads_snapshot"] = (
+            tr["ecommercerecommendation"]["read_path"] == "cache")
+
+        # the queries, and what predict answers in process
+        pop = [item_id(j) for j in rng.integers(0, 100, 144)]
+        tail = [item_id(j) for j in rng.integers(100, N_ITEMS, 144)]
+        item_q = [{"items": [a], "num": 10}
+                  for pair in zip(pop, tail) for a in pair]
+        users_q = [user_id(k) for k in rng.integers(0, N_USERS, 288)]
+        user_q = [{"user": s, "num": 10} for s in users_q]
+        xq, _ = classify_data(288, seed=63)
+        cls_q = [{"attr0": float(a), "attr1": float(b), "attr2": float(c)}
+                 for a, b, c in xq]
+        queries = {"similarproduct": item_q, "itemsimilarity": item_q,
+                   "ecommercerecommendation": user_q,
+                   "classification": cls_q}
+        qclass = {"similarproduct": similarproduct.Query,
+                  "itemsimilarity": similarproduct.Query,
+                  "ecommercerecommendation": recommendation.Query,
+                  "classification": classification.Query}
+        want, predict_ms = {}, {}
+        for name, qs in queries.items():
+            algos, models = comp[name]
+            t0 = time.perf_counter()
+            want[name] = [algos[0].predict(
+                models[0], qclass[name].from_json(q)).to_json() for q in qs]
+            predict_ms[name] = (time.perf_counter() - t0) * 1e3 / len(qs)
+
+        # ecommerce: no seen or unavailable item in any answer
+        qu = np.asarray([int(s[1:]) for s in users_q])
+        sel = np.isin(u, qu)
+        seen = {}
+        for a, b in zip(u[sel].tolist(), i[sel].tolist()):
+            seen.setdefault(a, set()).add(item_id(b))
+        leaks = sum(
+            1 for k, r in zip(qu.tolist(), want["ecommercerecommendation"])
+            for s in r["itemScores"]
+            if s["item"] in seen.get(k, ()) or s["item"] in unavailable)
+        checks["ecommerce_predict_holds_no_seen_or_unavailable_item"] = (
+            leaks == 0 and all(r["itemScores"]
+                               for r in want["ecommercerecommendation"]))
+
+        # itemsimilarity: recall@10 of ivf against the exact scan
+        algo_ivf, model_cos = comp["itemsimilarity"][0][0], \
+            comp["itemsimilarity"][1][0]
+        probe_items = [{"items": [item_id(j)], "num": 10} for j in
+                       rng.choice(N_ITEMS, ENGINES_RECALL_ITEMS,
+                                  replace=False)]
+        pq = [similarproduct.Query.from_json(q) for q in probe_items]
+
+        def answers(params):
+            a = itemsimilarity.ItemSimilarityAlgorithm()
+            a.params = params
+            ids = []
+            for c in range(0, len(pq), 64):
+                ids += [[s.item for s in r.item_scores]
+                        for r in a.batch_predict(model_cos, pq[c:c + 64])]
+            return ids
+
+        exact = answers(dataclasses.replace(algo_ivf.params,
+                                            retrieval="exact"))
+        recall = {}
+        for nprobe in (8, 32):
+            got_ids = answers(dataclasses.replace(algo_ivf.params,
+                                                  nprobe=nprobe))
+            recall[nprobe] = float(np.mean([
+                len(set(e) & set(g)) / len(e) for e, g in
+                zip(exact, got_ids)]))
+        ivf_summary = model_cos.device_ann_index(
+            algo_ivf._retrieval_config()).summary()
+
+        # classification: each card model against its CPU counterpart
+        algos_c, models_c = comp["classification"]
+        xh, yh = classify_data(CLASSIFY_HELD_OUT, seed=64)
+        nb_card = train_naive_bayes(x, y, device="cuda")
+        nb_cpu = train_naive_bayes(x, y, device="cpu")
+        lr_card = train_logistic(x, y, device="cuda")
+        lr_cpu = train_logistic(x, y, device="cpu")
+        forest = models_c[2]["forest"]
+        fl, fv = forest_predict(forest, xh, return_votes=True, device="cuda")
+        hl, hv = forest_predict(forest, xh, return_votes=True, device="cpu")
+        nb_err = float(np.abs(nb_card.log_likelihood
+                              - nb_cpu.log_likelihood).max())
+        lr_err = float(np.abs(lr_card.weights - lr_cpu.weights).max()
+                       / np.abs(lr_cpu.weights).max())
+        lr_same = float(np.mean(lr_card.predict(xh) == lr_cpu.predict(xh)))
+        checks["naive_bayes_card_within_1e-5"] = nb_err <= 1e-5
+        checks["logistic_card_within_1e-3_of_scale"] = lr_err <= 1e-3
+        checks["logistic_card_same_label_on_99.9%"] = lr_same >= 0.999
+        checks["forest_walk_labels_and_votes_equal_the_host_walk"] = bool(
+            np.array_equal(fl, hl) and np.array_equal(fv, hv))
+        accuracy = {}
+        for a, m in zip(algos_c, models_c):
+            pred = [r.label for r in a.batch_predict(
+                m, [classification.Query(features=tuple(map(float, row)))
+                    for row in xh])]
+            accuracy[type(a).__name__] = float(np.mean(
+                np.asarray(pred, dtype=object) == yh))
+        majority = float(max(np.mean(yh == c) for c in np.unique(yh)))
+        checks["every_algorithm_beats_the_majority_share"] = all(
+            acc > majority for acc in accuracy.values())
+
+        # the HTTP loads, one deploy at a time
+        served = {}
+        for name, proc in procs.items():
+            port = proc.wait_port()
+            qs = queries[name]
+            try:
+                before = _engine_ok(_scrape(port)[0], name)
+                load = http_load(port, qs[:ENGINES_SOLO],
+                                 qs[ENGINES_SOLO:], ENGINES_CLIENTS)
+                after = _engine_ok(_scrape(port)[0], name)
+            except Exception as e:
+                proc.fail(f"failed its queries: {e!r}")
+            if name == "classification":
+                same = load["replies"] == want[name]
+                trades = 0
+            else:
+                trades = sum(_same_reply(g, w, f"{name} query {q}")
+                             for q, g, w in zip(qs, load["replies"],
+                                                want[name]))
+                same = True
+            checks[f"{name}_http_equals_predict"] = same
+            checks[f"{name}_queries_counted"] = after - before == len(qs)
+            if "Undeployed" not in cli(["undeploy", "--port", str(port)],
+                                       st):
+                proc.fail("was not undeployed")
+            try:
+                rc = proc.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.fail("did not stop after undeploy")
+            checks[f"{name}_undeploy_exit_0"] = rc == 0
+            served[name] = dict(
+                boot_s=proc.boot_s, trades=trades,
+                query_s=(sum(load["solo_ms"]) + load["wall_ms"]) / 1e3,
+                solo_p50_p99=list(np.percentile(load["solo_ms"], [50, 99])),
+                conc_p50_p99=list(np.percentile(load["conc_ms"], [50, 99])),
+                qps=load["qps"], predict_ms=predict_ms[name])
+    finally:
+        for proc in procs.values():
+            proc.stop()
+    checks["the_phase_left_the_shard_files_unwritten"] = ctimes == [
+        os.stat(p).st_ctime_ns for p in store.shard_paths()]
+    # each train's counts were set to 0 just before it and read just
+    # after: the path's launches are their sum
+    launches = {k: sum(t["launches"].get(k, 0) for t in tr.values())
+                for k in _build.LAUNCHES}
+    total = time.perf_counter() - t_phase
+    checks["phase_within_limit"] = total <= ENGINES_PHASE_LIMIT_S
+    detail = {
+        "seconds": {n: {k: tr[n][k] for k in ("read_s", "train_s")
+                        if k in tr[n]} for n in tr},
+        "import_s": import_s, "read_paths": {
+            n: (tr[n]["read_path"], tr[n]["shard_paths"]) for n in tr},
+        "launches": {n: tr[n]["launches"] for n in tr},
+        "served": served, "health": health,
+        "ivf_recall_at_10": recall, "ivf": ivf_summary,
+        "classification": {"accuracy": accuracy, "majority": majority,
+                           "naive_bayes_err": nb_err,
+                           "logistic_err": lr_err,
+                           "logistic_same_label": lr_same},
+        "phaseSeconds": total,
+    }
+    log(json.dumps({"engines": checks, "detail": detail}, default=str))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"phase engines: checks failed: {bad}")
+    return {**detail, "launches": launches, "s": total}
+
+
 # phase hive: tenancy and experiments at ML-20M width, after phase foldin
 # (it writes to the store).  The second app has MovieLens-100K's counts
 HIVE_USERS, HIVE_ITEMS, HIVE_RATINGS = 943, 1_682, 100_000
@@ -6009,8 +6551,11 @@ def main(argv: list[str]) -> int:
                   len(v), stored["import_s"])
             stored["src"].unlink()
         # the items' $set events go in through the fleet before the read
-        # that fills the scan cache (a later write would outdate it)
+        # that fills the scan cache (a later write would outdate it), and
+        # phase engines' classify app is imported for the same reason
         timed("fleet", phase_fleet, store)
+        if not argv:
+            classify = timed("classify import", import_classify, store)
         ratings = timed("read", phase_read, store, u, i, v)
         timed("sort", phase_sort, ratings, u, i, v)
         if argv in (["--store"], ["--store-npz"]):
@@ -6081,6 +6626,13 @@ def main(argv: list[str]) -> int:
         timed("scout", phase_scout, torch, store, row_model, cli_out)
         del row_model
         torch.cuda.empty_cache()
+        # the model-backed engines through the console, before fold-in's
+        # writes outdate the scan cache their trains read (it sets the
+        # counts to 0 itself)
+        paths["engines"] = timed("engines", phase_engines, torch, store,
+                                 ratings, u, i, classify)["launches"]
+        del classify
+        torch.cuda.empty_cache()
         # fold-in on the same store, last: its writes outdate the scan
         # cache (it sets the counts to 0 itself, after its train)
         foldin_out = timed("foldin", phase_foldin, torch, store, cli_out)
@@ -6125,12 +6677,13 @@ def main(argv: list[str]) -> int:
         "foldin": ("gj_solve",),
         "subspace": ("gj_solve",),
         "hive": ("fused_als_reduce", "taa0_gather", "dma_row_gather"),
+        "engines": ("gj_solve", "taa0_gather", "dma_row_gather"),
     }
     for path, names in expected.items():
         for name in names:
             if paths[path][name] <= 0:
                 raise AssertionError(f"path {path} never launched {name}")
-    for path in ("ml20m", "cli", "eval", "hive"):
+    for path in ("ml20m", "cli", "eval", "hive", "engines"):
         if paths[path]["fused_als"] + paths[path]["fused_als_dma"] <= 0:
             raise AssertionError(f"path {path} never launched the fused "
                                  "kernel")

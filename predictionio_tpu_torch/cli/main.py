@@ -78,14 +78,17 @@ def _engine_dir_on_path(variant_path: str | Path, factory_path: str) -> None:
     """Make a scaffolded engine dir importable: its ``engine.py`` is the
     factory module when engineFactory is ``engine.<attr>`` (the
     `template get` layout).  Evicts a stale ``engine`` module loaded from
-    a different engine dir."""
+    a different engine dir, and puts this dir first on ``sys.path``: with
+    several engine dirs loaded in one process, the import must find this
+    dir's ``engine.py``, not the one of a dir inserted later."""
     engine_dir = str(Path(variant_path).resolve().parent)
     top = factory_path.split(".", 1)[0]
     candidate = Path(engine_dir) / f"{top}.py"
     if not candidate.exists():
         return
-    if engine_dir not in sys.path:
-        sys.path.insert(0, engine_dir)
+    if engine_dir in sys.path:
+        sys.path.remove(engine_dir)
+    sys.path.insert(0, engine_dir)
     mod = sys.modules.get(top)
     if mod is not None and getattr(mod, "__file__", None) != str(candidate):
         del sys.modules[top]

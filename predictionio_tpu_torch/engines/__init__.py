@@ -13,17 +13,22 @@ from typing import Optional
 
 from .discovery import ENGINE_PATH_ENV, discover
 from .spec import (
+    ConformanceFixture,
     EngineSpec,
+    clear_registry,
     engine_label_of,
     engine_spec,
     get_engine_spec,
     list_engine_specs,
     register,
+    spec_name_of,
 )
 
 __all__ = [
+    "ConformanceFixture",
     "EngineSpec",
     "ENGINE_PATH_ENV",
+    "clear_registry",
     "discover",
     "engine_label_of",
     "engine_spec",
@@ -31,6 +36,7 @@ __all__ = [
     "list_engine_specs",
     "register",
     "resolve",
+    "spec_name_of",
 ]
 
 

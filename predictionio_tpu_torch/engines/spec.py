@@ -2,12 +2,13 @@
 
 Port of ``predictionio_tpu/engines/spec.py``.  :class:`EngineSpec` is one
 declaration per engine (factory, engine.json-shaped default params, a
-query example and, optionally, the evaluation ``eval --engine NAME``
-runs), registered by decorator; the CLI's ``engines list/describe``,
-``train/deploy/eval --engine NAME`` and the template gallery
-(``tools/template_gallery.py``) all read it.  The reference's
-``ConformanceFixture`` is not ported: every port spec describes itself
-with ``"conformance": false``.
+query example, optionally the evaluation ``eval --engine NAME`` runs,
+and a :class:`ConformanceFixture`), registered by decorator; the CLI's
+``engines list/describe``, ``train/deploy/eval --engine NAME``, the
+template gallery (``tools/template_gallery.py``), the serving metrics'
+``engine`` label and the registry conformance suite
+(``tests/test_torch_engine_conformance.py``, which drives every spec's
+fixture train -> deploy -> query -> feedback -> eval) all read it.
 
 Registration is a side effect of import: decorating a zero-arg factory
 registers the spec, and :func:`~predictionio_tpu_torch.engines.discovery.
@@ -19,15 +20,36 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Callable, Mapping, Optional
+from typing import Any, Callable, Mapping, Optional, Sequence
 
 __all__ = [
+    "ConformanceFixture",
     "EngineSpec",
     "engine_spec",
     "register",
     "get_engine_spec",
     "list_engine_specs",
+    "spec_name_of",
+    "clear_registry",
 ]
+
+
+@dataclass(frozen=True)
+class ConformanceFixture:
+    """What the conformance suite needs to drive an engine end to end
+    with no engine-specific test code: the app to seed, its events, a
+    tiny-train variant, queries to send and a predicate over each reply.
+
+    ``seed_events`` is a zero-arg callable (not a literal list) so event
+    times can be minted at run time."""
+
+    app_name: str
+    seed_events: Callable[[], Sequence[Any]]
+    queries: tuple[dict, ...]
+    check: Optional[Callable[[Any], bool]] = None
+    # tiny-train variant; None = the spec's default_params (the suite
+    # must take seconds an engine)
+    variant: Optional[Mapping[str, Any]] = None
 
 
 @dataclass(frozen=True)
@@ -52,6 +74,7 @@ class EngineSpec:
     # `eval --engine NAME` dispatches through it
     evaluation: Optional[Callable[[], Any]] = None
     evaluation_path: Optional[str] = None
+    conformance: Optional[ConformanceFixture] = None
 
     def build(self):
         """Factory call; the instance is stamped with the spec name, the
@@ -84,7 +107,7 @@ class EngineSpec:
             "defaultParams": _plain(self.default_params),
             "queryExample": _plain(self.query_example),
             "evaluation": self.evaluation_path,
-            "conformance": False,
+            "conformance": self.conformance is not None,
         }
 
 
@@ -126,6 +149,7 @@ def engine_spec(
     default_params: Optional[Mapping[str, Any]] = None,
     query_example: Optional[Mapping[str, Any]] = None,
     evaluation: Optional[Callable[[], Any]] = None,
+    conformance: Optional[ConformanceFixture] = None,
 ):
     """Decorator: register a zero-arg engine factory as an engine.  The
     decorated function keeps working as a plain factory, and the engines
@@ -143,7 +167,7 @@ def engine_spec(
         desc = description
         if not desc and factory.__doc__:
             desc = factory.__doc__.strip().splitlines()[0]
-        register(EngineSpec(
+        spec = EngineSpec(
             name=name,
             description=desc,
             factory=stamped,
@@ -156,17 +180,30 @@ def engine_spec(
                 f"{evaluation.__module__}.{evaluation.__qualname__}"
                 if evaluation is not None else None
             ),
-        ))
+            conformance=conformance,
+        )
+        register(spec)
+        stamped.__engine_spec__ = spec
         return stamped
 
     return wrap
 
 
+def spec_name_of(obj: Any) -> Optional[str]:
+    """The registered engine name of an Engine instance (or of a
+    decorated factory), or None for engines built outside the
+    registry."""
+    name = getattr(obj, "_engine_spec_name", None)
+    if name is not None:
+        return name
+    spec = getattr(obj, "__engine_spec__", None)
+    return spec.name if spec is not None else None
+
+
 def engine_label_of(engine: Any, fallback: str = "custom") -> str:
     """The metrics label of an engine instance: its registered spec
     name, else ``fallback``."""
-    name = getattr(engine, "_engine_spec_name", None)
-    return name if name is not None else fallback
+    return spec_name_of(engine) or fallback
 
 
 def get_engine_spec(name: str) -> EngineSpec:
@@ -190,3 +227,14 @@ def list_engine_specs() -> list[EngineSpec]:
     discover()
     with _lock:
         return sorted(_registry.values(), key=lambda s: s.name)
+
+
+def clear_registry(keep_builtin: bool = True) -> None:
+    """Test hook: drop user-dir registrations (or everything)."""
+    with _lock:
+        if keep_builtin:
+            for k in [k for k, s in _registry.items()
+                      if s.source != "builtin"]:
+                del _registry[k]
+        else:
+            _registry.clear()

@@ -1,7 +1,7 @@
 """Shared template helpers (port of ``predictionio_tpu/templates/_common.py``:
-the device table caches and their fold-in patch, the two-stage
-retrievers cached beside them, the query filter mask, the batch ladder
-and the batched scorer warm-up)."""
+the train-time row normalization, the device table caches and their
+fold-in patch, the two-stage retrievers cached beside them, the query
+filter mask, the batch ladder and the batched scorer warm-up)."""
 
 from __future__ import annotations
 
@@ -10,8 +10,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["DeviceTableMixin", "filter_bias_mask", "pow2_ladder",
-           "warm_batched_topk"]
+__all__ = ["DeviceTableMixin", "filter_bias_mask", "normalize_rows",
+           "pow2_ladder", "warm_batched_topk"]
+
+
+def normalize_rows(table: np.ndarray) -> np.ndarray:
+    """Row-normalize a factor table in f32, the train-time step of the
+    normalized-table cosine engines (similarproduct, itemsimilarity):
+    inner product over the stored table is cosine, so the exact scorer
+    and the two-stage retrievers serve cosine with no per-query
+    normalization.  A zero row (an item nobody viewed) stays zero and
+    scores 0."""
+    t = np.asarray(table, np.float32)
+    return t / (np.linalg.norm(t, axis=-1, keepdims=True) + 1e-9)
 
 
 def _as_table(rows: np.ndarray, like: torch.Tensor,

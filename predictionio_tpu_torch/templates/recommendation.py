@@ -672,7 +672,31 @@ def recommendation_evaluation():
     return Evaluation(engine, RMSEMetric())
 
 
-from ..engines import engine_spec  # noqa: E402
+def _conformance_events():
+    """The conformance fixture's events (the reference's, field by
+    field): rate events of 8 users over 10 items and a category
+    ``$set`` per item."""
+    from ..storage import DataMap, Event
+
+    events = []
+    for u in range(8):
+        for j in range(4):
+            i = (u + j * 3) % 10
+            events.append(Event(
+                event="rate", entity_type="user", entity_id=f"u{u}",
+                target_entity_type="item", target_entity_id=f"i{i}",
+                properties=DataMap({"rating": float((u + i) % 5 + 1)}),
+            ))
+    for j in range(10):
+        events.append(Event(
+            event="$set", entity_type="item", entity_id=f"i{j}",
+            properties=DataMap(
+                {"categories": ["even" if j % 2 == 0 else "odd"]}),
+        ))
+    return events
+
+
+from ..engines import ConformanceFixture, engine_spec  # noqa: E402
 
 recommendation_engine = engine_spec(
     "recommendation",
@@ -694,4 +718,23 @@ recommendation_engine = engine_spec(
     },
     query_example={"user": "1", "num": 4},
     evaluation=recommendation_evaluation,
+    conformance=ConformanceFixture(
+        app_name="forge-conf",
+        seed_events=_conformance_events,
+        queries=({"user": "u1", "num": 3},),
+        check=lambda r: len(r.get("itemScores", [])) >= 1,
+        variant={
+            # evalK 2: the suite's eval step runs a real 2-fold
+            # read_eval for this engine (the others' eval dispatch
+            # yields an empty set)
+            "datasource": {"params": {"appName": "forge-conf",
+                                      "eventNames": ["rate"],
+                                      "evalK": 2}},
+            "algorithms": [
+                {"name": "als",
+                 "params": {"rank": 4, "numIterations": 3,
+                            "lambda": 0.1, "seed": 1}}
+            ],
+        },
+    ),
 )(recommendation_engine)

@@ -36,6 +36,9 @@ from predictionio_tpu_torch.workflow import prepare_deploy_components
 from test_torch_cli import Pair, pair  # noqa: F401
 
 FACTORY = "{pkg}.templates.recommendation.recommendation_engine"
+# the engines the port registers, by name
+PORT_ENGINES = ["classification", "ecommercerecommendation",
+                "itemsimilarity", "recommendation", "similarproduct"]
 
 
 def _rated_app(pair, name="cliapp"):
@@ -76,10 +79,13 @@ def _engine_json(pair, tmp_path, **extra):
 def test_template_list_and_get_equal(pair, tmp_path):
     lines = {k: pair.one(k, "template", "list")[1].splitlines()
              for k in ("jax", "torch")}
-    # the port's gallery holds the engines it registers
-    assert [ln.split()[0] for ln in lines["torch"]] == ["recommendation"]
-    assert lines["torch"][0].startswith(f"{'recommendation':<26} ")
-    assert "recommendation" in [ln.split()[0] for ln in lines["jax"]]
+    # the port's gallery holds the engines it registers, each a line of
+    # the reference's gallery
+    names = [ln.split()[0] for ln in lines["torch"]]
+    assert names == PORT_ENGINES
+    assert set(names) <= {ln.split()[0] for ln in lines["jax"]}
+    assert lines["torch"][names.index("recommendation")].startswith(
+        f"{'recommendation':<26} ")
     assert pair.run("template", "get", "recommendation",
                     "{home}/my-engine") == (
         0, "Engine template 'recommendation' created at <HOME>/my-engine/\n")
@@ -133,7 +139,7 @@ def test_template_get_from_archive_equal(pair, tmp_path):
 def test_engines_list_and_describe(pair):
     listed = pair.one("torch", "engines", "list")
     assert listed[0] == 0 and listed[1].splitlines()[-1] == (
-        "(1 engines registered)")
+        f"({len(PORT_ENGINES)} engines registered)")
     desc = {k: pair.one(k, "engines", "describe", "recommendation")
             for k in ("jax", "torch")}
     assert desc["torch"][0] == desc["jax"][0] == 0
@@ -148,7 +154,8 @@ def test_engines_list_and_describe(pair):
         "predictionio_tpu.templates.recommendation.<KEY>")
     rc, out = pair.one("torch", "engines", "describe", "nope")
     assert rc == 1 and out.startswith(
-        "Error: no engine named 'nope' is registered; known: recommendation")
+        "Error: no engine named 'nope' is registered; known: "
+        + ", ".join(PORT_ENGINES))
 
 
 def test_build_unregister_and_the_min_version_gate(pair):

@@ -58,7 +58,12 @@ def test_the_walk_sees_every_file():
                     "__init__", "errors", "quota", "experiment",
                     "online_eval", "autopilot", "registry")),
                 "ops/ann.py", "retrieval/__init__.py",
-                "workflow/checkpoint.py"):
+                "workflow/checkpoint.py",
+                *(f"templates/{m}.py" for m in (
+                    "similarproduct", "ecommerce", "itemsimilarity",
+                    "classification")),
+                *(f"models/{m}.py" for m in (
+                    "naive_bayes", "logistic", "forest"))):
         assert f"predictionio_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names
     assert len(names) >= 20
