@@ -13,8 +13,8 @@ float64 solve), both forms of the fused ALS kernel ("taa" and "dma")
 with the second pass of a split bucket, and the three gather probes,
 whose launch path it takes apart step by step at the probe shape.
 It builds the native host runtime (``build/native/``, ``g++``) beside
-the kernels.  Then it drives nine main paths and phase scout through
-the entry points a user calls, each path with every launch counter set
+the kernels.  Then it drives nine main paths and phases scout and sessions
+through the entry points a user calls, each path with every launch counter set
 to 0 just before it and read just after it; a kernel its path did not
 launch fails the run:
 
@@ -73,7 +73,18 @@ launch fails the run:
   random forest, each held against its CPU counterpart); four
   ``deploy`` processes answering like an in-process ``predict``, each
   ALS train's float64 health check;
-* foldin: on that store after eval, a ``"pallas"`` console ``train``,
+* sessions (no kernel on its path): on that store after engines, the
+  engines that train no factor model on an app of their own, a day of
+  1,000,000 view events in sessions (ML-20M's users and items) imported
+  as JSON lines: trending and nextitem trained through the console and
+  deployed as two processes (trending's under a ``storage.read`` fault
+  plan), each held against a numpy recomputation from the generator's
+  arrays (and ``e2.MarkovChain`` against a numpy count), every reply
+  against an in-process ``predict`` at query time, and each engine's
+  freshness timed from views posted through an ``eventserver`` process
+  to the first reply that shows them;
+* foldin: on that store after sessions, a ``"pallas"`` console ``train``
+  (whose read must still hit phase read's snapshot),
   ``deploy --replicas 2 --push-foldin 1``, ``foldin --from-now`` (which
   must find nothing to fold), then a ``FoldInRunner`` on the card over
   three windows written through ``import`` (1,000 cold-start users,
@@ -2052,8 +2063,8 @@ def phase_fleet(store: StoreHome) -> dict:
             fleet.fail("refused an item $set event")
         # phase engines' unavailable-items constraint goes in now, before
         # phase read stores the ratings' scan-cache snapshots: written
-        # later, it would outdate its shard's snapshots, and every train
-        # after it would scan that shard again
+        # later to the same app, it would outdate its shard's snapshot,
+        # and every train after it would scan that shard again
         status = _raw(port, f"/events.json?accessKey={store.key}",
                       unavailable_set())[0]
         if status != 201:
@@ -4206,12 +4217,19 @@ def phase_foldin(torch, store: StoreHome, cli_out: dict) -> dict:
     variant = json.loads(Path(cli_out["engine_json"]).read_text())
     variant["algorithms"][0]["params"]["solver"] = "pallas"
     ej.write_text(json.dumps(variant, indent=2))
+    # phase sessions wrote to the store since phase read stored this
+    # app's snapshot: the train's read must still hit it (the key is
+    # the table's own version, not the shard file's ctime)
+    es.last_ratings_scan_path = None
     t0 = time.perf_counter()
     _build.reset_launches()
-    iid = cli(["train", "--scan-cache", "--engine-json", str(ej)],
-              st).split()[-1]
+    with CaptureLog() as records:
+        iid = cli(["train", "--scan-cache", "--engine-json", str(ej)],
+                  st).split()[-1]
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
+    (read_s,) = records.args(_READ_LOG)
+    read_path = es.last_ratings_scan_path
     train_launches = dict(_build.LAUNCHES)
     if train_launches["gj_solve"] <= 0:
         raise AssertionError("the pallas train never launched gj_solve")
@@ -4219,7 +4237,8 @@ def phase_foldin(torch, store: StoreHome, cli_out: dict) -> dict:
         "deploy", "--engine-json", str(ej), "--engine-instance-id", iid,
         "--ip", "127.0.0.1", "--port", "0", "--replicas", "2",
         "--health-interval", "0.5", "--push-foldin", "1"], "foldin-fleet")
-    checks, detail = {}, {}
+    checks = {"train_read_hit_the_snapshot": read_path == "cache"}
+    detail = {"train_read_s": read_s, "train_read_path": read_path}
     try:
         out = cli(["foldin", "--engine-json", str(ej), "--from-now"], st)
         hw = es.high_water_cursor(store.app_id)
@@ -4384,8 +4403,9 @@ def phase_foldin(torch, store: StoreHome, cli_out: dict) -> dict:
         "rungs", "deltaBytes", "signatures")} for c in cycles],
         freshness_s=fresh_s, trades=trades, err64=err64, phase_s=phase_s)
     obs_report("foldin", checks, detail)
-    log(f"phase foldin ML-20M: console train (pallas) {train_s:.1f} s "
-        f"(launches {train_launches}); deploy --replicas 2 --push-foldin 1 "
+    log(f"phase foldin ML-20M: console train (pallas) {train_s:.1f} s, "
+        f"its read {read_s:.1f} s from {read_path!r} (launches "
+        f"{train_launches}); deploy --replicas 2 --push-foldin 1 "
         f"up in {boot_s:.1f} s; cycles (s, live.* spans, (B, K) rungs, "
         f"rows, delta bytes): "
         + "; ".join(
@@ -5103,10 +5123,9 @@ def import_classify(store: StoreHome) -> dict:
     """Phase engines' app ``classify`` into the ML-20M store: ``app new``
     through the console, :data:`CLASSIFY_USERS` users' ``$set`` events
     written as JSON lines and imported by the console's ``import``.  It
-    runs before phase read: a write to a shard file changes the file's
-    ctime, which keys every scan-cache snapshot of that shard, so an
-    import after phase read would send fold-in's train back to the
-    native scan of every shard."""
+    runs before phase read; an app of its own, it could run at any time
+    (a snapshot's key is its table's write version: a write to another
+    app's table leaves it valid)."""
     from pathlib import Path
 
     x, y = classify_data(CLASSIFY_USERS, seed=62)
@@ -5205,9 +5224,8 @@ def phase_engines(torch, store: StoreHome, ratings, u, i,
     The ALS trains must launch the fused kernel or GJ, their factors be
     finite and a float64 solve of 256 item rows agree within 1e-3 of the
     factors' scale (:func:`implicit_health`).  The phase writes nothing
-    to the shard files (their ctimes, which key the scan-cache
-    snapshots, are the same at its end), so fold-in's train still reads
-    phase read's snapshot.  Checks go on one
+    to the shard files (their ctimes are the same at its end).  Checks go
+    on one
     ``{"engines": ...}`` line; a false one, or the phase past
     ``ENGINES_PHASE_LIMIT_S``, fails the run."""
     import dataclasses
@@ -5511,6 +5529,602 @@ def phase_engines(torch, store: StoreHome, ratings, u, i,
     if bad:
         raise AssertionError(f"phase engines: checks failed: {bad}")
     return {**detail, "launches": launches, "s": total}
+
+
+# phase sessions: the engines that train no factor model (trending and
+# nextitem) on a day of view events in the ML-20M store, after phase
+# engines and before phase foldin
+SESSIONS_PHASE_LIMIT_S = 90.0
+# a day of a mid-size shop's views is 2,000,000; halved to keep the
+# script under its time budget (widths and sessions are not cut)
+SESSIONS_EVENTS = 1_000_000
+# sessions: mean length 8 (geometric), 5 to 120 s between a session's
+# views, over 1,800 s between one user's sessions, at most 24 a user in
+# the day before the phase; each next view one of 8 successors of the
+# item (Zipf 1.0 over them) or, 1 time in 5, a restart (Zipf 1.0 items)
+SESSIONS_MEAN_LEN = 8
+SESSIONS_PER_USER = 24
+SESSIONS_SUCCESSORS = 8
+SESSIONS_RESTART = 0.2
+SESSIONS_GAP_S = 1_800.0
+SESSIONS_DAY_MS = 86_400_000
+TRENDING_HALF_LIFE_S = 21_600.0
+NEXTITEM_HALF_LIFE_S = 604_800.0
+SESSIONS_SOLO = 32
+SESSIONS_QUERIES = 256
+SESSIONS_CLIENTS = 64
+SESSIONS_CHECK_ITEMS = 100
+SESSIONS_FRESH = 5
+
+
+def synth_views(n_events: int, t_end_ms: int, seed: int = 71):
+    """A day of view events at ML-20M's widths, made from a seed: the
+    ``(user, item, event ms)`` arrays, every time in the 24 h before
+    ``t_end_ms``.  Sessions of geometric length (mean
+    :data:`SESSIONS_MEAN_LEN`, cut to ``n_events`` in all) belong to
+    users drawn Zipf 0.8, at most :data:`SESSIONS_PER_USER` a user (a
+    draw past that is drawn again from the users with room); each user's
+    sessions lie in the day in turn, more than :data:`SESSIONS_GAP_S`
+    apart, the slack spread at random.  A session's first item is Zipf
+    1.0 over the items; each next one is one of the item's
+    :data:`SESSIONS_SUCCESSORS` fixed successors (Zipf 1.0 over them),
+    or a restart with probability :data:`SESSIONS_RESTART`."""
+    rng = np.random.default_rng(seed)
+    lens = rng.geometric(1 / SESSIONS_MEAN_LEN,
+                         size=n_events // SESSIONS_MEAN_LEN * 2 + 16)
+    ends = np.cumsum(lens)
+    n_s = int(np.searchsorted(ends, n_events)) + 1
+    lens = lens[:n_s].copy()
+    lens[-1] -= int(ends[n_s - 1] - n_events)
+    w_u = 1.0 / np.arange(1, N_USERS + 1) ** 0.8
+    w_u /= w_u.sum()
+    counts = rng.multinomial(n_s, w_u)
+    while (counts > SESSIONS_PER_USER).any():
+        over = int(np.maximum(counts - SESSIONS_PER_USER, 0).sum())
+        counts = np.minimum(counts, SESSIONS_PER_USER)
+        room = np.where(counts < SESSIONS_PER_USER, w_u, 0.0)
+        counts += rng.multinomial(over, room / room.sum())
+    s_user = np.repeat(np.arange(N_USERS), counts)
+    starts = np.r_[0, np.cumsum(lens)[:-1]]
+    ev_s = np.repeat(np.arange(n_s), lens)
+    gap = rng.integers(5_000, 120_001, n_events)
+    gap[starts] = 0
+    off = np.cumsum(gap)
+    off -= off[starts][ev_s]
+    dur = off[starts + lens - 1]
+    # a user's sessions take dur + 1,801 s each; the slack of the day is
+    # cut at sorted uniform points, one a session
+    first = np.r_[True, s_user[1:] != s_user[:-1]]
+    grp = np.cumsum(first) - 1
+    span = SESSIONS_DAY_MS - 60_000
+    gap_ms = int(SESSIONS_GAP_S * 1000) + 1_000
+    step = dur + gap_ms
+    slack = span - np.bincount(grp, weights=step) + gap_ms
+    if slack.min() < 0:
+        raise AssertionError("a user's sessions do not fit in the day")
+    cut = rng.random(n_s) * slack[grp]
+    cut = cut[np.lexsort((cut, grp))].astype(np.int64)
+    before = np.cumsum(step) - step
+    before -= before[first][grp]
+    s_t0 = t_end_ms - span - 30_000 + cut + before
+    t_ms = s_t0[ev_s] + off
+    # the items, one position of every session at a time
+    w_i = 1.0 / np.arange(1, N_ITEMS + 1)
+    w_i /= w_i.sum()
+    succ = (np.arange(N_ITEMS)[:, None] + 1 + rng.integers(
+        0, N_ITEMS - 1, (N_ITEMS, SESSIONS_SUCCESSORS))) % N_ITEMS
+    w_k = 1.0 / np.arange(1, SESSIONS_SUCCESSORS + 1)
+    w_k /= w_k.sum()
+    item = np.empty(n_events, np.int64)
+    cur = rng.choice(N_ITEMS, n_s, p=w_i)
+    for j in range(int(lens.max())):
+        live = np.flatnonzero(lens > j)
+        if j:
+            nxt = succ[cur[live], rng.choice(SESSIONS_SUCCESSORS, len(live),
+                                              p=w_k)]
+            restart = rng.random(len(live)) < SESSIONS_RESTART
+            nxt[restart] = rng.choice(N_ITEMS, int(restart.sum()), p=w_i)
+            cur[live] = nxt
+        item[starts[live] + j] = cur[live]
+    return s_user[ev_s], item, t_ms
+
+
+_VIEW_LINE = (b'{"event":"view","entityType":"user","entityId":"u', "u",
+              b'","targetEntityType":"item","targetEntityId":"i', "i",
+              b'","eventTime":"', "t", b'Z"}\n')
+
+
+def write_view_lines(path, u, i, t_ms) -> None:
+    """The view events ``(u, i, t_ms)`` as JSON lines (one app's import
+    file), built as one fixed-width byte matrix: the ids as
+    :func:`user_id` and :func:`item_id` give them, the time to the
+    millisecond."""
+    when = np.datetime_as_string(t_ms.astype("datetime64[ms]"), unit="ms")
+    widths = [len(x) if isinstance(x, bytes) else {"u": 6, "i": 5, "t": 23}[x]
+              for x in _VIEW_LINE]
+    m = np.empty((len(u), sum(widths)), np.uint8)
+    col = 0
+    for part, w in zip(_VIEW_LINE, widths):
+        if isinstance(part, bytes):
+            m[:, col:col + w] = np.frombuffer(part, np.uint8)
+        elif part == "t":
+            m[:, col:col + w] = when.astype("S23").view(np.uint8).reshape(
+                -1, w)
+        else:
+            _digits(m, col, u if part == "u" else i, w)
+        col += w
+    with open(path, "wb") as f:
+        f.write(m.tobytes())
+
+
+@contextlib.contextmanager
+def seconds_in(cls, name: str, sink: list):
+    """While the block runs, the seconds of every call of the method
+    ``cls.name`` go to ``sink``."""
+    orig = cls.__dict__[name]
+
+    @functools.wraps(orig)
+    def timed_call(self, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, *args, **kw)
+        finally:
+            sink.append(time.perf_counter() - t0)
+
+    setattr(cls, name, timed_call)
+    try:
+        yield sink
+    finally:
+        setattr(cls, name, orig)
+
+
+@contextlib.contextmanager
+def clock_at(t: float):
+    """The host engines' modules (trending, the transition store) read
+    ``t`` from the clock: an in-process ``predict`` scored at ``t``."""
+    import types
+
+    from predictionio_tpu_torch.sessions import store as store_mod
+    from predictionio_tpu_torch.templates import trending
+
+    pinned = types.SimpleNamespace(time=lambda: t, monotonic=time.monotonic)
+    saved = trending.time, store_mod.time
+    trending.time = store_mod.time = pinned
+    try:
+        yield
+    finally:
+        trending.time, store_mod.time = saved
+
+
+def _same_at_query_time(got: dict, early: dict, late: dict,
+                        what: str) -> None:
+    """A reply whose scores decay with the clock, against an in-process
+    ``predict`` scored at the start (``early``) and at the end
+    (``late``) of the load it came in: the same items in the same order,
+    each score between the two within 1e-6 relative."""
+    items = [s["item"] for s in got["itemScores"]]
+    if items != [s["item"] for s in early["itemScores"]] or items != [
+            s["item"] for s in late["itemScores"]]:
+        raise AssertionError(f"{what}: {got} where predict gives {early}")
+    for s, hi, lo in zip(got["itemScores"], early["itemScores"],
+                         late["itemScores"]):
+        if not (lo["score"] * (1 - 1e-6) <= s["score"]
+                <= hi["score"] * (1 + 1e-6)):
+            raise AssertionError(f"{what}: score {s} outside "
+                                 f"[{lo['score']}, {hi['score']}]")
+
+
+def _top_outside_ties(got: list, weights: np.ndarray, k: int) -> bool:
+    """``got`` (item indexes, best first) is a top ``k`` of ``weights``:
+    every index above the k-th weight is in it, and every one in it is at
+    least the k-th weight (the same list outside exact ties)."""
+    order = np.argsort(-weights, kind="stable")
+    kth = weights[order[min(k, len(order)) - 1]]
+    must = set(np.flatnonzero(weights > kth).tolist())
+    may = set(np.flatnonzero((weights >= kth) & (weights > 0)).tolist())
+    return (len(got) == min(k, len(may | must)) and must <= set(got) <= may)
+
+
+def _stale_serves(port: int) -> float:
+    """``pio_resilience_events_total{kind="trending.stale_serve"}`` of a
+    server."""
+    return sum(c["value"] for key, c in _children(
+        _scrape(port)[1], "pio_resilience_events_total").items()
+        if ("kind", "trending.stale_serve") in key)
+
+
+def host_train(st, ej) -> dict:
+    """``train --engine-json EJ`` in this process for an engine that
+    trains no factor model: its seconds split into the store's scans
+    (``find_rows_since``), the fold of the rows read (the rest of
+    ``read_training``) and the rest (the model's save)."""
+    scans = []
+    t0 = time.perf_counter()
+    with CaptureLog() as records, seconds_in(
+            type(st.get_event_store()), "find_rows_since", scans):
+        out = cli(["train", "--engine-json", str(ej)], st)
+    train_s = time.perf_counter() - t0
+    iid = out.split()[-1]
+    if st.get_metadata().engine_instance_get(iid).status != "COMPLETED":
+        raise AssertionError(f"instance {iid} did not complete: {out}")
+    (read_s,) = records.args(_READ_LOG)
+    return {"iid": iid, "train_s": train_s, "scan_s": sum(scans),
+            "fold_s": read_s - sum(scans), "scans": len(scans)}
+
+
+def host_train_child(ej: str) -> None:
+    """:func:`host_train` in a child process, on the store its
+    environment names; the result goes to stdout as its last line."""
+    from predictionio_tpu_torch.storage import get_storage
+
+    print(json.dumps(host_train(get_storage(), ej)))
+
+
+def phase_sessions(torch, store: StoreHome) -> dict:
+    """Trending and nextitem, the engines that train no factor model, on
+    the 4-shard ML-20M store after phase engines (their writes leave the
+    other apps' scan-cache snapshots valid: phase foldin's train read
+    checks that).  App ``views`` through the console (``app new``, then
+    ``import`` of :data:`SESSIONS_EVENTS` view events of
+    :func:`synth_views` as JSON lines) → ``template get``, ``build`` and
+    ``train`` of each, at once: nextitem in this process, trending in a
+    child (trending: half-life 21,600 s, ``refreshSec`` 2; nextitem: gap
+    1,800 s, half-life 604,800 s) → the two ``deploy`` processes booting at
+    once on the event-loop edge, the trending one under
+    ``PIO_FAULT_PLAN="storage.read:times=1"`` (its first refresh, at
+    boot, fails) → meanwhile, in process:
+
+    * trending's decayed weight of every item against a float64
+      recomputation from the generator's (item, time) arrays within
+      1e-9 relative, and its top 10 the same outside exact ties;
+    * nextitem's successor weights of the 100 most-viewed items against
+      a numpy recomputation of the gap-sessionized transitions (the
+      reference's rules: a forward gap over 1,800 s breaks a session, a
+      repeated item adds no transition) within 1e-9 relative;
+    * ``e2.MarkovChain.train`` on the same transitions, undecayed: its
+      top 10 successors of those items the same as a numpy count outside
+      exact ties, each probability within 1e-6.
+
+    Then each deploy answers 32 solo queries and 256 from 64 clients,
+    every reply held against an in-process ``predict`` scored at the
+    start and at the end of its load (:func:`_same_at_query_time`);
+    trending's stale list served with
+    ``pio_resilience_events_total{kind="trending.stale_serve"}`` above 0
+    on ``/metrics``; nextitem's batches above 1, trending's none (no
+    batcher).  Freshness, through an ``eventserver`` process on the
+    store, :data:`SESSIONS_FRESH` times each: a burst of views of a cold
+    item, a 1.05 share more than the top item's score (the earlier
+    bursts' items black-listed), from the last ``201`` to the first
+    reply with it at top 1; a cold item's new ``a → b`` sessions, one
+    more than ``a``'s top successor weight, to the first reply with
+    ``b`` first.  Checks go on one ``{"obs": ...}`` line; a false one,
+    or the phase past :data:`SESSIONS_PHASE_LIMIT_S`, fails the run."""
+    from pathlib import Path
+
+    from predictionio_tpu_torch.cli.main import load_engine_from_variant
+    from predictionio_tpu_torch.controller import WorkflowContext
+    from predictionio_tpu_torch.e2 import MarkovChain
+    from predictionio_tpu_torch.templates import nextitem, trending
+    from predictionio_tpu_torch.workflow import prepare_deploy_components
+
+    t_phase = time.perf_counter()
+    t_end_ms = int(time.time() * 1000)
+    st = store.storage
+    home = Path(store.home)
+    rng = np.random.default_rng(72)
+    checks, detail = {}, {}
+    # the event server the freshness bursts go through boots meanwhile
+    events = Console(store.home, ["eventserver", "--ip", "127.0.0.1",
+                                  "--port", "0"], "sessions-events")
+    procs = {}
+    try:
+        out = cli(["app", "new", "views"], st)
+        key = out.split("Access key: ")[1].split()[0]
+        app_id = st.get_metadata().app_get_by_name("views").id
+        t0 = time.perf_counter()
+        u, i, t_ms = synth_views(SESSIONS_EVENTS, t_end_ms)
+        src = home / "views.jsonl"
+        write_view_lines(src, u, i, t_ms)
+        made_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with CaptureLog() as records:
+            out = cli(["import", "--appid", str(app_id), "--input",
+                       str(src)], st)
+        import_s = time.perf_counter() - t0
+        src.unlink()
+        branches = records.args(_IMPORT_LOG)[1:]
+        checks["import_took_every_view"] = (
+            out == f"Imported {SESSIONS_EVENTS} events.\n")
+
+        # the two engines through the console
+        ds = {"appName": "views", "eventNames": ["view"],
+              "refreshSec": 2.0}
+        ejs = {
+            "trending": engine_scaffold(st, home, "trending", {
+                **ds, "halfLifeSec": TRENDING_HALF_LIFE_S},
+                [{"name": "trending", "params": {}}]),
+            "nextitem": engine_scaffold(st, home, "nextitem", {
+                **ds, "sessionGapSec": SESSIONS_GAP_S,
+                "halfLifeSec": NEXTITEM_HALF_LIFE_S},
+                [{"name": "nextitem", "params": {}}]),
+        }
+        # trending trains in a child process while nextitem trains in
+        # this one: both folds are Python, which one process would run
+        # in turn
+        root = str(Path(__file__).resolve().parent)
+        with open(home / "train-trending.log", "wb") as child_log:
+            child = subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke.host_train_child(sys.argv[1])",
+                 str(ejs["trending"])], cwd=root,
+                env={**os.environ, "PYTHONPATH": root},
+                stdout=subprocess.PIPE, stderr=child_log)
+            try:
+                tr = {"nextitem": host_train(st, ejs["nextitem"])}
+                out = child.communicate(timeout=600)[0].decode()
+            finally:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
+        if child.returncode != 0:
+            raise AssertionError(
+                f"trending's train exited with {child.returncode}:\n"
+                + (home / "train-trending.log").read_text()[-8000:])
+        tr["trending"] = json.loads(out.splitlines()[-1])
+        for name, ej in ejs.items():
+            env = ({"PIO_FAULT_PLAN": "storage.read:times=1"}
+                   if name == "trending" else None)
+            procs[name] = Console(store.home, [
+                "deploy", "--engine-json", str(ej), "--ip", "127.0.0.1",
+                "--port", "0"], f"deploy-{name}", env=env)
+
+        # meanwhile: the served models, in process
+        serving = WorkflowContext(mode="Serving", storage=st)
+        comp = {}
+        for name, ej in ejs.items():
+            engine, ep, _ = load_engine_from_variant(ej)
+            algos, models, _ = prepare_deploy_components(
+                engine, ep, tr[name]["iid"], ctx=serving)
+            comp[name] = (algos[0], models[0])
+        tm, nm = comp["trending"][1], comp["nextitem"][1]
+        counts = np.bincount(i, minlength=N_ITEMS)
+
+        # trending's weights against float64 from the generator's arrays
+        t_checks = time.perf_counter()
+        want = np.bincount(i, weights=2.0 ** ((t_ms / 1000.0 - tm.t0)
+                                              / TRENDING_HALF_LIFE_S),
+                           minlength=N_ITEMS)
+        ix = np.asarray([int(s[1:]) for s in tm.item_ids])
+        got = np.zeros(N_ITEMS)
+        got[ix] = tm.weights
+        rel_t = float(np.max(np.abs(got - want) / np.maximum(want, 1e-300)))
+        checks["trending_weights_within_1e-9_of_float64"] = bool(
+            rel_t <= 1e-9 and sorted(ix.tolist())
+            == np.flatnonzero(counts).tolist())
+        with clock_at(tm.t0):
+            top10 = [int(s[1:]) for s, _ in tm.top(10)]
+        checks["trending_top10_equal_outside_ties"] = _top_outside_ties(
+            top10, want, 10)
+
+        # nextitem's successor rows against numpy's transitions
+        order = np.lexsort((t_ms, u))
+        us, items_, ts = u[order], i[order], t_ms[order]
+        cont = ((us[1:] == us[:-1])
+                & (np.diff(ts) <= int(SESSIONS_GAP_S * 1000))
+                & (items_[1:] != items_[:-1]))
+        src_ix, dst_ix, te_ms = items_[:-1][cont], items_[1:][cont], \
+            ts[1:][cont]
+        hot = np.argsort(-counts, kind="stable")[:SESSIONS_CHECK_ITEMS]
+        by_src = np.argsort(src_ix, kind="stable")
+        cuts = np.searchsorted(src_ix[by_src], np.arange(N_ITEMS + 1))
+        rel_n, same_keys = 0.0, True
+        for a in hot:
+            rows = by_src[cuts[a]:cuts[a + 1]]
+            w = np.bincount(dst_ix[rows], weights=2.0 ** (
+                (te_ms[rows] / 1000.0 - nm.store.t0) / NEXTITEM_HALF_LIFE_S),
+                minlength=N_ITEMS)
+            row = dict(nm.store.top_successors(item_id(a), N_ITEMS,
+                                               now=nm.store.t0))
+            keys = np.asarray(sorted(int(s[1:]) for s in row))
+            same_keys &= keys.tolist() == np.flatnonzero(w).tolist()
+            if len(keys):
+                mine = np.asarray([row[item_id(b)] for b in keys])
+                rel_n = max(rel_n, float(np.max(np.abs(mine - w[keys])
+                                                / w[keys])))
+        checks["nextitem_rows_within_1e-9_of_numpy"] = bool(
+            same_keys and rel_n <= 1e-9
+            and nm.store.transitions_folded == len(src_ix))
+        checks_s = time.perf_counter() - t_checks
+
+        # e2's Markov chain on the same transitions, undecayed
+        names = np.asarray([item_id(k) for k in range(N_ITEMS)], dtype=object)
+        t0 = time.perf_counter()
+        chain = MarkovChain.train(
+            list(zip(names[src_ix].tolist(), names[dst_ix].tolist())),
+            top_n=10)
+        chain_s = time.perf_counter() - t0
+        chain_ok = True
+        for a in hot:
+            rows = by_src[cuts[a]:cuts[a + 1]]
+            c = np.bincount(dst_ix[rows], minlength=N_ITEMS)
+            pred = chain.predict(item_id(a))
+            succ = [int(s[1:]) for s, _ in pred]
+            chain_ok &= _top_outside_ties(succ, c.astype(np.float64), 10)
+            chain_ok &= all(abs(p - c[b] / len(rows)) <= 1e-6 * c[b] / len(
+                rows) for b, (_, p) in zip(succ, pred))
+        checks["e2_markov_top10_equal_a_numpy_count"] = bool(chain_ok)
+
+        # the queries, and what predict answers at both ends of a load
+        pop = rng.choice(100, 144)
+        tail = rng.choice(np.flatnonzero(counts)[100:], 144)
+        queries = {
+            "trending": [
+                {"num": 10} if k % 3 == 0 else
+                {"num": 5 + k % 7,
+                 "blackList": [item_id(j) for j in rng.choice(50, 3)]}
+                for k in range(SESSIONS_SOLO + SESSIONS_QUERIES)],
+            "nextitem": [
+                {"item": item_id(a), "num": 10} for pair in zip(pop, tail)
+                for a in pair][:SESSIONS_SOLO + SESSIONS_QUERIES // 2] + [
+                {"user": user_id(k), "num": 10}
+                for k in rng.integers(0, N_USERS, SESSIONS_QUERIES // 2)],
+        }
+        qclass = {"trending": trending.Query, "nextitem": nextitem.Query}
+
+        def predict_at(name, t):
+            algo, model = comp[name]
+            with clock_at(t):
+                return [algo.predict(model, qclass[name].from_json(q))
+                        .to_json() for q in queries[name]]
+
+        # the HTTP loads, one deploy at a time
+        served = {}
+        for name, proc in procs.items():
+            port = proc.wait_port()
+            if name == "trending":
+                checks["trending_fault_plan_booked_a_stale_serve"] = (
+                    _stale_serves(port) > 0)
+            qs = queries[name]
+            t_a = time.time()
+            load = http_load(port, qs[:SESSIONS_SOLO], qs[SESSIONS_SOLO:],
+                             SESSIONS_CLIENTS)
+            t_b = time.time()
+            for q, g, hi, lo in zip(qs, load["replies"],
+                                    predict_at(name, t_a),
+                                    predict_at(name, t_b)):
+                _same_at_query_time(g, hi, lo, f"{name} query {q}")
+            checks[f"{name}_http_equals_predict_at_query_time"] = True
+            checks[f"{name}_answered"] = sum(
+                bool(r["itemScores"]) for r in load["replies"]) > len(qs) // 2
+            status = _http(port, "/")
+            served[name] = dict(
+                boot_s=proc.boot_s,
+                solo_p50_p99=list(np.percentile(load["solo_ms"], [50, 99])),
+                conc_p50_p99=list(np.percentile(load["conc_ms"], [50, 99])),
+                qps=load["qps"], batches=status.get("microbatch"))
+        mb = served["nextitem"]["batches"]
+        checks["nextitem_batches_above_1"] = bool(
+            mb and mb["maxBatchSeen"] > 1 and mb["batches"] < mb["requests"])
+        checks["trending_does_not_batch"] = (
+            served["trending"]["batches"] is None)
+
+        # freshness through the event server, both engines at once
+        eport = events.wait_port()
+        tport = procs["trending"].wait_port()
+        nport = procs["nextitem"].wait_port()
+        url = f"/batch/events.json?accessKey={key}"
+
+        def post(evs) -> float:
+            replies = _post_all(eport, url, [evs[k:k + 50] for k in range(
+                0, len(evs), 50)], 8)
+            if any(s != 200 or any(e["status"] != 201 for e in r)
+                   for s, r in replies):
+                events.fail(f"refused a view: {replies[:2]}")
+            return time.perf_counter()
+
+        def trending_fresh() -> tuple:
+            """A burst of views of each cold item, a 1.05 share more than
+            the top 1's score (the earlier bursts' items black-listed),
+            to the first reply with it at top 1."""
+            fresh, bursts, shown = [], [], []
+            for k, c in enumerate(np.argsort(counts, kind="stable")[
+                    :SESSIONS_FRESH]):
+                q = {"num": 1, "blackList": list(shown)}
+                top = _http(tport, "/queries.json", q)["itemScores"][0]
+                bursts.append(int(top["score"] * 1.05) + 50)
+                acked = post([{"event": "view", "entityType": "user",
+                               "entityId": f"burst{k}-{j:05d}",
+                               "targetEntityType": "item",
+                               "targetEntityId": item_id(c)}
+                              for j in range(bursts[-1])])
+                _wait_for(lambda: _http(tport, "/queries.json", q)[
+                    "itemScores"][0]["item"] == item_id(c), 60,
+                    f"trending's top 1 {item_id(c)}", 0.02)
+                fresh.append(time.perf_counter() - acked)
+                shown.append(item_id(c))
+            return fresh, bursts
+
+        def nextitem_fresh() -> tuple:
+            """For anchors ``a`` whose top successor weighs 1 to 3, one
+            more ``a → b`` session than that weight (``b`` no successor
+            of ``a`` yet), to the first reply with ``b`` first."""
+            anchors = []
+            for a in np.random.default_rng(73).permutation(
+                    np.flatnonzero(counts)):
+                top = nm.store.top_successors(item_id(a), 1,
+                                              now=nm.store.t0)
+                if top and 1.0 <= top[0][1] <= 3.0:
+                    anchors.append((item_id(a), top[0][1]))
+                if len(anchors) == SESSIONS_FRESH:
+                    break
+            fresh, walks = [], []
+            for k, (a, w1) in enumerate(anchors):
+                b = next(item_id(j) for j in rng.integers(0, N_ITEMS, 64)
+                         if nm.store.weight(a, item_id(j),
+                                            now=nm.store.t0) == 0.0)
+                walks.append(int(np.ceil(w1)) + 1)
+                stamp = time.time()
+                acked = post([{
+                    "event": "view", "entityType": "user",
+                    "entityId": f"walk{k}-{j}", "targetEntityType": "item",
+                    "targetEntityId": item, "eventTime": np.datetime_as_string(
+                        np.datetime64(int((stamp - back) * 1000), "ms"),
+                        unit="ms") + "Z"}
+                    for j in range(walks[-1])
+                    for item, back in ((a, 10.0), (b, 5.0))])
+                _wait_for(lambda: _http(nport, "/queries.json", {
+                    "item": a, "num": 1})["itemScores"][0]["item"] == b,
+                    60, f"nextitem's {b} after {a}", 0.02)
+                fresh.append(time.perf_counter() - acked)
+            return fresh, walks
+
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            t_job, n_job = pool.submit(trending_fresh), pool.submit(
+                nextitem_fresh)
+            (fresh_t, bursts), (fresh_n, sessions_n) = (
+                t_job.result(), n_job.result())
+        checks["nextitem_found_its_anchors"] = len(fresh_n) == SESSIONS_FRESH
+
+        for proc in procs.values():
+            if "Undeployed" not in cli(["undeploy", "--port", str(
+                    proc.wait_port())], st):
+                proc.fail("was not undeployed")
+        for name, proc in procs.items():
+            try:
+                rc = proc.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.fail("did not stop after undeploy")
+            checks[f"{name}_undeploy_exit_0"] = rc == 0
+    finally:
+        for proc in procs.values():
+            proc.stop()
+        events.stop()
+    phase_s = time.perf_counter() - t_phase
+    checks["phase_within_its_limit"] = phase_s <= SESSIONS_PHASE_LIMIT_S
+    detail.update(
+        events=SESSIONS_EVENTS, transitions=int(len(src_ix)),
+        made_s=made_s, import_s=import_s, import_branches=branches,
+        trains=tr, served=served, trending_rel=rel_t, nextitem_rel=rel_n,
+        weights_check_s=checks_s, markov_s=chain_s,
+        trending_freshness_s=fresh_t, trending_bursts=bursts,
+        nextitem_freshness_s=fresh_n, nextitem_sessions=sessions_n,
+        phase_s=phase_s)
+    obs_report("sessions", checks, detail)
+    log(f"phase sessions: {SESSIONS_EVENTS:,} views "
+        f"({len(src_ix):,} transitions) made in {made_s:.1f} s, imported "
+        f"in {import_s:.1f} s; trains (scan / fold / all s) "
+        + "; ".join(f"{n} {t['scan_s']:.1f} / {t['fold_s']:.1f} / "
+                    f"{t['train_s']:.1f}" for n, t in tr.items())
+        + "; deploys up in "
+        + ", ".join(f"{n} {s['boot_s']:.1f} s" for n, s in served.items())
+        + "; from 64 clients "
+        + ", ".join(f"{n} {s['qps']:.0f} queries/s p50/p99 "
+                    f"{s['conc_p50_p99'][0]:.1f}/{s['conc_p50_p99'][1]:.1f}"
+                    f" ms" for n, s in served.items())
+        + f"; e2 MarkovChain.train {chain_s:.1f} s; freshness median "
+        f"trending {float(np.median(fresh_t)):.3f} s, nextitem "
+        f"{float(np.median(fresh_n)):.3f} s; phase {phase_s:.1f} s")
+    return {"phase_s": phase_s}
 
 
 # phase hive: tenancy and experiments at ML-20M width, after phase foldin
@@ -6551,8 +7165,9 @@ def main(argv: list[str]) -> int:
                   len(v), stored["import_s"])
             stored["src"].unlink()
         # the items' $set events go in through the fleet before the read
-        # that fills the scan cache (a later write would outdate it), and
-        # phase engines' classify app is imported for the same reason
+        # that fills the scan cache (a later write to the app would
+        # outdate its snapshot), and phase engines' classify app is
+        # imported meanwhile (another app: it outdates no snapshot)
         timed("fleet", phase_fleet, store)
         if not argv:
             classify = timed("classify import", import_classify, store)
@@ -6633,8 +7248,15 @@ def main(argv: list[str]) -> int:
                                  ratings, u, i, classify)["launches"]
         del classify
         torch.cuda.empty_cache()
+        # the engines that train no factor model, on a day of views of
+        # their own in the same store (no kernel on its path): their
+        # writes leave the other apps' snapshots valid
+        _build.reset_launches()
+        timed("sessions", phase_sessions, torch, store)
+        paths["sessions"] = dict(_build.LAUNCHES)
         # fold-in on the same store, last: its writes outdate the scan
-        # cache (it sets the counts to 0 itself, after its train)
+        # cache of its app (it sets the counts to 0 itself, after its
+        # train, whose read must hit phase read's snapshot)
         foldin_out = timed("foldin", phase_foldin, torch, store, cli_out)
         paths["foldin"] = foldin_out["launches"]
         torch.cuda.empty_cache()

@@ -2,20 +2,24 @@
 ``find_ratings`` results.
 
 Copy of ``predictionio_tpu/storage/scan_cache.py`` for the port, with the
-same key and file layout under ``$PIO_TPU_HOME/scan_cache``.  Repeat
-trains and evaluation sweeps re-scan the same event table every run;
-this cache snapshots the column arrays to one ``.npz`` per (database,
-table, query, table state) and serves later identical scans from disk.
+same file layout under ``$PIO_TPU_HOME/scan_cache``.  Repeat trains and
+evaluation sweeps re-scan the same event table every run; this cache
+snapshots the column arrays to one ``.npz`` per (database, table, query,
+table state) and serves later identical scans from disk.
 
 Correctness: the cache key includes a monotonic per-table write-version
 counter (bumped inside every write's transaction,
 ``SQLiteEventStore._bump_version``; a rolled-back bulk scope rolls its
-bump back too) plus the database file's identity (inode and ctime, so
-deleting and recreating the db cannot alias the old file's counters).
-Snapshots are stored only when the version is unchanged across the scan
-and never from inside a bulk() scope, so a published snapshot always
-describes committed data.  A stale entry is never looked up again and is
-eventually pruned.
+bump back too) plus the database file's identity: its inode and a random
+token written once into the file (``SQLiteEventStore.
+_snapshot_fingerprint``), so deleting and recreating the db cannot alias
+the old file's counters.  Unlike the reference, whose identity is the
+inode and the ctime, the key holds nothing that a write to ANOTHER table
+of the same file changes: an app's snapshots survive writes to every
+other app of the store.  Snapshots are stored only when the version is
+unchanged across the scan and never from inside a bulk() scope, so a
+published snapshot always describes committed data.  A stale entry is
+never looked up again and is eventually pruned.
 
 Enabled with ``PIO_TPU_SCAN_CACHE=1`` (opt-in: the write amplification
 is only worth it for workflows that re-read), or per call with

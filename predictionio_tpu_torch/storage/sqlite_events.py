@@ -32,6 +32,7 @@ import json
 import logging
 import os
 import re
+import secrets
 import sqlite3
 import threading
 from pathlib import Path
@@ -153,6 +154,11 @@ CREATE TABLE IF NOT EXISTS _scan_versions (
     # migration, and the bulk defer/rebuild can never disagree
     s.replace("{t}", "{table}") + ";\n" for s in _INDEX_SQL
 )
+
+
+# the row of ``_scan_versions`` that holds the file's token (events
+# tables are named ``events_<app>[_<channel>]``)
+_TOKEN_ROW = "_file_token"
 
 
 def _table_name(app_id: int, channel_id: int) -> str:
@@ -316,6 +322,35 @@ class SQLiteEventStore(EventStore):
             "SELECT v FROM _scan_versions WHERE tbl=?", (t,)
         ).fetchone()
         return int(row[0]) if row else 0
+
+    def _snapshot_fingerprint(self, t: str) -> tuple:
+        """The scan cache's key for table ``t`` as it stands: the table's
+        write version, the file's inode and the file's token, a random
+        number written once into ``_scan_versions`` (under a name no
+        events table can have) by the first cached scan of the file.
+        Deleting and recreating the database resets the version counter
+        and may reuse the inode, but draws a new token, so the old
+        file's snapshots are never served for the new file's data.  A
+        write to another table of the same file changes none of the
+        three (the file's ctime, which it does change, is not part of
+        the key).  Called outside any bulk scope: the token's insert
+        commits on this thread's connection."""
+        row = self._conn.execute(
+            "SELECT v FROM _scan_versions WHERE tbl=?", (_TOKEN_ROW,)
+        ).fetchone()
+        if row is None:
+            with self._lock:
+                # another process may insert first: the loser's insert
+                # is ignored and both read the winner's token back
+                self._conn.execute(
+                    "INSERT OR IGNORE INTO _scan_versions VALUES (?, ?)",
+                    (_TOKEN_ROW, secrets.randbits(62)),
+                )
+                self._conn.commit()
+            row = self._conn.execute(
+                "SELECT v FROM _scan_versions WHERE tbl=?", (_TOKEN_ROW,)
+            ).fetchone()
+        return (self._version(t), os.stat(self._path).st_ino, int(row[0]))
 
     # -- lifecycle --------------------------------------------------------
     def init_channel(self, app_id: int, channel_id: int = 0) -> bool:
@@ -801,11 +836,10 @@ class SQLiteEventStore(EventStore):
             and self._bulk_depth == 0
         ):
             t0 = self._ensure_table(app_id, channel_id)
-            st = os.stat(self._path)
-            v_before = self._version(t0)
+            fingerprint = self._snapshot_fingerprint(t0)
+            v_before = fingerprint[0]
             cache_key = scan_cache.key(
-                self._path, t0,
-                (v_before, st.st_ino, st.st_ctime_ns),
+                self._path, t0, fingerprint,
                 ["find_ratings", event_names, rating_property, dedup,
                  entity_type],
             )
@@ -1054,15 +1088,10 @@ class SQLiteEventStore(EventStore):
             and self._path != ":memory:"
             and self._bulk_depth == 0
         ):
-            st = os.stat(self._path)
-            v_before = self._version(t)
+            fingerprint = self._snapshot_fingerprint(t)
+            v_before = fingerprint[0]
             cache_key = scan_cache.key(
-                self._path, t,
-                # db-file identity: deleting and recreating the database
-                # resets the version counter, so the inode/ctime must be
-                # part of the fingerprint or the old file's snapshots
-                # would be served for the new file's data
-                (v_before, st.st_ino, st.st_ctime_ns),
+                self._path, t, fingerprint,
                 [
                     str(start_time), str(until_time), entity_type,
                     entity_id, event_names, target_entity_type,

@@ -38,7 +38,8 @@ from test_torch_cli import Pair, pair  # noqa: F401
 FACTORY = "{pkg}.templates.recommendation.recommendation_engine"
 # the engines the port registers, by name
 PORT_ENGINES = ["classification", "ecommercerecommendation",
-                "itemsimilarity", "recommendation", "similarproduct"]
+                "itemsimilarity", "nextitem", "recommendation",
+                "similarproduct", "trending"]
 
 
 def _rated_app(pair, name="cliapp"):

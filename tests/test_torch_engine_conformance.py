@@ -38,7 +38,7 @@ from predictionio_tpu_torch.workflow import run_train
 SPECS = {s.name: s for s in list_engine_specs()}
 REF = {s.name: s for s in jax_specs()}
 ENGINES = ["classification", "ecommercerecommendation", "itemsimilarity",
-           "recommendation", "similarproduct"]
+           "nextitem", "recommendation", "similarproduct", "trending"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -77,8 +77,9 @@ def _engine_ok_count(metrics_text: str, engine: str) -> float:
 
 
 def test_every_builtin_engine_declares_conformance_as_the_reference():
-    """The port registers the five model-backed engines, each with a
-    fixture, under the reference's names."""
+    """The port registers the reference's seven engines (five
+    model-backed, trending and nextitem), each with a fixture, under the
+    reference's names."""
     assert sorted(SPECS) == ENGINES
     assert set(SPECS) <= set(REF)
     missing = [s.name for s in SPECS.values()

@@ -38,6 +38,14 @@ def _imported_modules(path: Path) -> list[str]:
     return mods
 
 
+# the engines that train no factor model, and what they use: numpy on the
+# host, as in the reference (no tensor path, no kernel)
+HOST_ONLY = ("sessions/__init__.py", "sessions/store.py", "models/markov.py",
+             "e2/__init__.py", "e2/naive_bayes.py", "e2/markov_chain.py",
+             "e2/cross_validation.py", "templates/trending.py",
+             "templates/nextitem.py")
+
+
 def test_the_walk_sees_every_file():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "predictionio_tpu_torch/models/als.py" in names
@@ -61,9 +69,10 @@ def test_the_walk_sees_every_file():
                 "workflow/checkpoint.py",
                 *(f"templates/{m}.py" for m in (
                     "similarproduct", "ecommerce", "itemsimilarity",
-                    "classification")),
+                    "classification", "trending", "nextitem")),
                 *(f"models/{m}.py" for m in (
-                    "naive_bayes", "logistic", "forest"))):
+                    "naive_bayes", "logistic", "forest", "markov")),
+                *HOST_ONLY):
         assert f"predictionio_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names
     assert len(names) >= 20
@@ -107,6 +116,14 @@ def test_no_jax_or_reference_imports(group):
         if found
     }
     assert not bad, bad
+
+
+def test_the_host_engines_import_no_torch():
+    found = {mod: [m for m in _imported_modules(
+                 ROOT / "predictionio_tpu_torch" / mod)
+                   if m.split(".")[0] in ("torch", "triton")]
+             for mod in HOST_ONLY}
+    assert not any(found.values()), found
 
 
 def test_the_walk_catches_a_forbidden_import(tmp_path):
