@@ -13,7 +13,7 @@ float64 solve), both forms of the fused ALS kernel ("taa" and "dma")
 with the second pass of a split bucket, and the three gather probes,
 whose launch path it takes apart step by step at the probe shape.
 It builds the native host runtime (``build/native/``, ``g++``) beside
-the kernels.  Then it drives nine main paths and phases scout and sessions
+the kernels.  Then it drives ten main paths and phases scout and sessions
 through the entry points a user calls, each path with every launch counter set
 to 0 just before it and read just after it; a kernel its path did not
 launch fails the run:
@@ -69,13 +69,13 @@ launch fails the run:
   (``"pallas"``, served by the ivf retriever, recall@10 against the
   exact scan), ecommerce (``"fused"``, served with the seen-items and
   unavailable-items reads of the store) and classification (an app of
-  200,000 users imported as JSON lines; naive Bayes, logistic and a
+  100,000 users imported as JSON lines; naive Bayes, logistic and a
   random forest, each held against its CPU counterpart); four
   ``deploy`` processes answering like an in-process ``predict``, each
   ALS train's float64 health check;
 * sessions (no kernel on its path): on that store after engines, the
   engines that train no factor model on an app of their own, a day of
-  1,000,000 view events in sessions (ML-20M's users and items) imported
+  500,000 view events in sessions (ML-20M's users and items) imported
   as JSON lines: trending and nextitem trained through the console and
   deployed as two processes (trending's under a ``storage.read`` fault
   plan), each held against a numpy recomputation from the generator's
@@ -87,8 +87,8 @@ launch fails the run:
   (whose read must still hit phase read's snapshot),
   ``deploy --replicas 2 --push-foldin 1``, ``foldin --from-now`` (which
   must find nothing to fold), then a ``FoldInRunner`` on the card over
-  three windows written through ``import`` (1,000 cold-start users,
-  1,000 existing users with new ratings and 20 new items; twice 100
+  three windows written through ``import`` (500 cold-start users,
+  500 existing users with new ratings and 20 new items; twice 100
   cold-start users): the SPD solve kernel solves the rows, the first
   cycle is held against a float64 solve of the same window, every
   replica's reply for folded users against an in-process ``predict`` on
@@ -113,18 +113,28 @@ launch fails the run:
   ``run_train`` (``fused_gather="auto"``, which ranks the fused kernel's
   forms with the gather probe kernels) → ``EngineServer`` answering solo
   and concurrent ``POST /queries.json`` like an in-process ``predict``,
-  then (phase formats, on the first 200,000 of those ratings) the
+  then (phase formats, on the first 100,000 of those ratings) the
   ``.npz`` and Parquet exports and imports through the console and
   ``import_ratings_csv`` of a MovieLens file, each new app's ratings
   held against the synthetic triples, then the
   eval sweep on that store sequentially and with ``--parallelism 2``,
-  which must agree;
+  which must agree, and (phase dist (c)) ``train --coordinator`` as two
+  console processes sharing the card (gloo, sharded placement,
+  ``coo: "local"``): one instance, a sharded ``.npz`` model, factors
+  equal to a one-process train's, its deploy answering like
+  ``predict``;
+* dist: on the ML-20M ratings, an iteration on a mesh of four shards
+  on the card (``"fused"`` and ``"pallas"``, each held against a
+  single-card iteration from the same start; every shard must launch
+  the kernel) and the coded trainer (clean, a straggler served from
+  parity within 1% of the clean RMSE, two holes refused);
 * probe smoke: ``gather_probe.smoke``, the probe module's own entry
   point.
 
 Inside those paths it holds the observability layer (``obs/``) and the
 fault plan (``resilience/faults.py``) to the invariants of the
-reference's ``tools/*_smoke.py``, each set printed as one ``{"obs":
+reference's ``tools/*_smoke.py`` (and phase dist's checks), each set
+printed as one ``{"obs":
 {check: bool}, "detail": ...}`` line (a false check fails the run): a
 ``"pallas"`` iteration at ML-20M under ``PIO_TPU_TRACE_ALS=1`` (phase
 spans, the SPD solve launched in each traced half); the console
@@ -852,7 +862,7 @@ def device_us(torch, fn, calls: int = 200) -> float:
                if e.device_type == DeviceType.CUDA) / calls
 
 
-def launch_steps_us(torch, kind: str, t, i, calls: int = 4000,
+def launch_steps_us(torch, kind: str, t, i, calls: int = 1000,
                     turns: int = 3) -> dict:
     """Host microseconds a call of each step of the ``taa0_gather``,
     ``taa1_gather`` or ``dma_row_gather`` wrapper (``kind`` "taa0",
@@ -1176,7 +1186,7 @@ def phase_gather(torch, dev) -> list[dict]:
             f"{rec['big_bound_ms']:.4f} ms (bytes)")
         if "launch_steps_us" in rec:
             log(f"phase gather {rec['name']} launch steps at {rec['shape']} "
-                f"(host us a call, median of 3 turns of 4000 calls, the "
+                f"(host us a call, median of 3 turns of 1000 calls, the "
                 f"loop's own cost taken out): " + "; ".join(
                     f"{k} {v:.3f}" for k, v in rec["launch_steps_us"].items()))
     # the order fused_gather="auto" takes, from the card's time of the
@@ -2570,7 +2580,8 @@ def phase_pio(torch, cli_views: dict) -> dict:
             if after_auto[k] <= 0:
                 raise AssertionError(f"fused_gather='auto' never ran {k}")
         status = md.engine_instance_get(iid).status
-        model_file = storage.model_data_dir() / iid / "model_0_als.pkl"
+        model_file = (storage.model_data_dir() / iid
+                      / f"{iid}-0-als-arrays.npz")
         if status != "COMPLETED" or not model_file.is_file():
             raise AssertionError(f"instance {iid}: {status}, {model_file}")
         t0 = time.perf_counter()
@@ -2650,9 +2661,12 @@ def phase_pio(torch, cli_views: dict) -> dict:
         eval_parallel(storage, home)
         # the watchdog's abort through the console at ML-1M counts
         obs_train_nan(storage, home, cli_views)
+        # phase dist (c): the console's two-process sharded train
+        dist = dist_console(torch, storage, home)
         return dict(launches=launches, resolved=resolved, ingest=ingest,
                     read_s=read_s[0], train_s=train_s, solo_ms=solo_ms,
-                    conc_wall_ms=conc_wall, conc_ms=conc_ms, formats=formats)
+                    conc_wall_ms=conc_wall, conc_ms=conc_ms, formats=formats,
+                    dist=dist)
     finally:
         reset_storage(None)
         if old_home is None:
@@ -2662,6 +2676,290 @@ def phase_pio(torch, cli_views: dict) -> dict:
         import shutil
 
         shutil.rmtree(home, ignore_errors=True)
+
+
+DIST_PHASE_LIMIT_S = 90.0
+DIST_SHARDS = 4
+DIST_CONSOLE_PROCESSES = 2
+DIST_QUERIES = 32
+# the coded straggler: the reference's chaos suite's own placement, a
+# delay on shard 1 at the seventh half of an 8-sweep train
+# (tests/test_chaos_distributed.py:102); the two-hole plan fails at
+# the first poll
+DIST_ITERATIONS = 8
+DIST_DELAY_PLAN = "dist.shard_delay:nth=7,times=1,shard=1,delay=0.05"
+DIST_TWO_HOLES = ("dist.worker_kill:nth=1,shard=2;"
+                  "dist.shard_drop:nth=1,shard=1")
+DIST_ENGINE = ("predictionio_tpu_torch.templates.recommendation."
+               "recommendation_engine")
+
+
+def scale_err(torch, got, want) -> float:
+    """max |got - want| over the scale of ``want`` (its max |x|)."""
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max()).item()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def dist_console(torch, storage, home) -> dict:
+    """Phase dist (c), on phase pio's ML-1M store: ``train --coordinator
+    127.0.0.1:P --num-processes 2 --process-id K`` as two console
+    processes sharing the card (``factorPlacement: "sharded"``, ``coo:
+    "local"``, ``"fused"``), then the instance they made against a
+    single-process train of the same store from the same seed, and a
+    deploy of it answering :data:`DIST_QUERIES` queries, each held
+    against ``predict`` in this process."""
+    from pathlib import Path
+
+    from predictionio_tpu_torch.controller import WorkflowContext
+    from predictionio_tpu_torch.server import EngineServer, ServerConfig
+    from predictionio_tpu_torch.templates.recommendation import (
+        Query, recommendation_engine,
+    )
+    from predictionio_tpu_torch.workflow import prepare_deploy_components
+
+    t0 = time.perf_counter()
+    params = {"rank": RANK, "numIterations": 2, "lambda": 0.01, "seed": 3,
+              "solver": "fused", "factorPlacement": "sharded"}
+    variant = {"id": "dist", "engineFactory": DIST_ENGINE,
+               "datasource": {"params": {"appName": "ml1m", "coo": "local"}},
+               "algorithms": [{"name": "als", "params": params}]}
+    ej = Path(home) / "engine-dist.json"
+    ej.write_text(json.dumps(variant))
+    root = str(Path(__file__).resolve().parent)
+    env = {**os.environ, "PIO_TPU_HOME": str(home), "PYTHONPATH": root,
+           "PIO_TPU_COORD_DIR": str(Path(home) / "coord")}
+    addr = f"127.0.0.1:{_free_port()}"
+    logs = [Path(home) / f"dist-train-{k}.log"
+            for k in range(DIST_CONSOLE_PROCESSES)]
+    procs = []
+    for k, lp in enumerate(logs):
+        with open(lp, "wb") as logf:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "predictionio_tpu_torch", "train",
+                 "--engine-json", str(ej), "--coordinator", addr,
+                 "--num-processes", str(DIST_CONSOLE_PROCESSES),
+                 "--process-id", str(k)],
+                cwd=root, env=env, stdout=logf, stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=DIST_PHASE_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = [lp.read_text(errors="replace") for lp in logs]
+    if any(p.returncode != 0 for p in procs):
+        for k, text in enumerate(texts):
+            log(f"phase dist console process {k} log:\n{text[-4000:]}")
+        raise AssertionError("a console train process of phase dist failed "
+                             f"({[p.returncode for p in procs]})")
+    train_s = time.perf_counter() - t0
+    iids = {line.rsplit(" ", 1)[1] for text in texts
+            for line in text.splitlines()
+            if line.startswith("Training completed. Engine instance id:")}
+    # the console's own line: "Process K of N joined the run over B."
+    backend = [line.rsplit(" ", 1)[1].rstrip(".") for line in
+               texts[0].splitlines()
+               if line.startswith("Process 0 of ")
+               and "joined the run over" in line]
+    if len(iids) != 1 or backend != ["gloo"]:
+        raise AssertionError(f"phase dist console: instance ids {iids}, "
+                             f"backend {backend}")
+    (iid,) = iids
+    md = storage.get_metadata()
+    key = f"{iid}-0-als"
+    manifest = json.loads(md.model_get(key).models.decode())
+    npz = storage.model_data_dir() / iid / manifest.get("npz", "?")
+    if (md.engine_instance_get(iid).status != "COMPLETED"
+            or manifest.get("kind") != "sharded" or not npz.is_file()):
+        raise AssertionError(f"phase dist console: instance {iid}, model "
+                             f"manifest {manifest}")
+    # the same store, one process, the same seed: one card is a mesh of
+    # one shard, which trains replicated (and reads the gathered COO)
+    engine = recommendation_engine()
+    one_ep = engine.params_from_variant(dict(variant, datasource={
+        "params": {"appName": "ml1m"}}))
+    t1 = time.perf_counter()
+    (one,) = engine.train(WorkflowContext(device="cuda", storage=storage),
+                          one_ep)
+    one_s = time.perf_counter() - t1
+    ep = engine.params_from_variant(variant)
+    ctx = WorkflowContext(device="cuda", storage=storage, mode="Serving")
+    algos, models, _ = prepare_deploy_components(engine, ep, iid, ctx=ctx)
+    algo, model = algos[0], models[0]
+    if list(model.users.ids) != list(one.users.ids) or \
+            list(model.items.ids) != list(one.items.ids):
+        raise AssertionError("phase dist console: the id dictionaries "
+                             "differ from the single-process train's")
+    errs = [scale_err(torch, torch.from_numpy(a), torch.from_numpy(b))
+            for a, b in ((model.user_factors, one.user_factors),
+                         (model.item_factors, one.item_factors))]
+    srv = EngineServer(engine, ep, iid, ctx=ctx,
+                       config=ServerConfig(host="127.0.0.1", port=0))
+    thread = srv.start_background()
+    trades = 0
+    try:
+        for q in query_mix(DIST_QUERIES, 17, ML1M_USERS, ML1M_ITEMS):
+            trades += _same_reply(_http(srv.port, "/queries.json", q),
+                                  algo.predict(model,
+                                               Query.from_json(q)).to_json(),
+                                  f"phase dist deploy query {q}")
+    finally:
+        _http(srv.port, "/stop", {})
+        thread.join(timeout=30)
+    return {"s": time.perf_counter() - t0, "train_s": train_s,
+            "one_s": one_s, "iid": iid, "backend": backend[0],
+            "factor_err": errs, "npz": npz.name, "trades": trades,
+            "queries": DIST_QUERIES}
+
+
+def phase_dist(torch, ratings, console: dict) -> dict:
+    """Phase dist: the sharded and coded ALS trainer at ML-20M (rank 64,
+    ALS-WR, λ 0.01) on the ratings phase read returned.
+
+    (a) One iteration on a mesh of :data:`DIST_SHARDS` shards on
+    ``cuda:0`` with ``"fused"`` and with ``"pallas"``, each from the
+    single-card trainer's initial factors padded with zero rows, held
+    against a single-card iteration from the same start (1e-4 of the
+    factors' scale); every shard must launch the kernel.  (b) A clean
+    coded iteration equals the plain sharded one (1e-6 of scale); a
+    :data:`DIST_ITERATIONS`-sweep coded train under a delay plan on
+    shard 1 books the degradation and a ``dist.parity_serve`` span and
+    keeps the training RMSE within 1% of the clean coded train's; a
+    two-hole plan raises ``ParityExhausted``.  (c) ran in phase pio
+    (:func:`dist_console`): ``console`` holds its results.  The launch
+    counts are set to 0 just before the sharded runs and read after."""
+    from predictionio_tpu_torch.models.als import (
+        SHARD_LAUNCHES, ALSConfig, ALSFactors, ALSTrainer, rmse,
+    )
+    from predictionio_tpu_torch.obs import SHARD_DEGRADED_TOTAL, get_tracer
+    from predictionio_tpu_torch.ops import _build
+    from predictionio_tpu_torch.parallel import ParityExhausted, make_mesh
+    from predictionio_tpu_torch.resilience import faults
+
+    t_phase = time.perf_counter()
+    nu, ni = ratings.n_users, ratings.n_items
+    base = dict(rank=RANK, lam=0.01, seed=3, loss_every=0)
+    mesh = make_mesh(devices=[f"cuda:{torch.cuda.current_device()}"]
+                     * DIST_SHARDS)
+    # the single-card iterations the sharded ones are held against
+    single, half_s = {}, {}
+    for solver in ("fused", "pallas"):
+        tr = ALSTrainer(ratings, cfg=ALSConfig(
+            solver=solver, num_iterations=1, **base))
+        U0, V0 = tr.init_factors()
+        single[solver] = tr.run(U0, V0, 1)
+        half_s[solver] = {"single": [round(t, 4) for _, t in
+                                     tr.half_seconds]}
+        del tr
+    pad = torch.nn.functional.pad
+    Up = pad(U0, (0, 0, 0, -nu % DIST_SHARDS))
+    Vp = pad(V0, (0, 0, 0, -ni % DIST_SHARDS))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    SHARD_LAUNCHES.clear()
+    tracer = get_tracer()
+    errs, per_shard, sharded, staging = {}, {}, {}, {}
+    for solver in ("fused", "pallas"):
+        tr = ALSTrainer(ratings, cfg=ALSConfig(
+            solver=solver, num_iterations=1, factor_placement="sharded",
+            **base), mesh=mesh)
+        staging[solver] = round(tr.staging_seconds, 2)
+        sharded[solver] = tr.run(Up, Vp, 1)
+        torch.cuda.synchronize()
+        spans = [sp.duration_s for sp in tracer.spans()
+                 if sp.name == "als.sharded_half"][-2:]
+        half_s[solver]["sharded_span"] = [round(t, 4) for t in spans]
+        (Us, Vs), (U1, V1) = sharded[solver], single[solver]
+        errs[solver] = [scale_err(torch, Us[:nu], U1),
+                        scale_err(torch, Vs[:ni], V1)]
+        per_shard[solver] = {f"{k}@{s}": n
+                             for (s, k), n in sorted(SHARD_LAUNCHES.items())}
+        kernel = "gj_solve" if solver == "pallas" else None
+        for s in range(DIST_SHARDS):
+            n = (SHARD_LAUNCHES[(s, kernel)] if kernel else
+                 SHARD_LAUNCHES[(s, "fused_als")]
+                 + SHARD_LAUNCHES[(s, "fused_als_dma")])
+            if n <= 0:
+                raise AssertionError(f"phase dist: shard {s} never launched "
+                                     f"the {solver} kernel")
+        SHARD_LAUNCHES.clear()
+        del tr
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # (b) coded: clean, then a straggler mid-train, then two holes
+    tr = ALSTrainer(ratings, cfg=ALSConfig(
+        solver="fused", num_iterations=DIST_ITERATIONS,
+        factor_placement="sharded", coded_shards=True, **base), mesh=mesh)
+    Uc, Vc = tr.run(Up, Vp, 1)
+    Uf, Vf = sharded["fused"]
+    coded_err = [scale_err(torch, Uc, Uf), scale_err(torch, Vc, Vf)]
+    del Uc, Vc, sharded, single
+
+    def train_rmse(U, V):
+        return rmse(ALSFactors(U[:nu].cpu().numpy(), V[:ni].cpu().numpy()),
+                    ratings.user_ix, ratings.item_ix, ratings.rating)
+
+    clean_rmse = train_rmse(*tr.run(Up, Vp, DIST_ITERATIONS))
+    degraded0 = SHARD_DEGRADED_TOTAL.labels(shard="1").value()
+    polls0 = tr.shard_health.degraded_polls
+    faults.arm(DIST_DELAY_PLAN)
+    try:
+        straggler_rmse = train_rmse(*tr.run(Up, Vp, DIST_ITERATIONS))
+    finally:
+        faults.disarm()
+    parity_spans = [sp for sp in tracer.spans()
+                    if sp.name == "dist.parity_serve"
+                    and sp.attrs.get("shard") == 1]
+    booked = SHARD_DEGRADED_TOTAL.labels(shard="1").value() - degraded0
+    faults.arm(DIST_TWO_HOLES)
+    try:
+        tr.run(Up, Vp, 1)
+        exhausted = False
+    except ParityExhausted:
+        exhausted = True
+    finally:
+        faults.disarm()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    del tr
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase + console["s"]
+    checks = {
+        "sharded_fused_within_1e-4": max(errs["fused"]) <= 1e-4,
+        "sharded_pallas_within_1e-4": max(errs["pallas"]) <= 1e-4,
+        "coded_clean_within_1e-6": max(coded_err) <= 1e-6,
+        "straggler_booked_once": booked == 1 and polls0 == 0,
+        "parity_serve_span": bool(parity_spans),
+        "straggler_rmse_within_1pct": straggler_rmse <= 1.01 * clean_rmse,
+        "two_holes_raise": exhausted,
+        "console_one_instance_gloo": console["backend"] == "gloo",
+        "console_factors_within_1e-4": max(console["factor_err"]) <= 1e-4,
+        "console_deploy_answers": console["queries"] == DIST_QUERIES,
+        "within_limit": phase_s <= DIST_PHASE_LIMIT_S,
+    }
+    obs_report("dist", checks, {
+        "shards": DIST_SHARDS, "errors": errs, "coded_clean_err": coded_err,
+        "launches_by_shard": per_shard, "half_s": half_s,
+        "staging_s": staging, "peak_gib": round(peak_gib, 2),
+        "rmse": {"clean": clean_rmse, "straggler": straggler_rmse},
+        "console": {k: console[k] for k in (
+            "iid", "backend", "factor_err", "npz", "trades", "train_s",
+            "one_s", "s")},
+        "phase_s": round(phase_s, 1)})
+    return {"launches": launches}
 
 
 def http_load(port: int, solo_q: list, conc_q: list, clients: int) -> dict:
@@ -2985,16 +3283,22 @@ def phase_eval(torch, store: StoreHome, ratings) -> dict:
     won = [m for a, m in models if a.params.lam == lams[best]]
     if len(models) != EVAL_K * len(lams) or len(won) != EVAL_K:
         raise AssertionError(f"{len(models)} models trained")
+    # in float64 on the card: the same sum as numpy's, without moving
+    # 20M gathered float64 rows through the host
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ui = torch.from_numpy(ratings.user_ix).to(dev)
+    ii = torch.from_numpy(ratings.item_ix).to(dev)
+    rr = torch.from_numpy(ratings.rating).to(dev, torch.float64)
     sq = 0.0
     for f, model in enumerate(won):
-        mine = np.flatnonzero(fold == f)
-        for c in range(0, len(mine), 1 << 20):
-            j = mine[c:c + (1 << 20)]
-            pred = np.einsum(
-                "nr,nr->n",
-                model.user_factors[ratings.user_ix[j]].astype(np.float64),
-                model.item_factors[ratings.item_ix[j]].astype(np.float64))
-            sq += float(((pred - ratings.rating[j]) ** 2).sum())
+        Uf = torch.from_numpy(model.user_factors).to(dev, torch.float64)
+        Vf = torch.from_numpy(model.item_factors).to(dev, torch.float64)
+        mine = torch.from_numpy(np.flatnonzero(fold == f)).to(dev)
+        for c in range(0, len(mine), 1 << 21):
+            j = mine[c:c + (1 << 21)]
+            pred = (Uf[ui[j]] * Vf[ii[j]]).sum(-1)
+            sq += float(((pred - rr[j]) ** 2).sum())
+    del ui, ii, rr, Uf, Vf, mine
     again = math.sqrt(sq / n)
     if abs(again - scores[best]) > 1e-6 * scores[best]:
         raise AssertionError(f"the winner's RMSE {scores[best]} against "
@@ -3703,7 +4007,7 @@ def _wait_for(pred, timeout: float, what: str, step: float = 0.1):
 
 
 # phase formats' depth: the first ratings of the ML-1M draw
-FORMATS_RATINGS = 200_000
+FORMATS_RATINGS = 100_000
 
 
 def phase_formats(storage, u, i, v) -> dict:
@@ -4078,8 +4382,8 @@ def phase_router(torch, store: StoreHome, cli_out: dict) -> dict:
 # the fold-in windows of phase foldin: cold-start users with their
 # ratings of existing items, existing users with new ratings, brand-new
 # items rated by some of those users, then two same-shaped windows
-FOLDIN_COLD, FOLDIN_COLD_K = 1_000, 20
-FOLDIN_WARM, FOLDIN_WARM_K = 1_000, 5
+FOLDIN_COLD, FOLDIN_COLD_K = 500, 20
+FOLDIN_WARM, FOLDIN_WARM_K = 500, 5
 FOLDIN_NEW_ITEMS, FOLDIN_NEW_ITEM_K = 20, 50
 FOLDIN_SMALL = 100
 FOLDIN_FRESH = 5
@@ -5034,7 +5338,7 @@ ENGINES_HEALTH_ROWS = 256
 UNAVAILABLE_ITEMS = 100
 # app "classify": users with a $set of three non-negative attributes
 # drawn from a per-class mixture and a label of 4 classes
-CLASSIFY_USERS = 200_000
+CLASSIFY_USERS = 100_000
 CLASSIFY_HELD_OUT = 10_000
 CLASSIFY_PRIORS = (0.4, 0.3, 0.2, 0.1)
 CLASSIFY_CENTERS = ((4.0, 1.0, 0.5), (1.0, 4.0, 0.5), (0.5, 1.0, 4.0),
@@ -5212,7 +5516,7 @@ def phase_engines(torch, store: StoreHome, ratings, u, i,
       phase read), ``"fused"``, served with ``unseenOnly`` and
       ``seenEvents ["rate"]`` and the unavailable-items constraint
       phase fleet posted; no reply may hold a seen or unavailable item.
-    * classification: the app ``classify`` of 200,000 users
+    * classification: the app ``classify`` of 100,000 users
       (:func:`import_classify`, before phase read), one train of
       ``naive``, ``logistic`` and ``randomforest`` (16 trees, depth 6);
       each model held in process against its CPU counterpart (naive
@@ -5535,9 +5839,9 @@ def phase_engines(torch, store: StoreHome, ratings, u, i,
 # nextitem) on a day of view events in the ML-20M store, after phase
 # engines and before phase foldin
 SESSIONS_PHASE_LIMIT_S = 90.0
-# a day of a mid-size shop's views is 2,000,000; halved to keep the
+# a day of a mid-size shop's views is 2,000,000; quartered to keep the
 # script under its time budget (widths and sessions are not cut)
-SESSIONS_EVENTS = 1_000_000
+SESSIONS_EVENTS = 500_000
 # sessions: mean length 8 (geometric), 5 to 120 s between a session's
 # views, over 1,800 s between one user's sessions, at most 24 a user in
 # the day before the phase; each next view one of 8 successors of the
@@ -7277,6 +7581,11 @@ def main(argv: list[str]) -> int:
     paths["pio"] = pio_out["launches"]
     paths["formats"] = pio_out["formats"]["launches"]
     secs["formats (in pio)"] = round(pio_out["formats"]["s"], 1)
+    secs["dist console (in pio)"] = round(pio_out["dist"]["s"], 1)
+    # the sharded and coded trainer on a mesh of shards on this card, on
+    # the ML-20M ratings (it sets the counts to 0 itself)
+    paths["dist"] = timed("dist", phase_dist, torch, ratings,
+                          pio_out["dist"])["launches"]
     # the probe module's own entry point (the reference's
     # tools/probe_gather.py --smoke), the one path taa1 lies on
     from predictionio_tpu_torch.ops import gather_probe
@@ -7300,12 +7609,13 @@ def main(argv: list[str]) -> int:
         "subspace": ("gj_solve",),
         "hive": ("fused_als_reduce", "taa0_gather", "dma_row_gather"),
         "engines": ("gj_solve", "taa0_gather", "dma_row_gather"),
+        "dist": ("gj_solve",),
     }
     for path, names in expected.items():
         for name in names:
             if paths[path][name] <= 0:
                 raise AssertionError(f"path {path} never launched {name}")
-    for path in ("ml20m", "cli", "eval", "hive", "engines"):
+    for path in ("ml20m", "cli", "eval", "hive", "engines", "dist"):
         if paths[path]["fused_als"] + paths[path]["fused_als_dma"] <= 0:
             raise AssertionError(f"path {path} never launched the fused "
                                  "kernel")

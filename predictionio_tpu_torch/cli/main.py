@@ -25,7 +25,10 @@ the anchor; ``--memory-budget BYTES`` overrides its budget,
 every replica hosts them all).  ``adminserver`` and ``dashboard``, and
 the options of multi-process training, are refused before any work with
 ``Error: ... is not ported to predictionio_tpu_torch yet (ROADMAP Queue 1
-item N)`` and exit code 1 (:data:`_REFUSED`).  The
+item N)`` and exit code 1 (:data:`_REFUSED`).  ``train --coordinator
+HOST:PORT --num-processes N --process-id K`` joins a multi-process train
+(``parallel.mesh.distributed_init``) before the train and leaves it
+after.  The
 observability options (``--telemetry-dir``, ``--no-metrics``,
 ``--xray-sample-s``, ``--no-profiler``, ``--flight-capacity``,
 ``--slo-ms``) work as the reference's (:func:`_apply_obs_flags`).
@@ -212,9 +215,6 @@ def _is_set(v) -> bool:
 _REFUSED = (
     ("adminserver", None, None, "adminserver", 9),
     ("dashboard", None, None, "dashboard", 9),
-    ("train", "coordinator", _is_set, "train --coordinator", 7),
-    ("train", "num_processes", _is_set, "train --num-processes", 7),
-    ("train", "process_id", _is_set, "train --process-id", 7),
 )
 
 
@@ -459,12 +459,33 @@ def cmd_engines(args, storage: Storage) -> int:
 
 
 def cmd_train(args, storage: Storage, device: DeviceLike) -> int:
+    if args.scan_cache:
+        os.environ["PIO_TPU_SCAN_CACHE"] = "1"
+    if args.coordinator or args.num_processes is not None:
+        # a multi-process train: every process runs the same command
+        # with its own --process-id; the collectives then span them
+        from ..parallel.mesh import distributed_init, distributed_shutdown
+
+        backend = distributed_init(
+            coordinator_address=args.coordinator,
+            num_processes=args.num_processes,
+            process_id=args.process_id,
+            device=device,
+        )
+        _out(f"Process {args.process_id} of {args.num_processes} joined "
+             f"the run over {backend}.")
+        try:
+            return _train(args, storage, device)
+        finally:
+            distributed_shutdown()
+    return _train(args, storage, device)
+
+
+def _train(args, storage: Storage, device: DeviceLike) -> int:
     from ..controller.base import WorkflowContext
     from ..workflow.params import WorkflowParams
     from ..workflow.train import run_train
 
-    if args.scan_cache:
-        os.environ["PIO_TPU_SCAN_CACHE"] = "1"
     engine, ep, variant, variant_key, factory = _load_engine_for_args(
         args, return_factory=True
     )
@@ -1336,12 +1357,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use EngineFactory.engine_params(<key>) instead of "
                    "the engine.json params")
     t.add_argument("--coordinator",
-                   help="multi-host: coordinator address host:port "
-                   "(not ported: refused)")
+                   help="multi-process: coordinator address host:port "
+                   "(process 0 serves it)")
     t.add_argument("--num-processes", type=int,
-                   help="multi-host (not ported: refused)")
+                   help="multi-process: the number of processes")
     t.add_argument("--process-id", type=int,
-                   help="multi-host (not ported: refused)")
+                   help="multi-process: this process's id, 0 .. N-1")
     t.add_argument("--scan-cache", action="store_true",
                    help="snapshot columnar event scans to npz keyed by a "
                    "table write-version (storage/scan_cache.py); repeat "

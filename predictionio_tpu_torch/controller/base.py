@@ -85,6 +85,21 @@ class WorkflowContext:
         self.mode = mode
         self.batch = batch
         self.verbose = verbose
+        self._mesh = None
+
+    @property
+    def mesh(self):
+        """The run's mesh of shards (``parallel/mesh.py``), built on
+        first use: every visible card of this process on ``cuda``, one
+        host shard on the CPU; in a multi-process run it spans every
+        process (so each process must reach it, as the reference's
+        collectives)."""
+        if self._mesh is None:
+            from ..parallel.mesh import make_mesh
+
+            self._mesh = make_mesh(
+                devices=None if self.device.type == "cuda" else [self.device])
+        return self._mesh
 
     @property
     def label(self) -> str:

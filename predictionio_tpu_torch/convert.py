@@ -6,7 +6,10 @@ nothing of it; the port keeps its own copies of the arrays and of the id
 dictionaries.
 The JAX trainer draws its initial factors from ``jax.random``, which
 torch cannot reproduce; handing them over with :func:`factors_from_jax`
-lets both packages start from the same ``U0``, ``V0``.
+lets both packages start from the same ``U0``, ``V0``; with a mesh it
+splits the reference's padded sharded tables (``[n_pad, R]``, ``n_pad``
+a multiple of the mesh size) into the port's per-shard blocks, and
+:func:`factors_to_jax` joins the blocks back.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from .templates.similarproduct import SimilarALSModel
 __all__ = [
     "ecomm_model_from_jax",
     "factors_from_jax",
+    "factors_to_jax",
     "forest_from_jax",
     "itemsimilarity_model_from_jax",
     "logistic_from_jax",
@@ -45,14 +49,35 @@ def _props(props) -> dict:
     return {k: dict(v) for k, v in props.items()}
 
 
-def factors_from_jax(U, V, device: DeviceLike = "cuda"):
+def factors_from_jax(U, V, device: DeviceLike = "cuda", mesh=None):
     """``(U, V)`` host arrays (a JAX ``ALSFactors``' fields or initial
-    factors) -> float32 tensors on ``device``."""
+    factors) -> float32 tensors on ``device``; with ``mesh``, each
+    padded table -> this process's row blocks on the shards' devices
+    (``parallel.mesh.shard_put``)."""
+    if mesh is not None:
+        from .parallel.mesh import shard_put
+
+        return tuple(shard_put(np.array(a, np.float32), mesh)
+                     for a in (U, V))
     dev = resolve_device(device)
     return tuple(
         torch.from_numpy(np.array(a, np.float32)).to(dev)
         for a in (U, V)
     )
+
+
+def factors_to_jax(U, V, mesh=None):
+    """The port's tables -> host float32 arrays in the reference's
+    layout: per-shard blocks (with ``mesh``) are joined in shard order
+    into the padded ``[n_pad, R]`` table."""
+    def host(t):
+        if mesh is not None:
+            from .parallel.collectives import gather_shards
+
+            t = torch.cat(gather_shards(t, mesh))
+        return t.detach().float().cpu().numpy()
+
+    return host(U), host(V)
 
 
 def model_from_jax(model, device: DeviceLike = "cuda") -> ALSModel:

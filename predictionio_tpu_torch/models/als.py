@@ -41,12 +41,20 @@ poisons the factors after a sweep.
 checkpointer (``workflow/checkpoint.py``) and :func:`sweep_train_als`
 trains one model a λ in one batched run.
 
-Not ported yet (the config raises): sharded factor placement and coded
-shards.
+``factor_placement="sharded"`` on a mesh of shards
+(``parallel/mesh.py``; the shards may share a card) row-shards both
+tables and the rating COO (ALX, arXiv 2112.02194): each half gathers
+the opposite table and every shard solves its chunk of every bucket
+with the configured solver (:func:`_sharded_half`).  ``coded_shards``
+keeps a parity block beside the shards and serves a late or dead shard
+from it (coded ALS, arXiv 2105.03631; ``parallel/coded.py``).
+:meth:`ALSTrainer.distributed` stages a mesh that spans processes from
+each process's own triples.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import math
 import os
@@ -59,6 +67,7 @@ import torch
 
 from ..device import DeviceLike, fence, matmul_precision, resolve_device
 from ..native import sort_coo_by_row
+from ..parallel.mesh import fence as mesh_fence, pad_to_multiple
 from ..obs import TRAIN_PHASE_SECONDS, get_tracer, tower, xray
 from ..resilience import faults
 from ..storage.columnar import Ratings
@@ -81,18 +90,15 @@ __all__ = [
 # gathered intermediate (~1 GiB at rank 64, f32) regardless of dataset size
 MAX_ENTRIES_PER_BUCKET = 4 << 20
 
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to predictionio_tpu_torch"
-    )
+# kernel launches of the sharded halves by (shard, kernel): the kernels'
+# own counts (ops/_build.LAUNCHES), split by the shard that made them
+SHARD_LAUNCHES: collections.Counter = collections.Counter()
 
 
 @dataclass(frozen=True)
 class ALSConfig:
     """The reference's ALS configuration, with the same fields and
-    validation (``predictionio_tpu.models.als.ALSConfig``); options whose
-    code is not ported yet raise ``NotImplementedError``."""
+    validation (``predictionio_tpu.models.als.ALSConfig``)."""
 
     rank: int = 10
     num_iterations: int = 20
@@ -229,12 +235,6 @@ class ALSConfig:
                 f"compute_dtype must be 'float32' or 'bfloat16', "
                 f"got {self.compute_dtype!r}"
             )
-        # validated above exactly as the reference does; these are the
-        # options whose code the port does not have yet
-        if self.factor_placement == "sharded":
-            raise _not_ported("factor_placement='sharded'")
-        if self.coded_shards:
-            raise _not_ported("coded_shards=True")
 
 
 @dataclass
@@ -277,17 +277,20 @@ def build_bucket_layout(
     min_k: int = 8,
     max_per_row: int = 0,
     max_entries: Optional[int] = None,
+    batch_multiple: int = 1,
 ) -> BucketLayout:
     """Group rows by padded rating-count so the device solves static
     shapes.  Rows with zero ratings are excluded (their factors stay at
-    init); oversized buckets are split so ``B*K <= max_entries``.  (The
-    reference also pads each bucket's batch to its mesh size; one device
-    needs no batch padding.)  The rows are grouped by the native
-    counting sort."""
-    if len(val) >= np.iinfo(np.int32).max:
+    init); oversized buckets are split so ``B*K <= max_entries``, and
+    each bucket's batch is padded to ``batch_multiple`` (the mesh size of
+    the sharded layout, whose offsets are shard-local int64 here, so
+    only a single-device layout is held to the int32 range).  The rows
+    are grouped by the native counting sort."""
+    if batch_multiple == 1 and len(val) >= np.iinfo(np.int32).max:
         raise ValueError(
             f"{len(val):,} ratings exceed the int32 offset range of a "
-            "bucket layout"
+            "replicated bucket layout; use factor_placement='sharded' "
+            "(sharded COO)"
         )
     c_sorted, v_sorted, counts, starts = sort_coo_by_row(
         row_ix, col_ix, val, n_rows
@@ -297,6 +300,8 @@ def build_bucket_layout(
     )
     layout.buckets = _assemble_buckets(
         counts, starts, min_k, max_per_row, max_entries,
+        n_rows=n_rows, batch_multiple=batch_multiple,
+        starts_dtype=np.int32 if batch_multiple == 1 else np.int64,
     )
     return layout
 
@@ -307,9 +312,18 @@ def _assemble_buckets(
     min_k: int = 8,
     max_per_row: int = 0,
     max_entries: Optional[int] = None,
+    *,
+    n_rows: int = 0,
+    batch_multiple: int = 1,
+    starts_dtype: type = np.int32,
 ) -> list[Bucket]:
     """Bucket plan from per-row (counts, starts) alone (shared by the
-    host and the device staging paths)."""
+    host and the device staging paths).
+
+    ``batch_multiple`` (the mesh size of the sharded layout) pads every
+    bucket's batch to a multiple of it, as the reference does: padding
+    rows carry distinct ids ``n_rows, n_rows + 1, ...`` (out of every
+    shard's row range, so no shard writes them) and count 0."""
     if max_entries is None:
         max_entries = MAX_ENTRIES_PER_BUCKET
     if max_per_row and max_per_row > 0:
@@ -324,18 +338,88 @@ def _assemble_buckets(
     k_active = k_of_row[active]
 
     buckets: list[Bucket] = []
+    m = batch_multiple
     for k in np.unique(k_active):
         k = int(k)
         rows_k = active[k_active == k].astype(np.int32)
-        b_cap = max(1, max_entries // k)
+        b_cap = max(m, (max_entries // k) // m * m)
         for s in range(0, len(rows_k), b_cap):
             rows = rows_k[s : s + b_cap]
-            buckets.append(Bucket(
-                k=k, rows=rows,
-                starts=starts[rows].astype(np.int32),
-                counts=eff_counts[rows].astype(np.int32),
-            ))
+            if m == 1:
+                buckets.append(Bucket(
+                    k=k, rows=rows,
+                    starts=starts[rows].astype(starts_dtype),
+                    counts=eff_counts[rows].astype(np.int32),
+                ))
+                continue
+            B = len(rows)
+            Bp = pad_to_multiple(B, m)
+            rows_p = n_rows + np.arange(Bp, dtype=np.int32)
+            starts_p = np.zeros(Bp, dtype=starts_dtype)
+            counts_p = np.zeros(Bp, dtype=np.int32)
+            rows_p[:B] = rows
+            starts_p[:B] = starts[rows]
+            counts_p[:B] = eff_counts[rows]
+            buckets.append(Bucket(k=k, rows=rows_p, starts=starts_p,
+                                  counts=counts_p))
     return buckets
+
+
+def _plan_shard_layout(
+    buckets: list[Bucket], n_dev: int, build_perm: bool = True
+) -> tuple[Optional[np.ndarray], list[np.ndarray], int]:
+    """Shard-ordered COO plan (copied from the reference): co-partition
+    the rating slices with the bucket rows each shard solves.
+
+    Every bucket's batch splits into ``n_dev`` contiguous chunks, chunk
+    ``d`` solved by shard ``d``; shard ``d`` holds exactly the rating
+    slices of its chunks' rows, bucket by bucket.  Returns ``(perm,
+    local_starts, L)``: ``perm`` ``[n_dev, L]`` gathers the row-sorted
+    COO into shard-local order (padding positions gather 0 and are never
+    read: every access is masked by counts), ``local_starts`` per
+    bucket the rows' offsets into their own shard, and ``L`` the padded
+    per-shard length.  ``build_perm=False`` skips ``perm`` (None)."""
+    offsets = np.zeros(n_dev, dtype=np.int64)
+    local_starts: list[np.ndarray] = []
+    starts_per_dev: list[list[np.ndarray]] = [[] for _ in range(n_dev)]
+    counts_per_dev: list[list[np.ndarray]] = [[] for _ in range(n_dev)]
+    for b in buckets:
+        Bp = len(b.rows)
+        assert Bp % n_dev == 0, "bucket batch dim not padded to mesh size"
+        chunk = Bp // n_dev
+        ls = np.zeros(Bp, dtype=np.int64)
+        for d in range(n_dev):
+            sl = slice(d * chunk, (d + 1) * chunk)
+            cnts = b.counts[sl].astype(np.int64)
+            ls[sl] = offsets[d] + np.concatenate(
+                ([0], np.cumsum(cnts)[:-1])
+            )
+            offsets[d] += int(cnts.sum())
+            starts_per_dev[d].append(np.asarray(b.starts[sl], np.int64))
+            counts_per_dev[d].append(cnts)
+        local_starts.append(ls)
+    L = int(offsets.max()) if n_dev else 0
+    if L >= np.iinfo(np.int32).max:
+        raise ValueError(
+            f"per-shard nnz {L:,} exceeds the int32 offset range; use "
+            "more devices or shard across hosts"
+        )
+    if not build_perm:
+        return None, [ls.astype(np.int32) for ls in local_starts], max(L, 1)
+    perm = np.zeros((n_dev, max(L, 1)), dtype=np.int64)
+    for d in range(n_dev):
+        if not starts_per_dev[d]:
+            continue
+        starts_d = np.concatenate(starts_per_dev[d])
+        counts_d = np.concatenate(counts_per_dev[d])
+        total = int(counts_d.sum())
+        if total:
+            base = np.repeat(
+                starts_d - np.concatenate(([0], np.cumsum(counts_d)[:-1])),
+                counts_d,
+            )
+            perm[d, :total] = np.arange(total, dtype=np.int64) + base
+    return perm, [ls.astype(np.int32) for ls in local_starts], max(L, 1)
 
 
 def _device_expand_sides(col_by_row, val_by_row, row_counts, val_scale):
@@ -445,6 +529,8 @@ def _solve_buckets(
     fused_gather: str = "taa",
     stop_after: Optional[str] = None,
     vmapped: bool = False,
+    gram: Optional[torch.Tensor] = None,
+    write=None,
 ) -> Optional[torch.Tensor]:
     """Solve every bucket of one side and write the rows into ``upd``.
 
@@ -470,7 +556,13 @@ def _solve_buckets(
     phase for the phase probes: nothing is written, and the sum of the
     truncated results comes back so the work cannot be skipped.  The
     fused kernel has no such prefix, so a truncated fused half takes
-    the unfused path, as the reference does."""
+    the unfused path, as the reference does.
+
+    The sharded half passes the implicit-mode ``gram`` (a sum of
+    per-shard Grams) and a ``write(rows, x)`` callback that collects
+    each bucket's solved block instead of writing ``upd``; there
+    ``upd`` is the gathered updating table (the subspace warm start)
+    or None, and bucket padding rows (ids past it) start from 0."""
     f32 = torch.float32
     dev = opp.device
     r = opp.shape[-1]
@@ -478,7 +570,8 @@ def _solve_buckets(
     lam_t = (lam.to(f32) if torch.is_tensor(lam)
              else torch.tensor(lam, dtype=f32, device=dev))
     alpha_t = torch.tensor(alpha, dtype=f32, device=dev)
-    gram = (opp.T @ opp).to(f32) if implicit else None
+    if implicit and gram is None:
+        gram = (opp.T @ opp).to(f32)
     opp_g = (
         opp.to(torch.bfloat16)
         if gather_dtype == "bfloat16" and opp.dtype != torch.bfloat16
@@ -508,14 +601,17 @@ def _solve_buckets(
             if sub:
                 cw = alpha_t * val * maskf if implicit else None
                 res = _subspace_sweep(
-                    Vm, val, maskf, upd[rows].to(f32), reg, cw, gram,
+                    Vm, val, maskf, _rows_or_zero(upd, rows), reg, cw, gram,
                     solver, subspace_size, gram_probe=stop_after == "gram",
                 )
                 del Vm
                 if stop_after == "gram":
                     out = res if out is None else out + res
                     continue
-                _write_rows(upd, rows, res, vmapped)
+                if write is not None:
+                    write(rows, res)
+                else:
+                    _write_rows(upd, rows, res, vmapped)
                 continue
             if implicit:
                 cw = alpha_t * val * maskf                       # (c - 1)
@@ -531,8 +627,19 @@ def _solve_buckets(
                 out = part if out is None else out + part
                 continue
             x = _spd_solve(A, b, solver)
-        _write_rows(upd, rows, x, vmapped)
+        if write is not None:
+            write(rows, x)
+        else:
+            _write_rows(upd, rows, x, vmapped)
     return out
+
+
+def _rows_or_zero(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``table[rows]`` in f32, with 0 for ids past the table (the
+    sharded layout's bucket padding rows)."""
+    inside = rows < table.shape[0]
+    got = table[torch.where(inside, rows, 0)].to(torch.float32)
+    return got * inside[:, None].to(torch.float32)
 
 
 def _write_rows(upd: torch.Tensor, rows: torch.Tensor, x: torch.Tensor,
@@ -679,6 +786,117 @@ def _half_phase_probe(
         )
 
 
+@xray.instrument("als.sharded_half")
+def _sharded_half(
+    mesh,
+    upd: list,                # this process's shards of the updating table
+    opp: list,                # this process's shards of the opposite table
+    side: dict,
+    lam,
+    alpha: float,
+    *,
+    implicit: bool,
+    weighted_lambda: bool,
+    precision: str,
+    solver: str,
+    gather_dtype: str = "float32",
+    solver_mode: str = "full",
+    subspace_size: int = 0,
+    fused_gather: str = "taa",
+    opp_parity: Optional[list] = None,
+    ok: Optional[np.ndarray] = None,
+) -> Optional[list]:
+    """ALX-style half-iteration over row-sharded factor tables (the
+    reference's ``build_sharded_half``), writing ``upd``'s shards in
+    place.
+
+    The opposite table is all-gathered (cast to bf16 before the gather
+    in bf16 gather mode), the implicit-mode ``YᵀY`` is the sum of the
+    per-shard Grams, and each shard solves its contiguous chunk of every
+    bucket through :func:`_solve_buckets` against its own slice of the
+    COO: under ``"pallas"`` the SPD solve kernel and under ``"fused"``
+    the fused kernel run once per shard and bucket.  The solved
+    ``[B, R]`` blocks are all-gathered and each shard writes only the
+    rows it owns (bucket padding rows belong to no shard).
+    ``solver_mode="subspace"`` gathers the updating table too (the warm
+    start of rows other shards own).
+
+    Coded (``ok``, the ``[d]`` 0/1 mask from ``ShardHealth.poll``, and
+    ``opp_parity``, the opposite table's replicated f32 block sum): a
+    masked opposite block is rebuilt as ``parity - sum(alive)``, the
+    implicit Gram folds the rebuilt block in explicitly, a masked
+    shard's own rows stay frozen, and the parity of the updated table
+    comes back (None when not coded)."""
+    from ..ops import _build
+    from ..parallel.coded import coded_blocks
+    from ..parallel.collectives import gather_shards, psum
+
+    f32 = torch.float32
+    coded = ok is not None
+    with matmul_precision(precision):
+        send = [p.to(torch.bfloat16) if gather_dtype == "bfloat16" else p
+                for p in opp]
+        if coded:
+            blocks, recon = coded_blocks(opp, send, opp_parity, ok, mesh)
+        else:
+            blocks = gather_shards(send, mesh)
+        opp_full = torch.cat(blocks)
+        del blocks
+        gram = None
+        if implicit:
+            if coded:
+                okm = [float(ok[s]) for s in mesh.local]
+                gram = psum([((p * m).T @ (p * m)).to(f32)
+                             for p, m in zip(opp, okm)], mesh)[0]
+                gram = gram + (recon.T @ recon).to(f32) * (
+                    1.0 - float(np.min(ok)))
+            else:
+                gram = psum([(p.T @ p).to(f32) for p in opp], mesh)[0]
+        sub = solver_mode == "subspace" and 0 < subspace_size < opp[0].shape[-1]
+        upd_full = torch.cat(gather_shards(upd, mesh)) if sub else None
+        got_rows, got_x = [], []
+        for k, s in enumerate(mesh.local):
+            dev = mesh.device_of(s)
+            shard = side["shards"][k]
+            rows_s, x_s = [], []
+
+            def write(rows, x, rows_s=rows_s, x_s=x_s):
+                rows_s.append(rows)
+                x_s.append(x.to(f32))
+
+            before = dict(_build.LAUNCHES)
+            _solve_buckets(
+                None if upd_full is None else upd_full.to(dev),
+                opp_full.to(dev), shard["c_sorted"], shard["v_sorted"],
+                shard["buckets"], side["ks"], lam, alpha,
+                implicit=implicit, weighted_lambda=weighted_lambda,
+                solver=solver, gather_dtype=gather_dtype,
+                solver_mode=solver_mode, subspace_size=subspace_size,
+                fused_gather=fused_gather,
+                gram=None if gram is None else gram.to(dev), write=write,
+            )
+            for name, n in _build.LAUNCHES.items():
+                if n > before.get(name, 0):
+                    SHARD_LAUNCHES[(s, name)] += n - before.get(name, 0)
+            got_rows.append(torch.cat(rows_s))
+            got_x.append(torch.cat(x_s))
+        del opp_full, upd_full
+        rg = torch.cat(gather_shards(got_rows, mesh))
+        xg = torch.cat(gather_shards(got_x, mesh))
+        n_shard = upd[0].shape[0]
+        for k, s in enumerate(mesh.local):
+            if coded and ok[s] == 0:
+                continue  # a degraded shard wrote nothing this half
+            dev = mesh.device_of(s)
+            local = rg.to(dev) - s * n_shard
+            inside = (local >= 0) & (local < n_shard)
+            upd[k].index_copy_(0, local[inside],
+                               xg.to(dev)[inside].to(upd[k].dtype))
+    if not coded:
+        return None
+    return psum([u.to(f32) for u in upd], mesh)
+
+
 def _als_phase_trace_enabled() -> bool:
     """``PIO_TPU_TRACE_ALS=1`` arms per-phase span recording: opt-in,
     because the probes re-run truncated halves."""
@@ -744,7 +962,13 @@ class ALSTrainer:
         cfg: ALSConfig = ALSConfig(),
         staging: str = "auto",
         device: DeviceLike = "cuda",
+        mesh=None,
     ):
+        # a mesh of one shard is the replicated path, as in the
+        # reference (there is no ring to shard over)
+        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
+        if mesh is not None:
+            device = mesh.first_device
         self.device = resolve_device(device)
         if isinstance(ratings, Ratings):
             u, i, v = ratings.user_ix, ratings.item_ix, ratings.rating
@@ -763,6 +987,37 @@ class ALSTrainer:
             raise ValueError(
                 f"staging must be 'auto', 'host' or 'device', got {staging!r}"
             )
+        n_dev = self.mesh.size if self.mesh is not None else 1
+        self.sharded = (cfg.factor_placement == "sharded"
+                        and self.mesh is not None)
+        self.coded = bool(cfg.coded_shards) and self.sharded
+        self._pad_users = pad_to_multiple(n_users, n_dev)
+        self._pad_items = pad_to_multiple(n_items, n_dev)
+        if self.sharded:
+            if staging != "auto":
+                logger.warning(
+                    "staging=%r is ignored under factor_placement="
+                    "'sharded': the sharded-COO layout has its own "
+                    "staging path (trainer.staging == 'sharded')",
+                    staging,
+                )
+            self.staging = "sharded"
+            t0 = time.perf_counter()
+            self._user_side = self._stage_side_sharded(build_bucket_layout(
+                u, i, v, self._pad_users, cfg.min_bucket_k,
+                cfg.max_ratings_per_row, batch_multiple=n_dev,
+            ))
+            self._item_side = self._stage_side_sharded(build_bucket_layout(
+                i, u, v, self._pad_items, cfg.min_bucket_k,
+                cfg.max_ratings_per_row, batch_multiple=n_dev,
+            ))
+            mesh_fence(self.mesh)
+            self.staging_seconds = time.perf_counter() - t0
+            self._build_sharded_state()
+            self._init_loss(u, i, v)
+            self.half_seconds = []
+            self.sweep_losses = []
+            return
         if staging == "auto":
             # device staging pays an argsort on the device; worth it once
             # the sorted-COO transfer dwarfs that
@@ -826,6 +1081,151 @@ class ALSTrainer:
         ud, idv, vd = self._loss_dev
         return math.sqrt(float(_sq_err_sum(U, V, ud, idv, vd))
                          / self.loss_sample_n)
+
+    @classmethod
+    def distributed(
+        cls,
+        local_ratings,
+        n_users: Optional[int] = None,
+        n_items: Optional[int] = None,
+        cfg: ALSConfig = ALSConfig(factor_placement="sharded"),
+        mesh=None,
+        exchange_dir=None,
+        tag: str = "als-coo",
+        timeout: float = 120.0,
+    ) -> "ALSTrainer":
+        """Sharded-COO trainer over a mesh that spans processes, from
+        each process's LOCAL rating triples (its entity-hash shard of a
+        :func:`~..parallel.ingest.find_columnar_sharded` scan, encoded
+        against the global id index).
+
+        Every process sums the per-row counts with an all-reduce (the
+        identical global bucket plan everywhere), then sends each triple
+        to the process whose shard solves its row
+        (:func:`~..parallel.ingest.exchange_ratings_by_owner`) and stages
+        only its own shards: no process holds the full COO.  One process
+        (or a mesh of one shard) takes the ordinary constructor."""
+        from ..parallel.mesh import process_count
+
+        if isinstance(local_ratings, Ratings):
+            u, i, v = (local_ratings.user_ix, local_ratings.item_ix,
+                       local_ratings.rating)
+            n_users = local_ratings.n_users
+            n_items = local_ratings.n_items
+        else:
+            u, i, v = local_ratings
+            if n_users is None or n_items is None:
+                raise ValueError("n_users and n_items are required with "
+                                 "a (user, item, rating) tuple")
+        if process_count() <= 1 or mesh is None or mesh.size <= 1:
+            return cls((u, i, v), n_users, n_items, cfg, mesh=mesh)
+        if cfg.factor_placement != "sharded":
+            raise ValueError(
+                "ALSTrainer.distributed requires "
+                "factor_placement='sharded' (the sharded-COO layout)"
+            )
+        if exchange_dir is None:
+            raise ValueError("exchange_dir is required for multi-process")
+        from ..parallel.collectives import allreduce_host
+
+        self = cls.__new__(cls)
+        self.cfg = cfg
+        self.mesh = mesh
+        self.device = resolve_device(mesh.first_device)
+        self.n_users = n_users
+        self.n_items = n_items
+        self.solver, self.fused_gather = _resolve_solver(cfg, self.device)
+        self.sharded = True
+        self.coded = bool(cfg.coded_shards)
+        self.staging = "sharded-distributed"
+        self._pad_users = pad_to_multiple(n_users, mesh.size)
+        self._pad_items = pad_to_multiple(n_items, mesh.size)
+        u, i = np.asarray(u, np.int64), np.asarray(i, np.int64)
+        v = np.asarray(v, np.float32)
+
+        def global_counts(rows, n_pad):
+            local = np.bincount(rows, minlength=n_pad).astype(np.int64)
+            return allreduce_host(local, mesh)
+
+        t0 = time.perf_counter()
+        self._user_side = self._stage_side_distributed(
+            u, i, v, global_counts(u, self._pad_users), self._pad_users,
+            exchange_dir, f"{tag}-user", timeout,
+        )
+        self._item_side = self._stage_side_distributed(
+            i, u, v, global_counts(i, self._pad_items), self._pad_items,
+            exchange_dir, f"{tag}-item", timeout,
+        )
+        mesh_fence(mesh)
+        self.staging_seconds = time.perf_counter() - t0
+        self._build_sharded_state()
+        # only local triples here: a global training loss is not
+        # computable from one process
+        self.loss_every = 0
+        self._loss_coo = None
+        self._loss_dev = None
+        self.loss_sample_n = 0
+        self.half_seconds = []
+        self.sweep_losses = []
+        return self
+
+    def _stage_side_distributed(self, rows, cols, vals, counts, n_rows_pad,
+                                exchange_dir, tag, timeout) -> dict:
+        """One side's sharded staging from process-local triples: the
+        global plan from the summed counts, the owner exchange, then
+        this process's shards only."""
+        from ..parallel.ingest import exchange_ratings_by_owner
+
+        cfg, mesh = self.cfg, self.mesh
+        n_dev = mesh.size
+        starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+        buckets = _assemble_buckets(
+            counts, starts, cfg.min_bucket_k, cfg.max_ratings_per_row,
+            n_rows=n_rows_pad, batch_multiple=n_dev, starts_dtype=np.int64,
+        )
+        _, local_starts, L = _plan_shard_layout(
+            buckets, n_dev, build_perm=False
+        )
+        # row -> owning shard / shard-local start / effective cap
+        row_dev = np.zeros(n_rows_pad, np.int32)
+        row_ls = np.zeros(n_rows_pad, np.int64)
+        row_cap = np.zeros(n_rows_pad, np.int64)
+        for b, ls in zip(buckets, local_starts):
+            chunk = len(b.rows) // n_dev
+            real = b.rows < n_rows_pad
+            rr = b.rows[real]
+            row_dev[rr] = (np.arange(len(b.rows))[real] // chunk).astype(
+                np.int32)
+            row_ls[rr] = ls[real]
+            row_cap[rr] = b.counts[real]
+        owner = np.asarray(mesh.owner, np.int64)
+        rows2, cols2, vals2 = exchange_ratings_by_owner(
+            rows, cols, vals, owner[row_dev], exchange_dir, tag,
+            timeout=timeout,
+        )
+        # a deterministic within-row order (sources interleave): sort by
+        # (row, col); occurrences past a row's cap are dropped
+        order = np.lexsort((cols2, rows2))
+        rows2, cols2, vals2 = rows2[order], cols2[order], vals2[order]
+        rc = np.bincount(rows2, minlength=n_rows_pad).astype(np.int64)
+        rstart = np.concatenate(([0], np.cumsum(rc)[:-1]))
+        occ = np.arange(len(rows2), dtype=np.int64) - rstart[rows2]
+        keep = occ < row_cap[rows2]
+        rows2, cols2, vals2, occ = (rows2[keep], cols2[keep], vals2[keep],
+                                    occ[keep])
+        slot = row_ls[rows2] + occ
+        dev_of = row_dev[rows2]
+        shards = []
+        for s in mesh.local:
+            sel = dev_of == s
+            c_loc = np.zeros(L, np.int32)
+            v_loc = np.zeros(L, np.float32)
+            c_loc[slot[sel]] = cols2[sel]
+            v_loc[slot[sel]] = vals2[sel]
+            shards.append(self._shard_arrays(s, c_loc, v_loc, buckets,
+                                             local_starts))
+        return {"ks": tuple(b.k for b in buckets), "shard_len": L,
+                "shards": shards}
 
     def _stage_device(self, u, i, v, nu, ni):
         """Compact-transfer staging: host-sort the COO by user once, move
@@ -919,17 +1319,90 @@ class ALSTrainer:
             ),
         }
 
+    def _stage_side_sharded(self, layout: BucketLayout) -> dict:
+        """One side's COO sharded (the reference's
+        ``_stage_side_sharded``): shard ``d`` receives only the rating
+        slices of the bucket rows it solves, in shard-local order, with
+        shard-local starts (:func:`_plan_shard_layout`).  Only this
+        process's shards are placed, each on its device; the staging is
+        on the host (the reference ignores ``staging=`` here too)."""
+        mesh = self.mesh
+        perm, local_starts, L = _plan_shard_layout(layout.buckets, mesh.size)
+        shards = []
+        for s in mesh.local:
+            shards.append(self._shard_arrays(
+                s, layout.col_sorted[perm[s]], layout.val_sorted[perm[s]],
+                layout.buckets, local_starts,
+            ))
+        return {"ks": tuple(b.k for b in layout.buckets), "shard_len": L,
+                "shards": shards}
+
+    def _shard_arrays(self, s: int, c, v, buckets, local_starts) -> dict:
+        """Shard ``s``'s COO slice and its chunk of every bucket, on the
+        shard's device."""
+        mesh = self.mesh
+        dev = mesh.device_of(s)
+
+        def put(a):
+            return torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+
+        chunks = []
+        for b, ls in zip(buckets, local_starts):
+            n = len(b.rows) // mesh.size
+            sl = slice(s * n, (s + 1) * n)
+            chunks.append((put(b.rows[sl]), put(ls[sl]), put(b.counts[sl])))
+        return {
+            "c_sorted": torch.from_numpy(
+                np.ascontiguousarray(c, np.int32)).to(dev),
+            "v_sorted": torch.from_numpy(
+                np.ascontiguousarray(v, np.float32)).to(dev),
+            "buckets": tuple(chunks),
+        }
+
+    def _build_sharded_state(self) -> None:
+        """Parity and shard health of a coded trainer (one health per
+        trainer: a kill is sticky across :meth:`run` calls, the way a
+        dead host stays dead)."""
+        if not self.coded:
+            return
+        from ..parallel.coded import ShardHealth, build_parity_fn
+
+        self._parity_fn = build_parity_fn(self.mesh)
+        self._parity_state: dict = {}
+        self.shard_health = ShardHealth(
+            self.mesh.size,
+            hop_budget_s=self.cfg.shard_hop_budget_s or None,
+            op="als.half",
+        )
+
+    @property
+    def coo_shard_entries(self) -> Optional[int]:
+        """Per-shard padded rating-slot count of the sharded COO (about
+        nnz / mesh size plus padding), or None when the COO is not
+        sharded."""
+        if not self.sharded:
+            return None
+        return int(self._user_side["shard_len"])
+
     def init_factors(self) -> tuple[torch.Tensor, torch.Tensor]:
         """MLlib-style init: N(0, 1)/sqrt(rank) from a CPU generator
         seeded with ``cfg.seed`` (the same numbers on every device; not
         the reference's ``jax.random`` draw, which torch cannot
-        reproduce — parity tests inject the reference's factors)."""
+        reproduce — parity tests inject the reference's factors).
+        Sharded placement pads the rows to a multiple of the mesh size
+        with zero rows (never solved; zeros keep the implicit Gram
+        exact), as the reference does."""
         cfg = self.cfg
         g = torch.Generator().manual_seed(cfg.seed)
         dtype = getattr(torch, cfg.compute_dtype)
         scale = 1.0 / math.sqrt(cfg.rank)
         U = torch.randn((self.n_users, cfg.rank), generator=g) * scale
         V = torch.randn((self.n_items, cfg.rank), generator=g) * scale
+        if self.sharded:
+            U = torch.nn.functional.pad(
+                U, (0, 0, 0, self._pad_users - self.n_users))
+            V = torch.nn.functional.pad(
+                V, (0, 0, 0, self._pad_items - self.n_items))
         return U.to(self.device, dtype), V.to(self.device, dtype)
 
     def _half_options(self) -> dict:
@@ -948,10 +1421,40 @@ class ALSTrainer:
 
     def _half(self, upd, opp, side, lam: Optional[float] = None):
         cfg = self.cfg
-        return _half_iteration(
-            upd, opp, side, cfg.lam if lam is None else lam, cfg.alpha,
-            **self._half_options(),
+        lam = cfg.lam if lam is None else lam
+        if not self.sharded:
+            return _half_iteration(upd, opp, side, lam, cfg.alpha,
+                                   **self._half_options())
+        if not self.coded:
+            _sharded_half(self.mesh, upd, opp, side, lam, cfg.alpha,
+                          **self._half_options())
+            return upd
+        upd_name = "user" if side is self._user_side else "item"
+        opp_name = "item" if upd_name == "user" else "user"
+        # consult the dist.* fault points and the hop budget before the
+        # half: a late shard is served from parity, a killed one frozen
+        ok = self.shard_health.poll()
+        par = self._parity_state.get(opp_name)
+        if par is None:
+            par = self._parity_state[opp_name] = self._parity_fn(opp)
+        self._parity_state[upd_name] = _sharded_half(
+            self.mesh, upd, opp, side, lam, cfg.alpha,
+            opp_parity=par, ok=ok, **self._half_options(),
         )
+        return upd
+
+    def _full(self, parts) -> torch.Tensor:
+        """The whole (padded) table of a sharded run, on this process's
+        first shard device."""
+        from ..parallel.collectives import gather_shards
+
+        return torch.cat(gather_shards(parts, self.mesh))
+
+    def _fence(self) -> None:
+        if self.mesh is not None:
+            mesh_fence(self.mesh)
+        else:
+            fence(self.device)
 
     def _traced_half(self, upd, opp, side, side_name: str, it: int,
                      lam: Optional[float], collect: dict) -> float:
@@ -976,10 +1479,10 @@ class ALSTrainer:
         def timed(fn, warm: bool) -> float:
             if warm:
                 fn()
-                fence(self.device)
+                self._fence()
             t0 = time.perf_counter()
             fn()
-            fence(self.device)
+            self._fence()
             return time.perf_counter() - t0
 
         def emit(phase: str, dt: float) -> None:
@@ -987,6 +1490,14 @@ class ALSTrainer:
             TRAIN_PHASE_SECONDS.labels(phase=phase).observe(dt)
             key = f"{side_name}.{phase.rsplit('.', 1)[-1]}"
             collect[key] = collect.get(key, 0.0) + dt
+
+        if self.sharded:
+            # no probe entry point under sharded placement: the fenced
+            # full half is recorded as als.half, as in the reference
+            t_full = timed(lambda: self._half(upd, opp, side, lam=lam),
+                           False)
+            emit("als.half", t_full)
+            return t_full
 
         # the probes run BEFORE the real half: it writes ``upd``
         warm = it == 0
@@ -1014,12 +1525,31 @@ class ALSTrainer:
         which may raise :class:`~..obs.tower.ConvergenceError` (the
         watchdog's typed abort) with the run manifest finalized.
 
-        ``lam`` overrides the config's regularization for this run."""
+        ``lam`` overrides the config's regularization for this run.
+
+        Under sharded placement ``U`` and ``V`` are the padded tables
+        (:meth:`init_factors`' shape); each half runs on the shards, is
+        recorded as an ``als.sharded_half`` span, and the whole padded
+        tables come back, gathered on this process's first shard device.
+        A coded run starts its parity afresh from these tables."""
         dtype = getattr(torch, self.cfg.compute_dtype)
         self.half_seconds = []
         self.sweep_losses = []
-        U = torch.as_tensor(U).to(self.device, dtype).clone()
-        V = torch.as_tensor(V).to(self.device, dtype).clone()
+        if self.sharded:
+            from ..parallel.mesh import shard_put
+
+            U = shard_put(torch.as_tensor(U).to(dtype), self.mesh)
+            V = shard_put(torch.as_tensor(V).to(dtype), self.mesh)
+            if self.coded:
+                self._parity_state = {}
+            full = self._full
+        else:
+            U = torch.as_tensor(U).to(self.device, dtype).clone()
+            V = torch.as_tensor(V).to(self.device, dtype).clone()
+
+            def full(t):
+                return t
+        tracer = get_tracer()
         trace_phases = _als_phase_trace_enabled()
         session = tower.active_session()
         if session is not None:
@@ -1039,27 +1569,32 @@ class ALSTrainer:
                 else:
                     t0 = time.perf_counter()
                     self._half(upd, opp, side, lam=lam)
-                    fence(self.device)
+                    self._fence()
                     dt = time.perf_counter() - t0
                     phases[f"{name}_half"] = dt
                     TRAIN_PHASE_SECONDS.labels(
                         phase=f"als.{name}_half").observe(dt)
+                if self.sharded:
+                    tracer.record("als.sharded_half", dt, attrs={
+                        "side": name, "iteration": it,
+                        "shards": self.mesh.size, "coded": self.coded})
                 self.half_seconds.append((name, dt))
             if faults.fired("train.nan"):
                 # poison the iterates the way an exploding sweep would;
                 # the watchdog must catch it this sweep
-                U.mul_(float("nan"))
+                for t in (U if self.sharded else [U]):
+                    t.mul_(float("nan"))
             loss = None
             if self.loss_every and (it + 1) % self.loss_every == 0:
                 t0 = time.perf_counter()
-                loss = self.sweep_loss(U, V)
+                loss = self.sweep_loss(full(U), full(V))
                 if loss is not None:
                     self.sweep_losses.append(loss)
                     phases["loss"] = time.perf_counter() - t0
             finite = True
             if session is not None and session.wants_finite_check():
                 t0 = time.perf_counter()
-                finite = _finite_all(U, V)
+                finite = _finite_all(full(U), full(V))
                 phases["check"] = time.perf_counter() - t0
             tower.record_sweep(
                 time.perf_counter() - t_sweep, phases,
@@ -1067,7 +1602,7 @@ class ALSTrainer:
             )
             logger.debug("ALS iteration %d/%d complete", it + 1,
                          num_iterations)
-        return U, V
+        return full(U), full(V)
 
     def fused_form(self) -> Optional[dict]:
         """What the fused kernel launches on the card (None for another
@@ -1084,10 +1619,13 @@ class ALSTrainer:
         split = {}
         for name, side, m in (("user", self._user_side, self.n_items),
                               ("item", self._item_side, self.n_users)):
+            # a shard's chunk of each bucket under sharded placement
+            buckets = (side["shards"][0]["buckets"] if self.sharded
+                       else side["buckets"])
             split[name] = sum(
                 fused_tile_plan(m, cfg.rank, k, tb, self.fused_gather,
                                 b=len(rows), sms=sms).segments > 1
-                for (rows, _, _), k in zip(side["buckets"], side["ks"])
+                for (rows, _, _), k in zip(buckets, side["ks"])
             )
         form = "_dma" if self.fused_gather == "dma" else ""
         width = "bf16" if tb == 2 else "f32"
@@ -1135,12 +1673,16 @@ class ALSTrainer:
         return self._factors(U, V)
 
     def _factors(self, U, V) -> ALSFactors:
-        """Host factor arrays and the run's report."""
+        """Host factor arrays (without a sharded run's padding rows) and
+        the run's report."""
         return ALSFactors(
-            user_factors=U.float().cpu().numpy(),
-            item_factors=V.float().cpu().numpy(),
+            user_factors=U[: self.n_users].float().cpu().numpy(),
+            item_factors=V[: self.n_items].float().cpu().numpy(),
             report={
                 "device": str(self.device),
+                "placement": "sharded" if self.sharded else "replicated",
+                "shards": self.mesh.size if self.sharded else 1,
+                "coded": self.coded,
                 "solver": self.solver,
                 "fused_gather": self.fused_gather,
                 "staging": self.staging,
@@ -1161,10 +1703,12 @@ def train_als(
     cfg: ALSConfig = ALSConfig(),
     device: DeviceLike = "cuda",
     init=None,
+    mesh=None,
 ) -> ALSFactors:
-    """Run ALS for ``cfg.num_iterations``; returns host factor arrays."""
+    """Run ALS for ``cfg.num_iterations``; returns host factor arrays.
+    With a ``mesh`` the trainer runs on its shards' devices."""
     return ALSTrainer(
-        ratings, n_users, n_items, cfg, device=device
+        ratings, n_users, n_items, cfg, device=device, mesh=mesh
     ).train(init=init)
 
 
@@ -1176,6 +1720,7 @@ def sweep_train_als(
     lams: Sequence[float] = (),
     device: DeviceLike = "cuda",
     init=None,
+    mesh=None,
 ) -> list[ALSFactors]:
     """Train one model per λ candidate in one batched run.
 
@@ -1186,11 +1731,21 @@ def sweep_train_als(
     scales with the number of candidates, so this fits
     evaluation-scale problems, not the full ML-20M train.  The batched
     form needs the ``"xla"`` solver (the kernels take no batch
-    dimension); sharded placement is not ported.  ``init = (U0, V0)``
-    starts every candidate there (the reference's initial factors, in
-    the parity tests), else at :meth:`ALSTrainer.init_factors`."""
+    dimension).  Sharded placement on ``mesh`` sweeps one λ after
+    another instead, on one staging, as the reference does.
+    ``init = (U0, V0)`` starts every candidate there (the reference's
+    initial factors, in the parity tests), else at
+    :meth:`ALSTrainer.init_factors`."""
     if not lams:
         return []
+    if cfg.factor_placement == "sharded" and mesh is not None:
+        trainer = ALSTrainer(ratings, n_users, n_items, cfg, mesh=mesh)
+        out = []
+        for lam in lams:
+            U0, V0 = trainer.init_factors() if init is None else init
+            U, V = trainer.run(U0, V0, cfg.num_iterations, lam=float(lam))
+            out.append(trainer._factors(U, V))
+        return out
     if cfg.solver != "xla":
         raise ValueError(
             "sweep_train_als (vmapped form) requires solver='xla'"

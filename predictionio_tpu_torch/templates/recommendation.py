@@ -134,9 +134,11 @@ class DataSourceParams(Params):
     item_entity_type: str = "item"
     eval_k: int = 0          # >0 enables k-fold read_eval
     eval_seed: int = 3
-    # "gathered": the process reads the full rating set.  "local" (each
-    # process keeps its scan shard for a sharded trainer) needs the
-    # multi-host read, which is not ported yet.
+    # multi-process COO handling: "gathered" (every process receives the
+    # full rating set) or "local" (each process keeps only its scan
+    # shard, globally id-encoded, and the algorithm exchanges triples
+    # to each row's owning shard through ALSTrainer.distributed: no
+    # process holds the full COO; needs factorPlacement="sharded")
     coo: str = "gathered"
 
     def __post_init__(self) -> None:
@@ -144,20 +146,26 @@ class DataSourceParams(Params):
             raise ValueError(
                 f"coo must be 'gathered' or 'local', got {self.coo!r}"
             )
-        if self.coo == "local":
-            raise NotImplementedError(
-                "coo='local' (the multi-host rating exchange) is not yet "
-                "ported to predictionio_tpu_torch"
-            )
 
 
 @dataclass
 class TrainingData:
     ratings: Ratings
     items: dict[str, dict] = field(default_factory=dict)  # item -> properties
+    # True when `ratings` is this process's shard of a multi-process
+    # read (globally id-encoded): the algorithm trains it through
+    # ALSTrainer.distributed
+    coo_local: bool = False
 
     def sanity_check(self) -> None:
-        if len(self.ratings) == 0:
+        n = len(self.ratings)
+        if self.coo_local:
+            # a local shard may be empty on skewed data; only the global
+            # count matters (every process runs this check)
+            from ..parallel.ingest import global_count
+
+            n = global_count(n)
+        if n == 0:
             raise ValueError("no rating events found — is the app empty?")
 
 
@@ -245,8 +253,36 @@ class RecommendationDataSource(DataSource):
         return ratings, self._read_items(es, app_id)
 
     def read_training(self, ctx: WorkflowContext) -> TrainingData:
+        from ..parallel.mesh import process_count
+
+        if process_count() > 1:
+            return self._read_distributed(ctx)
         ratings, items = self._read(ctx)
         return TrainingData(ratings=ratings, items=items)
+
+    def _read_distributed(self, ctx: WorkflowContext) -> TrainingData:
+        """A multi-process run's read: each process scans its
+        entity-hash shard, the id dictionaries are exchanged, and the
+        ratings are all-gathered (``coo='gathered'``) or kept local."""
+        from ..parallel.ingest import read_ratings_distributed
+
+        p: DataSourceParams = self.params
+        app_id = _resolve_app_id(ctx, p)
+        es: EventStore = ctx.storage.get_event_store()
+        ratings = read_ratings_distributed(
+            es,
+            exchange_dir=ctx.storage.model_data_dir() / "_ingest",
+            tag=f"app{app_id}",
+            rating_property=p.rating_property,
+            dedup="last" if p.rating_property else "sum",
+            gather=(p.coo == "gathered"),
+            app_id=app_id,
+            entity_type=p.entity_type,
+            event_names=list(p.event_names),
+        )
+        return TrainingData(ratings=ratings,
+                            items=self._read_items(es, app_id),
+                            coo_local=(p.coo == "local"))
 
     def read_eval(self, ctx: WorkflowContext):
         """k-fold split (e2 `CrossValidation.scala:33-63` semantics: fold i
@@ -355,7 +391,8 @@ class ALSAlgorithmParams(Params):
             )
         if self.distributed_topk:
             raise NotImplementedError(
-                "distributedTopk is not yet ported to predictionio_tpu_torch"
+                "distributedTopk is not yet ported to predictionio_tpu_torch "
+                "(ROADMAP Queue 1 item 7)"
             )
 
 
@@ -431,8 +468,27 @@ class ALSAlgorithm(Algorithm):
         )
 
     def train(self, ctx: WorkflowContext, data: TrainingData) -> ALSModel:
-        factors = train_als(data.ratings, cfg=self._config(),
-                            device=ctx.device)
+        cfg = self._config()
+        sharded = cfg.factor_placement == "sharded"
+        if data.coo_local:
+            # each process kept its scan shard (coo: "local"): exchange
+            # the triples straight to each row's owning shard
+            if not sharded:
+                raise ValueError(
+                    "datasource coo='local' requires the algorithm side "
+                    "to set factorPlacement='sharded' (the sharded-COO "
+                    "layout); 'replicated' needs the gathered read"
+                )
+            from ..models.als import ALSTrainer
+
+            factors = ALSTrainer.distributed(
+                data.ratings, cfg=cfg, mesh=ctx.mesh,
+                exchange_dir=ctx.storage.model_data_dir() / "_ingest",
+                tag="als-coo",
+            ).train()
+        else:
+            factors = train_als(data.ratings, cfg=cfg, device=ctx.device,
+                                mesh=ctx.mesh if sharded else None)
         self.train_report = factors.report
         logger.info("ALS trained: %s", factors.report)
         return ALSModel(
@@ -585,6 +641,26 @@ class RecommendationServing(FirstServing):
     pass
 
 
+def _validate_rec_params(ep) -> None:
+    """Cross-component coupling: datasource ``coo: "local"`` hands each
+    ALS algorithm a process-local shard, which only the sharded-COO
+    layout can train; caught at config time, as the reference does."""
+    ds = ep.data_source[1]
+    if getattr(ds, "coo", "gathered") != "local":
+        return
+    bad = [
+        name or "als"
+        for name, p in ep.algorithms
+        if getattr(p, "factor_placement", None) != "sharded"
+    ]
+    if bad:
+        raise ValueError(
+            "datasource coo='local' requires factorPlacement='sharded' "
+            f"on every algorithm; offending: {bad} — 'replicated' "
+            "placement needs the gathered read (coo='gathered')"
+        )
+
+
 def recommendation_engine() -> Engine:
     """`EngineFactory` analogue for the recommendation template."""
     return Engine(
@@ -592,6 +668,7 @@ def recommendation_engine() -> Engine:
         IdentityPreparator,
         {"als": ALSAlgorithm, "": ALSAlgorithm},
         RecommendationServing,
+        params_validator=_validate_rec_params,
     )
 
 

@@ -22,10 +22,16 @@ scheme, `controller/Engine.scala:260-278`).
 A factor model's fold-in deltas (``live/``) are a chain of ``.npz``
 links next to the model (:class:`ModelDelta`, :func:`save_model_delta`,
 :func:`load_model_delta_chain`) in the reference's format and meta
-version, so a chain written by either package loads in the other.  The
-reference's sharded ``.npz`` format for ``DEVICE_SHARDED`` models is not
-ported yet: the port writes the ``pickle`` kind for every persisted
-model and refuses to load a ``sharded`` manifest.
+version, so a chain written by either package loads in the other.
+
+A ``DEVICE_SHARDED`` algorithm's dataclass model is written in the
+reference's ``sharded`` format (:func:`_save_sharded`): its numeric
+array fields in one ``.npz``, the rest pickled with the class; either
+package's files load in the other to the same arrays (the pickle's
+module names of the package the port was made from map to the port's
+modules of the same path).  In a multi-process run every process
+builds the host copies and only the chief (process 0) writes files and
+metadata rows.
 """
 
 from __future__ import annotations
@@ -86,6 +92,86 @@ def _to_host(v: Any) -> Any:
     if isinstance(v, (list, tuple)):
         return type(v)(_to_host(x) for x in v)
     return v
+
+
+# the port's package; a pickle naming the package it was made from (the
+# same name without "_torch") reads as the port's module of that path
+_PORT = __name__.split(".")[0]
+
+
+class _Unpickler(pickle.Unpickler):
+    """Unpickles a model file written by either package."""
+
+    def find_class(self, module: str, name: str):
+        head, dot, tail = module.partition(".")
+        if head + "_torch" == _PORT:
+            module = _PORT + dot + tail
+        return super().find_class(module, name)
+
+
+def _load_pickle(path: Path) -> Any:
+    with open(path, "rb") as f:
+        return _Unpickler(f).load()
+
+
+def _split_array_fields(model: Any):
+    """Dataclass model -> ({numeric array fields}, {other fields}), or
+    None when it cannot round-trip through ``cls(**fields)`` (not a
+    dataclass, or fields outside ``__init__``)."""
+    if not dataclasses.is_dataclass(model) or isinstance(model, type):
+        return None
+    if any(not f.init for f in dataclasses.fields(model)):
+        return None
+    arrays: dict[str, Any] = {}
+    rest: dict[str, Any] = {}
+    for f in dataclasses.fields(model):
+        v = getattr(model, f.name)
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        # only numeric arrays ride the npz (object arrays would not load
+        # under allow_pickle=False)
+        if (isinstance(v, np.ndarray) and v.ndim >= 1
+                and v.dtype.kind in "biufc"):
+            arrays[f.name] = v
+        else:
+            rest[f.name] = v
+    return arrays, rest
+
+
+def _save_sharded(model: Any, base_dir: Path, key: str,
+                  chief: bool = True) -> Optional[dict]:
+    """The reference's ``sharded`` format: one ``.npz`` of the array
+    fields and the pickled rest; None when the model has no array field
+    (the caller pickles it whole).  Only the chief writes."""
+    split = _split_array_fields(model)
+    if split is None or not split[0]:
+        return None
+    arrays, rest = split
+    npz_name = f"{key}-arrays.npz"
+    rest_name = f"{key}-rest.pkl"
+    if chief:
+        base_dir.mkdir(parents=True, exist_ok=True)
+        # uncompressed: f32 factor tables barely deflate, and the
+        # compression would be a second or two a save at ML-20M; either
+        # package's np.load reads both forms
+        np.savez(base_dir / npz_name, **arrays)
+        with open(base_dir / rest_name, "wb") as f:
+            pickle.dump({"cls": type(model), "fields": _to_host(rest)}, f,
+                        protocol=pickle.HIGHEST_PROTOCOL)
+    # the host tables of a sharded train are whole (the trainer gathers
+    # them), so every array is recorded replicated
+    return {"kind": "sharded", "npz": npz_name, "rest": rest_name,
+            "specs": {k: None for k in arrays}}
+
+
+def _load_sharded(manifest: dict, base_dir: Path) -> Any:
+    """Rebuild a ``sharded``-format model (written by either package)."""
+    rest = _load_pickle(base_dir / manifest["rest"])
+    kw = dict(rest["fields"])
+    with np.load(base_dir / manifest["npz"], allow_pickle=False) as data:
+        for k in data.files:
+            kw[k] = data[k]
+    return rest["cls"](**kw)
 
 
 def _place(model: Any, device: torch.device) -> Any:
@@ -281,7 +367,15 @@ def save_models(
     algo_tuples: list[tuple[str, Algorithm, Any]],
 ) -> None:
     """Persist every algorithm's model; the manifest goes into the
-    metadata store's models table."""
+    metadata store's models table.  A ``DEVICE_SHARDED`` algorithm's
+    model is written in the ``sharded`` format.  In a multi-process run
+    only the chief writes files and rows (custom ``save_model`` hooks
+    run everywhere and gate their own writes); the others learn that the
+    files exist from the chief's terminal instance row."""
+    from ..controller.base import ModelPlacement
+    from ..parallel.mesh import process_index
+
+    chief = process_index() == 0
     md = ctx.storage.get_metadata()
     base_dir = ctx.storage.model_data_dir() / instance_id
     for ax, (name, algo, model) in enumerate(algo_tuples):
@@ -293,15 +387,23 @@ def save_models(
             if custom is not None:
                 manifest = {"kind": "custom", "custom": custom}
             else:
-                fname = f"model_{ax}_{name or 'default'}.pkl"
-                base_dir.mkdir(parents=True, exist_ok=True)
-                with open(base_dir / fname, "wb") as f:
-                    pickle.dump(_to_host(model), f,
-                                protocol=pickle.HIGHEST_PROTOCOL)
-                # the name is relative to base_dir so the storage tree
-                # can be relocated between train and deploy hosts
-                manifest = {"kind": "pickle", "file": fname}
-        md.model_insert(Model(id=key, models=json.dumps(manifest).encode()))
+                manifest = None
+                if algo.placement is ModelPlacement.DEVICE_SHARDED:
+                    manifest = _save_sharded(model, base_dir, key,
+                                             chief=chief)
+                if manifest is None:
+                    fname = f"model_{ax}_{name or 'default'}.pkl"
+                    if chief:
+                        base_dir.mkdir(parents=True, exist_ok=True)
+                        with open(base_dir / fname, "wb") as f:
+                            pickle.dump(_to_host(model), f,
+                                        protocol=pickle.HIGHEST_PROTOCOL)
+                    # the name is relative to base_dir so the storage
+                    # tree can be relocated between train and deploy
+                    manifest = {"kind": "pickle", "file": fname}
+        if chief:
+            md.model_insert(
+                Model(id=key, models=json.dumps(manifest).encode()))
 
 
 def load_models(
@@ -331,14 +433,10 @@ def load_models(
                 if "file" in manifest
                 else Path(manifest["path"])
             )
-            with open(path, "rb") as f:
-                out.append(_place(pickle.load(f), ctx.device))
+            out.append(_place(_load_pickle(path), ctx.device))
         elif kind == "sharded":
-            raise NotImplementedError(
-                f"model {key} was saved in the sharded .npz format, which "
-                "is not ported to predictionio_tpu_torch yet (ROADMAP "
-                "Queue 1)"
-            )
+            out.append(_place(_load_sharded(manifest, base_dir),
+                              ctx.device))
         else:
             raise ValueError(f"unknown model manifest kind: {kind!r}")
     return out

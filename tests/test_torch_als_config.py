@@ -1,6 +1,7 @@
 """The port's ALS configuration and device defaults: the same validation
-as the JAX package's ``ALSConfig``, a clear error for options whose code
-is not ported yet, and entry points that default to the card."""
+as the JAX package's ``ALSConfig`` (every option is ported, so each
+builds the reference's config field for field), and entry points that
+default to the card."""
 
 import dataclasses
 
@@ -18,9 +19,10 @@ from predictionio_tpu_torch.models.als import (
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(factor_placement="sharded"), "not yet ported"),
-    (dict(factor_placement="sharded", coded_shards=True), "not yet ported"),
     # ported: these build the reference's config, field for field
+    (dict(factor_placement="sharded"), None),
+    (dict(factor_placement="sharded", coded_shards=True,
+          shard_hop_budget_s=0.5), None),
     (dict(solver_mode="subspace", solver="pallas"), None),
     (dict(gather_mode="grouped"), None),
     (dict(retrieval="ivf", nprobe=4), None),

@@ -256,8 +256,14 @@ def test_undeploy_of_nothing_equal(pair):
 REFUSED = [
     (["adminserver"], 9),
     (["dashboard"], 9),
-    (["train", "--coordinator", "127.0.0.1:1234"], 7),
-    (["train", "--num-processes", "2"], 7),
+]
+
+# the multi-process train options are ported (a two-process console
+# train: tests/test_torch_multiprocess_train.py); an incomplete set is
+# an error before any work
+PARTIAL_TRAIN = [
+    ["train", "--coordinator", "127.0.0.1:1234"],
+    ["train", "--num-processes", "2"],
 ]
 
 
@@ -279,6 +285,9 @@ def test_every_unported_command_and_option_is_refused_first(capsys):
     assert main(["eventserver", "--no-wal-fsync"], storage=_Untouchable(),
                 device="cpu") == 1
     assert "fsyncs" in capsys.readouterr().out
+    for argv in PARTIAL_TRAIN:
+        with pytest.raises(ValueError, match="coordinator address"):
+            main(argv, storage=_Untouchable(), device="cpu")
 
 
 TENANT_FACTORY = ("predictionio_tpu_torch.templates.recommendation."

@@ -206,13 +206,28 @@ def test_params_validation():
     with pytest.raises(NotImplementedError, match="distributedTopk"):
         engine.params_from_variant({"algorithms": [{
             "name": "als", "params": {"distributedTopk": True}}]})
+    # coo='local' needs sharded placement on every algorithm, as the
+    # reference checks at config time
+    with pytest.raises(ValueError, match="requires factorPlacement"):
+        engine.params_from_variant({
+            "datasource": {"params": {"appName": "shop", "coo": "local"}},
+            "algorithms": [{"name": "als", "params": {}}]})
+    # sharded placement trains: one process on the CPU is a mesh of one
+    # shard, which the reference trains replicated
     algo_ep = engine.params_from_variant({
-        "datasource": {"params": {"appName": "shop"}},
+        "datasource": {"params": {"appName": "shop", "coo": "local"}},
         "algorithms": [{
-            "name": "als", "params": {"factorPlacement": "sharded"}}]})
+            "name": "als", "params": {"factorPlacement": "sharded",
+                                      "codedShards": True}}]})
     ctx = WorkflowContext(device="cpu", storage=_store())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        engine.train(ctx, algo_ep)
+    (model,) = engine.train(ctx, algo_ep)
+    assert ctx.mesh.size == 1
+    rep_ep = engine.params_from_variant({
+        "datasource": {"params": {"appName": "shop"}},
+        "algorithms": [{"name": "als", "params": {}}]})
+    (want,) = engine.train(WorkflowContext(device="cpu", storage=_store()),
+                           rep_ep)
+    assert model.user_factors.tobytes() == want.user_factors.tobytes()
 
 
 def test_data_source_needs_a_known_app():

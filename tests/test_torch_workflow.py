@@ -110,8 +110,12 @@ def test_run_train_then_prepare_deploy_round_trips(tmp_path, monkeypatch):
     assert rec.status == "COMPLETED" and rec.start_time and rec.end_time
     key = model_key(iid, 0, "als")
     manifest = json.loads(st.get_metadata().model_get(key).models.decode())
-    assert manifest == {"kind": "pickle", "file": "model_0_als.pkl"}
-    assert (st.model_data_dir() / iid / "model_0_als.pkl").is_file()
+    # the reference's format of a DEVICE_SHARDED algorithm's model
+    assert manifest == {
+        "kind": "sharded", "npz": f"{key}-arrays.npz",
+        "rest": f"{key}-rest.pkl",
+        "specs": {"user_factors": None, "item_factors": None}}
+    assert (st.model_data_dir() / iid / f"{key}-arrays.npz").is_file()
 
     model, before = _answers(engine, ep, iid, st)
     assert any(a["itemScores"] for a in before)
@@ -158,11 +162,16 @@ def test_unsaved_model_is_retrained_at_deploy(tmp_path):
     save_models(ctx, "x1", [("als", Transient(), model)])
     rec = st.get_metadata().model_get(model_key("x1", 0, "als"))
     assert json.loads(rec.models.decode()) == {"kind": "not_persisted"}
+    # a persisted model of the same algorithm is written sharded and
+    # loads back; a manifest of an unknown kind is refused
+    save_models(ctx, "x2", [("als", ALSAlgorithm(), model)])
+    (back,) = load_models(ctx, "x2", [("als", ALSAlgorithm)])
+    assert back.user_factors.tobytes() == model.user_factors.tobytes()
     st.get_metadata().model_insert(type(rec)(
-        id=model_key("x2", 0, "als"),
-        models=json.dumps({"kind": "sharded"}).encode()))
-    with pytest.raises(NotImplementedError, match="sharded"):
-        load_models(ctx, "x2", [("als", ALSAlgorithm)])
+        id=model_key("x3", 0, "als"),
+        models=json.dumps({"kind": "kryo"}).encode()))
+    with pytest.raises(ValueError, match="unknown model manifest kind"):
+        load_models(ctx, "x3", [("als", ALSAlgorithm)])
 
 
 def test_jax_package_reads_the_ports_instance_rows(tmp_path):
