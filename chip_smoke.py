@@ -13,8 +13,8 @@ float64 solve), both forms of the fused ALS kernel ("taa" and "dma")
 with the second pass of a split bucket, and the three gather probes,
 whose launch path it takes apart step by step at the probe shape.
 It builds the native host runtime (``build/native/``, ``g++``) beside
-the kernels.  Then it drives ten main paths and phases scout and sessions
-through the entry points a user calls, each path with every launch counter set
+the kernels.  Then it drives ten main paths and phases ring, scout,
+sessions and admin through the entry points a user calls, each path with every launch counter set
 to 0 just before it and read just after it; a kernel its path did not
 launch fails the run:
 
@@ -43,6 +43,13 @@ launch fails the run:
   (``template get``, ``build``, ``train --scan-cache`` in process, a
   ``deploy`` process on the event-loop edge answering queries like an
   in-process ``predict``, ``undeploy``);
+* ring (no kernel on its path): the ring top-k on the ML-20M
+  ``"pallas"`` model over four shards on the card, solo and batched
+  against the single card's top-k, its coded path under a delay past
+  the request deadline and a killed shard, its int8 candidate stage
+  against the single card's int8 retrieval, and the template's
+  ``"distributedTopk": true`` deployed in this process answering HTTP
+  queries like an in-process ``predict``;
 * router: ``deploy --replicas 2 --feedback`` on the instance that
   ``train`` made (a router process and two replica processes, each its
   own CUDA context), its feedback going to an event server on an app of
@@ -107,6 +114,12 @@ launch fails the run:
   per-variant attribution and online eval, and the SPRT autopilot
   concluding beta's experiment through ``POST /tenants/weights``; then
   ``deploy --multi --memory-budget --autopilot on`` as a process;
+* admin (no kernel on its path): ``adminserver`` over a ``jsonfs``
+  metadata store (an app and its keys created, listed and deleted) and
+  ``dashboard`` over that store, every page answering, beside a
+  ``deploy --multi`` process of phase hive's tenants whose
+  ``/debug/profile`` capture names a CUDA kernel and which exits 0 at
+  its ``undeploy``;
 * pio: MovieLens-1M-shaped events (6,040 x 3,706 x 1,000,209) into the
   SQLite event store of a fresh ``$PIO_TPU_HOME`` through the REST event
   server (one with the group-commit WAL) and ``import_events`` →
@@ -196,10 +209,13 @@ import json
 import logging
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
 import time
+import urllib.error
+import urllib.parse
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
@@ -2960,6 +2976,273 @@ def phase_dist(torch, ratings, console: dict) -> dict:
             "one_s", "s")},
         "phase_s": round(phase_s, 1)})
     return {"launches": launches}
+
+
+RING_PHASE_LIMIT_S = 30.0
+RING_SHARDS = 4
+RING_QUERIES = 512
+RING_BATCH = 64
+RING_K = 10
+RING_FACTOR = 10
+RING_TOL = 1e-5
+RING_PAD_CUT = 3          # rows cut from the table so that the mesh pads
+RING_DELAY_PLAN = "dist.shard_delay:shard=1,delay=30,times=1"
+RING_KILL_PLAN = "dist.worker_kill:shard=2,times=1"
+RING_DROP_PLAN = "dist.shard_drop:shard=0,times=1"
+
+
+def _ring_same(got, want, what: str) -> int:
+    """A ring answer ``(values, ids)`` against the single-card one: scores
+    within :data:`RING_TOL` relative, the same ids apart from ties (an id
+    may differ only where its score ties the other's within the
+    tolerance).  Returns the number of tied ids that traded places."""
+    gv, gi = (x.cpu().numpy() for x in got)
+    wv, wi = (x.cpu().numpy() for x in want)
+    scale = np.maximum(np.abs(wv), 1e-30)
+    if gv.shape != wv.shape or (np.abs(gv - wv) > RING_TOL * scale).any():
+        raise AssertionError(f"phase ring {what}: scores differ from the "
+                             "single card's")
+    traded = 0
+    for r in range(len(gi)):
+        for c in np.flatnonzero(gi[r] != wi[r]):
+            if abs(gv[r, c] - wv[r, c]) > RING_TOL * scale[r, c] or not (
+                    np.abs(wv[r] - gv[r, c]) <= RING_TOL * scale[r]).sum() > 1:
+                raise AssertionError(f"phase ring {what}: query {r} has id "
+                                     f"{gi[r, c]} for {wi[r, c]}")
+            traded += 1
+    return traded
+
+
+def phase_ring(torch, store: StoreHome, row_model, cli_out: dict) -> dict:
+    """Phase ring: the ring top-k (``ops/distributed_topk.py``) on phase
+    train's ML-20M model (``row_model``: 138,493 x 26,744, rank 64), over
+    a mesh of :data:`RING_SHARDS` shards on ``cuda:0`` in this process,
+    with :data:`RING_QUERIES` users of :func:`query_mix` and k
+    :data:`RING_K`.  Checks: the exact ring, solo and in batches of
+    :data:`RING_BATCH`, gives the single-card ``topk_scores`` answers
+    (ids apart from ties, scores within :data:`RING_TOL` relative), and
+    on a table cut to a count the mesh pads, the padding rows never win;
+    the template with ``"distributedTopk": true`` (an engine.json of its
+    own, trained through the console with the ``"xla"`` solver: no
+    kernel) deployed in this process through ``EngineServer`` answers
+    ``/queries.json`` as in-process ``predict`` and carries the
+    ``distributedTopk`` block in its status; under
+    :data:`RING_DELAY_PLAN` inside a 0.4 s deadline the coded ring
+    answers the clean answer in under 2 s, books one
+    ``pio_shard_degraded_total{shard="1"}`` and a ``dist.parity_serve``
+    span; a killed shard (:data:`RING_KILL_PLAN`) stays killed with no
+    plan armed; the int8 ring at a covering ``candidateFactor`` gives
+    the exact ids, and at :data:`RING_FACTOR` a recall@10 at least the
+    single-card ``retrieval="int8"`` one, each shard's int8 shortlist
+    holding every item of the single-card shortlist that lies in it;
+    with a shard dropped the int8 index answers exactly (the coded exact
+    ring).  Logs the per-call ms, solo and batched, beside the single
+    card's.  No kernel lies on this path; the phase fails past
+    :data:`RING_PHASE_LIMIT_S`."""
+    from pathlib import Path
+
+    from predictionio_tpu_torch.cli.main import load_engine_from_variant
+    from predictionio_tpu_torch.controller import WorkflowContext
+    from predictionio_tpu_torch.obs import SHARD_DEGRADED_TOTAL, get_tracer
+    from predictionio_tpu_torch.ops import ann
+    from predictionio_tpu_torch.ops.distributed_topk import ShardedTopK
+    from predictionio_tpu_torch.ops.topk import batch_topk_scores, topk_scores
+    from predictionio_tpu_torch.parallel import make_mesh
+    from predictionio_tpu_torch.resilience import (
+        Deadline, deadline_scope, faults)
+    from predictionio_tpu_torch.retrieval import RetrievalConfig
+    from predictionio_tpu_torch.server import EngineServer, ServerConfig
+    from predictionio_tpu_torch.templates.recommendation import Query
+    from predictionio_tpu_torch.workflow import prepare_deploy_components
+
+    t_phase = time.perf_counter()
+    model = row_model
+    dev = model.device
+    mesh = make_mesh(devices=[dev] * RING_SHARDS)
+    V = model.item_factors
+    table = torch.as_tensor(V, device=dev)
+    queries = query_mix(RING_QUERIES, 29, N_USERS, N_ITEMS)
+    uix = model.users.encode(np.asarray([q["user"] for q in queries],
+                                        dtype=object))
+    Q = torch.as_tensor(model.user_factors[uix], device=dev)
+    t_build = time.perf_counter()
+    idx = ShardedTopK(V, mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+
+    # exact ring: solo and batched, against the single card
+    single = [topk_scores(Q[r], table, RING_K) for r in range(len(Q))]
+    want = tuple(torch.stack([s[j] for s in single]) for j in (0, 1))
+    solo = [idx(Q[r:r + 1], RING_K) for r in range(len(Q))]
+    got = tuple(torch.cat([s[j] for s in solo]) for j in (0, 1))
+    traded = {"solo": _ring_same(got, want, "solo")}
+    got = [idx(Q[b:b + RING_BATCH], RING_K)
+           for b in range(0, len(Q), RING_BATCH)]
+    got = tuple(torch.cat([g[j] for g in got]) for j in (0, 1))
+    traded["batched"] = _ring_same(got, want, "batched")
+    cut = N_ITEMS - RING_PAD_CUT
+    padded = ShardedTopK(V[:cut], mesh)
+    pv, pi = padded(Q, RING_K)
+    pad_ok = (padded.table[0].shape[0] * RING_SHARDS > cut
+              and int(pi.max()) < cut)
+    traded["padded"] = _ring_same(
+        (pv, pi), batch_topk_scores(Q, table[:cut], RING_K), "padded")
+    ms = interleaved_ms({
+        "ring_solo": (lambda: idx(Q[:1], RING_K), 20),
+        "ring_batched": (lambda: idx(Q[:RING_BATCH], RING_K), 10),
+        "single_solo": (lambda: topk_scores(Q[0], table, RING_K), 20),
+        "single_batched": (lambda: batch_topk_scores(
+            Q[:RING_BATCH], table, RING_K), 10),
+    }, turns=3)
+
+    # the coded ring under a delay past the deadline's hop budget
+    clean = idx(Q[:RING_BATCH], RING_K)
+    tracer = get_tracer()
+    n_spans = len(tracer.spans())
+    booked0 = SHARD_DEGRADED_TOTAL.labels(shard="1").value()
+    faults.arm(RING_DELAY_PLAN)
+    try:
+        t0 = time.perf_counter()
+        with deadline_scope(Deadline.after(0.4)):
+            degraded = idx(Q[:RING_BATCH], RING_K)
+        torch.cuda.synchronize()
+        degraded_s = time.perf_counter() - t0
+    finally:
+        faults.disarm()
+    booked = SHARD_DEGRADED_TOTAL.labels(shard="1").value() - booked0
+    spans = [s for s in tracer.spans()[n_spans:]
+             if s.name == "dist.parity_serve" and s.attrs.get("shard") == 1]
+    traded["delayed"] = _ring_same(degraded, clean, "delayed")
+
+    # a killed worker stays killed across requests
+    killed = ShardedTopK(V, mesh)
+    faults.arm(RING_KILL_PLAN)
+    try:
+        first = killed(Q[:RING_BATCH], RING_K)
+    finally:
+        faults.disarm()
+    again = killed(Q[:RING_BATCH], RING_K)
+    traded["killed"] = (_ring_same(first, clean, "killed")
+                        + _ring_same(again, clean, "killed again"))
+    kill_summary = killed.summary()
+    del killed
+
+    # the int8 ring: covering, then at RING_FACTOR against the single card
+    rows = idx.shard_rows
+    cover = ShardedTopK(V, mesh, retrieval="int8",
+                        candidate_factor=-(-rows // RING_K))
+    traded["int8_covering"] = _ring_same(cover(Q, RING_K), want,
+                                         "int8 covering")
+    del cover
+    idx8 = ShardedTopK(V, mesh, retrieval="int8",
+                       candidate_factor=RING_FACTOR)
+    ring8 = idx8(Q, RING_K)[1].cpu().numpy()
+    single8 = model.device_ann_index(RetrievalConfig(
+        mode="int8", candidate_factor=RING_FACTOR))
+    one8 = single8.search(Q, RING_K, table)[1].cpu().numpy()
+    exact_ix = want[1].cpu().numpy()
+    recall = {"ring": ann.recall_at_k(exact_ix, ring8),
+              "single": ann.recall_at_k(exact_ix, one8)}
+    # each shard's int8 top-c holds every item of the whole table's int8
+    # top-c (the same c, from the single card's int8 stage) that lies in
+    # that shard (boundary ties within RING_TOL excepted)
+    kc_ring = idx8._candidate_k(RING_K)
+    kc_one = single8.shortlist_width(RING_K)
+    glob = ann.int8_candidate_topk(Q, single8._state["q_table_t"],
+                                   single8._state["scale"], kc_ring)
+    glob = glob.cpu().numpy()
+    missing = 0
+    for s in range(RING_SHARDS):
+        sc = ((Q @ idx8.q_table[s].T.float()) * idx8.q_scale[s][None, :]
+              + idx8.row_bias[s][None, :])
+        top_v, top_i = torch.topk(sc, kc_ring, dim=1)
+        sc, top_v = sc.cpu().numpy(), top_v.cpu().numpy()
+        top_i = top_i.cpu().numpy() + s * rows
+        for r in range(len(Q)):
+            mine = glob[r][(glob[r] // rows) == s]
+            held = set(top_i[r].tolist())
+            for g in mine.tolist():
+                if g in held:
+                    continue
+                edge = top_v[r, -1]
+                if sc[r, g - s * rows] < edge - RING_TOL * abs(edge):
+                    missing += 1
+    faults.arm(RING_DROP_PLAN)
+    try:
+        dropped = idx8(Q[:RING_BATCH], RING_K)
+    finally:
+        faults.disarm()
+    traded["int8_degraded"] = _ring_same(
+        dropped, tuple(w[:RING_BATCH] for w in want), "int8 degraded")
+    int8_summary = idx8.summary()
+    del idx8, single8
+
+    # the template through the HTTP edge, from an engine.json of its own
+    st = store.storage
+    eng = Path(store.home) / "engine-ring"
+    cli(["template", "get", "recommendation", str(eng)], st)
+    ej = eng / "engine.json"
+    variant = json.loads(Path(cli_out["engine_json"]).read_text())
+    variant["algorithms"] = [{"name": "als", "params": {
+        "rank": RANK, "numIterations": 1, "lambda": 0.01, "solver": "xla",
+        "distributedTopk": True}}]
+    ej.write_text(json.dumps(variant, indent=2))
+    cli(["build", "--engine-json", str(ej)], st)
+    t0 = time.perf_counter()
+    iid = cli(["train", "--scan-cache", "--engine-json", str(ej)],
+              st).split()[-1]
+    train_s = time.perf_counter() - t0
+    engine, ep, _ = load_engine_from_variant(ej)
+    ctx = WorkflowContext(mode="Serving", storage=st, mesh=mesh)
+    algos, models, _ = prepare_deploy_components(engine, ep, iid, ctx=ctx)
+    http_q = queries[:64]
+    want_json = [algos[0].predict(models[0], Query.from_json(q)).to_json()
+                 for q in http_q]
+    srv = EngineServer(engine, ep, iid, ctx=ctx, config=ServerConfig(
+        host="127.0.0.1", port=0))
+    srv.start_background()
+    try:
+        load = http_load(srv.port, http_q[:16], http_q[16:], 16)
+        status = _http(srv.port, "/")
+    finally:
+        srv.stop()
+    http_trades = sum(_same_reply(g, w, f"ring deploy query {q}")
+                      for q, g, w in zip(http_q, load["replies"], want_json))
+    block = status.get("distributedTopk") or {}
+    del algos, models
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t_phase
+    checks = {
+        # (_ring_same raised on any answer off the single card's)
+        "exact_ring_answered_every_query": tuple(got[0].shape) == (
+            RING_QUERIES, RING_K),
+        "padding_rows_never_win": pad_ok,
+        "delayed_shard_served_from_parity": degraded_s < 2.0,
+        "delayed_shard_booked_once": booked == 1,
+        "parity_serve_span": bool(spans),
+        "killed_shard_sticky": (kill_summary["killed"] == [2]
+                                and kill_summary["degradedPolls"] == 2),
+        "int8_recall_at_least_single_card": recall["ring"]
+        >= recall["single"],
+        "int8_shard_shortlists_hold_the_single_cards": missing == 0,
+        "http_replies_equal_predict": len(load["replies"]) == len(http_q),
+        "status_carries_distributed_topk": (
+            block.get("shards") == RING_SHARDS
+            and block.get("items") == N_ITEMS),
+        "phase_within_its_limit": phase_s <= RING_PHASE_LIMIT_S,
+    }
+    obs_report("ring", checks, {
+        "shards": RING_SHARDS, "queries": RING_QUERIES, "k": RING_K,
+        "build_s": round(build_s, 3), "ms": ms, "traded": traded,
+        "delayed_s": round(degraded_s, 3), "recall_at_10": recall,
+        "candidate_k": {"ring_per_shard": kc_ring, "single": kc_one},
+        "shortlist_misses": missing,
+        "int8_summary": int8_summary, "train_s": round(train_s, 1),
+        "http": {"iid": iid, "solo_ms": pcts(load["solo_ms"]),
+                 "conc_ms": pcts(load["conc_ms"]), "trades": http_trades,
+                 "status": block},
+        "phase_s": round(phase_s, 1)})
+    return {"s": phase_s}
 
 
 def http_load(port: int, solo_q: list, conc_q: list, clients: int) -> dict:
@@ -7013,9 +7296,7 @@ def phase_hive(torch, store: StoreHome, cli_out: dict,
     stage("console")
     phase_s = time.perf_counter() - t_phase
     checks["phase_within_its_limit"] = phase_s <= HIVE_PHASE_LIMIT_S
-    detail.update(stages=stages, phase_s=phase_s,
-                  dropped="dashboard_renders_experiments (the dashboard is "
-                  "ROADMAP Queue 1 item 9)")
+    detail.update(stages=stages, phase_s=phase_s)
     obs_report("hive", checks, detail)
     trains = {k: round(x, 2) for k, x in train_s.items()}
     log(f"phase hive ML-20M + ML-100K: beta import {import_s:.2f} s "
@@ -7024,7 +7305,238 @@ def phase_hive(torch, store: StoreHome, cli_out: dict,
         f"{m0:,} -> {m1:,} B (freed {m0 - m1:,} B of its {dev_bytes:,} B "
         f"on the card, {accounted:,} B accounted); autopilot trail "
         f"{trail}; launches {launches}; phase {phase_s:.1f} s")
-    return {"launches": launches, "phase_s": phase_s}
+    return {"launches": launches, "phase_s": phase_s,
+            "manifest": str(manifest), "tenants": [A, T, C, B]}
+
+
+ADMIN_PHASE_LIMIT_S = 30.0
+ADMIN_PAGES = ("/", "/metrics.html", "/xray.html", "/pulse.html",
+               "/train.html", "/tenants.html", "/fleet.html")
+
+
+@contextlib.contextmanager
+def serving_instances(cls, sink: list):
+    """While the block runs, every ``cls`` server that starts serving is
+    appended to ``sink`` (a console command's server, to stop it)."""
+    own = cls.__dict__.get("serve_forever")
+    orig = cls.serve_forever
+
+    def kept(self):
+        sink.append(self)
+        return orig(self)
+
+    cls.serve_forever = kept
+    try:
+        yield sink
+    finally:
+        if own is None:
+            del cls.serve_forever
+        else:
+            cls.serve_forever = own
+
+
+def _console_server(cls, argv: list, storage, sink: list):
+    """``cli(argv)`` (a server command) on a daemon thread; returns the
+    thread once the server is up and answers its port."""
+    thread = threading.Thread(target=cli, args=(argv, storage), daemon=True)
+    n = len(sink)
+    thread.start()
+    port = int(argv[argv.index("--port") + 1])
+    deadline = time.monotonic() + 30
+    while True:
+        try:
+            if len(sink) > n and _raw(port, "/metrics")[0] in (200, 404):
+                return thread
+        except OSError:
+            pass
+        if not thread.is_alive() or time.monotonic() > deadline:
+            raise AssertionError(f"{argv} did not start serving")
+        time.sleep(0.05)
+
+
+def phase_admin(torch, store: StoreHome, hive_out: dict) -> dict:
+    """Phase admin: the admin API and the dashboard, each served through
+    the console (``adminserver`` / ``dashboard``) on a thread of this
+    process.  A ``deploy --multi`` process (phase hive's tenants.json,
+    the autopilot on) boots meanwhile.  The admin server runs over a
+    scratch ``jsonfs`` metadata store: an app created (201, with its
+    access key), listed, a second key added through ``accesskey new``
+    and listed, a duplicate and a nameless app refused (400), its data
+    and the app deleted (200), a second delete answered 404.  The
+    dashboard runs over the ML-20M store while the deploy serves
+    queries: every page answers 200; ``events.html`` lists the ML-20M
+    app's newest events; ``tenants.html`` shows phase hive's four
+    tenants; ``experiments.html?server=`` shows the live deploy's
+    autopilot rows; ``prof.html?target=`` renders the deploy's folded
+    stacks; the deploy's ``/debug/profile`` capture names a CUDA kernel,
+    and the deploy exits 0 at its ``undeploy``; an unknown path answers
+    404.  No kernel lies on this path; the phase fails past
+    :data:`ADMIN_PHASE_LIMIT_S`."""
+    from pathlib import Path
+
+    from predictionio_tpu_torch.server import AdminServer, DashboardServer
+    from predictionio_tpu_torch.storage import Storage
+
+    t_phase = time.perf_counter()
+    stages = {}
+
+    def stage(name: str, t0: float) -> float:
+        now = time.perf_counter()
+        stages[name] = round(now - t0, 2)
+        return now
+
+    home = Path(store.home)
+    st = store.storage
+    checks, servers = {}, []
+    proc = Console(store.home, [
+        "deploy", "--multi", hive_out["manifest"], "--autopilot", "on",
+        "--ip", "127.0.0.1", "--port", "0"], "admin-deploy")
+    try:
+        # the admin API over a jsonfs metadata store, while it boots
+        t0 = time.perf_counter()
+        tree = home / "admin-jsonfs"
+        ast = Storage({
+            "PIO_TPU_HOME": str(home / "admin-home"),
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "FS",
+            "PIO_STORAGE_SOURCES_FS_TYPE": "jsonfs",
+            "PIO_STORAGE_SOURCES_FS_PATH": str(tree),
+        })
+        aport = _free_port()
+        codes = []
+
+        def call(method, path, body=None):
+            import urllib.request
+
+            data = None if body is None else json.dumps(body).encode()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{aport}{path}", data=data, method=method,
+                headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    code, raw = r.status, r.read()
+            except urllib.error.HTTPError as e:
+                code, raw = e.code, e.read()
+            codes.append(code)
+            return json.loads(raw)
+
+        try:
+            with serving_instances(AdminServer, servers):
+                _console_server(AdminServer,
+                                ["adminserver", "--port", str(aport)],
+                                ast, servers)
+            created = call("POST", "/cmd/app", {"name": "adminapp"})
+            listed = call("GET", "/cmd/app")
+            cli(["accesskey", "new", "adminapp"], ast)
+            keys = call("GET", "/cmd/app")[0]["accessKeys"]
+            call("POST", "/cmd/app", {"name": "adminapp"})
+            call("POST", "/cmd/app", {})
+            call("DELETE", "/cmd/app/adminapp/data")
+            call("DELETE", "/cmd/app/adminapp")
+            call("DELETE", "/cmd/app/adminapp")
+            left = call("GET", "/cmd/app")
+            docs = sorted(p.relative_to(tree).as_posix()
+                          for p in tree.rglob("*.json"))
+        finally:
+            for s in servers:
+                s.stop()
+            servers.clear()
+            ast.close()
+        checks["admin_status_codes"] = codes == [201, 200, 200, 400, 400,
+                                                 200, 200, 404, 200]
+        checks["admin_app_and_keys_listed"] = (
+            [a["name"] for a in listed] == ["adminapp"]
+            and listed[0]["accessKeys"] == [created["accessKey"]]
+            and len(keys) == 2 and created["accessKey"] in keys
+            and left == [])
+        checks["admin_rides_jsonfs"] = (
+            (tree / "_seq" / "apps").read_text() == "1")
+        t0 = stage("admin", t0)
+
+        # the dashboard over the ML-20M store, beside the live deploy
+        app_id = st.get_metadata().app_get_by_name("ml20m").id
+        port = proc.wait_port()
+        t0 = stage("deploy boot (beyond admin)", t0)
+        dport = _free_port()
+        stop = threading.Event()
+
+        def pepper():
+            k = 0
+            while not stop.is_set():
+                _raw(port, "/queries.json", {
+                    "app": "ml20m", "user": user_id(k % 1000), "num": 10})
+                k += 1
+
+        load = threading.Thread(target=pepper, daemon=True)
+        load.start()
+        try:
+            with serving_instances(DashboardServer, servers):
+                _console_server(DashboardServer,
+                                ["dashboard", "--port", str(dport)], st,
+                                servers)
+            # the autopilot's first tick fills its apps (every 0.5 s)
+            _wait_for(lambda: json.loads(_raw(port, "/debug/experiments")[1])
+                      .get("apps"), 10, "the deploy's autopilot apps")
+            pages = {p: _raw(dport, p) for p in ADMIN_PAGES}
+            events = _raw(dport, f"/events.html?app={app_id}&n=50")
+            exp = _raw(dport, "/experiments.html?server=" + urllib.parse.quote(
+                f"http://127.0.0.1:{port}"))
+            prof = _raw(dport, "/prof.html?seconds=30&target="
+                        + urllib.parse.quote(f"http://127.0.0.1:{port}"))
+            missing = _raw(dport, "/no/such/page")
+            t0 = stage("pages", t0)
+            capture_code, capture, _ = _raw(port, "/debug/profile?seconds=1")
+            t0 = stage("capture", t0)
+        finally:
+            stop.set()
+            load.join(timeout=60)
+            for s in servers:
+                s.stop()
+        if "Undeployed" not in cli(["undeploy", "--port", str(port)], st):
+            proc.fail("was not undeployed")
+        try:
+            rc = proc.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.fail("did not stop after undeploy")
+        stage("undeploy", t0)
+        boot_s = proc.boot_s
+    finally:
+        proc.stop()
+    text = {p: b.decode(errors="replace") for p, (c, b, _) in pages.items()}
+    ev_html = events[1].decode(errors="replace")
+    exp_html = exp[1].decode(errors="replace")
+    kernels = (json.loads(capture).get("cudaKernels", [])
+               if capture_code == 200 else [])
+    tenants = [f"{a}/{v}" for a, v in hive_out["tenants"]]
+    checks["dashboard_pages_answer_200"] = all(
+        c == 200 for c, _, _ in pages.values()) and all(
+        x[0] == 200 for x in (events, exp, prof))
+    # the app's newest 50 events (the first shard's: later phases' fold-in
+    # ratings and feedback events)
+    ev_rows = re.findall(r"<tr><td>[^<]*</td><td>([^<]*)</td><td>([^/<]*)/",
+                         ev_html)
+    checks["dashboard_events_of_the_ml20m_app"] = (
+        len(ev_rows) == 50 and f"app {app_id}" in ev_html)
+    checks["dashboard_tenants_rows"] = all(t in text["/tenants.html"]
+                                           for t in tenants)
+    checks["dashboard_experiments_of_the_live_deploy"] = (
+        "source: http://127.0.0.1:" in exp_html
+        and all(f"<td>{a}</td>" in exp_html
+                for a in {a for a, _ in hive_out["tenants"]}))
+    checks["dashboard_prof_renders_the_deploy"] = (
+        f"127.0.0.1:{port}" in prof[1].decode(errors="replace"))
+    checks["deploy_capture_names_a_cuda_kernel"] = bool(kernels)
+    checks["deploy_undeploy_exits_0"] = rc == 0
+    checks["dashboard_unknown_path_404"] = missing[0] == 404
+    phase_s = time.perf_counter() - t_phase
+    checks["phase_within_its_limit"] = phase_s <= ADMIN_PHASE_LIMIT_S
+    obs_report("admin", checks, {
+        "admin": {"codes": codes, "documents_left": docs},
+        "deploy_boot_s": round(boot_s, 1), "app_id": app_id,
+        "events_page": sorted({f"{e} {t}" for e, t in ev_rows}),
+        "kernels": len(kernels), "stages": stages,
+        "page_bytes": {p: len(t) for p, t in text.items()},
+        "phase_s": round(phase_s, 1)})
+    return {"s": phase_s}
 
 
 def edge_ab(torch, turns: int = 5) -> None:
@@ -7530,6 +8042,12 @@ def main(argv: list[str]) -> int:
         cli_out = timed("cli", phase_cli, torch, store)
         paths["cli"] = cli_out["launches"]
         torch.cuda.empty_cache()
+        # the ring top-k on a mesh of shards on this card, on phase
+        # train's model (no kernel on its path)
+        _build.reset_launches()
+        timed("ring", phase_ring, torch, store, row_model, cli_out)
+        paths["ring"] = dict(_build.LAUNCHES)
+        torch.cuda.empty_cache()
         # the replica router on the instance the console trained; its
         # replicas are processes of their own (no kernel in this one)
         _build.reset_launches()
@@ -7566,8 +8084,14 @@ def main(argv: list[str]) -> int:
         torch.cuda.empty_cache()
         # tenancy and experiments on the same store, after fold-in: both
         # write to it (it sets the counts to 0 itself, before its trains)
-        paths["hive"] = timed("hive", phase_hive, torch, store, cli_out,
-                              foldin_out)["launches"]
+        hive_out = timed("hive", phase_hive, torch, store, cli_out,
+                         foldin_out)
+        paths["hive"] = hive_out["launches"]
+        # the admin API and the dashboard, beside a deploy --multi of
+        # phase hive's tenants (no kernel on its path)
+        _build.reset_launches()
+        timed("admin", phase_admin, torch, store, hive_out)
+        paths["admin"] = dict(_build.LAUNCHES)
     finally:
         store.close()
         for k, val in saved_env.items():
@@ -7615,6 +8139,10 @@ def main(argv: list[str]) -> int:
         for name in names:
             if paths[path][name] <= 0:
                 raise AssertionError(f"path {path} never launched {name}")
+    for path in ("ring", "admin"):
+        if any(paths[path].values()):
+            raise AssertionError(f"path {path} launched a kernel: "
+                                 f"{paths[path]}")
     for path in ("ml20m", "cli", "eval", "hive", "engines", "dist"):
         if paths[path]["fused_als"] + paths[path]["fused_als_dma"] <= 0:
             raise AssertionError(f"path {path} never launched the fused "

@@ -1,7 +1,6 @@
 """`python -m predictionio_tpu_torch` -> the port's console, on the card."""
 
-import sys
-
 from .cli.main import main
+from .obs.timeline import exit_process
 
-sys.exit(main())
+exit_process(main())

@@ -9,7 +9,8 @@ messages and exit codes.  Subcommands:
   accesskey new|list|delete
   engines list|describe
   template list|get
-  train | deploy | foldin | eval | undeploy | eventserver
+  train | deploy | foldin | eval | undeploy | eventserver | adminserver
+  dashboard
   build | unregister | run | import | export | status | upgrade | version
 
 ``eventserver --workers N`` runs the ingest router in front of N
@@ -22,10 +23,11 @@ deployed model as a delta link (``--watch`` keeps polling), which
 TENANTS_JSON`` hosts every tenant of a manifest in one server (tenant 0
 the anchor; ``--memory-budget BYTES`` overrides its budget,
 ``--autopilot on|JSON`` runs the SPRT autopilot; with ``--replicas N``
-every replica hosts them all).  ``adminserver`` and ``dashboard``, and
-the options of multi-process training, are refused before any work with
-``Error: ... is not ported to predictionio_tpu_torch yet (ROADMAP Queue 1
-item N)`` and exit code 1 (:data:`_REFUSED`).  ``train --coordinator
+every replica hosts them all).  ``adminserver`` runs the admin REST API
+and ``dashboard`` the evaluation dashboard, each until the process
+ends.  Nothing of the reference's console is refused any more
+(:data:`_REFUSED` is empty); ``eventserver --no-wal-fsync`` is the one
+option the port declines.  ``train --coordinator
 HOST:PORT --num-processes N --process-id K`` joins a multi-process train
 (``parallel.mesh.distributed_init``) before the train and leaves it
 after.  The
@@ -211,11 +213,9 @@ def _is_set(v) -> bool:
 
 
 # (command, argument, refused when, what, ROADMAP Queue 1 item); an
-# argument of None refuses the command itself
-_REFUSED = (
-    ("adminserver", None, None, "adminserver", 9),
-    ("dashboard", None, None, "dashboard", 9),
-)
+# argument of None refuses the command itself.  Empty: every command
+# and option of the reference's console is ported
+_REFUSED: tuple = ()
 
 
 def _refusal(args) -> Optional[str]:
@@ -942,6 +942,24 @@ def cmd_eventserver(args, storage: Storage) -> int:
     return 0
 
 
+def cmd_adminserver(args, storage: Storage) -> int:
+    from ..server.admin import AdminServer
+
+    server = AdminServer(storage, host=args.ip, port=args.port)
+    _out(f"Admin server running on {args.ip}:{args.port}")
+    server.serve_forever()
+    return 0
+
+
+def cmd_dashboard(args, storage: Storage) -> int:
+    from ..server.dashboard import DashboardServer
+
+    server = DashboardServer(storage, host=args.ip, port=args.port)
+    _out(f"Dashboard running on {args.ip}:{args.port}")
+    server.serve_forever()
+    return 0
+
+
 def _eventserver_fleet(args, storage: Storage) -> int:
     """``eventserver --workers N``: spawn N shard-owner worker processes
     (each owning ``shard % N == index`` of the sharded store, each with
@@ -1588,14 +1606,12 @@ def build_parser() -> argparse.ArgumentParser:
                     "write histogram (with --workers, each shard owner "
                     "arms its own)")
 
-    ad = sub.add_parser("adminserver", help="run the admin API server "
-                        "(not ported: refused)")
+    ad = sub.add_parser("adminserver", help="run the admin API server")
     _add_obs_args(ad)
     ad.add_argument("--ip", default="127.0.0.1")
     ad.add_argument("--port", type=int, default=7071)
 
-    db = sub.add_parser("dashboard", help="run the evaluation dashboard "
-                        "(not ported: refused)")
+    db = sub.add_parser("dashboard", help="run the evaluation dashboard")
     _add_obs_args(db)
     db.add_argument("--ip", default="127.0.0.1")
     db.add_argument("--port", type=int, default=9000)
@@ -1667,6 +1683,8 @@ _DISPATCH = {
     "accesskey": cmd_accesskey,
     "engines": cmd_engines,
     "eventserver": cmd_eventserver,
+    "adminserver": cmd_adminserver,
+    "dashboard": cmd_dashboard,
     "import": cmd_import,
     "export": cmd_export,
     "template": cmd_template,

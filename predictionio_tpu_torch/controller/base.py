@@ -75,7 +75,7 @@ class WorkflowContext:
 
     def __init__(self, device: DeviceLike = "cuda", storage=None,
                  mode: str = "Training", batch: str = "",
-                 verbose: bool = False):
+                 verbose: bool = False, mesh=None):
         self.device = resolve_device(device)
         if storage is None:
             from ..storage.registry import get_storage
@@ -85,15 +85,15 @@ class WorkflowContext:
         self.mode = mode
         self.batch = batch
         self.verbose = verbose
-        self._mesh = None
+        self._mesh = mesh
 
     @property
     def mesh(self):
-        """The run's mesh of shards (``parallel/mesh.py``), built on
-        first use: every visible card of this process on ``cuda``, one
-        host shard on the CPU; in a multi-process run it spans every
-        process (so each process must reach it, as the reference's
-        collectives)."""
+        """The run's mesh of shards (``parallel/mesh.py``): the one
+        handed in (``mesh=``), else built on first use: every visible
+        card of this process on ``cuda``, one host shard on the CPU; in
+        a multi-process run it spans every process (so each process
+        must reach it, as the reference's collectives)."""
         if self._mesh is None:
             from ..parallel.mesh import make_mesh
 

@@ -1,6 +1,9 @@
 """FastEvalEngine: prefix-memoized evaluation across a params sweep.
 
-Copy of ``predictionio_tpu/controller/fast_eval.py`` for the port.
+Copy of ``predictionio_tpu/controller/fast_eval.py`` for the port, with
+one addition: a held-out set carried as columns (the recommendation
+template's ``read_eval``) is served as columns (:meth:`FastEvalEngine.
+_batch_serve`), the same triples without one Python object per rating.
 
 Re-expression of reference `controller/FastEvalEngine.scala:45-330`: during
 ``batch_eval`` over many EngineParams candidates, pipeline stages whose
@@ -17,7 +20,7 @@ import logging
 import time
 from typing import Any
 
-from .base import WorkflowContext
+from .base import FirstServing, WorkflowContext
 from .engine import Engine, EngineParams
 
 logger = logging.getLogger(__name__)
@@ -142,6 +145,21 @@ class FastEvalEngine(Engine):
             logger.info("eval set %d: %d queries served in %.3f s", s,
                         len(qa), time.perf_counter() - t0)
         return results
+
+    @staticmethod
+    def _batch_serve(algorithms, models, serving, qa):
+        """A held-out set carried as columns (the recommendation
+        template's ``read_eval``, ``served``/``queries``) with one
+        algorithm and first-prediction serving is served as columns: the
+        queries, the predictions and the ``(query, prediction, actual)``
+        triples stay columns, the same elements in the same order as the
+        generic path's list.  Anything else takes the generic path."""
+        served = getattr(qa, "served", None)
+        if (served is not None and len(algorithms) == 1
+                and type(serving).serve is FirstServing.serve):
+            return served(algorithms[0].batch_predict(models[0],
+                                                      qa.queries()))
+        return Engine._batch_serve(algorithms, models, serving, qa)
 
     def clear_cache(self) -> None:
         self._ds_cache.clear()

@@ -52,6 +52,7 @@ Pure stdlib at import; torch loads inside an active capture only.
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import time
 from pathlib import Path
@@ -67,7 +68,9 @@ __all__ = [
     "annotate",
     "capture_profile",
     "current_timeline",
+    "exit_process",
     "mark",
+    "on_profiler_thread",
     "profiles_dir",
     "profiling_active",
     "register_segment_family",
@@ -287,6 +290,107 @@ def mark(segment: str) -> None:
 # -- on-demand torch.profiler capture --------------------------------------
 
 
+class _ProfilerThread:
+    """The one thread of the process on which every ``torch.profiler``
+    session starts and stops: each ``/debug/profile`` capture, whichever
+    request thread asked for it, and each ``utils.profiling``
+    ``profile_trace`` block, whichever thread runs the block.
+
+    Started on first use; it lives until interpreter exit, where an
+    ``atexit`` hook stops and joins it, so no profiler work is left on a
+    thread of its own when the interpreter and torch's native state are
+    torn down.  A call made on this thread runs inline."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._jobs = None
+        self._thread: Optional[threading.Thread] = None
+        # a session has run in this process (see exit_process)
+        self.used = False
+
+    def call(self, fn):
+        """``fn()`` on the profiler thread: its result, or its exception
+        raised here."""
+        with self._lock:
+            self.used = True
+            if self._thread is threading.current_thread():
+                return fn()
+            if self._thread is None:
+                import atexit
+                import queue
+
+                self._jobs = queue.SimpleQueue()
+                self._thread = threading.Thread(
+                    target=self._loop, args=(self._jobs,),
+                    name="pio-profiler", daemon=True)
+                self._thread.start()
+                atexit.register(self.stop)
+            jobs = self._jobs
+        box: dict = {}
+        done = threading.Event()
+        jobs.put((fn, box, done))
+        done.wait()
+        if "error" in box:
+            raise box["error"]
+        return box.get("value")
+
+    @staticmethod
+    def _loop(jobs) -> None:
+        while True:
+            job = jobs.get()
+            if job is None:
+                return
+            fn, box, done = job
+            try:
+                box["value"] = fn()
+            except BaseException as e:  # noqa: BLE001 — raised by call()
+                box["error"] = e
+            finally:
+                done.set()
+
+    def stop(self) -> None:
+        """Stop and join the thread (a later call starts a new one)."""
+        with self._lock:
+            thread, jobs = self._thread, self._jobs
+            self._thread = self._jobs = None
+        if thread is not None:
+            jobs.put(None)
+            thread.join()
+
+
+_profiler_thread = _ProfilerThread()
+
+
+def on_profiler_thread(fn):
+    """Run ``fn()`` on the process's profiler thread (see
+    :class:`_ProfilerThread`) and return its result."""
+    return _profiler_thread.call(fn)
+
+
+def exit_process(code: int) -> None:
+    """End the process with exit code ``code`` (the console's way out).
+
+    A process in which a ``torch.profiler`` session ran ends through
+    ``os._exit`` once the profiler thread is joined and logging and the
+    standard streams are flushed: on the H100 the interpreter's own
+    teardown of torch's native profiler state aborts such a process
+    (``terminate called without an active exception``, exit code -6)
+    when another thread is still in device work at exit (PERF.md §6).
+    Every other process ends through ``sys.exit``."""
+    if not _profiler_thread.used:
+        sys.exit(code)
+    import logging
+
+    _profiler_thread.stop()
+    logging.shutdown()
+    for stream in (sys.stdout, sys.stderr):
+        try:
+            stream.flush()
+        except (OSError, ValueError):
+            pass
+    os._exit(code)
+
+
 class ProfileBusy(RuntimeError):
     """A capture is already in flight (one per process — concurrent
     profiler sessions are not supported)."""
@@ -333,16 +437,17 @@ def capture_profile(seconds: float,
                     out_dir: Optional[os.PathLike | str] = None) -> dict:
     """Blocking on-demand profiler capture (``GET /debug/profile``).
 
-    Records a ``torch.profiler`` trace with CPU and CUDA activities for
-    ``seconds`` (clamped to [0.05, 60] — a scrape typo must not wedge a
-    handler thread for an hour) into ``trace.json`` (Chrome trace
+    Records, on the process's profiler thread (:func:`on_profiler_thread`;
+    the caller waits), a ``torch.profiler`` trace with CPU and CUDA
+    activities for ``seconds`` (clamped to [0.05, 60] — a scrape typo
+    must not wedge a handler thread for an hour) into ``trace.json``
+    (Chrome trace
     format) in a fresh timestamped directory under
     ``telemetry/profiles/``, with :class:`annotate` scopes live.
     Raises :class:`ProfileBusy` when a capture is already running, and
     ``RuntimeError`` when the process has no CUDA device or the trace
     holds no CUDA kernel: a capture that could not see the card must be
     loud, never a CPU-only artifact (the HTTP mount answers 500)."""
-    global _profiling
     seconds = min(max(float(seconds), 0.05), 60.0)
     if not _capture_lock.acquire(blocking=False):
         raise ProfileBusy("a profile capture is already running")
@@ -359,18 +464,26 @@ def capture_profile(seconds: float,
         stamp = time.strftime("%Y%m%d-%H%M%S", time.gmtime())
         target = base / f"{stamp}-pid{os.getpid()}"
         target.mkdir(parents=True, exist_ok=True)
-        prof = profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        )
-        prof.start()
-        _profiling = True
-        try:
-            time.sleep(seconds)
-        finally:
-            _profiling = False
-            prof.stop()
         trace = target / "trace.json"
-        prof.export_chrome_trace(str(trace))
+
+        def capture() -> None:
+            global _profiling
+            prof = profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+            )
+            prof.start()
+            _profiling = True
+            try:
+                time.sleep(seconds)
+            finally:
+                _profiling = False
+                # the kernels launched in the window end before the
+                # session does
+                torch.cuda.synchronize()
+                prof.stop()
+            prof.export_chrome_trace(str(trace))
+
+        on_profiler_thread(capture)
         with open(trace, encoding="utf-8") as f:
             events = json.load(f).get("traceEvents", [])
         kernels = sorted({

@@ -350,6 +350,7 @@ class TowerSession:
         self._first_sweep_start: Optional[float] = None
         self._last_sweep_end: Optional[float] = None
         self._train_run_seconds: Optional[float] = None
+        self._train_run_start: Optional[float] = None
         self._train_run_end: Optional[float] = None
         self._finalized = False
         self._compile_base = _compile_total()
@@ -467,10 +468,14 @@ class TowerSession:
         marks this decomposes the whole span in the final record:
         setup (span start -> first sweep) + sweeps + tail (last sweep
         -> span end) — the cross-layer reconciliation
-        ``tools/train_obs_smoke.py`` asserts to 2%."""
+        ``tools/train_obs_smoke.py`` asserts to 2%.  Setup starts at the
+        span's start, not the session's: the engine instance's insert
+        and update before the span (metadata commits, which can stall on
+        a busy disk) are no part of it."""
         with self._lock:
             self._train_run_seconds = float(seconds)
             self._train_run_end = time.perf_counter()
+            self._train_run_start = self._train_run_end - float(seconds)
 
     # -- terminal ----------------------------------------------------------
     def _abort(self, e: ConvergenceError) -> None:
@@ -502,8 +507,10 @@ class TowerSession:
                     "trainRunSeconds", round(self._train_run_seconds, 6)
                 )
             if self._first_sweep_start is not None:
+                start = self._train_run_start
                 fields.setdefault("setupSeconds", round(
-                    self._first_sweep_start - self._t0, 6))
+                    self._first_sweep_start
+                    - (self._t0 if start is None else start), 6))
                 end = self._train_run_end
                 if end is not None and self._last_sweep_end is not None:
                     fields.setdefault("tailSeconds", round(

@@ -2,11 +2,13 @@
 webhooks, the engine server on its two edges (the event loop and
 threads), its micro-batchers, the serving replica router and the
 multi-process ingest router with their fleet helpers, and the shared
-HTTP plumbing (ports of ``predictionio_tpu/server``'s ``event_server``,
-``stats``, ``webhooks``, ``serving``, ``eventloop``, ``microbatch``,
-``ingest_router``, ``router`` and ``http_base``; the admin and
-dashboard servers are not ported yet)."""
+HTTP plumbing, the admin API and the evaluation dashboard (ports of
+``predictionio_tpu/server``'s ``event_server``, ``stats``, ``webhooks``,
+``serving``, ``eventloop``, ``microbatch``, ``ingest_router``,
+``router``, ``http_base``, ``admin`` and ``dashboard``)."""
 
+from .admin import AdminServer
+from .dashboard import DashboardServer
 from .event_server import EventServer, EventServerConfig
 from .eventloop import EventLoopHTTPServer
 from .ingest_router import (
@@ -37,7 +39,9 @@ from .serving import EngineServer, ServerConfig
 from .stats import StatsCollector
 
 __all__ = [
+    "AdminServer",
     "AdmissionRejected",
+    "DashboardServer",
     "EngineServer",
     "EventLoopHTTPServer",
     "EventServer",

@@ -1204,6 +1204,7 @@ class EngineServer(HTTPServerBase):
             last_serving_sec = self.last_serving_sec
             batcher = self.batcher
             last_reload_error = self.last_reload_error
+            models = list(getattr(self, "models", None) or ())
         lat = self.latency_stats()
         out = {
             "status": "alive",
@@ -1234,6 +1235,12 @@ class EngineServer(HTTPServerBase):
         # detail is on /debug/tenants)
         if self.tenants is not None:
             out["tenancy"] = self.tenants.summary()
+        # a model served through the ring top-k (distributedTopk): its
+        # shards, killed shards, degraded polls and parity owner
+        rings = [m._sharded_topk for m in models
+                 if getattr(m, "_sharded_topk", None) is not None]
+        if rings:
+            out["distributedTopk"] = rings[0].summary()
         # the worst-N flight records (span trees on /debug/xray) and the
         # histogram's bucket exemplars: /status alone links a slow bucket
         # to a trace id

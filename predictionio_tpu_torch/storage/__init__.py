@@ -12,7 +12,7 @@ group-commit ingest WAL (``wal``) and the engine-facing facades
 """
 
 from .aggregate import aggregate_properties, aggregate_properties_single
-from .bimap import BiMap, StringIndex
+from .bimap import BiMap, EntityIdIxMap, EntityMap, StringIndex
 from .columnar import EventFrame, Ratings, dedup_coo, events_to_frame
 from .event import (
     DataMap,
@@ -30,6 +30,7 @@ from .levents import (
     MemoryEventStore,
     ShardUnavailableError,
 )
+from .file_metadata import FileMetadataStore
 from .metadata import (
     AccessKey,
     App,
@@ -49,6 +50,8 @@ __all__ = [
     "aggregate_properties",
     "aggregate_properties_single",
     "BiMap",
+    "EntityIdIxMap",
+    "EntityMap",
     "StringIndex",
     "EventFrame",
     "Ratings",
@@ -77,6 +80,7 @@ __all__ = [
     "EngineInstance",
     "EngineManifest",
     "EvaluationInstance",
+    "FileMetadataStore",
     "MetadataStore",
     "Model",
     "Storage",

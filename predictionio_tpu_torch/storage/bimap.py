@@ -1,8 +1,9 @@
 """Bidirectional id maps: string entity ids <-> contiguous device-friendly
 integer indices.
 
-Copy of ``predictionio_tpu/storage/bimap.py`` (``BiMap`` and
-``StringIndex``; the port imports nothing of the JAX package).
+Copy of ``predictionio_tpu/storage/bimap.py`` (``BiMap``,
+``StringIndex``, ``EntityIdIxMap`` and ``EntityMap``; the port imports
+nothing of the JAX package).
 Re-expression of reference `BiMap.scala:25-164` (``BiMap.stringInt`` /
 ``stringLong``) built for the device path: the forward map is a Python dict for
 O(1) host lookups at serving time, the inverse is a NumPy object array so
@@ -21,7 +22,7 @@ import numpy as np
 K = TypeVar("K")
 V = TypeVar("V")
 
-__all__ = ["BiMap", "StringIndex"]
+__all__ = ["BiMap", "EntityIdIxMap", "EntityMap", "StringIndex"]
 
 
 class BiMap(Generic[K, V]):
@@ -219,3 +220,77 @@ class StringIndex:
             # the pandas lookup index is rebuilt lazily on next bulk use
             self._pd_index = None
         return out
+
+
+class EntityIdIxMap:
+    """Entity id <-> contiguous index map (reference `EntityMap.scala:27-60`,
+    ``EntityIdIxMap``).  Thin, order-preserving wrapper over
+    :class:`StringIndex` keeping the reference's method names."""
+
+    def __init__(self, id_to_ix: BiMap[str, int] | StringIndex):
+        if isinstance(id_to_ix, BiMap):
+            if sorted(id_to_ix.values()) != list(range(len(id_to_ix))):
+                raise ValueError(
+                    "EntityIdIxMap needs contiguous indices 0..n-1"
+                )
+            ordered = [None] * len(id_to_ix)
+            for k, v in id_to_ix.items():
+                ordered[v] = k
+            self._index = StringIndex(ordered)
+        else:
+            self._index = id_to_ix
+
+    @staticmethod
+    def from_ids(ids: Iterable[str]) -> "EntityIdIxMap":
+        return EntityIdIxMap(StringIndex.from_values(ids))
+
+    def __call__(self, entity_id: str) -> int:
+        return self._index[entity_id]
+
+    def get(self, entity_id: str, default: int = -1) -> int:
+        return self._index.get(entity_id, default)
+
+    def contains(self, entity_id: str) -> bool:
+        return entity_id in self._index
+
+    __contains__ = contains
+
+    def inverse(self, ix: int) -> str:
+        return self._index.id_of(ix)
+
+    def __len__(self) -> int:
+        return len(self._index)
+
+    @property
+    def index(self) -> StringIndex:
+        return self._index
+
+
+class EntityMap(Generic[V]):
+    """Index map + typed per-entity payload (reference
+    `EntityMap.scala:62-98`): lookup by entity id or by contiguous index."""
+
+    def __init__(self, data: Mapping[str, V]):
+        self._data = dict(data)
+        self.id_to_ix = EntityIdIxMap.from_ids(self._data.keys())
+
+    def __getitem__(self, entity_id: str) -> V:
+        return self._data[entity_id]
+
+    def get(self, entity_id: str, default=None):
+        return self._data.get(entity_id, default)
+
+    def get_by_index(self, ix: int) -> V:
+        return self._data[self.id_to_ix.inverse(ix)]
+
+    def __contains__(self, entity_id: str) -> bool:
+        return entity_id in self._data
+
+    def __len__(self) -> int:
+        return len(self._data)
+
+    def keys(self):
+        return self._data.keys()
+
+    def items(self):
+        return self._data.items()

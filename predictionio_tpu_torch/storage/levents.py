@@ -5,8 +5,8 @@ synchronous re-expression of the reference `LEvents` DAO
 (`data/.../storage/LEvents.scala:31-451`).  Filter semantics of ``find``
 match the reference exactly, including the tri-state target-entity
 filters (``None`` = unrestricted, ``NO_TARGET`` = event must have no
-target, a string = must equal).  ``extract_entity_map`` (which needs
-``EntityMap``) is not ported yet.
+target, a string = must equal).  ``extract_entity_map`` gives the
+reference's typed ``EntityMap`` of each entity's aggregated properties.
 """
 
 from __future__ import annotations
@@ -244,6 +244,33 @@ class EventStore(abc.ABC):
                 if all(r in v for r in required)
             }
         return result
+
+    def extract_entity_map(
+        self,
+        extract,
+        app_id: int,
+        entity_type: str,
+        channel_id: int = 0,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        required: Optional[Sequence[str]] = None,
+    ):
+        """Typed entity extraction: aggregate ``$set``/``$unset`` state per
+        entity, keep entities holding every ``required`` property, and map
+        each property bag through ``extract`` into an
+        :class:`~predictionio_tpu_torch.storage.bimap.EntityMap` (reference
+        ``PEvents.extractEntityMap``, `data/.../PEvents.scala:109-115`)."""
+        from .bimap import EntityMap
+
+        props = self.aggregate_properties_of(
+            app_id=app_id,
+            entity_type=entity_type,
+            channel_id=channel_id,
+            start_time=start_time,
+            until_time=until_time,
+            required=required,
+        )
+        return EntityMap({k: extract(v) for k, v in props.items()})
 
     def aggregate_properties_single_entity(
         self,

@@ -10,11 +10,11 @@ and ``PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA,MODELDATA}_{NAME,
 SOURCE}`` map the three repositories onto them.  Builtin types are
 ``sqlite``, ``sqlite-sharded`` (an event store of ``SHARDS`` files,
 default 4, under the directory ``PATH``), ``memory`` and ``localfs``
-(for model files).  The ``jsonfs`` metadata store and third-party
-backends named by a dotted import path are not ported yet: the first
-raises NotImplementedError, the second an unknown type.  Without env
-config everything is SQLite under ``$PIO_TPU_HOME`` (default
-``~/.predictionio_tpu``).
+(for model files), and for metadata ``jsonfs`` (a JSON document a
+record under the directory ``PATH``, ``file_metadata.py``); a dotted
+import path names a third-party backend class, built with the source's
+config dict.  Without env config everything is SQLite under
+``$PIO_TPU_HOME`` (default ``~/.predictionio_tpu``).
 """
 
 from __future__ import annotations
@@ -70,12 +70,41 @@ class Storage:
                 for k, v in self.env.items()
                 if k.startswith(f"PIO_STORAGE_SOURCES_{source}_")
             }
-            return stype.lower(), conf
+            # dotted TYPEs are python import paths: case-sensitive
+            return (
+                stype if "." in stype else stype.lower()
+            ), conf
         # defaults under home: sqlite DBs, plain dir for model blobs
         home = _home(self.env)
         if repo == "MODELDATA":
             return "localfs", {"type": "localfs", "path": str(home / "models")}
         return "sqlite", {"type": "sqlite", "path": str(home / f"{name}.db")}
+
+    # -- pluggable backends (Storage.scala:183-224) ------------------------
+    @staticmethod
+    def _load_custom(stype: str, conf: dict[str, str]):
+        """Dotted-path TYPE -> import the class and instantiate it with
+        the source's config dict (lower-cased suffix keys: ``type``,
+        ``path``, anything else the operator set on the source).  The
+        constructor contract for third-party backends is exactly
+        ``Backend(conf)``: the analogue of the reference's reflective
+        ``getConstructors ... newInstance(client, config)``."""
+        import importlib
+
+        mod_name, _, attr = stype.rpartition(".")
+        try:
+            cls = getattr(importlib.import_module(mod_name), attr)
+        except (ImportError, AttributeError) as e:
+            raise StorageError(
+                f"cannot load storage backend {stype!r}: {e}"
+            ) from e
+        try:
+            return cls(conf)
+        except Exception as e:  # noqa: BLE001 — config errors surface here
+            raise StorageError(
+                f"storage backend {stype!r} failed to initialize "
+                f"with config {sorted(conf)}: {e}"
+            ) from e
 
     # -- accessors (Storage.scala:259-290) --------------------------------
     def get_event_store(self) -> EventStore:
@@ -106,6 +135,8 @@ class Storage:
                         raise StorageError(
                             f"sqlite-sharded source: {e}"
                         ) from e
+                elif "." in stype:
+                    self._event_store = self._load_custom(stype, conf)
                 else:
                     raise StorageError(f"unknown event store type: {stype}")
             return self._event_store
@@ -122,10 +153,15 @@ class Storage:
                         Path(path).parent.mkdir(parents=True, exist_ok=True)
                     self._metadata = MetadataStore(path)
                 elif stype == "jsonfs":
-                    raise NotImplementedError(
-                        "the jsonfs metadata store is not ported to "
-                        "predictionio_tpu_torch yet (ROADMAP Queue 1)"
+                    # the JSON-document file tree (file_metadata.py)
+                    from .file_metadata import FileMetadataStore
+
+                    path = conf.get("path") or str(
+                        _home(self.env) / "metadata-json"
                     )
+                    self._metadata = FileMetadataStore(path)
+                elif "." in stype:
+                    self._metadata = self._load_custom(stype, conf)
                 else:
                     raise StorageError(f"unknown metadata store type: {stype}")
             return self._metadata

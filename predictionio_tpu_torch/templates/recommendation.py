@@ -24,6 +24,7 @@ recommendation``).
 from __future__ import annotations
 
 import logging
+import operator
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
 
@@ -64,9 +65,13 @@ __all__ = [
     "DataSourceParams",
     "RMSEMetric",
     "RatingAlgorithm",
+    "HeldOutQueries",
+    "HeldOutRatings",
     "RatingPrediction",
+    "RatingPredictions",
     "RecommendationDataSource",
     "RecommendationServing",
+    "ServedRatings",
     "TrainingData",
     "recommendation_engine",
     "recommendation_evaluation",
@@ -290,9 +295,9 @@ class RecommendationDataSource(DataSource):
         deterministic and size-balanced).  The ratings are the training
         read's: ``find_ratings`` gives the reference's
         ``find_columnar -> to_ratings`` ratings bit for bit, in the same
-        order.  The held-out pairs keep the ratings' order; queries are
-        frozen, so one per user serves all of that user's held-out
-        ratings."""
+        order.  Each fold's held-out pairs are a :class:`HeldOutRatings`:
+        the reference's ``(Query, ActualRating)`` list in the ratings'
+        order, carried as three columns."""
         p: DataSourceParams = self.params
         if p.eval_k <= 0:
             return []
@@ -301,7 +306,6 @@ class RecommendationDataSource(DataSource):
         perm = np.random.default_rng(p.eval_seed).permutation(n)
         fold = np.empty(n, dtype=np.int64)
         fold[perm] = np.arange(n) % p.eval_k
-        queries = [Query(user=u, num=0) for u in ratings.users.ids.tolist()]
         out = []
         for f in range(p.eval_k):
             tr = fold != f
@@ -313,15 +317,116 @@ class RecommendationDataSource(DataSource):
                 users=ratings.users,
                 items=ratings.items,
             )
-            qa = list(zip(
-                [queries[u] for u in ratings.user_ix[te].tolist()],
-                map(ActualRating,
-                    ratings.items.decode(ratings.item_ix[te]).tolist(),
-                    ratings.rating[te].tolist()),
-            ))
+            qa = HeldOutRatings(ratings.user_ix[te], ratings.item_ix[te],
+                                ratings.rating[te], ratings.users,
+                                ratings.items)
             out.append(
                 (TrainingData(ratings=train, items=items), {"fold": f}, qa))
         return out
+
+
+class _Columns(Sequence):
+    """A read-only sequence whose elements are made from columns on
+    demand: ``_make(lo, hi)`` builds the elements of rows ``lo`` to
+    ``hi - 1``.  Iteration builds them a chunk at a time."""
+
+    __slots__ = ()
+    _CHUNK = 1 << 16
+
+    def __len__(self) -> int:
+        return len(self._rows())
+
+    def __getitem__(self, i):
+        n = len(self)
+        if isinstance(i, slice):
+            lo, hi, step = i.indices(n)
+            if step == 1:
+                return self._make(lo, max(lo, hi))
+            return [self[j] for j in range(lo, hi, step)]
+        j = operator.index(i)
+        if j < 0:
+            j += n
+        if not 0 <= j < n:
+            raise IndexError(f"index {i} out of range for {n} rows")
+        return self._make(j, j + 1)[0]
+
+    def __iter__(self):
+        for lo in range(0, len(self), self._CHUNK):
+            yield from self._make(lo, min(lo + self._CHUNK, len(self)))
+
+
+class HeldOutQueries(_Columns):
+    """The queries of a :class:`HeldOutRatings`: ``Query(user, num=0)``
+    per held-out rating, from the user index column."""
+
+    __slots__ = ("user_ix", "users")
+
+    def __init__(self, user_ix: np.ndarray, users):
+        self.user_ix, self.users = user_ix, users
+
+    def _rows(self):
+        return self.user_ix
+
+    def _make(self, lo: int, hi: int) -> list:
+        return [Query(user=u, num=0)
+                for u in self.users.decode(self.user_ix[lo:hi]).tolist()]
+
+
+class HeldOutRatings(_Columns):
+    """A fold's held-out ``(Query, ActualRating)`` pairs, carried as the
+    columns they come from (user index, item index, rating, in the
+    ratings' order) rather than as one Python object per rating.
+
+    Iterating, indexing and ``len`` give the pairs of the reference's
+    list (``Query(user, num=0)``, ``ActualRating(item, float(rating))``,
+    in the same order); the evaluation reads the columns themselves
+    where it can (:meth:`served`, :class:`RMSEMetric`)."""
+
+    __slots__ = ("user_ix", "item_ix", "rating", "users", "items")
+
+    def __init__(self, user_ix: np.ndarray, item_ix: np.ndarray,
+                 rating: np.ndarray, users, items):
+        self.user_ix, self.item_ix, self.rating = user_ix, item_ix, rating
+        self.users, self.items = users, items
+
+    def _rows(self):
+        return self.rating
+
+    def _make(self, lo: int, hi: int) -> list:
+        return list(zip(
+            self.queries()._make(lo, hi),
+            map(ActualRating,
+                self.items.decode(self.item_ix[lo:hi]).tolist(),
+                self.rating[lo:hi].tolist()),
+        ))
+
+    def queries(self) -> HeldOutQueries:
+        return HeldOutQueries(self.user_ix, self.users)
+
+    def served(self, predictions: Sequence) -> "ServedRatings":
+        """The ``(query, prediction, actual)`` triples of these pairs
+        and one prediction per query, in order."""
+        if len(predictions) != len(self):
+            raise ValueError(f"{len(predictions)} predictions for "
+                             f"{len(self)} held-out ratings")
+        return ServedRatings(self, predictions)
+
+
+class ServedRatings(_Columns):
+    """``(Query, prediction, ActualRating)`` triples over a
+    :class:`HeldOutRatings` and its predictions."""
+
+    __slots__ = ("held", "predictions")
+
+    def __init__(self, held: HeldOutRatings, predictions: Sequence):
+        self.held, self.predictions = held, predictions
+
+    def _rows(self):
+        return self.held.rating
+
+    def _make(self, lo: int, hi: int) -> list:
+        return [(q, p, a) for (q, a), p in zip(self.held._make(lo, hi),
+                                                self.predictions[lo:hi])]
 
 
 @dataclass(frozen=True, slots=True)
@@ -389,11 +494,6 @@ class ALSAlgorithmParams(Params):
                 f"servingDtype must be 'float32' or 'bfloat16', "
                 f"got {self.serving_dtype!r}"
             )
-        if self.distributed_topk:
-            raise NotImplementedError(
-                "distributedTopk is not yet ported to predictionio_tpu_torch "
-                "(ROADMAP Queue 1 item 7)"
-            )
 
 
 @dataclass
@@ -413,6 +513,35 @@ class ALSModel(DeviceTableMixin):
             raise ValueError("user factors contain non-finite values")
         if not np.isfinite(self.item_factors).all():
             raise ValueError("item factors contain non-finite values")
+
+    def sharded_topk_index(self, retrieval: str = "exact",
+                           candidate_factor: int = 10, mesh=None):
+        """Lazy distributed top-k index (``ops/distributed_topk``
+        ``ShardedTopK``): the item table sharded over ``mesh`` + parity
+        + sticky shard health, built once per model (re)load like the
+        device tables.  ``mesh`` defaults to every visible card for a
+        model on ``cuda`` (the reference's ``make_mesh()``) and to one
+        shard on the model's device otherwise.  The per-request deadline
+        needs no plumbing: the index reads the serving thread's deadline
+        scope on every call.  ``retrieval != "exact"`` builds the
+        per-shard int8 candidate stage.  The first caller's config wins
+        for this model's lifetime (params are fixed per deployed
+        algorithm).  A fold-in delta does not reach the index, as in
+        the reference: it serves the rows it was built from until the
+        next load."""
+        idx = getattr(self, "_sharded_topk", None)
+        if idx is None:
+            from ..ops.distributed_topk import ShardedTopK
+            from ..parallel import make_mesh
+
+            if mesh is None:
+                mesh = make_mesh(devices=None if self.device.type == "cuda"
+                                 else [self.device])
+            idx = ShardedTopK(self.item_factors, mesh,
+                              retrieval=retrieval,
+                              candidate_factor=candidate_factor)
+            self._sharded_topk = idx
+        return idx
 
 
 class ALSAlgorithm(Algorithm):
@@ -465,6 +594,21 @@ class ALSAlgorithm(Algorithm):
             candidate_factor=p.candidate_factor,
             nprobe=p.nprobe,
             clusters=p.ann_clusters,
+        )
+
+    def _distributed(self) -> bool:
+        return getattr(self.params, "distributed_topk", False)
+
+    def _sharded_index(self, model: ALSModel):
+        """The model's ring index, over the serving context's mesh
+        (``WorkflowContext(mesh=...)`` hands one in) where the algorithm
+        has one."""
+        p = self.params
+        ctx = getattr(self, "_ctx", None)
+        return model.sharded_topk_index(
+            retrieval=getattr(p, "retrieval", "exact"),
+            candidate_factor=getattr(p, "candidate_factor", 10),
+            mesh=None if ctx is None else ctx.mesh,
         )
 
     def train(self, ctx: WorkflowContext, data: TrainingData) -> ALSModel:
@@ -529,7 +673,7 @@ class ALSAlgorithm(Algorithm):
             unmasked_too=True, max_batch=max_batch,
         )
         rcfg = self._retrieval_config()
-        if rcfg is not None:
+        if rcfg is not None and not self._distributed():
             # the two-stage path joins the warm-up ladder: every pow2
             # batch the batcher can dispatch at the default num, and
             # the small-k solo shapes
@@ -538,6 +682,13 @@ class ALSAlgorithm(Algorithm):
             idx.warm(k_default, pow2_ladder(max_batch) + [1], table)
             for k in {min(pow2_ceil(kk), n) for kk in (1, 4)}:
                 idx.warm(k, [1], table)
+        if self._distributed():
+            # every ring variant (clean, coded, and int8 under
+            # retrieval != exact) at the common solo shapes, so a first
+            # degradation pays no first-launch set-up mid-request
+            idx = self._sharded_index(model)
+            for k in {min(pow2_ceil(k), n) for k in (1, 4, 10, 16, 20)}:
+                idx.warm(k, batch=1)
 
     def predict(self, model: ALSModel, query: Query) -> PredictedResult:
         uix = model.users.get(query.user)
@@ -550,6 +701,15 @@ class ALSAlgorithm(Algorithm):
             np.asarray(model.user_factors[uix], np.float32),
             device=model.device,
         )
+        if mask is None and self._distributed():
+            # ring top-k over the mesh-sharded item table; the request
+            # deadline in scope becomes the per-shard hop budget, and a
+            # late shard is served from parity
+            vals2, ixs2 = self._sharded_index(model)(uvec[None, :], k)
+            return PredictedResult(
+                item_scores=decode_item_scores(model.items, vals2[0],
+                                               ixs2[0])
+            )
         rcfg = self._retrieval_config()
         if mask is None and rcfg is not None:
             # quantized candidate shortlist -> exact f32 rerank; a
@@ -605,7 +765,12 @@ class ALSAlgorithm(Algorithm):
                 device=model.device,
             )
         rcfg = self._retrieval_config()
-        if mask is None and rcfg is not None:
+        if mask is None and self._distributed():
+            # the micro-batched path rides the same coded ring as solo
+            # predict (the ring takes a [B, R] query block); per-query
+            # masks keep the local scorer below
+            vals, ixs = self._sharded_index(model)(uvecs, k)
+        elif mask is None and rcfg is not None:
             # two-stage: a quantized shortlist scan and an exact rerank
             # of candidate_factor*k rows instead of the O(M*R) product
             vals, ixs = model.device_ann_index(rcfg).search(
@@ -686,6 +851,8 @@ class RatingAlgorithm(ALSAlgorithm):
         # during eval the actuals carry the item; the prediction for (user,
         # item) is the factor dot product.  We return the full user vector
         # index per query; the metric resolves the item side.
+        if isinstance(queries, HeldOutQueries):
+            return RatingPredictions(model, queries)
         return [RatingPrediction(model=model, user=q.user) for q in queries]
 
     def predict(self, model: ALSModel, query: Query):
@@ -698,36 +865,77 @@ class RatingPrediction:
     user: str
 
 
+class RatingPredictions(_Columns):
+    """One :class:`RatingPrediction` per query of a
+    :class:`HeldOutQueries`, carried as the model and the queries'
+    user column."""
+
+    __slots__ = ("model", "queries")
+
+    def __init__(self, model: ALSModel, queries: HeldOutQueries):
+        self.model, self.queries = model, queries
+
+    def _rows(self):
+        return self.queries.user_ix
+
+    def _make(self, lo: int, hi: int) -> list:
+        return [RatingPrediction(model=self.model, user=q.user)
+                for q in self.queries._make(lo, hi)]
+
+
+def _reindex(ix: np.ndarray, index, to) -> np.ndarray:
+    """Indices into ``index`` as indices into ``to`` (-1 where absent)."""
+    return ix if index is to else to.encode(index.decode(ix))
+
+
 class RMSEMetric:
     """Root-mean-squared error over held-out ratings (lower is better).
 
     Works with :class:`RatingAlgorithm` predictions + :class:`ActualRating`
     actuals from ``read_eval``; the products are float32 over the model's
-    host factors, the errors float64, as in the reference."""
+    host factors, the errors float64, as in the reference.  A set served
+    from a :class:`HeldOutRatings` is read from its columns; any other
+    sequence of triples is read triple by triple."""
 
     header = "RMSE"
+    # rows a product is computed for at once (bounds the gathered rows)
+    _CHUNK = 1 << 20
 
     def calculate(self, ctx, data) -> float:
         sq, n = 0.0, 0
         for _, qpa in data:
-            if not qpa:
+            if not len(qpa):
                 continue
-            # one model per eval set: vectorize the gathers + dot products
-            model = qpa[0][1].model
-            u = model.users.encode([p.user for _, p, _ in qpa])
-            i = model.items.encode([a.item for _, _, a in qpa])
-            r = np.asarray([a.rating for _, _, a in qpa], dtype=np.float64)
+            model, u, i, r = self._columns(qpa)
             ok = (u >= 0) & (i >= 0)
-            if not ok.any():
-                continue
-            pred = np.einsum(
-                "nr,nr->n",
-                model.user_factors[u[ok]],
-                model.item_factors[i[ok]],
-            )
-            sq += float(((pred - r[ok]) ** 2).sum())
-            n += int(ok.sum())
+            u, i, r = u[ok], i[ok], r[ok]
+            for lo in range(0, len(r), self._CHUNK):
+                hi = lo + self._CHUNK
+                pred = np.einsum(
+                    "nr,nr->n",
+                    model.user_factors[u[lo:hi]],
+                    model.item_factors[i[lo:hi]],
+                )
+                sq += float(((pred - r[lo:hi]) ** 2).sum())
+            n += len(r)
         return float(np.sqrt(sq / n)) if n else float("nan")
+
+    @staticmethod
+    def _columns(qpa) -> tuple:
+        """``(model, user ix, item ix, float64 rating)`` of one set."""
+        if (isinstance(qpa, ServedRatings)
+                and isinstance(qpa.predictions, RatingPredictions)):
+            # one model per eval set
+            held, model = qpa.held, qpa.predictions.model
+            return (model,
+                    _reindex(held.user_ix, held.users, model.users),
+                    _reindex(held.item_ix, held.items, model.items),
+                    held.rating.astype(np.float64))
+        model = qpa[0][1].model
+        u = model.users.encode([p.user for _, p, _ in qpa])
+        i = model.items.encode([a.item for _, _, a in qpa])
+        r = np.asarray([a.rating for _, _, a in qpa], dtype=np.float64)
+        return model, u, i, r
 
     def compare(self, a: float, b: float) -> int:
         if a == b:

@@ -253,10 +253,9 @@ def test_undeploy_of_nothing_equal(pair):
     assert rc == 1 and out.startswith("Error: cannot undeploy 127.0.0.1:1: ")
 
 
-REFUSED = [
-    (["adminserver"], 9),
-    (["dashboard"], 9),
-]
+# nothing of the reference's console is refused any more: adminserver
+# and dashboard (item 9) run (test_adminserver_and_dashboard_start_and_answer)
+REFUSED = []
 
 # the multi-process train options are ported (a two-process console
 # train: tests/test_torch_multiprocess_train.py); an incomplete set is
@@ -288,6 +287,100 @@ def test_every_unported_command_and_option_is_refused_first(capsys):
     for argv in PARTIAL_TRAIN:
         with pytest.raises(ValueError, match="coordinator address"):
             main(argv, storage=_Untouchable(), device="cpu")
+
+
+def _serving(monkeypatch, cls, sink):
+    """Keep every ``cls`` instance that starts serving, to stop it."""
+    orig = cls.serve_forever
+
+    def kept(self):
+        sink.append(self)
+        return orig(self)
+
+    monkeypatch.setattr(cls, "serve_forever", kept)
+
+
+def _http(port, method, path, body=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        conn.request(method, path, None if body is None
+                     else json.dumps(body).encode())
+        r = conn.getresponse()
+        return r.status, r.read().decode()
+    finally:
+        conn.close()
+
+
+def test_adminserver_and_dashboard_start_and_answer(pair, monkeypatch):
+    """``adminserver`` and ``dashboard`` are no longer refused: each
+    starts from the console (in a thread, on a free port), prints the
+    reference's line and answers as the reference's server does."""
+    import socket
+    import threading
+
+    from predictionio_tpu.server import AdminServer as JaxAdminServer
+    from predictionio_tpu.server import DashboardServer as JaxDashboardServer
+    from predictionio_tpu_torch.server import AdminServer, DashboardServer
+
+    assert REFUSED == []
+    servers = {}
+    for kind, classes in (("jax", (JaxAdminServer, JaxDashboardServer)),
+                          ("torch", (AdminServer, DashboardServer))):
+        for cls in classes:
+            _serving(monkeypatch, cls, servers.setdefault(kind, []))
+    ports, threads, outs = {}, [], []
+    for kind in ("jax", "torch"):
+        for cmd in ("adminserver", "dashboard"):
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            ports[kind, cmd] = port
+            t = threading.Thread(
+                target=lambda *a: outs.append(pair.one(*a)), daemon=True,
+                args=(kind, cmd, "--port", str(port)))
+            t.start()
+            threads.append(t)
+    try:
+        deadline = time.monotonic() + 30
+        while sum(len(v) for v in servers.values()) < 4:
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        got = {}
+        for kind in ("jax", "torch"):
+            a, d = ports[kind, "adminserver"], ports[kind, "dashboard"]
+            for _ in range(100):   # bound in serve_forever, on its thread
+                try:
+                    _http(a, "GET", "/")
+                    _http(d, "GET", "/")
+                    break
+                except OSError:
+                    time.sleep(0.05)
+            created = _http(a, "POST", "/cmd/app", {"name": "shop"})
+            got[kind] = [
+                _http(a, "GET", "/")[0], created[0],
+                sorted(json.loads(created[1])),
+                [x["name"] for x in json.loads(_http(a, "GET",
+                                                     "/cmd/app")[1])],
+                _http(a, "DELETE", "/cmd/app/shop"),
+                _http(a, "DELETE", "/cmd/app/shop")[0],
+                _http(d, "GET", "/")[0],
+                "shop" not in _http(d, "GET", "/")[1],
+                _http(d, "GET", "/tenants.html")[0],
+                _http(d, "GET", "/nope")[0],
+            ]
+        assert got["torch"] == got["jax"]
+        assert got["torch"][:2] == [200, 201] and got["torch"][-1] == 404
+    finally:
+        for srv in [s for v in servers.values() for s in v]:
+            srv.stop()
+        for t in threads:
+            t.join(timeout=10)
+    assert not any(t.is_alive() for t in threads)
+    assert [rc for rc, _ in outs] == [0] * 4
+    out = "".join(o for _, o in outs) + pair.capsys.readouterr().out
+    for cmd, line in (("adminserver", "Admin server running on"),
+                      ("dashboard", "Dashboard running on")):
+        assert f"{line} 127.0.0.1:{ports['torch', cmd]}" in out
 
 
 TENANT_FACTORY = ("predictionio_tpu_torch.templates.recommendation."

@@ -32,10 +32,12 @@ from predictionio_tpu.workflow import run_evaluation as jax_run_evaluation
 from predictionio_tpu_torch import engines
 from predictionio_tpu_torch.cli.main import _REFUSED, main
 from predictionio_tpu_torch.controller import WorkflowContext
+from predictionio_tpu_torch.controller.fast_eval import FastEvalEngine
 from predictionio_tpu_torch.convert import factors_from_jax, model_from_jax
 from predictionio_tpu_torch.engines import spec as spec_mod
 from predictionio_tpu_torch.models import als as port_als
 from predictionio_tpu_torch.storage import Event, Storage
+from predictionio_tpu_torch.storage.bimap import StringIndex
 from predictionio_tpu_torch.templates import recommendation as rec
 from predictionio_tpu_torch.workflow import run_evaluation
 
@@ -147,6 +149,59 @@ def test_rmse_metric_on_a_carried_model_agrees(stores):
     assert abs(got["torch"] - got["jax"]) <= 1e-9 * got["jax"]
     assert rec.RMSEMetric().compare(1.0, 2.0) == 1
     assert rec.RMSEMetric().compare(2.0, 1.0) == -1
+
+
+def _pair(q, a) -> tuple:
+    return (q.user, q.num, q.categories, q.whitelist, q.blacklist,
+            a.item, a.rating, type(a.rating))
+
+
+def test_columnar_held_out_pairs_are_the_references(stores):
+    """Each fold's held-out pairs are carried as columns: iterating,
+    indexing and ``len`` give the reference's (Query, ActualRating)
+    list, the engine serves them as columns (the triples the generic
+    path builds, in order), and RMSE over them is the reference's."""
+    ref, jctx = _folds("jax", stores, 3, 3)
+    port, _ = _folds("torch", stores, 3, 3)
+    engine = rec.recommendation_evaluation().engine
+    algo = engine._algorithms(engine.params_from_variant(_variant(0.1)))[0]
+    jalgo = jrec.recommendation_evaluation().engine._algorithms(
+        jrec.recommendation_evaluation().engine.params_from_variant(
+            _variant(0.1)))[0]
+    jmodel = jalgo.train(jctx, ref[0][0])
+    model = model_from_jax(jmodel, "cpu")
+    model.users, model.items = port[0][0].ratings.users, \
+        port[0][0].ratings.items
+    serving = rec.RecommendationServing()
+    data, ref_data = [], []
+    for (_, ei, qa), (_, _, rqa) in zip(port, ref):
+        assert isinstance(qa, rec.HeldOutRatings)
+        assert len(qa) == len(rqa)
+        assert [_pair(*x) for x in qa] == [_pair(*x) for x in rqa]
+        assert [_pair(*qa[j]) for j in (0, len(qa) - 1, -1)] == [
+            _pair(*rqa[j]) for j in (0, -1, -1)]
+        assert [_pair(*x) for x in qa[2:9:3]] == [
+            _pair(*x) for x in rqa[2:9:3]]
+        with pytest.raises(IndexError):
+            qa[len(qa)]
+        served = FastEvalEngine._batch_serve([algo], [model], serving, qa)
+        assert isinstance(served, rec.ServedRatings)
+        generic = rec.Engine._batch_serve([algo], [model], serving, qa)
+        assert isinstance(generic, list)
+        assert len(served) == len(generic)
+        assert [(q, p.user, p.model is model, a) for q, p, a in served] == [
+            (q, p.user, p.model is model, a) for q, p, a in generic]
+        data.append((ei, served))
+        ref_data.append((ei, [(q, jrec.RatingPrediction(model=jmodel,
+                                                        user=q.user), a)
+                              for q, a in rqa]))
+    got = rec.RMSEMetric().calculate(None, data)
+    want = jrec.RMSEMetric().calculate(None, ref_data)
+    assert np.isfinite(got) and abs(got - want) <= 1e-6 * want
+    # a model with its own id index reads the same ratings
+    model.users = StringIndex(list(model.users.ids)[::-1])
+    model.user_factors = model.user_factors[::-1].copy()
+    assert abs(rec.RMSEMetric().calculate(None, data) - want) <= 1e-6 * want
 
 
 @pytest.fixture()

@@ -72,6 +72,10 @@ def test_the_walk_sees_every_file():
                     "classification", "trending", "nextitem")),
                 *(f"models/{m}.py" for m in (
                     "naive_bayes", "logistic", "forest", "markov")),
+                "ops/distributed_topk.py", "server/admin.py",
+                "server/dashboard.py", "storage/file_metadata.py",
+                "storage/bimap.py", "storage/levents.py",
+                "utils/debug.py", "utils/profiling.py",
                 *HOST_ONLY):
         assert f"predictionio_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names

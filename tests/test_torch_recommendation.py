@@ -203,9 +203,13 @@ def test_params_validation():
     with pytest.raises(ParamsError, match="unknown key"):
         engine.params_from_variant(
             {"algorithms": [{"name": "als", "params": {"rnk": 4}}]})
-    with pytest.raises(NotImplementedError, match="distributedTopk"):
-        engine.params_from_variant({"algorithms": [{
-            "name": "als", "params": {"distributedTopk": True}}]})
+    # distributedTopk is accepted (with its candidate stage), as the
+    # reference accepts it
+    ep = engine.params_from_variant({"algorithms": [{
+        "name": "als", "params": {"distributedTopk": True,
+                                  "retrieval": "int8"}}]})
+    assert ep.algorithms[0][1].distributed_topk is True
+    assert ep.algorithms[0][1].retrieval == "int8"
     # coo='local' needs sharded placement on every algorithm, as the
     # reference checks at config time
     with pytest.raises(ValueError, match="requires factorPlacement"):
