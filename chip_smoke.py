@@ -4498,7 +4498,6 @@ def phase_router(torch, store: StoreHome, cli_out: dict) -> dict:
     the failover and the supervisor's respawn.  ``undeploy`` stops the
     router and every replica."""
     import signal
-    import tempfile
     from pathlib import Path
 
     from predictionio_tpu_torch.obs import get_tracer
@@ -4514,7 +4513,9 @@ def phase_router(torch, store: StoreHome, cli_out: dict) -> dict:
     predict = cli_out["predict"]
     sink = PostSink()
     tracer = get_tracer()
-    jdir = Path(tempfile.mkdtemp(prefix="pio_router_journal_"))
+    # this process, the router and its replicas journal here (phase lint
+    # stitches the traced query from it); the store's close removes it
+    jdir = Path(store.home) / "router-telemetry"
     tracer.configure(jdir)
     ev = EventServer(st, EventServerConfig(host="127.0.0.1", port=0))
     ev.start_background()
@@ -4525,7 +4526,8 @@ def phase_router(torch, store: StoreHome, cli_out: dict) -> dict:
         "--port", "0", "--replicas", "2", "--health-interval", "0.5",
         "--feedback", "--event-server-url", f"http://127.0.0.1:{ev.port}",
         "--accesskey", key, "--log-url", sink.url,
-        "--log-prefix", "pio-router "], "router")
+        "--log-prefix", "pio-router "], "router",
+        env={"PIO_TPU_TELEMETRY_DIR": str(jdir)})
     try:
         port = proc.wait_port(timeout=600)
         boot_s = proc.boot_s
@@ -4643,9 +4645,6 @@ def phase_router(torch, store: StoreHome, cli_out: dict) -> dict:
         ev.stop()
         sink.stop()
         tracer.configure(None)
-        import shutil
-
-        shutil.rmtree(jdir, ignore_errors=True)
     obs_report("router", checks, detail)
     single = cli_out["edges"]["eventloop"]
     conc2 = [ms for _, _, ms in load2]
@@ -4659,7 +4658,153 @@ def phase_router(torch, store: StoreHome, cli_out: dict) -> dict:
         f"{fleet2['replicas'][0]['failovers']}, respawned and healthy "
         f"{respawn_s:.1f} s after the load")
     return {"qps": load["qps"], "conc_ms": load["conc_ms"],
-            "boot_s": boot_s, "respawn_s": respawn_s}
+            "boot_s": boot_s, "respawn_s": respawn_s, "journal": jdir,
+            "trace": "t-chip-router-fb"}
+
+
+LINT_PHASE_LIMIT_S = 30.0
+
+
+def _stitched(node: dict) -> dict:
+    """A span tree node as the ``tracecat --json`` document gives it:
+    the span's own keys and its children by start."""
+    out = {k: v for k, v in node.items()
+           if k not in ("children", "_start", "_end", "_journal")}
+    out["children"] = [_stitched(c) for c in sorted(
+        node["children"], key=lambda c: c["_start"])]
+    return out
+
+
+def phase_lint(store: StoreHome, router_out: dict) -> dict:
+    """Phase lint: the port's static gate and its two obs commands, each
+    a process of its own on this host, all started at once after phase
+    router (whose span journals it reads):
+
+    * ``python -m predictionio_tpu_torch.analysis --format json --report
+      F`` over the gate scope (``predictionio_tpu_torch/``, this script,
+      ``kernel_variants.py``): exit 0, no active finding, the report the
+      one it printed;
+    * ``python -m predictionio_tpu_torch.tools.runlog`` ``list --json``,
+      ``summarize RUN`` and ``diff A B --json`` over the run manifests
+      the console trains of phases ring and cli wrote (at least two):
+      each output equal to ``obs.runlog`` computed in this process;
+    * ``python -m predictionio_tpu_torch.tools.tracecat ID --json`` on
+      phase router's traced query, journaled by the router, the replica
+      that answered it and this process's event server (its feedback
+      write): at least 2 processes, and the tree ``obs.trace.build_tree``
+      gives in this process.
+
+    Checks go on one ``{"obs": ...}`` line with the findings; a false
+    one, or the phase past :data:`LINT_PHASE_LIMIT_S`, fails the run."""
+    from pathlib import Path
+
+    from predictionio_tpu_torch.obs import runlog
+    from predictionio_tpu_torch.obs.trace import build_tree, collect_spans
+
+    t_phase = time.perf_counter()
+    root = str(Path(__file__).resolve().parent)
+    report = Path(store.home) / "piolint-report.json"
+    runs = runlog.runs_root()
+    views = runlog.list_runs(runs)
+    ids = [v["header"]["instanceId"] for v in views]
+    jdir, trace = router_out["journal"], router_out["trace"]
+    argv = {
+        "analysis": ["predictionio_tpu_torch.analysis", "--format", "json",
+                     "--report", str(report)],
+        "runlog_list": ["predictionio_tpu_torch.tools.runlog", "--root",
+                        str(runs), "list", "--json"],
+        "runlog_summarize": ["predictionio_tpu_torch.tools.runlog",
+                             "--root", str(runs), "summarize", ids[-1]],
+        "runlog_diff": ["predictionio_tpu_torch.tools.runlog", "--root",
+                        str(runs), "diff", ids[-1], ids[0], "--json"],
+        "tracecat": ["predictionio_tpu_torch.tools.tracecat", trace,
+                     "--dir", str(jdir), "--json"],
+    }
+    procs, outs, secs = {}, {}, {}
+    files = {name: (Path(store.home) / f"lint-{name}.out",
+                    Path(store.home) / f"lint-{name}.err") for name in argv}
+    try:
+        t0 = time.perf_counter()
+        for name, args in argv.items():
+            with open(files[name][0], "wb") as out, \
+                    open(files[name][1], "wb") as err:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", *args], cwd=root,
+                    env={**os.environ, "PYTHONPATH": root},
+                    stdout=out, stderr=err)
+        # each command's seconds from the common start to its exit
+        while len(secs) < len(procs):
+            if time.perf_counter() - t0 > LINT_PHASE_LIMIT_S:
+                raise AssertionError("phase lint: commands still running "
+                                     f"after {LINT_PHASE_LIMIT_S} s")
+            for name, proc in procs.items():
+                if name not in secs and proc.poll() is not None:
+                    secs[name] = time.perf_counter() - t0
+            time.sleep(0.01)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, proc in procs.items():
+        out, err = (f.read_text() for f in files[name])
+        if proc.returncode != 0 and name != "analysis":
+            raise AssertionError(f"phase lint: {name} exited with "
+                                 f"{proc.returncode}: {err[-4000:]}")
+        outs[name] = (proc.returncode, out, err)
+
+    def same(got: str, want) -> bool:
+        return json.loads(got) == json.loads(json.dumps(want))
+
+    rc, out, err = outs["analysis"]
+    lint = json.loads(out) if out.strip().startswith("{") else {}
+    counts = lint.get("counts", {})
+    view = {v["header"]["instanceId"]: v for v in views}
+    card = runlog.summarize(view[ids[-1]])
+    if view[ids[-1]]["events"]:
+        card["eventRecords"] = view[ids[-1]]["events"][-20:]
+    spans = collect_spans(trace, jdir)
+    processes = {(s.get("pid"), s.get("worker")) for s in spans}
+    tree = [_stitched(r) for r in build_tree(spans)]
+    cat = json.loads(outs["tracecat"][1])
+    checks = {
+        "analysis_exit_0_no_active_finding": rc == 0
+        and counts.get("active") == 0,
+        "analysis_report_is_what_it_printed": bool(lint)
+        and json.loads(report.read_text()) == lint,
+        "runlog_list_equals_obs_runlog": len(views) >= 2 and same(
+            outs["runlog_list"][1], [runlog.summarize(v) for v in views]),
+        "runlog_summarize_equals_obs_runlog": same(
+            outs["runlog_summarize"][1], card),
+        "runlog_diff_equals_obs_runlog": same(
+            outs["runlog_diff"][1], runlog.diff_runs(view[ids[-1]],
+                                                     view[ids[0]])),
+        "tracecat_stitches_2_processes": len(processes) >= 2
+        and cat["processCount"] == len(processes)
+        and cat["spanCount"] == len(spans)
+        and {"router.request", "serve.query", "events.write"} <= {
+            s["name"] for s in spans},
+        "tracecat_equals_build_tree": cat["roots"] == json.loads(
+            json.dumps(tree)) and cat["rootCount"] == len(tree),
+    }
+    phase_s = time.perf_counter() - t_phase
+    checks["phase_within_its_limit"] = phase_s <= LINT_PHASE_LIMIT_S
+    detail = {"counts": counts, "engines": lint.get("engines"),
+              "findings": [f"{f['path']}:{f['line']} {f['rule']}"
+                           + (" (baselined)" if f["baselined"] else "")
+                           for f in lint.get("findings", [])],
+              "analysis_stderr": err[-2000:] if rc else "",
+              "runs": ids, "spans": len(spans),
+              "processes": len(processes),
+              "seconds": {k: round(v, 3) for k, v in secs.items()},
+              "phase_s": phase_s}
+    obs_report("lint", checks, detail)
+    log(f"phase lint: piolint {counts.get('active')} active, "
+        f"{counts.get('baselined')} baselined finding(s) in "
+        f"{secs['analysis']:.1f} s; runlog over {len(ids)} runs and "
+        f"tracecat over {len(spans)} spans of {len(processes)} processes "
+        f"equal to obs in process; phase {phase_s:.1f} s")
+    return {"phase_s": phase_s}
 
 
 # the fold-in windows of phase foldin: cold-start users with their
@@ -6142,6 +6287,12 @@ SESSIONS_QUERIES = 256
 SESSIONS_CLIENTS = 64
 SESSIONS_CHECK_ITEMS = 100
 SESSIONS_FRESH = 5
+# the batching step after nextitem's 64-client load: rounds of 64 item
+# queries, each round written on 64 connections before any reply is
+# read; first back to back, then each after the deploy's refreshSec has
+# run out (its next batch scans the store, which frees the GIL while the
+# rest of the round queues behind it)
+SESSIONS_BURST_ROUNDS = 3
 
 
 def synth_views(n_events: int, t_end_ms: int, seed: int = 71):
@@ -6299,6 +6450,39 @@ def _same_at_query_time(got: dict, early: dict, late: dict,
                 <= hi["score"] * (1 + 1e-6)):
             raise AssertionError(f"{what}: score {s} outside "
                                  f"[{lo['score']}, {hi['score']}]")
+
+
+def http_burst(port: int, bodies: list, clients: int) -> list:
+    """``bodies`` POSTed to ``/queries.json`` in rounds of ``clients``:
+    every request of a round is written, one on each of ``clients``
+    keep-alive connections, before the first reply of the round is read.
+    Returns ``(status, reply)`` in body order."""
+    import http.client
+
+    conns = [http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+             for _ in range(clients)]
+    out = []
+    try:
+        for k in range(0, len(bodies), clients):
+            part = bodies[k:k + clients]
+            for conn, body in zip(conns, part):
+                conn.request("POST", "/queries.json", json.dumps(body),
+                             {"Content-Type": "application/json"})
+            for conn in conns[:len(part)]:
+                r = conn.getresponse()
+                out.append((r.status, json.loads(r.read())))
+    finally:
+        for conn in conns:
+            conn.close()
+    return out
+
+
+def _batch_delta(after: dict, before: dict) -> dict:
+    """What a step added to a deploy's ``microbatch`` status: its
+    requests, its batches, and the largest batch seen so far."""
+    return {"requests": after["requests"] - before["requests"],
+            "batches": after["batches"] - before["batches"],
+            "maxBatchSeen": after["maxBatchSeen"]}
 
 
 def _top_outside_ties(got: list, weights: np.ndarray, k: int) -> bool:
@@ -6558,11 +6742,16 @@ def phase_sessions(torch, store: StoreHome) -> dict:
         }
         qclass = {"trending": trending.Query, "nextitem": nextitem.Query}
 
-        def predict_at(name, t):
+        burst = [{"item": item_id(a), "num": 10} for a in rng.choice(
+            np.flatnonzero(counts), SESSIONS_CLIENTS * SESSIONS_BURST_ROUNDS
+            * 2)]
+
+        def predict_at(name, t, qs=None):
             algo, model = comp[name]
             with clock_at(t):
                 return [algo.predict(model, qclass[name].from_json(q))
-                        .to_json() for q in queries[name]]
+                        .to_json() for q in (queries[name] if qs is None
+                                             else qs)]
 
         # the HTTP loads, one deploy at a time
         served = {}
@@ -6589,6 +6778,38 @@ def phase_sessions(torch, store: StoreHome) -> dict:
                 solo_p50_p99=list(np.percentile(load["solo_ms"], [50, 99])),
                 conc_p50_p99=list(np.percentile(load["conc_ms"], [50, 99])),
                 qps=load["qps"], batches=status.get("microbatch"))
+        # nextitem's predict is Python on the host: under one GIL the
+        # loop thread and the dispatcher take turns a request at a time,
+        # and only a batch that scans the store (once a refreshSec)
+        # frees the GIL long enough for others to queue.  The batching
+        # step: rounds written all at once, back to back, then each
+        # after refreshSec has run out; replies equal predict as above
+        nport = procs["nextitem"].wait_port()
+        last = served["nextitem"]["batches"]
+        steps = {"load": _batch_delta(last, {"requests": 0, "batches": 0})}
+        for step, wait in (("burst", 0.0), ("burst_after_refresh",
+                                             ds["refreshSec"] + 0.1)):
+            qs = burst[:SESSIONS_CLIENTS * SESSIONS_BURST_ROUNDS]
+            burst = burst[len(qs):]
+            t_a = time.time()
+            replies = []
+            for k in range(0, len(qs), SESSIONS_CLIENTS):
+                time.sleep(wait)
+                replies += http_burst(nport, qs[k:k + SESSIONS_CLIENTS],
+                                      SESSIONS_CLIENTS)
+            t_b = time.time()
+            if any(st != 200 for st, _ in replies):
+                raise AssertionError(f"nextitem {step}: {replies[:2]}")
+            for q, (_, g), hi, lo in zip(qs, replies,
+                                        predict_at("nextitem", t_a, qs),
+                                        predict_at("nextitem", t_b, qs)):
+                _same_at_query_time(g, hi, lo, f"nextitem {step} {q}")
+            now = _http(nport, "/")["microbatch"]
+            steps[step] = _batch_delta(now, last)
+            last = now
+        checks["nextitem_burst_equals_predict_at_query_time"] = True
+        served["nextitem"]["batches"] = last
+        served["nextitem"]["batch_steps"] = steps
         mb = served["nextitem"]["batches"]
         checks["nextitem_batches_above_1"] = bool(
             mb and mb["maxBatchSeen"] > 1 and mb["batches"] < mb["requests"])
@@ -6598,7 +6819,6 @@ def phase_sessions(torch, store: StoreHome) -> dict:
         # freshness through the event server, both engines at once
         eport = events.wait_port()
         tport = procs["trending"].wait_port()
-        nport = procs["nextitem"].wait_port()
         url = f"/batch/events.json?accessKey={key}"
 
         def post(evs) -> float:
@@ -6711,7 +6931,7 @@ def phase_sessions(torch, store: StoreHome) -> dict:
         + f"; e2 MarkovChain.train {chain_s:.1f} s; freshness median "
         f"trending {float(np.median(fresh_t)):.3f} s, nextitem "
         f"{float(np.median(fresh_n)):.3f} s; phase {phase_s:.1f} s")
-    return {"phase_s": phase_s}
+    return {"phase_s": phase_s, "batch_steps": steps}
 
 
 # phase hive: tenancy and experiments at ML-20M width, after phase foldin
@@ -7898,12 +8118,40 @@ def kernel_registers(build_log) -> dict:
     return regs
 
 
+def repeat_sessions(torch, runs: int) -> int:
+    """``--sessions N``: phase sessions alone, ``runs`` times, each on a
+    4-shard store of its own; prints nextitem's batch counts of every
+    run (after its 64-client load and after each batching step) and
+    fails if any run failed."""
+    failed, rows = 0, []
+    for run in range(runs):
+        store = StoreHome()
+        saved = {k: os.environ.get(k) for k in store.env}
+        os.environ.update(store.env)
+        try:
+            rows.append(phase_sessions(torch, store)["batch_steps"])
+        except AssertionError as e:
+            failed += 1
+            log(f"sessions run {run + 1} failed: {e}")
+        finally:
+            store.close()
+            for k, val in saved.items():
+                if val is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = val
+    log(json.dumps({"sessions_batch_steps": rows, "failed": failed}))
+    return 1 if failed else 0
+
+
 def main(argv: list[str]) -> int:
     t_start = time.perf_counter()
+    sessions_runs = (int(argv[1]) if len(argv) == 2 and argv[0] ==
+                     "--sessions" and argv[1].isdigit() else 0)
     if argv not in ([], ["--breakdown"], ["--store"], ["--store-npz"],
-                    ["--edge-ab"]):
+                    ["--edge-ab"]) and not sessions_runs:
         print("usage: chip_smoke.py [--breakdown | --store | --store-npz "
-              "| --edge-ab]", file=sys.stderr)
+              "| --edge-ab | --sessions N]", file=sys.stderr)
         return 2
     import torch
 
@@ -7928,6 +8176,9 @@ def main(argv: list[str]) -> int:
 
     from predictionio_tpu_torch import native
 
+    if sessions_runs:
+        native.build()
+        return repeat_sessions(torch, sessions_runs)
     # both builds at once, the CUDA kernels (nvcc) and the native host
     # runtime (g++, build/native/), and the ML-20M data made meanwhile
     t0 = time.perf_counter()
@@ -8051,8 +8302,13 @@ def main(argv: list[str]) -> int:
         # the replica router on the instance the console trained; its
         # replicas are processes of their own (no kernel in this one)
         _build.reset_launches()
-        timed("router", phase_router, torch, store, cli_out)
+        router_out = timed("router", phase_router, torch, store, cli_out)
         paths["router"] = dict(_build.LAUNCHES)
+        # the port's static gate and its obs commands, on phase router's
+        # journals and the runs the console trains wrote (no kernel)
+        _build.reset_launches()
+        timed("lint", phase_lint, store, router_out)
+        paths["lint"] = dict(_build.LAUNCHES)
         del cli_out["predict"]
         # `pio eval` through the console on the same store (the same)
         paths["eval"] = timed("eval", phase_eval, torch, store,
@@ -8139,7 +8395,7 @@ def main(argv: list[str]) -> int:
         for name in names:
             if paths[path][name] <= 0:
                 raise AssertionError(f"path {path} never launched {name}")
-    for path in ("ring", "admin"):
+    for path in ("ring", "admin", "lint"):
         if any(paths[path].values()):
             raise AssertionError(f"path {path} launched a kernel: "
                                  f"{paths[path]}")

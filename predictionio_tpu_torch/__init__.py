@@ -13,10 +13,18 @@ PyTorch version, on a CUDA tensor it launches the kernel or raises.
 ``python -m predictionio_tpu_torch <command>`` is the console (``cli``).
 """
 
-from .device import fence, resolve_device
-
 # the reference's version: the port serves the same CLI, file formats and
 # template min-version gate
 __version__ = "0.3.0"
 
 __all__ = ["__version__", "fence", "resolve_device"]
+
+
+def __getattr__(name: str):
+    # torch is imported on first use: the package's torch-free tools
+    # (``analysis``, ``tools.runlog``, ``tools.tracecat``) start without it
+    if name in ("fence", "resolve_device"):
+        from . import device
+
+        return getattr(device, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -299,7 +299,9 @@ class _ProfilerThread:
     Started on first use; it lives until interpreter exit, where an
     ``atexit`` hook stops and joins it, so no profiler work is left on a
     thread of its own when the interpreter and torch's native state are
-    torn down.  A call made on this thread runs inline."""
+    torn down.  A call made on this thread runs inline, outside the
+    lock: a job that calls again (at any depth) neither deadlocks on it
+    nor holds every other caller and ``stop`` behind itself."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -313,9 +315,8 @@ class _ProfilerThread:
         raised here."""
         with self._lock:
             self.used = True
-            if self._thread is threading.current_thread():
-                return fn()
-            if self._thread is None:
+            inline = self._thread is threading.current_thread()
+            if not inline and self._thread is None:
                 import atexit
                 import queue
 
@@ -326,6 +327,8 @@ class _ProfilerThread:
                 self._thread.start()
                 atexit.register(self.stop)
             jobs = self._jobs
+        if inline:
+            return fn()
         box: dict = {}
         done = threading.Event()
         jobs.put((fn, box, done))

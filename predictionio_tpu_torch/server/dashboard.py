@@ -474,7 +474,8 @@ class DashboardServer(HTTPServerBase):
             + "\n".join(dec_rows) + "</table>"
             "<p>JSON at the serving edge's "
             "<code>/debug/experiments</code>; every decision is a "
-            "pio-tower manifest event (<code>tools/runlog.py</code>)."
+            "pio-tower manifest event (<code>python -m "
+            "predictionio_tpu_torch.tools.runlog</code>)."
             "</p><p><a href='/'>index</a></p></body></html>"
         )
 
@@ -805,7 +806,8 @@ class DashboardServer(HTTPServerBase):
             "<th>router segments ms</th><th>replica segments ms</th>"
             "</tr>" + "\n".join(worst_rows) + "</table>"
             "<p>Stitch one trace across processes: "
-            "<code>python tools/tracecat.py &lt;trace-id&gt;</code>. "
+            "<code>python -m predictionio_tpu_torch.tools.tracecat "
+            "&lt;trace-id&gt;</code>. "
             "JSON at the router's <code>/debug/fleet</code>; merged "
             "exposition at its <code>/metrics</code>.</p>"
             "<p><a href='/'>index</a></p></body></html>"
@@ -815,8 +817,8 @@ class DashboardServer(HTTPServerBase):
         """pio-tower training console: the live run (if any — this
         process, or another process's manifest still growing on disk)
         plus manifest history with phase totals and loss trajectory
-        endpoints.  Machines read ``/debug/train``; ``tools/runlog.py
-        diff`` answers "why did sweep 7 take 3x" from the same files."""
+        endpoints.  Machines read ``/debug/train``; ``python -m
+        predictionio_tpu_torch.tools.runlog diff`` answers "why did sweep 7 take 3x" from the same files."""
         from ..obs.tower import train_payload
 
         def esc(v) -> str:
@@ -891,8 +893,8 @@ class DashboardServer(HTTPServerBase):
             "td{font-family:monospace;padding:2px 8px}</style></head>"
             "<body><h1>Tower: training console</h1>"
             "<p>JSON at <a href='/debug/train'>/debug/train</a>; "
-            "compare two runs with <code>python tools/runlog.py diff "
-            "A B</code>.</p>"
+            "compare two runs with <code>python -m "
+            "predictionio_tpu_torch.tools.runlog diff A B</code>.</p>"
             + active_html +
             "<h2>Run manifests (newest first)</h2>"
             "<table border='1'><tr><th>instance</th><th>kind</th>"

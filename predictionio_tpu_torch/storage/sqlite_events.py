@@ -611,9 +611,19 @@ class SQLiteEventStore(EventStore):
         steady-state ingest.  The flag is consulted only when THIS
         call opens the outermost scope; nested scopes inherit it.
         """
-        outer = self._bulk_depth == 0
-        if outer:
-            self._lock.acquire()
+        if self._bulk_depth:
+            yield from self._bulk_scope(False, defer_indexes)
+            return
+        self._lock.acquire()
+        try:
+            yield from self._bulk_scope(True, defer_indexes)
+        finally:
+            self._lock.release()
+
+    def _bulk_scope(self, outer: bool, defer_indexes: bool):
+        """The scope of :meth:`bulk`, which delegates to this generator
+        (the outermost scope with the writer lock held): the thread's
+        scope state, the yield, then the commit or the rollback."""
         self._local.bulk_depth = self._bulk_depth + 1
         if outer:
             self._local.bulk_dropped = set()
@@ -639,9 +649,6 @@ class SQLiteEventStore(EventStore):
             if outer:
                 self._rebuild_dropped_indexes()
                 self._conn.commit()
-        finally:
-            if outer:
-                self._lock.release()
 
     def _rebuild_dropped_indexes(self) -> None:
         """Recreate (IF NOT EXISTS) the secondary indexes of every

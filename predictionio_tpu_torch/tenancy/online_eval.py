@@ -213,8 +213,11 @@ class OnlineEval:
             }
 
     def close(self) -> None:
-        with self._lock:
-            refreshes = self.refreshes
-        m = self._manifest
-        if m is not None:
-            m.finalize("completed", refreshes=refreshes)
+        # after any refresh in flight, which may be creating the
+        # manifest or appending to it
+        with self._refresh_lock:
+            with self._lock:
+                refreshes = self.refreshes
+            m = self._manifest
+            if m is not None:
+                m.finalize("completed", refreshes=refreshes)

@@ -46,6 +46,12 @@ HOST_ONLY = ("sessions/__init__.py", "sessions/store.py", "models/markov.py",
              "templates/nextitem.py")
 
 
+# piolint over the port: a pure AST pass that imports no tensor library
+ANALYSIS = ("__init__", "__main__", "core", "cli", "timelint", "asynclint",
+            "locklint", "deadlint", "enginelint", "contractlint",
+            "torchlint")
+
+
 def test_the_walk_sees_every_file():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "predictionio_tpu_torch/models/als.py" in names
@@ -76,6 +82,8 @@ def test_the_walk_sees_every_file():
                 "server/dashboard.py", "storage/file_metadata.py",
                 "storage/bimap.py", "storage/levents.py",
                 "utils/debug.py", "utils/profiling.py",
+                *(f"analysis/{m}.py" for m in ANALYSIS),
+                "tools/runlog.py", "tools/tracecat.py",
                 *HOST_ONLY):
         assert f"predictionio_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names
@@ -128,6 +136,32 @@ def test_the_host_engines_import_no_torch():
                    if m.split(".")[0] in ("torch", "triton")]
              for mod in HOST_ONLY}
     assert not any(found.values()), found
+
+
+def test_the_analyzer_and_the_obs_commands_import_no_torch():
+    """``analysis/`` imports nothing past the standard library, and
+    ``python -m`` of it, of ``tools.runlog`` and of ``tools.tracecat``
+    never imports torch (the package's ``fence`` and ``resolve_device``
+    load it on first use)."""
+    stdlib = set(sys.stdlib_module_names)
+    found = {mod: [m for m in _imported_modules(
+                 ROOT / "predictionio_tpu_torch" / "analysis" / f"{mod}.py")
+                   if m.split(".")[0] not in stdlib]
+             for mod in ANALYSIS}
+    assert not any(found.values()), found
+    probe = ("import sys, runpy; sys.argv = [sys.argv[1], '--help'];\n"
+             "try:\n    runpy.run_module(sys.argv[0], run_name='__main__')\n"
+             "except SystemExit:\n    pass\n"
+             "print(sorted(m for m in ('torch', 'jax', 'numpy')"
+             " if m in sys.modules))")
+    for mod in ("predictionio_tpu_torch.analysis",
+                "predictionio_tpu_torch.tools.runlog",
+                "predictionio_tpu_torch.tools.tracecat"):
+        out = subprocess.run([sys.executable, "-c", probe, mod],
+                             capture_output=True, text=True, cwd=ROOT)
+        assert out.returncode == 0, out.stderr
+        assert "torch" not in out.stdout.splitlines()[-1], (mod, out.stdout)
+        assert "jax" not in out.stdout.splitlines()[-1], (mod, out.stdout)
 
 
 def test_the_walk_catches_a_forbidden_import(tmp_path):
