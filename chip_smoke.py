@@ -241,7 +241,9 @@ PROBE_N = 2048
 BIG_N = 1 << 20
 
 # split targets (waves of blocks over the SMs) that phase breakdown times
-SWEEP_WAVES = (1, 2, 4, 6, 8, 12, 16)
+# bucket by bucket, and those whose whole fused iteration it times
+SWEEP_WAVES = (1, 2, 4, 6, 8, 12, 16, 24, 32)
+ITERATION_WAVES = (8, 16, 24, 32)
 
 # the ML-1M sweep of phase pio: two candidates that differ only in
 # lambda, k folds (2, not the reference's 3: the whole script stays well
@@ -638,6 +640,48 @@ def phase_gj(torch, dev, ratings) -> dict:
     )
 
 
+def rand_bucket(torch, g, B: int, K: int, M: int, lo: int, hi: int):
+    """A [B, K] bucket against an [M, *] table from the card's generator
+    ``g``: counts in [lo, hi] (masked tails), half-star ratings, explicit
+    weights (cw = 1, bw = r), reg = 0.01 * count: (idx, cw, bw, reg,
+    nnz)."""
+    dev = g.device
+    counts = torch.randint(lo, hi + 1, (B,), generator=g, device=dev)
+    valid = torch.arange(K, device=dev)[None, :] < counts[:, None]
+    idx = torch.randint(0, M, (B, K), generator=g, device=dev)
+    idx = torch.where(valid, idx, 0).to(torch.int32)
+    val = torch.randint(1, 11, (B, K), generator=g, device=dev) * 0.5
+    cw = valid.float()
+    bw = (val * cw).float()
+    reg = 0.01 * counts.clamp(min=1).float()
+    return idx, cw, bw, reg, int(counts.sum().item())
+
+
+def ml20m_split_buckets(ratings, sms: int) -> list:
+    """Every bucket of the ML-20M trainer's two halves that the fused
+    planner splits on this card (either form, f32 tables), bucketed from
+    the ratings' counts as the trainer buckets them: (B, K, S, seg_len,
+    the opposite table's rows), one for each (B, S), sorted."""
+    from predictionio_tpu_torch.models.als import ALSConfig, _assemble_buckets
+    from predictionio_tpu_torch.ops.fused_als import fused_tile_plan
+
+    cfg = ALSConfig(rank=RANK)
+    shapes = {}
+    for rows, n, m in ((ratings.user_ix, N_USERS, N_ITEMS),
+                       (ratings.item_ix, N_ITEMS, N_USERS)):
+        counts = np.bincount(rows, minlength=n)
+        for bk in _assemble_buckets(counts, np.zeros_like(counts),
+                                    cfg.min_bucket_k,
+                                    cfg.max_ratings_per_row):
+            for impl in ("taa", "dma"):
+                plan = fused_tile_plan(m, RANK, bk.k, 4, impl,
+                                       b=len(bk.rows), sms=sms)
+                if plan.segments > 1:
+                    shapes.setdefault((len(bk.rows), plan.segments), (
+                        len(bk.rows), bk.k, plan.segments, plan.seg_len, m))
+    return sorted(shapes.values())
+
+
 def fused_cases(torch, dev):
     """The fused phases' inputs, made on the card from generator seed 2:
     the item table [26,744, 64] and a rank-64 user-half bucket [32768,
@@ -649,15 +693,7 @@ def fused_cases(torch, dev):
     g = torch.Generator(device=dev).manual_seed(2)
 
     def bucket(B, K, M, lo, hi):
-        counts = torch.randint(lo, hi + 1, (B,), generator=g, device=dev)
-        valid = torch.arange(K, device=dev)[None, :] < counts[:, None]
-        idx = torch.randint(0, M, (B, K), generator=g, device=dev)
-        idx = torch.where(valid, idx, 0).to(torch.int32)
-        val = torch.randint(1, 11, (B, K), generator=g, device=dev) * 0.5
-        cw = valid.float()
-        bw = (val * cw).float()
-        reg = 0.01 * counts.clamp(min=1).float()
-        return idx, cw, bw, reg, int(counts.sum().item())
+        return rand_bucket(torch, g, B, K, M, lo, hi)
 
     table = torch.randn((N_ITEMS, RANK), generator=g, device=dev) / 8
     short = bucket(32_768, 128, N_ITEMS, 65, 128)
@@ -706,19 +742,123 @@ def fused_library(torch, table, idx, cw, bw, reg):
     return torch.cholesky_solve(rhs, L)
 
 
-def phase_fused(torch, dev) -> list[dict]:
+def reduce_bound(parts) -> tuple[float, str]:
+    """Pass 2's least work on [B, S, P] partials: each partial read once,
+    reg, gram0 and x; an add per partial float and an SPD solve a row."""
+    b, _, _ = parts.shape
+    return bound(parts.numel() * 4 + RANK * RANK * 4 + b * 4 + b * RANK * 4,
+                 parts.numel() + b * spd_solve_flops(RANK))
+
+
+def queued_ms(torch, fn, iters: int = 20, turns: int = 3) -> float:
+    """Device ms a call of ``fn`` with its host work out of the way:
+    ``iters`` calls queued behind a ``torch.cuda._sleep`` kernel that
+    outlasts their enqueueing (checked, and lengthened where it did not),
+    CUDA events around the calls alone, the median of ``turns`` turns.
+    The device's own gaps between launches stay in."""
+    fn()
+    cycles, out = 4_000_000, []
+    while len(out) < turns:
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        if ev[0].elapsed_time(ev[1]) <= host_ms:
+            cycles *= 2
+            continue
+        out.append(ev[1].elapsed_time(ev[2]) / iters)
+    return float(np.median(out))
+
+
+def reduce_at_split_shapes(torch, buckets, table, users) -> list:
+    """Pass 2 at every split bucket of the ML-20M trainer
+    (:func:`ml20m_split_buckets`): partials from the plain pass 1 on a
+    bucket of that shape (counts in (K/2, K], against the item or the
+    user table), held against the plain pass 2 (1e-4 of the solution's
+    scale), two calls the same bits, timed through the wrapper (CUDA
+    events, median of 5 turns) and on the device alone
+    (:func:`queued_ms`) beside its bound."""
+    from predictionio_tpu_torch.ops.fused_als import (
+        fused_partials_reference, reduce_plan, sm_count,
+    )
+
+    sms = sm_count(table.device)
+    g = torch.Generator(device=table.device).manual_seed(7)
+    t0 = time.perf_counter()
+    recs = []
+    for B, K, S, seg, m in buckets:
+        t = table if m == N_ITEMS else users
+        idx, cw, bw, reg, _ = rand_bucket(torch, g, B, K, m, K // 2 + 1, K)
+        parts = fused_partials_reference(t, idx, cw, bw, seg)
+        del idx, cw, bw
+        rec = reduce_case(torch, parts, reg, f"K={K}")
+        rec.update(K=K, groups=reduce_plan(B, S, RANK, sms).groups)
+        recs.append(rec)
+        del parts
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase fused reduce at the ML-20M split buckets ({len(recs)} "
+        f"shapes, {time.perf_counter() - t0:.2f} s; B x S, groups, ms "
+        "through the wrapper, device ms, bound ms, max_abs_err; two calls "
+        "equal bitwise): " + "; ".join(
+            f"{r['shape'][0]}x{r['shape'][1]} G={r['groups']} "
+            f"{r['ms']:.4f} {r['device_ms']:.4f} {r['bound_ms']:.4f} "
+            f"{r['max_abs_err']:.2e}" for r in recs))
+    return recs
+
+
+def reduce_case(torch, parts, reg, what: str) -> dict:
+    """Pass 2 on ``parts``: against its plain version (1e-4 of the
+    scale), two calls bitwise, the wrapper's time (CUDA events around 10
+    calls, median of 5 turns), its device time (:func:`queued_ms`) and
+    its bound."""
+    from predictionio_tpu_torch.ops.fused_als import (
+        fused_reduce_solve, fused_reduce_solve_reference,
+    )
+
+    x = fused_reduce_solve(parts, reg)
+    y = fused_reduce_solve(parts, reg)
+    torch.cuda.synchronize()
+    what = f"fused_als_reduce {list(parts.shape)} {what}"
+    if not torch.equal(x, y):
+        raise AssertionError(f"{what}: two calls differ")
+    err = max_err(x, fused_reduce_solve_reference(parts, reg), 1e-4, what)
+
+    def call():
+        return fused_reduce_solve(parts, reg)
+
+    ms = interleaved_ms({"kernel": (call, 10)})["kernel"]
+    bnd, by = reduce_bound(parts)
+    return dict(shape=list(parts.shape), ms=ms,
+                device_ms=queued_ms(torch, call), bound_ms=bnd,
+                bound_by=by, max_abs_err=err)
+
+
+def phase_fused(torch, dev, ratings) -> list[dict]:
     """Both forms of the fused kernel ("taa": rows loaded through L2;
     "dma": rows staged by cp.async into a double tile) and pass 2 of a
     split bucket, against their plain versions, on the [32768, 128]
     bucket (f32 and bf16 tables, explicit and implicit weights with a
     gram0), the split [229, 8192] bucket and the heavy [1, 2^21] row
-    (f32 and bf16 tables).  Tolerance: 1e-4 of the solution's scale,
-    1e-3 on the heavy row (TF32 parts with a high/low split against f32
-    products, Cholesky against Gauss-Jordan, sums in another order; the
-    long row sums 1.86M terms).  Two calls give the same bits.  Times
-    (:func:`interleaved_ms`: the two forms, and at the [32768, 128]
-    bucket and the heavy row the plain version and the library call too,
-    in the same turns) beside their bounds."""
+    (f32 and bf16 tables); pass 2 alone (:func:`reduce_case`, through
+    its wrapper) on the heavy row's partials in 1024 segments and in the
+    planner's, at every split bucket the planner gives the ML-20M
+    trainer (:func:`reduce_at_split_shapes`), and at [1, 1, P] (one
+    slice: the one-block solve's floor, device time).
+    Tolerance: 1e-4 of the solution's scale, 1e-3 on the heavy row (TF32
+    parts with a high/low split against f32 products, Cholesky against
+    Gauss-Jordan, sums in another order; the long row sums 1.86M terms).
+    Two calls give the same bits.  Times (:func:`interleaved_ms`: the two
+    forms, and at the [32768, 128] bucket and the heavy row the plain
+    version and the library call too, in the same turns) beside their
+    bounds."""
     from predictionio_tpu_torch.ops.fused_als import (
         fused_gather_gram_solve, fused_gather_gram_solve_reference,
         fused_partials_reference, fused_reduce_solve,
@@ -726,6 +866,7 @@ def phase_fused(torch, dev) -> list[dict]:
     )
 
     sms = sm_count(dev)
+    split_buckets = ml20m_split_buckets(ratings, sms)
     table, short, users, split, long = fused_cases(torch, dev)
     t16, u16 = table.to(torch.bfloat16), users.to(torch.bfloat16)
     gram_i = (table.T @ table).contiguous()
@@ -796,25 +937,40 @@ def phase_fused(torch, dev) -> list[dict]:
                 f"; plain {plain:.3f} ms, library {lib:.3f} ms"
                 if tag in ("", "long_row_") else ""))
 
-    # pass 2 alone, on the heavy row's partials from the plain pass 1
+    # pass 2 alone, on the heavy row's partials from the plain pass 1: in
+    # 1024 segments (the shape PERF.md's kernel table tracks, timed in the
+    # same turns as the plain version) and in the planner's segments
     idx, cw, bw, reg, _ = long
+    parts = fused_partials_reference(users, idx, cw, bw, idx.shape[1] // 1024)
+    red = reduce_case(torch, parts, reg, "heavy row")
+
+    def wrapper():
+        return fused_reduce_solve(parts, reg)
+
+    t = interleaved_ms({
+        "kernel": (wrapper, 20),
+        "plain": (lambda: fused_reduce_solve_reference(parts, reg), 2)})
+    red["ms"], red_plain = t["kernel"], t["plain"]
+    red["host_us"] = host_us(torch, {"kernel": wrapper})["kernel"]
+    # the floor at B = 1: one slice read and the one-block solve
+    one = parts[:, :1].contiguous()
+    solve_ms = queued_ms(torch, lambda: fused_reduce_solve(one, reg))
+    del parts, one
     plan = fused_tile_plan(N_USERS, RANK, idx.shape[1], 4, "taa", b=1,
                            sms=sms)
     parts = fused_partials_reference(users, idx, cw, bw, plan.seg_len)
-    red_err = max_err(fused_reduce_solve(parts, reg),
-                      fused_reduce_solve_reference(parts, reg), 1e-4,
-                      "fused_als_reduce [1,2^21] partials")
-    t = interleaved_ms({
-        "kernel": (lambda: fused_reduce_solve(parts, reg), 20),
-        "plain": (lambda: fused_reduce_solve_reference(parts, reg), 2)})
-    red_ms, red_plain = t["kernel"], t["plain"]
-    red_bound, red_by = bound(parts.numel() * 4 + RANK * RANK * 4 + 4
-                              + RANK * 4,
-                              parts.numel() + spd_solve_flops(RANK))
-    log(f"phase fused reduce {list(parts.shape)}: kernel {red_ms:.4f} ms, "
-        f"plain {red_plain:.3f} ms, bound {red_bound:.4f} ms ({red_by}), "
-        f"max_abs_err {red_err:.3e}")
+    heavy = reduce_case(torch, parts, reg, "heavy row, the planner's split")
     del parts
+    log(f"phase fused reduce {red['shape']}: kernel {red['ms']:.4f} ms "
+        f"through the wrapper (host {red['host_us']:.2f} us, device "
+        f"{red['device_ms']:.4f} ms a call), plain {red_plain:.3f} ms, "
+        f"bound {red['bound_ms']:.4f} ms ({red['bound_by']}), max_abs_err "
+        f"{red['max_abs_err']:.3e}; the one-block solve (device, at "
+        f"[1,1,{red['shape'][2]}]) {solve_ms:.4f} ms; the planner's "
+        f"{heavy['shape']}: {heavy['ms']:.4f} ms (device "
+        f"{heavy['device_ms']:.4f}), bound {heavy['bound_ms']:.4f} ms, "
+        f"max_abs_err {heavy['max_abs_err']:.3e}")
+    split_recs = reduce_at_split_shapes(torch, split_buckets, table, users)
     out = []
     for impl, line in (("taa", 368), ("dma", 500)):
         r = recs[impl]
@@ -833,10 +989,14 @@ def phase_fused(torch, dev) -> list[dict]:
         name="fused_als_reduce", route="cuda",
         source="predictionio_tpu_torch/ops/csrc/fused_als.cu",
         replaces="predictionio_tpu/ops/fused_als.py:368",
-        part_of=["fused_als", "fused_als_dma"], max_abs_err=red_err,
-        ms=red_ms, plain_ms=red_plain, bound_ms=red_bound, bound_by=red_by,
-        library_ms=None,
-        shape=f"partials[1,{plan.segments},{RANK * (RANK + 1) // 2 + RANK}]"))
+        part_of=["fused_als", "fused_als_dma"],
+        max_abs_err=max(r["max_abs_err"] for r in (red, heavy, *split_recs)),
+        ms=red["ms"], plain_ms=red_plain, bound_ms=red["bound_ms"],
+        bound_by=red["bound_by"], library_ms=None,
+        device_ms=red["device_ms"], host_us=red["host_us"],
+        solve_floor_ms=solve_ms,
+        shape=f"partials[1,1024,{RANK * (RANK + 1) // 2 + RANK}]",
+        planner_heavy=heavy, split_shapes=split_recs))
     del table, users, t16, u16, short, split, long
     torch.cuda.empty_cache()
     return out
@@ -8006,17 +8166,43 @@ def fused_half_by_bucket(torch, tr, U, V, side: str, waves) -> list:
     return rows
 
 
+def fused_iteration_at_waves(tr, U, V, waves, turns: int = 5) -> dict:
+    """Seconds of one whole fused iteration of ``tr`` (its fenced halves
+    summed) from ``(U, V)`` at each split target in ``waves``: the
+    planner's ``WAVES`` set for each run (it is read at every plan) and
+    restored after, one warm-up run each, then ``turns`` turns in which
+    every target runs once, the order rotating; medians."""
+    from predictionio_tpu_torch.ops import fused_als as fmod
+
+    planner = fmod.WAVES
+    secs = {w: [] for w in waves}
+    try:
+        for turn in range(-1, turns):
+            k = max(turn, 0) % len(waves)
+            for w in waves[k:] + waves[:k]:
+                fmod.WAVES = w
+                tr.run(U, V, 1)
+                if turn >= 0:
+                    secs[w].append(sum(t for _, t in tr.half_seconds))
+    finally:
+        fmod.WAVES = planner
+    return {w: float(np.median(v)) for w, v in secs.items()}
+
+
 def phase_breakdown(torch, ratings) -> dict:
     """Where one full-width iteration's device time goes, per solver: a
     first iteration (it also pays the caching allocator's device
     allocations, after the ``empty_cache`` before it), one without the
     profiler (its fenced halves: the iteration time), then one under
-    ``torch.profiler``: device time by kernel (top 6) and the
-    device's busy share of that iteration's wall time.  For the fused
+    ``torch.profiler``: device time by kernel (top 6), pass 2's (both
+    stages) and the device's busy share of that iteration's wall time.  For the fused
     solver, each half once more bucket by bucket (B, K, segments, ms) at
     every split target of SWEEP_WAVES, in turns within each bucket: the
-    halves' sums say which target the planner's ``WAVES`` should be.
-    Returns each solver's unprofiled iteration seconds."""
+    halves' sums say which target the planner's ``WAVES`` should be; and
+    the whole fused iteration (its fenced halves) at each target of
+    ITERATION_WAVES, in turns, median of 5, the planner's ``WAVES`` set
+    for each run and restored after.  Returns each solver's unprofiled
+    iteration seconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -8049,12 +8235,21 @@ def phase_breakdown(torch, ratings) -> dict:
         halves = ", ".join(f"{s} {t * 1e3:.1f} ms" for s, t in tr.half_seconds)
         top = "; ".join(f"{k[:70]} x{c} {t / 1e3:.1f} ms ({t / total:.1%})"
                         for t, k, c in rows[:6]) if total else "none"
+        # pass 2 of the split buckets, both of its stages
+        p2 = [(t, c) for t, k, c in rows
+              if "fused_als_reduce_kernel" in k
+              or "fused_als_group_sum_kernel" in k]
+        p2_us = sum(t for t, _ in p2)
         log(f"phase breakdown solver={solver}"
             + (f" ({tr.fused_gather!r} form)" if solver == "fused" else "")
             + f": first iteration [{first}], unprofiled [{plain}]; profiled "
             f"wall {wall * 1e3:.1f} ms "
             f"[{halves}], device time {total / 1e3:.1f} ms (busy "
-            f"{total / 1e6 / wall:.1%} of wall); top kernels: {top}")
+            f"{total / 1e6 / wall:.1%} of wall); top kernels: {top}"
+            + (f"; pass 2 (both stages) {p2_us / 1e3:.3f} ms in "
+               f"{sum(c for _, c in p2)} kernel launches "
+               f"({p2_us / total:.2%} of device time)"
+               if solver == "fused" and total else ""))
         if solver == "fused":
             sweep = sorted({WAVES, *SWEEP_WAVES})
             sums = {w: 0.0 for w in sweep}
@@ -8080,6 +8275,12 @@ def phase_breakdown(torch, ratings) -> dict:
             log("phase breakdown fused split target (both halves, ms): "
                 + ", ".join(f"WAVES={w} {t:.3f}" for w, t in sums.items())
                 + f"; least at WAVES={best}, the planner uses {WAVES}")
+            e2e = fused_iteration_at_waves(tr, U, V, ITERATION_WAVES)
+            log("phase breakdown fused iteration by split target (fenced "
+                "halves summed, median of 5 turns, ms): " + ", ".join(
+                    f"WAVES={w} {t * 1e3:.2f}" for w, t in e2e.items())
+                + f"; least at WAVES={min(e2e, key=e2e.get)}, the planner "
+                f"uses {WAVES}")
         del tr, U, V
         torch.cuda.empty_cache()
     log(f"phase breakdown iteration (sum of the fenced halves): fused "
@@ -8250,7 +8451,7 @@ def main(argv: list[str]) -> int:
         kernels = [timed("gj", phase_gj, torch, dev, (
             ratings.user_ix, ratings.item_ix, ratings.rating))]
         torch.cuda.empty_cache()
-        kernels.extend(timed("fused", phase_fused, torch, dev))
+        kernels.extend(timed("fused", phase_fused, torch, dev, ratings))
         kernels.extend(timed("gather", phase_gather, torch, dev))
         timed("small reference", phase_small_reference, torch)
         timed("topk", phase_topk, torch, dev)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Design checks of the hand-written kernels on one NVIDIA GPU.
 
-    python3 kernel_variants.py fused|gj|taa1
+    python3 kernel_variants.py fused|reduce|gj|taa1
 
 Builds copies of one kernel's source (``predictionio_tpu_torch/ops/csrc/``)
 with one design choice changed or one phase cut out, each by its own
@@ -26,6 +26,23 @@ other, and pass 2 alone on a [32768, 2, 2144] set of partials:
 * ``panel16``: the Cholesky in panels of 16 columns instead of 8;
 * ``round_robin``: a warp's tiles dealt round-robin instead of in runs
   that share their row fragment.
+
+``reduce`` (``fused_als.cu``, pass 2 alone): at every split bucket of
+the ML-20M trainer and at phase fused's heavy row (the planner's
+segments at the card's SM count, ``taa`` form, on partials of two
+random rows a segment), each variant with its own
+:func:`reduce_plan`, in turns (medians of 5), every variant held to the
+plain version (1e-4 of the scale), then the one-block solve's floor
+(one slice of [1, 1, P]):
+
+* ``as_built``: first-stage blocks of 64 threads, 8 loads in flight a
+  thread in both stages;
+* ``sum32``, ``sum128``: first-stage blocks of 32 or 128 threads
+  (narrower tiles give the second stage fewer groups to sum);
+* ``unroll16``: 16 loads in flight a thread (more registers a thread in
+  the second stage, whose block also solves);
+* ``one stage`` (the source as built, a plan with G = 1): the second
+  stage sums every partial itself.
 
 ``gj`` (``gj_solve.cu``): 65,536 rank-64 systems (the ``"pallas"``
 solver's main shape, ``chip_smoke.py`` phase gj's systems), the variants
@@ -174,17 +191,118 @@ def run_fused(torch, cs, libs) -> None:
     parts = fmod.fused_partials_reference(table, *short[:3], 64)
     reg = short[3]
     x = torch.empty((parts.shape[0], cs.RANK), device=dev)
+    # the rows fill the card: one stage, no scratch
+    rp = fmod.reduce_plan(parts.shape[0], 2, cs.RANK, fmod.sm_count(dev))
+    assert rp.groups == 1
     times = []
     for var, (entries, _) in libs.items():
         def call(entry=entries["pio_fused_als_reduce"]):
             fn, pack = entry
             _build.check_launch(fn(pack(
                 parts.data_ptr(), reg.data_ptr(), gram0.data_ptr(),
-                x.data_ptr(), parts.shape[0], cs.RANK, 2,
-                parts.numel() * 4, stream)), var)
+                x.data_ptr(), 0, parts.shape[0], cs.RANK, 2,
+                rp.seg_per_group, parts.numel() * 4, 0, stream)), var)
 
         times.append(f"{var} {cs.cuda_ms(call, iters=5):.3f}")
     print(f"pass 2 {list(parts.shape)} ms: " + ", ".join(times), flush=True)
+
+
+# ----------------------------------------------------------------- reduce --
+
+# threads of pass 2's first-stage block in each variant (its plan is
+# made for them: reduce_plan's threads)
+REDUCE_SUM_THREADS = {"as_built": 64, "sum32": 32, "sum128": 128,
+                      "unroll16": 64}
+
+
+def reduce_variants(src: str) -> dict:
+    def c(old, new):
+        return cut(src, "fused_als.cu", old, new)
+
+    sum_threads = "constexpr int kSumThreads = 64;"
+    return {
+        "as_built": src,
+        **{f"sum{w}": c(sum_threads, f"constexpr int kSumThreads = {w};")
+           for w in (32, 128)},
+        "unroll16": c("constexpr int kUnroll = 8;",
+                      "constexpr int kUnroll = 16;"),
+    }
+
+
+def run_reduce(torch, cs, libs) -> None:
+    from predictionio_tpu_torch.ops import _build
+    from predictionio_tpu_torch.ops import fused_als as fmod
+
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = fmod.sm_count(dev)
+    R, P = cs.RANK, fmod.partial_floats(cs.RANK)
+    g = torch.Generator(device=dev).manual_seed(6)
+    # the ML-20M trainer's split buckets from 2048 slots (chip_smoke.py's
+    # phase breakdown): the user half's against the item table, the item
+    # half's against the user table; and phase fused's heavy row
+    shapes = [(b, 2048 << j, cs.N_ITEMS)
+              for j, b in enumerate((1046, 372, 124, 38, 10))]
+    shapes += [(b, 2048 << j, cs.N_USERS) for j, b in enumerate(
+        (1532, 728, 347, 162, 77, 34, 16, 2))]
+    shapes.append((1, 1 << 21, cs.N_USERS))
+    for name, (_, out) in libs.items():
+        regs = {kern: re.search(kern + r".*?Used (\d+) registers", out, re.S)
+                for kern in ("group_sum_kernelILi4E",
+                             "reduce_kernelILi2ELi4E")}
+        print(f"{name}: registers (ptxas) " + ", ".join(
+            f"{k} {m.group(1) if m else '?'}" for k, m in regs.items()),
+            flush=True)
+    ti, tj = torch.tril_indices(R, R, device=dev)
+    for b, k, m in shapes:
+        s = fmod.fused_tile_plan(m, R, k, 4, "taa", b=b, sms=sms).segments
+        v = torch.randn((b, s, 2, R), generator=g, device=dev) / 4
+        gram = torch.einsum("bskr,bskt->bsrt", v, v)
+        parts = torch.cat([gram[:, :, ti, tj], v.sum(2)], 2).contiguous()
+        del v, gram
+        reg = torch.ones(b, device=dev)
+        want = fmod.fused_reduce_solve_reference(parts, reg)
+        fns, plans = {}, {}
+        cases = [(name, name) for name in libs]
+        cases.append(("one stage", "as_built"))
+        for case, var in cases:
+            plan = fmod.reduce_plan(b, s, R, sms, REDUCE_SUM_THREADS[var])
+            if case == "one stage":
+                plan = plan._replace(groups=1, seg_per_group=s,
+                                     scratch_bytes=0)
+            plans[case] = plan
+            scratch = torch.empty(max(plan.scratch_bytes // 4, 1),
+                                  device=dev)
+            x = torch.empty((b, R), device=dev)
+            fn, pack = libs[var][0]["pio_fused_als_reduce"]
+            block = pack(parts.data_ptr(), reg.data_ptr(), 0, x.data_ptr(),
+                         scratch.data_ptr() if plan.scratch_bytes else 0,
+                         b, R, s, plan.seg_per_group, parts.numel() * 4,
+                         plan.scratch_bytes, stream)
+
+            def call(fn=fn, block=block, case=case, x=x, scratch=scratch):
+                _build.check_launch(fn(block), case)
+
+            call()
+            torch.cuda.synchronize()
+            cs.max_err(x, want, 1e-4, f"variant {case} [{b},{s},{P}]")
+            fns[case] = (call, 10)
+        ms = cs.interleaved_ms(fns)
+        print(f"pass 2 [{b},{s},{P}] ms: " + ", ".join(
+            f"{case} (G={plans[case].groups}) {t:.4f}"
+            for case, t in ms.items()), flush=True)
+    # the floor at one row: one slice read and the one-block solve
+    parts = torch.randn((1, 1, P), generator=g, device=dev).abs()
+    parts[0, 0, :R * (R + 1) // 2] = 0.0
+    reg = torch.ones(1, device=dev)
+    x = torch.empty((1, R), device=dev)
+    fn, pack = libs["as_built"][0]["pio_fused_als_reduce"]
+    block = pack(parts.data_ptr(), reg.data_ptr(), 0, x.data_ptr(), 0, 1, R,
+                 1, 1, P * 4, 0, stream)
+    ms = cs.interleaved_ms({"solve": (
+        lambda: _build.check_launch(fn(block), "solve"), 20)})
+    print(f"pass 2 [1,1,{P}] (one slice, the one-block solve) ms: "
+          f"{ms['solve']:.4f}", flush=True)
 
 
 # --------------------------------------------------------------------- gj --
@@ -325,6 +443,8 @@ KERNELS = {
     "fused": ("fused_als.cu", fused_variants, run_fused,
               ("pio_fused_als_f32", "pio_fused_als_dma_f32",
                "pio_fused_als_reduce")),
+    "reduce": ("fused_als.cu", reduce_variants, run_reduce,
+               ("pio_fused_als_reduce",)),
     "gj": ("gj_solve.cu", gj_variants, run_gj, ("pio_gj_solve",)),
     "taa1": ("gather_probe.cu", taa1_variants, run_taa1,
              ("pio_taa1_gather",)),

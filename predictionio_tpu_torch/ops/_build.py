@@ -203,7 +203,7 @@ def _build_locked(force: bool) -> Path:
 ARG_STRUCTS = {
     "GjArgs": "@3P7iP",
     "FusedArgs": "@8P9iqiP",
-    "ReduceArgs": "@4P3iqP",
+    "ReduceArgs": "@5P4i2qP",
     "TaaArgs": "@3P3iP",
     "RowCopyArgs": "@3P8iP",
 }

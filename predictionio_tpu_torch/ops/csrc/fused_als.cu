@@ -48,10 +48,15 @@
 //   S = 1 the block solves its row itself.  With S > 1 (the planner,
 //   ops/fused_als.py fused_tile_plan, splits buckets too short to fill
 //   the card) each block writes its segment's partial Gram triangle and
-//   rhs, in f32, to a workspace the wrapper allocates, and a second
-//   kernel (fused_als_reduce_kernel) sums a row's S partials in segment
-//   order, adds gram0 and reg I, and solves.  No atomics: two calls on
-//   the same inputs give the same bits.
+//   rhs, in f32, to a workspace the wrapper allocates, and pass 2 sums a
+//   row's S partials, adds gram0 and reg I, and solves.  Pass 2 is bound
+//   by the partials' bytes (about 9 MB a split bucket at R = 64), so
+//   where the rows are too few to fill the card its first stage
+//   (fused_als_group_sum_kernel) sums groups of consecutive segments on
+//   at least 2 * SMs blocks, and its second (fused_als_reduce_kernel, a
+//   block per row) sums the group sums and solves; where B fills the
+//   card the second stage sums the S partials itself.  Fixed orders and
+//   no atomics: two calls on the same inputs give the same bits.
 // * The Gram on the tensor cores, at f32 accuracy.  A chunk's products
 //   are mma.sync m16n8k8 TF32 tiles with f32 accumulation:
 //   A[i][k] = v_k[i], B[k][j] = cw_k v_k[j], and one extra n8 column
@@ -718,56 +723,197 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---- pass 2: reduce the split partials and solve -------------------------
+//
+// What bounds it: bytes.  A split bucket's partials are [B, S, P] f32
+// (P = R(R+1)/2 + R, 2,144 at R = 64), and the planner gives a split
+// bucket about WAVES * SMS partial rows, about 9 MB at R = 64: 2.7 us
+// at 3.35 TB/s.  A block per row reading them alone (the first design)
+// left all but B SMs idle: at B = 1 one SM read the heavy row's 8.8 MB
+// in 0.33 ms.  Two stages now, both in one pass-2 call (one count of
+// fused_als_reduce, however many launches):
+// * stage 1 (fused_als_group_sum_kernel), where the rows are too few to
+//   fill the card and have more segments than two batches of loads: a
+//   grid of (tile of the [B * P] entries, group of consecutive
+//   segments), G groups of `seg_per_group` segments.  A
+//   thread sums its VEC entries over its group's segments in segment
+//   order, kUnroll loads in flight (16-byte loads where P % 4 == 0 and
+//   the partials are 16-byte aligned, else 4-byte loads), and writes the group sum to the [B, G, P] scratch the wrapper
+//   allocates.  The planner (ops/fused_als.py reduce_plan) picks G so
+//   that the grid has at least 2 * SMs blocks (G = 1 where the tiles
+//   alone fill it), in groups of at least two segments;
+// * stage 2 (fused_als_reduce_kernel), a block per row: sums the row's G
+//   group sums (or, without stage 1, its S partials: where B alone fills
+//   the card, or S <= 2 * kUnroll) in order, the same
+//   loads, writes gram0 + sum + reg I and the rhs into the
+//   [R, R + 1] system in shared memory and solves it (chol_solve_block,
+//   pass 1's).  At B = 1 that one-block solve is the floor: about 0.030
+//   ms of the pass's 0.039 ms of device time at [1, 1024, 2144] on an
+//   H100 (PERF.md).
+// Every sum has a fixed order, and no value is summed by atomics: two
+// calls on the same partials give the same bits.
 
-// Block per row: sum its S partials in segment order (each thread owns
-// whole entries, so the order is fixed), add gram0 and reg I, and solve.
-template <int RPL>
-__global__ void __launch_bounds__(kThreads)
-    fused_als_reduce_kernel(const float* __restrict__ ws,
-                            const float* __restrict__ reg,
-                            const float* __restrict__ gram0,
-                            float* __restrict__ x, int R, int S) {
-  extern __shared__ float Msys[];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int ld = R + 1;
-  const size_t row = blockIdx.x;
-  const size_t P = partial_floats(R);
-  const size_t tri = (size_t)R * (R + 1) / 2;
-  const float* part = ws + row * S * P;
-  const float rg = reg[row];
-  for (int i = warp; i < R; i += kWarps) {
-    for (int j = lane; j <= i; j += 32) {
-      const size_t e = (size_t)i * (i + 1) / 2 + j;
-      float sum = 0.0f;
-      for (int s = 0; s < S; ++s) sum += part[s * P + e];
-      Msys[i * ld + j] = gram0[i * R + j] + sum + (i == j ? rg : 0.0f);
+// The two constants of pass 2's plan are defined here; ops/fused_als.py
+// SUM_THREADS and REDUCE_UNROLL copy them (tests/test_torch_fused_reduce.py
+// holds the copies to these lines).
+// a stage-1 block: narrow tiles, so fewer groups reach 2 * SMs blocks
+// and stage 2 has fewer group sums to read (128 threads: 0.048 against
+// 0.045 ms at [1, 2048, 2144], kernel_variants.py reduce)
+constexpr int kSumThreads = 64;
+// loads in flight a thread.  Stage 2's block also runs the solve, and its
+// registers set how many blocks of a tall bucket share an SM: 16 took
+// 102 registers a thread against 64 and 0.129 against 0.070 ms at
+// B = 1046.
+constexpr int kUnroll = 8;
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// acc += src[0], src[stride], ..., src[(n - 1) stride], in that order, in
+// batches of kUnroll slices whose loads are all issued before their adds
+// (a short last batch predicated, not a loop of single loads)
+template <int VEC>
+__device__ __forceinline__ void sum_slices(const float* __restrict__ src,
+                                           size_t stride, int n,
+                                           float (&acc)[VEC]) {
+  for (int s = 0; s < n; s += kUnroll) {
+    float v[kUnroll][VEC];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (s + u < n) load_vec<VEC>(src + (size_t)(s + u) * stride, v[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (s + u < n) {
+#pragma unroll
+        for (int c = 0; c < VEC; ++c) acc[c] += v[u][c];
+      }
     }
   }
-  for (int i = tid; i < R; i += kThreads) {
-    float sum = 0.0f;
-    for (int s = 0; s < S; ++s) sum += part[s * P + tri + i];
-    Msys[i * ld + R] = sum;
+}
+
+// Stage 1: block (tile, group) sums segments [g * spg, min(S, (g + 1) *
+// spg)) of the tile's entries of the flattened [B * P] partial rows.
+// With VEC = 4, P % 4 == 0: a 16-byte piece never straddles two rows.
+template <int VEC>
+__global__ void __launch_bounds__(kSumThreads)
+    fused_als_group_sum_kernel(const float* __restrict__ ws,
+                               float* __restrict__ groups, long long total,
+                               int P, int S, int G, int spg) {
+  const long long f =
+      ((long long)blockIdx.x * kSumThreads + threadIdx.x) * VEC;
+  if (f >= total) return;
+  const long long b = f / P;
+  const int e = static_cast<int>(f - b * P);
+  const int g = blockIdx.y;
+  const int s0 = g * spg;
+  float acc[VEC] = {};
+  sum_slices<VEC>(ws + ((size_t)b * S + s0) * P + e, P, min(spg, S - s0),
+                  acc);
+  float* out = groups + ((size_t)b * G + g) * P + e;
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(out) = make_float4(acc[0], acc[1], acc[2],
+                                                  acc[3]);
+  } else {
+    out[0] = acc[0];
+  }
+}
+
+// the row i of the packed lower triangle's entry e = i (i + 1) / 2 + j
+__device__ __forceinline__ int tri_row(int e) {
+  int i = static_cast<int>((sqrtf(8.0f * e + 1.0f) - 1.0f) * 0.5f);
+  while (i * (i + 1) / 2 > e) --i;
+  while ((i + 1) * (i + 2) / 2 <= e) ++i;
+  return i;
+}
+
+// Stage 2: block per row of src [B, N, P] (N group sums, or the S
+// partials), summed in order, then gram0 and reg I added, and solved.
+template <int RPL, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    fused_als_reduce_kernel(const float* __restrict__ src,
+                            const float* __restrict__ reg,
+                            const float* __restrict__ gram0,
+                            float* __restrict__ x, int R, int N) {
+  extern __shared__ float Msys[];
+  const int ld = R + 1;
+  const size_t row = blockIdx.x;
+  const int P = static_cast<int>(partial_floats(R));
+  const int tri = R * (R + 1) / 2;
+  const float rg = reg[row];
+  const float* part = src + row * N * P;
+  for (int v = threadIdx.x * VEC; v < P; v += kThreads * VEC) {
+    float acc[VEC] = {};
+    sum_slices<VEC>(part + v, P, N, acc);
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) {
+      const int e = v + c;
+      if (e < tri) {
+        const int i = tri_row(e);
+        const int j = e - i * (i + 1) / 2;
+        const float g0 = gram0 == nullptr ? 0.0f : gram0[i * R + j];
+        Msys[i * ld + j] = g0 + acc[c] + (i == j ? rg : 0.0f);
+      } else {
+        Msys[(e - tri) * ld + R] = acc[c];
+      }
+    }
   }
   __syncthreads();
   chol_solve_block<RPL>(Msys, R, x + row * R);
 }
 
-template <int RPL>
-int launch_reduce(const void* ws, const void* reg, const void* gram0,
-                  void* x, int B, int R, int S, cudaStream_t stream) {
-  const size_t smem = sys_bytes(R);
+template <int RPL, int VEC>
+int launch_reduce(const ReduceArgs& a, int groups, cudaStream_t stream) {
+  const int P = static_cast<int>(partial_floats(a.R));
+  const float* src = static_cast<const float*>(a.ws);
+  int n = a.segments;
+  if (a.scratch != nullptr) {  // stage 1
+    const long long total = (long long)a.B * P;
+    const dim3 grid(static_cast<unsigned>(
+                        (total + kSumThreads * VEC - 1) / (kSumThreads * VEC)),
+                    static_cast<unsigned>(groups));
+    fused_als_group_sum_kernel<VEC><<<grid, kSumThreads, 0, stream>>>(
+        src, static_cast<float*>(a.scratch), total, P, a.segments, groups,
+        a.seg_per_group);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    src = static_cast<const float*>(a.scratch);
+    n = groups;
+  }
+  const size_t smem = sys_bytes(a.R);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fused_als_reduce_kernel<RPL>,
+        fused_als_reduce_kernel<RPL, VEC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  fused_als_reduce_kernel<RPL><<<B, kThreads, smem, stream>>>(
-      static_cast<const float*>(ws), static_cast<const float*>(reg),
-      static_cast<const float*>(gram0), static_cast<float*>(x), R, S);
+  fused_als_reduce_kernel<RPL, VEC><<<a.B, kThreads, smem, stream>>>(
+      src, static_cast<const float*>(a.reg),
+      static_cast<const float*>(a.gram0), static_cast<float*>(a.x), a.R, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int VEC>
+int dispatch_reduce(const ReduceArgs& a, int groups, cudaStream_t stream) {
+  switch ((a.R + 31) / 32) {
+    case 1:
+      return launch_reduce<1, VEC>(a, groups, stream);
+    case 2:
+      return launch_reduce<2, VEC>(a, groups, stream);
+    case 3:
+      return launch_reduce<3, VEC>(a, groups, stream);
+    default:
+      return launch_reduce<4, VEC>(a, groups, stream);
+  }
 }
 
 // ---- launch --------------------------------------------------------------
@@ -895,25 +1041,31 @@ int pio_fused_als_dma_bf16(const void* block) {
 }
 
 // Pass 2 of a split bucket (ReduceArgs): ws [B, segments, R(R+1)/2 + R]
-// f32 from pass 1, reg [B], gram0 [R, R] -> x [B, R].
+// f32 from pass 1, reg [B], gram0 [R, R] (NULL: zeros) -> x [B, R].
+// seg_per_group and scratch_bytes come from ops/fused_als.py reduce_plan:
+// stage 1 runs where scratch is not NULL, over ceil(segments /
+// seg_per_group) groups, and scratch_bytes must then be the [B, groups,
+// P] f32 scratch; without it a group must hold every segment.  Loads
+// are 16 bytes where P % 4 == 0 and ws and scratch are 16-byte aligned,
+// else 4.
 int pio_fused_als_reduce(const void* block) {
   const ReduceArgs a = pio::load_args<ReduceArgs>(block);
-  const int B = a.B, R = a.R, segments = a.segments;
-  if (B < 0 || R < 1 || R > kMaxRank || segments < 2 ||
-      a.ws_bytes != (long long)B * segments * (long long)partial_floats(R) * 4)
+  const int B = a.B, R = a.R, S = a.segments, spg = a.seg_per_group;
+  if (B < 0 || R < 1 || R > kMaxRank || S < 1 || spg < 1 ||
+      a.ws_bytes != (long long)B * S * (long long)partial_floats(R) * 4)
+    return cudaErrorInvalidValue;
+  const long long P = (long long)partial_floats(R);
+  const int groups = (S + spg - 1) / spg;
+  if (a.scratch != nullptr ? a.scratch_bytes != (long long)B * groups * P * 4
+                           : groups != 1 || a.scratch_bytes != 0)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
+  const bool vec4 = P % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(a.ws) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(a.scratch) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(a.stream);
-  switch ((R + 31) / 32) {
-    case 1:
-      return launch_reduce<1>(a.ws, a.reg, a.gram0, a.x, B, R, segments, s);
-    case 2:
-      return launch_reduce<2>(a.ws, a.reg, a.gram0, a.x, B, R, segments, s);
-    case 3:
-      return launch_reduce<3>(a.ws, a.reg, a.gram0, a.x, B, R, segments, s);
-    default:
-      return launch_reduce<4>(a.ws, a.reg, a.gram0, a.x, B, R, segments, s);
-  }
+  return vec4 ? dispatch_reduce<4>(a, groups, s)
+              : dispatch_reduce<1>(a, groups, s);
 }
 
 }  // extern "C"

@@ -73,16 +73,21 @@ struct FusedArgs {
   void* stream;
 };
 
-// fused_als.cu pio_fused_als_reduce
+// fused_als.cu pio_fused_als_reduce; seg_per_group and scratch_bytes
+// are the plan of ops/fused_als.py reduce_plan (gram0 and scratch may be
+// NULL)
 struct ReduceArgs {
   const void* ws;
   const void* reg;
   const void* gram0;
   void* x;
+  void* scratch;
   int B;
   int R;
   int segments;
+  int seg_per_group;
   long long ws_bytes;
+  long long scratch_bytes;
   void* stream;
 };
 

@@ -24,7 +24,9 @@ splits long rows into segments so the bucket fills the card's SMs
 (:func:`sm_count` of the tensors' device): pass 1 runs
 ``B * segments`` blocks, each writing its segment's partial Gram and rhs
 to a workspace, and pass 2 (``fused_als_reduce``, its own launch count)
-sums each row's partials in segment order and solves.
+sums each row's partials and solves: where the rows are too few to fill
+the card, groups of consecutive segments first, on :func:`reduce_plan`'s
+grid, then the group sums, each in a fixed order.
 :func:`fused_reduce_solve` is pass 2's wrapper;
 :func:`fused_partials_reference` and :func:`fused_reduce_solve_reference`
 are the plain versions of the two passes.
@@ -47,6 +49,7 @@ from .solve import MAX_RANK, SMS, sm_count, spd_solve_reference
 __all__ = [
     "GATHER_IMPLS",
     "FusedPlan",
+    "ReducePlan",
     "copy_piece_bytes",
     "fused_gather_gram_solve",
     "fused_gather_gram_solve_reference",
@@ -56,6 +59,7 @@ __all__ = [
     "fused_side_fits",
     "fused_split_reference",
     "fused_tile_plan",
+    "reduce_plan",
     "resolve_gather_impl",
     "sm_count",
     "split_segments",
@@ -87,8 +91,16 @@ KC_CHOICES = (128, 64, 32, 16, 8)
 # SXM's count) when no device is named.  WAVES is the least of
 # chip_smoke.py's sweep over the ML-20M trainer's buckets (both fused
 # halves summed).
-WAVES = 8
+WAVES = 16
 MIN_SEGMENT = 1024
+# pass 2's two constants, defined in csrc/fused_als.cu (kSumThreads,
+# kUnroll; tests/test_torch_fused_reduce.py holds these copies to them):
+# threads of a first-stage block (fused_als_group_sum_kernel), each
+# summing one load of VEC floats, and the slices a thread loads in one
+# batch: the second stage alone sums a row of up to two batches (a first
+# stage costs more there, kernel_variants.py reduce)
+SUM_THREADS = 64
+REDUCE_UNROLL = 8
 
 
 class FusedPlan(NamedTuple):
@@ -160,15 +172,19 @@ def fused_smem_bytes(
 
 
 def split_segments(
-    b: Optional[int], k: int, kc: int, sms: int = SMS, waves: int = WAVES,
+    b: Optional[int], k: int, kc: int, sms: int = SMS,
+    waves: Optional[int] = None,
 ) -> tuple[int, int]:
     """``(segments, seg_len)`` for a ``[b, k]`` bucket with chunks of
     ``kc``: a bucket of fewer than ``waves * sms`` rows splits each row
     into about ``waves * sms / b`` segments, no shorter than
     :data:`MIN_SEGMENT` slots, each a whole number of chunks.  ``b`` None
-    (height unknown) gives one segment."""
+    (height unknown) gives one segment; ``waves`` None is
+    :data:`WAVES` as it stands at the call."""
     if k <= 0:
         return 1, 0
+    if waves is None:
+        waves = WAVES
     s = 1
     if b is not None and 0 < b < waves * sms:
         s = max(1, min(-(-waves * sms // b), k // MIN_SEGMENT))
@@ -176,9 +192,54 @@ def split_segments(
     return -(-k // seg), seg
 
 
+class ReducePlan(NamedTuple):
+    """Launch plan of pass 2 (csrc/fused_als.cu ``fused_als_reduce``).
+
+    ``groups`` G of ``seg_per_group`` consecutive segments each (the last
+    may hold fewer).  With ``scratch_bytes`` > 0 the first stage sums
+    each group on a grid of ``tiles`` blocks along the ``B * P`` entries
+    times G (``blocks``) into that ``[B, G, P]`` f32 scratch, and the
+    second stage, a block per row, sums the G group sums and solves;
+    else (G = 1, ``blocks`` 0) the second stage sums the S partials
+    itself.  ``vec``: floats a load, 4 where P is a multiple of 4 (the
+    kernel itself takes 1 for partials that are not 16-byte aligned,
+    on more tiles)."""
+
+    groups: int
+    seg_per_group: int
+    vec: int
+    tiles: int
+    blocks: int
+    scratch_bytes: int
+
+
+@functools.lru_cache(maxsize=1024)
+def reduce_plan(
+    b: int, s: int, r: int, sms: int = SMS, threads: int = SUM_THREADS,
+) -> ReducePlan:
+    """Plan pass 2 for ``[b, s, P]`` partials of rank ``r`` (``P = R(R+1)/2
+    + R``, ``s >= 1``) on first-stage blocks of ``threads`` (the
+    kernel's).  One stage where ``b`` rows fill the card (``b >= 2 *
+    sms``) or ``s <= 2 * REDUCE_UNROLL`` (two batches of loads a thread).
+    Else the first stage sums groups of ``seg_per_group = max(2, s //
+    ceil(2 sms / tiles))`` segments: the fewest groups that give it at
+    least ``2 * sms`` blocks (one where the tiles alone do), no group a
+    single segment.  Cached: the wrapper asks for it every call."""
+    p = partial_floats(r)
+    vec = 4 if p % 4 == 0 else 1
+    tiles = -(-b * p // (threads * vec))
+    target = 2 * sms
+    if b >= target or s <= 2 * REDUCE_UNROLL:
+        return ReducePlan(1, s, vec, tiles, 0, 0)
+    spg = max(2, s // -(-target // tiles))
+    groups = -(-s // spg)
+    return ReducePlan(groups, spg, vec, tiles, tiles * groups,
+                      b * groups * p * 4)
+
+
 def fused_tile_plan(
     m: int, r: int, k: int, table_bytes: int = 4, gather_impl: str = "taa",
-    b: Optional[int] = None, sms: int = SMS, waves: int = WAVES,
+    b: Optional[int] = None, sms: int = SMS, waves: Optional[int] = None,
 ) -> Optional[FusedPlan]:
     """Plan the kernel for a ``[M, R]`` table and a ``[b, K]`` bucket.
 
@@ -192,7 +253,8 @@ def fused_tile_plan(
     memory (L2).  The ``"dma"`` form copies rows in 4-byte pieces at
     least, so a bf16 table with an odd R has no ``"dma"`` plan.  With the
     bucket's height ``b`` the plan splits long rows over ``waves`` waves
-    of ``sms`` blocks (:func:`split_segments`).  Returns None when no
+    of ``sms`` blocks (:func:`split_segments`; None: :data:`WAVES`).
+    Returns None when no
     plan fits (R > 128)."""
     if gather_impl not in GATHER_IMPLS:
         raise ValueError(
@@ -381,10 +443,11 @@ def fused_reduce_solve(
     reg: torch.Tensor,        # [B] f32
     gram0: Optional[torch.Tensor] = None,  # [R, R] f32, symmetric
 ) -> torch.Tensor:
-    """Pass 2 of a split bucket: sum each row's ``S`` partials in segment
-    order, add ``gram0`` and ``reg*I``, solve.  A CPU tensor takes
+    """Pass 2 of a split bucket: sum each row's ``S`` partials, add
+    ``gram0`` (None: zeros) and ``reg*I``, solve.  A CPU tensor takes
     :func:`fused_reduce_solve_reference`; a CUDA tensor launches
-    ``fused_als_reduce`` (counted under that key) or raises."""
+    ``fused_als_reduce`` on :func:`reduce_plan`'s plan (one count under
+    that key, however many stages run) or raises."""
     if partials.device.type == "cpu":
         return fused_reduce_solve_reference(partials, reg, gram0)
     if partials.device.type != "cuda":
@@ -392,20 +455,27 @@ def fused_reduce_solve(
     dev = partials.device
     b, s, p = partials.shape
     r = _rank_of_partials(p)
-    if r < 1 or r > MAX_RANK or partial_floats(r) != p or s < 2:
+    if r < 1 or r > MAX_RANK or partial_floats(r) != p or s < 1:
         raise ValueError(
-            f"partials of shape {tuple(partials.shape)} are not [B, S >= 2, "
+            f"partials of shape {tuple(partials.shape)} are not [B, S, "
             "R(R+1)/2 + R] for a rank the kernel takes"
         )
-    if gram0 is None:
-        gram0 = torch.zeros((r, r), dtype=torch.float32, device=dev)
     check_tensor("partials", partials, torch.float32, (b, s, p), dev)
     check_tensor("reg", reg, torch.float32, (b,), dev)
-    check_tensor("gram0", gram0, torch.float32, (r, r), dev)
+    if gram0 is not None:
+        check_tensor("gram0", gram0, torch.float32, (r, r), dev)
+    plan = reduce_plan(b, s, r, sm_count(dev))
     x = torch.empty((b, r), dtype=torch.float32, device=dev)
+    scratch = None
+    if plan.scratch_bytes:
+        scratch = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
+                              device=dev)
     launch("pio_fused_als_reduce", "fused_als_reduce", dev,
-           partials.data_ptr(), reg.data_ptr(), gram0.data_ptr(),
-           x.data_ptr(), b, r, s, partials.numel() * 4)
+           partials.data_ptr(), reg.data_ptr(),
+           0 if gram0 is None else gram0.data_ptr(), x.data_ptr(),
+           0 if scratch is None else scratch.data_ptr(),
+           b, r, s, plan.seg_per_group, partials.numel() * 4,
+           plan.scratch_bytes)
     return x
 
 

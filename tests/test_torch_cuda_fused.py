@@ -138,7 +138,14 @@ def test_fused_kernel_implicit_weights(dev):
 
 def test_fused_kernel_refuses_a_plan_it_disagrees_with(dev):
     """A plan whose bytes differ from the kernel's own is refused: its
-    shared memory, its split workspace, or segments that do not tile K."""
+    shared memory, its split workspace, or segments that do not tile K;
+    and pass 2's: scratch bytes off by 4, groups of no segment, or one
+    stage whose group does not hold every segment.  Partials one float
+    off their 16-byte start take 4-byte loads and still solve."""
+    from predictionio_tpu_torch.ops.fused_als import (
+        fused_reduce_solve, fused_reduce_solve_reference, reduce_plan,
+    )
+
     rng = np.random.default_rng(9)
     table, idx, cw, bw, reg = _fused_case(rng, 100, 8, 4, 16)
     args = [torch.from_numpy(a).to(dev) for a in (table, idx, cw, bw, reg)]
@@ -155,6 +162,37 @@ def test_fused_kernel_refuses_a_plan_it_disagrees_with(dev):
         with pytest.raises(RuntimeError, match="kernel launch failed"):
             fused_gather_gram_solve(*args, plan=bad)
     fused_gather_gram_solve(*args, plan=plan)
+
+    rng = np.random.default_rng(21)
+    B, S, R = 1, 128, 64
+    parts = torch.from_numpy(_partials(rng, B, S, R)).to(dev)
+    reg = torch.ones(B, device=dev)
+    x = torch.empty((B, R), device=dev)
+    plan = reduce_plan(B, S, R, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    assert plan.groups > 1
+    scratch = torch.empty(plan.scratch_bytes // 4 + 4, device=dev)
+
+    def call(spg, scratch_bytes, sc=scratch):
+        _build.launch(
+            "pio_fused_als_reduce", "fused_als_reduce", dev,
+            parts.data_ptr(), reg.data_ptr(), 0, x.data_ptr(),
+            0 if sc is None else sc.data_ptr(), B, R, S, spg,
+            parts.numel() * 4, scratch_bytes)
+
+    call(plan.seg_per_group, plan.scratch_bytes)
+    call(S, 0, sc=None)
+    for bad in ((plan.seg_per_group, plan.scratch_bytes + 4),
+                (0, plan.scratch_bytes),
+                (plan.seg_per_group, 0, None),
+                (S, plan.scratch_bytes, None)):
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            call(*bad)
+    base = torch.zeros(parts.numel() + 1, device=dev)
+    off = base[1:].view(parts.shape)
+    off.copy_(parts)
+    _close(fused_reduce_solve(off, reg),
+           fused_reduce_solve_reference(parts, reg), 1e-4)
 
 
 # ---- the "dma" form: rows staged by cp.async into a double-buffered tile
@@ -196,3 +234,58 @@ def test_fused_dma_planner_bytes_match_the_launcher(dev):
     assert fused_tile_plan(100, 7, 40, 2, "dma") is None
     with pytest.raises(ValueError, match="no 'dma' plan"):
         fused_gather_gram_solve(t7, *args, gather_impl="dma")
+
+
+# ---- pass 2 alone: fused_als_reduce at the ML-20M trainer's split shapes
+def _partials(rng, b, s, r, rows=2):
+    """[b, s, P] f32 partials as pass 1 writes them: each segment's packed
+    lower triangle of ``rows`` random rows' Gram, then their rhs."""
+    v = rng.normal(size=(b, s, rows, r)).astype(np.float32) / 4
+    w = (rng.integers(1, 11, size=(b, s, rows)) * 0.5).astype(np.float32)
+    gram = np.einsum("bskr,bskt->bsrt", v, v)
+    ti, tj = np.tril_indices(r)
+    rhs = np.einsum("bsk,bskr->bsr", w, v)
+    return np.concatenate([gram[:, :, ti, tj], rhs], axis=2).astype(
+        np.float32)
+
+
+# (B, S) of the ML-20M trainer's split buckets at WAVES over 132 SMs
+# (both halves, both forms; chip_smoke.py's generator) and of phase
+# fused's heavy row
+ML20M_REDUCE = ((1046, 2), (372, 4), (124, 8), (38, 16), (10, 32),
+                (1532, 2), (728, 3), (347, 7), (162, 13), (162, 14),
+                (77, 26), (77, 27), (34, 57), (34, 61), (16, 128), (2, 256),
+                (1, 2048))
+
+
+def test_reduce_kernel_matches_plain_at_the_split_shapes(dev):
+    """Pass 2 against its plain version at every ML-20M split shape (rank
+    64) and at R = 10 (4-byte loads) and 128, B = 1, 2 and 914 (one or
+    two stages, as the plan gives), with a gram0 and without (zeros);
+    two calls give the same bits, and each call counts one
+    fused_als_reduce launch."""
+    from predictionio_tpu_torch.ops.fused_als import (
+        fused_reduce_solve, fused_reduce_solve_reference,
+    )
+
+    shapes = [(64, b, s) for b, s in ML20M_REDUCE]
+    shapes += [(r, b, s) for r in (10, 128)
+               for b, s in ((1, 1024), (2, 512), (914, 2))]
+    for R, B, S in shapes:
+        rng = np.random.default_rng(B * 1000 + R)
+        parts = torch.from_numpy(_partials(rng, B, S, R)).to(dev)
+        reg = torch.from_numpy(
+            rng.uniform(0.5, 1.5, size=B).astype(np.float32)).to(dev)
+        gram0 = torch.eye(R, device=dev) * 0.25
+        before = dict(_build.LAUNCHES)
+        x = fused_reduce_solve(parts, reg, gram0)
+        y = fused_reduce_solve(parts, reg, gram0)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["fused_als_reduce"] == \
+            before["fused_als_reduce"] + 2, (R, B, S)
+        assert sum(_build.LAUNCHES.values()) == \
+            sum(before.values()) + 2, (R, B, S)
+        assert torch.equal(x, y), (R, B, S)
+        _close(x, fused_reduce_solve_reference(parts, reg, gram0), 1e-4)
+        _close(fused_reduce_solve(parts, reg),
+               fused_reduce_solve_reference(parts, reg), 1e-4)

@@ -100,8 +100,8 @@ def test_split_segments_on_the_ml20m_buckets():
                         s >= k // fmod.MIN_SEGMENT - 1, (half, b, k, s)
                     assert s > 1 and seg >= fmod.MIN_SEGMENT
     heavy = fused_tile_plan(138_493, 64, 1 << 21, 4, "taa", b=1)
-    assert (heavy.segments, heavy.seg_len) == (1024, 2048)
-    assert fused_tile_plan(26_744, 64, 8192, 4, "taa", b=229).segments == 5
+    assert (heavy.segments, heavy.seg_len) == (2048, 1024)
+    assert fused_tile_plan(26_744, 64, 8192, 4, "taa", b=229).segments == 8
     full = fmod.WAVES * fmod.SMS
     for b, k in ((5000, 8192), (full, 1 << 16), (1, 1024), (3, 512), (9, 8)):
         assert fused_tile_plan(1000, 64, k, 4, "taa", b=b).segments == 1
