@@ -14,7 +14,7 @@ with the second pass of a split bucket, and the three gather probes,
 whose launch path it takes apart step by step at the probe shape.
 It builds the native host runtime (``build/native/``, ``g++``) beside
 the kernels.  Then it drives ten main paths and phases ring, scout,
-sessions and admin through the entry points a user calls, each path with every launch counter set
+sessions, admin and examples through the entry points a user calls, each path with every launch counter set
 to 0 just before it and read just after it; a kernel its path did not
 launch fails the run:
 
@@ -57,7 +57,9 @@ launch fails the run:
   in-process ``predict``, one ``pio_pr`` event per answered query, the
   trace id on the feedback write, one log POST for an invalid query,
   ``/debug/fleet``, the HTML status page, and a replica SIGKILLed under
-  load with no query failing and its respawn booked;
+  load with no query failing and its respawn booked; while they are
+  up, ``python -m predictionio_tpu_torch.tools.profcat --fleet`` merges
+  the router's and both replicas' CPU profiles;
 * eval: ``pio eval`` on that store through the console, in process: one
   candidate over 2 folds (:class:`ML20MSweep`; the two-candidate
   sweep runs at ML-1M counts in phase pio), its folds
@@ -141,6 +143,15 @@ launch fails the run:
   single-card iteration from the same start; every shard must launch
   the kernel) and the coded trainer (clean, a straggler served from
   parity within 1% of the clean RMSE, two holes refused);
+* examples: the 18 example engines of ``examples/*/engine_torch.py``
+  trained and queried on the card as ``tests/test_examples.py`` queries
+  the reference's, each held against its own run on the host and to
+  that test's assertions; sharded-scale on four shards of the card
+  (``"fused"``: every shard must launch the kernel), through its main,
+  as lambda-sweep and movielens-eval run theirs;
+  ``bin/pio-tpu-torch-start-all`` and ``-stop-all`` on a scratch
+  ``$PIO_TPU_HOME`` (three servers answering, none holding the card,
+  none left, the reference's pid files untouched);
 * probe smoke: ``gather_probe.smoke``, the probe module's own entry
   point.
 
@@ -4753,6 +4764,8 @@ def phase_router(torch, store: StoreHome, cli_out: dict) -> dict:
         checks["replica_status_page_html"] = (
             html_st == 200 and hdrs["Content-Type"].startswith("text/html")
             and cli_out["iid"].encode() in html)
+        profcat = router_profcat(port, urls, Path(store.home))
+        checks["profcat_fleet_profile"] = all(profcat["checks"].values())
 
         # failover: SIGKILL replica 0 once the router has taken 64
         # queries of the second load
@@ -4819,7 +4832,37 @@ def phase_router(torch, store: StoreHome, cli_out: dict) -> dict:
         f"{respawn_s:.1f} s after the load")
     return {"qps": load["qps"], "conc_ms": load["conc_ms"],
             "boot_s": boot_s, "respawn_s": respawn_s, "journal": jdir,
-            "trace": "t-chip-router-fb"}
+            "trace": "t-chip-router-fb", "profcat": profcat}
+
+
+def router_profcat(port: int, replica_urls: list, scratch) -> dict:
+    """``python -m predictionio_tpu_torch.tools.profcat --fleet URL
+    --seconds 1 --out F`` against the live router: it must exit 0, the
+    merged profile must carry the router's root and each replica's (the
+    source tag is the port), and ``F`` must parse with
+    ``obs.scope.parse_folded`` to the total its table printed."""
+    from predictionio_tpu_torch.obs import scope
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = scratch / "fleet.folded"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch.tools.profcat",
+         "--fleet", f"http://127.0.0.1:{port}", "--seconds", "1",
+         "--out", str(out)], capture_output=True, text=True, timeout=120,
+        cwd=root, env={**os.environ, "PYTHONPATH": root})
+    merged = scope.parse_folded(out.read_text()) if out.exists() else {}
+    roots = {stack.split("/", 1)[0] for stack in merged}
+    want = {str(port)} | {u.rsplit(":", 1)[1] for u in replica_urls}
+    head = re.search(r"# (\d+) profile\(s\), (\d+) samples", proc.stdout)
+    return {"checks": {
+        "exits_0": proc.returncode == 0,
+        "router_and_every_replica": want <= roots,
+        "file_total_is_the_tables": bool(head) and int(head[1]) == len(want)
+        and int(head[2]) == sum(merged.values()) > 0},
+        "detail": {"roots": sorted(roots), "samples": sum(merged.values()),
+                   "s": round(time.perf_counter() - t0, 1),
+                   "stderr": proc.stderr[-500:]}}
 
 
 LINT_PHASE_LIMIT_S = 30.0
@@ -7919,6 +7962,610 @@ def phase_admin(torch, store: StoreHome, hive_out: dict) -> dict:
     return {"s": phase_s}
 
 
+EXAMPLES_PHASE_LIMIT_S = 40.0
+# sharded-scale's mesh on the card: shards of cuda:0 (on the host the
+# tests give it 8, the reference's virtual devices)
+EXAMPLE_SHARDS = 4
+# card against host, over each answer's scale (ids equal outside ties):
+# the ALS examples 1e-4 (f32 solves in another order, as the parity
+# tests), the dense products 1e-5, the mesh's normal equations 1e-4
+EXAMPLE_ALS_TOL = 1e-4
+EXAMPLE_DENSE_TOL = 1e-5
+EXAMPLE_MEMORY = {
+    "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+    "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEMDB",
+    "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+    "PIO_STORAGE_SOURCES_MEMDB_TYPE": "memory",
+}
+
+
+@contextlib.contextmanager
+def example_module(name: str):
+    """``examples/<name>/engine_torch.py`` imported under a name of its
+    own, with the example's directory as the working directory (its data
+    files resolve there) until the block ends."""
+    import importlib.util
+    from pathlib import Path
+
+    d = Path(__file__).resolve().parent / "examples" / name
+    mod_name = "example_" + name.replace("-", "_")
+    spec = importlib.util.spec_from_file_location(mod_name,
+                                                  d / "engine_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    old = os.getcwd()
+    os.chdir(d)
+    sys.modules[mod_name] = mod
+    try:
+        spec.loader.exec_module(mod)
+        yield mod
+    finally:
+        os.chdir(old)
+        sys.modules.pop(mod_name, None)
+
+
+def example_ctx(device, **kw):
+    """A port context on ``device`` over a memory store of its own."""
+    from predictionio_tpu_torch.controller import WorkflowContext
+    from predictionio_tpu_torch.storage import Storage
+
+    return WorkflowContext(device=device, storage=Storage(EXAMPLE_MEMORY),
+                           **kw)
+
+
+def example_train(m, ctx, variant: dict = None):
+    """``(engine, params, models, first algorithm)`` of a counterpart
+    trained on its ``engine_torch.json`` (or ``variant``)."""
+    engine = m.engine_factory()
+    if variant is None:
+        with open("engine_torch.json") as f:
+            variant = json.load(f)
+    ep = engine.params_from_variant(variant)
+    models = engine.train(ctx, ep)
+    return engine, ep, models, engine._algorithms(ep)[0]
+
+
+def _ranked(scores, key: str = "item") -> list:
+    return [[getattr(s, key), float(s.score)] for s in scores]
+
+
+def _same_answers(got, want, tol: float) -> bool:
+    """Card against host: ``[id, score]`` rankings equal outside ties
+    (scores within ``tol`` of the ranking's scale), floats within ``tol``
+    of the scale of the list they are in, anything else equal."""
+    if isinstance(want, dict):
+        return got.keys() == want.keys() and all(
+            _same_answers(got[k], want[k], tol) for k in want)
+    if isinstance(want, list) and want and all(
+            isinstance(w, list) and len(w) == 2 and isinstance(w[0], str)
+            for w in want):
+        if len(got) != len(want):
+            return False
+        scale = max(abs(s) for _, s in want) or 1.0
+        scores = dict(want)
+        return all(abs(gs - ws) <= tol * scale and (
+            gi == wi or abs(scores.get(gi, want[-1][1]) - ws) <= tol * scale)
+            for (gi, gs), (wi, ws) in zip(got, want))
+    if isinstance(want, list):
+        flat = np.asarray([w for w in want if isinstance(w, float)])
+        scale = float(np.abs(flat).max()) if flat.size else 1.0
+        return len(got) == len(want) and all(
+            abs(g - w) <= tol * max(scale, 1e-30)
+            if isinstance(w, float) else _same_answers(g, w, tol)
+            for g, w in zip(got, want))
+    if isinstance(want, float):
+        return abs(got - want) <= tol * max(abs(want), 1e-30)
+    return got == want
+
+
+def ex_helloworld(m, dev):
+    _, _, models, algo = example_train(m, example_ctx(dev))
+    t = algo.predict(models[0], m.Query(day="Mon")).temperature
+    return {"Mon": t}, {"mon_mean": abs(t - (75 + 62) / 2) < 1e-9}
+
+
+def ex_friendrec(m, dev):
+    _, _, models, algo = example_train(m, example_ctx(dev))
+    pairs = [(u, i) for u in ("alice", "bob", "carol", "nobody")
+             for i in ("jazz-club", "trail-group")]
+    batch = algo.batch_predict(models[0], [m.Query(*p) for p in pairs])
+    singles = [algo.predict(models[0], m.Query(*p)) for p in pairs]
+    got = {p: (s.confidence, s.acceptance) for p, s in zip(pairs, singles)}
+    return [[b.confidence, b.acceptance] for b in batch], {
+        "alice_jazz_accepted": got["alice", "jazz-club"] == (2.0, True),
+        "carol_jazz_rejected": got["carol", "jazz-club"] == (0.0, False),
+        "nobody_rejected": got["nobody", "jazz-club"] == (0.0, False),
+        "batch_equals_singles": all(
+            abs(b.confidence - s.confidence) <= 1e-6 * max(
+                abs(s.confidence), 1e-6) and b.acceptance == s.acceptance
+            for b, s in zip(batch, singles))}
+
+
+def ex_markovchain(m, dev):
+    _, _, models, algo = example_train(m, example_ctx(dev))
+    ranked = [[s, float(p)] for s, p in
+              algo.predict(models[0], m.Query(state="search"))]
+    return ranked, {"search_then_product": bool(ranked)
+                    and ranked[0][0] == "product"}
+
+
+def ex_dimsum(m, dev):
+    _, _, models, algo = example_train(m, example_ctx(dev))
+    res = _ranked(algo.predict(models[0], m.Query(items=("i1",), num=2)))
+    res34 = _ranked(algo.predict(models[0], m.Query(items=("i3",), num=2)))
+    return {"i1": res, "i3": res34}, {
+        "i1_to_i2": bool(res) and res[0][0] == "i2",
+        "i3_to_i4": bool(res34) and res34[0][0] == "i4",
+        "never_itself": all(i != "i1" for i, _ in res)}
+
+
+def ex_stock(m, dev):
+    _, _, models, algo = example_train(m, example_ctx(dev))
+    preds = {t: algo.predict(models[0], m.Query(ticker=t))
+             for t in ("UPCO", "DNCO", "FLAT", "NOPE")}
+    return {"signals": [p.signal for p in preds.values()],
+            "returns": [p.expected_return for p in preds.values()]}, {
+        "signals": [p.signal for p in preds.values()] == [
+            "long", "short", "flat", "flat"]}
+
+
+def ex_regression(m, dev):
+    _, _, models, algo = example_train(m, example_ctx(dev))
+    pred = algo.predict(models[0], m.Query(features=[2.0, 3.0]))
+    return [float(x) for x in models[0]] + [pred], {
+        "y_is_1_plus_x1_plus_x2": abs(pred - 6.0) <= 0.05}
+
+
+def ex_parallel_regression(m, dev):
+    from predictionio_tpu_torch.parallel import make_mesh
+
+    ctx = example_ctx(dev, mesh=make_mesh(devices=[dev] * EXAMPLE_SHARDS))
+    _, _, models, algo = example_train(m, ctx)
+    w = [float(x) for x in models[0]]
+    pred = algo.predict(models[0], m.Query(features=[1.0, 2.0]))
+    return w + [pred], {
+        "mesh_recovers_the_plane": abs(pred - (1 + 2 * 1.0 - 0.5 * 2.0))
+        <= 0.05
+        and all(abs(a - b) <= 0.05 for a, b in zip(w, (1.0, 2.0, -0.5)))}
+
+
+def ex_custom_datasource(m, dev):
+    _, _, models, algo = example_train(m, example_ctx(dev))
+    users = sorted(models[0].users.ids)
+    got = {u: _ranked(algo.predict(models[0], m.Query(user=u, num=3)))
+           for u in users}
+    return got, {
+        "u0_top_even": bool(got["u0"]) and int(got["u0"][0][0][1:]) % 2 == 0,
+        "ghost_empty": algo.predict(models[0], m.Query(user="ghost",
+                                                       num=3)) == []}
+
+
+def ex_entitymap(m, dev):
+    _, _, models, algo = example_train(m, example_ctx(dev))
+    model = models[0]
+    got = {u: _ranked(algo.predict(model, m.Query(user=u, num=3)))
+           for u in sorted(model.users.keys())}
+    r = algo.predict(model, m.Query(user="u0", num=3))
+    scores = [s.score for s in r]
+    return got, {
+        "required_attrs_filter": "u6" not in model.users
+        and len(model.users) == 6 and "i5" not in model.items
+        and len(model.items) == 5,
+        "typed_payloads": model.users["u2"] == m.User(
+            attr0=3.5, attr1=2, attr2=12)
+        and model.items["i1"].attrA == "green"
+        and isinstance(model.items["i0"].attrC, bool),
+        "u0_three_payloads_sorted": len(r) == 3 and all(
+            isinstance(s.payload, m.Item) for s in r)
+        and scores == sorted(scores, reverse=True),
+        "nobody_empty": algo.predict(model, m.Query(user="nobody")) == []}
+
+
+def ex_movielens_filtering(m, dev):
+    import tempfile
+    from pathlib import Path
+
+    from predictionio_tpu_torch.controller import instantiate
+
+    _, _, models, algo = example_train(m, example_ctx(dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        blocked = Path(tmp) / "blocked.txt"
+        blocked.write_text(Path("blocked.txt").read_text())
+        serving = instantiate(m.BlocklistServing,
+                              m.FilterParams(filepath=str(blocked)))
+
+        def recommend(user, num=4):
+            q = m.Query(user=user, num=num)
+            return _ranked(serving.serve(
+                q, [algo.predict(models[0], q)]).item_scores)
+
+        got = {u: recommend(u) for u in sorted(models[0].users.ids)}
+        items = [i for i, _ in got["u0"]]
+        blocked.write_text("")
+        reread = "m0" in [i for i, _ in recommend("u0", 10)]
+    return got, {"four_unblocked": len(items) == 4 and "m0" not in items
+                 and "m7" not in items,
+                 "blocklist_read_per_request": reread}
+
+
+def ex_similarproduct_local(m, dev):
+    from predictionio_tpu_torch.controller import ModelPlacement
+
+    _, _, models, algo = example_train(m, example_ctx(dev))
+    r = _ranked(algo.predict(models[0], m.Query(items=("phone",), num=3)))
+    got = [i for i, _ in r]
+    return r, {
+        "host_model": algo.placement is ModelPlacement.HOST
+        and isinstance(models[0].item_factors, np.ndarray),
+        "electronics_not_phone": len(r) == 3 and "phone" not in got
+        and set(got[:2]) <= {"laptop", "tablet", "camera"},
+        "unseen_empty": algo.predict(models[0], m.Query(
+            items=("nothere",))) == []}
+
+
+def ex_recommendation_cat(m, dev):
+    _, _, models, algo = example_train(m, example_ctx(dev))
+    dramas = {"m2", "m3", "m6", "m7"}
+    qs = {"all": dict(user="u0", num=5),
+          "drama": dict(user="u0", num=3, categories=("drama",)),
+          "drama_no_m2": dict(user="u0", num=3, categories=("drama",),
+                              blacklist=("m2",))}
+    got = {k: _ranked(algo.predict(models[0], m.Query(**q)).item_scores)
+           for k, q in qs.items()}
+    return got, {
+        "five_unfiltered": len(got["all"]) == 5,
+        "dramas_only": bool(got["drama"])
+        and {i for i, _ in got["drama"]} <= dramas,
+        "categories_with_blacklist": {i for i, _ in got["drama_no_m2"]}
+        <= dramas - {"m2"}}
+
+
+def ex_similarproduct_multi(m, dev):
+    engine, ep, models, _ = example_train(m, example_ctx(dev))
+    algos, serving = engine._algorithms(ep), engine._serving(ep)
+
+    def serve(num):
+        q = m.Query(items=("phone",), num=num)
+        preds = [a.predict(mod, q) for a, mod in zip(algos, models)]
+        return preds, serving.serve(q, preds)
+
+    preds, r = serve(3)
+    got = [s.item for s in r.item_scores]
+    # the z-score blend magnifies the scores' last digits: the card is
+    # held to the host on each algorithm's answer
+    return [_ranked(p.item_scores) for p in preds], {
+        "two_algorithms": len(algos) == 2 and len(models) == 2,
+        "blend_prefers_electronics": len(got) == 3 and "phone" not in got
+        and got[0] in {"laptop", "tablet", "camera"},
+        "z_scores": all(abs(s.score) < 10 for s in r.item_scores),
+        "single_item_query": len(serve(1)[1].item_scores) == 1}
+
+
+def ex_trim_app(m, dev):
+    import datetime as dt
+
+    from predictionio_tpu_torch.storage.event import DataMap, Event
+
+    ctx = example_ctx(dev)
+    es = ctx.storage.get_event_store()
+    for day in (1, 2, 3, 4, 5):
+        es.insert(Event(event="rate", entity_type="user",
+                        entity_id=f"u{day}", target_entity_type="item",
+                        target_entity_id="i1",
+                        properties=DataMap({"rating": 3.0}),
+                        event_time=dt.datetime(2020, 1, day,
+                                               tzinfo=dt.timezone.utc)),
+                  app_id=1)
+    engine, ep, models, _ = example_train(m, ctx)
+    got = sorted(e.entity_id for e in es.find(app_id=2))
+    src_ids = {e.event_id for e in es.find(app_id=1)}
+    try:
+        engine.train(ctx, ep)
+        refused = False
+    except RuntimeError as e:
+        refused = "not empty" in str(e)
+    return [models[0].copied, got], {
+        "window_copied": models[0].copied == 2 and got == ["u2", "u3"],
+        "event_ids_kept": {e.event_id for e in es.find(app_id=2)}
+        <= src_ids,
+        "refuses_a_full_destination": refused}
+
+
+def ex_simrank(m, dev):
+    _, _, models, algo = example_train(m, example_ctx(dev))
+    model = models[0]
+    S = model.scores
+    got = {"S": [float(x) for x in S.ravel()]}
+    for user in ("0", "4"):
+        got[user] = _ranked(algo.predict(model, m.Query(user=user, num=3)),
+                            "user")
+    checks = {
+        "structure": bool(np.allclose(np.diag(S), 1.0)
+                          and np.allclose(S, S.T, atol=1e-5)),
+        "0_and_4_each_others_top": bool(got["0"]) and got["0"][0][0] == "4"
+        and bool(got["4"]) and got["4"][0][0] == "0",
+        "unknown_empty": algo.predict(model, m.Query(user="nope",
+                                                     num=3)) == []}
+    for name in ("node", "forestfire"):
+        sub = example_train(m, example_ctx(dev), {
+            "datasource": {"name": name, "params": {
+                "graph_edgelist_path": "edge_list_small.txt",
+                "sample_fraction": 0.6}},
+            "algorithms": [{"name": "simrank",
+                            "params": {"num_iterations": 3}}]})[2][0]
+        got[name] = [float(x) for x in sub.scores.ravel()]
+        checks[f"{name}_subgraph"] = bool(
+            2 <= len(sub.vertices) < 10
+            and np.allclose(np.diag(sub.scores), 1.0))
+    return got, checks
+
+
+def ex_movielens_eval(m, dev):
+    import tempfile
+    from pathlib import Path
+
+    from predictionio_tpu_torch.workflow import run_evaluation
+
+    data = str(Path("ratings.csv").resolve())
+    candidates = [type(ep)(data_source=("", type(ep.data_source[1])(
+        path=data)), algorithms=ep.algorithms)
+        for ep in m.engine_params_list()]
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)  # best.json
+        try:
+            _, result = run_evaluation(m.evaluation_factory(), candidates,
+                                       ctx=example_ctx(dev,
+                                                       mode="Evaluation"))
+        finally:
+            os.chdir(old)
+    scores = [float(s) for _, s, _ in result.results]
+    return scores, {
+        "mse_header": result.metric_header == "MSE",
+        "finite": all(s == s for s in scores),
+        "rank_6_wins": result.best_engine_params.algorithms[0][1].rank == 6
+        and result.best_score == min(scores)}
+
+
+def ex_lambda_sweep(m, dev):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        m.main(["--device", str(dev)])
+    text = out.getvalue()
+    table = {ln.split()[0]: [float(x) for x in ln.split()[1:]]
+             for ln in text.splitlines()[1:] if len(ln.split()) == 3}
+    best = float(text.rsplit("best lambda = ", 1)[1].split()[0])
+    return table, {"every_row": all(f"{lam:>8}" in text
+                                    for lam in m.LAMBDAS),
+                   "interior_winner": best in (0.05, 0.1)}
+
+
+# the counterparts in the order of ROADMAP Queue 1 item 10 (sharded-scale
+# is held by phase examples itself)
+EXAMPLE_DRIVES = {
+    "helloworld": (ex_helloworld, EXAMPLE_DENSE_TOL),
+    "friendrec": (ex_friendrec, EXAMPLE_DENSE_TOL),
+    "markovchain": (ex_markovchain, EXAMPLE_DENSE_TOL),
+    "lambda-sweep": (ex_lambda_sweep, EXAMPLE_ALS_TOL),
+    "movielens-eval": (ex_movielens_eval, EXAMPLE_ALS_TOL),
+    "recommendation-cat": (ex_recommendation_cat, EXAMPLE_ALS_TOL),
+    "similarproduct-local": (ex_similarproduct_local, EXAMPLE_ALS_TOL),
+    "trim-app": (ex_trim_app, EXAMPLE_DENSE_TOL),
+    "custom-datasource": (ex_custom_datasource, EXAMPLE_ALS_TOL),
+    "entitymap": (ex_entitymap, EXAMPLE_ALS_TOL),
+    "movielens-filtering": (ex_movielens_filtering, EXAMPLE_ALS_TOL),
+    "similarproduct-multi": (ex_similarproduct_multi, EXAMPLE_ALS_TOL),
+    "dimsum": (ex_dimsum, EXAMPLE_DENSE_TOL),
+    "simrank": (ex_simrank, EXAMPLE_DENSE_TOL),
+    "regression": (ex_regression, EXAMPLE_DENSE_TOL),
+    "stock": (ex_stock, EXAMPLE_DENSE_TOL),
+    "parallel-regression": (ex_parallel_regression, EXAMPLE_ALS_TOL),
+}
+
+
+def movielens_eval_main(dev) -> bool:
+    """movielens-eval's ``main(["--device", "cuda:0"])`` in this process,
+    in a scratch copy of the example's directory with a store of its own
+    in a scratch ``$PIO_TPU_HOME`` as the registry's: its one-line result
+    and its ``best.json``, as its reference test reads them.
+    (lambda-sweep's drive and sharded-scale's are their mains.)"""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from predictionio_tpu_torch.storage import Storage, reset_storage
+
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp) / "movielens-eval"
+        reset_storage(Storage({"PIO_TPU_HOME": str(Path(tmp) / "home")}))
+        out = io.StringIO()
+        try:
+            with example_module("movielens-eval") as m:
+                # a copy of the example's directory, as a user runs it
+                shutil.copytree(os.getcwd(), work)
+                os.chdir(work)
+                with contextlib.redirect_stdout(out):
+                    m.main(["--device", str(dev)])
+        finally:
+            os.chdir(old)
+            reset_storage(None)
+        line = out.getvalue().strip().splitlines()[-1]
+        return bool(re.fullmatch(r"\[\d+\.\d+\] MSE", line)) and (
+            work / "best.json").is_file()
+
+
+def example_launchers() -> dict:
+    """``bin/pio-tpu-torch-start-all`` against a scratch
+    ``$PIO_TPU_HOME`` on free ports: each server answers ``GET /`` with
+    200 and none holds the card (``nvidia-smi --query-compute-apps``,
+    the check of phase fleet); ``bin/pio-tpu-torch-stop-all`` leaves
+    none running and a pid file of the reference's ``run/`` (and its
+    process) untouched."""
+    import tempfile
+    from pathlib import Path
+
+    bin_dir = Path(__file__).resolve().parent / "bin"
+    checks, detail = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        home = Path(tmp) / "home"
+        run = home / "run"
+        run.mkdir(parents=True)
+        ports = {k: _free_port()
+                 for k in ("EVENTSERVER", "ADMINSERVER", "DASHBOARD")}
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("PIO_STORAGE_", "PIO_TPU_"))}
+        env.update(PIO_TPU_HOME=str(home),
+                   PIO_TPU_EVENTSERVER_IP="127.0.0.1",
+                   **{f"PIO_TPU_{k}_PORT": str(p) for k, p in ports.items()})
+        bystander = subprocess.Popen(["sleep", "300"])
+        (run / "eventserver.pid").write_text(f"{bystander.pid}\n")
+        pids = []
+        t0 = time.perf_counter()
+        try:
+            subprocess.run([str(bin_dir / "pio-tpu-torch-start-all")],
+                           env=env, check=True, capture_output=True,
+                           timeout=60)
+            pids = [int(p.read_text()) for p in
+                    sorted((run / "torch").glob("*.pid"))]
+            codes = {}
+            for name, port in ports.items():
+                def up(port=port):
+                    try:
+                        with urllib.request.urlopen(
+                                f"http://127.0.0.1:{port}/", timeout=5) as r:
+                            return r.status
+                    except OSError:
+                        return None
+
+                codes[name] = _wait_for(up, 60, f"{name} of start-all", 0.1)
+            detail["up_s"] = round(time.perf_counter() - t0, 1)
+            checks["three_servers_answer"] = len(pids) == 3 and all(
+                c == 200 for c in codes.values())
+            gpu_pids = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                check=True).stdout.split()
+            checks["none_holds_the_card"] = not (
+                {str(p) for p in pids} & set(gpu_pids))
+            subprocess.run([str(bin_dir / "pio-tpu-torch-stop-all")],
+                           env=env, check=True, capture_output=True,
+                           timeout=60)
+            deadline = time.monotonic() + 30
+            while any(_pid_alive(p) for p in pids) and \
+                    time.monotonic() < deadline:
+                time.sleep(0.1)
+            checks["stop_all_stops_them"] = not any(
+                _pid_alive(p) for p in pids) and not list(
+                (run / "torch").glob("*.pid"))
+            checks["reference_pid_file_untouched"] = (
+                (run / "eventserver.pid").read_text() == f"{bystander.pid}\n"
+                and bystander.poll() is None)
+        finally:
+            for p in pids:
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(p, 9)
+            bystander.kill()
+            bystander.wait()
+    detail["s"] = round(time.perf_counter() - t0, 1)
+    return {"checks": checks, "detail": detail}
+
+
+def phase_examples(torch, profcat: dict) -> dict:
+    """Phase examples: the port's 18 example engines
+    (``examples/*/engine_torch.py``), their mains and the ``bin/``
+    launchers, in this process.
+
+    Each counterpart trains and answers the queries of
+    ``tests/test_examples.py`` on ``cuda:0`` and again with
+    ``device="cpu"`` (its plain versions): every answer on the card must
+    equal the host's within the example's tolerance (ids equal outside
+    ties), and every assertion of the reference's test must hold on the
+    card's answers.  sharded-scale trains on a mesh of
+    :data:`EXAMPLE_SHARDS` shards of ``cuda:0`` (``solver="fused"``): each
+    shard must launch the fused kernel (``models.als.SHARD_LAUNCHES``),
+    its sharded factors must be within 1e-4 of the factors' scale of the
+    same run on host shards from the same initial factors, and the
+    example's own replicated-against-sharded assertion must hold.  Then
+    movielens-eval's main (:func:`movielens_eval_main`) and the launchers
+    (:func:`example_launchers`).  ``profcat`` holds phase router's fleet
+    profile, printed here.  The launch counts are set to 0 just before
+    the card runs and read after them."""
+    from predictionio_tpu_torch.models.als import SHARD_LAUNCHES
+    from predictionio_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out, card_s = {}, 0.0
+    _build.reset_launches()
+    SHARD_LAUNCHES.clear()
+    for name, (drive, tol) in EXAMPLE_DRIVES.items():
+        t0 = time.perf_counter()
+        with example_module(name) as m:
+            got, checks = drive(m, dev)
+            torch.cuda.synchronize()
+            card = time.perf_counter() - t0
+            want, _ = drive(m, "cpu")
+        checks["card_equals_host"] = _same_answers(got, want, tol)
+        card_s += card
+        out[name] = {"s": round(time.perf_counter() - t0, 2),
+                     "card_s": round(card, 2), "tol": tol, "checks": checks}
+    t0 = time.perf_counter()
+    text = io.StringIO()
+    shards = ["--shards", str(EXAMPLE_SHARDS), "--device"]
+    with example_module("sharded-scale") as m, \
+            contextlib.redirect_stdout(text):
+        f_rep, f_sh = m.main([*shards, str(dev)])
+        torch.cuda.synchronize()
+        card = time.perf_counter() - t0
+        per_shard = {f"{k}@{s}": n
+                     for (s, k), n in sorted(SHARD_LAUNCHES.items())}
+        shards_fused = all(SHARD_LAUNCHES[(s, "fused_als")]
+                           + SHARD_LAUNCHES[(s, "fused_als_dma")] > 0
+                           for s in range(EXAMPLE_SHARDS))
+        _, h_sh = m.main([*shards, "cpu"])
+    printed = text.getvalue()
+    stored = re.search(r"each device stores ([\d,]+)", printed)
+    sh_err = [scale_err(torch, torch.as_tensor(a), torch.as_tensor(b))
+              for a, b in ((f_sh.user_factors, h_sh.user_factors),
+                           (f_sh.item_factors, h_sh.item_factors))]
+    out["sharded-scale"] = {
+        "s": round(time.perf_counter() - t0, 2), "card_s": round(card, 2),
+        "tol": 1e-4, "launches_by_shard": per_shard, "errors": sh_err,
+        "checks": {
+            "every_shard_launched_fused": shards_fused,
+            "card_within_1e-4_of_host": max(sh_err) <= 1e-4,
+            "placements_agree": "sharded-scale OK" in printed,
+            # the reference test's bound (a quarter of the ratings on its
+            # 8 devices): under twice the even share
+            "each_device_stores_under_twice_its_share": bool(stored) and int(
+                stored.group(1).replace(",", "")) < 2 * 40_000 / EXAMPLE_SHARDS,
+            "resolved_fused_no_probe": "resolved solver: 'fused'\n"
+            in printed}}
+    card_s += card
+    t0 = time.perf_counter()
+    main_ok = movielens_eval_main(dev)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    mains_s = time.perf_counter() - t0
+    launchers = example_launchers()
+    phase_s = time.perf_counter() - t_phase
+    checks = {f"{n}:{k}": ok for n, r in out.items()
+              for k, ok in r["checks"].items()}
+    checks["movielens-eval:main"] = main_ok
+    checks.update({f"launchers:{k}": ok
+                   for k, ok in launchers["checks"].items()})
+    checks.update({f"profcat:{k}": ok for k, ok in profcat["checks"].items()})
+    checks["within_limit"] = phase_s <= EXAMPLES_PHASE_LIMIT_S
+    log(json.dumps({"examples": out, "movielens_eval_main": {
+        "ok": main_ok, "s": round(mains_s, 1)}, "launchers": launchers,
+        "profcat": profcat, "card_s": round(card_s, 1),
+        "phase_s": round(phase_s, 1)}, default=str))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"phase examples: checks failed: {bad}")
+    return {"launches": launches}
+
+
 def edge_ab(torch, turns: int = 5) -> None:
     """Recording on against ``--no-metrics`` at ML-20M from 64 clients, in
     turns: the ML-20M ratings trained in process (rank 64, 2 fused
@@ -8567,6 +9214,12 @@ def main(argv: list[str]) -> int:
     # the ML-20M ratings (it sets the counts to 0 itself)
     paths["dist"] = timed("dist", phase_dist, torch, ratings,
                           pio_out["dist"])["launches"]
+    torch.cuda.empty_cache()
+    # the 18 example engines on the card and the host, their mains and
+    # the bin/ launchers; sharded-scale on shards of this card (it sets
+    # the counts to 0 itself)
+    paths["examples"] = timed("examples", phase_examples, torch,
+                              router_out["profcat"])["launches"]
     # the probe module's own entry point (the reference's
     # tools/probe_gather.py --smoke), the one path taa1 lies on
     from predictionio_tpu_torch.ops import gather_probe
@@ -8600,7 +9253,8 @@ def main(argv: list[str]) -> int:
         if any(paths[path].values()):
             raise AssertionError(f"path {path} launched a kernel: "
                                  f"{paths[path]}")
-    for path in ("ml20m", "cli", "eval", "hive", "engines", "dist"):
+    for path in ("ml20m", "cli", "eval", "hive", "engines", "dist",
+                 "examples"):
         if paths[path]["fused_als"] + paths[path]["fused_als_dma"] <= 0:
             raise AssertionError(f"path {path} never launched the fused "
                                  "kernel")

@@ -55,6 +55,7 @@ each process's own triples.
 from __future__ import annotations
 
 import collections
+import itertools
 import logging
 import math
 import os
@@ -93,6 +94,9 @@ MAX_ENTRIES_PER_BUCKET = 4 << 20
 # kernel launches of the sharded halves by (shard, kernel): the kernels'
 # own counts (ops/_build.LAUNCHES), split by the shard that made them
 SHARD_LAUNCHES: collections.Counter = collections.Counter()
+
+# the tower watchdog's token of each trainer (ALSTrainer.tower_source)
+_TRAINER_TOKENS = itertools.count(1)
 
 
 @dataclass(frozen=True)
@@ -1376,6 +1380,19 @@ class ALSTrainer:
         )
 
     @property
+    def tower_source(self) -> int:
+        """This trainer's token for the tower watchdog, whose loss window
+        starts afresh when the token changes.  Unique for the process's
+        life: ``id(self)`` is reused once a trainer is freed, and then
+        the next trainer (an eval's next fold, say) would extend the
+        last one's window, whose low final losses against the new
+        model's early ones read as a divergence."""
+        token = self.__dict__.get("_tower_token")
+        if token is None:
+            token = self._tower_token = next(_TRAINER_TOKENS)
+        return token
+
+    @property
     def coo_shard_entries(self) -> Optional[int]:
         """Per-shard padded rating-slot count of the sharded COO (about
         nnz / mesh size plus padding), or None when the COO is not
@@ -1598,7 +1615,7 @@ class ALSTrainer:
                 phases["check"] = time.perf_counter() - t0
             tower.record_sweep(
                 time.perf_counter() - t_sweep, phases,
-                loss=loss, factors_finite=finite, source=id(self),
+                loss=loss, factors_finite=finite, source=self.tower_source,
             )
             logger.debug("ALS iteration %d/%d complete", it + 1,
                          num_iterations)

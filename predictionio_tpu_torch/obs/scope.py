@@ -46,7 +46,7 @@ Three pieces:
 
 * **Shared rendering.**  :func:`flamegraph_html` turns folded text
   into a dependency-free zoomable icicle flamegraph (inline JS, no
-  CDN) — the dashboard's ``/prof.html`` and ``tools/profcat.py`` emit
+  CDN) — the dashboard's ``/prof.html`` and ``tools.profcat`` emit
   the same template, so a fleet-merged profile and a single process's
   look identical.
 

@@ -660,7 +660,8 @@ class DashboardServer(HTTPServerBase):
         replica, eventserver, ingest router — the mount is universal);
         no target renders THIS dashboard process's own ring.
         ``&baseline=URL`` overlays a second profile as share deltas
-        (the profcat A/B diff, served live)."""
+        (the A/B diff of ``python -m
+        predictionio_tpu_torch.tools.profcat --diff``, served live)."""
         from ..obs import scope
 
         def fetch(url: str) -> str:

@@ -1,9 +1,10 @@
-"""The port stands alone: nothing in ``predictionio_tpu_torch/`` or
-``chip_smoke.py`` imports JAX, jaxlib or the JAX package, at module level
-or inside a function (an AST walk over every import statement), names a
-module of the JAX package in a string (what ``python -m`` or
-``import_module`` would run), and the ingest fleet's worker processes run
-``python -m predictionio_tpu_torch``."""
+"""The port stands alone: nothing in ``predictionio_tpu_torch/``, the
+examples' ``engine_torch.py`` or ``chip_smoke.py`` imports JAX, jaxlib or
+the JAX package, at module level or inside a function (an AST walk over
+every import statement), names a module of the JAX package in a string
+(what ``python -m`` or ``import_module`` would run); the
+``bin/pio-tpu-torch*`` launchers name no package but the port; and the
+ingest fleet's worker processes run ``python -m predictionio_tpu_torch``."""
 
 import ast
 import json
@@ -15,9 +16,11 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = sorted((ROOT / "examples").glob("*/engine_torch.py"))
 FILES = sorted((ROOT / "predictionio_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
-]
+] + EXAMPLES
+LAUNCHERS = sorted((ROOT / "bin").glob("pio-tpu-torch*"))
 FORBIDDEN = ("jax", "jaxlib", "predictionio_tpu")
 
 
@@ -83,10 +86,12 @@ def test_the_walk_sees_every_file():
                 "storage/bimap.py", "storage/levents.py",
                 "utils/debug.py", "utils/profiling.py",
                 *(f"analysis/{m}.py" for m in ANALYSIS),
-                "tools/runlog.py", "tools/tracecat.py",
+                "tools/runlog.py", "tools/tracecat.py", "tools/profcat.py",
                 *HOST_ONLY):
         assert f"predictionio_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names
+    assert "examples/sharded-scale/engine_torch.py" in names
+    assert len(EXAMPLES) == 18
     assert len(names) >= 20
 
 
@@ -97,8 +102,11 @@ _FOLDED = {"cli": "tools", "engines": "tools", "utils": "tools",
 
 
 def _group(path: Path) -> str:
-    """The file's subpackage of the port (or the file, at the top)."""
+    """The file's subpackage of the port (or the file, at the top); the
+    examples' modules are one group."""
     rel = path.relative_to(ROOT).parts
+    if rel[0] == "examples":
+        return "examples"
     name = rel[1] if len(rel) > 2 else rel[-1]
     return _FOLDED.get(name, name)
 
@@ -140,9 +148,9 @@ def test_the_host_engines_import_no_torch():
 
 def test_the_analyzer_and_the_obs_commands_import_no_torch():
     """``analysis/`` imports nothing past the standard library, and
-    ``python -m`` of it, of ``tools.runlog`` and of ``tools.tracecat``
-    never imports torch (the package's ``fence`` and ``resolve_device``
-    load it on first use)."""
+    ``python -m`` of it, of ``tools.runlog``, of ``tools.tracecat`` and of
+    ``tools.profcat`` never imports torch (the package's ``fence`` and
+    ``resolve_device`` load it on first use)."""
     stdlib = set(sys.stdlib_module_names)
     found = {mod: [m for m in _imported_modules(
                  ROOT / "predictionio_tpu_torch" / "analysis" / f"{mod}.py")
@@ -156,12 +164,42 @@ def test_the_analyzer_and_the_obs_commands_import_no_torch():
              " if m in sys.modules))")
     for mod in ("predictionio_tpu_torch.analysis",
                 "predictionio_tpu_torch.tools.runlog",
-                "predictionio_tpu_torch.tools.tracecat"):
+                "predictionio_tpu_torch.tools.tracecat",
+                "predictionio_tpu_torch.tools.profcat"):
         out = subprocess.run([sys.executable, "-c", probe, mod],
                              capture_output=True, text=True, cwd=ROOT)
         assert out.returncode == 0, out.stderr
         assert "torch" not in out.stdout.splitlines()[-1], (mod, out.stdout)
         assert "jax" not in out.stdout.splitlines()[-1], (mod, out.stdout)
+
+
+# the JAX package's name where it is not the start of the port's (the
+# default home both packages share, ``~/.predictionio_tpu``, is a
+# directory, not the package)
+_REFERENCE_NAME = re.compile(r"(?<![.\w])predictionio_tpu(?!_torch)")
+
+
+def test_the_launchers_start_the_port():
+    """Every ``bin/pio-tpu-torch*`` script names no package but the
+    port, and each starts the port's console or another launcher of the
+    port."""
+    assert [p.name for p in LAUNCHERS] == [
+        "pio-tpu-torch", "pio-tpu-torch-daemon", "pio-tpu-torch-shell",
+        "pio-tpu-torch-start-all", "pio-tpu-torch-stop-all"]
+    for p in LAUNCHERS:
+        text = p.read_text()
+        assert not _REFERENCE_NAME.search(text), p.name
+        # the commands (comments aside) run only the port's launchers
+        code = "\n".join(ln for ln in text.splitlines()
+                         if not ln.lstrip().startswith("#"))
+        for name in re.findall(r"pio-tpu[\w-]*", code):
+            assert name.startswith("pio-tpu-torch"), (p.name, name)
+    assert "exec python -m predictionio_tpu_torch" in (
+        ROOT / "bin" / "pio-tpu-torch").read_text()
+    assert not _REFERENCE_NAME.search("predictionio_tpu_torch.tools")
+    assert not _REFERENCE_NAME.search("$HOME/.predictionio_tpu/run")
+    assert _REFERENCE_NAME.search("python -m predictionio_tpu.cli")
+    assert _REFERENCE_NAME.search("import predictionio_tpu\n")
 
 
 def test_the_walk_catches_a_forbidden_import(tmp_path):

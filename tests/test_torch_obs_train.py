@@ -143,6 +143,40 @@ def test_train_nan_aborts_both_on_the_same_sweep(tmp_path):
         "aborted", 2, 2, 1)
 
 
+def test_each_trainer_opens_its_own_watchdog_window(tmp_path):
+    """The tower's loss window starts afresh with every trainer, also
+    where a new trainer gets a freed one's ``id`` (the trainers of an
+    eval's folds: the last fold's low final losses before the next
+    fold's early ones read as a divergence, and aborted the eval)."""
+    u, i, v, nu, ni = _toy(seed=7)
+    cfg = ALSConfig(rank=4, num_iterations=2, lam=0.1)
+    first = ALSTrainer((u, i, v), nu, ni, cfg, device="cpu")
+    token, addr = first.tower_source, id(first)
+    assert first.tower_source == token
+    del first
+    for _ in range(200):
+        again = ALSTrainer((u, i, v), nu, ni, cfg, device="cpu")
+        if id(again) == addr:
+            break
+    assert again.tower_source != token
+    # a falling window of one trainer, then a rising one of the next:
+    # no divergence (the same rise within one trainer is one)
+    session = port_tower.TowerSession("windows", kind="eval",
+                                      manifest_root=tmp_path).start()
+    try:
+        # 0.3 then 0.4 .. 0.7 in one window would be a 2.3x ramp
+        for loss in (4.0, 2.0, 1.0, 0.3):
+            port_tower.record_sweep(0.01, {}, loss=loss, source=token)
+        for loss in (0.4, 0.5, 0.6, 0.7):
+            port_tower.record_sweep(0.01, {}, loss=loss,
+                                    source=again.tower_source)
+        with pytest.raises(port_tower.ConvergenceError, match="diverging"):
+            port_tower.record_sweep(0.01, {}, loss=1.5,
+                                    source=again.tower_source)
+    finally:
+        session.finalize("completed")
+
+
 def test_setup_starts_at_the_train_run_span(tmp_path):
     """Time spent between the session's start and the ``train.run`` span
     (the engine instance's metadata commits) is no part of the port's
